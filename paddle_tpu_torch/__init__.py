@@ -1,0 +1,37 @@
+"""paddle_tpu_torch: the PyTorch and CUDA port of ``paddle_tpu``, for an
+NVIDIA H100.
+
+The layout mirrors the JAX package (``framework``, ``registry``,
+``executor``, ``layers``, ``ops``, ``serving``) so each module's
+counterpart is easy to find; the programs it builds serialize to the same
+schema.  Op computes are plain functions on tensors; the hand-written
+Hopper kernels live in ``ops/cuda`` (sources in ``csrc/``), each beside
+its plain PyTorch version, which runs only for tensors on the CPU.
+
+This package imports neither JAX nor any module of ``paddle_tpu``.
+Entry points run on the card (``CUDAPlace(0)``) unless the caller passes
+``CPUPlace()``.
+"""
+
+from . import core, unique_name
+from .framework import (Block, Operator, Parameter, Program, Variable,
+                        default_main_program, default_startup_program,
+                        program_guard)
+from . import ops  # registers the op computes
+from . import layers
+from . import initializer
+from .executor import CPUPlace, CUDAPlace, Executor
+from .scope import Scope, global_scope, scope_guard
+from .param_attr import ParamAttr
+from . import convert
+from . import serving
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "core", "unique_name", "Program", "Block", "Operator", "Variable",
+    "Parameter", "default_main_program", "default_startup_program",
+    "program_guard", "ops", "layers", "initializer", "Executor", "CPUPlace",
+    "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
+    "convert", "serving",
+]

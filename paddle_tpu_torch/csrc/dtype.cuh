@@ -1,0 +1,33 @@
+// Element-type helpers shared by the port's kernels: every kernel loads
+// its inputs as float, computes in float, and rounds back to the input
+// type where the JAX package rounds (bf16 operands of a product, outputs).
+#pragma once
+
+#include <cuda_bf16.h>
+
+namespace ptt {
+
+enum DType { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+// round to nearest even, as numpy / JAX / PyTorch casts do
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to T and widened back: the value a product operand of type T holds
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+}  // namespace ptt

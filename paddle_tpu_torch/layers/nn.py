@@ -1,0 +1,90 @@
+"""Neural-network layers of the serving slice (counterpart of
+``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``fused_attention`` and
+``elementwise_add``.  They append the same ops with the same
+attrs as the JAX package, so the programs serialize alike."""
+
+from ..layer_helper import LayerHelper
+
+__all__ = ["fc", "embedding", "fused_attention", "elementwise_add"]
+
+
+def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
+       act=None, name=None):
+    """Fully-connected layer: per-input ``mul`` (weights [in, out] for
+    ``x @ W``), summed, plus bias and activation."""
+    helper = LayerHelper("fc", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    mul_results = []
+    for input_var, p_attr in helper.iter_inputs_and_params():
+        w_rows = 1
+        for s in input_var.shape[num_flatten_dims:]:
+            w_rows *= s
+        w = helper.create_parameter(attr=p_attr, shape=[w_rows, size],
+                                    dtype=dtype)
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(
+            type="mul",
+            inputs={"X": [input_var], "Y": [w]},
+            outputs={"Out": [tmp]},
+            attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
+        )
+        mul_results.append(tmp)
+    if len(mul_results) != 1:
+        raise NotImplementedError(
+            "fc over several inputs (a sum op) is not ported yet")
+    pre_bias = mul_results[0]
+    if helper.bias_attr and helper.kwargs.get("bias_attr") is not False:
+        pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
+    else:
+        pre_act = pre_bias
+    return helper.append_activation(pre_act)
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    """Embedding lookup (``lookup_table``).  ``is_sparse`` and
+    ``is_distributed`` are recorded for program parity; the sparse
+    gradient and sharded tables come with later slices."""
+    helper = LayerHelper("embedding", param_attr=param_attr)
+    w = helper.create_parameter(attr=helper.param_attr, shape=size,
+                                dtype=dtype, is_bias=False)
+    tmp = helper.create_variable_for_type_inference(dtype)
+    padding_idx = (
+        -1 if padding_idx is None
+        else padding_idx if padding_idx >= 0
+        else (size[0] + padding_idx))
+    helper.append_op(
+        type="lookup_table",
+        inputs={"W": [w], "Ids": [input]},
+        outputs={"Out": [tmp]},
+        attrs={"is_sparse": is_sparse, "is_distributed": is_distributed,
+               "padding_idx": padding_idx},
+    )
+    return tmp
+
+
+def fused_attention(q, k, v, k_len=None, causal=False, dropout_rate=0.0,
+                    is_test=False, scale=None, name=None):
+    """Flash attention over head-split q/k/v [B, H, T, D]; ``k_len`` [B]
+    masks padded keys, ``causal`` adds the autoregressive mask."""
+    helper = LayerHelper("fused_attention", name=name)
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    inputs = {"Q": [q], "K": [k], "V": [v]}
+    if k_len is not None:
+        inputs["KLen"] = [k_len]
+    attrs = {"causal": causal, "dropout_rate": float(dropout_rate),
+             "is_test": is_test}
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op(type="fused_attention", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_add", name=name, act=act)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return helper.append_activation(out)

@@ -1,0 +1,7 @@
+"""Op computes of the PyTorch port, registered on import (counterpart of
+``paddle_tpu/ops``).  ``ops/cuda`` holds the hand-written Hopper kernels
+and their plain PyTorch versions; nothing there builds or imports a GPU
+toolchain until a kernel is first launched."""
+
+from . import (activation, attention, creation, elementwise,  # noqa: F401
+               kv_cache, manipulation, math, norm)

@@ -1,0 +1,58 @@
+"""The startup program's init ops: ``fill_constant``, ``uniform_random``,
+``gaussian_random`` and ``truncated_gaussian_random`` (counterpart of
+``paddle_tpu/ops/creation.py``).  Random ops draw from an explicit
+``torch.Generator`` on the run's device, seeded per (program seed, run
+index, op index) by ``ComputeContext.generator``."""
+
+import torch
+
+from ..core import convert_dtype
+from ..registry import register_op, set_output
+
+
+def _dtype(attrs):
+    return convert_dtype(attrs.get("dtype", "float32"))
+
+
+def _shape_infer(op, block):
+    set_output(op, block, "Out", op.attrs["shape"], _dtype(op.attrs))
+
+
+def _fill_constant_compute(ins, attrs, ctx, op_index):
+    return {"Out": torch.full(tuple(attrs["shape"]), attrs.get("value", 0.0),
+                              dtype=_dtype(attrs), device=ctx.device)}
+
+
+def _uniform_random_compute(ins, attrs, ctx, op_index):
+    out = torch.empty(tuple(attrs["shape"]), dtype=_dtype(attrs),
+                      device=ctx.device)
+    out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
+                 generator=ctx.generator(op_index))
+    return {"Out": out}
+
+
+def _gaussian_random_compute(ins, attrs, ctx, op_index):
+    out = torch.empty(tuple(attrs["shape"]), dtype=_dtype(attrs),
+                      device=ctx.device)
+    out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
+                generator=ctx.generator(op_index))
+    return {"Out": out}
+
+
+def _truncated_gaussian_compute(ins, attrs, ctx, op_index):
+    # truncated to +-2 std, like the JAX package and the reference op
+    mean, std = attrs.get("mean", 0.0), attrs.get("std", 1.0)
+    out = torch.empty(tuple(attrs["shape"]), dtype=_dtype(attrs),
+                      device=ctx.device)
+    torch.nn.init.trunc_normal_(out, mean, std, mean - 2.0 * std,
+                                mean + 2.0 * std,
+                                generator=ctx.generator(op_index))
+    return {"Out": out}
+
+
+for _type, _compute in (("fill_constant", _fill_constant_compute),
+                        ("uniform_random", _uniform_random_compute),
+                        ("gaussian_random", _gaussian_random_compute),
+                        ("truncated_gaussian_random",
+                         _truncated_gaussian_compute)):
+    register_op(_type, [], ["Out"], infer=_shape_infer, compute=_compute)

@@ -1,0 +1,81 @@
+"""``reshape``, ``transpose`` and ``lookup_table`` (counterpart of
+``paddle_tpu/ops/manipulation.py``).  ``transpose`` returns a strided
+view; consumers that need contiguous memory (the kernels) make it so."""
+
+from ..registry import in_var, register_op, set_output
+
+
+def _resolve_reshape(in_shape, spec):
+    out = [in_shape[i] if s == 0 else s for i, s in enumerate(spec)]
+    if -1 in out:
+        known = 1
+        for s in out:
+            if s != -1:
+                known *= s
+        total = 1
+        for s in in_shape:
+            total *= s
+        out[out.index(-1)] = total // known
+    return tuple(out)
+
+
+def _reshape_infer(op, block):
+    x = in_var(op, block, "X")
+    spec = list(op.attrs["shape"])
+    if -1 not in x.shape:
+        out = _resolve_reshape(x.shape, spec)
+    else:
+        # dynamic dims present: 0 copies the input dim (possibly -1),
+        # -1 stays symbolic
+        out = tuple(
+            (x.shape[i] if i < len(x.shape) else -1) if s == 0 else s
+            for i, s in enumerate(spec))
+    set_output(op, block, "Out", out, x.dtype)
+
+
+def _reshape_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    return {"Out": x.reshape(_resolve_reshape(tuple(x.shape),
+                                              list(attrs["shape"])))}
+
+
+register_op("reshape", ["X"], ["Out"], infer=_reshape_infer,
+            compute=_reshape_compute)
+
+
+def _transpose_infer(op, block):
+    x = in_var(op, block, "X")
+    perm = op.attrs["axis"]
+    set_output(op, block, "Out", tuple(x.shape[p] for p in perm), x.dtype)
+
+
+register_op(
+    "transpose", ["X"], ["Out"], infer=_transpose_infer,
+    compute=lambda ins, attrs, ctx, op_index: {
+        "Out": ins["X"][0].permute(*attrs["axis"])},
+)
+
+
+def _lookup_table_infer(op, block):
+    w = in_var(op, block, "W")
+    ids = in_var(op, block, "Ids")
+    shape = tuple(ids.shape[:-1]) + (w.shape[1],) if ids.shape[-1] == 1 \
+        else tuple(ids.shape) + (w.shape[1],)
+    set_output(op, block, "Out", shape, w.dtype)
+
+
+def _lookup_table_compute(ins, attrs, ctx, op_index):
+    w, ids = ins["W"][0], ins["Ids"][0]
+    squeeze = ids.dim() > 0 and ids.shape[-1] == 1
+    flat = ids.reshape(-1)
+    out = w.index_select(0, flat)
+    pad = attrs.get("padding_idx", -1)
+    if pad is not None and pad != -1:
+        out = out * (flat != pad)[:, None].to(out.dtype)
+    shape = (tuple(ids.shape[:-1]) if squeeze else tuple(ids.shape)) \
+        + (w.shape[1],)
+    return {"Out": out.reshape(shape)}
+
+
+register_op("lookup_table", ["W", "Ids"], ["Out"], infer=_lookup_table_infer,
+            compute=_lookup_table_compute)

@@ -1,0 +1,37 @@
+"""``mul``: fc's matmul — flatten both operands to 2-D, one product
+(counterpart of ``paddle_tpu/ops/math.py``).  The product goes to
+``torch.matmul``, as the JAX package leaves it to XLA outside any kernel.
+For float32 inputs it runs in full float32 on the card as long as
+``torch.backends.cuda.matmul.allow_tf32`` stays False."""
+
+from ..registry import in_var, register_op, set_output
+
+
+def _flatten_to_2d(x, num_col_dims):
+    lead = 1
+    for s in x.shape[:num_col_dims]:
+        lead *= s
+    rest = 1
+    for s in x.shape[num_col_dims:]:
+        rest *= s
+    return x.reshape(lead, rest)
+
+
+def _mul_infer(op, block):
+    x = in_var(op, block, "X")
+    y = in_var(op, block, "Y")
+    xnc = op.attrs.get("x_num_col_dims", 1)
+    ync = op.attrs.get("y_num_col_dims", 1)
+    out_shape = tuple(x.shape[:xnc]) + tuple(y.shape[ync:])
+    set_output(op, block, "Out", out_shape, x.dtype)
+
+
+def _mul_compute(ins, attrs, ctx, op_index):
+    x, y = ins["X"][0], ins["Y"][0]
+    xnc = attrs.get("x_num_col_dims", 1)
+    ync = attrs.get("y_num_col_dims", 1)
+    out = _flatten_to_2d(x, xnc) @ _flatten_to_2d(y, ync)
+    return {"Out": out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:]))}
+
+
+register_op("mul", ["X", "Y"], ["Out"], infer=_mul_infer, compute=_mul_compute)
