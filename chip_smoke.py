@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of paddle_tpu_torch on one NVIDIA GPU (written for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # every phase below
+    python3 chip_smoke.py --profile   # device, build, then the profiles
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -11,11 +12,12 @@ Run from the root of a checkout.  Phases, one line each:
 2. ``build``   — compiles every kernel under ``paddle_tpu_torch/csrc``
    with ``nvcc`` (in parallel) and reports the seconds taken;
 3. ``kernels`` — each hand-written kernel against its plain PyTorch
-   version at the serving slice's shapes: max abs error and tolerance,
-   the kernel's, the plain version's and one PyTorch library call's
-   median time (CUDA events, L2 flushed before every launch), and the
-   least time the card could take (device-memory bytes at 3.35 TB/s or
-   operations at the data-sheet peak of the input type);
+   version at the shapes its paths give it (the serving slice's and the
+   training slice's): max abs error and tolerance, the kernel's, the plain
+   version's and one PyTorch library call's median time (CUDA events, L2
+   flushed before every launch), and the least time the card could take
+   (device-memory bytes at 3.35 TB/s or operations at the data-sheet peak
+   of the input type);
 4. ``serve``   — a decoder LM at Transformer-base width (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, 1024-token cache,
    8 slots, float32, random weights from build_decoder_lm's seed) served by
@@ -24,7 +26,20 @@ Run from the root of a checkout.  Phases, one line each:
    just before and read just after; every prefill and decode dispatch
    must have launched the attention kernel 6 times and the layer-norm
    kernel 12 times, and one request's recorded logits must match a full
-   forward recompute of the score program (rtol/atol 2e-4).
+   forward recompute of the score program (rtol/atol 2e-4);
+5. ``train_check`` — the Transformer-base train program at dropout 0,
+   one batch of 4 rows at full width, one step on ``CUDAPlace(0)`` (the
+   kernels) and one on ``CPUPlace()`` (the plain versions) from one
+   startup state: the losses agree within rtol 1e-4, the parameters'
+   gradients within relative L2 1e-4 at the median and 1e-2 for each
+   (see ``train_check_phase``), and the step moved the parameters;
+6. ``train``   — Transformer-base training as bench.py configures it
+   (6+6 layers, d_model 512, 8 heads, d_inner 2048, vocab 32000, batch
+   256 x 64 tokens, source and target lengths drawn per row in [16, 64],
+   dropout 0.1, label smoothing 0.1, noam(512, 4000), Adam(0.9, 0.997,
+   1e-9)) on ``CUDAPlace(0)``: one warm-up step, then timed steps with the
+   launch counters zeroed just before and read just after; each kernel
+   must have launched exactly as often as the program's ops imply.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -57,6 +72,14 @@ N_REQUESTS, MAX_NEW = 16, 32
 # plain version after (as the JAX kernel and reference do), and each
 # output is then rounded to bf16: a few bf16 ulps (2^-8 relative).
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+# outputs whose entries are probabilities of a 32000-way softmax (~3e-5
+# each) and their gradients: the same relative terms, an absolute term
+# below the values themselves
+TOL_P = {torch.float32: (1e-7, 1e-4), torch.bfloat16: (1e-5, 2e-2)}
+
+# the training slice: bench.py's Transformer-base configuration
+TRAIN = dict(n_layer=6, n_head=8, d_model=512, d_inner=2048)
+TRAIN_VOCAB, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 32000, 64, 256, 5
 
 
 def log(phase, payload):
@@ -102,8 +125,8 @@ def bound(nbytes, ops, dtype):
                                        else "operations")
 
 
-def max_err(got, want, dtype):
-    atol, rtol = TOL[dtype]
+def max_err(got, want, dtype, tol=TOL):
+    atol, rtol = tol[dtype]
     got, want = got.float(), want.float()
     err = (got - want).abs()
     ok = bool((err <= atol + rtol * want.abs()).all()) \
@@ -119,7 +142,7 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
                    rate=0.0, seed=None):
     from torch.nn.functional import scaled_dot_product_attention
 
-    b, h, d = 8, 8, 64
+    b, h, d = len(klen), 8, 64
     g = torch.Generator(device="cuda").manual_seed(len(name))
     q, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda")
                .to(dtype) for t in (tq, tk, tk))
@@ -135,16 +158,7 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
         ok = ok and bool((out[i] == 0).all()) and bool((lse[i] == 1e30).all())
     ok = ok and bool(torch.isfinite(lse[kl > 0]).all())
 
-    # what this run's data needs: the (query, key) pairs the masks keep,
-    # and the keys any query of a row reads
-    gq = torch.arange(tq, device="cuda")[:, None]
-    gk = torch.arange(tk, device="cuda")[None, :]
-    klc = kl.long().clamp(max=tk).reshape(b, 1, 1, 1)
-    valid = gk < klc
-    if causal:
-        valid = valid & ((gq >= gk) if tq == tk else (gq + klc - tq >= gk))
-    pairs = int(valid.sum()) * h
-    keys = int(valid.any(dim=2).sum()) * h
+    valid, pairs, keys = _pairs_and_keys(b, h, tq, tk, causal, kl)
     item = q.element_size()
     nbytes = (q.numel() * item + 2 * keys * d * item + out.numel() * item
               + lse.numel() * 4 + kl.numel() * 4)
@@ -192,36 +206,258 @@ def layer_norm_case(ln, timer, n, d, dtype):
             "ok": all(ok for _, ok in errs)}
 
 
+def _pairs_and_keys(b, h, tq, tk, causal, kl):
+    """The boolean mask [B,1,Tq,Tk] of the (query, key) pairs the klen and
+    causal masks keep, their count over all heads, and the count of keys
+    any query of a row reads (what this run's data needs)."""
+    gq = torch.arange(tq, device="cuda")[:, None]
+    gk = torch.arange(tk, device="cuda")[None, :]
+    klc = kl.long().clamp(max=tk).reshape(b, 1, 1, 1)
+    valid = gk < klc
+    if causal:
+        valid = valid & ((gq >= gk) if tq == tk else (gq + klc - tq >= gk))
+    return valid, int(valid.sum()) * h, int(valid.any(dim=2).sum()) * h
+
+
+def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
+                       rate=0.0, seed=None):
+    """Kernel #2 against ``attention_bwd_reference`` on the kernel
+    forward's O and LSE; the library yardstick is the backward of
+    ``scaled_dot_product_attention`` under the same boolean mask."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    b, h, d = len(klen), 8, 64
+    g = torch.Generator(device="cuda").manual_seed(len(name) + 101)
+    q, k, v, dout = (torch.randn((b, h, t, d), generator=g, device="cuda")
+                     .to(dtype) for t in (tq, tk, tk, tq))
+    kl = torch.tensor(klen, dtype=torch.int32, device="cuda")
+    out, lse = fa.flash_attention_fwd(q, k, v, kl, seed, causal, rate)
+    args = (q, k, v, kl, seed, causal, rate, None, out, lse, dout)
+    got = fa.flash_attention_bwd(*args)
+    want = fa.attention_bwd_reference(*args)
+    torch.cuda.synchronize()
+    errs = [max_err(a, w, dtype) for a, w in zip(got, want)]
+    ok = all(o for _, o in errs)
+    # fully masked rows: zero gradients, never NaN
+    for i in (kl == 0).nonzero().flatten().tolist():
+        ok = ok and all(bool((t[i] == 0).all()) for t in got)
+    valid, pairs, keys = _pairs_and_keys(b, h, tq, tk, causal, kl)
+    item = q.element_size()
+    nbytes = (3 * q.numel() * item + 2 * keys * d * item + lse.numel() * 4
+              + kl.numel() * 4 + q.numel() * item + 2 * k.numel() * item)
+    # S and G recomputed once, then dQ, dK and dV: five products a pair
+    bound_ms, bound_by = bound(nbytes, 10 * d * pairs, dtype)
+
+    library_ms = None
+    if not rate and bool((kl > 0).all()):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        o = scaled_dot_product_attention(*leaves, attn_mask=valid,
+                                         scale=1.0 / d ** 0.5)
+        library_ms = timer(lambda: torch.autograd.grad(
+            o, leaves, dout, retain_graph=True))
+    return {"check": name, "q": list(q.shape), "k": list(k.shape),
+            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+            "dropout": rate, "klen_zero_rows": int((kl == 0).sum()),
+            "max_abs_err": max(e for e, _ in errs), "tol": TOL[dtype],
+            "max_abs_plain": max(float(w.float().abs().max()) for w in want),
+            "kernel_ms": timer(lambda: fa.flash_attention_bwd(*args)),
+            "plain_ms": timer(lambda: fa.attention_bwd_reference(*args),
+                              iters=5),
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ok": ok}
+
+
+def layer_norm_bwd_case(ln, timer, n, d, dtype):
+    """Kernel #4 against ``layer_norm_bwd_reference``, and twice against
+    itself: dgamma/dbeta are reduced without atomics, so the bits repeat.
+    The library yardstick is the backward of ``F.layer_norm``."""
+    from torch.nn.functional import layer_norm
+
+    g = torch.Generator(device="cuda").manual_seed(n + 1)
+    x = (torch.randn((n, d), generator=g, device="cuda") * 3 + 1).to(dtype)
+    gamma, beta = (torch.randn((d,), generator=g, device="cuda").to(dtype)
+                   for _ in range(2))
+    dy = torch.randn((n, d), generator=g, device="cuda").to(dtype)
+    _, mean, var = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+    rstd = torch.rsqrt(var + 1e-5)
+    args = (x, gamma, mean, rstd, dy)
+    got = ln.layer_norm_bwd(*args)
+    again = ln.layer_norm_bwd(*args)
+    want = ln.layer_norm_bwd_reference(*args)
+    torch.cuda.synchronize()
+    errs = [max_err(a, w, dtype) for a, w in zip(got, want)]
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    item = x.element_size()
+    nbytes = 3 * x.numel() * item + 3 * d * item + 2 * n * 4
+    bound_ms, bound_by = bound(nbytes, 13 * n * d, dtype)
+    leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
+    y = layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
+    return {"check": "layer_norm_bwd_%dx%d" % (n, d), "x": [n, d],
+            "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": max(e for e, _ in errs), "tol": TOL[dtype],
+            "repeatable_bits": same_bits,
+            "kernel_ms": timer(lambda: ln.layer_norm_bwd(*args)),
+            "plain_ms": timer(lambda: ln.layer_norm_bwd_reference(*args)),
+            "library_ms": timer(lambda: torch.autograd.grad(
+                y, leaves, dy, retain_graph=True)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "ok": all(o for _, o in errs) and same_bits}
+
+
+def softmax_xent_cases(sx, timer, n, c, eps, dtype):
+    """Kernel #5, and kernel #6 without and with the softmax cotangent,
+    against their plain versions.  One label lies past C: it must pick 0
+    and read nothing out of bounds.  The library yardstick is
+    ``F.cross_entropy(..., label_smoothing=eps, reduction="none")`` (same
+    loss formula, no softmax output) and its backward, on in-range
+    labels."""
+    from torch.nn.functional import cross_entropy
+
+    tag = str(dtype).replace("torch.", "")
+    g = torch.Generator(device="cuda").manual_seed(c)
+    logits = (torch.randn((n, c), generator=g, device="cuda") * 2).to(dtype)
+    label = torch.randint(0, c, (n,), generator=g, device="cuda")
+    label_in = label.clone()
+    label[n // 2] = c + 3
+    loss, sm = sx.softmax_xent_fwd(logits, label, eps)
+    want_loss, want_sm = sx.softmax_xent_reference(logits, label, eps)
+    torch.cuda.synchronize()
+    errs = [max_err(loss, want_loss, dtype), max_err(sm, want_sm, dtype,
+                                                     TOL_P)]
+    item = logits.element_size()
+    nbytes = 2 * logits.numel() * item + n * 8 + n * item
+    bound_ms, bound_by = bound(nbytes, 6 * n * c, dtype)
+    lib_leaf = logits.detach().clone().requires_grad_()
+    lib_loss = cross_entropy(lib_leaf, label_in, label_smoothing=eps,
+                             reduction="none")
+    fwd = {"check": "softmax_xent_fwd_%dx%d_%s" % (n, c, tag),
+           "logits": [n, c], "dtype": tag, "eps": eps,
+           "max_abs_err": max(e for e, _ in errs),
+           "tol": {"loss": TOL[dtype], "softmax": TOL_P[dtype]},
+           "kernel_ms": timer(lambda: sx.softmax_xent_fwd(logits, label,
+                                                          eps)),
+           "plain_ms": timer(lambda: sx.softmax_xent_reference(
+               logits, label, eps), iters=5),
+           "library_ms": timer(lambda: cross_entropy(
+               logits, label_in, label_smoothing=eps, reduction="none")),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ok": all(o for _, o in errs)}
+    del want_loss, want_sm
+
+    bwd = []
+    dloss = torch.randn((n, 1), generator=g, device="cuda").to(dtype)
+    for with_dsm in (False, True):
+        dsm = (torch.randn((n, c), generator=g, device="cuda").to(dtype)
+               if with_dsm else None)
+        args = (sm, label, dloss, dsm, eps)
+        got = sx.softmax_xent_bwd(*args)
+        err, ok = max_err(got, sx.softmax_xent_bwd_reference(*args), dtype,
+                          TOL_P)
+        del got
+        nbytes = ((3 if with_dsm else 2) * sm.numel() * item + n * 8
+                  + n * item)
+        bound_ms, bound_by = bound(nbytes, (7 if with_dsm else 3) * n * c,
+                                   dtype)
+        library_ms = None
+        if not with_dsm:
+            library_ms = timer(lambda: torch.autograd.grad(
+                lib_loss, [lib_leaf], dloss.reshape(n), retain_graph=True))
+        bwd.append({
+            "check": "softmax_xent_bwd_%dx%d_%s%s" % (
+                n, c, tag, "_dsm" if with_dsm else ""),
+            "logits": [n, c], "dtype": tag, "eps": eps, "dsm": with_dsm,
+            "max_abs_err": err, "tol": TOL_P[dtype],
+            "kernel_ms": timer(lambda: sx.softmax_xent_bwd(*args)),
+            "plain_ms": timer(lambda: sx.softmax_xent_bwd_reference(*args),
+                              iters=5),
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ok": ok})
+        del dsm, args
+    del logits, sm, lib_leaf, lib_loss
+    torch.cuda.empty_cache()
+    return fwd, bwd
+
+
 def kernels_phase():
+    """Every kernel against its plain version at its paths' shapes.
+    Returns {kernel name: [checks]}, the main path's shape first."""
     from paddle_tpu_torch.ops import cuda
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    from paddle_tpu_torch.ops.cuda import softmax_xent as sx
 
     timer = Timer()
+    rng = np.random.RandomState(3)
+    # the training slice: 256 rows of 64 tokens, lengths in [16, 64]
+    train_klen = rng.randint(16, TRAIN_SEQ + 1, TRAIN_BATCH).tolist()
+    train_klen0 = list(train_klen)
+    train_klen0[7] = 0
     prefill_klen = [1024, 700, 513, 64, 1, 0, 300, 999]
     decode_klen = [1024, 65, 700, 1, 333, 512, 1000, 2]
-    attn = []
+    t = TRAIN_SEQ
+    fwd, bwd = [], []
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
-        attn.append(attention_case(fa, timer, "prefill_" + tag, 1024, 1024,
-                                   True, prefill_klen, dtype))
-        attn.append(attention_case(fa, timer, "decode_" + tag, 1, 1024,
-                                   True, decode_klen, dtype))
-    attn.append(attention_case(fa, timer, "prefill_float32_dropout", 1024,
-                               1024, True, prefill_klen, torch.float32,
-                               rate=0.1, seed=1234))
-    norm = [layer_norm_case(ln, timer, n, 512, torch.float32)
-            for n in (8 * 1024, 8)]
-    norm.append(layer_norm_case(ln, timer, 8 * 1024, 512, torch.bfloat16))
+        fwd.append(attention_case(fa, timer, "train_causal_" + tag, t, t,
+                                  True, train_klen, dtype))
+        bwd.append(attention_bwd_case(fa, timer, "train_causal_" + tag, t,
+                                      t, True, train_klen, dtype))
+        bwd.append(attention_bwd_case(fa, timer, "train_self_" + tag, t, t,
+                                      False, train_klen, dtype))
+    bwd.append(attention_bwd_case(fa, timer, "train_causal_dropout_klen0", t,
+                                  t, True, train_klen0, torch.float32,
+                                  rate=0.1, seed=1234))
+    # off the training path: several tiles per row, ragged last tiles,
+    # and the suffix (Tq < Tk) causal alignment
+    ragged_klen = [200, 150, 65, 64, 1, 0, 130, 199]
+    for dtype in (torch.float32, torch.bfloat16):
+        bwd.append(attention_bwd_case(
+            fa, timer, "ragged_causal_" + str(dtype)[6:], 200, 200, True,
+            ragged_klen, dtype))
+    bwd.append(attention_bwd_case(fa, timer, "suffix_dropout", 70, 300,
+                                  True, [300, 150, 70, 71, 299, 100, 3, 250],
+                                  torch.float32, rate=0.1, seed=99))
+    fwd.append(attention_case(fa, timer, "train_self_dropout_klen0", t, t,
+                              False, train_klen0, torch.float32, rate=0.1,
+                              seed=1234))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        fwd.append(attention_case(fa, timer, "prefill_" + tag, 1024, 1024,
+                                  True, prefill_klen, dtype))
+        fwd.append(attention_case(fa, timer, "decode_" + tag, 1, 1024,
+                                  True, decode_klen, dtype))
+    fwd.append(attention_case(fa, timer, "prefill_float32_dropout", 1024,
+                              1024, True, prefill_klen, torch.float32,
+                              rate=0.1, seed=1234))
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    d = TRAIN["d_model"]
+    norm = [layer_norm_case(ln, timer, n, d, torch.float32)
+            for n in (rows, 8 * 1024, 8)]
+    norm.append(layer_norm_case(ln, timer, rows, d, torch.bfloat16))
+    norm_bwd = [layer_norm_bwd_case(ln, timer, rows, d, dt)
+                for dt in (torch.float32, torch.bfloat16)]
+    # off the path: a ragged last block of rows and other row widths
+    norm_bwd += [layer_norm_bwd_case(ln, timer, 1000, 96, torch.float32),
+                 layer_norm_bwd_case(ln, timer, 5, 1024, torch.bfloat16)]
+    xent_fwd, xent_bwd = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        f, b = softmax_xent_cases(sx, timer, rows, TRAIN_VOCAB, 0.1, dtype)
+        xent_fwd.append(f)
+        xent_bwd += b
+    f, b = softmax_xent_cases(sx, timer, 300, 1000, 0.0, torch.float32)
+    xent_fwd.append(f)
+    xent_bwd += b
+    checks = {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
+              "layer_norm_fwd": norm, "layer_norm_bwd": norm_bwd,
+              "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd}
     # launches made by these checks and their timing loops (the main
-    # path's count is taken separately, in the serve phase)
-    log("kernels", {"flash_attention_fwd": attn, "layer_norm_fwd": norm,
-                    "check_launches": cuda.launch_counts()})
-    bad = [c["check"] for c in attn + norm if not c["ok"]]
+    # paths' counts are taken separately, in the serve and train phases)
+    log("kernels", dict(checks, check_launches=cuda.launch_counts()))
+    bad = [c["check"] for cs in checks.values() for c in cs if not c["ok"]]
     if bad:
         raise SystemExit("kernel disagrees with its plain version: %s"
                          % bad)
-    return attn, norm
+    return checks
 
 
 # ---------------------------------------------------------------------------
@@ -308,6 +544,165 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
 
 
 # ---------------------------------------------------------------------------
+# phases 5 and 6: the training slice
+# ---------------------------------------------------------------------------
+
+def build_train(dropout):
+    """(main, startup, cost) of bench.py's Transformer-base train program,
+    built with the port's layers.  Fixed program seeds: every run starts
+    from the same random weights and draws the same dropout masks."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import transformer
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed, startup.random_seed = 2, 1
+    with pt.program_guard(main, startup):
+        words = [pt.layers.data(n, shape=[1], dtype="int64", lod_level=1)
+                 for n in ("src_word", "tgt_word", "lbl_word")]
+        cost, _ = transformer.transformer(
+            *words, TRAIN_SEQ, TRAIN_SEQ, TRAIN_VOCAB, TRAIN_VOCAB,
+            dropout_rate=dropout, label_smooth_eps=0.1, **TRAIN)
+        lr = pt.layers.noam_decay(TRAIN["d_model"], 4000)
+        optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.997,
+                       epsilon=1e-9).minimize(cost)
+    return main, startup, cost
+
+
+def train_feed(rng, batch):
+    """Random ids in [2, vocab) (as bench.py draws them); source and
+    target lengths drawn per row in [16, 64], the labels padded as the
+    target."""
+    src_len = rng.randint(16, TRAIN_SEQ + 1, batch).astype("int32")
+    tgt_len = rng.randint(16, TRAIN_SEQ + 1, batch).astype("int32")
+    feed = {n: rng.randint(2, TRAIN_VOCAB, (batch, TRAIN_SEQ, 1))
+            .astype("int64") for n in ("src_word", "tgt_word", "lbl_word")}
+    feed.update({"src_word@LEN": src_len, "tgt_word@LEN": tgt_len,
+                 "lbl_word@LEN": tgt_len})
+    return feed
+
+
+def kernel_launches_per_step(program):
+    """Each kernel's launches in one step, from the program's ops: a grad
+    op reruns its forward (the generic grad's recompute), so each forward
+    kernel launches once per forward op and once per grad op."""
+    n = {}
+    for op in program.global_block().ops:
+        n[op.type] = n.get(op.type, 0) + 1
+    per = {}
+    for kernel, op in (("flash_attention", "fused_attention"),
+                       ("layer_norm", "layer_norm"),
+                       ("softmax_xent", "softmax_with_cross_entropy")):
+        grads = n.get(op + "_grad", 0)
+        per[kernel + "_fwd"] = n.get(op, 0) + grads
+        per[kernel + "_bwd"] = grads
+    return per
+
+
+def train_check_phase(batch=4):
+    """One step of the dropout-0 program on the card and on the CPU from
+    one startup state: losses within rtol 1e-4; the parameters' gradients
+    within relative L2 1e-4 at the median and 1e-2 for every one; the
+    parameters moved.
+
+    The per-parameter band is wider than the median's for a reason of the
+    model, not of the kernels: where a ReLU input lies within float32
+    rounding of 0 (~1e-6 relative), the two devices may take opposite
+    sides, and that unit's gradient for that token appears on one side
+    only.  With 256 tokens x 2048 units an FFN weight's gradient sums
+    ~5e5 such terms, so one flip moves it by ~1e-3 relative L2 (the H100
+    read 1.1e-3 for enc4_ffn_fc1.w_0 and its bias in one run, while the
+    median was 1.1e-6), and every parameter upstream of the flip moves a
+    little too (the median read 1.4e-5 in another run); the attention
+    projections' gradients, differences of near-equal sums, read up to
+    3.2e-4.  A wrong backward moves whole parameters by far more than
+    1e-2."""
+    import paddle_tpu_torch as pt
+
+    main, startup, cost = build_train(0.0)
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    card_scope, cpu_scope = pt.Scope(), pt.Scope()
+    card = pt.Executor(pt.CUDAPlace(0))
+    card.run(startup, scope=card_scope)
+    for n in card_scope.local_var_names():
+        cpu_scope.set_var(n, card_scope.var(n).cpu().clone())
+    before = {n: cpu_scope.var(n).clone() for n in params}
+    feed = train_feed(np.random.RandomState(11), batch)
+    fetch = [cost.name] + [n + "@GRAD" for n in params]
+    t0 = time.perf_counter()
+    got = card.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                          scope=cpu_scope)
+    cpu_s = time.perf_counter() - t0
+    assert all(np.isfinite(a).all() for a in got), "non-finite on the card"
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    rel = {}
+    for n, a, b in zip(params, got[1:], want[1:]):
+        den = float(np.linalg.norm(b))
+        rel[n] = float(np.linalg.norm(a - b)) / den if den else \
+            float(np.linalg.norm(a))
+    ranked = sorted(rel, key=rel.get, reverse=True)
+    worst = ranked[0]
+    moved = sum(not torch.equal(before[n], card_scope.var(n).cpu())
+                for n in params)
+    summary = {"batch": batch, "tokens": batch * TRAIN_SEQ,
+               "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+               "params": len(params), "moved": moved,
+               "grad_rel_l2_top5": [[n, rel[n]] for n in ranked[:5]],
+               "grad_rel_l2_median": statistics.median(rel.values()),
+               "card_step_s": card_s, "cpu_step_s": cpu_s}
+    log("train_check", summary)
+    if rel[worst] > 1e-2 or summary["grad_rel_l2_median"] > 1e-4 \
+            or moved != len(params):
+        raise SystemExit("card and CPU disagree on the training step: %s"
+                         % summary)
+    return summary
+
+
+def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
+    """Warm-up step, then ``steps`` timed steps of the dropout-0.1 program;
+    returns (summary, launches, launches the program implies)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+
+    main, startup, cost = build_train(0.1)
+    exe, scope = pt.Executor(place), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feeds = [train_feed(rng, batch) for _ in range(steps + 1)]
+    (warm,) = exe.run(main, feed=feeds[0], fetch_list=[cost], scope=scope)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    # the main path, in one piece: counters zeroed just before, read just
+    # after; fetching each step's loss waits for the step's device work
+    cuda.reset_launch_counts()
+    for f in feeds[1:]:
+        t0 = time.perf_counter()
+        (loss,) = exe.run(main, feed=f, fetch_list=[cost], scope=scope)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss[0]))
+    launches = cuda.launch_counts()
+    need = {k: n * steps
+            for k, n in kernel_launches_per_step(main).items()}
+    step_s = statistics.median(times)
+    summary = {
+        "batch": batch, "seq": TRAIN_SEQ, "steps": steps,
+        "warmup_loss": float(warm[0]), "losses": losses,
+        "step_ms": [t * 1e3 for t in times], "median_step_ms": step_s * 1e3,
+        "tokens_per_s": batch * TRAIN_SEQ / step_s,
+        "target_tokens_per_s": float(np.median(
+            [f["tgt_word@LEN"].sum() for f in feeds[1:]])) / step_s,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "ops": len(main.global_block().ops), "launches": launches,
+        "launches_implied": need}
+    assert all(np.isfinite(losses)), losses
+    return summary, launches, need
+
+
+# ---------------------------------------------------------------------------
 # --profile: where a dispatch's time goes
 # ---------------------------------------------------------------------------
 
@@ -323,17 +718,59 @@ def _union_us(intervals):
     return total
 
 
+def _profile_report(prof, window):
+    """Per ``dispatch/<kind>`` range: host wall time, device busy time
+    (union of kernel intervals inside it) and the device's idle share; the
+    kernels and host ops that take the most time."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    # device activity: kernels and copies; the dispatch/* ranges are also
+    # mirrored onto the device timeline as annotations, which are not work
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("dispatch/")]
+    kernels = [(e.time_range.start, e.time_range.end) for e in device]
+    by_name = {}
+    for e in device:
+        d = by_name.setdefault(e.name[:70], [0.0, 0])
+        d[0] += e.time_range.end - e.time_range.start
+        d[1] += 1
+    per_kind = {}
+    for e in events:
+        if e.device_type != DeviceType.CPU \
+                or not e.name.startswith("dispatch/"):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        busy = _union_us([(max(x, a), min(y, b)) for x, y in kernels
+                          if y > a and x < b])
+        d = per_kind.setdefault(e.name[len("dispatch/"):],
+                                {"n": 0, "wall_us": 0.0, "busy_us": 0.0})
+        d["n"] += 1
+        d["wall_us"] += b - a
+        d["busy_us"] += busy
+    for d in per_kind.values():
+        d["idle_share"] = 1.0 - d["busy_us"] / d["wall_us"]
+        d["wall_ms_each"] = d["wall_us"] / d["n"] / 1e3
+        d["busy_ms_each"] = d["busy_us"] / d["n"] / 1e3
+
+    top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    top_host = sorted(prof.key_averages(),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
+    log("profile", {
+        "window": window, "kernel_events": len(kernels),
+        "dispatch": per_kind,
+        "top_device_us": [(k, us, n) for k, (us, n) in top_dev],
+        "top_host_self_us": [(e.key[:70], e.self_cpu_time_total, e.count)
+                             for e in top_host]})
+
+
 def profile_phase(place, model=MODEL, steps=20, prompt=400, bucket=512):
     """torch.profiler over one prefill (every slot, ``prompt`` tokens in
     the ``bucket`` bucket) and ``steps`` decode steps of the serving
     slice, each driven through ``Executor.run`` and fetched as the engine
-    fetches it.  Reports per dispatch kind the host wall time, the device
-    busy time (union of kernel intervals inside the dispatch) and the
-    device's idle share, and the kernels and host ops that take the most
-    time."""
+    fetches it."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.serving import build_decoder_lm
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     spec = build_decoder_lm(**model)
@@ -378,46 +815,48 @@ def profile_phase(place, model=MODEL, steps=20, prompt=400, bucket=512):
             for i in range(steps):
                 dispatch("decode", decode(i))
             torch.cuda.synchronize()
+    _profile_report(prof, "1 prefill (%d x %d, bucket %d) + %d decode steps"
+                    % (s, prompt, bucket, steps))
 
-    events = prof.events()
-    # device activity: kernels and copies; the dispatch/* ranges are also
-    # mirrored onto the device timeline as annotations, which are not work
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("dispatch/")]
-    kernels = [(e.time_range.start, e.time_range.end) for e in device]
-    by_name = {}
-    for e in device:
-        d = by_name.setdefault(e.name[:70], [0.0, 0])
-        d[0] += e.time_range.end - e.time_range.start
-        d[1] += 1
-    per_kind = {}
-    for e in events:
-        if e.device_type != DeviceType.CPU \
-                or not e.name.startswith("dispatch/"):
-            continue
-        a, b = e.time_range.start, e.time_range.end
-        busy = _union_us([(max(x, a), min(y, b)) for x, y in kernels
-                          if y > a and x < b])
-        d = per_kind.setdefault(e.name[len("dispatch/"):],
-                                {"n": 0, "wall_us": 0.0, "busy_us": 0.0})
-        d["n"] += 1
-        d["wall_us"] += b - a
-        d["busy_us"] += busy
-    for d in per_kind.values():
-        d["idle_share"] = 1.0 - d["busy_us"] / d["wall_us"]
-        d["wall_ms_each"] = d["wall_us"] / d["n"] / 1e3
-        d["busy_ms_each"] = d["busy_us"] / d["n"] / 1e3
 
-    top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    top_host = sorted(prof.key_averages(),
-                      key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
-    log("profile", {
-        "window": "1 prefill (%d x %d, bucket %d) + %d decode steps"
-                  % (s, prompt, bucket, steps),
-        "kernel_events": len(kernels), "dispatch": per_kind,
-        "top_device_us": [(k, us, n) for k, (us, n) in top_dev],
-        "top_host_self_us": [(e.key[:70], e.self_cpu_time_total, e.count)
-                             for e in top_host]})
+def train_profile_phase(place, steps=2, batch=TRAIN_BATCH):
+    """torch.profiler over ``steps`` training steps of the train phase's
+    program (after one warm-up step), each fetched as the train phase
+    fetches it."""
+    import paddle_tpu_torch as pt
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    main, startup, cost = build_train(0.1)
+    exe, scope = pt.Executor(place), pt.Scope()
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(2)
+    feeds = [train_feed(rng, batch) for _ in range(steps + 1)]
+    exe.run(main, feed=feeds[0], fetch_list=[cost], scope=scope)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for f in feeds[1:]:
+            with record_function("dispatch/train_step"):
+                exe.run(main, feed=f, fetch_list=[cost], scope=scope)
+        torch.cuda.synchronize()
+    _profile_report(prof, "%d training steps, batch %d x %d" % (
+        steps, batch, TRAIN_SEQ))
+
+
+KERNEL_ROWS = (
+    ("flash_attention_fwd", "csrc/flash_attention_fwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:328"),
+    ("flash_attention_bwd", "csrc/flash_attention_bwd.cu",
+     "paddle_tpu/ops/pallas/flash_attention.py:364"),
+    ("layer_norm_fwd", "csrc/layer_norm_fwd.cu",
+     "paddle_tpu/ops/pallas/layer_norm.py:59"),
+    ("layer_norm_bwd", "csrc/layer_norm_bwd.cu",
+     "paddle_tpu/ops/pallas/layer_norm.py:94"),
+    ("softmax_xent_fwd", "csrc/softmax_xent.cu",
+     "paddle_tpu/ops/pallas/softmax_xent.py:89"),
+    ("softmax_xent_bwd", "csrc/softmax_xent.cu",
+     "paddle_tpu/ops/pallas/softmax_xent.py:111"),
+)
 
 
 def main():
@@ -449,24 +888,30 @@ def main():
                   "kernels": sorted(built), "ptxas": ptxas})
     if "--profile" in sys.argv[1:]:
         profile_phase(pt.CUDAPlace(0))
+        train_profile_phase(pt.CUDAPlace(0))
         return 0
 
-    attn, norm = kernels_phase()
-    serve, launches, need = serve_phase(pt.CUDAPlace(0))
+    checks = kernels_phase()
+    # each path with the counters zeroed just before it and read just
+    # after: serving (kernels #1 and #3), then training (all six)
+    short = {}
+    serve, serve_launches, need = serve_phase(pt.CUDAPlace(0))
     log("serve", serve)
-    short = {k: (launches[k], n) for k, n in need.items()
-             if launches[k] < n or n == 0}
+    short.update({"serve:" + k: (serve_launches[k], n)
+                  for k, n in need.items()
+                  if serve_launches[k] < n or n == 0})
+    train_check_phase()
+    train, launches, need = train_phase(pt.CUDAPlace(0))
+    log("train", train)
+    short.update({"train:" + k: (launches[k], n) for k, n in need.items()
+                  if launches[k] != n or n == 0})
     if short:
-        raise SystemExit("the main path skipped a kernel (launches, "
-                         "needed): %s" % short)
+        raise SystemExit("a path did not launch its kernels as its program "
+                         "implies (launches, implied): %s" % short)
 
     rows = []
-    for name, checks, src, tpu in (
-            ("flash_attention_fwd", attn, "csrc/flash_attention_fwd.cu",
-             "paddle_tpu/ops/pallas/flash_attention.py:328"),
-            ("layer_norm_fwd", norm, "csrc/layer_norm_fwd.cu",
-             "paddle_tpu/ops/pallas/layer_norm.py:59")):
-        head = checks[0]      # the float32 prefill shape of the main path
+    for name, src, tpu in KERNEL_ROWS:
+        head = checks[name][0]   # the float32 check at the training shape
         rows.append({"name": name, "route": "cuda",
                      "source": "paddle_tpu_torch/" + src, "replaces": tpu,
                      "launches": launches[name],
@@ -476,7 +921,8 @@ def main():
                      "bound_ms": head["bound_ms"],
                      "bound_by": head["bound_by"],
                      "library_ms": head["library_ms"],
-                     "at": head["check"]})
+                     "at": head["check"],
+                     "launches_serve": serve_launches[name]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 NVIDIA H100.
 
 The layout mirrors the JAX package (``framework``, ``registry``,
-``executor``, ``layers``, ``ops``, ``serving``) so each module's
-counterpart is easy to find; the programs it builds serialize to the same
-schema.  Op computes are plain functions on tensors; the hand-written
+``backward``, ``optimizer``, ``executor``, ``layers``, ``ops``,
+``models``, ``serving``) so each module's counterpart is easy to find;
+the programs it builds serialize to the same schema.  Op computes are plain functions on tensors; the hand-written
 Hopper kernels live in ``ops/cuda`` (sources in ``csrc/``), each beside
 its plain PyTorch version, which runs only for tensors on the CPU.
 
@@ -23,7 +23,9 @@ from . import initializer
 from .executor import CPUPlace, CUDAPlace, Executor
 from .scope import Scope, global_scope, scope_guard
 from .param_attr import ParamAttr
+from . import backward, clip, optimizer, regularizer
 from . import convert
+from . import models
 from . import serving
 
 __version__ = "0.1.0"
@@ -33,5 +35,6 @@ __all__ = [
     "Parameter", "default_main_program", "default_startup_program",
     "program_guard", "ops", "layers", "initializer", "Executor", "CPUPlace",
     "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
-    "convert", "serving",
+    "backward", "clip", "optimizer", "regularizer", "convert", "models",
+    "serving",
 ]

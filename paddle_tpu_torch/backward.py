@@ -1,0 +1,297 @@
+"""Program-level autodiff: append gradient ops to a Program (counterpart
+of ``paddle_tpu/backward.py``).
+
+Per-op grad ops come from the registry's grad makers (mostly the generic
+``<type>_grad``, see ``registry.py``), so the grad section of a program is
+ordinary ops that the executor runs like the forward.  Gradients are
+program variables (``w@GRAD``); where several ops contribute to one
+gradient, a ``sum`` op adds the contributions.  The programs built here
+serialize exactly as the JAX package's do.
+"""
+
+from .core import dtype_name
+from .framework import Variable, grad_var_name
+from .registry import make_grad_ops
+
+__all__ = ["append_backward", "calc_gradient"]
+
+
+def _collect_no_grad_set(block, extra=None):
+    s = set(extra or ())
+    for v in block.vars.values():
+        if v.stop_gradient:
+            s.add(v.name)
+    return s
+
+
+def _ops_on_path_to(block, target_names):
+    """Indices of ops whose outputs (transitively) feed ``target_names``."""
+    needed = set(target_names)
+    keep = []
+    for i in reversed(range(len(block.ops))):
+        op = block.ops[i]
+        if set(op.output_arg_names) & needed:
+            keep.append(i)
+            needed.update(n for n in op.input_arg_names if n)
+    return set(keep)
+
+
+class _GradAccumulator:
+    """Tracks pending gradient contributions per forward var and
+    materializes ``sum`` ops on demand (the reference's
+    _addup_repetitive_outputs_ redesigned as lazy accumulation)."""
+
+    def __init__(self, block):
+        self.block = block
+        self.pending = {}  # fwd var name -> [grad var names]
+        self._clipped = set()  # fwd vars whose grad got an error clip
+
+    def new_contribution_name(self, fwd_name):
+        cs = self.pending.setdefault(fwd_name, [])
+        if not cs:
+            name = grad_var_name(fwd_name)
+        else:
+            name = grad_var_name(fwd_name) + "@RENAME@%d" % len(cs)
+        cs.append(name)
+        return name
+
+    def has_grad(self, fwd_name):
+        return bool(self.pending.get(fwd_name))
+
+    def materialize(self, fwd_name):
+        """Ensure grad_var_name(fwd_name) holds the summed gradient;
+        returns the name or None if no grad flows."""
+        cs = self.pending.get(fwd_name)
+        if not cs:
+            return None
+        target = grad_var_name(fwd_name)
+        if len(cs) == 1:
+            if cs[0] != target:
+                # single renamed contribution: alias via assign
+                self.block.append_op(
+                    type="assign", inputs={"X": [cs[0]]}, outputs={"Out": [target]}
+                )
+            self.pending[fwd_name] = [target]
+            self._maybe_error_clip(fwd_name, target)
+            return target
+        self.block.append_op(
+            type="sum", inputs={"X": list(cs)}, outputs={"Out": [target]}
+        )
+        self.pending[fwd_name] = [target]
+        self._maybe_error_clip(fwd_name, target)
+        return target
+
+    def _maybe_error_clip(self, fwd_name, grad_name):
+        """Apply the forward var's ``error_clip`` to its summed gradient,
+        once, before any consumer reads it (the reference applies
+        error_clip_callback to every appended grad op,
+        backward.py:469 callbacks=[error_clip_callback])."""
+        if fwd_name in self._clipped:
+            return
+        self._clipped.add(fwd_name)
+        fwd_var = self.block._find_var_recursive(fwd_name)
+        error_clip = getattr(fwd_var, "error_clip", None) if fwd_var \
+            else None
+        if error_clip is not None:
+            # the clip classes and their ops are not ported yet
+            raise NotImplementedError(
+                "error_clip on %r: gradient clipping is not ported to "
+                "paddle_tpu_torch yet (ROADMAP Queue A)" % fwd_name)
+
+
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    loss_grad_input=None):
+    """Append gradient ops for ``loss`` to its program; returns
+    [(Parameter, grad Variable)] for the optimizer (reference
+    backward.py:469).  ``loss_grad_input`` optionally seeds the cotangent
+    with an existing Variable instead of ones (calc_gradient's
+    target_gradients)."""
+    assert isinstance(loss, Variable), "loss must be a Variable"
+    block = loss.block
+    program = block.program
+    no_grad = _collect_no_grad_set(block, no_grad_set)
+
+    # seed d(loss)/d(loss)
+    loss_grad = grad_var_name(loss.name)
+    if loss_grad_input is not None:
+        block.append_op(
+            type="assign",
+            inputs={"X": [loss_grad_input]},
+            outputs={"Out": [loss_grad]},
+        )
+    else:
+        block.append_op(
+            type="fill_constant",
+            inputs={},
+            outputs={"Out": [loss_grad]},
+            attrs={
+                "shape": list(loss.shape or ()),
+                "value": 1.0,
+                "dtype": dtype_name(loss.dtype),
+                "force_cpu": False,
+            },
+        )
+
+    acc = _GradAccumulator(block)
+    acc.pending[loss.name] = [loss_grad]
+
+    path = _ops_on_path_to(block, [loss.name])
+    # exclude the fill op we just appended
+    n_forward = len(block.ops) - 1
+
+    for i in reversed(range(n_forward)):
+        if i not in path:
+            continue
+        op = block.ops[i]
+        # does any output have a live gradient?
+        live = [n for n in op.output_arg_names if acc.has_grad(n)]
+        if not live:
+            continue
+        specs = make_grad_ops(op, no_grad)
+        appended_any = False
+        consumed = {}  # fwd name -> the materialized grad name this op read
+        for spec in specs:
+            # record the forward op's position so generic grad recompute
+            # folds the SAME PRNG key the forward used (registry.py
+            # _generic_grad_compute)
+            if spec["type"].endswith("_grad"):
+                spec["attrs"].setdefault("__fwd_op_index__", i)
+            # wire out-grad inputs: materialize sums / leave holes
+            for slot, names in list(spec["inputs"].items()):
+                if not slot.startswith("GRAD::"):
+                    continue
+                wired = []
+                for n in names:
+                    fwd = n[: -len("@GRAD")] if n.endswith("@GRAD") else n
+                    g = acc.materialize(fwd)
+                    if g is not None:
+                        consumed[fwd] = g
+                    wired.append(g or "")
+                spec["inputs"][slot] = wired
+            # rename duplicate grad outputs into fresh contribution names
+            for slot, names in list(spec["outputs"].items()):
+                renamed = []
+                for n in names:
+                    if not n:
+                        renamed.append("")
+                        continue
+                    fwd = n[: -len("@GRAD")]
+                    if fwd in no_grad:
+                        renamed.append("")
+                        continue
+                    renamed.append(acc.new_contribution_name(fwd))
+                spec["outputs"][slot] = renamed
+            if not any(n for ns in spec["outputs"].values() for n in ns):
+                continue
+            block.append_op(
+                type=spec["type"],
+                inputs=spec["inputs"],
+                outputs=spec["outputs"],
+                attrs=spec["attrs"],
+            )
+            appended_any = True
+        # drop exactly the cotangent contributions this op's grad ops
+        # CONSUMED (recorded at wiring time), so an EARLIER producer of
+        # the same name (in-place aliasing: the while op's Out carries,
+        # array_write chains) cannot re-consume an already-routed
+        # gradient and double-count.  Contributions the grad ops just
+        # ADDED under the same name — the grad of an in-place *input*
+        # (the reference handles these via grad renaming on its SSA
+        # versions) — survive for the earlier producer, INCLUDING the
+        # case where they landed under the bare @GRAD name because the
+        # aliased output itself had no downstream cotangent.  Tracking
+        # consumption explicitly (not by name) is what makes those two
+        # cases distinguishable.
+        if appended_any:
+            for n in op.output_arg_names:
+                if not (n and acc.pending.get(n)):
+                    continue
+                g = consumed.get(n)
+                if g is not None:
+                    acc.pending[n] = [c for c in acc.pending[n]
+                                      if c != g]
+
+    # materialize every accumulated gradient so var@GRAD is always the
+    # summed value (fetchable, optimizer-consumable)
+    for fwd_name in list(acc.pending.keys()):
+        acc.materialize(fwd_name)
+
+    # finalize parameter gradients
+    if parameter_list is not None:
+        params = []
+        for p in parameter_list:
+            params.append(block.var_recursive(p) if isinstance(p, str) else p)
+    else:
+        params = [
+            p for p in program.global_block().all_parameters() if p.trainable
+        ]
+
+    params_and_grads = []
+    for p in params:
+        g = acc.materialize(p.name)
+        if g is None:
+            continue
+        params_and_grads.append((p, block.var_recursive(g)))
+    return params_and_grads
+
+
+def calc_gradient(targets, inputs, target_gradients=None, no_grad_set=None):
+    """Gradients of ``targets`` w.r.t. ``inputs`` (reference
+    backward.py:calc_gradient).  Returns list of grad Variables (or None).
+
+    Multiple targets compose into the scalar sum_i <target_i, tg_i>
+    (tg_i defaulting to ones), whose gradient w.r.t. each input is
+    exactly the requested vjp — one backward walk serves every target,
+    like the reference's multi-target support."""
+    if isinstance(targets, Variable):
+        targets = [targets]
+    if isinstance(inputs, Variable):
+        inputs = [inputs]
+    if target_gradients is not None and isinstance(target_gradients,
+                                                   Variable):
+        target_gradients = [target_gradients]
+    if target_gradients is not None and \
+            len(target_gradients) != len(targets):
+        raise ValueError(
+            "target_gradients must match targets (%d vs %d)"
+            % (len(target_gradients), len(targets)))
+    block = targets[0].block
+
+    if len(targets) == 1:
+        loss = targets[0]
+        loss_grad_input = target_gradients[0] if target_gradients else None
+    else:
+        from . import unique_name
+
+        parts = []
+        for i, t in enumerate(targets):
+            tg = target_gradients[i] if target_gradients else None
+            val = t
+            if tg is not None:
+                prod = block.create_var(
+                    name=unique_name.generate("calc_grad_prod"))
+                block.append_op(type="elementwise_mul",
+                                inputs={"X": [t.name], "Y": [tg.name]},
+                                outputs={"Out": [prod.name]}, attrs={})
+                val = prod
+            part = block.create_var(
+                name=unique_name.generate("calc_grad_part"))
+            block.append_op(type="reduce_sum",
+                            inputs={"X": [val.name]},
+                            outputs={"Out": [part.name]},
+                            attrs={"reduce_all": True, "keep_dim": False})
+            parts.append(part.name)
+        loss = block.create_var(
+            name=unique_name.generate("calc_grad_total"))
+        block.append_op(type="sum", inputs={"X": parts},
+                        outputs={"Out": [loss.name]}, attrs={})
+        loss_grad_input = None
+    # reuse append_backward machinery but finalize for `inputs`
+    pg = append_backward(loss, parameter_list=None, no_grad_set=no_grad_set,
+                         loss_grad_input=loss_grad_input)
+    del pg
+    result = []
+    for v in inputs:
+        g = grad_var_name(v.name)
+        result.append(block.vars.get(g))
+    return result

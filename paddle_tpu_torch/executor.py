@@ -7,7 +7,11 @@ state read from the scope, persistable outputs written back — then
 interprets the ops in program order (the JAX executor's
 ``trace_program`` loop, without the trace: there is no jit, every op
 computes when it is reached) and writes the persistable outputs back to
-the scope.  State that an op updates in place (the KV cache) stays the
+the scope.  A variable that is neither persistable nor fetched is dropped
+right after its last reader, so a training step holds each activation
+only until its gradient op has used it (XLA frees buffers the same way
+inside the JAX package's compiled step).  State that an op updates in
+place (the KV cache, the optimizer's parameters and moments) stays the
 same tensor across runs; the JAX package got the same effect from buffer
 donation.
 
@@ -106,7 +110,17 @@ class Executor:
                 v = block._find_var_recursive(n) if n else None
                 if v is not None and v.persistable and n not in writeback:
                     writeback.append(n)
-        return state, writeback
+        # release[i]: the temporaries whose last reader or writer is op i
+        keep = set(writeback) | set(fetch_names) | set(state)
+        last = {}
+        for i, op in enumerate(block.ops):
+            for n in op.input_arg_names + op.output_arg_names:
+                if n and n not in keep:
+                    last[n] = i
+        release = [[] for _ in block.ops]
+        for n, i in last.items():
+            release[i].append(n)
+        return state, writeback, release
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -130,7 +144,7 @@ class Executor:
         if analysis is None:
             analysis = self._analysis[key] = self._analyze(
                 program, feed_names, scope, fetch_names)
-        state_names, writeback = analysis
+        state_names, writeback, release = analysis
 
         env = {}
         for n in feed_names:
@@ -149,6 +163,8 @@ class Executor:
         self._run_counter += 1
         for i, op in enumerate(block.ops):
             registry.compute_op(op, env, ctx, op_index=i)
+            for n in release[i]:
+                env.pop(n, None)
         for n in writeback:
             scope.set_var(n, env[n])
 

@@ -6,7 +6,9 @@ registry, and programs serialize to the same plain-dict schema as the JAX
 package (``Program.to_dict`` / ``to_json`` / ``from_dict``), with dtypes
 written by name, so a program built by either package serializes to the
 same JSON and loads in the other.  Only the global block is executed by
-this slice's executor (the decoder has no control flow).
+the port's executor (neither the decoder nor the Transformer has control
+flow).  Gradients are ordinary variables named ``<var>@GRAD``
+(``grad_var_name``), appended by ``backward.append_backward``.
 """
 
 import collections
@@ -28,7 +30,16 @@ __all__ = [
     "default_startup_program",
     "default_main_program",
     "program_guard",
+    "grad_var_name",
+    "GRAD_VAR_SUFFIX",
 ]
+
+GRAD_VAR_SUFFIX = "@GRAD"
+
+
+def grad_var_name(var_name):
+    """Name of the gradient variable of ``var_name``."""
+    return var_name + GRAD_VAR_SUFFIX
 
 
 class Variable:
@@ -63,6 +74,9 @@ class Variable:
         self.lod_level = lod_level
         self.initializer = initializer
         self.op = None
+        # clip applied to this var's gradient as backward sums it (no
+        # error-clip class is ported yet: backward raises on one)
+        self.error_clip = kwargs.get("error_clip", None)
         # name of the companion [batch] int32 length var of a padded
         # sequence ("<name>@LEN", see layers.data)
         self._seq_len_name = None
@@ -89,7 +103,8 @@ class Variable:
 
 
 class Parameter(Variable):
-    """A persistable, trainable Variable."""
+    """A persistable, trainable Variable, with the optimizer's per-parameter
+    settings (learning-rate multiplier, regularizer, gradient clip)."""
 
     def __init__(self, block, shape, dtype, **kwargs):
         if shape is None or dtype is None:
@@ -100,6 +115,10 @@ class Parameter(Variable):
         kwargs.setdefault("persistable", True)
         super().__init__(block, shape=shape, dtype=dtype, **kwargs)
         self.trainable = kwargs.get("trainable", True)
+        self.optimize_attr = kwargs.get("optimize_attr",
+                                        {"learning_rate": 1.0})
+        self.regularizer = kwargs.get("regularizer", None)
+        self.gradient_clip_attr = kwargs.get("gradient_clip_attr", None)
 
     def __repr__(self):
         return "Parameter(name=%s, shape=%s, dtype=%s)" % (
@@ -223,6 +242,16 @@ class Block:
             blk = blk.parent_block
         return None
 
+    def var_recursive(self, name):
+        v = self._find_var_recursive(name)
+        if v is None:
+            raise ValueError("var %r not found in block %d or ancestors"
+                             % (name, self.idx))
+        return v
+
+    def all_parameters(self):
+        return [v for v in self.vars.values() if isinstance(v, Parameter)]
+
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         op = Operator(self, type=type, inputs=inputs, outputs=outputs, attrs=attrs)
         self.ops.append(op)
@@ -285,6 +314,9 @@ class Program:
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def all_parameters(self):
+        return self.global_block().all_parameters()
 
     def list_vars(self):
         for blk in self.blocks:

@@ -7,11 +7,14 @@ across with ``convert.load_numpy_params`` instead of re-drawing them."""
 
 import math
 
+import numpy as np
+
 from .core import dtype_name
 
 __all__ = [
     "Initializer", "ConstantInitializer", "UniformInitializer",
     "NormalInitializer", "TruncatedNormalInitializer", "XavierInitializer",
+    "NumpyArrayInitializer",
 ]
 
 
@@ -101,3 +104,20 @@ class XavierInitializer(Initializer):
             return UniformInitializer(-limit, limit, self.seed)(var, block)
         std = math.sqrt(2.0 / (fi + fo))
         return NormalInitializer(0.0, std, self.seed)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """Fixed values (the Transformer's sinusoid position tables), carried
+    in the ``assign_value`` op's attrs."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block):
+        dtype = dtype_name(var.dtype)
+        return block.append_op(
+            type="assign_value",
+            outputs={"Out": [var.name]},
+            attrs={"shape": list(self.value.shape), "dtype": dtype,
+                   "values": self.value.astype(dtype).reshape(-1).tolist()},
+        )

@@ -1,6 +1,10 @@
-"""Layers of the serving slice (counterpart of ``paddle_tpu/layers``)."""
+"""Layers of the serving and training slices (counterpart of
+``paddle_tpu/layers``)."""
 
 from .cnn import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
+from .learning_rate_scheduler import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
+from .ops import *  # noqa: F401,F403
+from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403

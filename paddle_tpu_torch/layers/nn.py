@@ -1,11 +1,15 @@
-"""Neural-network layers of the serving slice (counterpart of
-``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``fused_attention`` and
-``elementwise_add``.  They append the same ops with the same
-attrs as the JAX package, so the programs serialize alike."""
+"""Neural-network layers of the serving and training slices (counterpart
+of ``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``dropout``,
+``softmax_with_cross_entropy``, ``fused_attention``, the elementwise
+layers and ``autoincreased_step_counter``.  They append the same ops with
+the same attrs as the JAX package, so the programs serialize alike."""
 
+from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "fused_attention", "elementwise_add"]
+__all__ = ["fc", "embedding", "dropout", "softmax_with_cross_entropy",
+           "fused_attention", "elementwise_add", "elementwise_mul",
+           "elementwise_div", "autoincreased_step_counter"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -64,6 +68,40 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return tmp
 
 
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="dropout", inputs={"X": [x]},
+        outputs={"Out": [out], "Mask": [mask]},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed if seed is not None else 0,
+               "dropout_implementation": dropout_implementation})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, label_smooth_eps=0.0):
+    """Fused softmax + cross-entropy over the last axis, with uniform label
+    smoothing ``label_smooth_eps`` fused into the loss."""
+    helper = LayerHelper("softmax_with_cross_entropy")
+    softmax_out = helper.create_variable_for_type_inference(
+        dtype=logits.dtype)
+    loss = helper.create_variable_for_type_inference(dtype=logits.dtype)
+    helper.append_op(
+        type="softmax_with_cross_entropy",
+        inputs={"Logits": [logits], "Label": [label]},
+        outputs={"Softmax": [softmax_out], "Loss": [loss]},
+        attrs={"soft_label": soft_label, "ignore_index": ignore_index,
+               "label_smooth_eps": float(label_smooth_eps)})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
 def fused_attention(q, k, v, k_len=None, causal=False, dropout_rate=0.0,
                     is_test=False, scale=None, name=None):
     """Flash attention over head-split q/k/v [B, H, T, D]; ``k_len`` [B]
@@ -82,9 +120,40 @@ def fused_attention(q, k, v, k_len=None, causal=False, dropout_rate=0.0,
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add", name=name, act=act)
-    out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op(type="elementwise_add", inputs={"X": [x], "Y": [y]},
-                     outputs={"Out": [out]}, attrs={"axis": axis})
-    return helper.append_activation(out)
+def _elementwise_layer(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, name=name, act=act)
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+        helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                         outputs={"Out": [out]}, attrs={"axis": axis})
+        return helper.append_activation(out)
+
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_mul = _elementwise_layer("elementwise_mul")
+elementwise_div = _elementwise_layer("elementwise_div")
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1,
+                               dtype="int64"):
+    """A persistable counter advanced once per executed step; the LR
+    schedules' step counter is one of these."""
+    helper = LayerHelper("step_counter")
+    block = helper.main_program.global_block()
+    name = counter_name or "@STEP_COUNTER@"
+    counter = block._find_var_recursive(name)
+    if counter is None:
+        counter = block.create_var(name=name, shape=(1,), dtype=dtype,
+                                   persistable=True)
+        startup_blk = helper.startup_program.global_block()
+        startup_blk.create_var(name=name, shape=(1,), dtype=dtype,
+                               persistable=True)
+        ConstantInitializer(value=float(begin - step))(counter, startup_blk)
+        helper.append_op(
+            type="increment", inputs={"X": [counter]},
+            outputs={"Out": [counter]}, attrs={"step": float(step)})
+        counter.stop_gradient = True
+    return counter

@@ -1,9 +1,9 @@
-"""``reshape`` and ``transpose`` layers (counterpart of
-``paddle_tpu/layers/tensor.py``)."""
+"""``reshape``, ``transpose``, ``unsqueeze`` and ``reduce_sum`` layers
+(counterpart of ``paddle_tpu/layers/tensor.py``)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["reshape", "transpose"]
+__all__ = ["reshape", "transpose", "unsqueeze", "reduce_sum"]
 
 
 def reshape(x, shape, act=None, name=None):
@@ -19,4 +19,25 @@ def transpose(x, perm, name=None):
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     helper.append_op(type="transpose", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="unsqueeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
+    return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    helper = LayerHelper("reduce_sum", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": [dim] if isinstance(dim, int) else list(dim),
+                 "keep_dim": keep_dim, "reduce_all": False}
+    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs=attrs)
     return out

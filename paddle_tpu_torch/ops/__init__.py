@@ -4,4 +4,5 @@ and their plain PyTorch versions; nothing there builds or imports a GPU
 toolchain until a kernel is first launched."""
 
 from . import (activation, attention, creation, elementwise,  # noqa: F401
-               kv_cache, manipulation, math, norm)
+               kv_cache, loss, manipulation, math, norm, optimizer_ops,
+               random, reduction, sequence)

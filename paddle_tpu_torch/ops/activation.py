@@ -1,11 +1,13 @@
-"""``relu`` (counterpart of ``paddle_tpu/ops/activation.py``; the other
-activations come with the slices that use them)."""
+"""``relu`` and ``rsqrt`` (counterpart of ``paddle_tpu/ops/activation.py``;
+the other activations come with the slices that use them)."""
 
 import torch
 
 from ..registry import register_op, same_shape_infer
 
-register_op(
-    "relu", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
-    compute=lambda ins, attrs, ctx, op_index: {"Out": torch.relu(ins["X"][0])},
-)
+for _name, _fn in (("relu", torch.relu), ("rsqrt", torch.rsqrt)):
+    register_op(
+        _name, ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
+        compute=lambda ins, attrs, ctx, op_index, fn=_fn: {
+            "Out": fn(ins["X"][0])},
+    )

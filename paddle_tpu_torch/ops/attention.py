@@ -3,8 +3,10 @@
 Q/K/V are head-split [B, H, T, D]; ``KLen`` [B] masks padded keys and
 ``causal`` adds the autoregressive mask (top-aligned when Tq == Tk, suffix
 when Tq < Tk: the KV-cache decode shape).  The op calls
-``ops.cuda.flash_attention``: kernel B on the card, its plain version on
-the CPU.  Where the JAX package makes the Pallas kernel opt-in behind
+``ops.cuda.flash_attention``: kernels #1 (forward) and #2 (backward) on
+the card, their plain versions on the CPU.  The dropout hash key comes
+from the op's index, so the generic grad's recompute (which passes the
+forward op's index) regenerates the forward's mask.  Where the JAX package makes the Pallas kernel opt-in behind
 ``FLAGS_pallas_kernels`` and falls back to XLA for shapes it cannot take,
 here the kernel is the path on the card: a shape it cannot take raises.
 Eval-time dropout is ``downgrade_in_infer``: weights scale by (1 - p),
@@ -61,4 +63,5 @@ def _fused_attention_compute(ins, attrs, ctx, op_index):
 
 
 register_op("fused_attention", ["Q", "K", "V", "KLen"], ["Out"],
-            infer=_fused_attention_infer, compute=_fused_attention_compute)
+            infer=_fused_attention_infer, compute=_fused_attention_compute,
+            no_grad_inputs=("KLen",), stateful_random=True)

@@ -1,13 +1,15 @@
-"""The startup program's init ops: ``fill_constant``, ``uniform_random``,
-``gaussian_random`` and ``truncated_gaussian_random`` (counterpart of
-``paddle_tpu/ops/creation.py``).  Random ops draw from an explicit
-``torch.Generator`` on the run's device, seeded per (program seed, run
-index, op index) by ``ComputeContext.generator``."""
+"""Creation ops (counterpart of ``paddle_tpu/ops/creation.py``): the
+startup program's init ops ``fill_constant``, ``uniform_random``,
+``gaussian_random``, ``truncated_gaussian_random`` and ``assign_value``,
+plus ``assign`` and the step counter's ``increment``.  Random ops draw from
+an explicit ``torch.Generator`` on the run's device, seeded per (program
+seed, run index, op index) by ``ComputeContext.generator``."""
 
+import numpy as np
 import torch
 
 from ..core import convert_dtype
-from ..registry import register_op, set_output
+from ..registry import in_var, register_op, same_shape_infer, set_output
 
 
 def _dtype(attrs):
@@ -55,4 +57,33 @@ for _type, _compute in (("fill_constant", _fill_constant_compute),
                         ("gaussian_random", _gaussian_random_compute),
                         ("truncated_gaussian_random",
                          _truncated_gaussian_compute)):
-    register_op(_type, [], ["Out"], infer=_shape_infer, compute=_compute)
+    register_op(_type, [], ["Out"], infer=_shape_infer, compute=_compute,
+                grad=None, stateful_random=_type != "fill_constant")
+
+
+def _assign_value_compute(ins, attrs, ctx, op_index):
+    vals = np.asarray(attrs["values"], dtype=attrs.get("dtype", "float32"))
+    return {"Out": torch.from_numpy(vals.reshape(tuple(attrs["shape"])))
+            .to(ctx.device)}
+
+
+register_op("assign_value", [], ["Out"], infer=_shape_infer,
+            compute=_assign_value_compute, grad=None)
+
+register_op("assign", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
+            compute=lambda ins, attrs, ctx, op_index: {"Out": ins["X"][0]})
+
+
+def _increment_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    # the counter keeps its dtype (float32 for the LR schedules); a 0-dim
+    # host tensor is a scalar operand, so no host-to-device copy waits
+    return {"Out": x + torch.tensor(attrs.get("step", 1.0), dtype=x.dtype)}
+
+
+register_op(
+    "increment", ["X"], ["Out"],
+    infer=lambda op, block: set_output(
+        op, block, "Out", in_var(op, block, "X").shape,
+        in_var(op, block, "X").dtype),
+    compute=_increment_compute, grad=None)

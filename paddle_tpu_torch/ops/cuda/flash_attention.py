@@ -1,13 +1,17 @@
-"""Kernel B: flash-attention forward, and its plain PyTorch version.
+"""Flash attention, forward (kernel #1) and backward (kernel #2), each
+beside its plain PyTorch version.
 
 ``flash_attention_fwd`` launches ``csrc/flash_attention_fwd.cu`` (the
 Hopper port of ``paddle_tpu/ops/pallas/flash_attention.py:_fwd_kernel``)
-on CUDA tensors; ``reference_attention`` is the plain version of the same
-function (a port of the JAX package's ``reference_attention``, including
-the ``_keep_mask`` dropout hash).  ``flash_attention`` is what the op
-calls: the kernel for a tensor on the card, the plain version for a
-tensor on the CPU, and an error for anything else — there is no fallback
-from the kernel to the plain version.
+and ``flash_attention_bwd`` launches ``csrc/flash_attention_bwd.cu`` (the
+port of ``_dq_kernel`` and ``_dkv_kernel``), both on CUDA tensors;
+``reference_attention`` (with ``reference_attention_lse``) and
+``attention_bwd_reference`` are the plain versions of the same functions
+(the explicit formulas, including the ``_keep_mask`` dropout hash).
+``flash_attention`` is what the op calls: one ``torch.autograd.Function``
+whose forward and backward launch the kernels for tensors on the card and
+run the plain versions for tensors on the CPU, and raise for anything
+else — there is no fallback from a kernel to its plain version.
 
 Masks: ``k_len`` [B] valid keys per batch row (clamped to Tk; None = all);
 ``causal`` is top-aligned when Tq == Tk and suffix-aligned when Tq < Tk
@@ -22,10 +26,12 @@ import torch
 
 from . import build
 
-__all__ = ["flash_attention", "flash_attention_fwd", "reference_attention",
-           "keep_mask", "SUPPORTED_HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
+           "reference_attention", "reference_attention_lse",
+           "attention_bwd_reference", "keep_mask", "SUPPORTED_HEAD_DIMS"]
 
 _NEG_INF = -1e30
+_POS_BIG = 1e30
 _M32 = 0xFFFFFFFF
 SUPPORTED_HEAD_DIMS = (64,)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -73,18 +79,12 @@ def _causal_valid(gq, gk, klen, tq, tk):
 # plain version
 # ---------------------------------------------------------------------------
 
-def reference_attention(q, k, v, k_len=None, seed=None, causal=False,
-                        dropout_rate=0.0, scale=None):
-    """Attention over q [B,H,Tq,D], k/v [B,H,Tk,D] with the kernel's masks
-    and dropout; materializes the [B,H,Tq,Tk] scores.  Products take
-    operands in the input dtype and sum in float32; returns q's dtype."""
-    b, h, tq, d = q.shape
+def _masks(q, k, k_len, seed, causal, dropout_rate):
+    """(valid [B,1|H,Tq,Tk], keep or None): the key-length and causal
+    masks, and the dropout keep-mask of every (b*h, query, key)."""
+    b, h, tq, _ = q.shape
     tk = k.shape[2]
-    scale = scale if scale is not None else 1.0 / (d ** 0.5)
     dev = q.device
-    s = torch.einsum("bhqd,bhkd->bhqk",
-                     (q * torch.tensor(scale, dtype=q.dtype)).float(),
-                     k.float())
     gq = torch.arange(tq, device=dev)[:, None]
     gk = torch.arange(tk, device=dev)[None, :]
     klen = (torch.full((b,), tk, device=dev) if k_len is None
@@ -93,17 +93,77 @@ def reference_attention(q, k, v, k_len=None, seed=None, causal=False,
     valid = gk < klen
     if causal:
         valid = valid & _causal_valid(gq, gk, klen, tq, tk)
-    s = torch.where(valid, s, _NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
-    p = torch.where(valid, torch.exp(s - m), 0.0)
-    y = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-37)
+    keep = None
     if dropout_rate:
         bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
         keep = keep_mask(0 if seed is None else seed, bh, gq, gk,
                          dropout_rate)
+    return valid, keep
+
+
+def _scaled_q(q, scale):
+    # scale * Q rounded to q's dtype, as the kernels and the JAX package
+    # round the product operand
+    d = q.shape[-1]
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    return (q * torch.tensor(scale, dtype=q.dtype)).float(), scale
+
+
+def reference_attention_lse(q, k, v, k_len=None, seed=None, causal=False,
+                            dropout_rate=0.0, scale=None):
+    """Attention over q [B,H,Tq,D], k/v [B,H,Tk,D] with the kernel's masks
+    and dropout; materializes the [B,H,Tq,Tk] scores.  Products take
+    operands in the input dtype and sum in float32.  Returns (O in q's
+    dtype, LSE [B,H,Tq] float32 with +1e30 on fully masked rows)."""
+    qs, _ = _scaled_q(q, scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
+    valid, keep = _masks(q, k, k_len, seed, causal, dropout_rate)
+    s = torch.where(valid, s, _NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), 0.0)
+    l = p.sum(dim=-1, keepdim=True)
+    y = p / l.clamp_min(1e-37)
+    if keep is not None:
         y = torch.where(keep, y, 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", y.to(q.dtype).float(),
-                        v.float()).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", y.to(q.dtype).float(),
+                       v.float()).to(q.dtype)
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-37)), _POS_BIG)
+    return out, lse[..., 0]
+
+
+def reference_attention(q, k, v, k_len=None, seed=None, causal=False,
+                        dropout_rate=0.0, scale=None):
+    """``reference_attention_lse`` without the LSE: O in q's dtype."""
+    return reference_attention_lse(q, k, v, k_len, seed, causal,
+                                   dropout_rate, scale)[0]
+
+
+def attention_bwd_reference(q, k, v, k_len, seed, causal, dropout_rate,
+                            scale, out, lse, dout):
+    """dQ, dK, dV of ``reference_attention`` from its saved O and LSE, by
+    the explicit formulas of the JAX kernels: P = exp(S - LSE) under the
+    masks (zero on fully masked rows, whose LSE is +1e30), G = dO V^T with
+    dropped weights zeroed, delta = rowsum(dO * O), dS = P (G - delta);
+    dV = P_drop^T dO, dK = dS^T (scale Q), dQ = scale dS K.  The operands
+    of each product are rounded to q's dtype, as the kernels round them;
+    returns each gradient in its input's dtype."""
+    dt = q.dtype
+    qs, scale = _scaled_q(q, scale)
+    valid, keep = _masks(q, k, k_len, seed, causal, dropout_rate)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
+    s = torch.where(valid, s, _NEG_INF)
+    p = torch.where(valid, torch.exp(s - lse.float()[..., None]), 0.0)
+    g = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    p_drop = p
+    if keep is not None:
+        g = torch.where(keep, g, 0.0)
+        p_drop = torch.where(keep, p, 0.0)
+    delta = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    ds = (p * (g - delta)).to(dt).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_drop.to(dt).float(), dout.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qs.to(dt).float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -184,12 +244,118 @@ def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
 flash_attention_fwd.launches = 0
 
 
+def _bwd_lib():
+    fn = build.library("flash_attention_bwd").ptt_flash_attention_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 10 + [i, i, i, i, i, ctypes.c_float, i,
+                                  ctypes.c_uint, ctypes.c_uint, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def flash_attention_bwd(q, k, v, k_len, seed, causal, dropout_rate, scale,
+                        out, lse, dout):
+    """Launch kernel #2 on CUDA tensors: (dQ, dK, dV) of
+    ``flash_attention_fwd`` from its O and LSE and the cotangent dO
+    [B,H,Tq,D].  ``delta = rowsum(dO * O)`` is one small reduction before
+    the launch, as the JAX package computes it outside its kernels."""
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd runs on CUDA tensors, got %s"
+                         % q.device)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
+                           ("lse", lse, (b, h, tq)),
+                           ("k", k, (b, h, tk, d)), ("v", v, (b, h, tk, d))):
+        if tuple(t.shape) != tuple(shape) or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(
+                "flash_attention_bwd: %s must be a contiguous %s tensor on "
+                "%s, got %s on %s" % (name, tuple(shape), q.device,
+                                      tuple(t.shape), t.device))
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError("flash_attention_bwd: head dim %d of q %s is not "
+                         "one of %s" % (d, tuple(q.shape),
+                                        SUPPORTED_HEAD_DIMS))
+    if q.dtype not in _DTYPE_CODE or any(
+            t.dtype != q.dtype for t in (k, v, out, dout)) \
+            or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd takes float32 or bfloat16 "
+                         "q/k/v/out/dout of one dtype and a float32 lse, "
+                         "got %s/%s/%s/%s/%s and %s" % (
+                             q.dtype, k.dtype, v.dtype, out.dtype,
+                             dout.dtype, lse.dtype))
+    if causal and tq > tk:
+        raise ValueError("flash_attention_bwd: causal needs Tq <= Tk, got "
+                         "q %s, k %s" % (tuple(q.shape), tuple(k.shape)))
+    klen = (torch.full((b,), tk, dtype=torch.int32, device=q.device)
+            if k_len is None else
+            k_len.to(device=q.device, dtype=torch.int32).reshape(b)
+            .clamp(max=tk).contiguous())
+    scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = (dout.float() * out.float()).sum(dim=-1)
+    thresh = int(dropout_rate * float(1 << 24)) if dropout_rate else 0
+    err = _bwd_lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), klen.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d, scale,
+        int(bool(causal)), (int(seed) if seed is not None else 0) & _M32,
+        thresh, int(bool(dropout_rate)), _DTYPE_CODE[q.dtype],
+        q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_attention_bwd q%s k%s" % (tuple(q.shape),
+                                                      tuple(k.shape)))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+def _forward(q, k, v, k_len, seed, causal, dropout_rate, scale):
+    if q.device.type == "cpu":
+        return reference_attention_lse(q, k, v, k_len, seed, causal,
+                                       dropout_rate, scale)
+    return flash_attention_fwd(q, k, v, k_len, seed, causal, dropout_rate,
+                               scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel #1 forward, kernel #2 backward (the plain versions for CPU
+    tensors); the JAX package's ``custom_vjp`` pair."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, k_len, seed, causal, dropout_rate, scale):
+        out, lse = _forward(q, k, v, k_len, seed, causal, dropout_rate,
+                            scale)
+        ctx.save_for_backward(q, k, v, k_len, out, lse)
+        ctx.attrs = (seed, causal, dropout_rate, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, k_len, out, lse = ctx.saved_tensors
+        seed, causal, rate, scale = ctx.attrs
+        args = (q, k, v, k_len, seed, causal, rate, scale, out, lse,
+                dout.contiguous())
+        if q.device.type == "cpu":
+            dq, dk, dv = attention_bwd_reference(*args)
+        else:
+            dq, dk, dv = flash_attention_bwd(*args)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, k_len=None, seed=None, causal=False,
                     dropout_rate=0.0, scale=None):
-    """The op's entry: kernel B for CUDA tensors, the plain version for
-    CPU tensors.  Returns O in q's dtype."""
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, k_len, seed, causal,
-                                   dropout_rate, scale)
-    return flash_attention_fwd(q, k, v, k_len, seed, causal, dropout_rate,
-                               scale)[0]
+    """The op's entry, differentiable: kernels #1/#2 for CUDA tensors, the
+    plain versions for CPU tensors.  Returns O in q's dtype.  Without a
+    gradient to record (serving) it skips the autograd Function, whose
+    bookkeeping costs more host time than the decode-shape kernel."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, k_len, seed, causal,
+                                     dropout_rate, scale)
+    return _forward(q, k, v, k_len, seed, causal, dropout_rate, scale)[0]

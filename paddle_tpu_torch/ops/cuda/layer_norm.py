@@ -1,12 +1,17 @@
-"""Kernel A: layer-norm forward, and its plain PyTorch version.
+"""Layer norm, forward (kernel #3) and backward (kernel #4), each beside
+its plain PyTorch version.
 
 ``layer_norm_fwd`` launches ``csrc/layer_norm_fwd.cu`` (the Hopper port of
-``paddle_tpu/ops/pallas/layer_norm.py:_fwd_kernel``) on CUDA tensors;
-``layer_norm_reference`` is the plain version of the same function.
-``layer_norm`` is what the op calls: the kernel for a tensor on the card,
-the plain version for a tensor on the CPU, and an error for anything else.
-All three return (y in x's dtype, mean float32, variance float32) over the
-rows of x [N, D]; the statistics are float32 whatever the input dtype.
+``paddle_tpu/ops/pallas/layer_norm.py:_fwd_kernel``) and
+``layer_norm_bwd`` launches ``csrc/layer_norm_bwd.cu`` (the port of the
+``_bwd`` kernel), both on CUDA tensors; ``layer_norm_reference`` and
+``layer_norm_bwd_reference`` are the plain versions.  ``layer_norm`` is
+what the op calls: one ``torch.autograd.Function`` whose forward and
+backward launch the kernels for tensors on the card, run the plain
+versions for tensors on the CPU, and raise for anything else.  The
+forward returns (y in x's dtype, mean float32, variance float32) over the
+rows of x [N, D]; the statistics are float32 whatever the input dtype and
+are not differentiable.
 """
 
 import ctypes
@@ -15,7 +20,8 @@ import torch
 
 from . import build
 
-__all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_reference"]
+__all__ = ["layer_norm", "layer_norm_fwd", "layer_norm_bwd",
+           "layer_norm_reference", "layer_norm_bwd_reference"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -27,6 +33,22 @@ def layer_norm_reference(x, gamma, beta, eps=1e-5):
     var = (xc * xc).mean(dim=-1)
     y = xc * torch.rsqrt(var[:, None] + eps) * gamma.float() + beta.float()
     return y.to(x.dtype), mean, var
+
+
+def layer_norm_bwd_reference(x, gamma, mean, rstd, dy):
+    """(dx, dgamma, dbeta) of ``layer_norm_reference`` from its float32
+    mean and rstd = 1/sqrt(var + eps): with xhat = (x - mean) rstd and
+    gg = dy gamma, dx = (gg - mean(gg) - xhat mean(gg xhat)) rstd, dgamma
+    = sum over rows of dy xhat, dbeta = sum of dy.  Float32 inside; each
+    gradient in its input's dtype."""
+    xf, g = x.float(), dy.float()
+    xhat = (xf - mean[:, None]) * rstd[:, None]
+    gg = g * gamma.float()
+    m1 = gg.mean(dim=-1, keepdim=True)
+    m2 = (gg * xhat).mean(dim=-1, keepdim=True)
+    dx = (gg - m1 - xhat * m2) * rstd[:, None]
+    return (dx.to(x.dtype), (g * xhat).sum(dim=0).to(gamma.dtype),
+            g.sum(dim=0).to(gamma.dtype))
 
 
 def _lib():
@@ -76,9 +98,101 @@ def layer_norm_fwd(x, gamma, beta, eps=1e-5):
 layer_norm_fwd.launches = 0
 
 
-def layer_norm(x, gamma, beta, eps=1e-5):
-    """The op's entry: kernel A for CUDA tensors, the plain version for
-    CPU tensors."""
+def _bwd_lib():
+    fn = build.library("layer_norm_bwd").ptt_layer_norm_bwd
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i, i, i, i, i, p]
+        fn.restype = i
+    return fn
+
+
+def layer_norm_bwd(x, gamma, mean, rstd, dy):
+    """Launch kernel #4 on CUDA tensors x/dy [N, D], gamma [D], mean/rstd
+    [N] float32; returns (dx, dgamma, dbeta).  dgamma and dbeta are
+    reduced over rows in two passes through a [blocks, D] float32 scratch,
+    in a fixed order, so two runs give the same bits."""
+    if x.device.type != "cuda":
+        raise ValueError("layer_norm_bwd runs on CUDA tensors, got %s"
+                         % x.device)
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
+        raise ValueError("layer_norm_bwd expects a float32 or bfloat16 x "
+                         "[N, D], got %s %s" % (tuple(x.shape), x.dtype))
+    n, d = x.shape
+    if d > _BWD_MAX_D:
+        raise ValueError("layer_norm_bwd: row width %d of x %s is above "
+                         "%d" % (d, tuple(x.shape), _BWD_MAX_D))
+    for name, t, shape, dtype in (
+            ("dy", dy, (n, d), x.dtype), ("gamma", gamma, (d,), x.dtype),
+            ("mean", mean, (n,), torch.float32),
+            ("rstd", rstd, (n,), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or t.device != x.device or not t.is_contiguous():
+            raise ValueError(
+                "layer_norm_bwd: %s must be a contiguous %s %s tensor on "
+                "%s, got %s %s on %s" % (name, shape, dtype, x.device,
+                                         tuple(t.shape), t.dtype, t.device))
+    if not x.is_contiguous():
+        raise ValueError("layer_norm_bwd needs a contiguous x")
+    dx = torch.empty_like(x)
+    dgamma = torch.empty_like(gamma)
+    dbeta = torch.empty_like(gamma)
+    if n == 0 or d == 0:
+        return dx, dgamma.zero_(), dbeta.zero_()
+    blocks = (n + _BWD_ROWS_PER_BLOCK - 1) // _BWD_ROWS_PER_BLOCK
+    part = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
+    err = _bwd_lib()(x.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+                     rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                     dgamma.data_ptr(), dbeta.data_ptr(), part.data_ptr(),
+                     n, d, _BWD_ROWS_PER_BLOCK, _DTYPE_CODE[x.dtype],
+                     x.device.index,
+                     torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "layer_norm_bwd x%s" % (tuple(x.shape),))
+    layer_norm_bwd.launches += 1
+    return dx, dgamma, dbeta
+
+
+layer_norm_bwd.launches = 0
+# rows whose dgamma/dbeta partial sums one block of the first pass keeps
+_BWD_ROWS_PER_BLOCK = 64
+_BWD_MAX_D = 1024
+
+
+def _forward(x, gamma, beta, eps):
     if x.device.type == "cpu":
         return layer_norm_reference(x, gamma, beta, eps)
     return layer_norm_fwd(x, gamma, beta, eps)
+
+
+class _LayerNorm(torch.autograd.Function):
+    """Kernel #3 forward, kernel #4 backward (the plain versions for CPU
+    tensors); the JAX package's ``custom_vjp`` pair.  Mean and variance
+    are outputs without gradients."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, var = _forward(x, gamma, beta, eps)
+        ctx.mark_non_differentiable(mean, var)
+        ctx.save_for_backward(x, gamma, mean, torch.rsqrt(var + eps))
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, dmean, dvar):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        args = (x, gamma, mean, rstd, dy.contiguous())
+        if x.device.type == "cpu":
+            dx, dgamma, dbeta = layer_norm_bwd_reference(*args)
+        else:
+            dx, dgamma, dbeta = layer_norm_bwd(*args)
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm(x, gamma, beta, eps=1e-5):
+    """The op's entry, differentiable in x, gamma and beta: kernels #3/#4
+    for CUDA tensors, the plain versions for CPU tensors.  Without a
+    gradient to record (serving) it skips the autograd Function and its
+    host-side bookkeeping."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _LayerNorm.apply(x, gamma, beta, eps)
+    return _forward(x, gamma, beta, eps)

@@ -1,6 +1,9 @@
-"""``elementwise_add`` with Fluid's axis-broadcast semantics (counterpart
-of ``paddle_tpu/ops/elementwise.py``): a lower-rank Y aligns against X
-starting at ``axis``, reproduced by right-padding Y with singleton dims."""
+"""``elementwise_{add,mul,div,min}`` with Fluid's axis-broadcast semantics
+(counterpart of ``paddle_tpu/ops/elementwise.py``): a lower-rank Y aligns
+against X starting at ``axis``, reproduced by right-padding Y with
+singleton dims."""
+
+import torch
 
 from ..registry import broadcast_shapes, in_var, register_op, set_output
 
@@ -28,10 +31,15 @@ def _ew_infer(op, block):
     set_output(op, block, "Out", out, x.dtype)
 
 
-def _add_compute(ins, attrs, ctx, op_index):
-    x, y = ins["X"][0], ins["Y"][0]
-    return {"Out": x + _align_y(x, y, attrs.get("axis", -1))}
+def _make_ew(name, fn):
+    def compute(ins, attrs, ctx, op_index):
+        x, y = ins["X"][0], ins["Y"][0]
+        return {"Out": fn(x, _align_y(x, y, attrs.get("axis", -1)))}
+
+    register_op(name, ["X", "Y"], ["Out"], infer=_ew_infer, compute=compute)
 
 
-register_op("elementwise_add", ["X", "Y"], ["Out"], infer=_ew_infer,
-            compute=_add_compute)
+_make_ew("elementwise_add", torch.add)
+_make_ew("elementwise_mul", torch.mul)
+_make_ew("elementwise_div", torch.div)
+_make_ew("elementwise_min", torch.minimum)

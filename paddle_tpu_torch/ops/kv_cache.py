@@ -62,4 +62,5 @@ def _kv_cache_write_compute(ins, attrs, ctx, op_index):
 
 
 register_op("kv_cache_write", ["Cache", "X", "Pos", "Slot"], ["Out"],
-            infer=_kv_cache_write_infer, compute=_kv_cache_write_compute)
+            infer=_kv_cache_write_infer, compute=_kv_cache_write_compute,
+            grad=None)

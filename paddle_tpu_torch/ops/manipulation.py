@@ -1,8 +1,9 @@
-"""``reshape``, ``transpose`` and ``lookup_table`` (counterpart of
-``paddle_tpu/ops/manipulation.py``).  ``transpose`` returns a strided
-view; consumers that need contiguous memory (the kernels) make it so."""
+"""``reshape``, ``transpose``, ``unsqueeze`` and ``lookup_table``
+(counterpart of ``paddle_tpu/ops/manipulation.py``).  ``transpose``
+returns a strided view; consumers that need contiguous memory (the
+kernels) make it so."""
 
-from ..registry import in_var, register_op, set_output
+from ..registry import _auto_grad_maker, in_var, register_op, set_output
 
 
 def _resolve_reshape(in_shape, spec):
@@ -77,5 +78,33 @@ def _lookup_table_compute(ins, attrs, ctx, op_index):
     return {"Out": out.reshape(shape)}
 
 
+def _lookup_table_grad(op, no_grad_set):
+    if op.attrs.get("is_sparse", False):
+        raise NotImplementedError(
+            "lookup_table(is_sparse=True): the SelectedRows gradient is not "
+            "ported to paddle_tpu_torch yet (ROADMAP Queue A4)")
+    return _auto_grad_maker(op, no_grad_set)
+
+
 register_op("lookup_table", ["W", "Ids"], ["Out"], infer=_lookup_table_infer,
-            compute=_lookup_table_compute)
+            compute=_lookup_table_compute, grad=_lookup_table_grad,
+            no_grad_inputs=("Ids",))
+
+
+def _unsqueeze_infer(op, block):
+    x = in_var(op, block, "X")
+    out = list(x.shape)
+    for a in sorted(op.attrs["axes"]):
+        out.insert(a if a >= 0 else a + len(out) + 1, 1)
+    set_output(op, block, "Out", out, x.dtype)
+
+
+def _unsqueeze_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    for a in sorted(attrs["axes"]):
+        x = x.unsqueeze(a if a >= 0 else a + x.dim() + 1)
+    return {"Out": x}
+
+
+register_op("unsqueeze", ["X"], ["Out"], infer=_unsqueeze_infer,
+            compute=_unsqueeze_compute)

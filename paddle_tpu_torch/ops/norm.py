@@ -1,10 +1,12 @@
 """``layer_norm`` (counterpart of the layer_norm op in
 ``paddle_tpu/ops/norm.py``).  Rows are the dims before ``begin_norm_axis``;
-the op flattens x to [rows, D] and calls ``ops.cuda.layer_norm``: kernel A
-on the card, its plain version on the CPU.  Where the JAX package makes
+the op flattens x to [rows, D] and calls ``ops.cuda.layer_norm``: kernels
+#3 (forward) and #4 (backward) on the card, their plain versions on the
+CPU.  Where the JAX package makes
 the Pallas kernel opt-in behind ``FLAGS_pallas_kernels``, here the kernel
 is the path on the card, with no fallback.  Mean/Variance come out in x's
-dtype, computed in float32."""
+dtype, computed in float32, and have no gradient: a nonzero cotangent on
+them raises in the generic grad."""
 
 import torch
 

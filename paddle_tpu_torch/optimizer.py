@@ -1,0 +1,237 @@
+"""Optimizers: emit backward and update ops into the program (counterpart
+of ``paddle_tpu/optimizer.py``).
+
+``minimize`` = ``append_backward`` + clip and regularizer hooks + one
+update op per parameter.  Optimizer state (moments, beta powers, the
+learning rate) are persistable scope vars that the update ops advance
+inside the same ``Executor.run`` as the step.  Ported: the base class,
+``SGD`` and ``Adam`` (dense gradients); the other optimizers wait
+(ROADMAP Queue A).
+"""
+
+from collections import defaultdict
+
+from . import unique_name
+from .backward import append_backward
+from .clip import append_gradient_clip_ops
+from .framework import Variable, default_main_program, \
+    default_startup_program, program_guard
+from .initializer import ConstantInitializer
+from .layer_helper import LayerHelper
+from .regularizer import append_regularization_ops
+
+__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer"]
+
+
+class Optimizer:
+    """Base optimizer."""
+
+    def __init__(self, learning_rate, regularization=None, name=None):
+        if not isinstance(learning_rate, (float, Variable)):
+            raise TypeError("learning rate must be float or Variable")
+        self._name = name
+        self.regularization = regularization
+        self._learning_rate = learning_rate
+        self._learning_rate_map = {}
+        # {accum_name: {param_name: accum_var}}
+        self._accumulators = defaultdict(dict)
+        self.helper = None
+
+    # -- learning rate -----------------------------------------------------
+    def _create_global_learning_rate(self):
+        program = default_main_program()
+        lr = self._learning_rate_map.get(id(program))
+        if lr is not None:
+            return
+        if isinstance(self._learning_rate, Variable):
+            self._learning_rate_map[id(program)] = self._learning_rate
+            return
+        name = unique_name.generate("learning_rate")
+        var = program.global_block().create_var(
+            name=name, shape=(1,), dtype="float32", persistable=True
+        )
+        startup = default_startup_program().global_block()
+        sv = startup.create_var(
+            name=name, shape=(1,), dtype="float32", persistable=True
+        )
+        ConstantInitializer(float(self._learning_rate))(sv, startup)
+        self._learning_rate_map[id(program)] = var
+
+    def _global_learning_rate(self, program=None):
+        if program is None:
+            program = default_main_program()
+        return self._learning_rate_map.get(id(program))
+
+    def _create_param_lr(self, param_and_grad):
+        param = param_and_grad[0]
+        base = self._global_learning_rate()
+        mult = (param.optimize_attr or {}).get("learning_rate", 1.0)
+        if isinstance(mult, Variable):
+            # a per-param LR already computed in-graph
+            return mult
+        if mult == 1.0:
+            return base
+        helper = LayerHelper("param_lr")
+        out = helper.create_variable_for_type_inference(dtype=base.dtype)
+        helper.append_op(
+            type="scale", inputs={"X": [base]}, outputs={"Out": [out]},
+            attrs={"scale": float(mult)},
+        )
+        return out
+
+    # -- accumulators ------------------------------------------------------
+    def _add_accumulator(self, name, param, dtype=None, fill_value=0.0,
+                         shape=None):
+        if param.name in self._accumulators[name]:
+            return self._accumulators[name][param.name]
+        if shape is None:
+            shape = param.shape
+        dtype = dtype or param.dtype
+        program = default_main_program()
+        var_name = unique_name.generate("%s_%s" % (param.name, name))
+        var = program.global_block().create_var(
+            name=var_name, shape=shape, dtype=dtype, persistable=True
+        )
+        startup = default_startup_program().global_block()
+        sv = startup.create_var(
+            name=var_name, shape=shape, dtype=dtype, persistable=True
+        )
+        ConstantInitializer(float(fill_value))(sv, startup)
+        self._accumulators[name][param.name] = var
+        return var
+
+    def _get_accumulator(self, name, param):
+        return self._accumulators[name][param.name]
+
+    def _create_accumulators(self, block, parameters):
+        pass
+
+    def _finish_update(self, block, parameters_and_grads):
+        pass
+
+    def _append_optimize_op(self, block, param_and_grad):
+        raise NotImplementedError
+
+    # -- main entry points -------------------------------------------------
+    def _create_optimization_pass(self, parameters_and_grads, loss,
+                                  startup_program=None):
+        program = loss.block.program
+        block = program.global_block()
+        self.helper = LayerHelper(self.__class__.__name__)
+        self._create_global_learning_rate()
+        self._create_accumulators(
+            block, [p for p, g in parameters_and_grads if g is not None]
+        )
+        optimize_ops = []
+        for param_and_grad in parameters_and_grads:
+            if param_and_grad[1] is None:
+                continue
+            if param_and_grad[0].trainable:
+                optimize_ops.append(
+                    self._append_optimize_op(block, param_and_grad)
+                )
+        self._finish_update(block, parameters_and_grads)
+        return optimize_ops
+
+    def apply_gradients(self, params_grads, loss, startup_program=None):
+        params_grads = append_gradient_clip_ops(params_grads)
+        params_grads = append_regularization_ops(
+            params_grads, self.regularization
+        )
+        return self._create_optimization_pass(params_grads, loss,
+                                              startup_program)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        """append_backward + clip + regularize + update ops.  Bound to the
+        loss's program via program_guard so minimize works outside the
+        guard that built it."""
+        params_grads = append_backward(loss, parameter_list, no_grad_set)
+        with program_guard(loss.block.program,
+                           startup_program or default_startup_program()):
+            optimize_ops = self.apply_gradients(params_grads, loss,
+                                                startup_program)
+        return optimize_ops, params_grads
+
+
+class SGDOptimizer(Optimizer):
+    def __init__(self, learning_rate, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        return block.append_op(
+            type="sgd",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={"ParamOut": [param_and_grad[0]]},
+        )
+
+
+class AdamOptimizer(Optimizer):
+    _moment1_acc_str = "moment1"
+    _moment2_acc_str = "moment2"
+    _beta1_pow_acc_str = "beta1_pow_acc"
+    _beta2_pow_acc_str = "beta2_pow_acc"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adam"
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment1_acc_str, p)
+            self._add_accumulator(self._moment2_acc_str, p)
+            self._add_accumulator(self._beta1_pow_acc_str, p,
+                                  fill_value=self._beta1, shape=[1])
+            self._add_accumulator(self._beta2_pow_acc_str, p,
+                                  fill_value=self._beta2, shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        m1 = self._get_accumulator(self._moment1_acc_str, param_and_grad[0])
+        m2 = self._get_accumulator(self._moment2_acc_str, param_and_grad[0])
+        b1p = self._get_accumulator(self._beta1_pow_acc_str, param_and_grad[0])
+        b2p = self._get_accumulator(self._beta2_pow_acc_str, param_and_grad[0])
+        return block.append_op(
+            type="adam",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+                "Moment1": [m1],
+                "Moment2": [m2],
+                "Beta1Pow": [b1p],
+                "Beta2Pow": [b2p],
+            },
+            outputs={"ParamOut": [param_and_grad[0]], "Moment1Out": [m1],
+                     "Moment2Out": [m2]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+        )
+
+    def _finish_update(self, block, parameters_and_grads):
+        """Advance beta1^t / beta2^t with one ``scale`` op each."""
+        for p, g in parameters_and_grads:
+            if g is None:
+                continue
+            b1p = self._get_accumulator(self._beta1_pow_acc_str, p)
+            b2p = self._get_accumulator(self._beta2_pow_acc_str, p)
+            block.append_op(
+                type="scale", inputs={"X": [b1p]}, outputs={"Out": [b1p]},
+                attrs={"scale": self._beta1},
+            )
+            block.append_op(
+                type="scale", inputs={"X": [b2p]}, outputs={"Out": [b2p]},
+                attrs={"scale": self._beta2},
+            )
+
+
+SGD = SGDOptimizer
+Adam = AdamOptimizer

@@ -1,7 +1,8 @@
 """ParamAttr: per-parameter configuration (counterpart of
-``paddle_tpu/param_attr.py``).  The serving slice needs the name, the
-initializer and trainability; the training-only fields (learning rate,
-regularizer, gradient clip) come with the training slice."""
+``paddle_tpu/param_attr.py``): name, initializer, learning-rate
+multiplier, regularizer, trainability, gradient clip.  The regularizer and
+clip classes are not ported yet; the optimizer raises on a parameter that
+sets one."""
 
 from .initializer import Initializer
 
@@ -9,10 +10,14 @@ __all__ = ["ParamAttr"]
 
 
 class ParamAttr:
-    def __init__(self, name=None, initializer=None, trainable=True):
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, gradient_clip=None):
         self.name = name
         self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
         self.trainable = trainable
+        self.gradient_clip = gradient_clip
 
     def set_default_initializer(self, initializer):
         if self.initializer is None:
@@ -35,4 +40,8 @@ class ParamAttr:
         raise TypeError("cannot interpret %r as ParamAttr" % (arg,))
 
     def to_kwargs(self):
-        return {"name": self.name, "trainable": self.trainable}
+        return {"name": self.name,
+                "optimize_attr": {"learning_rate": self.learning_rate},
+                "regularizer": self.regularizer,
+                "trainable": self.trainable,
+                "gradient_clip_attr": self.gradient_clip}

@@ -1,19 +1,28 @@
-"""Operator registry: build-time shape/dtype inference plus an eager
-PyTorch compute per op (counterpart of ``paddle_tpu/registry.py``).
+"""Operator registry: build-time shape/dtype inference, an eager PyTorch
+compute per op, and gradient makers (counterpart of
+``paddle_tpu/registry.py``).
 
 An op's compute is a plain function ``compute(ins, attrs, ctx, op_index)``
-over tensors, where ``ins`` maps an input slot to a list of tensors.  The
-serving slice is forward-only: the grad makers of the JAX package come
-with the training slice.
+over tensors, where ``ins`` maps an input slot to a list of tensors.
+
+Gradients follow the JAX package: the default grad maker wires a generic
+``<type>_grad`` op that reruns the forward compute and applies the output
+cotangents.  Where the JAX package reruns it under ``jax.vjp`` (and XLA
+merges the recompute with the forward), the port reruns it eagerly under
+``torch.enable_grad()`` and calls ``torch.autograd.grad``: the forward's
+work is paid twice, the hand-written kernels' forward launches included.
+Ops whose forward draws randomness that the recompute must not re-draw
+(``dropout``) register custom grad makers that read saved outputs.
 """
 
 import numpy as np
 import torch
 
 from .core import convert_dtype
+from .framework import grad_var_name
 
 __all__ = ["OpDef", "register_op", "get_op_def", "infer_op", "compute_op",
-           "ComputeContext", "OPS"]
+           "make_grad_ops", "ComputeContext", "OPS"]
 
 OPS = {}
 
@@ -37,7 +46,8 @@ class ComputeContext:
         return int(self._entropy(op_index).generate_state(1, np.uint32)[0])
 
     def generator(self, op_index):
-        """A ``torch.Generator`` on the run's device for op ``op_index``."""
+        """A ``torch.Generator`` on the run's device for op ``op_index``
+        (Philox on a CUDA device)."""
         g = torch.Generator(device=self.device)
         g.manual_seed(int(self._entropy(op_index).generate_state(
             1, np.uint64)[0] >> np.uint64(1)))
@@ -45,22 +55,36 @@ class ComputeContext:
 
 
 class OpDef:
-    def __init__(self, type, inputs, outputs, infer, compute):
+    def __init__(self, type, inputs, outputs, infer, compute, grad=None,
+                 no_grad_inputs=(), stateful_random=False):
         self.type = type
         self.input_slots = tuple(inputs)
         self.output_slots = tuple(outputs)
         self.infer = infer
         self.compute = compute
+        # grad: None => not differentiable; "auto" => generic recompute;
+        #       callable(op, no_grad_set) -> list of op-spec dicts
+        self.grad = grad
+        self.no_grad_inputs = frozenset(no_grad_inputs)
+        self.stateful_random = stateful_random
 
 
-def register_op(type, inputs, outputs, infer, compute):
+def register_op(type, inputs, outputs, infer, compute, grad="auto",
+                no_grad_inputs=(), stateful_random=False):
     if type in OPS:
         raise ValueError("op type %r already registered" % type)
-    OPS[type] = OpDef(type, inputs, outputs, infer, compute)
+    OPS[type] = OpDef(type, inputs, outputs, infer, compute, grad,
+                      no_grad_inputs, stateful_random)
     return OPS[type]
 
 
 def get_op_def(type):
+    if type not in OPS and type.endswith(GENERIC_GRAD_SUFFIX):
+        fwd = OPS.get(type[:-len(GENERIC_GRAD_SUFFIX)])
+        if fwd is not None and fwd.grad is not None:
+            # the generic grad of a registered op, defined on first use
+            OPS[type] = OpDef(type, (), (), infer=_generic_grad_infer,
+                              compute=_generic_grad_compute)
     if type not in OPS:
         raise KeyError("op type %r is not ported to paddle_tpu_torch yet"
                        % type)
@@ -69,14 +93,28 @@ def get_op_def(type):
 
 def infer_op(op, block):
     """Run build-time shape/dtype inference for ``op`` in ``block``."""
-    get_op_def(op.type).infer(op, block)
+    d = get_op_def(op.type)
+    if d.infer is not None:
+        d.infer(op, block)
 
 
 def compute_op(op, env, ctx, op_index=0):
-    """Execute one op: read its inputs from ``env``, write its outputs."""
+    """Execute one op: read its inputs from ``env``, write its outputs.
+
+    Empty names are holes (pruned grad slots) and read as None.  The
+    ``Out::`` inputs of grad ops are lenient (an optional forward output
+    may never have been produced); a ``GRAD::`` input is lenient only when
+    its forward output is itself absent, so a missing gradient of a
+    produced output stays a loud KeyError."""
     d = get_op_def(op.type)
-    ins = {slot: [env[n] if n else None for n in names]
-           for slot, names in op.inputs.items()}
+    ins = {}
+    for slot, names in op.inputs.items():
+        if slot.startswith("Out::"):
+            ins[slot] = [env.get(n) if n else None for n in names]
+        elif slot.startswith("GRAD::"):
+            ins[slot] = [_grad_input(env, n) if n else None for n in names]
+        else:
+            ins[slot] = [env[n] if n else None for n in names]
     outs = d.compute(ins, op.attrs, ctx, op_index)
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
@@ -88,6 +126,132 @@ def compute_op(op, env, ctx, op_index=0):
             if name:
                 env[name] = val
     return env
+
+
+def _grad_input(env, name):
+    fwd = name[:-len("@GRAD")] if name.endswith("@GRAD") else name
+    return env.get(name) if fwd not in env else env[name]
+
+
+# --------------------------------------------------------------------------
+# Generic gradient machinery
+# --------------------------------------------------------------------------
+
+GENERIC_GRAD_SUFFIX = "_grad"
+
+
+def make_grad_ops(op, no_grad_set):
+    """A list of grad-op specs for a forward op, or [] if none.  A spec is
+    a dict(type=..., inputs=..., outputs=..., attrs=...) with variable
+    *names*."""
+    d = get_op_def(op.type)
+    if d.grad is None:
+        return []
+    if callable(d.grad):
+        return d.grad(op, no_grad_set)
+    if d.grad == "auto":
+        return _auto_grad_maker(op, no_grad_set)
+    raise ValueError("bad grad spec for op %r" % op.type)
+
+
+def _auto_grad_maker(op, no_grad_set):
+    """Default grad maker: one ``<type>_grad`` op taking all forward inputs,
+    forward outputs and output grads, and producing input grads."""
+    d = get_op_def(op.type)
+    g_inputs = {slot: list(names) for slot, names in op.inputs.items()}
+    for slot, names in op.outputs.items():
+        g_inputs["Out::" + slot] = list(names)
+        g_inputs["GRAD::" + slot] = [grad_var_name(n) for n in names]
+    g_outputs = {}
+    any_grad = False
+    for slot, names in op.inputs.items():
+        if slot in d.no_grad_inputs:
+            continue
+        outs = []
+        for n in names:
+            if n in no_grad_set:
+                outs.append("")  # hole: grad not needed
+            else:
+                outs.append(grad_var_name(n))
+                any_grad = True
+        g_outputs["GRAD::" + slot] = outs
+    if not any_grad:
+        return []
+    attrs = dict(op.attrs)
+    attrs["__fwd_type__"] = op.type
+    return [dict(type=op.type + GENERIC_GRAD_SUFFIX, inputs=g_inputs,
+                 outputs=g_outputs, attrs=attrs)]
+
+
+def _generic_grad_infer(gop, block):
+    """Grad vars mirror the shape/dtype of their forward vars."""
+    for slot, fwd_names in gop.inputs.items():
+        if slot.startswith(("Out::", "GRAD::")):
+            continue
+        for fwd_name, g_name in zip(fwd_names,
+                                    gop.outputs.get("GRAD::" + slot, [])):
+            fwd_var = block._find_var_recursive(fwd_name) if g_name else None
+            if fwd_var is not None:
+                block.create_var(name=g_name, shape=fwd_var.shape,
+                                 dtype=fwd_var.dtype, persistable=False)
+
+
+def _generic_grad_compute(ins, attrs, ctx, op_index):
+    """Rerun the forward with its floating inputs as fresh leaves and pull
+    the given output cotangents back through it with autograd."""
+    fwd_def = get_op_def(attrs["__fwd_type__"])
+    fwd_attrs = {k: v for k, v in attrs.items()
+                 if k not in ("__fwd_type__", "__fwd_op_index__")}
+    # a forward that draws randomness (the attention-dropout hash key)
+    # must draw the SAME randomness in the recompute: its seed comes
+    # from the forward op's index, not the grad op's
+    op_index = attrs.get("__fwd_op_index__", op_index)
+
+    primal = {slot: vals for slot, vals in ins.items()
+              if not slot.startswith(("Out::", "GRAD::"))}
+    diff_slots = [slot for slot, vals in primal.items()
+                  if slot not in fwd_def.no_grad_inputs and vals
+                  and all(v is not None and v.is_floating_point()
+                          for v in vals)]
+    full = dict(primal)
+    with torch.enable_grad():
+        for slot in diff_slots:
+            full[slot] = [v.detach().requires_grad_() for v in primal[slot]]
+        outs = fwd_def.compute(full, fwd_attrs, ctx, op_index)
+
+    # cotangents: the given GRAD:: inputs, cast to the recomputed output's
+    # dtype.  An output with no cotangent has a zero one; it is left out
+    # of the autograd call rather than filled with zeros, so a kernel's
+    # backward sees None there (the fused loss then skips reading a
+    # zero [N, C] softmax cotangent).
+    ys, cts = [], []
+    for slot in fwd_def.output_slots:
+        vals = outs.get(slot)
+        if vals is None:
+            continue
+        vals = list(vals) if isinstance(vals, (list, tuple)) else [vals]
+        given = ins.get("GRAD::" + slot) or [None] * len(vals)
+        for y, g in zip(vals, given):
+            if g is None:
+                continue
+            if not y.requires_grad:
+                if bool((g != 0).any()):
+                    raise NotImplementedError(
+                        "%s: output %r is not differentiable in the port, "
+                        "but a nonzero cotangent reached it"
+                        % (fwd_def.type, slot))
+                continue
+            ys.append(y)
+            cts.append(g.to(y.dtype))
+    leaves = [v for slot in diff_slots for v in full[slot]]
+    grads = (torch.autograd.grad(ys, leaves, cts, allow_unused=True)
+             if ys else [None] * len(leaves))
+    result, it = {}, iter(grads)
+    for slot in diff_slots:
+        result["GRAD::" + slot] = [
+            g if g is not None else torch.zeros_like(v)
+            for v, g in zip(full[slot], it)]
+    return result
 
 
 # --------------------------------------------------------------------------
