@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py             # every phase below
     python3 chip_smoke.py --profile   # device, build, then the profiles
+    python3 chip_smoke.py --serve-ab  # device, build, fp and int8 serving
+                                      # in turns (fp, wo, dyn, dyn, wo, fp)
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -25,15 +27,30 @@ Run from the root of a checkout.  Phases, one line each:
    64..700 tokens, 32 new tokens each.  The launch counters are zeroed
    just before and read just after; every prefill and decode dispatch
    must have launched the attention kernel 6 times and the layer-norm
-   kernel 12 times, and one request's recorded logits must match a full
-   forward recompute of the score program (rtol/atol 2e-4);
-5. ``train_check`` — the Transformer-base train program at dropout 0,
+   kernel 12 times (the dequant-matmul kernel never), and one request's
+   recorded logits must match a full forward recompute of the score
+   program (rtol/atol 2e-4);
+5. ``serve_int8`` — the same model and requests with
+   ``GenerationEngine(..., quantize=mode)`` for ``weight_only`` and
+   ``dynamic``: every dispatch launches the dequant-matmul kernel once per
+   ``dequant_matmul`` op (37); weight_only decode logits match the
+   quantized score program's recompute within 2e-4 (dynamic within
+   relative L1 0.02), and the quantized score logits the fp ones within
+   relative L1 0.02 (the int8 accuracy budget); the int8 weights are a
+   quarter of the float32 bytes;
+6. ``infer``   — the score program saved with ``io.save_inference_model``
+   and served cold by ``InferenceEngine(model_dir=..., quantize=
+   "weight_only")``: 16 requests of 32..256 tokens, each [T, 32000] output
+   against a direct ``Executor.run`` of the quantized program (2e-4) and of
+   the fp program (relative L1 0.02); the quantized program saved again
+   and served cold with no pass, to the same outputs;
+7. ``train_check`` — the Transformer-base train program at dropout 0,
    one batch of 4 rows at full width, one step on ``CUDAPlace(0)`` (the
    kernels) and one on ``CPUPlace()`` (the plain versions) from one
    startup state: the losses agree within rtol 1e-4, the parameters'
    gradients within relative L2 1e-4 at the median and 1e-2 for each
    (see ``train_check_phase``), and the step moved the parameters;
-6. ``train``   — Transformer-base training as bench.py configures it
+8. ``train``   — Transformer-base training as bench.py configures it
    (6+6 layers, d_model 512, 8 heads, d_inner 2048, vocab 32000, batch
    256 x 64 tokens, source and target lengths drawn per row in [16, 64],
    dropout 0.1, label smoothing 0.1, noam(512, 4000), Adam(0.9, 0.997,
@@ -58,7 +75,8 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
+                  torch.int8: 1979e12}
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the serving slice: Transformer-base widths, float32
@@ -378,12 +396,104 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
     return fwd, bwd
 
 
+def quant_matmul_case(qm, timer, m, k, n, mode, dtype, xscale=None):
+    """Kernel #7 against ``dequant_matmul_reference``.  weight_only within
+    TOL (float32 sums in another order); dynamic: the int8 grid qx, its
+    scales sx and the int32 accumulator must equal the plain version's bit
+    for bit (the output follows from them).  The library yardstick is
+    ``torch.matmul`` on a weight dequantized beforehand (the float32 path
+    int8 replaces) for weight_only, and ``torch._int_mm`` (the int32
+    product alone) for dynamic where it takes the shape."""
+    tag = str(dtype).replace("torch.", "")
+    g = torch.Generator(device="cuda").manual_seed(m * 7 + k * 3 + n)
+    x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+    w = torch.randn((k, n), generator=g, device="cuda") * 0.05
+    scale = torch.clamp(w.abs().amax(dim=0), min=1e-12) / 127.0
+    qw = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    del w
+    xs = (None if xscale is None
+          else torch.tensor([xscale], dtype=torch.float32, device="cuda"))
+    name = "%s_%dx%dx%d_%s%s" % (mode, m, k, n, tag,
+                                 "_xscale" if xscale is not None else "")
+    res = {"check": name, "mnk": [m, k, n], "mode": mode, "dtype": tag,
+           "xscale": xscale}
+    want = qm.dequant_matmul_reference(x, qw, scale, mode, xs)
+    if mode == "dynamic":
+        out, qx, sx, acc = qm.dequant_matmul_kernel(x, qw, scale, mode, xs,
+                                                    parts=True)
+        pqx, psx = qm.quantize_rows_reference(x, xs)
+        pacc = qm.int8_matmul_reference(pqx, qw)
+        torch.cuda.synchronize()
+        res["grid_bit_exact"] = bool(
+            torch.equal(qx, pqx)
+            and torch.equal(sx, psx.reshape(-1).expand(m))
+            and torch.equal(acc, pacc))
+        res["out_bit_exact"] = bool(torch.equal(out, want))
+        ok = res["grid_bit_exact"]
+        del qx, sx, acc, pqx, pacc
+    else:
+        out = qm.dequant_matmul_kernel(x, qw, scale, mode, xs)
+        torch.cuda.synchronize()
+        ok = True
+    err, close = max_err(out, want, torch.float32)
+    res.update(max_abs_err=err, tol=TOL[torch.float32], ok=ok and close)
+    del out, want
+    nbytes = m * k * x.element_size() + k * n + 4 * n + 4 * m * n
+    peak = PEAK_OPS_PER_S[torch.int8 if mode == "dynamic" else torch.float32]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * k * n / peak
+    res.update(bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               kernel_ms=timer(lambda: qm.dequant_matmul_kernel(
+                   x, qw, scale, mode, xs)),
+               plain_ms=timer(lambda: qm.dequant_matmul_reference(
+                   x, qw, scale, mode, xs), iters=5))
+    if mode == "weight_only":
+        w_deq = qw.float() * scale
+        xf = x.float()
+        res["library_ms"] = timer(lambda: torch.matmul(xf, w_deq))
+        res["library"] = "torch.matmul(x_f32, w_dequantized_f32)"
+        del w_deq, xf
+    else:
+        qx_lib = qm.quantize_rows_reference(x, xs)[0]
+        try:
+            res["library_ms"] = timer(lambda: torch._int_mm(qx_lib, qw))
+            res["library"] = "torch._int_mm(qx, qw): the int32 product alone"
+        except RuntimeError as e:   # the yardstick does not take the shape
+            res["library_ms"] = None
+            res["library"] = "none (torch._int_mm: %s)" % str(e)[:80]
+    torch.cuda.empty_cache()
+    return res
+
+
+def quant_matmul_cases(qm, timer):
+    """Kernel #7 at the serving slice's shapes (decode M = 8 against each
+    weight, the logits projection first; prefill M = 4096 = 8 slots x the
+    512 bucket), then off-path cases: a ragged shape, K < 128, bfloat16 and
+    float16 activations and the static XScale."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = []
+    for mode in ("weight_only", "dynamic"):
+        for k, n in ((512, 32000), (512, 512), (512, 2048), (2048, 512)):
+            cases.append((8, k, n, mode, f32, None))
+        cases.append((4096, 512, 32000, mode, f32, None))
+        cases += [(5, 130, 200, mode, f32, None),
+                  (5, 130, 200, mode, bf16, None),
+                  (8, 40, 512, mode, f32, None),
+                  (8, 512, 32000, mode, bf16, None)]
+    cases += [(8, 512, 2048, "weight_only", f16, None),
+              (8, 512, 2048, "dynamic", f16, None),
+              (8, 512, 2048, "dynamic", f32, 3.0),
+              (5, 130, 200, "dynamic", bf16, 3.0)]
+    return [quant_matmul_case(qm, timer, *c) for c in cases]
+
+
 def kernels_phase():
     """Every kernel against its plain version at its paths' shapes.
     Returns {kernel name: [checks]}, the main path's shape first."""
     from paddle_tpu_torch.ops import cuda
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
     from paddle_tpu_torch.ops.cuda import softmax_xent as sx
 
     timer = Timer()
@@ -449,7 +559,8 @@ def kernels_phase():
     xent_bwd += b
     checks = {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
               "layer_norm_fwd": norm, "layer_norm_bwd": norm_bwd,
-              "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd}
+              "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd,
+              "dequant_matmul": quant_matmul_cases(qm, timer)}
     # launches made by these checks and their timing loops (the main
     # paths' counts are taken separately, in the serve and train phases)
     log("kernels", dict(checks, check_launches=cuda.launch_counts()))
@@ -461,20 +572,39 @@ def kernels_phase():
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the serving slice
+# phases 4-6: the serving slices
 # ---------------------------------------------------------------------------
 
+def count_ops(program, op_type):
+    return sum(op.type == op_type for op in program.global_block().ops)
+
+
+def rel_l1(ref, out):
+    """Relative L1 distance (the JAX package's ``autotune.eval_delta``): the
+    int8 accuracy budget's metric, ``FLAGS_quantize_accuracy_budget``
+    0.02."""
+    ref = np.asarray(ref, np.float64)
+    out = np.asarray(out, np.float64)
+    return float(np.abs(out - ref).sum() / (np.abs(ref).sum() + 1e-12))
+
+
+INT8_BUDGET = 0.02
+
+
 def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
-                prompt_range=(64, 700)):
+                prompt_range=(64, 700), quantize=None):
     """Serve ``n_requests`` prompts through ``GenerationEngine`` on
-    ``place``; returns (the summary dict, the kernels' launch counts)."""
+    ``place`` (int8 weights with ``quantize``); returns (the summary dict,
+    the kernels' launch counts, the launches the programs imply)."""
     from paddle_tpu_torch.ops import cuda
     from paddle_tpu_torch.serving import GenerationEngine, build_decoder_lm
     from paddle_tpu_torch.serving.metrics import ServingMetrics
 
-    spec = build_decoder_lm(**model)
-    eng = GenerationEngine(spec, place=place, max_new_tokens=max_new,
-                           record_logits=True, timeout_s=900.0, start=False)
+    fp_spec = build_decoder_lm(**model)
+    eng = GenerationEngine(fp_spec, place=place, max_new_tokens=max_new,
+                           record_logits=True, timeout_s=900.0, start=False,
+                           quantize=quantize)
+    spec = eng.spec
     rng = np.random.RandomState(0)
     # arrival order shuffled, so admissions mix buckets as traffic would
     lens = rng.permutation(np.linspace(prompt_range[0], prompt_range[1],
@@ -509,18 +639,30 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
     i = int(np.argmax(lens))
     seq = prompts[i] + results[i]["tokens"]
     t = len(seq)
+    feed = {"tok": np.asarray(seq, "int64").reshape(1, t, 1),
+            "tok@LEN": np.asarray([t], "int32"),
+            "pos": np.arange(t, dtype="int64").reshape(1, t, 1)}
     with torch.inference_mode():
-        (full,) = eng._exe.run(
-            spec.score_program,
-            feed={"tok": np.asarray(seq, "int64").reshape(1, t, 1),
-                  "tok@LEN": np.asarray([t], "int32"),
-                  "pos": np.arange(t, dtype="int64").reshape(1, t, 1)},
-            fetch_list=[spec.score_logits], scope=eng._scope)
+        (full,) = eng._exe.run(spec.score_program, feed=feed,
+                               fetch_list=[spec.score_logits],
+                               scope=eng._scope)
+        # the fp masters stay in the scope beside the int8 weights
+        (fp_full,) = eng._exe.run(fp_spec.score_program, feed=feed,
+                                  fetch_list=[fp_spec.score_logits],
+                                  scope=eng._scope) if quantize else (full,)
     assert full.shape == (1, t, model["vocab_size"]), full.shape
     assert np.isfinite(full).all()
     want = full[0, len(prompts[i]) - 1:t - 1]
     got = np.stack(results[i]["logits"])
-    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    recompute_rel_l1 = rel_l1(want, got)
+    if quantize == "dynamic":
+        # a per-row int8 grid may round an activation differently when the
+        # decode and the recompute differ in the last float bits
+        assert recompute_rel_l1 < INT8_BUDGET, recompute_rel_l1
+    else:
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    vs_fp = rel_l1(fp_full, full)
+    assert vs_fp < INT8_BUDGET, vs_fp
 
     pre = eng.metrics.percentiles("prefill")
     dec = eng.metrics.percentiles("decode")
@@ -532,19 +674,179 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
         "p50_decode_step_ms": dec["p50_s"] * 1e3,
         "p50_request_ms": eng.metrics.percentiles()["p50_s"] * 1e3,
         "recompute_max_abs_err": float(np.abs(got - want).max()),
+        "recompute_rel_l1": recompute_rel_l1,
+        "quantize": quantize, "score_vs_fp_rel_l1": vs_fp,
         "launches": launches, "dispatches": dispatches,
         "cache_mb": spec.cache.bytes() / 1e6,
         "params_mb": sum(
             eng._scope.var(n).numel() * eng._scope.var(n).element_size()
             for n in eng._scope.local_var_names()
             if n not in spec.cache.names()) / 1e6}
+    n_dq = count_ops(spec.decode_program, "dequant_matmul")
+    assert n_dq == count_ops(spec.prefill_program, "dequant_matmul")
+    assert (n_dq > 0) == bool(quantize), n_dq
+    if quantize:
+        info = spec.score_program._quantize_info["weights"]
+        assert all(4 * w["bytes_int8"] == w["bytes_fp"]
+                   for w in info.values()), info
+        # the engine's scope holds the int8 weights on the engine's device
+        assert all(eng._scope.var(w["int8"]).dtype == torch.int8
+                   and eng._scope.var(w["int8"]).device == place.device
+                   for w in info.values())
+        summary.update(
+            int8_weights=len(info),
+            int8_weight_mb=sum(w["bytes_int8"] for w in info.values()) / 1e6,
+            fp_weight_mb=sum(w["bytes_fp"] for w in info.values()) / 1e6,
+            dequant_matmul_per_dispatch=n_dq)
     per = {"flash_attention_fwd": model["n_layer"],
-           "layer_norm_fwd": 2 * model["n_layer"]}
+           "layer_norm_fwd": 2 * model["n_layer"],
+           "dequant_matmul": n_dq}
     return summary, launches, {k: n * dispatches for k, n in per.items()}
 
 
+def _infer_requests(n_requests, length_range, vocab, seed=0):
+    rng = np.random.RandomState(seed)
+    lens = rng.permutation(np.linspace(length_range[0], length_range[1],
+                                       n_requests).astype(int))
+    return [{"tok": rng.randint(0, vocab, (n, 1)).astype("int64"),
+             "pos": np.arange(n, dtype="int64").reshape(n, 1)}
+            for n in lens]
+
+
+def _direct(exe, program, fetch, scope, req):
+    """One request through ``Executor.run`` alone: the engine's oracle."""
+    t = len(req["tok"])
+    (out,) = exe.run(program, feed={"tok": req["tok"].reshape(1, t, 1),
+                                    "tok@LEN": np.asarray([t], "int32"),
+                                    "pos": req["pos"].reshape(1, t, 1)},
+                     fetch_list=[fetch], scope=scope)
+    return out[0]
+
+
+def _serve_infer(eng, reqs):
+    """A warm-up request, then ``reqs`` with the launch counters zeroed just
+    before and read just after; returns (outputs, launches, summary)."""
+    from paddle_tpu_torch.ops import cuda
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    eng.run(reqs[0], timeout=900)
+    eng.metrics = ServingMetrics()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [r.result(900)[0] for r in [eng.submit(q) for q in reqs]]
+    if eng.place.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda.launch_counts()
+    counts = eng.metrics.summary()["counts"]
+    assert counts["completed"] == len(reqs), counts
+    tokens = sum(len(q["tok"]) for q in reqs)
+    return outs, launches, {
+        "requests": len(reqs), "tokens": tokens, "wall_s": wall,
+        "requests_per_s": len(reqs) / wall, "tokens_per_s": tokens / wall,
+        "batches": counts["batches"],
+        "p50_batch_ms": eng.metrics.percentiles("batch")["p50_s"] * 1e3,
+        "p50_request_ms": eng.metrics.percentiles()["p50_s"] * 1e3}
+
+
+def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
+                length_range=(32, 256)):
+    """The decoder's score program (feeds tok, tok@LEN, pos; fetch the
+    logits) saved with ``io.save_inference_model`` and served cold by
+    ``InferenceEngine(model_dir=..., quantize="weight_only")``; then the
+    quantized program saved again and served cold with no pass.  Each
+    request's [T, vocab] logits must match a direct ``Executor.run`` of the
+    quantized program (2e-4) and the fp program (relative L1 < 0.02).
+    Returns (summary, {path: (launches, launches implied)}) for the two
+    engines' runs."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.serving import InferenceEngine, build_decoder_lm
+
+    tmp = os.path.join(REPO, "_smoke_tmp")
+    os.makedirs(tmp, exist_ok=True)
+    work = tempfile.mkdtemp(dir=tmp)
+    try:
+        spec = build_decoder_lm(**model)
+        exe, scope = pt.Executor(place), pt.Scope()
+        spec.init_scope(exe, scope)
+        feeds = ["tok", "tok@LEN", "pos"]
+        fp_dir, q_dir = os.path.join(work, "fp"), os.path.join(work, "int8")
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(fp_dir, feeds, [spec.score_logits],
+                                       exe, main_program=spec.score_program)
+        reqs = _infer_requests(n_requests, length_range,
+                               model["vocab_size"])
+        eng = InferenceEngine(model_dir=fp_dir, place=place,
+                              slots=model["slots"], quantize="weight_only",
+                              timeout_s=900.0)
+        try:
+            outs, launches, summary = _serve_infer(eng, reqs)
+        finally:
+            eng.close()
+        prog, logits = eng._program, eng._fetch_vars[0]
+        n_dq = count_ops(prog, "dequant_matmul")
+        need = {"dequant_matmul": n_dq * summary["batches"],
+                "flash_attention_fwd": model["n_layer"] * summary["batches"],
+                "layer_norm_fwd": 2 * model["n_layer"] * summary["batches"]}
+        int8 = {n for n in eng._scope.local_var_names()
+                if n.endswith("@INT8")}
+        assert int8 and all(eng._scope.var(n).dtype == torch.int8
+                            and eng._scope.var(n).device == place.device
+                            for n in int8), "int8 weights off the card"
+        # the oracles: each request alone through the quantized and the fp
+        # programs (the fp masters are still in the engine's scope)
+        errs, deltas = [], []
+        with torch.inference_mode():
+            with open(os.path.join(fp_dir, "__model__")) as f:
+                fp_prog = pt.Program.from_dict(json.load(f)["program"])
+            for q, out in zip(reqs, outs):
+                assert out.shape == (len(q["tok"]), model["vocab_size"])
+                want = _direct(eng._exe, prog, logits.name, eng._scope, q)
+                np.testing.assert_allclose(out, want, rtol=2e-4, atol=2e-4)
+                errs.append(float(np.abs(out - want).max()))
+                deltas.append(rel_l1(_direct(
+                    eng._exe, fp_prog, logits.name, eng._scope, q), out))
+        assert max(deltas) < INT8_BUDGET, deltas
+        # the quantized program saved again and loaded cold: no pass
+        with pt.scope_guard(eng._scope):
+            pt.io.save_inference_model(q_dir, feeds, [logits], eng._exe,
+                                       main_program=prog)
+        cold = InferenceEngine(model_dir=q_dir, place=place,
+                               slots=model["slots"], timeout_s=900.0)
+        try:
+            assert cold.quantize_mode is None
+            assert count_ops(cold._program, "dequant_matmul") == n_dq
+            assert cold._scope.find_var("declm_logits.w_0") is None
+            cold_outs, cold_launches, cold_summary = _serve_infer(cold, reqs)
+        finally:
+            cold.close()
+        cold_need = {"dequant_matmul": n_dq * cold_summary["batches"]}
+        cold_err = max(float(np.abs(a - b).max())
+                       for a, b in zip(cold_outs, outs))
+        assert cold_err <= 2e-4, cold_err
+
+        def mb(d):
+            return sum(os.path.getsize(os.path.join(d, f))
+                       for f in os.listdir(d)) / 1e6
+        summary.update(
+            quantize="weight_only", dequant_matmul_per_batch=n_dq,
+            launches=launches, vs_direct_max_abs_err=max(errs),
+            vs_fp_rel_l1_max=max(deltas), artifact_fp_mb=mb(fp_dir),
+            artifact_int8_mb=mb(q_dir), cold=cold_summary,
+            cold_launches=cold_launches, cold_vs_first_max_abs_err=cold_err)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if not os.listdir(tmp):
+            os.rmdir(tmp)
+    return summary, {"infer": (launches, need),
+                     "infer_cold": (cold_launches, cold_need)}
+
+
 # ---------------------------------------------------------------------------
-# phases 5 and 6: the training slice
+# phases 7 and 8: the training slice
 # ---------------------------------------------------------------------------
 
 def build_train(dropout):
@@ -764,11 +1066,12 @@ def _profile_report(prof, window):
                              for e in top_host]})
 
 
-def profile_phase(place, model=MODEL, steps=20, prompt=400, bucket=512):
+def profile_phase(place, model=MODEL, steps=20, prompt=400, bucket=512,
+                  quantize=None):
     """torch.profiler over one prefill (every slot, ``prompt`` tokens in
     the ``bucket`` bucket) and ``steps`` decode steps of the serving
-    slice, each driven through ``Executor.run`` and fetched as the engine
-    fetches it."""
+    slice (int8 weights with ``quantize``), each driven through
+    ``Executor.run`` and fetched as the engine fetches it."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.serving import build_decoder_lm
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -776,6 +1079,8 @@ def profile_phase(place, model=MODEL, steps=20, prompt=400, bucket=512):
     spec = build_decoder_lm(**model)
     exe, scope = pt.Executor(place), pt.Scope()
     spec.init_scope(exe, scope)
+    if quantize:
+        spec = spec.quantize(scope, mode=quantize)
     s, v = spec.slots, model["vocab_size"]
     rng = np.random.RandomState(1)
     prefill = {"tok": rng.randint(0, v, (s, bucket, 1)).astype("int64"),
@@ -816,7 +1121,7 @@ def profile_phase(place, model=MODEL, steps=20, prompt=400, bucket=512):
                 dispatch("decode", decode(i))
             torch.cuda.synchronize()
     _profile_report(prof, "1 prefill (%d x %d, bucket %d) + %d decode steps"
-                    % (s, prompt, bucket, steps))
+                    ", quantize=%s" % (s, prompt, bucket, steps, quantize))
 
 
 def train_profile_phase(place, steps=2, batch=TRAIN_BATCH):
@@ -843,19 +1148,23 @@ def train_profile_phase(place, steps=2, batch=TRAIN_BATCH):
         steps, batch, TRAIN_SEQ))
 
 
+# (kernel, source, the TPU kernel's pallas_call, the path whose launches
+# the row's "launches" reports)
 KERNEL_ROWS = (
     ("flash_attention_fwd", "csrc/flash_attention_fwd.cu",
-     "paddle_tpu/ops/pallas/flash_attention.py:328"),
+     "paddle_tpu/ops/pallas/flash_attention.py:328", "train"),
     ("flash_attention_bwd", "csrc/flash_attention_bwd.cu",
-     "paddle_tpu/ops/pallas/flash_attention.py:364"),
+     "paddle_tpu/ops/pallas/flash_attention.py:364", "train"),
     ("layer_norm_fwd", "csrc/layer_norm_fwd.cu",
-     "paddle_tpu/ops/pallas/layer_norm.py:59"),
+     "paddle_tpu/ops/pallas/layer_norm.py:59", "train"),
     ("layer_norm_bwd", "csrc/layer_norm_bwd.cu",
-     "paddle_tpu/ops/pallas/layer_norm.py:94"),
+     "paddle_tpu/ops/pallas/layer_norm.py:94", "train"),
     ("softmax_xent_fwd", "csrc/softmax_xent.cu",
-     "paddle_tpu/ops/pallas/softmax_xent.py:89"),
+     "paddle_tpu/ops/pallas/softmax_xent.py:89", "train"),
     ("softmax_xent_bwd", "csrc/softmax_xent.cu",
-     "paddle_tpu/ops/pallas/softmax_xent.py:111"),
+     "paddle_tpu/ops/pallas/softmax_xent.py:111", "train"),
+    ("dequant_matmul", "csrc/quant_matmul.cu",
+     "paddle_tpu/ops/pallas/quant_matmul.py:121", "serve_int8:weight_only"),
 )
 
 
@@ -887,42 +1196,68 @@ def main():
     log("build", {"seconds": time.perf_counter() - t0,
                   "kernels": sorted(built), "ptxas": ptxas})
     if "--profile" in sys.argv[1:]:
-        profile_phase(pt.CUDAPlace(0))
+        for quantize in (None, "weight_only", "dynamic"):
+            profile_phase(pt.CUDAPlace(0), quantize=quantize)
         train_profile_phase(pt.CUDAPlace(0))
+        return 0
+    if "--serve-ab" in sys.argv[1:]:
+        # fp and int8 serving in turns (fp, weight_only, dynamic, then the
+        # reverse), so host load drifting within the call shows as spread
+        for quantize in (None, "weight_only", "dynamic", "dynamic",
+                         "weight_only", None):
+            summary = serve_phase(pt.CUDAPlace(0), quantize=quantize)[0]
+            log("serve_ab", summary)
         return 0
 
     checks = kernels_phase()
     # each path with the counters zeroed just before it and read just
-    # after: serving (kernels #1 and #3), then training (all six)
-    short = {}
+    # after: fp serving (kernels #1 and #3), int8 serving in both modes and
+    # one-shot int8 inference (#1, #3 and #7), then training (#1-#6)
+    short, path_launches = {}, {}
+
+    def check_path(path, launches, need, exact=()):
+        path_launches[path] = launches
+        short.update({"%s:%s" % (path, k): (launches[k], n)
+                      for k, n in need.items()
+                      if (launches[k] != n if k in exact or n == 0
+                          else launches[k] < n)})
+
     serve, serve_launches, need = serve_phase(pt.CUDAPlace(0))
     log("serve", serve)
-    short.update({"serve:" + k: (serve_launches[k], n)
-                  for k, n in need.items()
-                  if serve_launches[k] < n or n == 0})
+    check_path("serve", serve_launches, need, exact=("dequant_matmul",))
+    for mode in ("weight_only", "dynamic"):
+        s, launches, need = serve_phase(pt.CUDAPlace(0), quantize=mode)
+        log("serve_int8", s)
+        check_path("serve_int8:" + mode, launches, need,
+                   exact=("dequant_matmul",))
+    infer, paths = infer_phase(pt.CUDAPlace(0))
+    log("infer", infer)
+    for path, (launches, need) in paths.items():
+        check_path(path, launches, need, exact=tuple(need))
     train_check_phase()
     train, launches, need = train_phase(pt.CUDAPlace(0))
     log("train", train)
-    short.update({"train:" + k: (launches[k], n) for k, n in need.items()
-                  if launches[k] != n or n == 0})
+    check_path("train", launches, need, exact=tuple(need))
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (launches, implied): %s" % short)
 
     rows = []
-    for name, src, tpu in KERNEL_ROWS:
-        head = checks[name][0]   # the float32 check at the training shape
-        rows.append({"name": name, "route": "cuda",
-                     "source": "paddle_tpu_torch/" + src, "replaces": tpu,
-                     "launches": launches[name],
-                     "max_abs_err": head["max_abs_err"],
-                     "ms": head["kernel_ms"],
-                     "plain_ms": head["plain_ms"],
-                     "bound_ms": head["bound_ms"],
-                     "bound_by": head["bound_by"],
-                     "library_ms": head["library_ms"],
-                     "at": head["check"],
-                     "launches_serve": serve_launches[name]})
+    for name, src, tpu, main_path in KERNEL_ROWS:
+        # the float32 check at the main path's shape (training for #1-#6,
+        # the decode logits projection for #7)
+        head = checks[name][0]
+        row = {"name": name, "route": "cuda",
+               "source": "paddle_tpu_torch/" + src, "replaces": tpu,
+               "launches": path_launches[main_path][name],
+               "max_abs_err": head["max_abs_err"],
+               "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+               "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+               "library_ms": head["library_ms"], "at": head["check"],
+               "launches_path": main_path}
+        row.update({"launches_" + p: path_launches[p][name]
+                    for p in path_launches})
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

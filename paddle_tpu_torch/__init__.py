@@ -2,11 +2,13 @@
 NVIDIA H100.
 
 The layout mirrors the JAX package (``framework``, ``registry``,
-``backward``, ``optimizer``, ``executor``, ``layers``, ``ops``,
-``models``, ``serving``) so each module's counterpart is easy to find;
-the programs it builds serialize to the same schema.  Op computes are plain functions on tensors; the hand-written
-Hopper kernels live in ``ops/cuda`` (sources in ``csrc/``), each beside
-its plain PyTorch version, which runs only for tensors on the CPU.
+``backward``, ``optimizer``, ``executor``, ``io``, ``layers``, ``ops``,
+``models``, ``serving``, ``transpiler``) so each module's counterpart is
+easy to find; the programs it builds serialize to the same schema, and
+``io`` writes the JAX package's file format.  Op computes are plain
+functions on tensors; the hand-written Hopper kernels live in ``ops/cuda``
+(sources in ``csrc/``), each beside its plain PyTorch version, which runs
+only for tensors on the CPU.
 
 This package imports neither JAX nor any module of ``paddle_tpu``.
 Entry points run on the card (``CUDAPlace(0)``) unless the caller passes
@@ -25,7 +27,9 @@ from .scope import Scope, global_scope, scope_guard
 from .param_attr import ParamAttr
 from . import backward, clip, optimizer, regularizer
 from . import convert
+from . import io
 from . import models
+from . import transpiler
 from . import serving
 
 __version__ = "0.1.0"
@@ -35,6 +39,6 @@ __all__ = [
     "Parameter", "default_main_program", "default_startup_program",
     "program_guard", "ops", "layers", "initializer", "Executor", "CPUPlace",
     "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
-    "backward", "clip", "optimizer", "regularizer", "convert", "models",
-    "serving",
+    "backward", "clip", "optimizer", "regularizer", "convert", "io",
+    "models", "transpiler", "serving",
 ]

@@ -13,6 +13,7 @@ flow).  Gradients are ordinary variables named ``<var>@GRAD``
 
 import collections
 import contextlib
+import copy
 import json
 
 import numpy as np
@@ -322,6 +323,38 @@ class Program:
         for blk in self.blocks:
             yield from blk.vars.values()
 
+    def clone(self, for_test=False):
+        """Deep-copy the program.  ``for_test=True`` switches the ops that
+        behave differently in training to inference mode (``is_test``)."""
+        p = copy.deepcopy(self)
+        if for_test:
+            for blk in p.blocks:
+                for op in blk.ops:
+                    if "is_test" in _TEST_MODE_OPS.get(op.type, ()):
+                        op.attrs["is_test"] = True
+        return p
+
+    def prune_feed_fetch(self, feed_names, fetch_names):
+        """A copy that keeps only the ops needed to compute ``fetch_names``
+        from ``feed_names``, and only the variables those ops, the feeds and
+        the fetches name."""
+        p = copy.deepcopy(self)
+        blk = p.global_block()
+        needed = set(fetch_names)
+        kept = []
+        for op in reversed(blk.ops):
+            if set(op.output_arg_names) & needed:
+                kept.append(op)
+                needed.update(op.input_arg_names)
+        blk.ops = list(reversed(kept))
+        used = set(feed_names) | set(fetch_names)
+        for op in blk.ops:
+            used.update(op.input_arg_names)
+            used.update(op.output_arg_names)
+        blk.vars = collections.OrderedDict(
+            (n, v) for n, v in blk.vars.items() if n in used)
+        return p
+
     def to_dict(self):
         return {
             "version": 1,
@@ -370,6 +403,15 @@ class Program:
 
     __str__ = __repr__
 
+
+# ops whose ``is_test`` attr ``clone(for_test=True)`` sets: dropout and
+# batch_norm switch to inference; the range fake-quant reads its trained
+# running scale instead of updating it
+_TEST_MODE_OPS = {
+    "dropout": ("is_test",),
+    "batch_norm": ("is_test",),
+    "fake_quantize_range_abs_max": ("is_test",),
+}
 
 _main_program_ = Program()
 _startup_program_ = Program()

@@ -5,4 +5,4 @@ toolchain until a kernel is first launched."""
 
 from . import (activation, attention, creation, elementwise,  # noqa: F401
                kv_cache, loss, manipulation, math, norm, optimizer_ops,
-               random, reduction, sequence)
+               quantize, random, reduction, sequence)

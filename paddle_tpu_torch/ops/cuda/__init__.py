@@ -1,10 +1,11 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version: ``flash_attention`` (kernels #1 forward and #2 backward),
-``layer_norm`` (#3 and #4) and ``softmax_xent`` (#5 and #6), numbered as
-the TPU kernel table in PERF.md.  ``build`` compiles
-``paddle_tpu_torch/csrc`` with nvcc at first use."""
+``layer_norm`` (#3 and #4), ``softmax_xent`` (#5 and #6) and
+``quant_matmul`` (#7), numbered as the TPU kernel table in PERF.md.
+``build`` compiles ``paddle_tpu_torch/csrc`` with nvcc at first use."""
 
-from . import build, flash_attention, layer_norm, softmax_xent  # noqa: F401
+from . import (build, flash_attention, layer_norm,  # noqa: F401
+               quant_matmul, softmax_xent)
 
 # every kernel wrapper, by kernel name; each carries a ``launches`` count
 KERNELS = {
@@ -14,6 +15,7 @@ KERNELS = {
     "layer_norm_bwd": layer_norm.layer_norm_bwd,
     "softmax_xent_fwd": softmax_xent.softmax_xent_fwd,
     "softmax_xent_bwd": softmax_xent.softmax_xent_bwd,
+    "dequant_matmul": quant_matmul.dequant_matmul_kernel,
 }
 
 

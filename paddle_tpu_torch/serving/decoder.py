@@ -15,7 +15,8 @@ so they share weights through the engine's scope):
 The architecture is a post-norm decoder-only Transformer (the
 ``models/transformer.py`` decoder without cross-attention), dropout-free.
 The programs are op for op, name for name, those of the JAX package's
-``build_decoder_lm``.
+``build_decoder_lm``; ``DecoderSpec.quantize`` rewrites all three to int8
+weights.
 """
 
 from .. import layers, unique_name
@@ -77,9 +78,30 @@ class DecoderSpec:
         executor.run(self.startup_program, scope=scope)
         self.cache.init_scope(scope, executor.place.device)
 
-    def quantize(self, *args, **kwargs):
-        raise NotImplementedError(
-            "int8 serving (DecoderSpec.quantize) is not ported yet")
+    def quantize(self, scope, mode="weight_only", weight_bits=8):
+        """Return a new spec whose score/prefill/decode programs run int8
+        weights (``transpiler.quantize_inference`` over the SHARED
+        ``scope``: the three programs name the same parameters, so each
+        weight quantizes once and every program reads the same ``@INT8``
+        persistables).  Call after ``init_scope``: the pass reads the
+        weights' values."""
+        from ..transpiler.quantize_pass import quantize_inference
+
+        triple = [("score", self.score_program, self.score_logits),
+                  ("prefill", self.prefill_program, self.prefill_logits),
+                  ("decode", self.decode_program, self.decode_logits)]
+        programs = {}
+        for i, (name, prog, logits) in enumerate(triple):
+            # the first rewrite quantizes the shared weights; the later
+            # programs reuse the scope values instead of re-quantizing
+            q = quantize_inference(prog, scope=scope, mode=mode,
+                                   weight_bits=weight_bits,
+                                   reuse_existing=(i > 0))
+            programs[name] = (q, q.global_block().var(logits.name))
+        return DecoderSpec(self.vocab_size, self.max_len, self.slots,
+                           self.n_layer, self.n_head, self.d_model,
+                           self.d_inner, self.cache, programs,
+                           self.startup_program)
 
 
 def _layer_stack(x, klen_var, spec_dims, prefix, cache=None, slot_var=None,

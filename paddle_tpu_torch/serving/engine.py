@@ -1,23 +1,40 @@
-"""Generation serving: continuous-batching prefill/decode over a
-:class:`~.decoder.DecoderSpec` (counterpart of ``GenerationEngine`` in
-``paddle_tpu/serving/engine.py``, fixed-region cache and greedy decoding).
+"""Serving engines (counterpart of ``paddle_tpu/serving/engine.py``).
 
-Admitted prompts prefill into recycled cache slots (scattered
-``kv_cache_write``); then one decode step advances every active slot by
-one token, with the cache updated in place; a finished slot is refilled
-between decode steps without draining the batch.  Per-request timeouts
-expire queued work and evict wedged decodes, and a request whose logits
-come out non-finite fails with :class:`~.scheduler.PoisonedRequestError`
-while the engine keeps serving.
+Two engines share the scheduler, the metrics and the loop thread
+(``_EngineBase``):
 
-The engine runs on ``CUDAPlace(0)`` unless the caller passes a place; with
-no place and no card it raises instead of falling back to the CPU.  Its
+* :class:`InferenceEngine` — one-shot forward serving of a saved inference
+  model (an ``io.save_inference_model`` artifact) or of a live program and
+  scope.  Requests are single examples or client micro-batches; the loop
+  admits them into fixed slot batches, pads sequence feeds to bucket
+  bounds, runs one ``Executor.run`` per batch and fans the fetches back
+  out, trimmed to each request's own length.
+* :class:`GenerationEngine` — prefill/decode serving of a
+  :class:`~.decoder.DecoderSpec` with the fixed-region cache and greedy
+  decoding: admitted prompts prefill into recycled cache slots (scattered
+  ``kv_cache_write``), then one decode step advances every active slot by
+  one token, with the cache updated in place; a finished slot is refilled
+  between decode steps without draining the batch.
+
+``quantize="weight_only"`` or ``"dynamic"`` rewrites the served programs to
+int8 weights (``transpiler.quantize_inference``; kernel #7 on the card).
+The int8 weights and their scales live in the engine's scope on the
+engine's device.  An artifact saved after quantization loads cold and runs
+int8 with no pass.
+
+Per-request timeouts expire queued work and evict wedged decodes, and a
+request whose outputs come out non-finite fails with
+:class:`~.scheduler.PoisonedRequestError` (status ``quarantined``) while
+the engine keeps serving.
+
+The engines run on ``CUDAPlace(0)`` unless the caller passes a place; with
+no place and no card they raise instead of falling back to the CPU.  The
 loop runs on its own thread, so ``torch.inference_mode()`` is entered
 there: grad mode is thread-local in PyTorch.
 
 Not ported yet: the paged cache, speculative decoding with a draft model,
-int8 weights, the TunedConfig artifact, quarantine dumps, request tracing
-and ``InferenceEngine``.
+the TunedConfig artifact (``tuned_config=`` raises), quarantine dumps and
+request tracing.
 """
 
 import sys
@@ -27,23 +44,37 @@ import time
 import numpy as np
 import torch
 
+from .. import io as pt_io
 from ..executor import CUDAPlace, Executor
-from ..scope import Scope
+from ..scope import Scope, scope_guard
 from .metrics import ServingMetrics
 from .scheduler import (ContinuousBatchingScheduler, PoisonedRequestError,
                         RequestTimeoutError)
 
-__all__ = ["GenerationEngine"]
+__all__ = ["InferenceEngine", "GenerationEngine"]
 
 
-def _default_place(place):
+def _default_place(place, engine):
     if place is not None:
         return place
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "GenerationEngine: no CUDA device is available; pass "
-            "place=CPUPlace() to serve on the host")
+            "%s: no CUDA device is available; pass place=CPUPlace() to "
+            "serve on the host" % engine)
     return CUDAPlace(0)
+
+
+def _resolve_quantize(quantize, tuned_config):
+    """The engine's quantization mode from the ``quantize`` kwarg: falsy =
+    off, True = ``weight_only``, else the mode's name.  The JAX package
+    can also take it from a TunedConfig ruling, which is not ported."""
+    if tuned_config is not None:
+        raise NotImplementedError(
+            "the TunedConfig artifact (tuned_config=) is not ported yet; "
+            "pass quantize= instead")
+    if not quantize:
+        return None
+    return "weight_only" if quantize is True else str(quantize)
 
 
 def _default_buckets(max_len):
@@ -55,38 +86,23 @@ def _default_buckets(max_len):
     return bounds
 
 
-class GenerationEngine:
-    """Prefill/decode continuous batching over a decoder spec.
+def _finite_row(arrays, i, slots):
+    """Whether request row ``i`` of every float fetch is finite."""
+    for a in arrays:
+        row = a[i] if a.ndim >= 1 and a.shape[0] == slots else a
+        if np.issubdtype(row.dtype, np.floating) and \
+                not np.isfinite(row).all():
+            return False
+    return True
 
-    The decode step is one program over every cache slot: inactive slots
-    ride along masked (their writes land at position 0 of a free slot and
-    are overwritten by the next prefill), so slot recycling changes host
-    bookkeeping only.  Sampling is greedy argmax."""
 
-    def __init__(self, spec, place=None, scope=None, eos_id=None,
-                 max_new_tokens=32, timeout_s=60.0, bucket_bounds=None,
-                 record_logits=False, start=True):
-        self.spec = spec
-        self.place = _default_place(place)
-        self.eos_id = eos_id
-        self.max_new_tokens = int(max_new_tokens)
-        self.record_logits = bool(record_logits)
-        self._exe = Executor(self.place)
-        if scope is None:
-            scope = Scope()
-            spec.init_scope(self._exe, scope)
-        self._scope = scope
-        self._sched = ContinuousBatchingScheduler(
-            spec.slots, bucket_bounds or _default_buckets(spec.max_len),
-            default_timeout_s=timeout_s)
-        self.metrics = ServingMetrics()
-        self._active = {}             # slot -> decode state dict
+class _EngineBase:
+    """Loop-thread plumbing shared by both engines."""
+
+    def __init__(self):
         self._thread = None
         self._stop = threading.Event()
-        if start:
-            self.start()
 
-    # -- lifecycle ---------------------------------------------------------
     def start(self):
         if self._thread is None:
             self._thread = threading.Thread(
@@ -101,13 +117,254 @@ class GenerationEngine:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
-        self._active.clear()
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
         self.close()
+
+    def _fail(self, req, error, status="failed"):
+        self._sched.fail(req, error, status=status)
+        self.metrics.note_failure(req, error, status=status)
+
+    def _poisoned(self, req, reason):
+        self._fail(req, PoisonedRequestError(
+            "request %s: %s" % (req.id, reason)), status="quarantined")
+
+    def _loop(self):
+        """Run iterations until close(); a failed iteration is logged and
+        the loop keeps serving, so no queued caller is stranded."""
+        with torch.inference_mode():
+            while not self._stop.is_set():
+                try:
+                    self._loop_once()
+                except Exception as e:  # noqa: BLE001 — the loop must live
+                    print("[serving] loop iteration failed: %r" % e,
+                          file=sys.stderr, flush=True)
+                    time.sleep(0.05)
+
+
+class InferenceEngine(_EngineBase):
+    """Continuous-batching server over one inference program.
+
+    ``model_dir`` loads a ``save_inference_model`` artifact into a private
+    scope on the engine's device; alternatively pass a live ``(program,
+    feed_names, fetch_vars, scope)``.  ``slots`` is the fixed admission
+    batch (default 8); ``bucket_bounds`` pads the time dim of sequence
+    feeds (default: powers of two 8..1024 when the program has any)."""
+
+    def __init__(self, model_dir=None, program=None, feed_names=None,
+                 fetch_vars=None, scope=None, place=None, slots=None,
+                 bucket_bounds=None, timeout_s=30.0, start=True,
+                 quantize=None, tuned_config=None):
+        super().__init__()
+        self.place = _default_place(place, "InferenceEngine")
+        self._exe = Executor(self.place)
+        if model_dir is not None:
+            scope = Scope()
+            with scope_guard(scope):
+                program, feed_names, fetch_vars = \
+                    pt_io.load_inference_model(model_dir, self._exe)
+        if program is None or scope is None:
+            raise ValueError(
+                "InferenceEngine needs model_dir or a live "
+                "(program, feed_names, fetch_vars, scope)")
+        self._scope = scope
+        self._feed_names = list(feed_names)
+        self.quantize_mode = _resolve_quantize(quantize, tuned_config)
+        if self.quantize_mode:
+            from ..transpiler.quantize_pass import quantize_inference
+
+            program = quantize_inference(program, scope=scope,
+                                         mode=self.quantize_mode)
+        self._program = program
+        block = program.global_block()
+        self._fetch_vars = [block.var(v.name if hasattr(v, "name") else v)
+                            for v in fetch_vars]
+        self.slots = int(slots or 8)
+        # feed classification from the program's own var shapes: two
+        # leading dynamic dims = a padded sequence (bucket the time dim)
+        self._seq_feeds = set()
+        self._len_feeds = {n for n in self._feed_names
+                           if n.endswith("@LEN")}
+        for n in self._feed_names:
+            if n in self._len_feeds:
+                continue
+            v = block._find_var_recursive(n)
+            shape = tuple(v.shape or ()) if v is not None else ()
+            if len(shape) >= 2 and shape[0] in (-1, None) \
+                    and shape[1] in (-1, None):
+                self._seq_feeds.add(n)
+        # fetches whose rows carry the padded time dim: trimmed back to
+        # each request's length, so outputs match a direct dispatch
+        self._seq_fetches = set()
+        for j, v in enumerate(self._fetch_vars):
+            shape = tuple(v.shape or ())
+            if len(shape) >= 2 and shape[0] in (-1, None) \
+                    and shape[1] in (-1, None):
+                self._seq_fetches.add(j)
+        if self._seq_feeds and not bucket_bounds:
+            bucket_bounds = [2 ** i for i in range(3, 11)]
+        self._sched = ContinuousBatchingScheduler(
+            self.slots, bucket_bounds, default_timeout_s=timeout_s)
+        self.metrics = ServingMetrics()
+        if start:
+            self.start()
+
+    # -- client side -------------------------------------------------------
+    def submit(self, feed, timeout_s=None, rows=1):
+        """Enqueue one request: a single example (arrays without the batch
+        dim; sequence feeds are [T, ...]) or, with ``rows`` > 1, a client
+        micro-batch whose arrays carry a leading [rows, ...] dim.  Returns
+        the request future."""
+        for n in feed:
+            if n not in self._feed_names and not n.endswith("@LEN"):
+                raise ValueError("input %r is not a feed target (expected "
+                                 "%s)" % (n, self._feed_names))
+        missing = [n for n in self._feed_names
+                   if n not in feed and not n.endswith("@LEN")]
+        if missing:
+            raise ValueError("missing inputs: %s" % missing)
+        if rows > 1 and (self._seq_feeds or self._len_feeds):
+            raise ValueError(
+                "multi-row requests are fixed-shape only; submit "
+                "variable-length sequences (or models with @LEN "
+                "companions) one example per request")
+        length = 0
+        for n in self._seq_feeds:
+            length = max(length, int(np.shape(feed[n])[0]))
+        req = self._sched.submit(dict(feed), length=length,
+                                 timeout_s=timeout_s, rows=rows)
+        self.metrics.note_submit(req, self._sched.queue_depth())
+        return req
+
+    def run(self, feed, timeout=None):
+        """Synchronous submit and wait; returns the request's fetch list
+        (ordered like the saved fetch targets)."""
+        return self.submit(feed).result(timeout)
+
+    @property
+    def feed_names(self):
+        return list(self._feed_names)
+
+    # -- loop side ---------------------------------------------------------
+    def _loop_once(self):
+        plan, expired = self._sched.admit()
+        for r in expired:
+            self.metrics.note_failure(r, r._error, status="expired")
+        if plan is None:
+            self._sched.wait_for_work(timeout=0.05)
+            return
+        try:
+            self._run_batch(plan)
+        except Exception as e:  # noqa: BLE001 — a failed batch must not
+            for r in plan.requests:          # kill the engine
+                if not r.done():
+                    self._fail(r, e)
+
+    def _pad_seq(self, arr, bucket):
+        t = arr.shape[0]
+        if bucket is None or t == bucket:
+            return arr
+        return np.pad(arr, [(0, bucket - t)] + [(0, 0)] * (arr.ndim - 1))
+
+    def _run_batch(self, plan):
+        reqs = plan.requests
+        n_rows = sum(r.rows for r in reqs)
+        self.metrics.note_admit(plan, n_rows / float(self.slots),
+                                self._sched.queue_depth())
+        feed = {}
+        for name in self._feed_names:
+            if name in self._len_feeds:
+                base = name[:-len("@LEN")]
+                # sequence requests are single-row (submit enforces it)
+                lens = [int(r.payload.get(name, np.shape(r.payload[base])[0]))
+                        for r in reqs]
+                lens += [lens[0]] * (self.slots - n_rows)
+                feed[name] = np.asarray(lens, "int32")
+                continue
+            rows = []
+            for r in reqs:
+                a = np.asarray(r.payload[name])
+                if name in self._seq_feeds:
+                    a = self._pad_seq(a, plan.bucket)
+                rows.append(a if r.rows > 1 else a[None])
+            batch = np.concatenate(rows)
+            if n_rows < self.slots:
+                # fixed slot batches: pad with copies of row 0
+                batch = np.concatenate(
+                    [batch, np.repeat(batch[:1], self.slots - n_rows, 0)])
+            feed[name] = batch
+        t0 = time.perf_counter()
+        outs = self._exe.run(self._program, feed=feed,
+                             fetch_list=self._fetch_vars, scope=self._scope)
+        self.metrics.note_dispatch("batch", time.perf_counter() - t0)
+        off = 0
+        for req in reqs:
+            lo, hi = off, off + req.rows
+            off = hi
+            if not all(_finite_row(outs, i, self.slots)
+                       for i in range(lo, hi)):
+                self._poisoned(req, "non-finite outputs")
+                continue
+            result = []
+            for j, o in enumerate(outs):
+                if o.ndim < 1 or o.shape[0] != self.slots:
+                    result.append(o)
+                    continue
+                row = o[lo:hi] if req.rows > 1 else o[lo]
+                if j in self._seq_fetches and req.length \
+                        and req.rows == 1 and row.ndim >= 1 \
+                        and row.shape[0] == plan.bucket:
+                    # trim the bucket padding off the time dim
+                    row = row[:req.length]
+                result.append(row)
+            if self._sched.complete(req, result):
+                self.metrics.note_complete(req)
+
+
+class GenerationEngine(_EngineBase):
+    """Prefill/decode continuous batching over a decoder spec.
+
+    The decode step is one program over every cache slot: inactive slots
+    ride along masked (their writes land at position 0 of a free slot and
+    are overwritten by the next prefill), so slot recycling changes host
+    bookkeeping only.  Sampling is greedy argmax.  ``quantize`` rewrites
+    the spec's three programs to int8 weights over the engine's scope
+    (``DecoderSpec.quantize``)."""
+
+    def __init__(self, spec, place=None, scope=None, eos_id=None,
+                 max_new_tokens=32, timeout_s=60.0, bucket_bounds=None,
+                 record_logits=False, start=True, quantize=None,
+                 tuned_config=None):
+        super().__init__()
+        self.place = _default_place(place, "GenerationEngine")
+        self.eos_id = eos_id
+        self.max_new_tokens = int(max_new_tokens)
+        self.record_logits = bool(record_logits)
+        self._exe = Executor(self.place)
+        if scope is None:
+            scope = Scope()
+            spec.init_scope(self._exe, scope)
+        self._scope = scope
+        # int8 decode: the three programs are rewritten over the SHARED
+        # scope (one int8 copy per weight name)
+        self.quantize_mode = _resolve_quantize(quantize, tuned_config)
+        if self.quantize_mode:
+            spec = spec.quantize(scope, mode=self.quantize_mode)
+        self.spec = spec
+        self._sched = ContinuousBatchingScheduler(
+            spec.slots, bucket_bounds or _default_buckets(spec.max_len),
+            default_timeout_s=timeout_s)
+        self.metrics = ServingMetrics()
+        self._active = {}             # slot -> decode state dict
+        if start:
+            self.start()
+
+    def close(self):
+        super().close()
+        self._active.clear()
 
     # -- client side -------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=None, timeout_s=None):
@@ -132,18 +389,6 @@ class GenerationEngine:
         return self.submit(prompt_ids, max_new_tokens).result(timeout)
 
     # -- loop side ---------------------------------------------------------
-    def _loop(self):
-        """Run iterations until close(); a failed iteration is logged and
-        the loop keeps serving, so no queued caller is stranded."""
-        with torch.inference_mode():
-            while not self._stop.is_set():
-                try:
-                    self._loop_once()
-                except Exception as e:  # noqa: BLE001 — the loop must live
-                    print("[serving] loop iteration failed: %r" % e,
-                          file=sys.stderr, flush=True)
-                    time.sleep(0.05)
-
     def _loop_once(self):
         plan, expired = self._sched.admit()
         for r in expired:
@@ -165,10 +410,6 @@ class GenerationEngine:
                     self._fail(self._active.pop(slot)["req"], e)
         elif plan is None:
             self._sched.wait_for_work(timeout=0.05)
-
-    def _fail(self, req, error, status="failed"):
-        self._sched.fail(req, error, status=status)
-        self.metrics.note_failure(req, error, status=status)
 
     def _evict_expired_running(self):
         for req in self._sched.expired_running():
@@ -276,7 +517,3 @@ class GenerationEngine:
             result["logits"] = st["logits"]
         if self._sched.complete(req, result):
             self.metrics.note_complete(req, len(st["generated"]))
-
-    def _poisoned(self, req, reason):
-        self._fail(req, PoisonedRequestError(
-            "request %s: %s" % (req.id, reason)), status="quarantined")

@@ -3,8 +3,9 @@
 monitor registry, JSONL events and quarantine dumps are not ported).
 
 Besides request latency it keeps the host-clock duration of each prefill
-and decode dispatch, measured by the engine up to the logits reaching
-the host (which waits for the device)."""
+and decode dispatch (and each ``InferenceEngine`` batch), measured by the
+engine up to the outputs reaching the host (which waits for the
+device)."""
 
 import threading
 
@@ -27,7 +28,7 @@ class ServingMetrics:
     def __init__(self):
         self._mu = threading.Lock()
         self._lat = []             # request latency seconds
-        self._dispatch = {"prefill": [], "decode": []}
+        self._dispatch = {"prefill": [], "decode": [], "batch": []}
         self._counts = {"submitted": 0, "completed": 0, "failed": 0,
                         "expired": 0, "quarantined": 0, "batches": 0,
                         "decode_steps": 0, "generated_tokens": 0}
@@ -46,14 +47,14 @@ class ServingMetrics:
         self._count("decode_steps")
 
     def note_dispatch(self, kind, seconds):
-        """One prefill or decode dispatch took ``seconds`` (host clock,
-        logits on the host)."""
+        """One prefill, decode or batch dispatch took ``seconds`` (host
+        clock, outputs on the host)."""
         with self._mu:
             series = self._dispatch[kind]
             series.append(float(seconds))
             del series[:-self.WINDOW]
 
-    def note_complete(self, req, generated):
+    def note_complete(self, req, generated=0):
         lat = ((req.finished_at - req.arrival)
                if req.finished_at is not None else 0.0)
         with self._mu:
@@ -67,7 +68,7 @@ class ServingMetrics:
 
     def percentiles(self, kind=None):
         """Exact p50/p90/p99/mean seconds of request latency, or of the
-        ``kind`` ("prefill" / "decode") dispatch durations."""
+        ``kind`` ("prefill" / "decode" / "batch") dispatch durations."""
         with self._mu:
             vals = sorted(self._lat if kind is None else self._dispatch[kind])
         return {"p50_s": _percentile(vals, 0.50),

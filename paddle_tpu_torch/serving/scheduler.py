@@ -1,11 +1,12 @@
 """Continuous-batching request scheduler (counterpart of
-``paddle_tpu/serving/scheduler.py``, without its tracing hooks, its
-admission gate for the paged cache and multi-row requests).
+``paddle_tpu/serving/scheduler.py``, without its tracing hooks and its
+admission gate for the paged cache).
 
 Requests queue with a length; the scheduler admits them into a fixed
 number of slots, padding each admitted prompt to the smallest bucket
 bound that covers it, and recycles a finished request's slot to the next
-queued request without draining the rest of the batch.  It is pure
+queued request without draining the rest of the batch.  A request may
+hold several rows of the batch (a client micro-batch, ``rows``).  It is pure
 control logic: time enters only through the injected ``clock``.  One
 condition variable makes ``submit`` safe from any thread; the engine's
 loop thread calls ``admit`` / ``complete`` / ``fail``.
@@ -43,10 +44,13 @@ class ServingRequest:
     """One queued unit of work, doubling as the caller's future:
     ``result()`` blocks until the engine completes or fails it."""
 
-    def __init__(self, payload, length=0, arrival=0.0, deadline=None):
+    def __init__(self, payload, length=0, arrival=0.0, deadline=None,
+                 rows=1):
         self.id = "req-%06d" % next(_req_ids)
         self.payload = payload
         self.length = int(length)
+        self.rows = max(1, int(rows))
+        self.slots_held = []
         self.arrival = arrival
         self.deadline = deadline
         self.status = "queued"     # queued|running|ok|failed|expired|
@@ -132,14 +136,20 @@ class ContinuousBatchingScheduler:
             "request length %d exceeds the top bucket bound %d"
             % (length, self.bucket_bounds[-1]))
 
-    def submit(self, payload, length=0, timeout_s=None):
-        """Enqueue one request; returns it (the caller's future)."""
+    def submit(self, payload, length=0, timeout_s=None, rows=1):
+        """Enqueue one request of ``rows`` batch rows; returns it (the
+        caller's future)."""
         timeout_s = (self.default_timeout_s if timeout_s is None
                      else timeout_s)
+        if rows > self.slots:
+            raise ValueError("request rows %d exceed the %d-slot batch"
+                             % (rows, self.slots))
         now = self._clock()
+        # timeout_s=0 is an already-expired budget, not "no limit"
         req = ServingRequest(
             payload, length, arrival=now,
-            deadline=(now + timeout_s) if timeout_s is not None else None)
+            deadline=(now + timeout_s) if timeout_s is not None else None,
+            rows=rows)
         req.bucket = self.bucket_for(req.length)
         with self._cv:
             if self._closed:
@@ -151,34 +161,44 @@ class ContinuousBatchingScheduler:
             self._cv.notify_all()
         return req
 
-    def admit(self, now=None):
+    def admit(self, now=None, max_batch=None):
         """One admission decision: ``(plan_or_None, expired_requests)``.
-        Expires timed-out queued requests, then admits up to the free slot
-        count FIFO: the head request picks the bucket and the scan fills
-        the batch with queued requests that fit it."""
+        Expires timed-out queued requests, then admits up to the free row
+        count (at most ``max_batch`` rows) FIFO: the head request picks the
+        bucket and the scan fills the batch with queued requests that fit
+        it and the rows left."""
         now = self._clock() if now is None else now
         with self._cv:
             expired = self._expire_queued_locked(now)
             limit = len(self._free)
+            if max_batch is not None:
+                limit = min(limit, int(max_batch))
             if not self._queue or limit < 1:
                 return None, expired
             bucket = self._queue[0].bucket
-            picked, kept = [], collections.deque()
-            while self._queue and len(picked) < limit:
+            picked, kept, rows = [], collections.deque(), 0
+            while self._queue and rows < limit:
                 req = self._queue.popleft()
-                if bucket is None or req.length <= bucket:
+                if (bucket is None or req.length <= bucket) \
+                        and rows + req.rows <= limit:
                     picked.append(req)
+                    rows += req.rows
                 else:
                     kept.append(req)
-            kept.extend(self._queue)
+            kept.extend(self._queue)      # the unscanned tail, in order
             self._queue = kept
+            if not picked:
+                return None, expired
+            slots = []
             for req in picked:
-                req.slot = self._free.popleft()
+                req.slots_held = [self._free.popleft()
+                                  for _ in range(req.rows)]
+                req.slot = req.slots_held[0]
                 req.status = "running"
                 req.admitted_at = now
                 self._running[req.slot] = req
-            return BatchPlan(picked, [r.slot for r in picked], bucket), \
-                expired
+                slots.extend(req.slots_held)
+            return BatchPlan(picked, slots, bucket), expired
 
     def _expire_queued_locked(self, now):
         expired = []
@@ -206,7 +226,7 @@ class ContinuousBatchingScheduler:
     def _release_locked(self, req):
         if req.slot is not None and self._running.get(req.slot) is req:
             del self._running[req.slot]
-            self._free.append(req.slot)
+            self._free.extend(req.slots_held or [req.slot])
             self._cv.notify_all()
 
     def complete(self, req, result, now=None):
@@ -253,14 +273,28 @@ class ContinuousBatchingScheduler:
         for req in pending:
             req._fail(error, status="cancelled")
 
+    @property
+    def closed(self):
+        return self._closed
+
     def queue_depth(self):
         with self._cv:
             return len(self._queue)
 
     def busy_slots(self):
         with self._cv:
-            return len(self._running)
+            return sum(r.rows for r in self._running.values())
 
     def occupancy(self):
         """Busy fraction of the fixed slot batch."""
         return self.busy_slots() / float(self.slots)
+
+    def running(self):
+        """Snapshot of the running requests, by first slot."""
+        with self._cv:
+            return dict(self._running)
+
+    def pending(self):
+        """Snapshot of the queued requests, in FIFO order."""
+        with self._cv:
+            return list(self._queue)

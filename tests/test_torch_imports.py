@@ -1,6 +1,6 @@
-"""The port stands alone: ``paddle_tpu_torch`` imports neither JAX nor any
-module of the JAX package ``paddle_tpu`` (which shares its name's
-prefix)."""
+"""The port stands alone: ``paddle_tpu_torch`` and ``chip_smoke.py`` import
+neither JAX nor any module of the JAX package ``paddle_tpu`` (which shares
+its name's prefix)."""
 
 import ast
 import os
@@ -24,6 +24,8 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
         "import sys\n"
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.serving, paddle_tpu_torch.ops.cuda\n"
+        "import paddle_tpu_torch.io, paddle_tpu_torch.transpiler\n"
+        "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.'))\n"
@@ -36,6 +38,9 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
 
 
 def _py_files():
+    """Every module of the port, and ``chip_smoke.py``, which drives it on
+    the card."""
+    yield os.path.join(ROOT, "chip_smoke.py")
     for dirpath, _, files in os.walk(PKG):
         for f in sorted(files):
             if f.endswith(".py"):

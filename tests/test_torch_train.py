@@ -43,10 +43,14 @@ def fresh_torch_programs():
     pt_unique_name.switch(old_gen)
 
 
-def build_train(pkg, transformer, optimizer, dropout, warmup=4000):
+def build_train(pkg, transformer, optimizer, dropout, warmup=4000, seed=5):
     """(main, startup, cost) of the tiny Transformer train program:
-    label smoothing 0.1, noam(d_model, warmup), Adam as bench.py sets it."""
+    label smoothing 0.1, noam(d_model, warmup), Adam as bench.py sets it.
+    Both programs carry ``seed``: with ``random_seed`` 0 the JAX executor
+    draws the startup seed from numpy's global generator, so the initial
+    state would depend on whichever tests ran earlier in the process."""
     main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = seed
     with pkg.program_guard(main, startup):
         words = [pkg.layers.data(n, shape=[1], dtype="int64", lod_level=1)
                  for n in ("src_word", "tgt_word", "lbl_word")]
@@ -79,17 +83,41 @@ def test_train_program_serializes_like_jax(program):
     assert b[i].to_json() == a[i].to_json()
 
 
-def test_adam_trajectory_matches_jax():
-    """20 Adam steps at dropout 0 from the JAX startup state: per-step
-    losses within rtol 1e-4 (the JAX package's trajectory band); final
-    parameters within 1e-3 of each parameter's largest magnitude (Adam
-    divides by sqrt(v) + 1e-9, so elements whose gradients are rounding
-    noise move by up to a step's learning rate in either package; seen
-    up to 6.4e-5 on this box)."""
+@pytest.mark.parametrize("seed", [5, 21, 40])
+def test_adam_trajectory_matches_jax(seed):
+    """20 Adam steps at dropout 0 from the JAX startup state of a pinned
+    program seed: per-step losses within rtol 1e-4 (the JAX package's
+    trajectory band); final parameters within 1e-3 of each parameter's
+    largest magnitude.
+
+    Why the seed is pinned and which seeds hold.  Over program seeds 1-40
+    the one-step gradients of the two packages agree within ~1e-6
+    relative L2 from the same state, and 38 seeds keep both bands (worst
+    parameter 8e-6..9.4e-4; seeds 5, 21 and 40 read 1.6e-5, 3.1e-5 and
+    3.0e-5).  Two do not:
+
+    * seed 29 — rounding noise amplified by Adam.  At step 0 the gradient
+      of ``dec_logits.w_0[28, 9]`` is 6.44e-8 in the port and 5.52e-8 in
+      the JAX package (2e-7 of that parameter's largest gradient, 0.31).
+      Adam divides m by sqrt(v) + 1e-9 with sqrt(v) = 0.055 |g| at step 1,
+      so near |g| ~ 1e-8 the update depends on |g| itself: the element
+      moves 4.36e-3 against 4.20e-3.  Left to run, such elements drift
+      apart by 0.15 of a parameter's largest magnitude in 20 steps, and the
+      losses by 9.7e-4.
+    * seed 31 — the reference's own step 0 is not reproducible.  The JAX
+      package's step-0 gradients move by 4.0e-2 relative L2 when the
+      first residual sum ``elementwise_add_0.tmp_0`` is also fetched (XLA
+      then compiles the step without fusing it into the layer norm); the
+      port agrees with that second compile within 1.1e-6, and a 1e-6
+      perturbation of the state moves the port's gradients by only 8e-6.
+
+    An unpinned startup seed lands on such a state now and then: one run
+    of the unseeded test failed on ``dec1_ffn_fc1.w_0`` (5.3e-3 against a
+    bound of 5.5e-4)."""
     jm, js, jc = build_train(fluid, jax_transformer, fluid.optimizer, 0.0,
-                             warmup=10)
+                             warmup=10, seed=seed)
     tm, ts, tc = build_train(pt, pt_transformer, pt_optimizer, 0.0,
-                             warmup=10)
+                             warmup=10, seed=seed)
     jscope, jexe = fluid.Scope(), fluid.Executor(fluid.CPUPlace())
     jexe.run(js, scope=jscope)
     state = {v.name: np.array(jscope.find_var(v.name), copy=True)
