@@ -19,7 +19,8 @@ Run from the root of a checkout.  Phases, one line each:
    version's and one PyTorch library call's median time (CUDA events, L2
    flushed before every launch), and the least time the card could take
    (device-memory bytes at 3.35 TB/s or operations at the data-sheet peak
-   of the input type);
+   of the input type); the fused conv+BN kernels #8-#11 at ResNet-50's
+   stage 1, 3 and 4 shapes in both layouts;
 4. ``serve``   — a decoder LM at Transformer-base width (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, 1024-token cache,
    8 slots, float32, random weights from build_decoder_lm's seed) served by
@@ -56,7 +57,22 @@ Run from the root of a checkout.  Phases, one line each:
    dropout 0.1, label smoothing 0.1, noam(512, 4000), Adam(0.9, 0.997,
    1e-9)) on ``CUDAPlace(0)``: one warm-up step, then timed steps with the
    launch counters zeroed just before and read just after; each kernel
-   must have launched exactly as often as the program's ops imply.
+   must have launched exactly as often as the program's ops imply;
+9. ``resnet_check`` — bench.py's ResNet-50 (depth 50, 3x224x224, class_dim
+   1000, Momentum(1e-3, 0.9)) after ``fuse_conv_bn`` and after
+   ``convert_to_nhwc`` + ``fuse_conv_bn``, batch 4 at full width: one step
+   on the card (kernels #8-#11) against one on the CPU from one startup
+   state, and against the plain program on the card: loss rtol 1e-4, and
+   gradients within 3x the relative-L2 floor that a 1e-7 nudge of the
+   weights gives the plain program in the same call (median and maximum;
+   see ``resnet_check_phase``);
+10. ``resnet_train`` — the same model at batch 128 (cut from bench.py's
+   512) in three programs, plain, fused and NHWC + fused, on the same
+   batches: one warm-up step each, then 5 timed steps each, taken in
+   turns, each with the launch counters zeroed just before and read just
+   after (exactly 30 launches of #8 and #9 a step on the fused program, of
+   #10 and #11 on the NHWC one, none on the plain one), then one profiled
+   step each for the device's idle share.
 
 Then the kernel table as one JSON line, the ``nvidia-smi`` line, and, as
 the last line, ``{"ok": true, "device": {...}}``.  Any failure raises and
@@ -487,10 +503,235 @@ def quant_matmul_cases(qm, timer):
     return [quant_matmul_case(qm, timer, *c) for c in cases]
 
 
+# the fused conv+BN layers of ResNet-50 at batch 128: (B, C, O, HW)
+CONV_BN_STAGES = {"stage1": (128, 64, 256, 3136),
+                  "stage3": (128, 256, 1024, 196),
+                  "stage4": (128, 2048, 512, 49)}
+# allclose with a magnitude term: |kernel - plain| <= rtol |plain| +
+# scale_tol * scale, where scale is the sum of the absolute values of the
+# terms each output sums (|W| @ |xn| for z); the two sum ~1e2-4e5 terms in
+# different orders.  bfloat16: z and dx are rounded to bf16 (rtol 1e-2),
+# and an operand the two round to bf16 from float32 values one ulp apart
+# may differ by a bf16 ulp (the scale term).
+CONV_BN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
+
+
+def _close(got, want, scale, dtype, f32_out=False):
+    rtol, stol = CONV_BN_TOL[dtype]
+    if f32_out:
+        rtol = CONV_BN_TOL[torch.float32][0]
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    ok = bool((err <= rtol * want.abs() + stol * scale.float()).all()) \
+        and bool(torch.isfinite(got).all())
+    return float(err.max()), ok
+
+
+def _conv_bn_inputs(b, c, o, hw, nhwc, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    x = (rnd(*((b * hw, c) if nhwc else (b, c, hw))) + 0.5).to(dtype)
+    w = (rnd(o, c) / c ** 0.5).to(dtype)
+    mean = rnd(c) * 0.1 + 0.5
+    rstd = torch.rand(c, generator=g, device="cuda") + 0.5
+    gamma = torch.rand(c, generator=g, device="cuda") + 0.5
+    beta = rnd(c) * 0.1
+    shift = rnd(o) * 0.1
+    return g, x, w, mean, rstd, gamma, beta, shift
+
+
+def _conv_bn_prologue(cb, x, mean, rstd, gamma, beta, apply_bn, nhwc):
+    """xn as the kernels feed it to the product (rounded to x's dtype),
+    and the view that broadcasts a channel vector."""
+    view = (1, -1) if nhwc else (1, -1, 1)
+    act = "relu" if apply_bn else ""
+    return cb._act_norm(x, mean, rstd, gamma, beta, act, apply_bn,
+                        view).to(x.dtype), view
+
+
+def conv_bn_fwd_case(cb, timer, stage, nhwc, apply_bn, dtype):
+    """Kernel #8 (NCHW) or #10 (NHWC) against ``bn_act_matmul_reference``,
+    and twice against itself (the stats are reduced without atomics).
+    ``apply_bn``: the BN-apply + ReLU prologue; else the raw input.  The
+    library yardstick computes less: ``F.conv2d`` 1x1 (NCHW) or
+    ``torch.matmul`` (NHWC) on an input normalised beforehand, no stats."""
+    from torch.nn.functional import conv2d
+
+    b, c, o, hw = CONV_BN_STAGES[stage]
+    _, x, w, mean, rstd, gamma, beta, shift = _conv_bn_inputs(
+        b, c, o, hw, nhwc, dtype, seed=c + o)
+    act = "relu" if apply_bn else ""
+    args = (x, w, mean, rstd, gamma, beta, shift, act, apply_bn, True)
+    kern = cb.conv_bn_fwd_nhwc if nhwc else cb.conv_bn_fwd
+    got = kern(*args)
+    again = kern(*args)
+    want = cb.bn_act_matmul_reference(*args, nhwc=nhwc)
+    xn, view = _conv_bn_prologue(cb, x, mean, rstd, gamma, beta, apply_bn,
+                                 nhwc)
+    pos = (0,) if nhwc else (0, 2)
+    absprod = cb.bn_act_matmul_reference(xn.abs(), w.abs(), None, None, None,
+                                         None, None, "", False, False,
+                                         nhwc=nhwc)[0].float()
+    zc = want[0].float() - shift.view(view)
+    scales = [absprod, (zc.abs() + absprod).sum(dim=pos),
+              (zc * zc + 2 * zc.abs() * absprod).sum(dim=pos)]
+    del absprod, zc
+    torch.cuda.synchronize()
+    errs = [_close(gt, wt, sc, dtype, f32_out=i > 0)
+            for i, (gt, wt, sc) in enumerate(zip(got, want, scales))]
+    same_bits = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+    del got, again, want, scales
+    n, item = b * hw, x.element_size()
+    bound_ms, bound_by = bound(n * c * item + n * o * item + o * c * item,
+                               2.0 * n * c * o, dtype)
+    if nhwc:
+        wt = w.t()
+        library = "torch.matmul(xn, w.t()) on xn normalised beforehand"
+
+        def lib():
+            torch.matmul(xn, wt)
+    else:
+        xn4, w4 = xn.reshape(b, c, hw, 1), w.reshape(o, c, 1, 1)
+        library = "F.conv2d 1x1 on xn normalised beforehand"
+
+        def lib():
+            conv2d(xn4, w4)
+    tag = str(dtype).replace("torch.", "")
+    res = {"check": "%s_%s_%s_%s" % ("nhwc" if nhwc else "nchw", stage,
+                                     "bn_relu" if apply_bn else "raw", tag),
+           "bcoh": [b, c, o, hw], "nhwc": nhwc, "apply_bn": apply_bn,
+           "dtype": tag, "max_abs_err": max(e for e, _ in errs),
+           "max_abs_err_z_sum_sumsq": [e for e, _ in errs],
+           "tol": CONV_BN_TOL[dtype], "repeatable_bits": same_bits,
+           "kernel_ms": timer(lambda: kern(*args)),
+           "plain_ms": timer(lambda: cb.bn_act_matmul_reference(
+               *args, nhwc=nhwc), iters=5),
+           "library_ms": timer(lib), "library": library,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ok": all(ok for _, ok in errs) and same_bits}
+    del xn, lib
+    torch.cuda.empty_cache()
+    return res
+
+
+def conv_bn_bwd_case(cb, timer, stage, nhwc, apply_bn, with_stats, dtype):
+    """Kernel #9 (NCHW) or #11 (NHWC) against
+    ``bn_act_matmul_bwd_reference``, and twice against itself (dW, dgamma
+    and dbeta are reduced in a fixed order).  ``with_stats``: the stats'
+    cotangents are folded into dz.  The library yardstick computes less:
+    the two products (dx and dW) by ``torch.matmul`` on operands prepared
+    beforehand."""
+    b, c, o, hw = CONV_BN_STAGES[stage]
+    g, x, w, mean, rstd, gamma, beta, shift = _conv_bn_inputs(
+        b, c, o, hw, nhwc, dtype, seed=c + o + 1)
+    act = "relu" if apply_bn else ""
+    z = cb.bn_act_matmul_reference(x, w, mean, rstd, gamma, beta, shift, act,
+                                   apply_bn, False, nhwc=nhwc)[0]
+    dz = torch.randn(z.shape, generator=g, device="cuda").to(dtype)
+    dsum = torch.randn(o, generator=g, device="cuda") if with_stats else None
+    dsumsq = (torch.randn(o, generator=g, device="cuda") * 1e-2
+              if with_stats else None)
+    args = (x, w, z, dz, dsum, dsumsq, mean, rstd, gamma, beta, shift, act,
+            apply_bn, with_stats)
+    kern = cb.conv_bn_bwd_nhwc if nhwc else cb.conv_bn_bwd
+    got = kern(*args)
+    again = kern(*args)
+    want = cb.bn_act_matmul_bwd_reference(*args, nhwc=nhwc)
+    # magnitudes: the plain backward on |operands| with no prologue gives
+    # |W|^T |dz'| and |dz'| |xn|^T
+    xn, view = _conv_bn_prologue(cb, x, mean, rstd, gamma, beta, apply_bn,
+                                 nhwc)
+    d = dz.float()
+    if with_stats:
+        d = d + dsum.view(view) \
+            + 2.0 * (z.float() - shift.view(view)) * dsumsq.view(view)
+    d = d.to(dtype)
+    dxn_scale, dw_scale, _, _ = cb.bn_act_matmul_bwd_reference(
+        xn.abs(), w.abs(), None, d.abs(), None, None, None, None, None, None,
+        None, "", False, False, nhwc=nhwc)
+    dxn_scale = dxn_scale.float()
+    del xn, d
+    pos = (0,) if nhwc else (0, 2)
+    if apply_bn:
+        pre = ((x.float() - mean.view(view)) * rstd.view(view)).abs()
+        scales = [dxn_scale * (gamma * rstd).view(view), dw_scale,
+                  (dxn_scale * pre).sum(dim=pos), dxn_scale.sum(dim=pos)]
+        del pre
+    else:
+        scales = [dxn_scale, dw_scale, torch.zeros_like(gamma),
+                  torch.zeros_like(gamma)]
+    torch.cuda.synchronize()
+    errs = [_close(gt, wt, sc, dtype, f32_out=i > 0)
+            for i, (gt, wt, sc) in enumerate(zip(got, want, scales))]
+    same_bits = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
+    del got, again, want, scales, dxn_scale, dw_scale
+    n, item = b * hw, x.element_size()
+    nbytes = (2 * n * c * item + n * o * item * (2 if with_stats else 1)
+              + o * c * (item + 4))
+    bound_ms, bound_by = bound(nbytes, 4.0 * n * c * o, dtype)
+    if nhwc:
+        def lib():
+            torch.matmul(dz, w)
+            torch.matmul(dz.t(), x)
+    else:
+        wt, xt = w.t(), x.transpose(1, 2)
+
+        def lib():
+            torch.matmul(wt, dz)
+            torch.matmul(dz, xt).sum(dim=0)
+    tag = str(dtype).replace("torch.", "")
+    res = {"check": "%s_%s_%s%s_%s" % (
+               "nhwc" if nhwc else "nchw", stage,
+               "bn_relu" if apply_bn else "raw",
+               "_stats" if with_stats else "", tag),
+           "bcoh": [b, c, o, hw], "nhwc": nhwc, "apply_bn": apply_bn,
+           "with_stats": with_stats, "dtype": tag,
+           "max_abs_err": max(e for e, _ in errs),
+           "max_abs_err_dx_dw_dgamma_dbeta": [e for e, _ in errs],
+           "tol": CONV_BN_TOL[dtype], "repeatable_bits": same_bits,
+           "kernel_ms": timer(lambda: kern(*args)),
+           "plain_ms": timer(lambda: cb.bn_act_matmul_bwd_reference(
+               *args, nhwc=nhwc), iters=5),
+           "library_ms": timer(lib),
+           "library": "the two products (dx, dW) by torch.matmul",
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "ok": all(ok for _, ok in errs) and same_bits}
+    del x, z, dz, args
+    torch.cuda.empty_cache()
+    return res
+
+
+def conv_bn_cases(cb, timer):
+    """Kernels #8-#11: the main path's shape first (stage 3, 256 -> 1024
+    at 14x14, the most frequent fused layer, with the BN + ReLU prologue
+    and, backward, the stats fold), then stage 1 (64 -> 256 at 56x56, raw
+    input), stage 4 (2048 -> 512 at 7x7, no stats cotangent backward) and
+    stage 3 in bfloat16; each layout."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+    for nhwc in (False, True):
+        sfx = "_nhwc" if nhwc else ""
+        out["conv_bn_fwd" + sfx] = [
+            conv_bn_fwd_case(cb, timer, st, nhwc, bn, dt)
+            for st, bn, dt in (("stage3", True, f32), ("stage1", False, f32),
+                               ("stage4", True, f32), ("stage3", True, bf16))]
+        out["conv_bn_bwd" + sfx] = [
+            conv_bn_bwd_case(cb, timer, st, nhwc, bn, ws, dt)
+            for st, bn, ws, dt in (("stage3", True, True, f32),
+                                   ("stage1", False, True, f32),
+                                   ("stage4", True, False, f32),
+                                   ("stage3", True, True, bf16))]
+    return out
+
+
 def kernels_phase():
     """Every kernel against its plain version at its paths' shapes.
     Returns {kernel name: [checks]}, the main path's shape first."""
     from paddle_tpu_torch.ops import cuda
+    from paddle_tpu_torch.ops.cuda import conv_bn as cb
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
     from paddle_tpu_torch.ops.cuda import quant_matmul as qm
@@ -561,6 +802,7 @@ def kernels_phase():
               "layer_norm_fwd": norm, "layer_norm_bwd": norm_bwd,
               "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd,
               "dequant_matmul": quant_matmul_cases(qm, timer)}
+    checks.update(conv_bn_cases(cb, timer))
     # launches made by these checks and their timing loops (the main
     # paths' counts are taken separately, in the serve and train phases)
     log("kernels", dict(checks, check_launches=cuda.launch_counts()))
@@ -1005,6 +1247,225 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
 
 
 # ---------------------------------------------------------------------------
+# phases 9 and 10: the ResNet-50 training slice
+# ---------------------------------------------------------------------------
+
+RESNET_MODES = ("plain", "fuse", "nhwc_fuse")
+RESNET_BATCH, RESNET_STEPS, RESNET_FUSED = 128, 5, 30
+
+
+def build_resnet(mode):
+    """(main, startup, loss) of bench.py's ResNet-50 train program
+    (``resnet_imagenet`` depth 50 on 3x224x224 float32, class_dim 1000,
+    mean cross-entropy, Momentum(1e-3, 0.9)), built with the port's
+    layers; ``mode`` adds ``fuse_conv_bn`` (fuse) or ``convert_to_nhwc``
+    then ``fuse_conv_bn`` (nhwc_fuse) before ``minimize``, as bench.py
+    does.  Fixed seeds and fresh names: every mode has the same parameters
+    and the same startup state."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.resnet import resnet_imagenet
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed, startup.random_seed = 2, 1
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = pt.layers.data("img", shape=[3, 224, 224])
+        label = pt.layers.data("label", shape=[1], dtype="int64")
+        pred = resnet_imagenet(img, class_dim=1000, depth=50)
+        loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+        if mode == "nhwc_fuse":
+            assert pt.transpiler.convert_to_nhwc(main) == 53
+        if mode != "plain":
+            assert pt.transpiler.fuse_conv_bn(main) == 53
+        pt.optimizer.Momentum(learning_rate=1e-3, momentum=0.9).minimize(
+            loss)
+    return main, startup, loss
+
+
+def resnet_feed(rng, batch):
+    return {"img": rng.rand(batch, 3, 224, 224).astype("float32"),
+            "label": rng.randint(0, 1000, (batch, 1)).astype("int64")}
+
+
+def _grad_rel_l2(names, got, want):
+    rel = {}
+    for n, a, b in zip(names, got, want):
+        den = float(np.linalg.norm(b))
+        rel[n] = float(np.linalg.norm(a - b)) / den if den else \
+            float(np.linalg.norm(a))
+    return rel
+
+
+def resnet_check_phase(batch=4, floor_scale=3.0):
+    """The fused programs (NCHW and NHWC) at full width, batch 4, from one
+    startup state: one step on the card (kernels #8-#11) against one on the
+    CPU (their plain versions), and against the plain program on the card.
+    Losses within rtol 1e-4.
+
+    Gradients are held against a floor measured in the same call, not a
+    fixed band: the plain program on the card from the startup state with
+    every parameter scaled by (1 + 1e-7 N(0, 1)), against the plain
+    program from the state itself.  At batch 4 ResNet-50's backward
+    through 53 batch norms amplifies rounding with depth: on the CPU (port,
+    plain versions) that perturbation moved the gradients by 2.3e-2
+    relative L2 at the median and 2.7e-2 at most (the first conv's most,
+    the fc's 2.4e-5), so no run that sums in another order can match to
+    1e-4.  Each comparison must stay within ``floor_scale`` times the
+    floor's median (at the median) and its maximum (for every parameter).
+    On the CPU the fused program sat at 7.2e-3 / 1.0e-2 from the plain
+    one, and a fused backward folding with the running mean after its
+    update (the JAX package's shift fault) at 2.9e-2 / 4.15: the maximum
+    is what catches a wrong backward."""
+    import paddle_tpu_torch as pt
+
+    card = pt.Executor(pt.CUDAPlace(0))
+    cpu = pt.Executor(pt.CPUPlace())
+    feed = resnet_feed(np.random.RandomState(11), batch)
+    plain, startup, plain_loss = build_resnet("plain")
+    start = pt.Scope()
+    card.run(startup, scope=start)
+    params = [p.name for p in plain.all_parameters() if p.trainable]
+    fetch = [n + "@GRAD" for n in params]
+
+    def scope_copy(device, perturb=0.0):
+        sc = pt.Scope()
+        g = torch.Generator().manual_seed(0)
+        for n in start.local_var_names():
+            v = start.var(n).to(device, copy=True)
+            if perturb and n in params:
+                v.mul_(1 + perturb * torch.randn(v.shape, generator=g)
+                       .to(device))
+            sc.set_var(n, v)
+        return sc
+
+    plain_out = card.run(plain, feed=feed, fetch_list=[plain_loss] + fetch,
+                         scope=scope_copy("cuda"))
+    nudged = card.run(plain, feed=feed, fetch_list=[plain_loss] + fetch,
+                      scope=scope_copy("cuda", perturb=1e-7))
+    floor = _grad_rel_l2(params, nudged[1:], plain_out[1:])
+    floor_med, floor_max = statistics.median(floor.values()), \
+        max(floor.values())
+    summary = {"batch": batch, "params": len(params),
+               "floor_rel_l2_median": floor_med, "floor_rel_l2_max": floor_max,
+               "floor_scale": floor_scale,
+               "loss_plain_card": float(plain_out[0][0])}
+    bad = []
+    for mode in ("fuse", "nhwc_fuse"):
+        main, _, loss = build_resnet(mode)
+        card_scope = scope_copy("cuda")
+        before = {n: card_scope.var(n).clone() for n in params}
+        t0 = time.perf_counter()
+        got = card.run(main, feed=feed, fetch_list=[loss] + fetch,
+                       scope=card_scope)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = cpu.run(main, feed=feed, fetch_list=[loss] + fetch,
+                       scope=scope_copy("cpu"))
+        cpu_s = time.perf_counter() - t0
+        assert all(np.isfinite(a).all() for a in got), "non-finite on card"
+        rel = _grad_rel_l2(params, got[1:], want[1:])
+        vs_plain = _grad_rel_l2(params, got[1:], plain_out[1:])
+        moved = sum(not torch.equal(before[n], card_scope.var(n))
+                    for n in params)
+        s = {"loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+             "moved": moved,
+             "vs_cpu_rel_l2_median": statistics.median(rel.values()),
+             "vs_cpu_rel_l2_max": max(rel.values()),
+             "vs_cpu_worst": max(rel, key=rel.get),
+             "vs_plain_rel_l2_median": statistics.median(vs_plain.values()),
+             "vs_plain_rel_l2_max": max(vs_plain.values()),
+             "vs_plain_worst": max(vs_plain, key=vs_plain.get),
+             "card_step_s": card_s, "cpu_step_s": cpu_s}
+        summary[mode] = s
+        within = all(
+            s[k + "_median"] <= floor_scale * floor_med
+            and s[k + "_max"] <= floor_scale * floor_max
+            for k in ("vs_cpu_rel_l2", "vs_plain_rel_l2"))
+        if abs(s["loss_card"] - s["loss_cpu"]) > 1e-4 * abs(s["loss_cpu"]) \
+                or not within or moved != len(params):
+            bad.append(mode)
+    log("resnet_check", summary)
+    if bad:
+        raise SystemExit("ResNet step disagrees (card vs CPU, or fused vs "
+                         "plain): %s" % bad)
+    return summary
+
+
+def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH):
+    """bench.py's ResNet-50 at batch 128 (images ``rand`` in [0, 1) from
+    ``RandomState(0)``, labels in [0, 1000)) on ``CUDAPlace(0)``, the three
+    programs of ``RESNET_MODES`` side by side, each with its own scope:
+    one warm-up step each, then ``steps`` timed steps each, taken in turns
+    (plain, fused, NHWC, then the reverse) so that the host's load, which
+    drifts within a call, falls on all three alike; every program sees the
+    same batches.  Each step fetches the loss, which waits for its device
+    work, and is bracketed by zeroing the launch counters and reading them.
+    Then one step of each under ``torch.profiler`` for the device's busy
+    time and idle share.  Returns {mode: (summary, launches, launches the
+    program implies)}."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    rng = np.random.RandomState(0)
+    feeds = [resnet_feed(rng, batch) for _ in range(steps + 2)]
+    runs = {}
+    for mode in RESNET_MODES:
+        main, startup, loss = build_resnet(mode)
+        fused = count_ops(main, "bn_act_conv2d")
+        assert fused == count_ops(main, "bn_act_conv2d_grad") \
+            == (RESNET_FUSED if mode != "plain" else 0), fused
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        exe.run(startup, scope=scope)
+        (warm,) = exe.run(main, feed=feeds[0], fetch_list=[loss],
+                          scope=scope)
+        runs[mode] = dict(main=main, loss=loss, exe=exe, scope=scope,
+                          fused=fused, warm=float(warm[0]), times=[],
+                          losses=[], peak=0, launches={})
+    for i in range(steps):
+        for mode in (RESNET_MODES if i % 2 == 0 else RESNET_MODES[::-1]):
+            r = runs[mode]
+            torch.cuda.reset_peak_memory_stats()
+            cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            (out,) = r["exe"].run(r["main"], feed=feeds[1 + i],
+                                  fetch_list=[r["loss"]], scope=r["scope"])
+            r["times"].append(time.perf_counter() - t0)
+            for k, n in cuda.launch_counts().items():
+                r["launches"][k] = r["launches"].get(k, 0) + n
+            r["losses"].append(float(out[0]))
+            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+    nchw = "conv_bn_fwd", "conv_bn_bwd"
+    nhwc = "conv_bn_fwd_nhwc", "conv_bn_bwd_nhwc"
+    out = {}
+    for mode in RESNET_MODES:
+        r = runs[mode]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with record_function("dispatch/resnet_step"):
+                r["exe"].run(r["main"], feed=feeds[-1],
+                             fetch_list=[r["loss"]], scope=r["scope"])
+            torch.cuda.synchronize()
+        prof_step = _profile_report(prof, "1 ResNet-50 step, %s, batch %d"
+                                    % (mode, batch))["resnet_step"]
+        on = nhwc if mode == "nhwc_fuse" else nchw if mode == "fuse" else ()
+        need = {k: (r["fused"] * steps if k in on else 0)
+                for k in nchw + nhwc}
+        step_s = statistics.median(r["times"])
+        summary = {
+            "mode": mode, "batch": batch, "steps": steps,
+            "warmup_loss": r["warm"], "losses": r["losses"],
+            "step_ms": [t * 1e3 for t in r["times"]],
+            "median_step_ms": step_s * 1e3, "images_per_s": batch / step_s,
+            "peak_mem_gb": r["peak"] / 1e9, "profiled_step": prof_step,
+            "ops": len(r["main"].global_block().ops),
+            "fused_layers": r["fused"], "launches": r["launches"],
+            "launches_implied": need}
+        assert all(np.isfinite(r["losses"])), r["losses"]
+        out[mode] = summary, r["launches"], need
+    return out
+
+
+# ---------------------------------------------------------------------------
 # --profile: where a dispatch's time goes
 # ---------------------------------------------------------------------------
 
@@ -1064,6 +1525,7 @@ def _profile_report(prof, window):
         "top_device_us": [(k, us, n) for k, (us, n) in top_dev],
         "top_host_self_us": [(e.key[:70], e.self_cpu_time_total, e.count)
                              for e in top_host]})
+    return per_kind
 
 
 def profile_phase(place, model=MODEL, steps=20, prompt=400, bucket=512,
@@ -1165,6 +1627,14 @@ KERNEL_ROWS = (
      "paddle_tpu/ops/pallas/softmax_xent.py:111", "train"),
     ("dequant_matmul", "csrc/quant_matmul.cu",
      "paddle_tpu/ops/pallas/quant_matmul.py:121", "serve_int8:weight_only"),
+    ("conv_bn_fwd", "csrc/conv_bn.cu",
+     "paddle_tpu/ops/pallas/conv_bn.py:156", "resnet_train:fuse"),
+    ("conv_bn_bwd", "csrc/conv_bn.cu",
+     "paddle_tpu/ops/pallas/conv_bn.py:248", "resnet_train:fuse"),
+    ("conv_bn_fwd_nhwc", "csrc/conv_bn.cu",
+     "paddle_tpu/ops/pallas/conv_bn.py:332", "resnet_train:nhwc_fuse"),
+    ("conv_bn_bwd_nhwc", "csrc/conv_bn.cu",
+     "paddle_tpu/ops/pallas/conv_bn.py:417", "resnet_train:nhwc_fuse"),
 )
 
 
@@ -1212,7 +1682,9 @@ def main():
     checks = kernels_phase()
     # each path with the counters zeroed just before it and read just
     # after: fp serving (kernels #1 and #3), int8 serving in both modes and
-    # one-shot int8 inference (#1, #3 and #7), then training (#1-#6)
+    # one-shot int8 inference (#1, #3 and #7), Transformer training
+    # (#1-#6), then ResNet-50 training: plain (none), fused (#8, #9) and
+    # NHWC + fused (#10, #11)
     short, path_launches = {}, {}
 
     def check_path(path, launches, need, exact=()):
@@ -1238,6 +1710,10 @@ def main():
     train, launches, need = train_phase(pt.CUDAPlace(0))
     log("train", train)
     check_path("train", launches, need, exact=tuple(need))
+    resnet_check_phase()
+    for mode, (r, launches, need) in resnet_train_phase().items():
+        log("resnet_train", r)
+        check_path("resnet_train:" + mode, launches, need, exact=tuple(need))
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (launches, implied): %s" % short)
@@ -1245,7 +1721,8 @@ def main():
     rows = []
     for name, src, tpu, main_path in KERNEL_ROWS:
         # the float32 check at the main path's shape (training for #1-#6,
-        # the decode logits projection for #7)
+        # the decode logits projection for #7, ResNet-50's stage-3 layer
+        # for #8-#11)
         head = checks[name][0]
         row = {"name": name, "route": "cuda",
                "source": "paddle_tpu_torch/" + src, "replaces": tpu,

@@ -10,10 +10,15 @@ computes when it is reached) and writes the persistable outputs back to
 the scope.  A variable that is neither persistable nor fetched is dropped
 right after its last reader, so a training step holds each activation
 only until its gradient op has used it (XLA frees buffers the same way
-inside the JAX package's compiled step).  State that an op updates in
-place (the KV cache, the optimizer's parameters and moments) stays the
-same tensor across runs; the JAX package got the same effect from buffer
-donation.
+inside the JAX package's compiled step).  An op none of whose outputs is
+read by a later op, fetched or persistable is dead and skipped, as XLA
+eliminates dead code inside that step (``fuse_conv_bn`` re-emits a
+``bn_apply`` and a ``relu`` for every batch norm it absorbs, and relies
+on it); the ops that run keep their program index as ``op_index``, which
+seeds their random draws and keys ``ComputeContext.saved``.  State that
+an op updates in place (the KV cache, the optimizer's parameters and
+moments) stays the same tensor across runs; the JAX package got the same
+effect from buffer donation.
 
 Places carry a ``torch.device``.  ``CUDAPlace(i)`` is the i-th card;
 ``CPUPlace()`` is the host, used only when the caller asks for it (the
@@ -84,7 +89,8 @@ class Executor:
 
     def _analyze(self, program, feed_names, scope, fetch_names):
         """Split program vars into feeds / state-from-scope / write-back
-        (the JAX executor's ``_analyze``)."""
+        (the JAX executor's ``_analyze``), mark the live ops, and list the
+        temporaries each live op is the last to touch."""
         block = program.global_block()
         produced = set(feed_names)
         state = []
@@ -110,17 +116,29 @@ class Executor:
                 v = block._find_var_recursive(n) if n else None
                 if v is not None and v.persistable and n not in writeback:
                     writeback.append(n)
+        # live[i]: op i writes a variable that a later live op reads, that
+        # is fetched or that is persistable (an op with no outputs stays)
+        needed = set(fetch_names) | set(writeback)
+        live = [False] * len(block.ops)
+        for i in reversed(range(len(block.ops))):
+            op = block.ops[i]
+            outs = [n for n in op.output_arg_names if n]
+            if not outs or any(n in needed for n in outs):
+                live[i] = True
+                needed.update(n for n in op.input_arg_names if n)
         # release[i]: the temporaries whose last reader or writer is op i
         keep = set(writeback) | set(fetch_names) | set(state)
         last = {}
         for i, op in enumerate(block.ops):
+            if not live[i]:
+                continue
             for n in op.input_arg_names + op.output_arg_names:
                 if n and n not in keep:
                     last[n] = i
         release = [[] for _ in block.ops]
         for n, i in last.items():
             release[i].append(n)
-        return state, writeback, release
+        return state, writeback, live, release
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -144,7 +162,7 @@ class Executor:
         if analysis is None:
             analysis = self._analysis[key] = self._analyze(
                 program, feed_names, scope, fetch_names)
-        state_names, writeback, release = analysis
+        state_names, writeback, live, release = analysis
 
         env = {}
         for n in feed_names:
@@ -162,6 +180,8 @@ class Executor:
         ctx = ComputeContext(dev, seed=seed, run_index=self._run_counter)
         self._run_counter += 1
         for i, op in enumerate(block.ops):
+            if not live[i]:
+                continue
             registry.compute_op(op, env, ctx, op_index=i)
             for n in release[i]:
                 env.pop(n, None)

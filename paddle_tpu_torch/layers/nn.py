@@ -1,15 +1,17 @@
 """Neural-network layers of the serving and training slices (counterpart
 of ``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``dropout``,
-``softmax_with_cross_entropy``, ``fused_attention``, the elementwise
-layers and ``autoincreased_step_counter``.  They append the same ops with
+``softmax``, ``cross_entropy``, ``softmax_with_cross_entropy``, ``mean``,
+``fused_attention``, the elementwise layers and
+``autoincreased_step_counter``.  They append the same ops with
 the same attrs as the JAX package, so the programs serialize alike."""
 
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "embedding", "dropout", "softmax_with_cross_entropy",
-           "fused_attention", "elementwise_add", "elementwise_mul",
-           "elementwise_div", "autoincreased_step_counter"]
+__all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
+           "softmax_with_cross_entropy", "mean", "fused_attention",
+           "elementwise_add", "elementwise_mul", "elementwise_div",
+           "autoincreased_step_counter"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -79,6 +81,34 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
         attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                "seed": seed if seed is not None else 0,
                "dropout_implementation": dropout_implementation})
+    return out
+
+
+def softmax(input, use_cudnn=False, name=None, axis=-1):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """-log of the probability ``input`` gives ``label`` (or -sum(label
+    log input) with ``soft_label``), one value per row."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
     return out
 
 

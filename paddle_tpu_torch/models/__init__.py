@@ -1,3 +1,3 @@
 """Model builders of the port (counterpart of ``paddle_tpu/models``)."""
 
-from . import transformer  # noqa: F401
+from . import resnet, transformer  # noqa: F401

@@ -3,6 +3,7 @@
 and their plain PyTorch versions; nothing there builds or imports a GPU
 toolchain until a kernel is first launched."""
 
-from . import (activation, attention, creation, elementwise,  # noqa: F401
-               kv_cache, loss, manipulation, math, norm, optimizer_ops,
-               quantize, random, reduction, sequence)
+from . import (activation, attention, conv, creation,  # noqa: F401
+               elementwise, fused_conv_bn, kv_cache, loss, manipulation,
+               math, norm, optimizer_ops, pool, quantize, random, reduction,
+               sequence)

@@ -1,5 +1,6 @@
-"""``relu`` and ``rsqrt`` (counterpart of ``paddle_tpu/ops/activation.py``;
-the other activations come with the slices that use them)."""
+"""``relu``, ``rsqrt`` and ``softmax`` (over ``axis``, the last by
+default) (counterpart of ``paddle_tpu/ops/activation.py``; the other
+activations come with the slices that use them)."""
 
 import torch
 
@@ -11,3 +12,7 @@ for _name, _fn in (("relu", torch.relu), ("rsqrt", torch.rsqrt)):
         compute=lambda ins, attrs, ctx, op_index, fn=_fn: {
             "Out": fn(ins["X"][0])},
     )
+
+register_op("softmax", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
+            compute=lambda ins, attrs, ctx, op_index: {
+                "Out": torch.softmax(ins["X"][0], dim=attrs.get("axis", -1))})

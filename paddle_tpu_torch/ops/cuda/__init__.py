@@ -1,11 +1,12 @@
 """Hand-written Hopper kernels of the port, each beside its plain PyTorch
 version: ``flash_attention`` (kernels #1 forward and #2 backward),
-``layer_norm`` (#3 and #4), ``softmax_xent`` (#5 and #6) and
-``quant_matmul`` (#7), numbered as the TPU kernel table in PERF.md.
-``build`` compiles ``paddle_tpu_torch/csrc`` with nvcc at first use."""
+``layer_norm`` (#3 and #4), ``softmax_xent`` (#5 and #6),
+``quant_matmul`` (#7) and ``conv_bn`` (#8-#11), numbered as the TPU kernel
+table in PERF.md.  ``build`` compiles ``paddle_tpu_torch/csrc`` with nvcc
+at first use."""
 
-from . import (build, flash_attention, layer_norm,  # noqa: F401
-               quant_matmul, softmax_xent)
+from . import (build, conv_bn, flash_attention,  # noqa: F401
+               layer_norm, quant_matmul, softmax_xent)
 
 # every kernel wrapper, by kernel name; each carries a ``launches`` count
 KERNELS = {
@@ -16,6 +17,10 @@ KERNELS = {
     "softmax_xent_fwd": softmax_xent.softmax_xent_fwd,
     "softmax_xent_bwd": softmax_xent.softmax_xent_bwd,
     "dequant_matmul": quant_matmul.dequant_matmul_kernel,
+    "conv_bn_fwd": conv_bn.conv_bn_fwd,
+    "conv_bn_bwd": conv_bn.conv_bn_bwd,
+    "conv_bn_fwd_nhwc": conv_bn.conv_bn_fwd_nhwc,
+    "conv_bn_bwd_nhwc": conv_bn.conv_bn_bwd_nhwc,
 }
 
 

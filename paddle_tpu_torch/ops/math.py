@@ -1,4 +1,4 @@
-"""``mul``, ``sum`` and ``scale`` (counterpart of
+"""``mul``, ``sum``, ``scale`` and ``mean`` (counterpart of
 ``paddle_tpu/ops/math.py``).  ``mul`` is fc's matmul: flatten both
 operands to 2-D, one product.  The product goes to ``torch.matmul``, as
 the JAX package leaves it to XLA outside any kernel.  For float32 inputs
@@ -61,3 +61,12 @@ def _scale_compute(ins, attrs, ctx, op_index):
 
 register_op("scale", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
             compute=_scale_compute)
+
+
+def _mean_infer(op, block):
+    set_output(op, block, "Out", (1,), in_var(op, block, "X").dtype)
+
+
+register_op("mean", ["X"], ["Out"], infer=_mean_infer,
+            compute=lambda ins, attrs, ctx, op_index: {
+                "Out": ins["X"][0].mean().reshape(1)})

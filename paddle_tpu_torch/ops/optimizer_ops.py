@@ -1,8 +1,8 @@
-"""Dense optimizer update ops ``sgd`` and ``adam`` (counterpart of
-``paddle_tpu/ops/optimizer_ops.py``; the SelectedRows branch and the other
-optimizers wait).
+"""Dense optimizer update ops ``sgd``, ``momentum`` and ``adam``
+(counterpart of ``paddle_tpu/ops/optimizer_ops.py``; the SelectedRows
+branch and the other optimizers wait).
 
-Both update the parameter and moment tensors IN PLACE and return them:
+All three update the parameter and moment tensors IN PLACE and return them:
 the JAX package gets the same effect from buffer donation, and at
 Transformer-base size it saves one parameter-sized allocation per output.
 The arithmetic is the JAX package's, in the same order."""
@@ -57,6 +57,26 @@ def _adam_compute(ins, attrs, ctx, op_index):
     m2.mul_(b2).add_((1 - b2) * g * g)
     p.sub_(lr_t * m1 / (torch.sqrt(m2) + eps))
     return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
+
+
+def _momentum_compute(ins, attrs, ctx, op_index):
+    p, v = ins["Param"][0], ins["Velocity"][0]
+    g = _dense(ins["Grad"][0], "momentum")
+    lr = ins["LearningRate"][0].to(p.dtype)
+    mu = attrs["mu"]
+    v.mul_(mu).add_(g)               # v = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p.sub_((g + mu * v) * lr)
+    else:
+        p.sub_(lr * v)
+    return {"ParamOut": p, "VelocityOut": v}
+
+
+register_op(
+    "momentum", ["Param", "Grad", "Velocity", "LearningRate"],
+    ["ParamOut", "VelocityOut"],
+    infer=_mirror_infer(("Param", "ParamOut"), ("Velocity", "VelocityOut")),
+    compute=_momentum_compute, grad=None)
 
 
 register_op(

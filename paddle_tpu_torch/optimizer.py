@@ -5,8 +5,8 @@ of ``paddle_tpu/optimizer.py``).
 update op per parameter.  Optimizer state (moments, beta powers, the
 learning rate) are persistable scope vars that the update ops advance
 inside the same ``Executor.run`` as the step.  Ported: the base class,
-``SGD`` and ``Adam`` (dense gradients); the other optimizers wait
-(ROADMAP Queue A).
+``SGD``, ``Momentum`` and ``Adam`` (dense gradients); the other optimizers
+wait (ROADMAP Queue A).
 """
 
 from collections import defaultdict
@@ -20,7 +20,8 @@ from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["SGD", "Adam", "SGDOptimizer", "AdamOptimizer"]
+__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
+           "AdamOptimizer"]
 
 
 class Optimizer:
@@ -171,6 +172,38 @@ class SGDOptimizer(Optimizer):
         )
 
 
+class MomentumOptimizer(Optimizer):
+    """v = mu v + g; p -= lr v (Nesterov: p -= lr (g + mu v))."""
+
+    _velocity_acc_str = "velocity"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "momentum"
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._velocity_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        velocity = self._get_accumulator(self._velocity_acc_str,
+                                         param_and_grad[0])
+        return block.append_op(
+            type="momentum",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Velocity": [velocity],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "VelocityOut": [velocity]},
+            attrs={"mu": self._momentum, "use_nesterov": self._use_nesterov},
+        )
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -234,4 +267,5 @@ class AdamOptimizer(Optimizer):
 
 
 SGD = SGDOptimizer
+Momentum = MomentumOptimizer
 Adam = AdamOptimizer

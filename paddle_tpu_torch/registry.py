@@ -22,19 +22,23 @@ from .core import convert_dtype
 from .framework import grad_var_name
 
 __all__ = ["OpDef", "register_op", "get_op_def", "infer_op", "compute_op",
-           "make_grad_ops", "ComputeContext", "OPS"]
+           "make_grad_ops", "ComputeContext", "OPS", "int_list"]
 
 OPS = {}
 
 
 class ComputeContext:
     """Per-run context handed to op computes: the device the run executes
-    on and the seed material for ops that draw random numbers."""
+    on, the seed material for ops that draw random numbers, and ``saved``,
+    where a forward op keeps a value for its grad op in the same run,
+    keyed by (the forward's op index, a name); the grad op finds it through
+    its ``__fwd_op_index__`` attr."""
 
     def __init__(self, device, seed=0, run_index=0):
         self.device = device
         self.seed = int(seed)
         self.run_index = int(run_index)
+        self.saved = {}
 
     def _entropy(self, op_index):
         return np.random.SeedSequence(
@@ -282,6 +286,16 @@ def same_shape_infer(in_slot, out_slot):
         set_output(op, block, out_slot, x.shape, x.dtype, x.lod_level)
 
     return infer
+
+
+def int_list(v, n):
+    """A scalar-or-sequence attr (strides, paddings, ksize) as a list of
+    ``n`` values."""
+    if isinstance(v, (list, tuple)):
+        if len(v) != n:
+            raise ValueError("expected %d values, got %r" % (n, list(v)))
+        return list(v)
+    return [v] * n
 
 
 def broadcast_shapes(s1, s2):
