@@ -12,7 +12,9 @@ Run from the root of a checkout.  Phases, one line each:
    TF32 switches, which this script turns off so that float32 products
    stay float32;
 2. ``build``   — compiles every kernel under ``paddle_tpu_torch/csrc``
-   with ``nvcc`` (in parallel) and reports the seconds taken;
+   with ``nvcc`` (in parallel) and reports the seconds taken, each
+   kernel's registers and spills, and the ``HGMMA`` (wgmma) instructions
+   in the ``conv_bn_nhwc`` library (``cuobjdump --dump-sass``);
 3. ``kernels`` — each hand-written kernel against its plain PyTorch
    version at the shapes its paths give it (the serving slice's and the
    training slice's): max abs error and tolerance, the kernel's, the plain
@@ -20,7 +22,10 @@ Run from the root of a checkout.  Phases, one line each:
    flushed before every launch), and the least time the card could take
    (device-memory bytes at 3.35 TB/s or operations at the data-sheet peak
    of the input type); the fused conv+BN kernels #8-#11 at ResNet-50's
-   stage 1, 3 and 4 shapes in both layouts;
+   stage 1, 3 and 4 shapes in both layouts, and #10/#11 (tensor cores,
+   float32 as three TF32 passes, bound at 3 x operations / 495 TFLOP/s
+   beside the float32-unit bound) also at a ragged shape (M 1000, C 72,
+   O 200);
 4. ``serve``   — a decoder LM at Transformer-base width (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, 1024-token cache,
    8 slots, float32, random weights from build_decoder_lm's seed) served by
@@ -82,6 +87,7 @@ result.
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -93,6 +99,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
                   torch.int8: 1979e12}
+# the tensor cores' TF32 rate: #10/#11 take a float32 product as three
+# TF32 passes, so their float32 bound counts 3 x the operations at it
+TF32_OPS_PER_S = 495e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # the serving slice: Transformer-base widths, float32
@@ -506,7 +515,10 @@ def quant_matmul_cases(qm, timer):
 # the fused conv+BN layers of ResNet-50 at batch 128: (B, C, O, HW)
 CONV_BN_STAGES = {"stage1": (128, 64, 256, 3136),
                   "stage3": (128, 256, 1024, 196),
-                  "stage4": (128, 2048, 512, 49)}
+                  "stage4": (128, 2048, 512, 49),
+                  # off the path: every NHWC tile edge ragged, C and O not
+                  # multiples of the 128-wide tile, C not of the k tile
+                  "ragged": (1, 72, 200, 1000)}
 # allclose with a magnitude term: |kernel - plain| <= rtol |plain| +
 # scale_tol * scale, where scale is the sum of the absolute values of the
 # terms each output sums (|W| @ |xn| for z); the two sum ~1e2-4e5 terms in
@@ -514,6 +526,17 @@ CONV_BN_STAGES = {"stage1": (128, 64, 256, 3136),
 # and an operand the two round to bf16 from float32 values one ulp apart
 # may differ by a bf16 ulp (the scale term).
 CONV_BN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
+
+
+def conv_bn_bound(nbytes, ops, dtype, nhwc):
+    """(bound ms, by, the float32 units' bound ms or None): #10/#11 take
+    float32 on the tensor cores as three TF32 passes."""
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    if not nhwc or dtype != torch.float32:
+        return bound_ms, bound_by, None
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations (3xTF32)", bound_ms)
 
 
 def _close(got, want, scale, dtype, f32_out=False):
@@ -585,8 +608,9 @@ def conv_bn_fwd_case(cb, timer, stage, nhwc, apply_bn, dtype):
     same_bits = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
     del got, again, want, scales
     n, item = b * hw, x.element_size()
-    bound_ms, bound_by = bound(n * c * item + n * o * item + o * c * item,
-                               2.0 * n * c * o, dtype)
+    bound_ms, bound_by, bound_simt = conv_bn_bound(
+        n * c * item + n * o * item + o * c * item, 2.0 * n * c * o, dtype,
+        nhwc)
     if nhwc:
         wt = w.t()
         library = "torch.matmul(xn, w.t()) on xn normalised beforehand"
@@ -612,6 +636,8 @@ def conv_bn_fwd_case(cb, timer, stage, nhwc, apply_bn, dtype):
            "library_ms": timer(lib), "library": library,
            "bound_ms": bound_ms, "bound_by": bound_by,
            "ok": all(ok for _, ok in errs) and same_bits}
+    if bound_simt is not None:
+        res["bound_simt_ms"] = bound_simt
     del xn, lib
     torch.cuda.empty_cache()
     return res
@@ -671,7 +697,8 @@ def conv_bn_bwd_case(cb, timer, stage, nhwc, apply_bn, with_stats, dtype):
     n, item = b * hw, x.element_size()
     nbytes = (2 * n * c * item + n * o * item * (2 if with_stats else 1)
               + o * c * (item + 4))
-    bound_ms, bound_by = bound(nbytes, 4.0 * n * c * o, dtype)
+    bound_ms, bound_by, bound_simt = conv_bn_bound(nbytes, 4.0 * n * c * o,
+                                                   dtype, nhwc)
     if nhwc:
         def lib():
             torch.matmul(dz, w)
@@ -699,6 +726,8 @@ def conv_bn_bwd_case(cb, timer, stage, nhwc, apply_bn, with_stats, dtype):
            "library": "the two products (dx, dW) by torch.matmul",
            "bound_ms": bound_ms, "bound_by": bound_by,
            "ok": all(ok for _, ok in errs) and same_bits}
+    if bound_simt is not None:
+        res["bound_simt_ms"] = bound_simt
     del x, z, dz, args
     torch.cuda.empty_cache()
     return res
@@ -709,21 +738,25 @@ def conv_bn_cases(cb, timer):
     at 14x14, the most frequent fused layer, with the BN + ReLU prologue
     and, backward, the stats fold), then stage 1 (64 -> 256 at 56x56, raw
     input), stage 4 (2048 -> 512 at 7x7, no stats cotangent backward) and
-    stage 3 in bfloat16; each layout."""
+    stage 3 in bfloat16; each layout.  NHWC also the ragged shape in both
+    types, with the prologue and the fold."""
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     for nhwc in (False, True):
         sfx = "_nhwc" if nhwc else ""
+        ragged = [("ragged", dt) for dt in (f32, bf16)] if nhwc else []
         out["conv_bn_fwd" + sfx] = [
             conv_bn_fwd_case(cb, timer, st, nhwc, bn, dt)
             for st, bn, dt in (("stage3", True, f32), ("stage1", False, f32),
-                               ("stage4", True, f32), ("stage3", True, bf16))]
+                               ("stage4", True, f32), ("stage3", True, bf16))
+            + tuple((st, True, dt) for st, dt in ragged)]
         out["conv_bn_bwd" + sfx] = [
             conv_bn_bwd_case(cb, timer, st, nhwc, bn, ws, dt)
             for st, bn, ws, dt in (("stage3", True, True, f32),
                                    ("stage1", False, True, f32),
                                    ("stage4", True, False, f32),
-                                   ("stage3", True, True, bf16))]
+                                   ("stage3", True, True, bf16))
+            + tuple((st, True, True, dt) for st, dt in ragged)]
     return out
 
 
@@ -1631,11 +1664,20 @@ KERNEL_ROWS = (
      "paddle_tpu/ops/pallas/conv_bn.py:156", "resnet_train:fuse"),
     ("conv_bn_bwd", "csrc/conv_bn.cu",
      "paddle_tpu/ops/pallas/conv_bn.py:248", "resnet_train:fuse"),
-    ("conv_bn_fwd_nhwc", "csrc/conv_bn.cu",
+    ("conv_bn_fwd_nhwc", "csrc/conv_bn_nhwc.cu",
      "paddle_tpu/ops/pallas/conv_bn.py:332", "resnet_train:nhwc_fuse"),
-    ("conv_bn_bwd_nhwc", "csrc/conv_bn.cu",
+    ("conv_bn_bwd_nhwc", "csrc/conv_bn_nhwc.cu",
      "paddle_tpu/ops/pallas/conv_bn.py:417", "resnet_train:nhwc_fuse"),
 )
+
+
+def count_sass(lib, opcode):
+    """How many instructions of ``opcode`` the library's SASS holds
+    (``cuobjdump --dump-sass``): HGMMA is wgmma on the tensor cores."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return sum(opcode in ln for ln in sass.splitlines())
 
 
 def main():
@@ -1664,7 +1706,9 @@ def main():
                  if "registers" in ln or "spill" in ln]
              for n in built}
     log("build", {"seconds": time.perf_counter() - t0,
-                  "kernels": sorted(built), "ptxas": ptxas})
+                  "kernels": sorted(built), "ptxas": ptxas,
+                  "hgmma": {"conv_bn_nhwc": count_sass(
+                      built["conv_bn_nhwc"], "HGMMA")}})
     if "--profile" in sys.argv[1:]:
         for quantize in (None, "weight_only", "dynamic"):
             profile_phase(pt.CUDAPlace(0), quantize=quantize)
@@ -1729,9 +1773,14 @@ def main():
                "launches": path_launches[main_path][name],
                "max_abs_err": head["max_abs_err"],
                "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
-               "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+               "bound_ms": head["bound_ms"],
+               "bound_by": head["bound_by"].split(" ")[0],
                "library_ms": head["library_ms"], "at": head["check"],
                "launches_path": main_path}
+        if "bound_simt_ms" in head:  # #10/#11: the 3xTF32 bound, and the
+            # float32 units' beside it
+            row.update(bound_rate="3xTF32",
+                       bound_simt_ms=head["bound_simt_ms"])
         row.update({"launches_" + p: path_launches[p][name]
                     for p in path_launches})
         rows.append(row)

@@ -1,12 +1,12 @@
-// Kernels #8-#11: the fused BN-apply -> 1x1 conv -> batch-stats layer of
-// ResNet's bottleneck, forward and backward, NCHW and NHWC, for Hopper
-// (sm_90a), in plain CUDA C++.
+// Kernels #8 and #9: the fused BN-apply -> 1x1 conv -> batch-stats layer of
+// ResNet's bottleneck, forward and backward, NCHW, for Hopper (sm_90a), in
+// plain CUDA C++.  The NHWC kernels #10/#11 are conv_bn_nhwc.cu (tensor
+// cores); the templates below keep their layout parameter, instantiated
+// for NCHW only.
 //
 // Replaces the TPU kernels of paddle_tpu/ops/pallas/conv_bn.py:
 //   #8  _fwd_call       (pallas_call body _fwd_kernel)        NCHW x [B, C, HW]
 //   #9  _bwd_call       (_bwd_kernel)                          NCHW
-//   #10 _fwd_call_nhwc  (_fwd_kernel_nhwc)                     NHWC x [M, C]
-//   #11 _bwd_call_nhwc  (_bwd_kernel_nhwc)                     NHWC
 // The function, per position j (NCHW: j = b*HW + p; NHWC: j = m) and
 // output channel o, with the producer's batch mean/rstd and the BN's
 // gamma/beta over input channels c:
@@ -657,9 +657,8 @@ int bwd(const void* x, const void* w, int64_t swo, int64_t swc, const void* z,
 
 }  // namespace
 
-// Forward.  NCHW (nhwc = 0): x [B, C, HW] contiguous, N = B*HW, hw = HW;
-// NHWC: x [N, C] contiguous (hw unused).  w [O, C] of x's dtype with element
-// strides (swo, swc).  mean/rstd/gamma/beta float32 [C] (read only with
+// Forward.  x [B, C, HW] contiguous, N = B*HW, hw = HW.  w [O, C] of x's
+// dtype with element strides (swo, swc).  mean/rstd/gamma/beta float32 [C] (read only with
 // apply_bn), shift float32 [O] (read only with with_stats).  z like x with
 // O channels; part a float32 scratch of 2 * ceil(N / 128) * O; stats float32
 // [2, O] (sum, sumsq), written only with with_stats.  Returns the CUDA error
@@ -669,12 +668,12 @@ extern "C" int ptt_conv_bn_fwd(const void* x, const void* w, long long swo,
                                const void* rstd, const void* gamma,
                                const void* beta, const void* shift, void* z,
                                void* part, void* stats, long long N, int hw,
-                               int C, int O, int nhwc, int apply_bn, int relu,
+                               int C, int O, int apply_bn, int relu,
                                int with_stats, int dtype, int device,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (N <= 0 || C <= 0 || O <= 0 || (!nhwc && hw <= 0)) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || C <= 0 || O <= 0 || hw <= 0) return (int)cudaErrorInvalidValue;
   const Bn bn{static_cast<const float*>(mean), static_cast<const float*>(rstd),
               static_cast<const float*>(gamma), static_cast<const float*>(beta),
               apply_bn, relu};
@@ -683,15 +682,13 @@ extern "C" int ptt_conv_bn_fwd(const void* x, const void* w, long long swo,
   float* sv = static_cast<float*>(stats);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)
-    return nhwc ? fwd<float, true>(x, w, swo, swc, bn, sh, z, pt, sv, N, hw, C, O, with_stats, st)
-                : fwd<float, false>(x, w, swo, swc, bn, sh, z, pt, sv, N, hw, C, O, with_stats, st);
+    return fwd<float, false>(x, w, swo, swc, bn, sh, z, pt, sv, N, hw, C, O, with_stats, st);
   if (dtype == ptt::kBFloat16)
-    return nhwc ? fwd<__nv_bfloat16, true>(x, w, swo, swc, bn, sh, z, pt, sv, N, hw, C, O, with_stats, st)
-                : fwd<__nv_bfloat16, false>(x, w, swo, swc, bn, sh, z, pt, sv, N, hw, C, O, with_stats, st);
+    return fwd<__nv_bfloat16, false>(x, w, swo, swc, bn, sh, z, pt, sv, N, hw, C, O, with_stats, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward.  x, w, the BN vectors and the layout as in ptt_conv_bn_fwd; z
+// Backward.  x, w and the BN vectors as in ptt_conv_bn_fwd; z
 // and dz like the forward's z (z read only with with_stats); dsum/dsumsq/
 // shift float32 [O] (read only with with_stats).  dx like x; dw float32
 // [O, C]; dw_part a float32 scratch of splits * O * C (unused when splits is
@@ -706,13 +703,13 @@ extern "C" int ptt_conv_bn_bwd(const void* x, const void* w, long long swo,
                                const void* gamma, const void* beta,
                                const void* shift, void* dx, void* dw,
                                void* dw_part, void* g_part, void* dgb,
-                               long long N, int hw, int C, int O, int nhwc,
+                               long long N, int hw, int C, int O,
                                int apply_bn, int relu, int with_stats,
                                int splits, long long chunk, int dtype,
                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (N <= 0 || C <= 0 || O <= 0 || (!nhwc && hw <= 0) || splits < 1 ||
+  if (N <= 0 || C <= 0 || O <= 0 || hw <= 0 || splits < 1 ||
       splits > 65535 || chunk <= 0 || chunk % BK || (long long)splits * chunk < N)
     return (int)cudaErrorInvalidValue;
   const Bn bn{static_cast<const float*>(mean), static_cast<const float*>(rstd),
@@ -726,10 +723,8 @@ extern "C" int ptt_conv_bn_bwd(const void* x, const void* w, long long swo,
   float* gb = static_cast<float*>(dgb);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)
-    return nhwc ? bwd<float, true>(x, w, swo, swc, z, dz, fd, bn, dx, dwv, dwp, gp, gb, N, hw, C, O, splits, chunk, st)
-                : bwd<float, false>(x, w, swo, swc, z, dz, fd, bn, dx, dwv, dwp, gp, gb, N, hw, C, O, splits, chunk, st);
+    return bwd<float, false>(x, w, swo, swc, z, dz, fd, bn, dx, dwv, dwp, gp, gb, N, hw, C, O, splits, chunk, st);
   if (dtype == ptt::kBFloat16)
-    return nhwc ? bwd<__nv_bfloat16, true>(x, w, swo, swc, z, dz, fd, bn, dx, dwv, dwp, gp, gb, N, hw, C, O, splits, chunk, st)
-                : bwd<__nv_bfloat16, false>(x, w, swo, swc, z, dz, fd, bn, dx, dwv, dwp, gp, gb, N, hw, C, O, splits, chunk, st);
+    return bwd<__nv_bfloat16, false>(x, w, swo, swc, z, dz, fd, bn, dx, dwv, dwp, gp, gb, N, hw, C, O, splits, chunk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,11 +2,13 @@
 forward), #9 (NCHW backward), #10 (NHWC forward) and #11 (NHWC backward),
 each beside its plain PyTorch version.
 
-``conv_bn_fwd``, ``conv_bn_bwd``, ``conv_bn_fwd_nhwc`` and
-``conv_bn_bwd_nhwc`` launch ``csrc/conv_bn.cu`` (the Hopper port of
-``paddle_tpu/ops/pallas/conv_bn.py``'s ``_fwd_call``, ``_bwd_call``,
-``_fwd_call_nhwc`` and ``_bwd_call_nhwc``) on CUDA tensors;
-``bn_act_matmul_reference`` and ``bn_act_matmul_bwd_reference`` are the
+``conv_bn_fwd`` and ``conv_bn_bwd`` launch ``csrc/conv_bn.cu`` (float32
+SIMT), ``conv_bn_fwd_nhwc`` and ``conv_bn_bwd_nhwc`` ``csrc/conv_bn_nhwc.cu``
+(tensor cores: ``wgmma``, float32 as three TF32 passes, see
+``matmul_tf32x3``): the Hopper ports of ``paddle_tpu/ops/pallas/conv_bn.py``'s
+``_fwd_call``, ``_bwd_call``, ``_fwd_call_nhwc`` and ``_bwd_call_nhwc``, on
+CUDA tensors; ``bn_act_matmul_reference`` and
+``bn_act_matmul_bwd_reference`` are the
 plain versions of both layouts.  ``forward`` and ``backward`` are what the
 ``bn_act_conv2d`` op and its grad op call: the kernels for tensors on the
 card, the plain versions for tensors on the CPU.  ``bn_act_matmul`` and
@@ -40,15 +42,20 @@ from . import build
 __all__ = ["conv_bn_fwd", "conv_bn_bwd", "conv_bn_fwd_nhwc",
            "conv_bn_bwd_nhwc", "bn_act_matmul_reference",
            "bn_act_matmul_bwd_reference", "forward", "backward",
-           "stats_grads", "bn_act_matmul", "bn_act_matmul_nhwc"]
+           "stats_grads", "bn_act_matmul", "bn_act_matmul_nhwc",
+           "tf32_round", "matmul_tf32x3"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 128          # the kernels' tile width (rows and columns)
-_K_STEP = 8          # the kernels' contraction step
+_K_STEP = 8          # the NCHW kernels' contraction step
 # dW splits its contraction over positions into about two waves of two
 # blocks an SM (132 SMs; one wave and a few blocks would leave the second
 # wave nearly empty), in chunks of at least this many positions
 _DW_BLOCKS, _DW_MIN_CHUNK = 528, 256
+# the NHWC kernels: k tiles of 128 bytes, one block an SM, so two waves
+# are 264 blocks
+_NHWC_K_TILE = {torch.float32: 32, torch.bfloat16: 64}
+_NHWC_DW_BLOCKS = 264
 
 
 def _shapes(x, w, nhwc):
@@ -126,24 +133,54 @@ def bn_act_matmul_bwd_reference(x, w, z, dz, dsum, dsumsq, mean, rstd, gamma,
     return dx.to(x.dtype), dw, dgamma, dbeta
 
 
+def tf32_round(v):
+    """float32 ``v`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    10 mantissa bits, to nearest, ties away from zero (add 0x1000 to the
+    magnitude's bits, clear the low 13)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def matmul_tf32x3(a, b, passes=3):
+    """``a @ b`` as the NHWC kernels take a float32 product on the tensor
+    cores: each operand split into hi = tf32(v) and lo = tf32(v - hi), and
+    lo·hi + hi·lo + hi·hi summed in float32, small terms first.  With
+    ``passes=1`` only hi·hi, one TF32 pass.  For the tests: it shows on the
+    CPU what the three passes keep of a float32 product."""
+    a, b = a.float(), b.float()
+    ah, bh = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
 # ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
-def _fwd_lib():
-    fn = build.library("conv_bn").ptt_conv_bn_fwd
+def _fwd_lib(nhwc):
+    if nhwc:
+        fn = build.library("conv_bn_nhwc").ptt_conv_bn_nhwc_fwd
+    else:
+        fn = build.library("conv_bn").ptt_conv_bn_fwd
     if fn.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, q, q] + [p] * 8 + [q] + [i] * 9 + [p]
+        fn.argtypes = [p, p, q, q] + [p] * 8 + [q] + [i] * (7 if nhwc else 8) \
+            + [p]
         fn.restype = i
     return fn
 
 
-def _bwd_lib():
-    fn = build.library("conv_bn").ptt_conv_bn_bwd
+def _bwd_lib(nhwc):
+    if nhwc:
+        fn = build.library("conv_bn_nhwc").ptt_conv_bn_nhwc_bwd
+    else:
+        fn = build.library("conv_bn").ptt_conv_bn_bwd
     if fn.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, q, q] + [p] * 14 + [q] + [i] * 8 + [q, i, i, p]
+        fn.argtypes = [p, p, q, q] + [p] * 14 + [q] \
+            + [i] * (6 if nhwc else 7) + [q, i, i, p]
         fn.restype = i
     return fn
 
@@ -214,10 +251,11 @@ def _fwd(name, nhwc, x, w, mean, rstd, gamma, beta, shift, act, apply_bn,
         return z.zero_(), stats[0], stats[1]
     part = (torch.empty((2, -(-n // _TILE), o), dtype=torch.float32,
                         device=x.device) if with_stats else None)
-    err = _fwd_lib()(
+    layout = (c, o) if nhwc else (hw, c, o)
+    err = _fwd_lib(nhwc)(
         x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1), *map(_ptr, bn),
         _ptr(shift) if with_stats else None, z.data_ptr(), _ptr(part),
-        stats.data_ptr(), n, hw, c, o, int(nhwc), int(bool(apply_bn)),
+        stats.data_ptr(), n, *layout, int(bool(apply_bn)),
         int(act == "relu"), int(bool(with_stats)), _DTYPE_CODE[x.dtype],
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "%s x%s w%s" % (name, tuple(x.shape), tuple(w.shape)))
@@ -225,11 +263,23 @@ def _fwd(name, nhwc, x, w, mean, rstd, gamma, beta, shift, act, apply_bn,
 
 
 def _dw_splits(n, c, o):
-    """(splits, chunk) of dW's contraction over the n positions."""
+    """(splits, chunk) of the NCHW dW's contraction over the n positions."""
     tiles = -(-c // _TILE) * -(-o // _TILE)
     want = max(1, -(-_DW_BLOCKS // tiles))
     chunk = max(-(-n // want), _DW_MIN_CHUNK)
     chunk = -(-chunk // _K_STEP) * _K_STEP
+    return -(-n // chunk), chunk
+
+
+def _dw_splits_nhwc(n, c, o, dtype):
+    """(splits, chunk) of the NHWC dW's contraction over the n positions:
+    about two waves of one block an SM over the (C, O) tiles, chunks a
+    multiple of the k tile and at least 256 positions."""
+    step = _NHWC_K_TILE[dtype]
+    tiles = -(-c // _TILE) * -(-o // _TILE)
+    want = max(1, _NHWC_DW_BLOCKS // tiles)
+    chunk = max(-(-n // want), _DW_MIN_CHUNK)
+    chunk = -(-chunk // step) * step
     return -(-n // chunk), chunk
 
 
@@ -248,18 +298,20 @@ def _bwd(name, nhwc, x, w, z, dz, dsum, dsumsq, mean, rstd, gamma, beta,
     dgb = torch.zeros((2, c), dtype=torch.float32, device=x.device)
     if n == 0 or c == 0:
         return dx.zero_(), dw, dgb[0], dgb[1]
-    splits, chunk = _dw_splits(n, c, o)
+    splits, chunk = (_dw_splits_nhwc(n, c, o, x.dtype) if nhwc
+                     else _dw_splits(n, c, o))
     dw_part = (torch.empty((splits, o, c), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     g_part = (torch.empty((2, -(-n // _TILE), c), dtype=torch.float32,
                           device=x.device) if apply_bn else None)
     stats = (dsum, dsumsq, shift) if with_stats else (None,) * 3
-    err = _bwd_lib()(
+    layout = (c, o) if nhwc else (hw, c, o)
+    err = _bwd_lib(nhwc)(
         x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
         _ptr(z) if with_stats else None, dz.data_ptr(), _ptr(stats[0]),
         _ptr(stats[1]), *map(_ptr, bn), _ptr(stats[2]), dx.data_ptr(),
-        dw.data_ptr(), _ptr(dw_part), _ptr(g_part), dgb.data_ptr(), n, hw, c,
-        o, int(nhwc), int(bool(apply_bn)), int(act == "relu"),
+        dw.data_ptr(), _ptr(dw_part), _ptr(g_part), dgb.data_ptr(), n,
+        *layout, int(bool(apply_bn)), int(act == "relu"),
         int(bool(with_stats)), splits, chunk, _DTYPE_CODE[x.dtype],
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "%s x%s w%s" % (name, tuple(x.shape), tuple(w.shape)))
@@ -290,8 +342,8 @@ def conv_bn_bwd(x, w, z, dz, dsum, dsumsq, mean, rstd, gamma, beta, shift,
 
 def conv_bn_fwd_nhwc(x, w, mean, rstd, gamma, beta, shift, act="relu",
                      apply_bn=True, with_stats=True):
-    """Launch kernel #10 on CUDA tensors: x [M, C], w [O, C]; returns (z
-    [M, O], sum [O], sumsq [O])."""
+    """Launch kernel #10 (tensor cores) on CUDA tensors: x [M, C], w [O, C]
+    (any strides); returns (z [M, O], sum [O], sumsq [O])."""
     out = _fwd("conv_bn_fwd_nhwc", True, x, w, mean, rstd, gamma, beta,
                shift, act, apply_bn, with_stats)
     conv_bn_fwd_nhwc.launches += 1
@@ -300,8 +352,9 @@ def conv_bn_fwd_nhwc(x, w, mean, rstd, gamma, beta, shift, act="relu",
 
 def conv_bn_bwd_nhwc(x, w, z, dz, dsum, dsumsq, mean, rstd, gamma, beta,
                      shift, act="relu", apply_bn=True, with_stats=True):
-    """Launch kernel #11 on CUDA tensors: x [M, C], w [O, C], z and dz
-    [M, O]; returns (dx, dW [O, C], dgamma [C], dbeta [C])."""
+    """Launch kernel #11 (tensor cores) on CUDA tensors: x [M, C], w [O, C],
+    z and dz [M, O]; returns (dx, dW [O, C], dgamma [C], dbeta [C]), every
+    sum over positions reduced in a fixed order."""
     out = _bwd("conv_bn_bwd_nhwc", True, x, w, z, dz, dsum, dsumsq, mean,
                rstd, gamma, beta, shift, act, apply_bn, with_stats)
     conv_bn_bwd_nhwc.launches += 1

@@ -128,6 +128,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         pt_conv_bn.conv_bn_fwd(x, w, None, None, None, None, None, "",
                                False, False)
     with pytest.raises(ValueError, match="CUDA"):
+        pt_conv_bn.conv_bn_fwd_nhwc(x[0].t().contiguous(), w, None, None,
+                                    None, None, None, "", False, False)
+    with pytest.raises(ValueError, match="CUDA"):
         pt_conv_bn.conv_bn_bwd_nhwc(x[0].t().contiguous(), w, None,
                                     torch.zeros(5, 4), None, None, None,
                                     None, None, None, None, "", False, False)
@@ -139,6 +142,14 @@ def test_dw_splits_cover_every_position():
         splits, chunk = pt_conv_bn._dw_splits(n, c, o)
         assert chunk % 8 == 0 and splits * chunk >= n > (splits - 1) * chunk
         assert 1 <= splits <= 65535
+        # the NHWC kernels: 128 x 128 (C, O) tiles, chunks a multiple of the
+        # k tile (128 bytes), about two waves of one block an SM
+        tiles = -(-c // 128) * -(-o // 128)
+        for dtype, step in ((torch.float32, 32), (torch.bfloat16, 64)):
+            splits, chunk = pt_conv_bn._dw_splits_nhwc(n, c, o, dtype)
+            assert chunk % step == 0 and chunk >= 256
+            assert splits * chunk >= n > (splits - 1) * chunk
+            assert 1 <= splits <= 65535 and splits * tiles <= max(264, tiles)
 
 
 # ---------------------------------------------------------------------------
