@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile   # device, build, then the profiles
     python3 chip_smoke.py --serve-ab  # device, build, fp and int8 serving
                                       # in turns (fp, wo, dyn, dyn, wo, fp)
+    python3 chip_smoke.py --conv-bn   # device, build, kernels #8-#11 only
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -14,7 +15,8 @@ Run from the root of a checkout.  Phases, one line each:
 2. ``build``   — compiles every kernel under ``paddle_tpu_torch/csrc``
    with ``nvcc`` (in parallel) and reports the seconds taken, each
    kernel's registers and spills, and the ``HGMMA`` (wgmma) instructions
-   in the ``conv_bn_nhwc`` library (``cuobjdump --dump-sass``);
+   in the ``conv_bn`` and ``conv_bn_nhwc`` libraries (``cuobjdump
+   --dump-sass``);
 3. ``kernels`` — each hand-written kernel against its plain PyTorch
    version at the shapes its paths give it (the serving slice's and the
    training slice's): max abs error and tolerance, the kernel's, the plain
@@ -22,10 +24,11 @@ Run from the root of a checkout.  Phases, one line each:
    flushed before every launch), and the least time the card could take
    (device-memory bytes at 3.35 TB/s or operations at the data-sheet peak
    of the input type); the fused conv+BN kernels #8-#11 at ResNet-50's
-   stage 1, 3 and 4 shapes in both layouts, and #10/#11 (tensor cores,
-   float32 as three TF32 passes, bound at 3 x operations / 495 TFLOP/s
-   beside the float32-unit bound) also at a ragged shape (M 1000, C 72,
-   O 200);
+   stage 1, 3 and 4 shapes in both layouts (tensor cores, float32 as
+   three TF32 passes, bound at 3 x operations / 495 TFLOP/s beside the
+   float32-unit bound), and at a ragged shape in each (NHWC M 1000, NCHW 3
+   images of 7x7; C 72, O 200); the library calls of #2 and #4 also name
+   the device kernels they ran (``torch.profiler``: SDPA's backend);
 4. ``serve``   — a decoder LM at Transformer-base width (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, 1024-token cache,
    8 slots, float32, random weights from build_decoder_lm's seed) served by
@@ -99,7 +102,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
                   torch.int8: 1979e12}
-# the tensor cores' TF32 rate: #10/#11 take a float32 product as three
+# the tensor cores' TF32 rate: #8-#11 take a float32 product as three
 # TF32 passes, so their float32 bound counts 3 x the operations at it
 TF32_OPS_PER_S = 495e12
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -262,6 +265,25 @@ def _pairs_and_keys(b, h, tq, tk, causal, kl):
     return valid, int(valid.sum()) * h, int(valid.any(dim=2).sum()) * h
 
 
+def library_kernels(fn):
+    """The device kernels one call of ``fn`` runs, {name: device us}, from
+    ``torch.profiler``: which backend a library call took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            out[e.key[:100]] = us
+    return out
+
+
 def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
                        rate=0.0, seed=None):
     """Kernel #2 against ``attention_bwd_reference`` on the kernel
@@ -291,14 +313,18 @@ def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
     # S and G recomputed once, then dQ, dK and dV: five products a pair
     bound_ms, bound_by = bound(nbytes, 10 * d * pairs, dtype)
 
-    library_ms = None
+    library_ms, library = None, {}
     if not rate and bool((kl > 0).all()):
         leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
         o = scaled_dot_product_attention(*leaves, attn_mask=valid,
                                          scale=1.0 / d ** 0.5)
-        library_ms = timer(lambda: torch.autograd.grad(
-            o, leaves, dout, retain_graph=True))
-    return {"check": name, "q": list(q.shape), "k": list(k.shape),
+
+        def lib():
+            torch.autograd.grad(o, leaves, dout, retain_graph=True)
+        library_ms = timer(lib)
+        library = {"library_kernels": library_kernels(lib),
+                   "library_ms_again": timer(lib)}
+    return dict(library, **{"check": name, "q": list(q.shape), "k": list(k.shape),
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
             "dropout": rate, "klen_zero_rows": int((kl == 0).sum()),
             "max_abs_err": max(e for e, _ in errs), "tol": TOL[dtype],
@@ -307,7 +333,7 @@ def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
             "plain_ms": timer(lambda: fa.attention_bwd_reference(*args),
                               iters=5),
             "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "ok": ok}
+            "bound_by": bound_by, "ok": ok})
 
 
 def layer_norm_bwd_case(ln, timer, n, d, dtype):
@@ -335,14 +361,17 @@ def layer_norm_bwd_case(ln, timer, n, d, dtype):
     bound_ms, bound_by = bound(nbytes, 13 * n * d, dtype)
     leaves = [t.detach().clone().requires_grad_() for t in (x, gamma, beta)]
     y = layer_norm(leaves[0], (d,), leaves[1], leaves[2], 1e-5)
+
+    def lib():
+        torch.autograd.grad(y, leaves, dy, retain_graph=True)
     return {"check": "layer_norm_bwd_%dx%d" % (n, d), "x": [n, d],
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": max(e for e, _ in errs), "tol": TOL[dtype],
             "repeatable_bits": same_bits,
             "kernel_ms": timer(lambda: ln.layer_norm_bwd(*args)),
             "plain_ms": timer(lambda: ln.layer_norm_bwd_reference(*args)),
-            "library_ms": timer(lambda: torch.autograd.grad(
-                y, leaves, dy, retain_graph=True)),
+            "library_ms": timer(lib), "library_kernels": library_kernels(lib),
+            "library_ms_again": timer(lib),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "ok": all(o for _, o in errs) and same_bits}
 
@@ -518,7 +547,10 @@ CONV_BN_STAGES = {"stage1": (128, 64, 256, 3136),
                   "stage4": (128, 2048, 512, 49),
                   # off the path: every NHWC tile edge ragged, C and O not
                   # multiples of the 128-wide tile, C not of the k tile
-                  "ragged": (1, 72, 200, 1000)}
+                  "ragged": (1, 72, 200, 1000),
+                  # the same in NCHW: 147 positions, HW 49 straddles the
+                  # 16-byte chunks of positions and the images the tiles
+                  "ragged_hw49": (3, 72, 200, 49)}
 # allclose with a magnitude term: |kernel - plain| <= rtol |plain| +
 # scale_tol * scale, where scale is the sum of the absolute values of the
 # terms each output sums (|W| @ |xn| for z); the two sum ~1e2-4e5 terms in
@@ -528,11 +560,11 @@ CONV_BN_STAGES = {"stage1": (128, 64, 256, 3136),
 CONV_BN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
 
 
-def conv_bn_bound(nbytes, ops, dtype, nhwc):
-    """(bound ms, by, the float32 units' bound ms or None): #10/#11 take
+def conv_bn_bound(nbytes, ops, dtype):
+    """(bound ms, by, the float32 units' bound ms or None): #8-#11 take
     float32 on the tensor cores as three TF32 passes."""
     bound_ms, bound_by = bound(nbytes, ops, dtype)
-    if not nhwc or dtype != torch.float32:
+    if dtype != torch.float32:
         return bound_ms, bound_by, None
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
@@ -609,8 +641,7 @@ def conv_bn_fwd_case(cb, timer, stage, nhwc, apply_bn, dtype):
     del got, again, want, scales
     n, item = b * hw, x.element_size()
     bound_ms, bound_by, bound_simt = conv_bn_bound(
-        n * c * item + n * o * item + o * c * item, 2.0 * n * c * o, dtype,
-        nhwc)
+        n * c * item + n * o * item + o * c * item, 2.0 * n * c * o, dtype)
     if nhwc:
         wt = w.t()
         library = "torch.matmul(xn, w.t()) on xn normalised beforehand"
@@ -698,7 +729,7 @@ def conv_bn_bwd_case(cb, timer, stage, nhwc, apply_bn, with_stats, dtype):
     nbytes = (2 * n * c * item + n * o * item * (2 if with_stats else 1)
               + o * c * (item + 4))
     bound_ms, bound_by, bound_simt = conv_bn_bound(nbytes, 4.0 * n * c * o,
-                                                   dtype, nhwc)
+                                                   dtype)
     if nhwc:
         def lib():
             torch.matmul(dz, w)
@@ -738,13 +769,14 @@ def conv_bn_cases(cb, timer):
     at 14x14, the most frequent fused layer, with the BN + ReLU prologue
     and, backward, the stats fold), then stage 1 (64 -> 256 at 56x56, raw
     input), stage 4 (2048 -> 512 at 7x7, no stats cotangent backward) and
-    stage 3 in bfloat16; each layout.  NHWC also the ragged shape in both
-    types, with the prologue and the fold."""
+    stage 3 in bfloat16; each layout.  Then each layout's ragged shape in
+    both types, with the prologue and the fold."""
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     for nhwc in (False, True):
         sfx = "_nhwc" if nhwc else ""
-        ragged = [("ragged", dt) for dt in (f32, bf16)] if nhwc else []
+        ragged = [("ragged" if nhwc else "ragged_hw49", dt)
+                  for dt in (f32, bf16)]
         out["conv_bn_fwd" + sfx] = [
             conv_bn_fwd_case(cb, timer, st, nhwc, bn, dt)
             for st, bn, dt in (("stage3", True, f32), ("stage1", False, f32),
@@ -1707,8 +1739,18 @@ def main():
              for n in built}
     log("build", {"seconds": time.perf_counter() - t0,
                   "kernels": sorted(built), "ptxas": ptxas,
-                  "hgmma": {"conv_bn_nhwc": count_sass(
-                      built["conv_bn_nhwc"], "HGMMA")}})
+                  "hgmma": {n: count_sass(built[n], "HGMMA")
+                            for n in ("conv_bn", "conv_bn_nhwc")}})
+    if "--conv-bn" in sys.argv[1:]:
+        from paddle_tpu_torch.ops.cuda import conv_bn as cb
+        checks = conv_bn_cases(cb, Timer())
+        log("kernels", checks)
+        bad = [c["check"] for cs in checks.values() for c in cs
+               if not c["ok"]]
+        if bad:
+            raise SystemExit("kernel disagrees with its plain version: %s"
+                             % bad)
+        return 0
     if "--profile" in sys.argv[1:]:
         for quantize in (None, "weight_only", "dynamic"):
             profile_phase(pt.CUDAPlace(0), quantize=quantize)
@@ -1777,7 +1819,7 @@ def main():
                "bound_by": head["bound_by"].split(" ")[0],
                "library_ms": head["library_ms"], "at": head["check"],
                "launches_path": main_path}
-        if "bound_simt_ms" in head:  # #10/#11: the 3xTF32 bound, and the
+        if "bound_simt_ms" in head:  # #8-#11: the 3xTF32 bound, and the
             # float32 units' beside it
             row.update(bound_rate="3xTF32",
                        bound_simt_ms=head["bound_simt_ms"])

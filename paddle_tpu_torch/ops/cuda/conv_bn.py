@@ -2,9 +2,9 @@
 forward), #9 (NCHW backward), #10 (NHWC forward) and #11 (NHWC backward),
 each beside its plain PyTorch version.
 
-``conv_bn_fwd`` and ``conv_bn_bwd`` launch ``csrc/conv_bn.cu`` (float32
-SIMT), ``conv_bn_fwd_nhwc`` and ``conv_bn_bwd_nhwc`` ``csrc/conv_bn_nhwc.cu``
-(tensor cores: ``wgmma``, float32 as three TF32 passes, see
+``conv_bn_fwd`` and ``conv_bn_bwd`` launch ``csrc/conv_bn.cu``,
+``conv_bn_fwd_nhwc`` and ``conv_bn_bwd_nhwc`` ``csrc/conv_bn_nhwc.cu``, all
+on the tensor cores (``wgmma``, float32 as three TF32 passes, see
 ``matmul_tf32x3``): the Hopper ports of ``paddle_tpu/ops/pallas/conv_bn.py``'s
 ``_fwd_call``, ``_bwd_call``, ``_fwd_call_nhwc`` and ``_bwd_call_nhwc``, on
 CUDA tensors; ``bn_act_matmul_reference`` and
@@ -47,15 +47,12 @@ __all__ = ["conv_bn_fwd", "conv_bn_bwd", "conv_bn_fwd_nhwc",
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 128          # the kernels' tile width (rows and columns)
-_K_STEP = 8          # the NCHW kernels' contraction step
-# dW splits its contraction over positions into about two waves of two
-# blocks an SM (132 SMs; one wave and a few blocks would leave the second
-# wave nearly empty), in chunks of at least this many positions
-_DW_BLOCKS, _DW_MIN_CHUNK = 528, 256
-# the NHWC kernels: k tiles of 128 bytes, one block an SM, so two waves
-# are 264 blocks
-_NHWC_K_TILE = {torch.float32: 32, torch.bfloat16: 64}
-_NHWC_DW_BLOCKS = 264
+# k tiles of 128 bytes: the NHWC dW chunks are multiples of it, and the
+# NCHW kernels' W tiles (``_w_tiles``) are cut by it
+_K_TILE = {torch.float32: 32, torch.bfloat16: 64}
+# dW splits its contraction over positions into about two waves of one
+# block an SM (132 SMs), in chunks of at least this many positions
+_DW_BLOCKS, _DW_MIN_CHUNK = 264, 256
 
 
 def _shapes(x, w, nhwc):
@@ -142,7 +139,7 @@ def tf32_round(v):
 
 
 def matmul_tf32x3(a, b, passes=3):
-    """``a @ b`` as the NHWC kernels take a float32 product on the tensor
+    """``a @ b`` as kernels #8-#11 take a float32 product on the tensor
     cores: each operand split into hi = tf32(v) and lo = tf32(v - hi), and
     lo·hi + hi·lo + hi·hi summed in float32, small terms first.  With
     ``passes=1`` only hi·hi, one TF32 pass.  For the tests: it shows on the
@@ -166,8 +163,8 @@ def _fwd_lib(nhwc):
         fn = build.library("conv_bn").ptt_conv_bn_fwd
     if fn.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, q, q] + [p] * 8 + [q] + [i] * (7 if nhwc else 8) \
-            + [p]
+        fn.argtypes = [p, p, q, q] + [p] * (8 if nhwc else 9) + [q] \
+            + [i] * (7 if nhwc else 8) + [p]
         fn.restype = i
     return fn
 
@@ -179,7 +176,7 @@ def _bwd_lib(nhwc):
         fn = build.library("conv_bn").ptt_conv_bn_bwd
     if fn.argtypes is None:
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, p, q, q] + [p] * 14 + [q] \
+        fn.argtypes = [p, p, q, q] + [p] * (14 if nhwc else 15) + [q] \
             + [i] * (6 if nhwc else 7) + [q, i, i, p]
         fn.restype = i
     return fn
@@ -229,6 +226,16 @@ def _check(name, x, w, nhwc, vectors, acts):
                                 t.dtype, t.device))
 
 
+def _w_tiles(rows, kdim, x):
+    """Scratch for the NCHW kernels' W pre-pass: W as [rows, kdim] in
+    128 x k-tile tiles of the wgmma layout, float32 as hi and lo TF32 (32
+    KB a tile), bfloat16 as it is (16 KB)."""
+    tiles = -(-rows // _TILE) * -(-kdim // _K_TILE[x.dtype])
+    return torch.empty(tiles * _TILE * 128 * (2 if x.dtype == torch.float32
+                                              else 1),
+                       dtype=torch.uint8, device=x.device)
+
+
 def _bn_vectors(mean, rstd, gamma, beta, apply_bn, c):
     names = ("mean", "rstd", "gamma", "beta")
     if not apply_bn:
@@ -252,32 +259,34 @@ def _fwd(name, nhwc, x, w, mean, rstd, gamma, beta, shift, act, apply_bn,
     part = (torch.empty((2, -(-n // _TILE), o), dtype=torch.float32,
                         device=x.device) if with_stats else None)
     layout = (c, o) if nhwc else (hw, c, o)
+    wsw = () if nhwc else (_w_tiles(o, c, x).data_ptr(),)
     err = _fwd_lib(nhwc)(
         x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1), *map(_ptr, bn),
         _ptr(shift) if with_stats else None, z.data_ptr(), _ptr(part),
-        stats.data_ptr(), n, *layout, int(bool(apply_bn)),
+        stats.data_ptr(), *wsw, n, *layout, int(bool(apply_bn)),
         int(act == "relu"), int(bool(with_stats)), _DTYPE_CODE[x.dtype],
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "%s x%s w%s" % (name, tuple(x.shape), tuple(w.shape)))
     return z, stats[0], stats[1]
 
 
-def _dw_splits(n, c, o):
-    """(splits, chunk) of the NCHW dW's contraction over the n positions."""
+def _dw_splits(b, hw, c, o):
+    """(splits, chunk) of the NCHW dW's contraction over the b * hw
+    positions: whole images a chunk, about two waves of one block an SM
+    over the (C, O) tiles, at least 256 positions a chunk (or all)."""
     tiles = -(-c // _TILE) * -(-o // _TILE)
-    want = max(1, -(-_DW_BLOCKS // tiles))
-    chunk = max(-(-n // want), _DW_MIN_CHUNK)
-    chunk = -(-chunk // _K_STEP) * _K_STEP
-    return -(-n // chunk), chunk
+    want = max(1, _DW_BLOCKS // tiles)
+    images = min(b, max(-(-b // want), -(-_DW_MIN_CHUNK // hw)))
+    return -(-b // images), images * hw
 
 
 def _dw_splits_nhwc(n, c, o, dtype):
     """(splits, chunk) of the NHWC dW's contraction over the n positions:
     about two waves of one block an SM over the (C, O) tiles, chunks a
     multiple of the k tile and at least 256 positions."""
-    step = _NHWC_K_TILE[dtype]
+    step = _K_TILE[dtype]
     tiles = -(-c // _TILE) * -(-o // _TILE)
-    want = max(1, _NHWC_DW_BLOCKS // tiles)
+    want = max(1, _DW_BLOCKS // tiles)
     chunk = max(-(-n // want), _DW_MIN_CHUNK)
     chunk = -(-chunk // step) * step
     return -(-n // chunk), chunk
@@ -299,18 +308,19 @@ def _bwd(name, nhwc, x, w, z, dz, dsum, dsumsq, mean, rstd, gamma, beta,
     if n == 0 or c == 0:
         return dx.zero_(), dw, dgb[0], dgb[1]
     splits, chunk = (_dw_splits_nhwc(n, c, o, x.dtype) if nhwc
-                     else _dw_splits(n, c, o))
+                     else _dw_splits(x.shape[0], hw, c, o))
     dw_part = (torch.empty((splits, o, c), dtype=torch.float32,
                            device=x.device) if splits > 1 else None)
     g_part = (torch.empty((2, -(-n // _TILE), c), dtype=torch.float32,
                           device=x.device) if apply_bn else None)
     stats = (dsum, dsumsq, shift) if with_stats else (None,) * 3
     layout = (c, o) if nhwc else (hw, c, o)
+    wsw = () if nhwc else (_w_tiles(c, o, x).data_ptr(),)
     err = _bwd_lib(nhwc)(
         x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1),
         _ptr(z) if with_stats else None, dz.data_ptr(), _ptr(stats[0]),
         _ptr(stats[1]), *map(_ptr, bn), _ptr(stats[2]), dx.data_ptr(),
-        dw.data_ptr(), _ptr(dw_part), _ptr(g_part), dgb.data_ptr(), n,
+        dw.data_ptr(), _ptr(dw_part), _ptr(g_part), dgb.data_ptr(), *wsw, n,
         *layout, int(bool(apply_bn)), int(act == "relu"),
         int(bool(with_stats)), splits, chunk, _DTYPE_CODE[x.dtype],
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
@@ -320,8 +330,8 @@ def _bwd(name, nhwc, x, w, z, dz, dsum, dsumsq, mean, rstd, gamma, beta,
 
 def conv_bn_fwd(x, w, mean, rstd, gamma, beta, shift, act="relu",
                 apply_bn=True, with_stats=True):
-    """Launch kernel #8 on CUDA tensors: x [B, C, HW], w [O, C]; returns
-    (z [B, O, HW], sum [O], sumsq [O])."""
+    """Launch kernel #8 (tensor cores) on CUDA tensors: x [B, C, HW], w
+    [O, C] (any strides); returns (z [B, O, HW], sum [O], sumsq [O])."""
     out = _fwd("conv_bn_fwd", False, x, w, mean, rstd, gamma, beta, shift,
                act, apply_bn, with_stats)
     conv_bn_fwd.launches += 1
@@ -330,10 +340,10 @@ def conv_bn_fwd(x, w, mean, rstd, gamma, beta, shift, act="relu",
 
 def conv_bn_bwd(x, w, z, dz, dsum, dsumsq, mean, rstd, gamma, beta, shift,
                 act="relu", apply_bn=True, with_stats=True):
-    """Launch kernel #9 on CUDA tensors: x [B, C, HW], w [O, C], z and dz
-    [B, O, HW]; returns (dx, dW [O, C], dgamma [C], dbeta [C]).  Every sum
-    over positions is reduced in a fixed order: two runs give the same
-    bits."""
+    """Launch kernel #9 (tensor cores) on CUDA tensors: x [B, C, HW], w
+    [O, C], z and dz [B, O, HW]; returns (dx, dW [O, C], dgamma [C], dbeta
+    [C]).  Every sum over positions is reduced in a fixed order: two runs
+    give the same bits."""
     out = _bwd("conv_bn_bwd", False, x, w, z, dz, dsum, dsumsq, mean, rstd,
                gamma, beta, shift, act, apply_bn, with_stats)
     conv_bn_bwd.launches += 1

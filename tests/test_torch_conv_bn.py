@@ -137,14 +137,23 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_dw_splits_cover_every_position():
-    for n, c, o in ((401408, 64, 256), (6272, 512, 2048), (25088, 256, 1024),
-                    (100, 64, 64)):
-        splits, chunk = pt_conv_bn._dw_splits(n, c, o)
-        assert chunk % 8 == 0 and splits * chunk >= n > (splits - 1) * chunk
-        assert 1 <= splits <= 65535
+    for b, hw, c, o in ((128, 3136, 64, 256), (128, 49, 512, 2048),
+                        (128, 196, 256, 1024), (128, 49, 2048, 512),
+                        (4, 25, 64, 64), (3, 49, 72, 200), (1, 7, 8, 8)):
+        n = b * hw
+        # NCHW: whole images a chunk, every position in exactly one chunk,
+        # about two waves of one block an SM over the (C, O) tiles
+        splits, chunk = pt_conv_bn._dw_splits(b, hw, c, o)
+        assert chunk % hw == 0 and splits * chunk >= n > (splits - 1) * chunk
+        assert chunk >= min(256, n) or chunk == n
+        covered = np.zeros(n, dtype=np.int64)
+        for s in range(splits):
+            covered[s * chunk:min((s + 1) * chunk, n)] += 1
+        assert (covered == 1).all()
+        tiles = -(-c // 128) * -(-o // 128)
+        assert 1 <= splits <= 65535 and splits * tiles <= max(264, tiles)
         # the NHWC kernels: 128 x 128 (C, O) tiles, chunks a multiple of the
         # k tile (128 bytes), about two waves of one block an SM
-        tiles = -(-c // 128) * -(-o // 128)
         for dtype, step in ((torch.float32, 32), (torch.bfloat16, 64)):
             splits, chunk = pt_conv_bn._dw_splits_nhwc(n, c, o, dtype)
             assert chunk % step == 0 and chunk >= 256

@@ -1,14 +1,16 @@
-"""The float32 arithmetic of the NHWC kernels #10/#11 on the CPU.
+"""The float32 arithmetic of the tensor-core kernels #8-#11 on the CPU.
 
-The kernels take a float32 product on the tensor cores as three TF32
-passes (``conv_bn.matmul_tf32x3``).  Here the fused layer, forward and
-backward, is taken with that product in place of the float32 one and held
-against the plain versions ``bn_act_matmul_reference`` /
-``bn_act_matmul_bwd_reference`` in ``chip_smoke.py``'s float32 band,
-|got - plain| <= 1e-4 |plain| + 1e-5 sum|terms|: three passes hold it, one
-pass does not, so the band tells the two apart.  The kernels themselves run
-only on the card (``chip_smoke.py``'s ``kernels`` phase holds them in the
-same band).
+Kernels #10/#11 (NHWC) and #8/#9 (NCHW) take a float32 product on the
+tensor cores as three TF32 passes (``conv_bn.matmul_tf32x3``).  Here the
+fused layer, forward and backward, is taken with that product in place of
+the float32 one, in each layout, and held against the plain versions
+``bn_act_matmul_reference`` / ``bn_act_matmul_bwd_reference`` in
+``chip_smoke.py``'s float32 band, |got - plain| <= 1e-4 |plain| + 1e-5
+sum|terms|: three passes hold it, one pass does not, so the band tells the
+two apart.  NHWC takes M = 300 positions; NCHW 6 images of 7x7 (HW = 49,
+so the positions run across images as in ResNet-50's stage 4).  The
+kernels themselves run only on the card (``chip_smoke.py``'s ``kernels``
+phase holds them in the same band).
 """
 
 import numpy as np
@@ -18,24 +20,56 @@ import torch
 from paddle_tpu_torch.ops.cuda import conv_bn as cb
 
 M, C, O = 300, 72, 40
+B, HW = 6, 49             # NCHW: 294 positions
 RTOL, STOL = 1e-4, 1e-5   # chip_smoke.py's CONV_BN_TOL[torch.float32]
-VIEW = (1, -1)
 
 
-def _inputs(seed):
+class Layout:
+    """How a layout shapes x, broadcasts a channel vector, sums over the
+    positions, and writes the three products of the layer."""
+
+    def __init__(self, nhwc):
+        self.nhwc = nhwc
+        self.view = (1, -1) if nhwc else (1, -1, 1)
+        self.pos = (0,) if nhwc else (0, 2)
+
+    def x_shape(self):
+        return (M, C) if self.nhwc else (B, C, HW)
+
+    def dz_shape(self):
+        return (M, O) if self.nhwc else (B, O, HW)
+
+    def flat(self, t):
+        """[channels, positions] of an activation."""
+        return t.t() if self.nhwc else t.transpose(0, 1).reshape(t.shape[1],
+                                                                 -1)
+
+    def z(self, mm, xn, w):
+        return mm(xn, w.t()) if self.nhwc else mm(w, xn)
+
+    def dxn(self, mm, d, w):
+        return mm(d, w) if self.nhwc else mm(w.t(), d)
+
+    def dw(self, mm, d, xn):
+        return mm(self.flat(d), self.flat(xn).t())
+
+
+def _inputs(seed, lay):
     rng = np.random.RandomState(seed)
 
     def t(*shape, scale=1.0, offset=0.0):
         return torch.tensor((rng.randn(*shape) * scale + offset)
                             .astype("float32"))
 
-    x = t(M, C, offset=0.5)
-    w = t(C, O, scale=C ** -0.5).t()   # [O, C] with the NHWC op's strides
+    x = t(*lay.x_shape(), offset=0.5)
+    # [O, C]: with the NHWC op's strides (a transposed [C, O]) or contiguous
+    w = t(C, O, scale=C ** -0.5).t() if lay.nhwc \
+        else t(O, C, scale=C ** -0.5)
     mean, beta = t(C, scale=0.1, offset=0.5), t(C, scale=0.1)
     rstd = torch.tensor(rng.rand(C).astype("float32") + 0.5)
     gamma = torch.tensor(rng.rand(C).astype("float32") + 0.5)
     shift = t(O, scale=0.1)
-    dz, dsum, dsumsq = t(M, O), t(O), t(O, scale=1e-2)
+    dz, dsum, dsumsq = t(*lay.dz_shape()), t(O), t(O, scale=1e-2)
     return x, w, mean, rstd, gamma, beta, shift, dz, dsum, dsumsq
 
 
@@ -44,81 +78,97 @@ def _within(got, want, scale):
                 .all())
 
 
-def _forward(x, w, mean, rstd, gamma, beta, shift, apply_bn, passes):
+def _forward(lay, x, w, mean, rstd, gamma, beta, shift, apply_bn, passes):
     """(outputs of the product ``passes``, plain outputs, scales)."""
     act = "relu" if apply_bn else ""
     args = (x, w, mean, rstd, gamma, beta, shift, act, apply_bn, True)
-    want = cb.bn_act_matmul_reference(*args, nhwc=True)
-    xn = cb._act_norm(x, mean, rstd, gamma, beta, act, apply_bn, VIEW)
-    z = cb.matmul_tf32x3(xn, w.t(), passes)
-    zc = z - shift
-    absprod = xn.abs() @ w.abs().t()
-    wc = want[0] - shift
-    scales = [absprod, (wc.abs() + absprod).sum(0),
-              (wc * wc + 2 * wc.abs() * absprod).sum(0)]
-    return [z, zc.sum(0), (zc * zc).sum(0)], want, scales
+    want = cb.bn_act_matmul_reference(*args, nhwc=lay.nhwc)
+    xn = cb._act_norm(x, mean, rstd, gamma, beta, act, apply_bn, lay.view)
+    z = lay.z(lambda a, b: cb.matmul_tf32x3(a, b, passes), xn, w)
+    sh = shift.view(lay.view)
+    zc = z - sh
+    absprod = lay.z(torch.matmul, xn.abs(), w.abs())
+    wc = want[0] - sh
+    scales = [absprod, (wc.abs() + absprod).sum(lay.pos),
+              (wc * wc + 2 * wc.abs() * absprod).sum(lay.pos)]
+    return [z, zc.sum(lay.pos), (zc * zc).sum(lay.pos)], want, scales
 
 
-def _backward(x, w, mean, rstd, gamma, beta, shift, dz, dsum, dsumsq,
+def _backward(lay, x, w, mean, rstd, gamma, beta, shift, dz, dsum, dsumsq,
               apply_bn, with_stats, passes):
     act = "relu" if apply_bn else ""
     z = cb.bn_act_matmul_reference(x, w, mean, rstd, gamma, beta, shift,
-                                   act, apply_bn, False, nhwc=True)[0]
+                                   act, apply_bn, False, nhwc=lay.nhwc)[0]
     if not with_stats:
         dsum = dsumsq = None
     want = cb.bn_act_matmul_bwd_reference(
         x, w, z, dz, dsum, dsumsq, mean, rstd, gamma, beta, shift, act,
-        apply_bn, with_stats, nhwc=True)
-    d = dz + dsum + 2 * (z - shift) * dsumsq if with_stats else dz
-    pre = (x - mean) * rstd
-    ylin = pre * gamma + beta if apply_bn else x
+        apply_bn, with_stats, nhwc=lay.nhwc)
+    v = lay.view
+    d = dz + dsum.view(v) + 2 * (z - shift.view(v)) * dsumsq.view(v) \
+        if with_stats else dz
+    pre = (x - mean.view(v)) * rstd.view(v)
+    ylin = pre * gamma.view(v) + beta.view(v) if apply_bn else x
     xn = torch.relu(ylin) if act else ylin
-    dw = cb.matmul_tf32x3(d.t(), xn, passes)
-    dxn = cb.matmul_tf32x3(d, w, passes)
-    dxn_scale, dw_scale = d.abs() @ w.abs(), d.abs().t() @ xn.abs()
+    mm = lambda a, b: cb.matmul_tf32x3(a, b, passes)  # noqa: E731
+    dw = lay.dw(mm, d, xn)
+    dxn = lay.dxn(mm, d, w)
+    dxn_scale = lay.dxn(torch.matmul, d.abs(), w.abs())
+    dw_scale = lay.dw(torch.matmul, d.abs(), xn.abs())
+    zeros = torch.zeros(C)
     if apply_bn:
         dylin = dxn * (ylin > 0) if act else dxn
-        got = [dylin * gamma * rstd, dw, (dylin * pre).sum(0),
-               dylin.sum(0)]
-        scales = [dxn_scale * gamma * rstd, dw_scale,
-                  (dxn_scale * pre.abs()).sum(0), dxn_scale.sum(0)]
+        gr = (gamma * rstd).view(v)
+        got = [dylin * gr, dw, (dylin * pre).sum(lay.pos),
+               dylin.sum(lay.pos)]
+        scales = [dxn_scale * gr, dw_scale,
+                  (dxn_scale * pre.abs()).sum(lay.pos),
+                  dxn_scale.sum(lay.pos)]
     else:
-        got = [dxn * (x > 0) if act else dxn, dw, torch.zeros(C),
-               torch.zeros(C)]
-        scales = [dxn_scale, dw_scale, torch.zeros(C), torch.zeros(C)]
+        got = [dxn * (x > 0) if act else dxn, dw, zeros, zeros]
+        scales = [dxn_scale, dw_scale, zeros, zeros]
     return got, want, scales
 
 
-CASES = ([("forward", apply_bn, False) for apply_bn in (True, False)]
-         + [("backward", apply_bn, with_stats) for apply_bn in (True, False)
-            for with_stats in (True, False)])
+# NHWC's cases keep their ids from before the NCHW kernels joined them
+CASES = [pytest.param(layout, *case,
+                      id=("" if layout == "nhwc" else "nchw-")
+                      + "-".join(map(str, case)))
+         for layout in ("nhwc", "nchw")
+         for case in ([("forward", apply_bn, False)
+                       for apply_bn in (True, False)]
+                      + [("backward", apply_bn, with_stats)
+                         for apply_bn in (True, False)
+                         for with_stats in (True, False)])]
 
 
-def _run(direction, apply_bn, with_stats, passes):
+def _run(layout, direction, apply_bn, with_stats, passes):
     """Per output: does the emulated kernel hold the plain version in the
     band?"""
-    inputs = _inputs(7 + 2 * apply_bn + with_stats)
+    lay = Layout(layout == "nhwc")
+    inputs = _inputs(7 + 2 * apply_bn + with_stats, lay)
     if direction == "forward":
-        got, want, scales = _forward(*inputs[:7], apply_bn, passes)
+        got, want, scales = _forward(lay, *inputs[:7], apply_bn, passes)
     else:
-        got, want, scales = _backward(*inputs, apply_bn, with_stats, passes)
+        got, want, scales = _backward(lay, *inputs, apply_bn, with_stats,
+                                      passes)
     return [_within(g, w_, s) for g, w_, s in zip(got, want, scales)]
 
 
-@pytest.mark.parametrize("direction,apply_bn,with_stats", CASES)
-def test_three_tf32_passes_hold_the_float32_band(direction, apply_bn,
-                                                  with_stats):
+@pytest.mark.parametrize("layout,direction,apply_bn,with_stats", CASES)
+def test_three_tf32_passes_hold_the_float32_band(layout, direction,
+                                                  apply_bn, with_stats):
     """z, sum, sumsq (forward) and dx, dW, dgamma, dbeta (backward), with
     and without the BN + ReLU prologue and the stats fold."""
-    assert all(_run(direction, apply_bn, with_stats, 3))
+    assert all(_run(layout, direction, apply_bn, with_stats, 3))
 
 
-@pytest.mark.parametrize("direction,apply_bn,with_stats", CASES)
-def test_one_tf32_pass_breaks_the_float32_band(direction, apply_bn,
+@pytest.mark.parametrize("layout,direction,apply_bn,with_stats", CASES)
+def test_one_tf32_pass_breaks_the_float32_band(layout, direction, apply_bn,
                                                with_stats):
     """One TF32 pass keeps ~2^-11 of each operand: the products (z; dx and
     dW) leave the band, so the band can tell one pass from three."""
-    held = _run(direction, apply_bn, with_stats, 1)
+    held = _run(layout, direction, apply_bn, with_stats, 1)
     assert not held[0] and (direction == "forward" or not held[1])
 
 
