@@ -6,6 +6,7 @@
     python3 chip_smoke.py --serve-ab  # device, build, fp and int8 serving
                                       # in turns (fp, wo, dyn, dyn, wo, fp)
     python3 chip_smoke.py --conv-bn   # device, build, kernels #8-#11 only
+    python3 chip_smoke.py --train-kernels  # device, build, kernels #1-#6
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -14,21 +15,24 @@ Run from the root of a checkout.  Phases, one line each:
    stay float32;
 2. ``build``   — compiles every kernel under ``paddle_tpu_torch/csrc``
    with ``nvcc`` (in parallel) and reports the seconds taken, each
-   kernel's registers and spills, and the ``HGMMA`` (wgmma) instructions
-   in the ``conv_bn`` and ``conv_bn_nhwc`` libraries (``cuobjdump
-   --dump-sass``);
+   kernel's registers and spills, the ``HGMMA`` (wgmma) instructions in
+   the ``conv_bn`` and ``conv_bn_nhwc`` libraries and the ``HMMA``
+   (mma.sync) ones in ``flash_attention_bwd`` (``cuobjdump --dump-sass``);
 3. ``kernels`` — each hand-written kernel against its plain PyTorch
    version at the shapes its paths give it (the serving slice's and the
    training slice's): max abs error and tolerance, the kernel's, the plain
    version's and one PyTorch library call's median time (CUDA events, L2
-   flushed before every launch), and the least time the card could take
+   flushed before every launch), the device time of one kernel call and of
+   one library call (``device_ms``: the sum of the device kernels it ran,
+   ``torch.profiler``; a library backward is several launches, whose event
+   time also counts the host's gaps), and the least time the card could take
    (device-memory bytes at 3.35 TB/s or operations at the data-sheet peak
    of the input type); the fused conv+BN kernels #8-#11 at ResNet-50's
    stage 1, 3 and 4 shapes in both layouts (tensor cores, float32 as
    three TF32 passes, bound at 3 x operations / 495 TFLOP/s beside the
    float32-unit bound), and at a ragged shape in each (NHWC M 1000, NCHW 3
-   images of 7x7; C 72, O 200); the library calls of #2 and #4 also name
-   the device kernels they ran (``torch.profiler``: SDPA's backend);
+   images of 7x7; C 72, O 200); #2, #4 and their library calls also name
+   the device kernels they ran (SDPA's backend);
 4. ``serve``   — a decoder LM at Transformer-base width (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, 1024-token cache,
    8 slots, float32, random weights from build_decoder_lm's seed) served by
@@ -210,17 +214,24 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
               + lse.numel() * 4 + kl.numel() * 4)
     bound_ms, bound_by = bound(nbytes, 4 * d * pairs, dtype)
 
-    library_ms = None
+    library_ms = library_dev = None
     if not rate:
         scale = 1.0 / d ** 0.5
-        library_ms = timer(lambda: scaled_dot_product_attention(
-            q, k, v, attn_mask=valid, scale=scale))
+
+        def lib():
+            scaled_dot_product_attention(q, k, v, attn_mask=valid,
+                                         scale=scale)
+        library_ms = timer(lib)
+        library_dev = device_ms(library_kernels(lib))
     res = {"check": name, "q": list(q.shape), "k": list(k.shape),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
            "dropout": rate, "max_abs_err": err, "tol": TOL[dtype],
            "kernel_ms": timer(lambda: fa.flash_attention_fwd(*args)),
+           "device_ms": device_ms(library_kernels(
+               lambda: fa.flash_attention_fwd(*args))),
            "plain_ms": timer(lambda: fa.reference_attention(*args), iters=5),
-           "library_ms": library_ms, "bound_ms": bound_ms,
+           "library_ms": library_ms, "library_device_ms": library_dev,
+           "bound_ms": bound_ms,
            "bound_by": bound_by, "ok": ok}
     return res
 
@@ -244,10 +255,14 @@ def layer_norm_case(ln, timer, n, d, dtype):
             "max_abs_err": max(e for e, _ in errs), "tol": TOL[dtype],
             "kernel_ms": timer(lambda: ln.layer_norm_fwd(x, gamma, beta,
                                                          1e-5)),
+            "device_ms": device_ms(library_kernels(
+                lambda: ln.layer_norm_fwd(x, gamma, beta, 1e-5))),
             "plain_ms": timer(lambda: ln.layer_norm_reference(
                 x, gamma, beta, 1e-5)),
             "library_ms": timer(lambda: layer_norm(x, (d,), gamma, beta,
                                                    1e-5)),
+            "library_device_ms": device_ms(library_kernels(
+                lambda: layer_norm(x, (d,), gamma, beta, 1e-5))),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "ok": all(ok for _, ok in errs)}
 
@@ -284,11 +299,20 @@ def library_kernels(fn):
     return out
 
 
+def device_ms(kernels):
+    """Device time of one call, ms: the sum of the kernels it ran (a
+    ``library_kernels`` dict).  The like-for-like reading beside a
+    library call's, whose CUDA-event time also counts the host's gaps
+    between its launches."""
+    return sum(kernels.values()) / 1e3
+
+
 def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
                        rate=0.0, seed=None):
     """Kernel #2 against ``attention_bwd_reference`` on the kernel
-    forward's O and LSE; the library yardstick is the backward of
-    ``scaled_dot_product_attention`` under the same boolean mask."""
+    forward's O and LSE, and twice against itself; the library yardstick
+    is the backward of ``scaled_dot_product_attention`` under the same
+    boolean mask."""
     from torch.nn.functional import scaled_dot_product_attention
 
     b, h, d = len(klen), 8, 64
@@ -299,10 +323,14 @@ def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
     out, lse = fa.flash_attention_fwd(q, k, v, kl, seed, causal, rate)
     args = (q, k, v, kl, seed, causal, rate, None, out, lse, dout)
     got = fa.flash_attention_bwd(*args)
+    again = fa.flash_attention_bwd(*args)
     want = fa.attention_bwd_reference(*args)
     torch.cuda.synchronize()
     errs = [max_err(a, w, dtype) for a, w in zip(got, want)]
-    ok = all(o for _, o in errs)
+    # no atomics (dQ's key-tile parts are added in a fixed order): the
+    # same bits every launch
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    ok = all(o for _, o in errs) and same_bits
     # fully masked rows: zero gradients, never NaN
     for i in (kl == 0).nonzero().flatten().tolist():
         ok = ok and all(bool((t[i] == 0).all()) for t in got)
@@ -322,14 +350,21 @@ def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
         def lib():
             torch.autograd.grad(o, leaves, dout, retain_graph=True)
         library_ms = timer(lib)
-        library = {"library_kernels": library_kernels(lib),
+        lib_kernels = library_kernels(lib)
+        library = {"library_kernels": lib_kernels,
+                   "library_device_ms": device_ms(lib_kernels),
                    "library_ms_again": timer(lib)}
+    # the kernels one wrapper call runs on the device, by name: what of
+    # its time is the kernel itself and what the wrapper's own launches
+    kernels = library_kernels(lambda: fa.flash_attention_bwd(*args))
     return dict(library, **{"check": name, "q": list(q.shape), "k": list(k.shape),
             "dtype": str(dtype).replace("torch.", ""), "causal": causal,
             "dropout": rate, "klen_zero_rows": int((kl == 0).sum()),
+            "repeatable_bits": same_bits,
             "max_abs_err": max(e for e, _ in errs), "tol": TOL[dtype],
             "max_abs_plain": max(float(w.float().abs().max()) for w in want),
             "kernel_ms": timer(lambda: fa.flash_attention_bwd(*args)),
+            "device_ms": device_ms(kernels), "device_kernels": kernels,
             "plain_ms": timer(lambda: fa.attention_bwd_reference(*args),
                               iters=5),
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -364,13 +399,17 @@ def layer_norm_bwd_case(ln, timer, n, d, dtype):
 
     def lib():
         torch.autograd.grad(y, leaves, dy, retain_graph=True)
+    kernels = library_kernels(lambda: ln.layer_norm_bwd(*args))
+    lib_kernels = library_kernels(lib)
     return {"check": "layer_norm_bwd_%dx%d" % (n, d), "x": [n, d],
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": max(e for e, _ in errs), "tol": TOL[dtype],
             "repeatable_bits": same_bits,
             "kernel_ms": timer(lambda: ln.layer_norm_bwd(*args)),
+            "device_ms": device_ms(kernels), "device_kernels": kernels,
             "plain_ms": timer(lambda: ln.layer_norm_bwd_reference(*args)),
-            "library_ms": timer(lib), "library_kernels": library_kernels(lib),
+            "library_ms": timer(lib), "library_kernels": lib_kernels,
+            "library_device_ms": device_ms(lib_kernels),
             "library_ms_again": timer(lib),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "ok": all(o for _, o in errs) and same_bits}
@@ -408,6 +447,8 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
            "tol": {"loss": TOL[dtype], "softmax": TOL_P[dtype]},
            "kernel_ms": timer(lambda: sx.softmax_xent_fwd(logits, label,
                                                           eps)),
+           "device_ms": device_ms(library_kernels(
+               lambda: sx.softmax_xent_fwd(logits, label, eps))),
            "plain_ms": timer(lambda: sx.softmax_xent_reference(
                logits, label, eps), iters=5),
            "library_ms": timer(lambda: cross_entropy(
@@ -440,6 +481,8 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
             "logits": [n, c], "dtype": tag, "eps": eps, "dsm": with_dsm,
             "max_abs_err": err, "tol": TOL_P[dtype],
             "kernel_ms": timer(lambda: sx.softmax_xent_bwd(*args)),
+            "device_ms": device_ms(library_kernels(
+                lambda: sx.softmax_xent_bwd(*args))),
             "plain_ms": timer(lambda: sx.softmax_xent_bwd_reference(*args),
                               iters=5),
             "library_ms": library_ms, "bound_ms": bound_ms,
@@ -499,6 +542,9 @@ def quant_matmul_case(qm, timer, m, k, n, mode, dtype, xscale=None):
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                kernel_ms=timer(lambda: qm.dequant_matmul_kernel(
                    x, qw, scale, mode, xs)),
+               device_ms=device_ms(library_kernels(
+                   lambda: qm.dequant_matmul_kernel(x, qw, scale, mode,
+                                                    xs))),
                plain_ms=timer(lambda: qm.dequant_matmul_reference(
                    x, qw, scale, mode, xs), iters=5))
     if mode == "weight_only":
@@ -662,6 +708,7 @@ def conv_bn_fwd_case(cb, timer, stage, nhwc, apply_bn, dtype):
            "max_abs_err_z_sum_sumsq": [e for e, _ in errs],
            "tol": CONV_BN_TOL[dtype], "repeatable_bits": same_bits,
            "kernel_ms": timer(lambda: kern(*args)),
+           "device_ms": device_ms(library_kernels(lambda: kern(*args))),
            "plain_ms": timer(lambda: cb.bn_act_matmul_reference(
                *args, nhwc=nhwc), iters=5),
            "library_ms": timer(lib), "library": library,
@@ -751,6 +798,7 @@ def conv_bn_bwd_case(cb, timer, stage, nhwc, apply_bn, with_stats, dtype):
            "max_abs_err_dx_dw_dgamma_dbeta": [e for e, _ in errs],
            "tol": CONV_BN_TOL[dtype], "repeatable_bits": same_bits,
            "kernel_ms": timer(lambda: kern(*args)),
+           "device_ms": device_ms(library_kernels(lambda: kern(*args))),
            "plain_ms": timer(lambda: cb.bn_act_matmul_bwd_reference(
                *args, nhwc=nhwc), iters=5),
            "library_ms": timer(lib),
@@ -792,17 +840,14 @@ def conv_bn_cases(cb, timer):
     return out
 
 
-def kernels_phase():
-    """Every kernel against its plain version at its paths' shapes.
-    Returns {kernel name: [checks]}, the main path's shape first."""
-    from paddle_tpu_torch.ops import cuda
-    from paddle_tpu_torch.ops.cuda import conv_bn as cb
+def train_kernel_cases(timer):
+    """Kernels #1-#6 (the serving and Transformer-training slices)
+    against their plain versions; {kernel name: [checks]}, the main
+    path's shape first."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
-    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
     from paddle_tpu_torch.ops.cuda import softmax_xent as sx
 
-    timer = Timer()
     rng = np.random.RandomState(3)
     # the training slice: 256 rows of 64 tokens, lengths in [16, 64]
     train_klen = rng.randint(16, TRAIN_SEQ + 1, TRAIN_BATCH).tolist()
@@ -863,19 +908,36 @@ def kernels_phase():
     f, b = softmax_xent_cases(sx, timer, 300, 1000, 0.0, torch.float32)
     xent_fwd.append(f)
     xent_bwd += b
-    checks = {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
-              "layer_norm_fwd": norm, "layer_norm_bwd": norm_bwd,
-              "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd,
-              "dequant_matmul": quant_matmul_cases(qm, timer)}
-    checks.update(conv_bn_cases(cb, timer))
-    # launches made by these checks and their timing loops (the main
-    # paths' counts are taken separately, in the serve and train phases)
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
+            "layer_norm_fwd": norm, "layer_norm_bwd": norm_bwd,
+            "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd}
+
+
+def log_checks(checks):
+    """Log the kernel checks, with the launches they and their timing
+    loops made (the main paths' counts are taken separately, in the
+    serve and train phases); fail if any kernel disagrees."""
+    from paddle_tpu_torch.ops import cuda
+
     log("kernels", dict(checks, check_launches=cuda.launch_counts()))
     bad = [c["check"] for cs in checks.values() for c in cs if not c["ok"]]
     if bad:
         raise SystemExit("kernel disagrees with its plain version: %s"
                          % bad)
     return checks
+
+
+def kernels_phase():
+    """Every kernel against its plain version at its paths' shapes.
+    Returns {kernel name: [checks]}, the main path's shape first."""
+    from paddle_tpu_torch.ops.cuda import conv_bn as cb
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+
+    timer = Timer()
+    checks = train_kernel_cases(timer)
+    checks["dequant_matmul"] = quant_matmul_cases(qm, timer)
+    checks.update(conv_bn_cases(cb, timer))
+    return log_checks(checks)
 
 
 # ---------------------------------------------------------------------------
@@ -1582,12 +1644,20 @@ def _profile_report(prof, window):
         d["busy_ms_each"] = d["busy_us"] / d["n"] / 1e3
 
     top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    # the port's own kernels (csrc/*.cu, all in anonymous namespaces),
+    # whatever their rank
+    port = {k: v for k, v in by_name.items()
+            if k.startswith("void (anonymous namespace)::")
+            and "at::" not in k}
     top_host = sorted(prof.key_averages(),
                       key=lambda e: e.self_cpu_time_total, reverse=True)[:15]
     log("profile", {
         "window": window, "kernel_events": len(kernels),
         "dispatch": per_kind,
         "top_device_us": [(k, us, n) for k, (us, n) in top_dev],
+        "port_kernels_us": [(k, us, n) for k, (us, n) in sorted(
+            port.items(), key=lambda kv: -kv[1][0])],
+        "device_us": sum(us for us, _ in by_name.values()),
         "top_host_self_us": [(e.key[:70], e.self_cpu_time_total, e.count)
                              for e in top_host]})
     return per_kind
@@ -1740,16 +1810,15 @@ def main():
     log("build", {"seconds": time.perf_counter() - t0,
                   "kernels": sorted(built), "ptxas": ptxas,
                   "hgmma": {n: count_sass(built[n], "HGMMA")
-                            for n in ("conv_bn", "conv_bn_nhwc")}})
+                            for n in ("conv_bn", "conv_bn_nhwc")},
+                  "hmma": {n: count_sass(built[n], "HMMA")
+                           for n in ("flash_attention_bwd",)}})
     if "--conv-bn" in sys.argv[1:]:
         from paddle_tpu_torch.ops.cuda import conv_bn as cb
-        checks = conv_bn_cases(cb, Timer())
-        log("kernels", checks)
-        bad = [c["check"] for cs in checks.values() for c in cs
-               if not c["ok"]]
-        if bad:
-            raise SystemExit("kernel disagrees with its plain version: %s"
-                             % bad)
+        log_checks(conv_bn_cases(cb, Timer()))
+        return 0
+    if "--train-kernels" in sys.argv[1:]:
+        log_checks(train_kernel_cases(Timer()))
         return 0
     if "--profile" in sys.argv[1:]:
         for quantize in (None, "weight_only", "dynamic"):
@@ -1814,10 +1883,13 @@ def main():
                "source": "paddle_tpu_torch/" + src, "replaces": tpu,
                "launches": path_launches[main_path][name],
                "max_abs_err": head["max_abs_err"],
-               "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+               "ms": head["kernel_ms"], "device_ms": head["device_ms"],
+               "plain_ms": head["plain_ms"],
                "bound_ms": head["bound_ms"],
                "bound_by": head["bound_by"].split(" ")[0],
-               "library_ms": head["library_ms"], "at": head["check"],
+               "library_ms": head["library_ms"],
+               "library_device_ms": head.get("library_device_ms"),
+               "at": head["check"],
                "launches_path": main_path}
         if "bound_simt_ms" in head:  # #8-#11: the 3xTF32 bound, and the
             # float32 units' beside it

@@ -1,16 +1,15 @@
-// Kernel #2: flash-attention backward for Hopper (sm_90a), in plain CUDA C++.
+// Kernel #2: flash-attention backward for Hopper (sm_90a), on the tensor
+// cores.
 //
 // Replaces the TPU kernels paddle_tpu/ops/pallas/flash_attention.py:_dq_kernel
 // and _dkv_kernel (their pallas_calls are in _flash_bwd).  Same function: from
-// Q, K, V, dO, the forward's row LSE and delta = rowsum(dO * O) (one reduction
-// done by the wrapper before the launch, as the JAX package does it outside
-// Pallas), with the forward's masks — a per-batch key length klen (clamped to
-// Tk), causal top-aligned when Tq == Tk and suffix-aligned (query i at key
-// position klen - Tq + i) when Tq < Tk — and the forward's murmur3 dropout hash
-// bit for bit:
+// Q, K, V, dO, the forward's O and row LSE, with the forward's masks — a
+// per-batch key length klen (clamped to Tk here), causal top-aligned when
+// Tq == Tk and suffix-aligned (query i at key position klen - Tq + i) when
+// Tq < Tk — and the forward's murmur3 dropout hash bit for bit:
 //   P  = exp(scale Q K^T - LSE) on valid (query, key) pairs, else 0
 //   G  = dO V^T, zeroed where dropout dropped the weight
-//   dS = P (G - delta)
+//   dS = P (G - delta),  delta = rowsum(dO * O)
 //   dQ = scale dS K,   dK = dS^T (scale Q),   dV = P_drop^T dO.
 // A fully masked row has LSE = +1e30, so its P is 0 and its gradients are 0,
 // never NaN.  Inputs are float32 or bfloat16; every sum is float32.  bf16
@@ -18,33 +17,48 @@
 // bf16 before the products that take them.
 //
 // What bounds it on the H100: at the training shapes (Tq = Tk = 64, D = 64)
-// each (b, h) reads Q, K, V, dO once and writes dQ, dK, dV once, and does
-// 4 products of 64 x 64 x 64: ~4 x 64 flops per element moved, so in float32
-// SIMT (67 TFLOP/s, ~20 flops a byte at 3.35 TB/s) it is bound by operations;
-// in bf16 on these SIMT cores too, since it does not use the tensor cores.
+// each (b, h) reads Q, K, V, dO, O once and writes dQ, dK, dV once (32 KB in
+// float32) for five 64 x 64 x 64 products (2.6 MFLOP): ~80 flops a byte, so
+// the bytes bound it only if the products run on the tensor cores.
 //
-// Design: two kernels, as on the TPU, because dQ sums over keys while dK and
-// dV sum over queries, and blocks have no order to carry a sum between them.
-//  - dQ: one block of 256 threads per (b*h, tile of 64 queries), looping over
-//    64-key tiles up to the last key any of its queries may see (klen and the
-//    causal limit; tiles past it are never loaded).  Each thread owns a 4 x 4
-//    patch of the 64 x 64 score tile for S and G, and 4 rows x 16 columns of
-//    dQ; dS goes through shared memory for the dS K product.
-//  - dK/dV: one block per (b*h, tile of 64 keys), looping over the query
-//    tiles that can see any of its keys (none when the tile starts at or past
-//    klen: it writes zeros).  Each thread owns a 4 x 4 patch of the transposed
-//    tile (4 keys x 4 queries) and 4 rows x 16 columns of dK and dV; P_drop
-//    and dS go through shared memory for the two transposed products.
-// Tiles are staged into shared memory through registers, 8 loads of each
-// operand in flight per thread, as in kernel #1.  Known weaknesses: SIMT
-// float32 (no wgmma), no cp.async/TMA double buffering, and for Tq = 64 one
-// query tile per block, so nothing overlaps a tile's loads with the previous
-// tile's arithmetic.
+// Design:
+//  - One pass.  A block of 8 warps takes one (b*h, tile of 64 keys) and
+//    loops over the 64-query tiles that can see its keys, as _dkv_kernel
+//    does.  Per query tile it computes S and G once and from them P and dS,
+//    then dV, dK and this key tile's part of dQ: five products, not the
+//    seven of a dQ kernel beside a dK/dV kernel.  When one key tile covers
+//    Tk (every training launch) that part is dQ and is written directly;
+//    otherwise the parts go to a float32 scratch [B*H, key tiles, Tq, 64]
+//    and dq_sum adds them in key-tile order (no atomics: the same bits
+//    every run).
+//  - delta and the klen clamp are computed here, from dO (in shared memory)
+//    and O (read once), so the wrapper launches nothing else.
+//  - Tensor cores through mma.sync: float32 as three TF32 passes of a hi/lo
+//    split of each operand (hi = tf32(v), lo = tf32(v - hi); lo*hi + hi*lo +
+//    hi*hi, lo*lo dropped), bfloat16 as one m16n8k16 pass.  Fragments are
+//    read from float32 tiles in shared memory, so each product takes its
+//    operands transposed or not by its index order alone: dV = P^T dO,
+//    dK = dS^T Q and dQ = dS K need no transposed copies, which wgmma's
+//    K-major TF32 operands would (Q^T, K^T, dO^T and hi/lo of every tile
+//    do not fit beside each other in 227 KB).
+//  - Two warp teams: warps 0-3 compute S, then dV; warps 4-7 G, then dK;
+//    each warp a 32 x 32 quadrant (8 independent accumulator tiles, 24
+//    mma a k step, each fragment split once for 2-4 products).  S and G
+//    meet in shared memory, where all 8 warps turn them into P_drop and dS;
+//    dQ is cut in 16 x 32 pieces, one a warp, interleaved with dV / dK.
+//    The three passes go pass by pass over a step's tiles, so that no two
+//    consecutive mma add into one accumulator.
+//  - The tiles are XOR-swizzled rows of 64 floats, so that both fragment
+//    patterns (8 rows x 4 columns and 4 rows x 8 columns) hit 32 banks.
+//  - Loads: 16-byte cp.async for float32 (bfloat16 through registers, where
+//    Q is scaled and rounded).  Six 16 KB tiles fit two blocks an SM, so
+//    one block's loads overlap the other's products.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dtype.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -52,15 +66,13 @@ using ptt::from_f;
 using ptt::round_to;
 using ptt::to_f;
 
-constexpr int BT = 64;   // queries or keys per tile
-constexpr int D = 64;    // head dim (the only one the port builds)
-constexpr int DP = D + 1;
-constexpr int TP = BT + 1;
-constexpr int NT = 256;  // threads per block: 16 x 16, a 4 x 4 patch each
-constexpr int LD = 8;    // loads of each operand in flight per thread
-constexpr int NC = D / 16;
-constexpr float kNegInf = -1e30f;
+constexpr int kBT = 64;        // queries or keys per tile
+constexpr int kD = 64;         // head dim (the only one the port builds)
+constexpr int kTile = kBT * kD;
+constexpr int kThreads = 256;  // 8 warps
 constexpr float kPosBig = 1e30f;
+// Q, dO, K, V, P_drop, dS tiles and the rows' LSE and delta
+constexpr size_t kSmem = sizeof(float) * (6 * kTile + 2 * kBT);
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h ^= h >> 16;
@@ -86,311 +98,447 @@ __device__ __forceinline__ bool valid_pair(int gq, int gk, int kl, int Tq, int T
   return ok;
 }
 
-// Copy rows [r0, r0 + BT) of a [rows, D] matrix into a padded [BT][DP] tile,
-// times `mul` and rounded to T (mul = 1: a plain copy); rows past `rows` are 0.
+// float index of (row r, column c) in a swizzled 64 x 64 tile: columns XOR
+// bits 2-4 of the row, so 8 rows x 4 columns and 4 rows x 8 columns both
+// fall in 32 banks; 4-column groups stay whole (16-byte stores)
+__device__ __forceinline__ int sidx(int r, int c) {
+  return r * kD + (c ^ (((r & 3) << 3) | (r & 4)));
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// mma.sync without volatile: the compiler may interleave independent
+// products (the three passes of another column tile, another product)
+// between two that add into one accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// the contraction a step of mma takes: k8 in TF32, k16 in bf16
+template <typename T>
+constexpr int kStep = sizeof(T) == 4 ? 8 : 16;
+
+// one k step of a product: acc[i][j] += sum over k' in [k, k + kStep) of
+// A(16 i + m, k') B(k', 8 j + n), the warp's (16 MT) x (8 NJ) block, A(m, k)
+// and B(k, n) reading shared memory.  The accumulator layout is mma's:
+// acc[i][j][e] is row 16 i + g + 8 (e / 2), column 8 j + 2 t + e % 2 (g =
+// lane / 4, t = lane % 4).  float32: the three passes go pass by pass over
+// the tiles, so that no two consecutive products add into one accumulator.
+template <typename T, int MT, int NJ, class FA, class FB>
+__device__ __forceinline__ void mma_step(float (&acc)[MT][NJ][4], FA A, FB B,
+                                         int k) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  if constexpr (sizeof(T) == 4) {
+    uint32_t ah[MT][4], al[MT][4], bh[NJ][2], bl[NJ][2];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      split(A(16 * i + g, k + t), ah[i][0], al[i][0]);
+      split(A(16 * i + g + 8, k + t), ah[i][1], al[i][1]);
+      split(A(16 * i + g, k + t + 4), ah[i][2], al[i][2]);
+      split(A(16 * i + g + 8, k + t + 4), ah[i][3], al[i][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      split(B(k + t, 8 * j + g), bh[j][0], bl[j][0]);
+      split(B(k + t + 4, 8 * j + g), bh[j][1], bl[j][1]);
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
+  } else {
+    const int k0 = k + 2 * t, k1 = k0 + 8;
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int m = 16 * i + g;
+      a[i][0] = pack2(A(m, k0), A(m, k0 + 1));
+      a[i][1] = pack2(A(m + 8, k0), A(m + 8, k0 + 1));
+      a[i][2] = pack2(A(m, k1), A(m, k1 + 1));
+      a[i][3] = pack2(A(m + 8, k1), A(m + 8, k1 + 1));
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int n = 8 * j + g;
+      const uint32_t b[2] = {pack2(B(k0, n), B(k0 + 1, n)),
+                             pack2(B(k1, n), B(k1 + 1, n))};
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b);
+    }
+  }
+}
+
+// a warp's accumulators into a swizzled tile at (row r0, column c0)
+template <int MT, int NJ>
+__device__ __forceinline__ void stage(const float (&acc)[MT][NJ][4], float* dst,
+                                      int r0, int c0) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(dst + sidx(r0 + 16 * i + g + 8 * h,
+                                              c0 + 8 * j + 2 * t)) =
+            make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+}
+
+// rows [r0, r0 + 64) of a [rows, 64] matrix into a swizzled tile; rows past
+// `rows` are 0.  float32 by 16-byte cp.async (the caller commits and waits);
+// bfloat16 through registers, times `mul` and rounded (mul = 1: as it is).
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
                                           int r0, int rows, float mul) {
-  const int tid = threadIdx.x;
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
-  for (int j0 = 0; j0 < BT * D / NT; j0 += LD) {
-    float r[LD];
-#pragma unroll
-    for (int j = 0; j < LD; ++j) {
-      const int i = tid + (j0 + j) * NT;
-      const int g = r0 + i / D;
-      r[j] = g < rows ? to_f(src[(size_t)g * D + (i % D)]) : 0.f;
+    for (int i = threadIdx.x; i < kTile / 4; i += kThreads) {
+      const int r = i >> 4, c = (i & 15) * 4, gr = r0 + r;
+      const bool in = gr < rows;
+      cp_async16(smem_u32(dst + sidx(r, c)), src + (size_t)(in ? gr : 0) * kD + c,
+                 in ? 16 : 0);
     }
+  } else {
 #pragma unroll
-    for (int j = 0; j < LD; ++j) {
-      const int i = tid + (j0 + j) * NT;
-      dst[(i / D) * DP + (i % D)] = mul == 1.f ? r[j] : round_to<T>(r[j] * mul);
+    for (int i = threadIdx.x; i < kTile / 8; i += kThreads) {
+      const int r = i >> 3, c = (i & 7) * 8, gr = r0 + r;
+      float f[8] = {};
+      if (gr < rows) {
+        unpack(*reinterpret_cast<const uint4*>(src + (size_t)gr * kD + c), f);
+        if (mul != 1.f)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) f[e] = round_to<T>(f[e] * mul);
+      }
+      *reinterpret_cast<float4*>(dst + sidx(r, c)) =
+          make_float4(f[0], f[1], f[2], f[3]);
+      *reinterpret_cast<float4*>(dst + sidx(r, c + 4)) =
+          make_float4(f[4], f[5], f[6], f[7]);
     }
   }
 }
 
-// acc[i][j] += sum_d A[ra + i][d] * B[tx + 16 j][d] over padded tiles
-__device__ __forceinline__ void patch_product(float (&acc)[4][4], const float* A,
-                                              const float* B, int ra, int tx) {
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ra + i) * DP + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * DP + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-// out[i][c] += sum_t W[ra + i][t] * M[t][tx + 16 c]: a [BT][TP] weight tile
-// times a padded [BT][DP] operand tile
-__device__ __forceinline__ void rows_times_tile(float (&out)[4][NC], const float* W,
-                                                const float* M, int ra, int tx) {
-#pragma unroll 4
-  for (int t = 0; t < BT; ++t) {
-    float w[4], m[NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = W[(ra + i) * TP + t];
-#pragma unroll
-    for (int c = 0; c < NC; ++c) m[c] = M[t * DP + tx + 16 * c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < NC; ++c) out[i][c] = fmaf(w[i], m[c], out[i][c]);
-  }
-}
-
-constexpr size_t kDqSmem = sizeof(float) * (4 * BT * DP + BT * TP + 2 * BT);
-constexpr size_t kDkvSmem = sizeof(float) * (4 * BT * DP + 2 * BT * TP + 2 * BT);
-
+// 16 consecutive values of a row, as float32
 template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const int* __restrict__ klen,
-                const T* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int H,
-                int Tq, int Tk, float scale, int causal, uint32_t seed,
-                uint32_t thresh, int dropout) {
-  extern __shared__ float smem[];
-  float* sQ = smem;            // [BT][DP]  scale * Q
-  float* sdO = sQ + BT * DP;   // [BT][DP]
-  float* sK = sdO + BT * DP;   // [BT][DP]
-  float* sV = sK + BT * DP;    // [BT][DP]
-  float* sS = sV + BT * DP;    // [BT][TP]  dS of this tile
-  float* sL = sS + BT * TP;    // [BT]      LSE
-  float* sD = sL + BT;         // [BT]      delta
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * BT;
-  const int kl = klen[bh / H];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int r0 = (tid >> 4) * 4;
-  const size_t qoff = (size_t)bh * Tq * D;
-  const float qscale = round_to<T>(scale);
-
-  load_tile<T>(sQ, q + qoff, q0, Tq, qscale);
-  load_tile<T>(sdO, dout + qoff, q0, Tq, 1.f);
-  if (tid < BT) {
-    const int gq = q0 + tid;
-    sL[tid] = gq < Tq ? lse[(size_t)bh * Tq + gq] : kPosBig;
-    sD[tid] = gq < Tq ? delta[(size_t)bh * Tq + gq] : 0.f;
-  }
-
-  int kend = kl;
-  if (causal) {
-    const int last_q = min(q0 + BT, Tq) - 1;
-    kend = min(kend, (Tq == Tk ? last_q : last_q + kl - Tq) + 1);
-  }
-  const int nkt = kend > 0 ? (kend + BT - 1) / BT : 0;
-
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  const T* kb = k + (size_t)bh * Tk * D;
-  const T* vb = v + (size_t)bh * Tk * D;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BT;
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<T>(sK, kb, k0, Tk, 1.f);
-    load_tile<T>(sV, vb, k0, Tk, 1.f);
-    __syncthreads();
-
-    float s[4][4] = {}, g[4][4] = {};
-    patch_product(s, sQ, sK, r0, tx);
-    patch_product(g, sdO, sV, r0, tx);
+__device__ __forceinline__ void load16(const T* __restrict__ p, float (&f)[16]) {
+  if constexpr (sizeof(T) == 4) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int gq = q0 + r0 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int gk = k0 + tx + 16 * j;
-        float ds = 0.f;
-        if (valid_pair(gq, gk, kl, Tq, Tk, causal)) {
-          const float p = expf(s[i][j] - sL[r0 + i]);
-          float gg = g[i][j];
-          if (dropout && !keep(seed, (uint32_t)bh, gq, gk, thresh)) gg = 0.f;
-          ds = p * (gg - sD[r0 + i]);
-        }
-        sS[(r0 + i) * TP + tx + 16 * j] = round_to<T>(ds);
-      }
+      const float4 u = reinterpret_cast<const float4*>(p)[i];
+      f[4 * i] = u.x;
+      f[4 * i + 1] = u.y;
+      f[4 * i + 2] = u.z;
+      f[4 * i + 3] = u.w;
     }
-    __syncthreads();
-    rows_times_tile(acc, sS, sK, r0, tx);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float h[8];
+      unpack(reinterpret_cast<const uint4*>(p)[i], h);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) f[8 * i + e] = h[e];
+    }
   }
+}
 
+// two adjacent outputs of a row
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b) {
+  if constexpr (sizeof(T) == 4)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *reinterpret_cast<uint32_t*>(p) = pack2(a, b);
+}
+
+// P_drop and dS of the tile, from S (staged in sP) and G (in sS), in
+// place, rounded to T: a thread takes 16 of a row's columns
+template <typename T>
+__device__ __forceinline__ void p_ds(float* sP, float* sS, const float* sL,
+                                     const float* sDl, int q0, int k0, int kl,
+                                     int Tq, int Tk, int causal, uint32_t seed,
+                                     uint32_t bh, uint32_t thresh, int dropout) {
+  const int r = threadIdx.x >> 2, gq = q0 + r;
+  const float lse = sL[r], delta = sDl[r];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int gq = q0 + r0 + i;
-    if (gq >= Tq) continue;
-    T* row = dq + qoff + (size_t)gq * D;
+    const int c = (threadIdx.x & 3) * 4 + 16 * i;
+    float4* ps = reinterpret_cast<float4*>(sP + sidx(r, c));
+    float4* pg = reinterpret_cast<float4*>(sS + sidx(r, c));
+    const float4 s4 = *ps, g4 = *pg;
+    const float sv[4] = {s4.x, s4.y, s4.z, s4.w}, gv[4] = {g4.x, g4.y, g4.z, g4.w};
+    float pd[4], ds[4];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) row[tx + 16 * c] = from_f<T>(acc[i][c] * scale);
+    for (int e = 0; e < 4; ++e) {
+      const int gk = k0 + c + e;
+      pd[e] = ds[e] = 0.f;
+      if (gq < Tq && valid_pair(gq, gk, kl, Tq, Tk, causal)) {
+        const float p = expf(sv[e] - lse);
+        float gg = gv[e];
+        pd[e] = p;
+        if (dropout && !keep(seed, bh, gq, gk, thresh)) {
+          pd[e] = 0.f;
+          gg = 0.f;
+        }
+        ds[e] = p * (gg - delta);
+      }
+    }
+    *ps = make_float4(round_to<T>(pd[0]), round_to<T>(pd[1]), round_to<T>(pd[2]),
+                      round_to<T>(pd[3]));
+    *pg = make_float4(round_to<T>(ds[0]), round_to<T>(ds[1]), round_to<T>(ds[2]),
+                      round_to<T>(ds[3]));
+  }
+}
+
+// rows [q0, q0 + 64) of this key tile's dQ part: zero
+template <typename T>
+__device__ __forceinline__ void zero_dq(T* dq, float* dqp, size_t off, int q0,
+                                        int Tq) {
+  for (int i = threadIdx.x; i < kBT * kD / 2; i += kThreads) {
+    const int r = q0 + i / (kD / 2), c = (i % (kD / 2)) * 2;
+    if (r >= Tq) continue;
+    if (dqp)
+      *reinterpret_cast<float2*>(dqp + off + (size_t)r * kD + c) =
+          make_float2(0.f, 0.f);
+    else
+      store2<T>(dq + off + (size_t)r * kD + c, 0.f, 0.f);
   }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ klen,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int H, int Tq, int Tk, float scale,
-                 int causal, uint32_t seed, uint32_t thresh, int dropout) {
-  extern __shared__ float smem[];
-  float* sK = smem;            // [BT][DP]
-  float* sV = sK + BT * DP;    // [BT][DP]
-  float* sQ = sV + BT * DP;    // [BT][DP]  scale * Q
-  float* sdO = sQ + BT * DP;   // [BT][DP]
-  float* sP = sdO + BT * DP;   // [BT][TP]  P_drop^T: [key][query]
-  float* sS = sP + BT * TP;    // [BT][TP]  dS^T
-  float* sL = sS + BT * TP;    // [BT]
-  float* sD = sL + BT;         // [BT]
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ o,
+                 const T* __restrict__ dout, const int* __restrict__ klen,
+                 const float* __restrict__ lse, T* __restrict__ dq,
+                 T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dqp,
+                 int H, int Tq, int Tk, float scale, int causal, uint32_t seed,
+                 uint32_t thresh, int dropout) {
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);  // Q (bf16: scale * Q)
+  float* sdO = sQ + kTile;
+  float* sK = sdO + kTile;
+  float* sV = sK + kTile;
+  float* sP = sV + kTile;   // P_drop [query][key]
+  float* sS = sP + kTile;   // dS [query][key]
+  float* sL = sS + kTile;   // [64] LSE
+  float* sDl = sL + kBT;    // [64] delta
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * BT;
-  const int kl = klen[bh / H];
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int r0 = (tid >> 4) * 4;  // this thread's first key row in the tile
-  const size_t koff = (size_t)bh * Tk * D;
-  const size_t qoff = (size_t)bh * Tq * D;
-  const float qscale = round_to<T>(scale);
+  const int nkt = gridDim.y;
+  const int k0 = blockIdx.y * kBT;
+  const int kl = klen ? min(klen[bh / H], Tk) : Tk;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, t = tid & 3;
+  const size_t qoff = (size_t)bh * Tq * kD, koff = (size_t)bh * Tk * kD;
+  // this key tile's dQ part: dq itself when it is the only key tile, else
+  // its slice of the scratch
+  float* part = nkt > 1 ? dqp : nullptr;
+  const size_t poff = nkt > 1 ? ((size_t)bh * nkt + blockIdx.y) * Tq * kD : qoff;
+  // float32 scales Q as a fragment is read; bfloat16 holds scale * Q rounded
+  const float qmul = sizeof(T) == 4 ? scale : 1.f;
+  const float qround = sizeof(T) == 4 ? 1.f : round_to<T>(scale);
 
-  float ak[4][NC], av[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) ak[i][c] = av[i][c] = 0.f;
+  // the query tiles that see any of these keys: all of them without
+  // causal; from query k0 top-aligned, k0 - klen + Tq suffix-aligned
+  const int nqt = (Tq + kBT - 1) / kBT;
+  int qt0 = nqt;
+  if (k0 < kl) qt0 = causal ? (Tq == Tk ? k0 : max(0, k0 - kl + Tq)) / kBT : 0;
+  for (int qt = 0; qt < qt0; ++qt) zero_dq<T>(dq, part, poff, qt * kBT, Tq);
 
-  // the first query that may see key k0: all of them without causal;
-  // query k0 top-aligned; query k0 - klen + Tq suffix-aligned
-  int qbeg = 0;
-  if (causal) qbeg = Tq == Tk ? k0 : max(0, k0 - kl + Tq);
-  const int nqt = k0 < kl ? (Tq + BT - 1) / BT : 0;
-
-  if (nqt > 0) {
+  // team 0 (warps 0-3) computes S and dV, team 1 G and dK, each warp a 32 x
+  // 32 quadrant; dQ is cut in 16 x 32 pieces, one a warp
+  const int team = warp >> 2, mr = (warp & 1) * 32, nc = ((warp >> 1) & 1) * 32;
+  const int wr = (warp & 3) * 16, wc = (warp >> 2) * 32;
+  float* sA = team ? sdO : sQ;          // S = (scale Q) K^T, G = dO V^T
+  float* sB = team ? sV : sK;
+  const float amul = team ? 1.f : qmul;
+  float* sX = team ? sS : sP;           // dV = P_drop^T dO, dK = dS^T (scale Q)
+  float* sY = team ? sQ : sdO;
+  const float ymul = team ? qmul : 1.f;
+  float acc[2][4][4] = {};              // dV or dK of the quadrant
+  if (qt0 < nqt) {
     load_tile<T>(sK, k + koff, k0, Tk, 1.f);
     load_tile<T>(sV, v + koff, k0, Tk, 1.f);
   }
-  for (int qt = qbeg / BT; qt < nqt; ++qt) {
-    const int q0 = qt * BT;
-    __syncthreads();
-    load_tile<T>(sQ, q + qoff, q0, Tq, qscale);
+  for (int qt = qt0; qt < nqt; ++qt) {
+    const int q0 = qt * kBT;
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<T>(sQ, q + qoff, q0, Tq, qround);
     load_tile<T>(sdO, dout + qoff, q0, Tq, 1.f);
-    if (tid < BT) {
-      const int gq = q0 + tid;
-      sL[tid] = gq < Tq ? lse[(size_t)bh * Tq + gq] : kPosBig;
-      sD[tid] = gq < Tq ? delta[(size_t)bh * Tq + gq] : 0.f;
+    cp_commit();
+    // delta = rowsum(dO * O): four threads a row, 16 columns each
+    const int dr = tid >> 2, dc = (tid & 3) * 16, gq = q0 + dr;
+    float of[16] = {};
+    if (gq < Tq) load16<T>(o + qoff + (size_t)gq * kD + dc, of);
+    cp_wait<0>();
+    __syncthreads();
+    float dsum = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; i += 4) {
+      const float4 d4 = *reinterpret_cast<const float4*>(sdO + sidx(dr, dc + i));
+      dsum += d4.x * of[i] + d4.y * of[i + 1] + d4.z * of[i + 2] + d4.w * of[i + 3];
+    }
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+    if ((tid & 3) == 0) {
+      sDl[dr] = gq < Tq ? dsum : 0.f;
+      sL[dr] = gq < Tq ? lse[(size_t)bh * Tq + gq] : kPosBig;
+    }
+
+    // S (team 0) or G (team 1) of the quadrant: queries mr.., keys nc..,
+    // staged into sP or sS
+    {
+      float sg[2][4][4] = {};
+      auto aSG = [&](int m, int c) { return sA[sidx(mr + m, c)] * amul; };
+      auto bSG = [&](int c, int n) { return sB[sidx(nc + n, c)]; };
+#pragma unroll
+      for (int c = 0; c < kD; c += kStep<T>) mma_step<T>(sg, aSG, bSG, c);
+      stage(sg, sX, mr, nc);
     }
     __syncthreads();
+    p_ds<T>(sP, sS, sL, sDl, q0, k0, kl, Tq, Tk, causal, seed, (uint32_t)bh,
+            thresh, dropout);
+    __syncthreads();
 
-    float s[4][4] = {}, g[4][4] = {};
-    patch_product(s, sK, sQ, r0, tx);   // [key][query]
-    patch_product(g, sV, sdO, r0, tx);  // G^T
+    // dV (team 0) or dK (team 1) of the quadrant, keys mr.., d nc..; and
+    // this key tile's dS K for queries wr.., d wc..
+    float aq[1][4][4] = {};
+    auto aXY = [&](int m, int c) { return sX[sidx(c, mr + m)]; };
+    auto bXY = [&](int c, int n) { return sY[sidx(c, nc + n)] * ymul; };
+    auto aQ = [&](int m, int c) { return sS[sidx(wr + m, c)]; };
+    auto bQ = [&](int c, int n) { return sK[sidx(c, wc + n)]; };
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int gk = k0 + r0 + i;
+    for (int c = 0; c < kBT; c += kStep<T>) {
+      mma_step<T>(acc, aXY, bXY, c);
+      mma_step<T>(aq, aQ, bQ, c);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + wr + g + 8 * h;
+      if (r >= Tq) continue;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int jq = tx + 16 * j;
-        const int gq = q0 + jq;
-        float pd = 0.f, ds = 0.f;
-        if (gq < Tq && valid_pair(gq, gk, kl, Tq, Tk, causal)) {
-          const float p = expf(s[i][j] - sL[jq]);
-          float gg = g[i][j];
-          pd = p;
-          if (dropout && !keep(seed, (uint32_t)bh, gq, gk, thresh)) {
-            pd = 0.f;
-            gg = 0.f;
-          }
-          ds = p * (gg - sD[jq]);
-        }
-        sP[(r0 + i) * TP + jq] = round_to<T>(pd);
-        sS[(r0 + i) * TP + jq] = round_to<T>(ds);
+        const size_t at = poff + (size_t)r * kD + wc + 8 * j + 2 * t;
+        if (part)
+          *reinterpret_cast<float2*>(part + at) =
+              make_float2(aq[0][j][2 * h], aq[0][j][2 * h + 1]);
+        else
+          store2<T>(dq + at, aq[0][j][2 * h] * scale, aq[0][j][2 * h + 1] * scale);
       }
     }
-    __syncthreads();
-    rows_times_tile(av, sP, sdO, r0, tx);
-    rows_times_tile(ak, sS, sQ, r0, tx);
   }
 
+  T* out = team ? dk : dv;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = k0 + r0 + i;
-    if (gk >= Tk) continue;
-    T* rk = dk + koff + (size_t)gk * D;
-    T* rv = dv + koff + (size_t)gk * D;
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      rk[tx + 16 * c] = from_f<T>(ak[i][c]);
-      rv[tx + 16 * c] = from_f<T>(av[i][c]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = k0 + mr + 16 * i + g + 8 * h;
+      if (r >= Tk) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        store2<T>(out + koff + (size_t)r * kD + nc + 8 * j + 2 * t,
+                  acc[i][j][2 * h], acc[i][j][2 * h + 1]);
     }
+}
+
+// dQ = scale * the sum of the key tiles' parts, in key-tile order; one
+// thread per 2 values
+template <typename T>
+__global__ void dq_sum(const float* __restrict__ dqp, T* __restrict__ dq,
+                       int nkt, int Tq, float scale, int64_t pairs) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const int64_t row = i / (kD / 2), bh = row / Tq, r = row % Tq;
+  const int c = (int)(i % (kD / 2)) * 2;
+  float a = 0.f, b = 0.f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const float2 p = *reinterpret_cast<const float2*>(
+        dqp + ((bh * nkt + kt) * Tq + r) * kD + c);
+    a += p.x;
+    b += p.y;
   }
+  store2<T>(dq + row * kD + c, a * scale, b * scale);
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* klen,
-           const void* dout, const float* lse, const float* delta, void* dq,
-           void* dk, void* dv, int B, int H, int Tq, int Tk, float scale,
-           int causal, uint32_t seed, uint32_t thresh, int dropout,
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const int* klen, const void* dout, const float* lse, void* dq,
+           void* dk, void* dv, float* dqp, int B, int H, int Tq, int Tk,
+           float scale, int causal, uint32_t seed, uint32_t thresh, int dropout,
            cudaStream_t stream) {
-  auto kq = flash_dq_kernel<T>;
-  auto kkv = flash_dkv_kernel<T>;
+  auto kern = flash_bwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
-      kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kDqSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kkv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kDkvSmem);
-  if (err != cudaSuccess) return (int)err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  kq<<<dim3(B * H, (Tq + BT - 1) / BT), NT, kDqSmem, stream>>>(
-      qt, kt, vt, klen, dot, lse, delta, static_cast<T*>(dq), H, Tq, Tk, scale,
-      causal, seed, thresh, dropout);
+  const int nkt = (Tk + kBT - 1) / kBT;
+  if (nkt > 1 && !dqp) return (int)cudaErrorInvalidValue;
+  kern<<<dim3(B * H, nkt), kThreads, kSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(o),
+      static_cast<const T*>(dout), klen, lse, static_cast<T*>(dq),
+      static_cast<T*>(dk), static_cast<T*>(dv), dqp, H, Tq, Tk, scale, causal,
+      seed, thresh, dropout);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  kkv<<<dim3(B * H, (Tk + BT - 1) / BT), NT, kDkvSmem, stream>>>(
-      qt, kt, vt, klen, dot, lse, delta, static_cast<T*>(dk),
-      static_cast<T*>(dv), H, Tq, Tk, scale, causal, seed, thresh, dropout);
+  if (err != cudaSuccess || nkt == 1) return (int)err;
+  const int64_t pairs = (int64_t)B * H * Tq * (kD / 2);
+  dq_sum<T><<<(unsigned)cdiv(pairs, 256), 256, 0, stream>>>(
+      dqp, static_cast<T*>(dq), nkt, Tq, scale, pairs);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q/dout [B,H,Tq,64], k/v [B,H,Tk,64] contiguous, all of one dtype; klen [B]
-// int32 clamped to Tk; lse/delta [B,H,Tq] float32; dq like q, dk/dv like k.
-// Launches the dQ kernel, then the dK/dV kernel.  Returns the CUDA error of
-// the launches (0 = launched).
+// q/o/dout [B,H,Tq,64], k/v [B,H,Tk,64] contiguous and 16-byte aligned, all of
+// one dtype; klen [B] int32 (null: Tk; clamped to Tk here); lse [B,H,Tq]
+// float32; dq like q, dk/dv like k; dq_part a float32 scratch of
+// [B*H, ceil(Tk / 64), Tq, 64] when Tk > 64, else null.  Launches the
+// backward kernel, then (Tk > 64) the fixed-order dQ sum.  Returns the CUDA
+// error of the launches (0 = launched).
 extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
-                                       const void* klen, const void* dout,
-                                       const void* lse, const void* delta, void* dq,
-                                       void* dk, void* dv, int B, int H, int Tq,
+                                       const void* o, const void* klen,
+                                       const void* dout, const void* lse,
+                                       void* dq, void* dk, void* dv,
+                                       void* dq_part, int B, int H, int Tq,
                                        int Tk, int Dh, float scale, int causal,
                                        unsigned int seed, unsigned int thresh,
                                        int dropout, int dtype, int device,
                                        void* stream) {
-  if (Dh != D) return (int)cudaErrorInvalidValue;
+  if (Dh != kD) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int* kl = static_cast<const int*>(klen);
   const float* ls = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+  float* dp = static_cast<float*>(dq_part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)
-    return launch<float>(q, k, v, kl, dout, ls, dl, dq, dk, dv, B, H, Tq, Tk,
+    return launch<float>(q, k, v, o, kl, dout, ls, dq, dk, dv, dp, B, H, Tq, Tk,
                          scale, causal, seed, thresh, dropout, st);
   if (dtype == ptt::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, kl, dout, ls, dl, dq, dk, dv, B, H, Tq,
-                                 Tk, scale, causal, seed, thresh, dropout, st);
+    return launch<__nv_bfloat16>(q, k, v, o, kl, dout, ls, dq, dk, dv, dp, B, H,
+                                 Tq, Tk, scale, causal, seed, thresh, dropout,
+                                 st);
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,9 @@
 // conv_bn_nhwc.cu, NHWC #10/#11): cp.async, TF32 rounding, the 128-byte
 // swizzle and its wgmma descriptor, the wgmma wrappers, 16-byte packing,
 // the BN prologue and stats fold, the accumulator's staging, and the
-// fixed-order second pass (sum_rows).
+// fixed-order second pass (sum_rows).  flash_attention_bwd.cu (#2) takes
+// its cp.async, TF32 rounding and packing; layer_norm_bwd.cu (#4) its
+// packing.
 //
 // Tiles: 128 x 128, 512 threads in four warpgroups of 64 x 64 each; a k
 // tile is one 128-byte swizzle span a row (32 float32 or 64 bfloat16).

@@ -248,23 +248,39 @@ def _bwd_lib():
     fn = build.library("flash_attention_bwd").ptt_flash_attention_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i, i, i, i, i, ctypes.c_float, i,
+        fn.argtypes = [p] * 11 + [i, i, i, i, i, ctypes.c_float, i,
                                   ctypes.c_uint, ctypes.c_uint, i, i, i, p]
         fn.restype = i
     return fn
+
+
+# queries or keys a tile of kernel #2
+_BWD_TILE = 64
+
+
+def _dq_partials(b, h, tq, tk):
+    """Shape of kernel #2's float32 dQ scratch: one [Tq, D] part per
+    (b*h, 64-key tile), which a fixed-order pass adds up; None when one
+    key tile covers Tk and the kernel writes dQ directly."""
+    nkt = -(-tk // _BWD_TILE)
+    if nkt <= 1:
+        return None
+    return (b * h, nkt, tq, SUPPORTED_HEAD_DIMS[0])
 
 
 def flash_attention_bwd(q, k, v, k_len, seed, causal, dropout_rate, scale,
                         out, lse, dout):
     """Launch kernel #2 on CUDA tensors: (dQ, dK, dV) of
     ``flash_attention_fwd`` from its O and LSE and the cotangent dO
-    [B,H,Tq,D].  ``delta = rowsum(dO * O)`` is one small reduction before
-    the launch, as the JAX package computes it outside its kernels."""
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention_bwd runs on CUDA tensors, got %s"
-                         % q.device)
+    [B,H,Tq,D].  The kernel computes delta = rowsum(dO * O) and clamps
+    ``k_len`` to Tk itself, so nothing else is launched when Tk <= 64;
+    beyond that a fixed-order pass adds up the key tiles' dQ parts."""
+    # shapes and types first, so that the messages name them on any device
+    if q.dim() != 4:
+        raise ValueError("flash_attention_bwd expects q [B,H,Tq,D], got %s"
+                         % (tuple(q.shape),))
     b, h, tq, d = q.shape
-    tk = k.shape[2]
+    tk = k.shape[2] if k.dim() == 4 else -1
     for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
                            ("lse", lse, (b, h, tq)),
                            ("k", k, (b, h, tk, d)), ("v", v, (b, h, tk, d))):
@@ -289,20 +305,32 @@ def flash_attention_bwd(q, k, v, k_len, seed, causal, dropout_rate, scale,
     if causal and tq > tk:
         raise ValueError("flash_attention_bwd: causal needs Tq <= Tk, got "
                          "q %s, k %s" % (tuple(q.shape), tuple(k.shape)))
-    klen = (torch.full((b,), tk, dtype=torch.int32, device=q.device)
-            if k_len is None else
+    if k_len is not None and k_len.numel() != b:
+        raise ValueError("flash_attention_bwd: k_len has %d entries for "
+                         "q %s" % (k_len.numel(), tuple(q.shape)))
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd runs on CUDA tensors, got %s"
+                         % q.device)
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("flash_attention_bwd needs 16-byte aligned "
+                         "q/k/v/out/dout, got q %s k %s"
+                         % (tuple(q.shape), tuple(k.shape)))
+    klen = (None if k_len is None else
             k_len.to(device=q.device, dtype=torch.int32).reshape(b)
-            .clamp(max=tk).contiguous())
+            .contiguous())
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = (dout.float() * out.float()).sum(dim=-1)
+    shape = _dq_partials(b, h, tq, tk)
+    part = (None if shape is None else
+            torch.empty(shape, dtype=torch.float32, device=q.device))
     thresh = int(dropout_rate * float(1 << 24)) if dropout_rate else 0
     err = _bwd_lib()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), klen.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, tq, tk, d, scale,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if klen is None else klen.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(), b, h, tq, tk, d, scale,
         int(bool(causal)), (int(seed) if seed is not None else 0) & _M32,
         thresh, int(bool(dropout_rate)), _DTYPE_CODE[q.dtype],
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)

@@ -99,22 +99,36 @@ layer_norm_fwd.launches = 0
 
 
 def _bwd_lib():
-    fn = build.library("layer_norm_bwd").ptt_layer_norm_bwd
+    lib = build.library("layer_norm_bwd")
+    fn = lib.ptt_layer_norm_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 9 + [i, i, i, i, i, p]
+        fn.argtypes = [p] * 9 + [i, i, i, i, i, i, p]
         fn.restype = i
+        lib.ptt_layer_norm_bwd_resident.argtypes = [i, i, i, i]
+        lib.ptt_layer_norm_bwd_resident.restype = i
     return fn
+
+
+# warps a block of kernel #4's row pass; each takes every
+# (_BWD_WARPS * blocks)-th row
+_BWD_WARPS = 8
+_BWD_MAX_D = 1024
+# (device, dtype, D, vec) -> blocks of the row pass the card holds at once
+_resident = {}
+
+
+def _row_blocks(n, resident):
+    """Grid of kernel #4's row pass: one wave of the card's resident
+    blocks, fewer when the rows do not fill them (a warp a row)."""
+    return max(1, min(-(-n // _BWD_WARPS), resident))
 
 
 def layer_norm_bwd(x, gamma, mean, rstd, dy):
     """Launch kernel #4 on CUDA tensors x/dy [N, D], gamma [D], mean/rstd
     [N] float32; returns (dx, dgamma, dbeta).  dgamma and dbeta are
-    reduced over rows in two passes through a [blocks, D] float32 scratch,
-    in a fixed order, so two runs give the same bits."""
-    if x.device.type != "cuda":
-        raise ValueError("layer_norm_bwd runs on CUDA tensors, got %s"
-                         % x.device)
+    reduced over rows in two passes through a [2, blocks, D] float32
+    scratch, in a fixed order, so two runs give the same bits."""
     if x.dim() != 2 or x.dtype not in _DTYPE_CODE:
         raise ValueError("layer_norm_bwd expects a float32 or bfloat16 x "
                          "[N, D], got %s %s" % (tuple(x.shape), x.dtype))
@@ -134,28 +148,39 @@ def layer_norm_bwd(x, gamma, mean, rstd, dy):
                                          tuple(t.shape), t.dtype, t.device))
     if not x.is_contiguous():
         raise ValueError("layer_norm_bwd needs a contiguous x")
+    if x.device.type != "cuda":
+        raise ValueError("layer_norm_bwd runs on CUDA tensors, got %s"
+                         % x.device)
     dx = torch.empty_like(x)
     dgamma = torch.empty_like(gamma)
     dbeta = torch.empty_like(gamma)
     if n == 0 or d == 0:
         return dx, dgamma.zero_(), dbeta.zero_()
-    blocks = (n + _BWD_ROWS_PER_BLOCK - 1) // _BWD_ROWS_PER_BLOCK
+    fn = _bwd_lib()
+    code = _DTYPE_CODE[x.dtype]
+    # 16-byte row vectors where every row starts on 16 bytes
+    vec = int(d * x.element_size() % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, dy, dx)))
+    key = (x.device.index, code, d, vec)
+    if key not in _resident:
+        res = build.library("layer_norm_bwd").ptt_layer_norm_bwd_resident(
+            d, vec, code, x.device.index)
+        build.check(-res if res < 0 else 0,
+                    "layer_norm_bwd x%s" % (tuple(x.shape),))
+        _resident[key] = res
+    blocks = _row_blocks(n, _resident[key])
     part = torch.empty((2, blocks, d), dtype=torch.float32, device=x.device)
-    err = _bwd_lib()(x.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
-                     rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                     dgamma.data_ptr(), dbeta.data_ptr(), part.data_ptr(),
-                     n, d, _BWD_ROWS_PER_BLOCK, _DTYPE_CODE[x.dtype],
-                     x.device.index,
-                     torch.cuda.current_stream(x.device).cuda_stream)
+    err = fn(x.data_ptr(), gamma.data_ptr(), mean.data_ptr(),
+             rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+             dgamma.data_ptr(), dbeta.data_ptr(), part.data_ptr(), n, d,
+             blocks, vec, code, x.device.index,
+             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "layer_norm_bwd x%s" % (tuple(x.shape),))
     layer_norm_bwd.launches += 1
     return dx, dgamma, dbeta
 
 
 layer_norm_bwd.launches = 0
-# rows whose dgamma/dbeta partial sums one block of the first pass keeps
-_BWD_ROWS_PER_BLOCK = 64
-_BWD_MAX_D = 1024
 
 
 def _forward(x, gamma, beta, eps):
