@@ -7,6 +7,8 @@
                                       # in turns (fp, wo, dyn, dyn, wo, fp)
     python3 chip_smoke.py --conv-bn   # device, build, kernels #8-#11 only
     python3 chip_smoke.py --train-kernels  # device, build, kernels #1-#6
+    python3 chip_smoke.py --serve-kernels  # device, build, kernels #1, #3,
+                                           # #7
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -16,8 +18,11 @@ Run from the root of a checkout.  Phases, one line each:
 2. ``build``   — compiles every kernel under ``paddle_tpu_torch/csrc``
    with ``nvcc`` (in parallel) and reports the seconds taken, each
    kernel's registers and spills, the ``HGMMA`` (wgmma) instructions in
-   the ``conv_bn`` and ``conv_bn_nhwc`` libraries and the ``HMMA``
-   (mma.sync) ones in ``flash_attention_bwd`` (``cuobjdump --dump-sass``);
+   the ``conv_bn`` and ``conv_bn_nhwc`` libraries, the ``HMMA`` (mma.sync
+   TF32 / bf16 / f16) ones in ``flash_attention_fwd``,
+   ``flash_attention_bwd`` and ``quant_matmul`` and the ``IMMA`` (int8
+   mma.sync) ones in ``quant_matmul`` (``cuobjdump --dump-sass``); it
+   fails if any of them is 0;
 3. ``kernels`` — each hand-written kernel against its plain PyTorch
    version at the shapes its paths give it (the serving slice's and the
    training slice's): max abs error and tolerance, the kernel's, the plain
@@ -27,7 +32,11 @@ Run from the root of a checkout.  Phases, one line each:
    ``torch.profiler``; a library backward is several launches, whose event
    time also counts the host's gaps), and the least time the card could take
    (device-memory bytes at 3.35 TB/s or operations at the data-sheet peak
-   of the input type); the fused conv+BN kernels #8-#11 at ResNet-50's
+   of the input type; #1 float32 at three TF32 passes, #7's
+   weight_only float32 at two, with the float32 units' bound beside);
+   #1 and #7 also give the same bits twice, run one device kernel a call
+   (the dynamic prefill two) and launch with the key / K split their
+   wrappers plan; the fused conv+BN kernels #8-#11 at ResNet-50's
    stage 1, 3 and 4 shapes in both layouts (tensor cores, float32 as
    three TF32 passes, bound at 3 x operations / 495 TFLOP/s beside the
    float32-unit bound), and at a ragged shape in each (NHWC M 1000, NCHW 3
@@ -106,8 +115,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12,
                   torch.int8: 1979e12}
-# the tensor cores' TF32 rate: #8-#11 take a float32 product as three
-# TF32 passes, so their float32 bound counts 3 x the operations at it
+# the tensor cores' TF32 rate: #1, #2 and #8-#11 take a float32 product as
+# three TF32 passes, #7 (weight_only, whose int8 weight has no lo part) as
+# two, so their float32 bound counts 3 x or 2 x the operations at it
 TF32_OPS_PER_S = 495e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -115,6 +125,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL = dict(vocab_size=32000, max_len=1024, slots=8, n_layer=6, n_head=8,
              d_model=512, d_inner=2048, dtype="float32")
 N_REQUESTS, MAX_NEW = 16, 32
+SERVE_PROMPTS = (64, 700)   # the served prompts' shortest and longest
 
 # tolerances (allclose: |kernel - plain| <= atol + rtol * |plain|).
 # float32: both sum ~1e3 terms in float32 in different orders.  bfloat16:
@@ -189,7 +200,7 @@ def max_err(got, want, dtype, tol=TOL):
 # ---------------------------------------------------------------------------
 
 def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
-                   rate=0.0, seed=None):
+                   rate=0.0, seed=None, split=False):
     from torch.nn.functional import scaled_dot_product_attention
 
     b, h, d = len(klen), 8, 64
@@ -199,9 +210,22 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
     kl = torch.tensor(klen, dtype=torch.int32, device="cuda")
     args = (q, k, v, kl, seed, causal, rate)
     out, lse = fa.flash_attention_fwd(*args)
+    again = fa.flash_attention_fwd(*args)
     want = fa.reference_attention(*args)
     torch.cuda.synchronize()
     err, ok = max_err(out, want, dtype)
+    # the decode split combines its ranks in a fixed order: the same bits
+    # every launch
+    same_bits = torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    # the cluster the kernel launched with, against the wrapper's planner
+    from paddle_tpu_torch.ops.cuda import build
+    cluster = build.library(
+        "flash_attention_fwd").ptt_flash_attention_fwd_cluster(b, h, tq, tk)
+    planned = fa._split_cluster(b, h, tq, tk)
+    calls = kernel_calls(lambda: fa.flash_attention_fwd(*args))
+    ok = ok and same_bits and cluster == planned and sum(calls.values()) == 1
+    # a case meant for the key split must take it
+    ok = ok and (cluster > 1 or not split)
     # fully masked rows: zeros and the +1e30 LSE sentinel
     empty = (kl == 0).nonzero().flatten().tolist()
     for i in empty:
@@ -212,7 +236,7 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
     item = q.element_size()
     nbytes = (q.numel() * item + 2 * keys * d * item + out.numel() * item
               + lse.numel() * 4 + kl.numel() * 4)
-    bound_ms, bound_by = bound(nbytes, 4 * d * pairs, dtype)
+    bound_ms, bound_by, bound_simt = tf32_bound(nbytes, 4 * d * pairs, dtype)
 
     library_ms = library_dev = None
     if not rate:
@@ -225,7 +249,10 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
         library_dev = device_ms(library_kernels(lib))
     res = {"check": name, "q": list(q.shape), "k": list(k.shape),
            "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-           "dropout": rate, "max_abs_err": err, "tol": TOL[dtype],
+           "dropout": rate, "klen": list(klen)[:8], "cluster": cluster,
+           "cluster_planned": planned, "repeatable_bits": same_bits,
+           "device_kernel_calls": calls,
+           "max_abs_err": err, "tol": TOL[dtype],
            "kernel_ms": timer(lambda: fa.flash_attention_fwd(*args)),
            "device_ms": device_ms(library_kernels(
                lambda: fa.flash_attention_fwd(*args))),
@@ -233,6 +260,8 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
            "library_ms": library_ms, "library_device_ms": library_dev,
            "bound_ms": bound_ms,
            "bound_by": bound_by, "ok": ok}
+    if bound_simt is not None:
+        res.update(bound_rate="3xTF32", bound_simt_ms=bound_simt)
     return res
 
 
@@ -280,9 +309,9 @@ def _pairs_and_keys(b, h, tq, tk, causal, kl):
     return valid, int(valid.sum()) * h, int(valid.any(dim=2).sum()) * h
 
 
-def library_kernels(fn):
-    """The device kernels one call of ``fn`` runs, {name: device us}, from
-    ``torch.profiler``: which backend a library call took."""
+def _device_kernels(fn):
+    """The device kernels one call of ``fn`` runs, as ``torch.profiler``'s
+    averages (after a warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -290,13 +319,23 @@ def library_kernels(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            out[e.key[:100]] = us
-    return out
+    return [e for e in prof.key_averages()
+            if getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) > 0]
+
+
+def library_kernels(fn):
+    """The device kernels one call of ``fn`` runs, {name: device us}: which
+    backend a library call took."""
+    return {e.key[:100]: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+            for e in _device_kernels(fn)}
+
+
+def kernel_calls(fn):
+    """{device kernel name: launches} of one call of ``fn``: how many
+    kernels a wrapper call runs."""
+    return {e.key[:100]: e.count for e in _device_kernels(fn)}
 
 
 def device_ms(kernels):
@@ -453,6 +492,9 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
                logits, label, eps), iters=5),
            "library_ms": timer(lambda: cross_entropy(
                logits, label_in, label_smoothing=eps, reduction="none")),
+           "library_device_ms": device_ms(library_kernels(
+               lambda: cross_entropy(logits, label_in, label_smoothing=eps,
+                                     reduction="none"))),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "ok": all(o for _, o in errs)}
     del want_loss, want_sm
@@ -471,10 +513,13 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
                   + n * item)
         bound_ms, bound_by = bound(nbytes, (7 if with_dsm else 3) * n * c,
                                    dtype)
-        library_ms = None
+        library_ms = library_dev = None
         if not with_dsm:
-            library_ms = timer(lambda: torch.autograd.grad(
-                lib_loss, [lib_leaf], dloss.reshape(n), retain_graph=True))
+            def lib():
+                torch.autograd.grad(lib_loss, [lib_leaf], dloss.reshape(n),
+                                    retain_graph=True)
+            library_ms = timer(lib)
+            library_dev = device_ms(library_kernels(lib))
         bwd.append({
             "check": "softmax_xent_bwd_%dx%d_%s%s" % (
                 n, c, tag, "_dsm" if with_dsm else ""),
@@ -485,8 +530,8 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
                 lambda: sx.softmax_xent_bwd(*args))),
             "plain_ms": timer(lambda: sx.softmax_xent_bwd_reference(*args),
                               iters=5),
-            "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "ok": ok})
+            "library_ms": library_ms, "library_device_ms": library_dev,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ok": ok})
         del dsm, args
     del logits, sm, lib_leaf, lib_loss
     torch.cuda.empty_cache()
@@ -512,12 +557,19 @@ def quant_matmul_case(qm, timer, m, k, n, mode, dtype, xscale=None):
           else torch.tensor([xscale], dtype=torch.float32, device="cuda"))
     name = "%s_%dx%dx%d_%s%s" % (mode, m, k, n, tag,
                                  "_xscale" if xscale is not None else "")
+    # the K split the kernel takes, against the wrapper's planner
+    from paddle_tpu_torch.ops.cuda import build
+    gemv, planned, _ = qm._k_splits(m, n, k)
+    planned = planned if gemv else 0
+    splits = build.library("quant_matmul").ptt_dequant_matmul_splits(
+        m, n, k, int(mode == "dynamic"))
     res = {"check": name, "mnk": [m, k, n], "mode": mode, "dtype": tag,
-           "xscale": xscale}
+           "xscale": xscale, "splits": splits, "splits_planned": planned}
     want = qm.dequant_matmul_reference(x, qw, scale, mode, xs)
     if mode == "dynamic":
         out, qx, sx, acc = qm.dequant_matmul_kernel(x, qw, scale, mode, xs,
                                                     parts=True)
+        again = qm.dequant_matmul_kernel(x, qw, scale, mode, xs, parts=True)
         pqx, psx = qm.quantize_rows_reference(x, xs)
         pacc = qm.int8_matmul_reference(pqx, qw)
         torch.cuda.synchronize()
@@ -526,20 +578,40 @@ def quant_matmul_case(qm, timer, m, k, n, mode, dtype, xscale=None):
             and torch.equal(sx, psx.reshape(-1).expand(m))
             and torch.equal(acc, pacc))
         res["out_bit_exact"] = bool(torch.equal(out, want))
+        same_bits = all(torch.equal(a, b)
+                        for a, b in zip((out, qx, sx, acc), again))
         ok = res["grid_bit_exact"]
-        del qx, sx, acc, pqx, pacc
+        del qx, sx, acc, pqx, pacc, again
     else:
         out = qm.dequant_matmul_kernel(x, qw, scale, mode, xs)
+        again = qm.dequant_matmul_kernel(x, qw, scale, mode, xs)
         torch.cuda.synchronize()
+        # the K split's partial sums are added in rank order
+        same_bits = torch.equal(out, again)
         ok = True
+        del again
+    # one device kernel a call; the dynamic prefill runs its row grid first
+    calls = kernel_calls(lambda: qm.dequant_matmul_kernel(x, qw, scale, mode,
+                                                          xs))
+    want_calls = 1 if gemv or mode == "weight_only" else 2
     err, close = max_err(out, want, torch.float32)
-    res.update(max_abs_err=err, tol=TOL[torch.float32], ok=ok and close)
+    res.update(max_abs_err=err, tol=TOL[torch.float32],
+               repeatable_bits=same_bits, device_kernel_calls=calls,
+               ok=(ok and close and same_bits and splits == planned
+                   and sum(calls.values()) == want_calls))
     del out, want
     nbytes = m * k * x.element_size() + k * n + 4 * n + 4 * m * n
-    peak = PEAK_OPS_PER_S[torch.int8 if mode == "dynamic" else torch.float32]
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * m * k * n / peak
-    res.update(bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+    ops = 2.0 * m * k * n
+    if mode == "dynamic":
+        bound_ms, bound_by = bound(nbytes, ops, torch.int8)
+    elif dtype == torch.float32:
+        # x_hi w + x_lo w: two TF32 passes (the int8 weight has no lo part)
+        bound_ms, bound_by, simt = tf32_bound(nbytes, ops, dtype, passes=2)
+        res.update(bound_rate="2xTF32", bound_simt_ms=simt)
+    else:
+        # one bfloat16 / float16 pass at the tensor cores' 16-bit rate
+        bound_ms, bound_by = bound(nbytes, ops, torch.bfloat16)
+    res.update(bound_ms=bound_ms, bound_by=bound_by,
                kernel_ms=timer(lambda: qm.dequant_matmul_kernel(
                    x, qw, scale, mode, xs)),
                device_ms=device_ms(library_kernels(
@@ -547,20 +619,28 @@ def quant_matmul_case(qm, timer, m, k, n, mode, dtype, xscale=None):
                                                     xs))),
                plain_ms=timer(lambda: qm.dequant_matmul_reference(
                    x, qw, scale, mode, xs), iters=5))
+    lib = None
     if mode == "weight_only":
         w_deq = qw.float() * scale
         xf = x.float()
-        res["library_ms"] = timer(lambda: torch.matmul(xf, w_deq))
+
+        def lib():
+            torch.matmul(xf, w_deq)
         res["library"] = "torch.matmul(x_f32, w_dequantized_f32)"
-        del w_deq, xf
     else:
         qx_lib = qm.quantize_rows_reference(x, xs)[0]
         try:
-            res["library_ms"] = timer(lambda: torch._int_mm(qx_lib, qw))
+            torch._int_mm(qx_lib, qw)
+
+            def lib():
+                torch._int_mm(qx_lib, qw)
             res["library"] = "torch._int_mm(qx, qw): the int32 product alone"
         except RuntimeError as e:   # the yardstick does not take the shape
-            res["library_ms"] = None
             res["library"] = "none (torch._int_mm: %s)" % str(e)[:80]
+    res["library_ms"] = None if lib is None else timer(lib)
+    res["library_device_ms"] = (None if lib is None
+                                else device_ms(library_kernels(lib)))
+    del lib
     torch.cuda.empty_cache()
     return res
 
@@ -580,7 +660,10 @@ def quant_matmul_cases(qm, timer):
                   (5, 130, 200, mode, bf16, None),
                   (8, 40, 512, mode, f32, None),
                   (8, 512, 32000, mode, bf16, None)]
-    cases += [(8, 512, 2048, "weight_only", f16, None),
+    # the decode kernel's 16- and 32-row blocks, K split past a stage edge
+    cases += [(13, 512, 2048, "weight_only", f32, None),
+              (29, 520, 512, "dynamic", f32, None),
+              (8, 512, 2048, "weight_only", f16, None),
               (8, 512, 2048, "dynamic", f16, None),
               (8, 512, 2048, "dynamic", f32, 3.0),
               (5, 130, 200, "dynamic", bf16, 3.0)]
@@ -606,15 +689,18 @@ CONV_BN_STAGES = {"stage1": (128, 64, 256, 3136),
 CONV_BN_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-3)}
 
 
-def conv_bn_bound(nbytes, ops, dtype):
-    """(bound ms, by, the float32 units' bound ms or None): #8-#11 take
-    float32 on the tensor cores as three TF32 passes."""
+def tf32_bound(nbytes, ops, dtype, passes=3):
+    """(bound ms, by, the float32 units' bound ms or None): a kernel that
+    takes float32 on the tensor cores as ``passes`` TF32 passes (#1, #2,
+    #8-#11: three; #7: two) is bound at passes x operations / 495 TFLOP/s,
+    with the float32 units' bound beside it."""
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     if dtype != torch.float32:
         return bound_ms, bound_by, None
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 3 * ops / TF32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, passes * ops / TF32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations (3xTF32)", bound_ms)
+            "bytes" if t_bytes >= t_ops
+            else "operations (%dxTF32)" % passes, bound_ms)
 
 
 def _close(got, want, scale, dtype, f32_out=False):
@@ -686,7 +772,7 @@ def conv_bn_fwd_case(cb, timer, stage, nhwc, apply_bn, dtype):
     same_bits = all(torch.equal(a_, b_) for a_, b_ in zip(got, again))
     del got, again, want, scales
     n, item = b * hw, x.element_size()
-    bound_ms, bound_by, bound_simt = conv_bn_bound(
+    bound_ms, bound_by, bound_simt = tf32_bound(
         n * c * item + n * o * item + o * c * item, 2.0 * n * c * o, dtype)
     if nhwc:
         wt = w.t()
@@ -775,7 +861,7 @@ def conv_bn_bwd_case(cb, timer, stage, nhwc, apply_bn, with_stats, dtype):
     n, item = b * hw, x.element_size()
     nbytes = (2 * n * c * item + n * o * item * (2 if with_stats else 1)
               + o * c * (item + 4))
-    bound_ms, bound_by, bound_simt = conv_bn_bound(nbytes, 4.0 * n * c * o,
+    bound_ms, bound_by, bound_simt = tf32_bound(nbytes, 4.0 * n * c * o,
                                                    dtype)
     if nhwc:
         def lib():
@@ -840,6 +926,87 @@ def conv_bn_cases(cb, timer):
     return out
 
 
+def _train_klen():
+    """The training slice's key lengths: 256 rows of 64 tokens, lengths
+    in [16, 64]; and the same with row 7 empty."""
+    train_klen = np.random.RandomState(3).randint(
+        16, TRAIN_SEQ + 1, TRAIN_BATCH).tolist()
+    train_klen0 = list(train_klen)
+    train_klen0[7] = 0
+    return train_klen, train_klen0
+
+
+def attention_fwd_cases(timer):
+    """Kernel #1 at the training, prefill and decode shapes, the main
+    path's (training, causal float32) first."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    train_klen, train_klen0 = _train_klen()
+    prefill_klen = [1024, 700, 513, 64, 1, 0, 300, 999]
+    decode_klen = [1024, 65, 700, 1, 333, 512, 1000, 2]
+    # the decode split (8 ranks of 128 keys at klen 1024) with empty
+    # slices: no key, one or two keys, and a klen just past a tile edge
+    empty_klen = [0, 65, 129, 1, 2, 193, 1024, 64]
+    t = TRAIN_SEQ
+    fwd = [attention_case(fa, timer, "train_causal_" + tag, t, t, True,
+                          train_klen, dtype)
+           for dtype, tag in ((torch.float32, "float32"),
+                              (torch.bfloat16, "bfloat16"))]
+    fwd.append(attention_case(fa, timer, "train_self_dropout_klen0", t, t,
+                              False, train_klen0, torch.float32, rate=0.1,
+                              seed=1234))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        fwd.append(attention_case(fa, timer, "prefill_" + tag, 1024, 1024,
+                                  True, prefill_klen, dtype))
+        fwd.append(attention_case(fa, timer, "decode_" + tag, 1, 1024,
+                                  True, decode_klen, dtype))
+    fwd.append(attention_case(fa, timer, "prefill_float32_dropout", 1024,
+                              1024, True, prefill_klen, torch.float32,
+                              rate=0.1, seed=1234))
+    fwd.append(attention_case(fa, timer, "decode_empty_slices_float32", 1,
+                              1024, True, empty_klen, torch.float32))
+    # the key split of Tq > 1 (the tiles' 64-row partials combined): the
+    # engine's 128 and 256 prefill buckets at 8 slots (cluster 2), the
+    # suffix (Tq < Tk) alignment (cluster 4), and the B = 1 causal score
+    # program over the longest served sequence (cluster 4)
+    for t, kl in ((128, [128, 100, 65, 64, 1, 0, 127, 33]),
+                  (256, [256, 200, 129, 64, 1, 0, 255, 130])):
+        for dtype in (torch.float32, torch.bfloat16):
+            fwd.append(attention_case(
+                fa, timer, "prefill_bucket%d_%s" % (t, str(dtype)[6:]), t, t,
+                True, kl, dtype, split=True))
+    fwd.append(attention_case(fa, timer, "suffix_dropout_float32", 70, 300,
+                              True, [300, 150, 70, 71, 299, 100, 3, 250],
+                              torch.float32, rate=0.1, seed=99, split=True))
+    t = max(SERVE_PROMPTS) + MAX_NEW
+    fwd.append(attention_case(fa, timer, "score_b1_float32", t, t, True, [t],
+                              torch.float32, split=True))
+    return fwd
+
+
+def layer_norm_fwd_cases(timer):
+    """Kernel #3 at the training rows (the main path's shape first), the
+    prefill and decode rows, and bfloat16."""
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+
+    rows, d = TRAIN_BATCH * TRAIN_SEQ, TRAIN["d_model"]
+    norm = [layer_norm_case(ln, timer, n, d, torch.float32)
+            for n in (rows, 8 * 1024, 8)]
+    norm.append(layer_norm_case(ln, timer, rows, d, torch.bfloat16))
+    return norm
+
+
+def serve_kernel_cases(timer):
+    """Kernels #1, #3 and #7, the serving path's, against their plain
+    versions (``--serve-kernels``)."""
+    from paddle_tpu_torch.ops.cuda import quant_matmul as qm
+
+    return {"flash_attention_fwd": attention_fwd_cases(timer),
+            "layer_norm_fwd": layer_norm_fwd_cases(timer),
+            "dequant_matmul": quant_matmul_cases(qm, timer)}
+
+
 def train_kernel_cases(timer):
     """Kernels #1-#6 (the serving and Transformer-training slices)
     against their plain versions; {kernel name: [checks]}, the main
@@ -848,19 +1015,11 @@ def train_kernel_cases(timer):
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
     from paddle_tpu_torch.ops.cuda import softmax_xent as sx
 
-    rng = np.random.RandomState(3)
-    # the training slice: 256 rows of 64 tokens, lengths in [16, 64]
-    train_klen = rng.randint(16, TRAIN_SEQ + 1, TRAIN_BATCH).tolist()
-    train_klen0 = list(train_klen)
-    train_klen0[7] = 0
-    prefill_klen = [1024, 700, 513, 64, 1, 0, 300, 999]
-    decode_klen = [1024, 65, 700, 1, 333, 512, 1000, 2]
+    train_klen, train_klen0 = _train_klen()
     t = TRAIN_SEQ
-    fwd, bwd = [], []
+    bwd = []
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
-        fwd.append(attention_case(fa, timer, "train_causal_" + tag, t, t,
-                                  True, train_klen, dtype))
         bwd.append(attention_bwd_case(fa, timer, "train_causal_" + tag, t,
                                       t, True, train_klen, dtype))
         bwd.append(attention_bwd_case(fa, timer, "train_self_" + tag, t, t,
@@ -878,23 +1037,8 @@ def train_kernel_cases(timer):
     bwd.append(attention_bwd_case(fa, timer, "suffix_dropout", 70, 300,
                                   True, [300, 150, 70, 71, 299, 100, 3, 250],
                                   torch.float32, rate=0.1, seed=99))
-    fwd.append(attention_case(fa, timer, "train_self_dropout_klen0", t, t,
-                              False, train_klen0, torch.float32, rate=0.1,
-                              seed=1234))
-    for dtype in (torch.float32, torch.bfloat16):
-        tag = str(dtype).replace("torch.", "")
-        fwd.append(attention_case(fa, timer, "prefill_" + tag, 1024, 1024,
-                                  True, prefill_klen, dtype))
-        fwd.append(attention_case(fa, timer, "decode_" + tag, 1, 1024,
-                                  True, decode_klen, dtype))
-    fwd.append(attention_case(fa, timer, "prefill_float32_dropout", 1024,
-                              1024, True, prefill_klen, torch.float32,
-                              rate=0.1, seed=1234))
     rows = TRAIN_BATCH * TRAIN_SEQ
     d = TRAIN["d_model"]
-    norm = [layer_norm_case(ln, timer, n, d, torch.float32)
-            for n in (rows, 8 * 1024, 8)]
-    norm.append(layer_norm_case(ln, timer, rows, d, torch.bfloat16))
     norm_bwd = [layer_norm_bwd_case(ln, timer, rows, d, dt)
                 for dt in (torch.float32, torch.bfloat16)]
     # off the path: a ragged last block of rows and other row widths
@@ -908,8 +1052,10 @@ def train_kernel_cases(timer):
     f, b = softmax_xent_cases(sx, timer, 300, 1000, 0.0, torch.float32)
     xent_fwd.append(f)
     xent_bwd += b
-    return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd,
-            "layer_norm_fwd": norm, "layer_norm_bwd": norm_bwd,
+    return {"flash_attention_fwd": attention_fwd_cases(timer),
+            "flash_attention_bwd": bwd,
+            "layer_norm_fwd": layer_norm_fwd_cases(timer),
+            "layer_norm_bwd": norm_bwd,
             "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd}
 
 
@@ -961,7 +1107,7 @@ INT8_BUDGET = 0.02
 
 
 def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
-                prompt_range=(64, 700), quantize=None):
+                prompt_range=SERVE_PROMPTS, quantize=None):
     """Serve ``n_requests`` prompts through ``GenerationEngine`` on
     ``place`` (int8 weights with ``quantize``); returns (the summary dict,
     the kernels' launch counts, the launches the programs imply)."""
@@ -1807,18 +1953,30 @@ def main():
                  build.build_log.get(n, "").splitlines()
                  if "registers" in ln or "spill" in ln]
              for n in built}
+    # tensor-core instructions in the SASS: wgmma (HGMMA) in #8-#11,
+    # mma.sync (HMMA: TF32 / bf16 / f16; IMMA: int8) in #1, #2 and #7
+    hgmma = {n: count_sass(built[n], "HGMMA")
+             for n in ("conv_bn", "conv_bn_nhwc")}
+    hmma = {n: count_sass(built[n], "HMMA") for n in (
+        "flash_attention_fwd", "flash_attention_bwd", "quant_matmul")}
+    imma = {"quant_matmul": count_sass(built["quant_matmul"], "IMMA")}
     log("build", {"seconds": time.perf_counter() - t0,
                   "kernels": sorted(built), "ptxas": ptxas,
-                  "hgmma": {n: count_sass(built[n], "HGMMA")
-                            for n in ("conv_bn", "conv_bn_nhwc")},
-                  "hmma": {n: count_sass(built[n], "HMMA")
-                           for n in ("flash_attention_bwd",)}})
+                  "hgmma": hgmma,
+                  "hmma": hmma, "imma": imma})
+    if not all(hgmma.values()) or not all(hmma.values()) \
+            or not all(imma.values()):
+        raise SystemExit("a tensor-core kernel holds no tensor-core "
+                         "instruction: %s %s %s" % (hgmma, hmma, imma))
     if "--conv-bn" in sys.argv[1:]:
         from paddle_tpu_torch.ops.cuda import conv_bn as cb
         log_checks(conv_bn_cases(cb, Timer()))
         return 0
     if "--train-kernels" in sys.argv[1:]:
         log_checks(train_kernel_cases(Timer()))
+        return 0
+    if "--serve-kernels" in sys.argv[1:]:
+        log_checks(serve_kernel_cases(Timer()))
         return 0
     if "--profile" in sys.argv[1:]:
         for quantize in (None, "weight_only", "dynamic"):
@@ -1891,9 +2049,9 @@ def main():
                "library_device_ms": head.get("library_device_ms"),
                "at": head["check"],
                "launches_path": main_path}
-        if "bound_simt_ms" in head:  # #8-#11: the 3xTF32 bound, and the
-            # float32 units' beside it
-            row.update(bound_rate="3xTF32",
+        if "bound_simt_ms" in head:  # #1, #7, #8-#11: the tensor cores'
+            # TF32 bound, and the float32 units' beside it
+            row.update(bound_rate=head.get("bound_rate", "3xTF32"),
                        bound_simt_ms=head["bound_simt_ms"])
         row.update({"launches_" + p: path_launches[p][name]
                     for p in path_launches})

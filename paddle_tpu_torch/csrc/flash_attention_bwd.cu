@@ -53,12 +53,14 @@
 //  - Loads: 16-byte cp.async for float32 (bfloat16 through registers, where
 //    Q is scaled and rounded).  Six 16 KB tiles fit two blocks an SM, so
 //    one block's loads overlap the other's products.
+//  - The masks, the dropout hash, the swizzle, the mma products and the
+//    tile loads are attention.cuh's, shared with the forward (#1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "attention.cuh"
 #include "dtype.cuh"
-#include "wgmma.cuh"
 
 namespace {
 
@@ -66,130 +68,10 @@ using ptt::from_f;
 using ptt::round_to;
 using ptt::to_f;
 
-constexpr int kBT = 64;        // queries or keys per tile
-constexpr int kD = 64;         // head dim (the only one the port builds)
-constexpr int kTile = kBT * kD;
 constexpr int kThreads = 256;  // 8 warps
 constexpr float kPosBig = 1e30f;
 // Q, dO, K, V, P_drop, dS tiles and the rows' LSE and delta
 constexpr size_t kSmem = sizeof(float) * (6 * kTile + 2 * kBT);
-
-__device__ __forceinline__ uint32_t mix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x7FEB352Du;
-  h ^= h >> 15;
-  h *= 0x846CA68Bu;
-  h ^= h >> 16;
-  return h;
-}
-
-// _keep_mask for one (bh, query, key) position: true = keep
-__device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, int gq, int gk,
-                                     uint32_t thresh) {
-  uint32_t h = ((uint32_t)gq * 0x85EBCA6Bu) ^ ((uint32_t)gk * 0xC2B2AE35u);
-  h ^= seed + bh * 0x9E3779B1u;
-  return (mix32(h) >> 8) >= thresh;
-}
-
-__device__ __forceinline__ bool valid_pair(int gq, int gk, int kl, int Tq, int Tk,
-                                           int causal) {
-  bool ok = gk < kl;
-  if (causal) ok = ok && (Tq == Tk ? gq >= gk : gq + kl - Tq >= gk);
-  return ok;
-}
-
-// float index of (row r, column c) in a swizzled 64 x 64 tile: columns XOR
-// bits 2-4 of the row, so 8 rows x 4 columns and 4 rows x 8 columns both
-// fall in 32 banks; 4-column groups stay whole (16-byte stores)
-__device__ __forceinline__ int sidx(int r, int c) {
-  return r * kD + (c ^ (((r & 3) << 3) | (r & 4)));
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-// mma.sync without volatile: the compiler may interleave independent
-// products (the three passes of another column tile, another product)
-// between two that add into one accumulator
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// the contraction a step of mma takes: k8 in TF32, k16 in bf16
-template <typename T>
-constexpr int kStep = sizeof(T) == 4 ? 8 : 16;
-
-// one k step of a product: acc[i][j] += sum over k' in [k, k + kStep) of
-// A(16 i + m, k') B(k', 8 j + n), the warp's (16 MT) x (8 NJ) block, A(m, k)
-// and B(k, n) reading shared memory.  The accumulator layout is mma's:
-// acc[i][j][e] is row 16 i + g + 8 (e / 2), column 8 j + 2 t + e % 2 (g =
-// lane / 4, t = lane % 4).  float32: the three passes go pass by pass over
-// the tiles, so that no two consecutive products add into one accumulator.
-template <typename T, int MT, int NJ, class FA, class FB>
-__device__ __forceinline__ void mma_step(float (&acc)[MT][NJ][4], FA A, FB B,
-                                         int k) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  if constexpr (sizeof(T) == 4) {
-    uint32_t ah[MT][4], al[MT][4], bh[NJ][2], bl[NJ][2];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      split(A(16 * i + g, k + t), ah[i][0], al[i][0]);
-      split(A(16 * i + g + 8, k + t), ah[i][1], al[i][1]);
-      split(A(16 * i + g, k + t + 4), ah[i][2], al[i][2]);
-      split(A(16 * i + g + 8, k + t + 4), ah[i][3], al[i][3]);
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      split(B(k + t, 8 * j + g), bh[j][0], bl[j][0]);
-      split(B(k + t + 4, 8 * j + g), bh[j][1], bl[j][1]);
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
-  } else {
-    const int k0 = k + 2 * t, k1 = k0 + 8;
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int m = 16 * i + g;
-      a[i][0] = pack2(A(m, k0), A(m, k0 + 1));
-      a[i][1] = pack2(A(m + 8, k0), A(m + 8, k0 + 1));
-      a[i][2] = pack2(A(m, k1), A(m, k1 + 1));
-      a[i][3] = pack2(A(m + 8, k1), A(m + 8, k1 + 1));
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int n = 8 * j + g;
-      const uint32_t b[2] = {pack2(B(k0, n), B(k0 + 1, n)),
-                             pack2(B(k1, n), B(k1 + 1, n))};
-#pragma unroll
-      for (int i = 0; i < MT; ++i) mma_bf16(acc[i][j], a[i], b);
-    }
-  }
-}
 
 // a warp's accumulators into a swizzled tile at (row r0, column c0)
 template <int MT, int NJ>
@@ -205,39 +87,6 @@ __device__ __forceinline__ void stage(const float (&acc)[MT][NJ][4], float* dst,
         *reinterpret_cast<float2*>(dst + sidx(r0 + 16 * i + g + 8 * h,
                                               c0 + 8 * j + 2 * t)) =
             make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-}
-
-// rows [r0, r0 + 64) of a [rows, 64] matrix into a swizzled tile; rows past
-// `rows` are 0.  float32 by 16-byte cp.async (the caller commits and waits);
-// bfloat16 through registers, times `mul` and rounded (mul = 1: as it is).
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          int r0, int rows, float mul) {
-  if constexpr (sizeof(T) == 4) {
-#pragma unroll
-    for (int i = threadIdx.x; i < kTile / 4; i += kThreads) {
-      const int r = i >> 4, c = (i & 15) * 4, gr = r0 + r;
-      const bool in = gr < rows;
-      cp_async16(smem_u32(dst + sidx(r, c)), src + (size_t)(in ? gr : 0) * kD + c,
-                 in ? 16 : 0);
-    }
-  } else {
-#pragma unroll
-    for (int i = threadIdx.x; i < kTile / 8; i += kThreads) {
-      const int r = i >> 3, c = (i & 7) * 8, gr = r0 + r;
-      float f[8] = {};
-      if (gr < rows) {
-        unpack(*reinterpret_cast<const uint4*>(src + (size_t)gr * kD + c), f);
-        if (mul != 1.f)
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = round_to<T>(f[e] * mul);
-      }
-      *reinterpret_cast<float4*>(dst + sidx(r, c)) =
-          make_float4(f[0], f[1], f[2], f[3]);
-      *reinterpret_cast<float4*>(dst + sidx(r, c + 4)) =
-          make_float4(f[4], f[5], f[6], f[7]);
-    }
-  }
 }
 
 // 16 consecutive values of a row, as float32
@@ -261,15 +110,6 @@ __device__ __forceinline__ void load16(const T* __restrict__ p, float (&f)[16]) 
       for (int e = 0; e < 8; ++e) f[8 * i + e] = h[e];
     }
   }
-}
-
-// two adjacent outputs of a row
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float a, float b) {
-  if constexpr (sizeof(T) == 4)
-    *reinterpret_cast<float2*>(p) = make_float2(a, b);
-  else
-    *reinterpret_cast<uint32_t*>(p) = pack2(a, b);
 }
 
 // P_drop and dS of the tile, from S (staged in sP) and G (in sS), in
@@ -379,14 +219,14 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float ymul = team ? qmul : 1.f;
   float acc[2][4][4] = {};              // dV or dK of the quadrant
   if (qt0 < nqt) {
-    load_tile<T>(sK, k + koff, k0, Tk, 1.f);
-    load_tile<T>(sV, v + koff, k0, Tk, 1.f);
+    load_tile<T, kThreads>(sK, k + koff, k0, Tk, 1.f);
+    load_tile<T, kThreads>(sV, v + koff, k0, Tk, 1.f);
   }
   for (int qt = qt0; qt < nqt; ++qt) {
     const int q0 = qt * kBT;
     __syncthreads();  // the previous tile's readers are done
-    load_tile<T>(sQ, q + qoff, q0, Tq, qround);
-    load_tile<T>(sdO, dout + qoff, q0, Tq, 1.f);
+    load_tile<T, kThreads>(sQ, q + qoff, q0, Tq, qround);
+    load_tile<T, kThreads>(sdO, dout + qoff, q0, Tq, 1.f);
     cp_commit();
     // delta = rowsum(dO * O): four threads a row, 16 columns each
     const int dr = tid >> 2, dc = (tid & 3) * 16, gq = q0 + dr;

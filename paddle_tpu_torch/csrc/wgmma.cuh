@@ -2,9 +2,10 @@
 // conv_bn_nhwc.cu, NHWC #10/#11): cp.async, TF32 rounding, the 128-byte
 // swizzle and its wgmma descriptor, the wgmma wrappers, 16-byte packing,
 // the BN prologue and stats fold, the accumulator's staging, and the
-// fixed-order second pass (sum_rows).  flash_attention_bwd.cu (#2) takes
-// its cp.async, TF32 rounding and packing; layer_norm_bwd.cu (#4) its
-// packing.
+// fixed-order second pass (sum_rows).  The flash-attention kernels (#1,
+// #2, through attention.cuh) take its cp.async, TF32 rounding, packing and
+// mma.sync wrappers; quant_matmul.cu (#7) the same; layer_norm_bwd.cu (#4)
+// its packing.
 //
 // Tiles: 128 x 128, 512 threads in four warpgroups of 64 x 64 each; a k
 // tile is one 128-byte swizzle span a row (32 float32 or 64 bfloat16).
@@ -185,6 +186,48 @@ __device__ __forceinline__ void mma_tiles(uint32_t a, uint32_t b,
       wgmma_bf16(d, desc(a + o), desc(b + o));
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync: the warp-level products of flash_attention_fwd.cu / _bwd.cu
+// (TF32, bfloat16) and quant_matmul.cu (TF32, bfloat16, float16, int8)
+// ---------------------------------------------------------------------------
+
+// mma.sync without volatile: the compiler may interleave independent
+// products (the three passes of another column tile, another product)
+// between two that add into one accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_f16(float (&d)[4], const uint32_t (&a)[4],
+                                        const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// int8 x int8 into int32, exact in any order: A 16 x 32 (4 k a register),
+// B 32 x 8
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // ---------------------------------------------------------------------------

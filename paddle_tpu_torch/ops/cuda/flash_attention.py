@@ -181,14 +181,44 @@ def _lib():
     return fn
 
 
+# A mirror of kernel #1's key split for the CPU tests and chip_smoke's
+# cross-check; the wrapper never consults it (the kernel plans its own
+# launch).  A (b*h, 64-query tile) spreads its keys over a cluster of up to
+# 8 blocks while the grid stays within a wave of resident blocks (4 an SM
+# of 132) and each rank keeps a 64-key tile: decode steps and small
+# prefills alike.
+_FWD_TILE, _MAX_CLUSTER, _WAVE = 64, 8, 4 * 132
+
+
+def _split_cluster(b, h, tq, tk):
+    """The cluster size kernel #1 launches a shape with (1: no split); the
+    kernel's ``cluster_size``, for tests."""
+    blocks, c = b * h * -(-tq // _FWD_TILE), 1
+    while c < _MAX_CLUSTER and blocks * c * 2 <= _WAVE \
+            and c * 2 * _FWD_TILE <= tk:
+        c *= 2
+    return c
+
+
+def _key_slices(kend, cluster):
+    """The key ranges [start, end) of the cluster's ranks, in rank order,
+    over the keys [0, kend) a query tile can see: whole 64-key tiles a
+    rank, empty past ``kend``; the kernel's ``key_slice``, for tests."""
+    n = max(kend, 0)
+    per_rank = -(-n // cluster)
+    chunk = -(-per_rank // _FWD_TILE) * _FWD_TILE
+    starts = [min(r * chunk, n) for r in range(cluster)]
+    return [(s, min(s + chunk, n)) for s in starts]
+
+
 def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
                         dropout_rate=0.0, scale=None):
-    """Launch kernel B on CUDA tensors; returns (O [B,H,Tq,D] in q's
-    dtype, LSE [B,H,Tq] float32).  Raises on what the kernel does not
+    """Launch kernel #1 on CUDA tensors; returns (O [B,H,Tq,D] in q's
+    dtype, LSE [B,H,Tq] float32).  One device kernel a call (a decode
+    shape's key split included).  Raises on what the kernel does not
     take."""
-    if q.device.type != "cuda":
-        raise ValueError("flash_attention_fwd runs on CUDA tensors, got %s"
-                         % q.device)
+    # shapes and types first, so that the messages name them on any device
+    # (the head dim, which only the card's kernel limits, after the device)
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_fwd expects [B,H,T,D] q/k/v, got "
                          "%s/%s/%s" % (tuple(q.shape), tuple(k.shape),
@@ -199,10 +229,6 @@ def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
         raise ValueError("flash_attention_fwd: k/v must be [%d,%d,Tk,%d], "
                          "got %s/%s" % (b, h, d, tuple(k.shape),
                                         tuple(v.shape)))
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError("flash_attention_fwd: head dim %d of q %s is not "
-                         "one of %s" % (d, tuple(q.shape),
-                                        SUPPORTED_HEAD_DIMS))
     if causal and tq > tk:
         raise ValueError("flash_attention_fwd: causal needs Tq <= Tk, got "
                          "q %s, k %s" % (tuple(q.shape), tuple(k.shape)))
@@ -211,18 +237,27 @@ def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
         raise ValueError("flash_attention_fwd takes float32 or bfloat16 "
                          "q/k/v of one dtype, got %s/%s/%s"
                          % (q.dtype, k.dtype, v.dtype))
+    if k_len is not None and k_len.numel() != b:
+        raise ValueError("flash_attention_fwd: k_len has %d entries for "
+                         "batch %d" % (k_len.numel(), b))
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_fwd runs on CUDA tensors, got %s"
+                         % q.device)
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError("flash_attention_fwd: head dim %d of q %s is not "
+                         "one of %s" % (d, tuple(q.shape),
+                                        SUPPORTED_HEAD_DIMS))
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention_fwd: q/k/v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_fwd needs contiguous q/k/v")
-    if k_len is None:
-        klen = torch.full((b,), tk, dtype=torch.int32, device=q.device)
-    else:
-        if k_len.numel() != b:
-            raise ValueError("flash_attention_fwd: k_len has %d entries for "
-                             "batch %d" % (k_len.numel(), b))
-        klen = k_len.to(device=q.device, dtype=torch.int32).reshape(b) \
-            .clamp(max=tk).contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd needs 16-byte aligned q/k/v, "
+                         "got q %s k %s" % (tuple(q.shape), tuple(k.shape)))
+    # the kernel clamps k_len to Tk itself: no launch here for an int32 k_len
+    klen = (None if k_len is None else
+            k_len.to(device=q.device, dtype=torch.int32).reshape(b)
+            .contiguous())
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
@@ -230,7 +265,8 @@ def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
         return out, lse
     thresh = int(dropout_rate * float(1 << 24)) if dropout_rate else 0
     fn = _lib()
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), klen.data_ptr(),
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             None if klen is None else klen.data_ptr(),
              out.data_ptr(), lse.data_ptr(), b, h, tq, tk, d, scale,
              int(bool(causal)), (int(seed) if seed is not None else 0) & _M32,
              thresh, int(bool(dropout_rate)), _DTYPE_CODE[q.dtype],

@@ -84,21 +84,49 @@ def _fn(name, argtypes):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _split_scratch(m, n, k, dynamic, dev):
-    """The [splits, M, N] scratch of the kernel's K split, or None when the
-    shape needs none (the split count is the kernel's own rule)."""
-    splits = _fn("ptt_dequant_matmul_splits", [_I] * 4)(m, n, k,
-                                                        int(dynamic))
-    if splits <= 1:
-        return None
-    return torch.empty((splits, m, n), device=dev,
-                       dtype=torch.int32 if dynamic else torch.float32)
+def _splits(m, n, k):
+    """The kernel an [m, k] x [k, n] product takes, as the library plans
+    it: 0 for the prefill kernel, else the decode kernel's cluster size."""
+    return _fn("ptt_dequant_matmul_splits", [_I] * 4)(m, n, k, 0)
+
+
+# A mirror of the kernel's ``plan_of`` for the CPU tests and chip_smoke's
+# cross-check; the wrapper never consults it (it asks ``_splits``).  The
+# decode kernel: 128 columns a block, weight rows in stages of 64, 8, 16 or
+# 32 rows of x, and a float32 x slice of at most 64 KB a block; K split
+# over a cluster of up to 8 blocks while the column strips leave the card
+# (about two blocks an SM of 132) short of blocks.
+_BN, _WBK, _DECODE_M, _DECODE_X = 128, 64, 32, 65536
+_MAX_CLUSTER, _DECODE_WAVE = 8, 2 * 132
+
+
+def _k_splits(m, n, k):
+    """(decode kernel?, splits, kchunk): the plan of ``plan_of``, for tests.
+    The decode kernel (m <= 32) splits K over a cluster of ``splits``
+    blocks, rank r taking rows [r kchunk, (r + 1) kchunk) of the weight
+    (empty past k), and adds their partial sums in rank order inside the
+    launch; the prefill kernel takes K whole."""
+    if m > _DECODE_M:
+        return False, 1, k
+    strips = -(-n // _BN)
+    bm = 8 if m <= 8 else 16 if m <= 16 else 32  # x rows a block
+
+    def chunk(s):
+        per_rank = -(-k // s)
+        return max(_WBK, -(-per_rank // _WBK) * _WBK)
+    s = 1
+    while s < _MAX_CLUSTER and strips * s * 2 <= _DECODE_WAVE \
+            and -(-k // (2 * s)) >= _WBK:
+        s *= 2
+    while s < _MAX_CLUSTER and chunk(s) * bm * 4 > _DECODE_X:
+        s *= 2
+    if chunk(s) * bm * 4 > _DECODE_X:
+        return False, 1, k
+    return True, s, chunk(s)
 
 
 def _check(x2, qw, scale, mode, xscale, bit_length):
-    if x2.device.type != "cuda":
-        raise ValueError("dequant_matmul_kernel runs on CUDA tensors, got %s"
-                         % x2.device)
+    # shapes and types first, so that the messages name them on any device
     if mode not in MODES:
         raise ValueError("unknown dequant_matmul mode %r" % mode)
     if x2.dim() != 2 or x2.dtype not in _DTYPE_CODE:
@@ -120,6 +148,9 @@ def _check(x2, qw, scale, mode, xscale, bit_length):
     if not 2 <= int(bit_length) <= 8:
         raise ValueError("dequant_matmul_kernel: bit_length %s is outside "
                          "the int8 grid" % bit_length)
+    if x2.device.type != "cuda":
+        raise ValueError("dequant_matmul_kernel runs on CUDA tensors, got %s"
+                         % x2.device)
     for name, t in (("qw", qw), ("scale", scale), ("xscale", xscale)):
         if t is not None and t.device != x2.device:
             raise ValueError("dequant_matmul_kernel: %s is on %s, x on %s"
@@ -133,7 +164,9 @@ def dequant_matmul_kernel(x2, qw, scale, mode="weight_only", xscale=None,
                           bit_length=8, parts=False):
     """Launch kernel #7 on CUDA tensors; returns the float32 [M, N].  With
     ``parts=True`` in dynamic mode, returns (out, qx [M, K] int8, sx [M]
-    float32, acc [M, N] int32) for checks against the plain version."""
+    float32, acc [M, N] int32) for checks against the plain version.  One
+    device kernel a call, except the dynamic prefill (M > 32), which runs
+    the row grid first."""
     m, k, n = _check(x2, qw, scale, mode, xscale, bit_length)
     dev = x2.device
     scale = scale.to(torch.float32).contiguous()
@@ -142,11 +175,10 @@ def dequant_matmul_kernel(x2, qw, scale, mode="weight_only", xscale=None,
     if mode == "weight_only":
         if m and n:
             if k:
-                part = _split_scratch(m, n, k, False, dev)
                 err = _fn("ptt_dequant_matmul_wo", [_P] * 5 + [_I] * 5 + [_P])(
                     x2.data_ptr(), qw.data_ptr(), scale.data_ptr(),
-                    out.data_ptr(), None if part is None else part.data_ptr(),
-                    m, n, k, _DTYPE_CODE[x2.dtype], dev.index, stream)
+                    out.data_ptr(), None, m, n, k, _DTYPE_CODE[x2.dtype],
+                    dev.index, stream)
                 build.check(err, "dequant_matmul_kernel x%s qw%s" % (
                     tuple(x2.shape), tuple(qw.shape)))
                 dequant_matmul_kernel.launches += 1
@@ -154,21 +186,22 @@ def dequant_matmul_kernel(x2, qw, scale, mode="weight_only", xscale=None,
                 out.zero_()
         return out
     kp = (k + 3) // 4 * 4
-    qx = torch.empty((m, kp), dtype=torch.int8, device=dev)
-    sx = torch.empty((m,), dtype=torch.float32, device=dev)
+    # the decode kernel keeps the row grid to itself unless asked for it
+    grid = parts or (m and n and _splits(m, n, k) == 0)
+    qx = torch.empty((m, kp), dtype=torch.int8, device=dev) if grid else None
+    sx = torch.empty((m,), dtype=torch.float32, device=dev) if grid else None
     acc = (torch.empty((m, n), dtype=torch.int32, device=dev) if parts
            else None)
     if xscale is not None:
         xscale = xscale.to(torch.float32).reshape(1).contiguous()
     if m and n:
-        part = _split_scratch(m, n, k, True, dev)
         err = _fn("ptt_dequant_matmul_dyn",
                   [_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _I, _P])(
             x2.data_ptr(), qw.data_ptr(), scale.data_ptr(),
-            None if xscale is None else xscale.data_ptr(), qx.data_ptr(),
-            sx.data_ptr(), out.data_ptr(),
-            None if acc is None else acc.data_ptr(),
-            None if part is None else part.data_ptr(), m, n, k, kp,
+            None if xscale is None else xscale.data_ptr(),
+            None if qx is None else qx.data_ptr(),
+            None if sx is None else sx.data_ptr(), out.data_ptr(),
+            None if acc is None else acc.data_ptr(), None, m, n, k, kp,
             quant_range(bit_length), _DTYPE_CODE[x2.dtype], dev.index,
             stream)
         build.check(err, "dequant_matmul_kernel dynamic x%s qw%s" % (

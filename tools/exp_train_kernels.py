@@ -28,7 +28,9 @@ Run from the repo root on a machine with an H100 and nvcc:
     python3 tools/exp_train_kernels.py [attention] [layer_norm]
     python3 tools/exp_train_kernels.py --root DIR   # the kernels of the
         # checkout at DIR as they are, through its wrappers: one process a
-        # tree, so that two trees can be timed in turns in one call
+        # tree, so that two trees can be timed in turns in one call; #2's
+        # rows carry a digest of its outputs on inputs from the plain
+        # forward, equal in two trees whose #2 gives the same bits
 
 Prints the card's name and power limit, then one JSON line a kernel and
 type: {variant: [[device ms, event ms], ...]}, every variant timed twice
@@ -66,10 +68,10 @@ def _off(*stmts):
     return out
 
 
-ATT_LOADS = _off("    load_tile<T>(sK, k + koff, k0, Tk, 1.f);\n",
-                 "    load_tile<T>(sV, v + koff, k0, Tk, 1.f);\n",
-                 "    load_tile<T>(sQ, q + qoff, q0, Tq, qround);\n",
-                 "    load_tile<T>(sdO, dout + qoff, q0, Tq, 1.f);\n") + [
+ATT_LOADS = _off("    load_tile<T, kThreads>(sK, k + koff, k0, Tk, 1.f);\n",
+                 "    load_tile<T, kThreads>(sV, v + koff, k0, Tk, 1.f);\n",
+                 "    load_tile<T, kThreads>(sQ, q + qoff, q0, Tq, qround);\n",
+                 "    load_tile<T, kThreads>(sdO, dout + qoff, q0, Tq, 1.f);\n") + [
     ("    if (gq < Tq) load16<T>(", "    if (0) load16<T>(")]
 ATT_PRODUCTS = _off(
     "      for (int c = 0; c < kD; c += kStep<T>) "
@@ -85,10 +87,12 @@ ATTENTION = ("flash_attention_bwd", {
     "no_products": ATT_PRODUCTS,
     "no_elementwise": ATT_ELEMENTWISE,
     "skeleton": ATT_LOADS + ATT_PRODUCTS + ATT_ELEMENTWISE,
-    "no_split": [("  hi = tf32(x);\n  lo = tf32(x - __uint_as_float(hi));\n",
-                  "  hi = __float_as_uint(x);\n  lo = hi;\n")],
-    "one_pass": [("mma_tf32(acc[i][j], al[i], bh[j]);", "{}"),
-                 ("mma_tf32(acc[i][j], ah[i], bl[j]);", "{}")],
+    "no_split": [("attention.cuh",
+                  "    hi = tf32(x);\n    lo = tf32(x - __uint_as_float(hi));\n",
+                  "    hi = __float_as_uint(x);\n    lo = hi;\n")],
+    "one_pass": [("attention.cuh", "mma_tf32(acc[i][j], al[i], bh[j]);", "{}"),
+                 ("attention.cuh", "mma_tf32(acc[i][j], ah[i], bl[j]);",
+                  "{}")],
     "one_block_sm": [("__launch_bounds__(kThreads, 2)",
                       "__launch_bounds__(kThreads, 1)")],
 })
@@ -118,18 +122,31 @@ def variant_source(src, subs):
     return src
 
 
+# (kernel, variant) -> the compiler's output (ptxas registers and spills)
+variant_logs = {}
+
+
 def build_variants(name, variants):
     """Compile every variant of csrc/<name>.cu in parallel; {variant:
-    ctypes library}."""
-    with open(os.path.join(build.CSRC, name + ".cu")) as f:
-        src = f.read()
+    ctypes library}.  A substitution is (old, new) in the kernel's source
+    or (header, old, new) in a header it includes: the variant's directory
+    then holds its own copy of that header, which the include finds
+    first."""
     out_dir = os.path.join(build.BUILD_DIR, "exp_" + name)
-    os.makedirs(out_dir, exist_ok=True)
     procs = {}
     for var, subs in variants.items():
-        cu, so = (os.path.join(out_dir, var + ext) for ext in (".cu", ".so"))
-        with open(cu, "w") as f:
-            f.write(variant_source(src, subs))
+        vdir = os.path.join(out_dir, var)
+        os.makedirs(vdir, exist_ok=True)
+        by_file = {name + ".cu": []}
+        for sub in subs:
+            path, old, new = sub if len(sub) == 3 else (name + ".cu",) + sub
+            by_file.setdefault(path, []).append((old, new))
+        for path, file_subs in by_file.items():
+            with open(os.path.join(build.CSRC, path)) as f:
+                text = f.read()
+            with open(os.path.join(vdir, path), "w") as f:
+                f.write(variant_source(text, file_subs))
+        cu, so = (os.path.join(vdir, name + ext) for ext in (".cu", ".so"))
         procs[var] = (so, subprocess.Popen(
             [build._nvcc()] + build.NVCC_FLAGS + ["-I", build.CSRC, "-o", so,
                                                   cu],
@@ -140,6 +157,7 @@ def build_variants(name, variants):
         if proc.returncode:
             raise RuntimeError("nvcc failed for %s %s:\n%s"
                                % (name, var, log[-3000:]))
+        variant_logs[name, var] = log
         libs[var] = ctypes.CDLL(so)
     return libs
 
@@ -211,22 +229,44 @@ def _import(root):
     from paddle_tpu_torch.ops.cuda import layer_norm as ln  # noqa: F811
 
 
+def attention_bits(dtype):
+    """sha256 of #2's dQ, dK, dV at the training shape from inputs that do
+    not depend on the tree's #1: O and LSE from the plain forward.  Equal
+    digests from two trees: #2 gives the same bits in both."""
+    import hashlib
+    b, h, t, d = cs.TRAIN_BATCH, 8, cs.TRAIN_SEQ, 64
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, dout = (torch.randn((b, h, t, d), generator=g, device="cuda")
+                     .to(dtype) for _ in range(4))
+    kl = torch.tensor(cs._train_klen()[0], dtype=torch.int32, device="cuda")
+    out, lse = fa.reference_attention_lse(q, k, v, kl, None, True)
+    grads = fa.flash_attention_bwd(q, k, v, kl, None, True, 0.0, None, out,
+                                   lse.contiguous(), dout)
+    digest = hashlib.sha256()
+    for x in grads:
+        digest.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
 def time_tree(root, which, timer):
     """The kernels of the tree at ``root`` as they are, through its
-    wrappers (whose signatures have not changed since they were ported)."""
+    wrappers (whose signatures have not changed since they were ported);
+    for #2 also the digest of its outputs (``attention_bits``)."""
     for w in which:
         for dtype in (torch.float32, torch.bfloat16):
             kern, lib, _, _ = INPUTS[w](dtype)
             kern()
             kernels = [cs.library_kernels(kern) for _ in range(2)]
-            print(json.dumps({
-                "root": root, "kernel": KERNELS[w][0],
-                "dtype": str(dtype).replace("torch.", ""),
-                "device_ms": [cs.device_ms(k) for k in kernels],
-                "device_kernels": kernels,
-                "event_ms": timer(kern),
-                "library_device_ms": cs.device_ms(cs.library_kernels(lib))}),
-                flush=True)
+            row = {"root": root, "kernel": KERNELS[w][0],
+                   "dtype": str(dtype).replace("torch.", ""),
+                   "device_ms": [cs.device_ms(k) for k in kernels],
+                   "device_kernels": kernels,
+                   "event_ms": timer(kern),
+                   "library_device_ms": cs.device_ms(
+                       cs.library_kernels(lib))}
+            if w == "attention":
+                row["bits_sha256"] = attention_bits(dtype)
+            print(json.dumps(row), flush=True)
             torch.cuda.empty_cache()
 
 
