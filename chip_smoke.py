@@ -42,16 +42,28 @@ Run from the root of a checkout.  Phases, one line each:
    float32-unit bound), and at a ragged shape in each (NHWC M 1000, NCHW 3
    images of 7x7; C 72, O 200); #2, #4 and their library calls also name
    the device kernels they ran (SDPA's backend);
+Every path below runs twice, in turns: captured (the default
+``Executor``: each dispatch signature's first run eager, its second
+captured as a CUDA graph and replayed, later ones replayed; the main path,
+whose launch counts the kernel table reports) and eager
+(``capture=False``, the path ``<name>:eager``).  The two must give the
+same bits (ResNet-50: within the spread of two eager runs), and each
+must launch every kernel exactly as often as its program implies; each
+reports wall, device busy time and idle share (a profiled pass or step),
+tokens/s or images/s and peak memory.
+
 4. ``serve``   — a decoder LM at Transformer-base width (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, 1024-token cache,
    8 slots, float32, random weights from build_decoder_lm's seed) served by
-   ``GenerationEngine`` on ``CUDAPlace(0)``: 16 requests with prompts of
-   64..700 tokens, 32 new tokens each.  The launch counters are zeroed
-   just before and read just after; every prefill and decode dispatch
-   must have launched the attention kernel 6 times and the layer-norm
-   kernel 12 times (the dequant-matmul kernel never), and one request's
-   recorded logits must match a full forward recompute of the score
-   program (rtol/atol 2e-4);
+   ``GenerationEngine`` on ``CUDAPlace(0)``: after two dispatches of every
+   prefill bucket, 16 requests with prompts of 64..700 tokens, 32 new
+   tokens each.  The launch counters are zeroed just before and read just
+   after; every prefill and decode dispatch must have launched the
+   attention kernel 6 times and the layer-norm kernel 12 times (the
+   dequant-matmul kernel never), and one request's recorded logits must
+   match a full forward recompute of the score program (rtol/atol 2e-4);
+   the generated tokens and recorded logits of the captured and the eager
+   engine are the same bits (``capture_check``);
 5. ``serve_int8`` — the same model and requests with
    ``GenerationEngine(..., quantize=mode)`` for ``weight_only`` and
    ``dynamic``: every dispatch launches the dequant-matmul kernel once per
@@ -76,9 +88,14 @@ Run from the root of a checkout.  Phases, one line each:
    (6+6 layers, d_model 512, 8 heads, d_inner 2048, vocab 32000, batch
    256 x 64 tokens, source and target lengths drawn per row in [16, 64],
    dropout 0.1, label smoothing 0.1, noam(512, 4000), Adam(0.9, 0.997,
-   1e-9)) on ``CUDAPlace(0)``: one warm-up step, then timed steps with the
-   launch counters zeroed just before and read just after; each kernel
-   must have launched exactly as often as the program's ops imply;
+   1e-9)) on ``CUDAPlace(0)``, captured and eager from one startup
+   state: two untimed steps each (the captured second is the capture),
+   then timed steps in turns with the launch counters zeroed just before
+   and read just after; each kernel must have launched exactly as often
+   as the program's ops imply; the losses at every step and every scope
+   tensor after them are the same bits, and after a parameter is swapped
+   in both scopes (``scope.set_var``; numpy in the captured one) the next
+   step is too, the captured scope pointing back at its captured tensor;
 9. ``resnet_check`` — bench.py's ResNet-50 (depth 50, 3x224x224, class_dim
    1000, Momentum(1e-3, 0.9)) after ``fuse_conv_bn`` and after
    ``convert_to_nhwc`` + ``fuse_conv_bn``, batch 4 at full width: one step
@@ -89,14 +106,19 @@ Run from the root of a checkout.  Phases, one line each:
    see ``resnet_check_phase``);
 10. ``resnet_train`` — the same model at batch 128 (cut from bench.py's
    512) in three programs, plain, fused and NHWC + fused, on the same
-   batches: one warm-up step each, then 5 timed steps each, taken in
-   turns, each with the launch counters zeroed just before and read just
-   after (exactly 30 launches of #8 and #9 a step on the fused program, of
-   #10 and #11 on the NHWC one, none on the plain one), then one profiled
-   step each for the device's idle share.
+   batches, each in three arms (eager, captured, a second eager): two
+   untimed steps each, then 5 timed steps of the eager and captured arms,
+   taken in turns, each with the launch counters zeroed just before and
+   read just after (exactly 30 launches of #8 and #9 a step on the fused
+   program, of #10 and #11 on the NHWC one, none on the plain one), then
+   one profiled step each for the device's idle share; the captured arm
+   stays within ``RESNET_SPREAD`` times the distance of the two eager arms
+   from the nearer of them (cuDNN's backward is not bit-stable), its bits
+   where theirs are.
 
-Then the kernel table as one JSON line, the ``nvidia-smi`` line, and, as
-the last line, ``{"ok": true, "device": {...}}``.  Any failure raises and
+Then the script's total seconds (``total``), the kernel table as one JSON
+line, the ``nvidia-smi`` line, and, as the last line, ``{"ok": true,
+"device": {...}}``.  Any failure raises and
 exits nonzero; without a CUDA device the script exits 2 and prints no
 result.
 """
@@ -143,7 +165,12 @@ TRAIN = dict(n_layer=6, n_head=8, d_model=512, d_inner=2048)
 TRAIN_VOCAB, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 32000, 64, 256, 5
 
 
+_T0 = time.perf_counter()
+
+
 def log(phase, payload):
+    if isinstance(payload, dict):
+        payload = dict(payload, at_s=time.perf_counter() - _T0)
     print("%s: %s" % (phase, json.dumps(payload)), flush=True)
 
 
@@ -208,6 +235,8 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
     q, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda")
                .to(dtype) for t in (tq, tk, tk))
     kl = torch.tensor(klen, dtype=torch.int32, device="cuda")
+    # the dropout seed is device data, as the executor hands it over
+    seed = None if seed is None else fa.seed_tensor(seed, "cuda")
     args = (q, k, v, kl, seed, causal, rate)
     out, lse = fa.flash_attention_fwd(*args)
     again = fa.flash_attention_fwd(*args)
@@ -309,19 +338,25 @@ def _pairs_and_keys(b, h, tq, tk, causal, kl):
     return valid, int(valid.sum()) * h, int(valid.any(dim=2).sum()) * h
 
 
-def _device_kernels(fn):
+def _device_kernels(fn, tries=3):
     """The device kernels one call of ``fn`` runs, as ``torch.profiler``'s
-    averages (after a warm-up call)."""
+    averages (after a warm-up call).  A window that recorded no device
+    event at all is a profiler miss (it happens now and then), not a call
+    that ran nothing: it is profiled again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) > 0]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0)) > 0]
+        if kernels:
+            break
+    return kernels
 
 
 def library_kernels(fn):
@@ -359,6 +394,7 @@ def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
     q, k, v, dout = (torch.randn((b, h, t, d), generator=g, device="cuda")
                      .to(dtype) for t in (tq, tk, tk, tq))
     kl = torch.tensor(klen, dtype=torch.int32, device="cuda")
+    seed = None if seed is None else fa.seed_tensor(seed, "cuda")
     out, lse = fa.flash_attention_fwd(q, k, v, kl, seed, causal, rate)
     args = (q, k, v, kl, seed, causal, rate, None, out, lse, dout)
     got = fa.flash_attention_bwd(*args)
@@ -1106,11 +1142,49 @@ def rel_l1(ref, out):
 INT8_BUDGET = 0.02
 
 
+def device_window(fn):
+    """Run ``fn`` under ``torch.profiler``: its host wall (which the
+    profiler's own host work lengthens), the device's busy time (the union
+    of the kernel and copy intervals) and idle share, and the number of
+    device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("dispatch/")]
+    busy_ms = _union_us(spans) / 1e3
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "device_events": len(spans)}
+
+
+def _warm_buckets(eng, lengths, submit):
+    """Two dispatches of every bucket the lengths fall in, one request at
+    a time, so that a captured engine has captured each of them before it
+    is timed (an entry runs eagerly first, captures at its second run)."""
+    for n in sorted({eng._sched.bucket_for(n): n for n in lengths}.values()):
+        for _ in range(2):
+            submit(n).result(900)
+
+
 def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
-                prompt_range=SERVE_PROMPTS, quantize=None):
+                prompt_range=SERVE_PROMPTS, quantize=None, capture=True):
     """Serve ``n_requests`` prompts through ``GenerationEngine`` on
-    ``place`` (int8 weights with ``quantize``); returns (the summary dict,
-    the kernels' launch counts, the launches the programs imply)."""
+    ``place`` (int8 weights with ``quantize``; CUDA graphs of every
+    dispatch with ``capture``, every dispatch eager without); returns (the
+    summary dict, the kernels' launch counts, the launches the programs
+    imply, the results).  The engine first dispatches every bucket the
+    prompts fall in twice; then the requests are served with the launch
+    counters zeroed just before and read just after (timed), and once
+    more under the profiler (device busy time and idle share)."""
     from paddle_tpu_torch.ops import cuda
     from paddle_tpu_torch.serving import GenerationEngine, build_decoder_lm
     from paddle_tpu_torch.serving.metrics import ServingMetrics
@@ -1118,7 +1192,7 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
     fp_spec = build_decoder_lm(**model)
     eng = GenerationEngine(fp_spec, place=place, max_new_tokens=max_new,
                            record_logits=True, timeout_s=900.0, start=False,
-                           quantize=quantize)
+                           quantize=quantize, capture=capture)
     spec = eng.spec
     rng = np.random.RandomState(0)
     # arrival order shuffled, so admissions mix buckets as traffic would
@@ -1126,8 +1200,10 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
                                        n_requests).astype(int))
     prompts = [list(rng.randint(0, model["vocab_size"], n)) for n in lens]
     try:
+        torch.cuda.reset_peak_memory_stats()
         eng.start()
-        eng.submit(prompts[0][:8], max_new_tokens=2).result(900)  # warm-up
+        _warm_buckets(eng, lens, lambda n: eng.submit(
+            prompts[list(lens).index(n)], max_new_tokens=2))
         eng.metrics = ServingMetrics()
         # the main path, in one piece: counters zeroed just before, read
         # just after
@@ -1139,10 +1215,14 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = cuda.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        metrics, eng.metrics = eng.metrics, ServingMetrics()
+        window = device_window(lambda: [r.result(900) for r in [
+            eng.submit(p) for p in prompts]])
     finally:
         eng.close()
 
-    counts = eng.metrics.summary()["counts"]
+    counts = metrics.summary()["counts"]
     dispatches = counts["batches"] + counts["decode_steps"]
     tokens = sum(len(r["tokens"]) for r in results)
     assert counts["completed"] == n_requests, counts
@@ -1179,15 +1259,18 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
     vs_fp = rel_l1(fp_full, full)
     assert vs_fp < INT8_BUDGET, vs_fp
 
-    pre = eng.metrics.percentiles("prefill")
-    dec = eng.metrics.percentiles("decode")
+    pre = metrics.percentiles("prefill")
+    dec = metrics.percentiles("decode")
     summary = {
-        "requests": n_requests, "tokens": tokens, "wall_s": wall,
-        "tokens_per_s": tokens / wall, "prefills": counts["batches"],
+        "capture": capture, "requests": n_requests, "tokens": tokens,
+        "wall_s": wall, "tokens_per_s": tokens / wall,
+        "prefills": counts["batches"],
         "decode_steps": counts["decode_steps"],
         "p50_prefill_ms": pre["p50_s"] * 1e3,
         "p50_decode_step_ms": dec["p50_s"] * 1e3,
-        "p50_request_ms": eng.metrics.percentiles()["p50_s"] * 1e3,
+        "p50_request_ms": metrics.percentiles()["p50_s"] * 1e3,
+        "profiled_pass": window, "peak_mem_gb": peak / 1e9,
+        "graphs": sum(s.graph is not None for s in eng._exe._steps.values()),
         "recompute_max_abs_err": float(np.abs(got - want).max()),
         "recompute_rel_l1": recompute_rel_l1,
         "quantize": quantize, "score_vs_fp_rel_l1": vs_fp,
@@ -1216,7 +1299,47 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
     per = {"flash_attention_fwd": model["n_layer"],
            "layer_norm_fwd": 2 * model["n_layer"],
            "dequant_matmul": n_dq}
-    return summary, launches, {k: n * dispatches for k, n in per.items()}
+    return (summary, launches, {k: n * dispatches for k, n in per.items()},
+            results)
+
+
+def serve_phases(place):
+    """fp, weight_only and dynamic serving, each captured and eager in
+    turns (the order flips from mode to mode, as host load drifts within
+    a call); the generated tokens and the recorded logits of the two runs
+    must be the same bits.  Returns {path: (summary, launches, launches
+    implied)}, the captured runs as ``serve`` / ``serve_int8:<mode>`` and
+    the eager ones with ``:eager`` after."""
+    # what a captured dispatch adds: the clone of a prefill's fetched
+    # [slots, 512, vocab] logits (a replay rewrites the graph's own)
+    logits = torch.empty((MODEL["slots"], 512, MODEL["vocab_size"]),
+                         device="cuda")
+    nbytes = 2 * logits.numel() * logits.element_size()
+    log("fetch_clone", {"shape": list(logits.shape),
+                        "ms": Timer()(logits.clone, iters=10),
+                        "bound_ms": bound(nbytes, 0, torch.float32)[0]})
+    del logits
+    out, bad = {}, []
+    for i, quantize in enumerate((None, "weight_only", "dynamic")):
+        path = "serve_int8:" + quantize if quantize else "serve"
+        runs = {}
+        for capture in ((True, False) if i % 2 else (False, True)):
+            summary, launches, need, results = serve_phase(
+                place, quantize=quantize, capture=capture)
+            runs[capture] = results
+            name = path if capture else path + ":eager"
+            log("serve_int8" if quantize else "serve", summary)
+            out[name] = summary, launches, need
+        same = [a["tokens"] == b["tokens"]
+                and all(np.array_equal(x, y)
+                        for x, y in zip(a["logits"], b["logits"]))
+                for a, b in zip(runs[True], runs[False])]
+        log("capture_check", {"path": path, "same_bits_as_eager": all(same)})
+        if not all(same):
+            bad.append(path)
+    if bad:
+        raise SystemExit("captured serving differs from eager: %s" % bad)
+    return out
 
 
 def _infer_requests(n_requests, length_range, vocab, seed=0):
@@ -1239,12 +1362,16 @@ def _direct(exe, program, fetch, scope, req):
 
 
 def _serve_infer(eng, reqs):
-    """A warm-up request, then ``reqs`` with the launch counters zeroed just
-    before and read just after; returns (outputs, launches, summary)."""
+    """Two dispatches of every bucket ``reqs`` fall in, then ``reqs`` with
+    the launch counters zeroed just before and read just after (timed),
+    then once more under the profiler; returns (outputs, launches,
+    summary)."""
     from paddle_tpu_torch.ops import cuda
     from paddle_tpu_torch.serving.metrics import ServingMetrics
 
-    eng.run(reqs[0], timeout=900)
+    lens = [len(q["tok"]) for q in reqs]
+    torch.cuda.reset_peak_memory_stats()
+    _warm_buckets(eng, lens, lambda n: eng.submit(reqs[lens.index(n)]))
     eng.metrics = ServingMetrics()
     cuda.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1253,15 +1380,23 @@ def _serve_infer(eng, reqs):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
     counts = eng.metrics.summary()["counts"]
     assert counts["completed"] == len(reqs), counts
     tokens = sum(len(q["tok"]) for q in reqs)
-    return outs, launches, {
-        "requests": len(reqs), "tokens": tokens, "wall_s": wall,
+    summary = {
+        "capture": eng._exe.capture, "requests": len(reqs),
+        "tokens": tokens, "wall_s": wall,
         "requests_per_s": len(reqs) / wall, "tokens_per_s": tokens / wall,
         "batches": counts["batches"],
         "p50_batch_ms": eng.metrics.percentiles("batch")["p50_s"] * 1e3,
-        "p50_request_ms": eng.metrics.percentiles()["p50_s"] * 1e3}
+        "p50_request_ms": eng.metrics.percentiles()["p50_s"] * 1e3,
+        "peak_mem_gb": peak / 1e9}
+    summary["profiled_pass"] = device_window(
+        lambda: [r.result(900) for r in [eng.submit(q) for q in reqs]])
+    summary["graphs"] = sum(s.graph is not None
+                            for s in eng._exe._steps.values())
+    return outs, launches, summary
 
 
 def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
@@ -1271,9 +1406,10 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
     ``InferenceEngine(model_dir=..., quantize="weight_only")``; then the
     quantized program saved again and served cold with no pass.  Each
     request's [T, vocab] logits must match a direct ``Executor.run`` of the
-    quantized program (2e-4) and the fp program (relative L1 < 0.02).
-    Returns (summary, {path: (launches, launches implied)}) for the two
-    engines' runs."""
+    quantized program (2e-4) and the fp program (relative L1 < 0.02).  The
+    first engine is served eagerly too (``capture=False``, before the
+    captured one): the two give the same bits.  Returns (summary, {path:
+    (launches, launches implied)}) for the engines' runs."""
     import shutil
     import tempfile
 
@@ -1294,13 +1430,20 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
                                        exe, main_program=spec.score_program)
         reqs = _infer_requests(n_requests, length_range,
                                model["vocab_size"])
-        eng = InferenceEngine(model_dir=fp_dir, place=place,
-                              slots=model["slots"], quantize="weight_only",
-                              timeout_s=900.0)
-        try:
-            outs, launches, summary = _serve_infer(eng, reqs)
-        finally:
-            eng.close()
+        served = {}
+        for capture in (False, True):
+            eng = InferenceEngine(model_dir=fp_dir, place=place,
+                                  slots=model["slots"],
+                                  quantize="weight_only", timeout_s=900.0,
+                                  capture=capture)
+            try:
+                served[capture] = _serve_infer(eng, reqs)
+            finally:
+                eng.close()
+        outs, launches, summary = served[True]
+        eager_outs, eager_launches, eager_summary = served[False]
+        same_bits = all(np.array_equal(a, b)
+                        for a, b in zip(outs, eager_outs))
         prog, logits = eng._program, eng._fetch_vars[0]
         n_dq = count_ops(prog, "dequant_matmul")
         need = {"dequant_matmul": n_dq * summary["batches"],
@@ -1347,6 +1490,7 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
             return sum(os.path.getsize(os.path.join(d, f))
                        for f in os.listdir(d)) / 1e6
         summary.update(
+            eager=eager_summary, same_bits_as_eager=same_bits,
             quantize="weight_only", dequant_matmul_per_batch=n_dq,
             launches=launches, vs_direct_max_abs_err=max(errs),
             vs_fp_rel_l1_max=max(deltas), artifact_fp_mb=mb(fp_dir),
@@ -1356,7 +1500,10 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
         shutil.rmtree(work, ignore_errors=True)
         if not os.listdir(tmp):
             os.rmdir(tmp)
+    eager_need = {k: n // summary["batches"] * eager_summary["batches"]
+                  for k, n in need.items()}
     return summary, {"infer": (launches, need),
+                     "infer:eager": (eager_launches, eager_need),
                      "infer_cold": (cold_launches, cold_need)}
 
 
@@ -1478,45 +1625,128 @@ def train_check_phase(batch=4):
     return summary
 
 
+def copy_scope(scope):
+    """A scope holding clones of ``scope``'s tensors."""
+    import paddle_tpu_torch as pt
+
+    out = pt.Scope()
+    for n in scope.local_var_names():
+        out.set_var(n, scope.var(n).clone())
+    return out
+
+
+def state_rel_l2(a, b):
+    """{name: relative L2 distance} of the tensors of two scopes that are
+    not the same bits (empty when every one is)."""
+    out = {}
+    for n in a.local_var_names():
+        x, y = a.var(n), b.var(n)
+        if not torch.equal(x, y):
+            x, y = x.double(), y.double()
+            out[n] = float((x - y).norm() / y.norm().clamp_min(1e-30))
+    return out
+
+
+def _step(run, program, feed, fetch):
+    """One timed ``Executor.run`` of ``run`` (its executor and scope) that
+    fetches the loss (the fetch waits for the step's device work); keeps
+    the loss's float32 value and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (loss,) = run["exe"].run(program, feed=feed, fetch_list=[fetch],
+                             scope=run["scope"])
+    dt = time.perf_counter() - t0
+    run["losses"].append(float(loss[0]))
+    run["peak"] = max(run["peak"], torch.cuda.max_memory_allocated())
+    return dt
+
+
 def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
-    """Warm-up step, then ``steps`` timed steps of the dropout-0.1 program;
-    returns (summary, launches, launches the program implies)."""
+    """The dropout-0.1 program from one startup state in two executors:
+    eager (``capture=False``) and captured (the default: the first step
+    eager, the second captured and replayed, the rest replayed).  Two
+    untimed steps each (the captured executor's second is its capture,
+    timed apart), then ``steps`` timed steps taken in turns, each with the
+    launch counters zeroed just before and read just after, then one
+    profiled step each (device busy time, idle share).  The two must give
+    the same loss bits at every step and the same bits in every scope
+    tensor (parameters, moments, counters) after them; then a parameter
+    is swapped in both scopes (a tensor in the eager one, a numpy array in
+    the captured one) between two runs, and the next step must again give
+    the same bits, with the captured scope pointed back at the captured
+    tensor.  Returns (summary, {path: (launches, launches implied)})."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import cuda
 
     main, startup, cost = build_train(0.1)
-    exe, scope = pt.Executor(place), pt.Scope()
-    exe.run(startup, scope=scope)
+    start = pt.Scope()
+    pt.Executor(place).run(startup, scope=start)
     rng = np.random.RandomState(0)
-    feeds = [train_feed(rng, batch) for _ in range(steps + 1)]
-    (warm,) = exe.run(main, feed=feeds[0], fetch_list=[cost], scope=scope)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
-    # the main path, in one piece: counters zeroed just before, read just
-    # after; fetching each step's loss waits for the step's device work
-    cuda.reset_launch_counts()
-    for f in feeds[1:]:
-        t0 = time.perf_counter()
-        (loss,) = exe.run(main, feed=f, fetch_list=[cost], scope=scope)
-        times.append(time.perf_counter() - t0)
-        losses.append(float(loss[0]))
-    launches = cuda.launch_counts()
-    need = {k: n * steps
-            for k, n in kernel_launches_per_step(main).items()}
-    step_s = statistics.median(times)
-    summary = {
-        "batch": batch, "seq": TRAIN_SEQ, "steps": steps,
-        "warmup_loss": float(warm[0]), "losses": losses,
-        "step_ms": [t * 1e3 for t in times], "median_step_ms": step_s * 1e3,
-        "tokens_per_s": batch * TRAIN_SEQ / step_s,
-        "target_tokens_per_s": float(np.median(
-            [f["tgt_word@LEN"].sum() for f in feeds[1:]])) / step_s,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "ops": len(main.global_block().ops), "launches": launches,
-        "launches_implied": need}
-    assert all(np.isfinite(losses)), losses
-    return summary, launches, need
+    feeds = [train_feed(rng, batch) for _ in range(steps + 4)]
+    # the captured arm first: a capture empties the allocator's cache, which
+    # the eager arm then refills before it is timed
+    runs = {arm: {"exe": pt.Executor(place, capture=arm == "captured"),
+                  "scope": copy_scope(start), "losses": [], "times": [],
+                  "launches": {}, "peak": 0}
+            for arm in ("captured", "eager")}
+    del start
+    first = {arm: [_step(r, main, f, cost) for f in feeds[:2]]
+             for arm, r in runs.items()}
+    for i, f in enumerate(feeds[2:2 + steps]):
+        for arm in (("eager", "captured") if i % 2 == 0
+                    else ("captured", "eager")):
+            r = runs[arm]
+            cuda.reset_launch_counts()
+            r["times"].append(_step(r, main, f, cost))
+            for k, n in cuda.launch_counts().items():
+                r["launches"][k] = r["launches"].get(k, 0) + n
+    windows = {arm: device_window(lambda r=r: _step(r, main,
+                                                    feeds[2 + steps], cost))
+               for arm, r in runs.items()}
+    same_losses = runs["eager"]["losses"] == runs["captured"]["losses"]
+    diff = state_rel_l2(runs["captured"]["scope"], runs["eager"]["scope"])
+    # a state swap between two captured runs: the next replay must see it
+    name = main.all_parameters()[0].name
+    captured_tensor = runs["captured"]["scope"].find_var(name)
+    swapped = runs["eager"]["scope"].find_var(name) * 0.5
+    runs["eager"]["scope"].set_var(name, swapped.clone())
+    runs["captured"]["scope"].set_var(name, swapped.cpu().numpy())
+    for r in runs.values():
+        _step(r, main, feeds[-1], cost)
+    swap_same = runs["eager"]["losses"] == runs["captured"]["losses"] \
+        and not state_rel_l2(runs["captured"]["scope"],
+                             runs["eager"]["scope"])
+    swap_seen = runs["captured"]["scope"].find_var(name) is captured_tensor
+    need = {k: n * steps for k, n in kernel_launches_per_step(main).items()}
+    summary = {"batch": batch, "seq": TRAIN_SEQ, "steps": steps,
+               "ops": len(main.global_block().ops),
+               "same_loss_bits": same_losses,
+               "state_not_bit_equal": diff, "swap_param": name,
+               "swap_same_bits": swap_same, "swap_seen_by_replay": swap_seen,
+               "launches_implied": need,
+               "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    for arm, r in runs.items():
+        step_s = statistics.median(r["times"])
+        summary[arm] = {
+            "first_steps_ms": [t * 1e3 for t in first[arm]],
+            "losses": r["losses"], "step_ms": [t * 1e3 for t in r["times"]],
+            "median_step_ms": step_s * 1e3,
+            "tokens_per_s": batch * TRAIN_SEQ / step_s,
+            "target_tokens_per_s": float(np.median(
+                [f["tgt_word@LEN"].sum() for f in feeds[2:2 + steps]]))
+            / step_s,
+            "profiled_step": windows[arm], "peak_mem_gb": r["peak"] / 1e9,
+            "launches": r["launches"]}
+        assert all(np.isfinite(r["losses"])), r["losses"]
+    log("train", summary)
+    if not (same_losses and not diff and swap_same and swap_seen):
+        raise SystemExit("the captured training step differs from the "
+                         "eager one: %s" % {
+                             k: summary[k] for k in (
+                                 "same_loss_bits", "state_not_bit_equal",
+                                 "swap_same_bits", "swap_seen_by_replay")})
+    return summary, {"train": (runs["captured"]["launches"], need),
+                     "train:eager": (runs["eager"]["launches"], need)}
 
 
 # ---------------------------------------------------------------------------
@@ -1525,6 +1755,11 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
 
 RESNET_MODES = ("plain", "fuse", "nhwc_fuse")
 RESNET_BATCH, RESNET_STEPS, RESNET_FUSED = 128, 5, 30
+# captured within this multiple of two eager runs' distance (the nearer of
+# its distances to the two eager runs): each pair differs by the atomics'
+# order alone, and one pair's distance read 0.97-3.3x another's over six
+# pairs on the H100 (the worst a step's loss, a max of scalars)
+RESNET_SPREAD = 10.0
 
 
 def build_resnet(mode):
@@ -1663,78 +1898,139 @@ def resnet_check_phase(batch=4, floor_scale=3.0):
     return summary
 
 
-def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH):
+def resnet_distance(a, b, groups):
+    """How far run ``a`` is from run ``b``: the largest relative difference
+    of a step's loss, and for each group of scope tensors ({group: names};
+    the rest form ``velocities``) their relative L2 distance pooled (a
+    tensor near zero would make its own relative distance large); 0.0
+    where they are the same bits."""
+    out = {"loss": max(abs(x - y) / abs(y)
+                       for x, y in zip(a["losses"], b["losses"]))}
+    sums = {}
+    for n in b["scope"].local_var_names():
+        g = next((k for k, names in groups.items() if n in names),
+                 "velocities")
+        x, y = a["scope"].var(n).double(), b["scope"].var(n).double()
+        num, den = sums.get(g, (0.0, 0.0))
+        sums[g] = (num + float(((x - y) ** 2).sum()),
+                   den + float((y ** 2).sum()))
+    out.update((g, (num / max(den, 1e-300)) ** 0.5)
+               for g, (num, den) in sums.items())
+    return out
+
+
+def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
+                       spread_scale=RESNET_SPREAD):
     """bench.py's ResNet-50 at batch 128 (images ``rand`` in [0, 1) from
-    ``RandomState(0)``, labels in [0, 1000)) on ``CUDAPlace(0)``, the three
-    programs of ``RESNET_MODES`` side by side, each with its own scope:
-    one warm-up step each, then ``steps`` timed steps each, taken in turns
-    (plain, fused, NHWC, then the reverse) so that the host's load, which
-    drifts within a call, falls on all three alike; every program sees the
-    same batches.  Each step fetches the loss, which waits for its device
-    work, and is bracketed by zeroing the launch counters and reading them.
-    Then one step of each under ``torch.profiler`` for the device's busy
-    time and idle share.  Returns {mode: (summary, launches, launches the
-    program implies)}."""
+    ``RandomState(0)``, labels in [0, 1000)) on ``CUDAPlace(0)``: the three
+    programs of ``RESNET_MODES``, each from one startup state in three
+    arms: eager, captured and a second eager run.  The arms run on three
+    executors (the captured one holds the three programs' graphs in one
+    memory pool), each program in a scope of its own per arm, all on the
+    same batches.  Two untimed steps each (the captured arm's second is
+    its capture), then ``steps`` timed steps of the eager and captured
+    arms taken in turns (plain, fused, NHWC, then the reverse; eager and
+    captured flipping each step), each bracketed by zeroing the launch
+    counters and reading them, then one profiled step each for the
+    device's busy time and idle share.  The second eager arm measures how
+    far two eager runs already differ (cuDNN's backward sums with atomics):
+    the captured arm, from the nearer eager arm, must stay within
+    ``spread_scale`` times that spread (``resnet_distance``: losses,
+    parameters, running statistics, velocities), and be its bits where
+    eager runs are.  Returns {mode: (summary, {arm:
+    launches}, launches the program implies)}."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import cuda
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     rng = np.random.RandomState(0)
-    feeds = [resnet_feed(rng, batch) for _ in range(steps + 2)]
+    feeds = [resnet_feed(rng, batch) for _ in range(steps + 3)]
+    # the captured arm first in the untimed steps: a capture empties the
+    # allocator's cache, which the eager arms then refill
+    arms = ("captured", "eager", "eager2")
+    exes = {arm: pt.Executor(pt.CUDAPlace(0), capture=arm == "captured")
+            for arm in arms}
     runs = {}
     for mode in RESNET_MODES:
         main, startup, loss = build_resnet(mode)
         fused = count_ops(main, "bn_act_conv2d")
         assert fused == count_ops(main, "bn_act_conv2d_grad") \
             == (RESNET_FUSED if mode != "plain" else 0), fused
-        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
-        exe.run(startup, scope=scope)
-        (warm,) = exe.run(main, feed=feeds[0], fetch_list=[loss],
-                          scope=scope)
-        runs[mode] = dict(main=main, loss=loss, exe=exe, scope=scope,
-                          fused=fused, warm=float(warm[0]), times=[],
-                          losses=[], peak=0, launches={})
+        start = pt.Scope()
+        # a fresh executor: every mode starts from the same weights
+        pt.Executor(pt.CUDAPlace(0)).run(startup, scope=start)
+        for arm in arms:
+            runs[mode, arm] = dict(main=main, loss=loss, exe=exes[arm],
+                                   scope=copy_scope(start), fused=fused,
+                                   times=[], losses=[], peak=0, launches={})
+    first = {key: [_step(r, r["main"], f, r["loss"]) for f in feeds[:2]]
+             for key, r in runs.items()}
     for i in range(steps):
+        f = feeds[2 + i]
         for mode in (RESNET_MODES if i % 2 == 0 else RESNET_MODES[::-1]):
-            r = runs[mode]
-            torch.cuda.reset_peak_memory_stats()
-            cuda.reset_launch_counts()
-            t0 = time.perf_counter()
-            (out,) = r["exe"].run(r["main"], feed=feeds[1 + i],
-                                  fetch_list=[r["loss"]], scope=r["scope"])
-            r["times"].append(time.perf_counter() - t0)
-            for k, n in cuda.launch_counts().items():
-                r["launches"][k] = r["launches"].get(k, 0) + n
-            r["losses"].append(float(out[0]))
-            r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+            for arm in (("eager", "captured") if i % 2 == 0
+                        else ("captured", "eager")):
+                r = runs[mode, arm]
+                cuda.reset_launch_counts()
+                r["times"].append(_step(r, r["main"], f, r["loss"]))
+                for k, n in cuda.launch_counts().items():
+                    r["launches"][k] = r["launches"].get(k, 0) + n
+            r = runs[mode, "eager2"]
+            _step(r, r["main"], f, r["loss"])
+    windows = {}
+    for key, r in runs.items():
+        def step(r=r):
+            return _step(r, r["main"], feeds[-1], r["loss"])
+        if key[1] == "eager2":
+            step()   # the same steps, unprofiled: it only measures spread
+        else:
+            windows[key] = device_window(step)
     nchw = "conv_bn_fwd", "conv_bn_bwd"
     nhwc = "conv_bn_fwd_nhwc", "conv_bn_bwd_nhwc"
-    out = {}
+    out, bad = {}, []
     for mode in RESNET_MODES:
-        r = runs[mode]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function("dispatch/resnet_step"):
-                r["exe"].run(r["main"], feed=feeds[-1],
-                             fetch_list=[r["loss"]], scope=r["scope"])
-            torch.cuda.synchronize()
-        prof_step = _profile_report(prof, "1 ResNet-50 step, %s, batch %d"
-                                    % (mode, batch))["resnet_step"]
+        c, e, e2 = (runs[mode, arm] for arm in arms)
+        # trainable parameters; the batch norms' running statistics
+        # (parameters that do not train); the rest are velocities and the
+        # learning rate
+        groups = {"params": set(), "bn_stats": set()}
+        for p in e["main"].all_parameters():
+            groups["params" if p.trainable else "bn_stats"].add(p.name)
+        spread = resnet_distance(e2, e, groups)
+        vs_e, vs_e2 = resnet_distance(c, e, groups), \
+            resnet_distance(c, e2, groups)
+        vs_eager = {k: min(vs_e[k], vs_e2[k]) for k in spread}
+        ok = all(vs_eager[k] <= spread_scale * spread[k] for k in spread)
         on = nhwc if mode == "nhwc_fuse" else nchw if mode == "fuse" else ()
-        need = {k: (r["fused"] * steps if k in on else 0)
+        need = {k: (e["fused"] * steps if k in on else 0)
                 for k in nchw + nhwc}
-        step_s = statistics.median(r["times"])
-        summary = {
-            "mode": mode, "batch": batch, "steps": steps,
-            "warmup_loss": r["warm"], "losses": r["losses"],
-            "step_ms": [t * 1e3 for t in r["times"]],
-            "median_step_ms": step_s * 1e3, "images_per_s": batch / step_s,
-            "peak_mem_gb": r["peak"] / 1e9, "profiled_step": prof_step,
-            "ops": len(r["main"].global_block().ops),
-            "fused_layers": r["fused"], "launches": r["launches"],
-            "launches_implied": need}
-        assert all(np.isfinite(r["losses"])), r["losses"]
-        out[mode] = summary, r["launches"], need
+        summary = {"mode": mode, "batch": batch, "steps": steps,
+                   "ops": len(e["main"].global_block().ops),
+                   "fused_layers": e["fused"], "launches_implied": need,
+                   "eager_spread": spread, "captured_vs_eager": vs_e,
+                   "captured_vs_eager2": vs_e2,
+                   "spread_scale": spread_scale, "within_spread": ok,
+                   "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+        for arm, r in (("eager", e), ("captured", c)):
+            step_s = statistics.median(r["times"])
+            summary[arm] = {
+                "first_steps_ms": [t * 1e3 for t in first[mode, arm]],
+                "losses": r["losses"],
+                "step_ms": [t * 1e3 for t in r["times"]],
+                "median_step_ms": step_s * 1e3,
+                "images_per_s": batch / step_s,
+                "peak_mem_gb": r["peak"] / 1e9,
+                "profiled_step": windows[mode, arm],
+                "launches": r["launches"]}
+            assert all(np.isfinite(r["losses"])), r["losses"]
+        if not ok:
+            bad.append(mode)
+        out[mode] = summary, {"captured": c["launches"],
+                              "eager": e["launches"]}, need
+    if bad:
+        for mode in bad:
+            log("resnet_train", out[mode][0])
+        raise SystemExit("captured ResNet-50 steps leave the eager runs' "
+                         "spread: %s" % bad)
     return out
 
 
@@ -1919,6 +2215,14 @@ KERNEL_ROWS = (
 )
 
 
+def release_memory():
+    """Free what the last phase's executors, graphs and scopes held."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def count_sass(lib, opcode):
     """How many instructions of ``opcode`` the library's SASS holds
     (``cuobjdump --dump-sass``): HGMMA is wgmma on the tensor cores."""
@@ -1929,6 +2233,7 @@ def count_sass(lib, opcode):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2007,26 +2312,30 @@ def main():
                       if (launches[k] != n if k in exact or n == 0
                           else launches[k] < n)})
 
-    serve, serve_launches, need = serve_phase(pt.CUDAPlace(0))
-    log("serve", serve)
-    check_path("serve", serve_launches, need, exact=("dequant_matmul",))
-    for mode in ("weight_only", "dynamic"):
-        s, launches, need = serve_phase(pt.CUDAPlace(0), quantize=mode)
-        log("serve_int8", s)
-        check_path("serve_int8:" + mode, launches, need,
-                   exact=("dequant_matmul",))
+    # every path runs captured (the main path, whose counts the kernel
+    # table reports) and eager (``:eager``), in turns
+    for path, (summary, launches, need) in serve_phases(
+            pt.CUDAPlace(0)).items():
+        check_path(path, launches, need, exact=tuple(need))
     infer, paths = infer_phase(pt.CUDAPlace(0))
     log("infer", infer)
+    if not infer["same_bits_as_eager"]:
+        raise SystemExit("captured one-shot serving differs from eager")
     for path, (launches, need) in paths.items():
         check_path(path, launches, need, exact=tuple(need))
     train_check_phase()
-    train, launches, need = train_phase(pt.CUDAPlace(0))
-    log("train", train)
-    check_path("train", launches, need, exact=tuple(need))
+    _, paths = train_phase(pt.CUDAPlace(0))
+    for path, (launches, need) in paths.items():
+        check_path(path, launches, need, exact=tuple(need))
+    release_memory()
     resnet_check_phase()
+    release_memory()
     for mode, (r, launches, need) in resnet_train_phase().items():
         log("resnet_train", r)
-        check_path("resnet_train:" + mode, launches, need, exact=tuple(need))
+        check_path("resnet_train:" + mode, launches["captured"], need,
+                   exact=tuple(need))
+        check_path("resnet_train:%s:eager" % mode, launches["eager"], need,
+                   exact=tuple(need))
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (launches, implied): %s" % short)
@@ -2056,6 +2365,7 @@ def main():
         row.update({"launches_" + p: path_launches[p][name]
                     for p in path_launches})
         rows.append(row)
+    log("total", {"seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

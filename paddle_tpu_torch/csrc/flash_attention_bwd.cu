@@ -173,9 +173,12 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ dout, const int* __restrict__ klen,
                  const float* __restrict__ lse, T* __restrict__ dq,
                  T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dqp,
-                 int H, int Tq, int Tk, float scale, int causal, uint32_t seed,
-                 uint32_t thresh, int dropout) {
+                 int H, int Tq, int Tk, float scale, int causal,
+                 const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
+                 int dropout) {
   extern __shared__ float4 smem4[];
+  // the forward's dropout seed, read from device memory as #1 reads it
+  const uint32_t seed = dropout ? *seed_ptr : 0u;
   float* sQ = reinterpret_cast<float*>(smem4);  // Q (bf16: scale * Q)
   float* sdO = sQ + kTile;
   float* sK = sdO + kTile;
@@ -327,8 +330,8 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const int* klen, const void* dout, const float* lse, void* dq,
            void* dk, void* dv, float* dqp, int B, int H, int Tq, int Tk,
-           float scale, int causal, uint32_t seed, uint32_t thresh, int dropout,
-           cudaStream_t stream) {
+           float scale, int causal, const uint32_t* seed, uint32_t thresh,
+           int dropout, cudaStream_t stream) {
   auto kern = flash_bwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
@@ -354,7 +357,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // q/o/dout [B,H,Tq,64], k/v [B,H,Tk,64] contiguous and 16-byte aligned, all of
 // one dtype; klen [B] int32 (null: Tk; clamped to Tk here); lse [B,H,Tq]
 // float32; dq like q, dk/dv like k; dq_part a float32 scratch of
-// [B*H, ceil(Tk / 64), Tq, 64] when Tk > 64, else null.  Launches the
+// [B*H, ceil(Tk / 64), Tq, 64] when Tk > 64, else null; seed the forward's
+// uint32 in device memory, read when dropout is on (null otherwise).  Launches the
 // backward kernel, then (Tk > 64) the fixed-order dQ sum.  Returns the CUDA
 // error of the launches (0 = launched).
 extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -363,22 +367,24 @@ extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void*
                                        void* dq, void* dk, void* dv,
                                        void* dq_part, int B, int H, int Tq,
                                        int Tk, int Dh, float scale, int causal,
-                                       unsigned int seed, unsigned int thresh,
+                                       const void* seed, unsigned int thresh,
                                        int dropout, int dtype, int device,
                                        void* stream) {
   if (Dh != kD) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (dropout && !seed) return (int)cudaErrorInvalidValue;
   const int* kl = static_cast<const int*>(klen);
   const float* ls = static_cast<const float*>(lse);
   float* dp = static_cast<float*>(dq_part);
+  const uint32_t* sd = static_cast<const uint32_t*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)
     return launch<float>(q, k, v, o, kl, dout, ls, dq, dk, dv, dp, B, H, Tq, Tk,
-                         scale, causal, seed, thresh, dropout, st);
+                         scale, causal, sd, thresh, dropout, st);
   if (dtype == ptt::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, o, kl, dout, ls, dq, dk, dv, dp, B, H,
-                                 Tq, Tk, scale, causal, seed, thresh, dropout,
+                                 Tq, Tk, scale, causal, sd, thresh, dropout,
                                  st);
   return (int)cudaErrorInvalidValue;
 }

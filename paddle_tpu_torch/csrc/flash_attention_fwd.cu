@@ -178,10 +178,13 @@ __global__ void __launch_bounds__(kThreads, 4)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ klen,
                  T* __restrict__ o, float* __restrict__ lse, int H, int Tq,
-                 int Tk, float scale, int causal, uint32_t seed,
-                 uint32_t thresh, int dropout, int cluster) {
+                 int Tk, float scale, int causal,
+                 const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
+                 int dropout, int cluster) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // Q (bf16: scale * Q)
+  // the dropout seed is device data: a replayed CUDA graph reads this run's
+  const uint32_t seed = dropout ? *seed_ptr : 0u;
   const Slice w = slice_of(klen, H, Tq, Tk, causal, cluster);
   const int rank = w.rank, bh = w.bh, q0 = w.q0, kl = w.kl, ks = w.ks,
             ke = w.ke, nkt = w.nkt;
@@ -350,10 +353,12 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ klen,
                     T* __restrict__ o, float* __restrict__ lse, int H, int Tk,
-                    float scale, int causal, uint32_t seed, uint32_t thresh,
+                    float scale, int causal,
+                    const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
                     int dropout, int cluster) {
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);  // [64] scale * q
+  const uint32_t seed = dropout ? *seed_ptr : 0u;
   float* sP = sq + kD;         // [64] this tile's P (rounded to T)
   float* sRed = sP + kBT;      // [4] the warps' maxima, [4] their sums
   float* sOh = sq + 4 * kD;    // [2][64] the two key halves' O
@@ -455,7 +460,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* klen, void* o,
            float* lse, int B, int H, int Tq, int Tk, float scale, int causal,
-           uint32_t seed, uint32_t thresh, int dropout, cudaStream_t stream) {
+           const uint32_t* seed, uint32_t thresh, int dropout,
+           cudaStream_t stream) {
   const int nqt = (Tq + kBT - 1) / kBT;
   const int cluster = cluster_size(B * H * nqt, Tk);
   // two stages when a rank's slice can hold more than one key tile
@@ -509,25 +515,28 @@ extern "C" int ptt_flash_attention_fwd_cluster(int B, int H, int Tq, int Tk) {
 
 // q [B,H,Tq,D=64], k/v [B,H,Tk,D] contiguous and 16-byte aligned, all of one
 // dtype; klen [B] int32 (null: Tk; clamped to Tk here); o like q; lse
-// [B,H,Tq] float32.  Returns the CUDA error of the launch (0 = launched).
+// [B,H,Tq] float32; seed one uint32 in device memory, read when dropout is
+// on (null otherwise).  Returns the CUDA error of the launch (0 = launched).
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* klen, void* o, void* lse, int B,
                                        int H, int Tq, int Tk, int D, float scale,
-                                       int causal, unsigned int seed,
+                                       int causal, const void* seed,
                                        unsigned int thresh, int dropout, int dtype,
                                        int device, void* stream) {
   // head dim 64 only: the Transformer-base decoder's d_model 512 / 8 heads
   if (D != kD) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (dropout && !seed) return (int)cudaErrorInvalidValue;
   const int* kl = static_cast<const int*>(klen);
   float* ls = static_cast<float*>(lse);
+  const uint32_t* sd = static_cast<const uint32_t*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::kFloat32)
-    return launch<float>(q, k, v, kl, o, ls, B, H, Tq, Tk, scale, causal, seed,
+    return launch<float>(q, k, v, kl, o, ls, B, H, Tq, Tk, scale, causal, sd,
                          thresh, dropout, st);
   if (dtype == ptt::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, kl, o, ls, B, H, Tq, Tk, scale,
-                                 causal, seed, thresh, dropout, st);
+                                 causal, sd, thresh, dropout, st);
   return (int)cudaErrorInvalidValue;
 }

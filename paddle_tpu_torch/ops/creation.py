@@ -2,8 +2,8 @@
 startup program's init ops ``fill_constant``, ``uniform_random``,
 ``gaussian_random``, ``truncated_gaussian_random`` and ``assign_value``,
 plus ``assign`` and the step counter's ``increment``.  Random ops draw from
-an explicit ``torch.Generator`` on the run's device, seeded per (program
-seed, run index, op index) by ``ComputeContext.generator``."""
+``ComputeContext.generator``, the executor's explicit ``torch.Generator``
+for the program's seed on the run's device."""
 
 import numpy as np
 import torch
@@ -29,7 +29,7 @@ def _uniform_random_compute(ins, attrs, ctx, op_index):
     out = torch.empty(tuple(attrs["shape"]), dtype=_dtype(attrs),
                       device=ctx.device)
     out.uniform_(attrs.get("min", -1.0), attrs.get("max", 1.0),
-                 generator=ctx.generator(op_index))
+                 generator=ctx.generator)
     return {"Out": out}
 
 
@@ -37,7 +37,7 @@ def _gaussian_random_compute(ins, attrs, ctx, op_index):
     out = torch.empty(tuple(attrs["shape"]), dtype=_dtype(attrs),
                       device=ctx.device)
     out.normal_(attrs.get("mean", 0.0), attrs.get("std", 1.0),
-                generator=ctx.generator(op_index))
+                generator=ctx.generator)
     return {"Out": out}
 
 
@@ -48,7 +48,7 @@ def _truncated_gaussian_compute(ins, attrs, ctx, op_index):
                       device=ctx.device)
     torch.nn.init.trunc_normal_(out, mean, std, mean - 2.0 * std,
                                 mean + 2.0 * std,
-                                generator=ctx.generator(op_index))
+                                generator=ctx.generator)
     return {"Out": out}
 
 

@@ -17,7 +17,11 @@ Masks: ``k_len`` [B] valid keys per batch row (clamped to Tk; None = all);
 ``causal`` is top-aligned when Tq == Tk and suffix-aligned when Tq < Tk
 (query i sits at key position klen - Tq + i: the KV-cache decode shape).
 Dropout is ``downgrade_in_infer``'s training half: weights masked by the
-counter hash, not upscaled.  Fully masked rows come back as zeros.
+counter hash, not upscaled.  The hash's seed is device data: a one-element
+int32 tensor holding the uint32 (``seed_tensor``; the executor derives one
+per op and run with ``op_seeds``), which the kernels read from device
+memory, so a replayed CUDA graph draws the run's own mask.  Fully masked
+rows come back as zeros.
 """
 
 import ctypes
@@ -28,7 +32,8 @@ from . import build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "reference_attention", "reference_attention_lse",
-           "attention_bwd_reference", "keep_mask", "SUPPORTED_HEAD_DIMS"]
+           "attention_bwd_reference", "keep_mask", "seed_tensor", "op_seeds",
+           "SUPPORTED_HEAD_DIMS"]
 
 _NEG_INF = -1e30
 _POS_BIG = 1e30
@@ -59,12 +64,37 @@ def _mix32(h):
     return h ^ (h >> 16)
 
 
+def _as_int32(h):
+    """uint32 values held in int64 as int32 tensors with the same bits."""
+    return torch.where(h >= 1 << 31, h - (1 << 32), h).to(torch.int32)
+
+
+def seed_tensor(seed, device):
+    """The uint32 ``seed`` as the kernels read it: one int32 element on
+    ``device`` holding its bits."""
+    return _as_int32(torch.tensor([int(seed) & _M32], device=device))
+
+
+def op_seeds(run_key, n):
+    """The dropout seeds of ops 0..n-1 of one run: int32 [n] on the run
+    key's device, element i a murmur3 mix of the run key (int64 [1]) and
+    op index i alone, so the generic grad's recompute of op i (which
+    passes the forward's index) draws the forward's mask."""
+    i = torch.arange(n, device=run_key.device)
+    h = _mix32((run_key & _M32) ^ _mul32(i, 0x9E3779B1))
+    return _as_int32(_mix32(h ^ ((run_key >> 32) & _M32)))
+
+
 def keep_mask(seed, bh, gq, gk, rate):
     """Deterministic dropout keep-mask for global positions gq x gk of head
-    row ``bh`` (broadcastable int tensors); True = keep.  Bit-identical to
-    the JAX package's ``_keep_mask`` and to the kernel's ``keep``."""
+    row ``bh`` (broadcastable int tensors); True = keep.  ``seed`` is a
+    uint32 as an int or as a one-element tensor (``seed_tensor``).
+    Bit-identical to the JAX package's ``_keep_mask`` and to the kernel's
+    ``keep``."""
+    seed = (seed.reshape(()).long() if isinstance(seed, torch.Tensor)
+            else int(seed)) & _M32
     h = _mul32(gq.long(), 0x85EBCA6B) ^ _mul32(gk.long(), 0xC2B2AE35)
-    h = h ^ ((int(seed) + _mul32(bh.long(), 0x9E3779B1)) & _M32)
+    h = h ^ ((seed + _mul32(bh.long(), 0x9E3779B1)) & _M32)
     h = _mix32(h)
     return (h >> 8) >= int(rate * float(1 << 24))
 
@@ -176,7 +206,7 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i,
-                       ctypes.c_uint, ctypes.c_uint, i, i, i, p]
+                       p, ctypes.c_uint, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -209,6 +239,19 @@ def _key_slices(kend, cluster):
     chunk = -(-per_rank // _FWD_TILE) * _FWD_TILE
     starts = [min(r * chunk, n) for r in range(cluster)]
     return [(s, min(s + chunk, n)) for s in starts]
+
+
+def _seed_ptr(seed, q, dropout_rate, who):
+    """The device address of the dropout seed (None without dropout): a
+    one-element int32 tensor on q's device, which the kernel reads."""
+    if not dropout_rate:
+        return None
+    if not isinstance(seed, torch.Tensor) or seed.numel() != 1 \
+            or seed.dtype != torch.int32 or seed.device != q.device:
+        raise ValueError(
+            "%s: with dropout the seed is a one-element int32 tensor on %s "
+            "(seed_tensor), got %r" % (who, q.device, seed))
+    return seed.data_ptr()
 
 
 def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
@@ -264,11 +307,12 @@ def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
     if out.numel() == 0:
         return out, lse
     thresh = int(dropout_rate * float(1 << 24)) if dropout_rate else 0
+    seed_ptr = _seed_ptr(seed, q, dropout_rate, "flash_attention_fwd")
     fn = _lib()
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
              None if klen is None else klen.data_ptr(),
              out.data_ptr(), lse.data_ptr(), b, h, tq, tk, d, scale,
-             int(bool(causal)), (int(seed) if seed is not None else 0) & _M32,
+             int(bool(causal)), seed_ptr,
              thresh, int(bool(dropout_rate)), _DTYPE_CODE[q.dtype],
              q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_fwd q%s k%s" % (tuple(q.shape),
@@ -285,7 +329,7 @@ def _bwd_lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 11 + [i, i, i, i, i, ctypes.c_float, i,
-                                  ctypes.c_uint, ctypes.c_uint, i, i, i, p]
+                                  p, ctypes.c_uint, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -362,12 +406,13 @@ def flash_attention_bwd(q, k, v, k_len, seed, causal, dropout_rate, scale,
     part = (None if shape is None else
             torch.empty(shape, dtype=torch.float32, device=q.device))
     thresh = int(dropout_rate * float(1 << 24)) if dropout_rate else 0
+    seed_ptr = _seed_ptr(seed, q, dropout_rate, "flash_attention_bwd")
     err = _bwd_lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if klen is None else klen.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if part is None else part.data_ptr(), b, h, tq, tk, d, scale,
-        int(bool(causal)), (int(seed) if seed is not None else 0) & _M32,
+        int(bool(causal)), seed_ptr,
         thresh, int(bool(dropout_rate)), _DTYPE_CODE[q.dtype],
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd q%s k%s" % (tuple(q.shape),

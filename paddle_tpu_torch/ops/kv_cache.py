@@ -10,16 +10,26 @@ B == S: the decode step).
 The JAX package returns a new cache and relies on XLA buffer donation to
 make the update in place; here the op writes into the cache tensor itself
 and returns it, so the update is in place by construction.  Start indices
-clamp as ``lax.dynamic_update_slice`` clamps them: a write of t rows at
-``pos`` lands at ``min(max(pos, 0), Tmax - t)`` (and a slot index at
+go as ``lax.dynamic_update_slice`` takes them: a negative one counts from
+the end (``pos + Tmax``), then it clamps, so a write of t rows at ``pos``
+lands at ``min(max(pos, 0), Tmax - t)`` (and a slot index at
 ``min(max(slot, 0), S - 1)``) — a plain slice assignment would instead
-fail or write a shorter stripe.  Scattered rows are written in order, so
-a later row wins where two overlap, as in the JAX loop of updates.
+fail or write a shorter stripe.  Scattered rows are written in order, one
+indexed write a row with the slot and positions as device tensors, so a
+later row wins where two overlap, as in the JAX loop of updates, and no
+index is read on the host (a CUDA graph of the prefill replays it with
+each run's slots).
 """
 
 import torch
 
 from ..registry import in_var, register_op, set_output
+
+
+def _start(i, dim, size):
+    """``lax.dynamic_update_slice``'s start index for a window of ``size``
+    along ``dim``: negative counts from the end, then clamps."""
+    return torch.where(i < 0, i + dim, i).clamp(0, dim - size)
 
 
 def _kv_cache_write_infer(op, block):
@@ -48,16 +58,22 @@ def _kv_cache_write_compute(ins, attrs, ctx, op_index):
             raise ValueError(
                 "kv_cache_write without Slot needs one row per cache slot: "
                 "X %s vs Cache %s" % (tuple(x.shape), tuple(cache.shape)))
-        start = pos.clamp(0, tmax - t)
-        idx = start[:, None] + torch.arange(t, device=cache.device)
+        idx = _start(pos, tmax, t)[:, None] \
+            + torch.arange(t, device=cache.device)
         rows = torch.arange(s, device=cache.device)[:, None]
         cache[rows, :, idx, :] = x.permute(0, 2, 1, 3)
         return {"Out": cache}
-    # scattered prefill: one stripe per request row, in row order
-    for b, (sl, p) in enumerate(zip(slot.reshape(-1).tolist(), pos.tolist())):
-        sl = min(max(sl, 0), s - 1)
-        p = min(max(p, 0), tmax - t)
-        cache[sl, :, p:p + t, :] = x[b]
+    # scattered prefill: one stripe per request row, in row order; the
+    # [S, Tmax, H, D] view takes row b's [t, H, D] at (slot, positions)
+    b = x.shape[0]
+    slots = _start(slot.reshape(-1).to(device=cache.device,
+                                       dtype=torch.long), s, 1)
+    slots = slots[:, None].expand(b, t)
+    idx = _start(pos, tmax, t)[:, None] \
+        + torch.arange(t, device=cache.device)
+    view = cache.permute(0, 2, 1, 3)
+    for i in range(b):
+        view[slots[i], idx[i]] = x[i].transpose(0, 1)
     return {"Out": cache}
 
 

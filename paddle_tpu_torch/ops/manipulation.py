@@ -1,9 +1,32 @@
 """``reshape``, ``transpose``, ``unsqueeze`` and ``lookup_table``
 (counterpart of ``paddle_tpu/ops/manipulation.py``).  ``transpose``
 returns a strided view; consumers that need contiguous memory (the
-kernels) make it so."""
+kernels) make it so.  ``lookup_table``'s table gradient sums the rows of
+repeated ids in a fixed order (``_Gather``), so that two runs of a step
+give the same bits, as XLA's scatter-add does on the TPU."""
+
+import torch
 
 from ..registry import _auto_grad_maker, in_var, register_op, set_output
+
+
+class _Gather(torch.autograd.Function):
+    """``w.index_select(0, ids)`` whose backward accumulates with
+    ``index_put_(accumulate=True)``: on the card a sort by id, then each
+    id's rows summed in their order, where ``index_select``'s own backward
+    (``index_add_``) adds them with atomics in whatever order they land."""
+
+    @staticmethod
+    def forward(ctx, w, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = w.shape[0]
+        return w.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        dw = grad.new_zeros((ctx.rows,) + tuple(grad.shape[1:]))
+        return dw.index_put_((ids,), grad, accumulate=True), None
 
 
 def _resolve_reshape(in_shape, spec):
@@ -69,7 +92,7 @@ def _lookup_table_compute(ins, attrs, ctx, op_index):
     w, ids = ins["W"][0], ins["Ids"][0]
     squeeze = ids.dim() > 0 and ids.shape[-1] == 1
     flat = ids.reshape(-1)
-    out = w.index_select(0, flat)
+    out = _Gather.apply(w, flat)
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out * (flat != pad)[:, None].to(out.dtype)

@@ -1,9 +1,11 @@
 """``dropout`` and its grad ``dropout_mask_grad`` (counterpart of
 ``paddle_tpu/ops/random.py``).
 
-The keep mask is drawn from the run's ``ComputeContext.generator`` for
-the op (Philox on a CUDA device, the CPU generator on the host), so its
-bits differ from ``jax.random.bernoulli``'s for the same program seed:
+The keep mask is drawn from the run's ``ComputeContext.generator``, the
+executor's generator for the program's seed (Philox on a CUDA device, the
+CPU generator on the host; a CUDA graph of the step registers it, so each
+replay draws as the eager run would), so its bits differ from
+``jax.random.bernoulli``'s for the same program seed:
 the two packages agree on the distribution (each element kept with
 probability 1 - p), not on which elements.  The grad reads the saved
 ``Mask`` output instead of recomputing the forward, which would re-draw.
@@ -31,7 +33,7 @@ def _dropout_compute(ins, attrs, ctx, op_index):
     if attrs.get("is_test", False):
         scale = 1.0 if impl == "upscale_in_train" else 1.0 - p
         return {"Out": x * scale, "Mask": torch.ones_like(x)}
-    u = torch.rand(x.shape, generator=ctx.generator(op_index),
+    u = torch.rand(x.shape, generator=ctx.generator,
                    device=x.device)
     mask = (u >= p).to(x.dtype)
     if impl == "upscale_in_train":

@@ -15,7 +15,6 @@ Ops whose forward draws randomness that the recompute must not re-draw
 (``dropout``) register custom grad makers that read saved outputs.
 """
 
-import numpy as np
 import torch
 
 from .core import convert_dtype
@@ -29,33 +28,40 @@ OPS = {}
 
 class ComputeContext:
     """Per-run context handed to op computes: the device the run executes
-    on, the seed material for ops that draw random numbers, and ``saved``,
-    where a forward op keeps a value for its grad op in the same run,
-    keyed by (the forward's op index, a name); the grad op finds it through
-    its ``__fwd_op_index__`` attr."""
+    on, the run's random source and ``saved``, where a forward op keeps a
+    value for its grad op in the same run, keyed by (the forward's op
+    index, a name); the grad op finds it through its ``__fwd_op_index__``
+    attr.
 
-    def __init__(self, device, seed=0, run_index=0):
+    Randomness never passes through a host integer, so a CUDA graph of the
+    run draws anew on every replay.  ``generator`` is the executor's
+    ``torch.Generator`` for the program's seed (registered with every graph
+    that captures the program): ``dropout`` and the random creation ops
+    draw from it.  The attention-dropout hash takes ``seed32(op_index)``,
+    a device tensor that is a pure function of the run key (one int64 the
+    run draws from ``generator`` at its first use) and the op index."""
+
+    def __init__(self, device, generator, n_ops=0):
         self.device = device
-        self.seed = int(seed)
-        self.run_index = int(run_index)
+        self.generator = generator
+        self.n_ops = int(n_ops)
         self.saved = {}
-
-    def _entropy(self, op_index):
-        return np.random.SeedSequence(
-            [self.seed, self.run_index, int(op_index)])
+        self.run_key = None
+        self._seeds = None
 
     def seed32(self, op_index):
-        """A uint32 seed for op ``op_index`` of this run (the dropout hash
-        key), reproducible from (program seed, run index, op index)."""
-        return int(self._entropy(op_index).generate_state(1, np.uint32)[0])
+        """The uint32 dropout-hash seed of op ``op_index`` in this run: a
+        one-element int32 tensor on the run's device (a view into the
+        run's table of every op's seed, made at the first call)."""
+        from .ops.cuda.flash_attention import op_seeds
 
-    def generator(self, op_index):
-        """A ``torch.Generator`` on the run's device for op ``op_index``
-        (Philox on a CUDA device)."""
-        g = torch.Generator(device=self.device)
-        g.manual_seed(int(self._entropy(op_index).generate_state(
-            1, np.uint64)[0] >> np.uint64(1)))
-        return g
+        if self.run_key is None:
+            self.run_key = torch.randint(0, 1 << 62, (1,), device=self.device,
+                                         generator=self.generator)
+        if self._seeds is None or op_index >= len(self._seeds):
+            self._seeds = op_seeds(self.run_key,
+                                   max(self.n_ops, op_index + 1))
+        return self._seeds[op_index:op_index + 1]
 
 
 class OpDef:

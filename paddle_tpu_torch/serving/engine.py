@@ -28,9 +28,13 @@ request whose outputs come out non-finite fails with
 the engine keeps serving.
 
 The engines run on ``CUDAPlace(0)`` unless the caller passes a place; with
-no place and no card they raise instead of falling back to the CPU.  The
-loop runs on its own thread, so ``torch.inference_mode()`` is entered
-there: grad mode is thread-local in PyTorch.
+no place and no card they raise instead of falling back to the CPU.  On
+the card each dispatch signature (a bucket of the one-shot program, the
+prefill in each bucket, the decode step) replays a CUDA graph from its
+second dispatch on (``Executor``); ``capture=False`` keeps every dispatch
+eager, for comparison.  The loop runs on its own thread, so
+``torch.inference_mode()`` is entered there: grad mode is thread-local in
+PyTorch.
 
 Not ported yet: the paged cache, speculative decoding with a draft model,
 the TunedConfig artifact (``tuned_config=`` raises), quarantine dumps and
@@ -157,10 +161,10 @@ class InferenceEngine(_EngineBase):
     def __init__(self, model_dir=None, program=None, feed_names=None,
                  fetch_vars=None, scope=None, place=None, slots=None,
                  bucket_bounds=None, timeout_s=30.0, start=True,
-                 quantize=None, tuned_config=None):
+                 quantize=None, tuned_config=None, capture=True):
         super().__init__()
         self.place = _default_place(place, "InferenceEngine")
-        self._exe = Executor(self.place)
+        self._exe = Executor(self.place, capture=capture)
         if model_dir is not None:
             scope = Scope()
             with scope_guard(scope):
@@ -337,13 +341,13 @@ class GenerationEngine(_EngineBase):
     def __init__(self, spec, place=None, scope=None, eos_id=None,
                  max_new_tokens=32, timeout_s=60.0, bucket_bounds=None,
                  record_logits=False, start=True, quantize=None,
-                 tuned_config=None):
+                 tuned_config=None, capture=True):
         super().__init__()
         self.place = _default_place(place, "GenerationEngine")
         self.eos_id = eos_id
         self.max_new_tokens = int(max_new_tokens)
         self.record_logits = bool(record_logits)
-        self._exe = Executor(self.place)
+        self._exe = Executor(self.place, capture=capture)
         if scope is None:
             scope = Scope()
             spec.init_scope(self._exe, scope)
@@ -422,7 +426,7 @@ class GenerationEngine(_EngineBase):
         """One dispatch; returns the logits rows ``rows`` (an index into
         the leading dims) on the host as float32.  Only those rows leave
         the device: a prefill's full [slots, bucket, vocab] logits stay
-        there."""
+        there (a captured dispatch clones them there first)."""
         (logits,) = self._exe.run(program, feed=feed,
                                   fetch_list=[logits_var], scope=self._scope,
                                   return_numpy=False)
