@@ -9,6 +9,8 @@
     python3 chip_smoke.py --train-kernels  # device, build, kernels #1-#6
     python3 chip_smoke.py --serve-kernels  # device, build, kernels #1, #3,
                                            # #7
+    python3 chip_smoke.py --resnet-default # device, build, ResNet-50 steps
+                                           # with cuDNN's default algorithms
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -47,18 +49,24 @@ Every path below runs twice, in turns: captured (the default
 captured as a CUDA graph and replayed, later ones replayed; the main path,
 whose launch counts the kernel table reports) and eager
 (``capture=False``, the path ``<name>:eager``).  The two must give the
-same bits (ResNet-50: within the spread of two eager runs), and each
-must launch every kernel exactly as often as its program implies; each
-reports wall, device busy time and idle share (a profiled pass or step),
-tokens/s or images/s and peak memory.
+same bits.  Each reports wall, device busy time and idle share, tokens/s
+or images/s and peak memory; its timed runs are taken with the launch
+counters zeroed just before and read just after, then it runs once more
+under ``torch.profiler`` (a pass or a step: busy time, idle share, and
+each kernel's launches counted in the device trace).  Launches must be
+exactly what the programs imply (``launch_faults``): an eager path's
+wrappers count them in the timed runs and in the profiled window, whose
+trace shows the same; a captured path's wrappers count none (every timed
+and profiled run replays a graph), and its window's trace shows each
+kernel as often as the eager one.  The kernel table reports the traced
+counts of each path's profiled window.
 
 4. ``serve``   — a decoder LM at Transformer-base width (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, 1024-token cache,
    8 slots, float32, random weights from build_decoder_lm's seed) served by
    ``GenerationEngine`` on ``CUDAPlace(0)``: after two dispatches of every
    prefill bucket, 16 requests with prompts of 64..700 tokens, 32 new
-   tokens each.  The launch counters are zeroed just before and read just
-   after; every prefill and decode dispatch must have launched the
+   tokens each.  Every prefill and decode dispatch must launch the
    attention kernel 6 times and the layer-norm kernel 12 times (the
    dequant-matmul kernel never), and one request's recorded logits must
    match a full forward recompute of the score program (rtol/atol 2e-4);
@@ -90,8 +98,7 @@ tokens/s or images/s and peak memory.
    dropout 0.1, label smoothing 0.1, noam(512, 4000), Adam(0.9, 0.997,
    1e-9)) on ``CUDAPlace(0)``, captured and eager from one startup
    state: two untimed steps each (the captured second is the capture),
-   then timed steps in turns with the launch counters zeroed just before
-   and read just after; each kernel must have launched exactly as often
+   then timed steps in turns; each kernel must launch exactly as often
    as the program's ops imply; the losses at every step and every scope
    tensor after them are the same bits, and after a parameter is swapped
    in both scopes (``scope.set_var``; numpy in the captured one) the next
@@ -106,15 +113,14 @@ tokens/s or images/s and peak memory.
    see ``resnet_check_phase``);
 10. ``resnet_train`` — the same model at batch 128 (cut from bench.py's
    512) in three programs, plain, fused and NHWC + fused, on the same
-   batches, each in three arms (eager, captured, a second eager): two
-   untimed steps each, then 5 timed steps of the eager and captured arms,
-   taken in turns, each with the launch counters zeroed just before and
-   read just after (exactly 30 launches of #8 and #9 a step on the fused
-   program, of #10 and #11 on the NHWC one, none on the plain one), then
-   one profiled step each for the device's idle share; the captured arm
-   stays within ``RESNET_SPREAD`` times the distance of the two eager arms
-   from the nearer of them (cuDNN's backward is not bit-stable), its bits
-   where theirs are.
+   batches, each eager and captured: two untimed steps each, then 5
+   timed steps taken in turns (exactly 30 launches of #8 and #9 a step on
+   the fused program, of #10 and #11 on the NHWC one, none on the plain
+   one), then one profiled step each.  The phase runs with cuDNN's
+   deterministic algorithms and ``torch.use_deterministic_algorithms``
+   (cuDNN's default backward sums with atomics in no fixed order), and
+   the captured arm's losses and every scope tensor (parameters, running
+   statistics, velocities) are the eager arm's bits.
 
 Then the script's total seconds (``total``), the kernel table as one JSON
 line, the ``nvidia-smi`` line, and, as the last line, ``{"ok": true,
@@ -1145,25 +1151,64 @@ INT8_BUDGET = 0.02
 def device_window(fn):
     """Run ``fn`` under ``torch.profiler``: its host wall (which the
     profiler's own host work lengthens), the device's busy time (the union
-    of the kernel and copy intervals) and idle share, and the number of
-    device events."""
+    of the kernel and copy intervals) and idle share, the number of device
+    events, each kernel's launches as the device trace shows them
+    (``trace_launches``: what a replayed CUDA graph ran) and as its wrapper
+    counted them in the window (``wrapper_launches``: launches made from
+    the host, none in a replay)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch.ops import cuda
+
     torch.cuda.synchronize()
+    cuda.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and not e.name.startswith("dispatch/")]
-    busy_ms = _union_us(spans) / 1e3
+    wrapper = cuda.launch_counts()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("dispatch/")]
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in events]) / 1e3
     return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
             "idle_share": 1.0 - busy_ms / (wall * 1e3),
-            "device_events": len(spans)}
+            "device_events": len(events),
+            "trace_launches": cuda.device_launch_counts(
+                e.name for e in events),
+            "wrapper_launches": wrapper}
+
+
+def launch_record(captured, timed, need, window, window_need):
+    """A path's launch counts beside what its program implies (read by
+    ``launch_faults``): its wrappers' counts over its timed runs
+    (``timed``, implied ``need``) and its profiled window (``window``, a
+    ``device_window``, implied ``window_need``)."""
+    return dict(captured=captured, timed=timed, need=need, window=window,
+                window_need=window_need)
+
+
+def launch_faults(rec):
+    """{check:kernel: (counted, implied)} where a path's launches are not
+    what its program implies (kernels it leaves out: none).  A captured
+    path's timed runs and profiled window replay graphs: its wrappers
+    launch nothing, and the window's device trace shows each kernel as
+    often as the program implies.  An eager path's wrappers launch each
+    kernel as often as the program implies, in the timed runs and in the
+    window, whose trace shows the same counts."""
+    from paddle_tpu_torch.ops.cuda import KERNELS
+
+    window, eager = rec["window"], not rec["captured"]
+    checks = (("timed", rec["timed"], rec["need"] if eager else {}),
+              ("window_wrapper", window["wrapper_launches"],
+               rec["window_need"] if eager else {}),
+              ("window_trace", window["trace_launches"], rec["window_need"]))
+    return {"%s:%s" % (check, k): (got.get(k, 0), want.get(k, 0))
+            for check, got, want in checks for k in KERNELS
+            if got.get(k, 0) != want.get(k, 0)}
 
 
 def _warm_buckets(eng, lengths, submit):
@@ -1180,11 +1225,11 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
     """Serve ``n_requests`` prompts through ``GenerationEngine`` on
     ``place`` (int8 weights with ``quantize``; CUDA graphs of every
     dispatch with ``capture``, every dispatch eager without); returns (the
-    summary dict, the kernels' launch counts, the launches the programs
-    imply, the results).  The engine first dispatches every bucket the
-    prompts fall in twice; then the requests are served with the launch
-    counters zeroed just before and read just after (timed), and once
-    more under the profiler (device busy time and idle share)."""
+    summary dict, its ``launch_record``, the results).  The engine first
+    dispatches every bucket the prompts fall in twice; then the requests
+    are served with the launch counters zeroed just before and read just
+    after (timed), and once more under the profiler (device busy time,
+    idle share, launches in the trace)."""
     from paddle_tpu_torch.ops import cuda
     from paddle_tpu_torch.serving import GenerationEngine, build_decoder_lm
     from paddle_tpu_torch.serving.metrics import ServingMetrics
@@ -1219,11 +1264,13 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
         metrics, eng.metrics = eng.metrics, ServingMetrics()
         window = device_window(lambda: [r.result(900) for r in [
             eng.submit(p) for p in prompts]])
+        profiled = eng.metrics.summary()["counts"]
     finally:
         eng.close()
 
     counts = metrics.summary()["counts"]
     dispatches = counts["batches"] + counts["decode_steps"]
+    profiled_dispatches = profiled["batches"] + profiled["decode_steps"]
     tokens = sum(len(r["tokens"]) for r in results)
     assert counts["completed"] == n_requests, counts
     assert all(len(r["tokens"]) == max_new for r in results), \
@@ -1275,6 +1322,7 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
         "recompute_rel_l1": recompute_rel_l1,
         "quantize": quantize, "score_vs_fp_rel_l1": vs_fp,
         "launches": launches, "dispatches": dispatches,
+        "profiled_dispatches": profiled_dispatches,
         "cache_mb": spec.cache.bytes() / 1e6,
         "params_mb": sum(
             eng._scope.var(n).numel() * eng._scope.var(n).element_size()
@@ -1299,17 +1347,18 @@ def serve_phase(place, model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
     per = {"flash_attention_fwd": model["n_layer"],
            "layer_norm_fwd": 2 * model["n_layer"],
            "dequant_matmul": n_dq}
-    return (summary, launches, {k: n * dispatches for k, n in per.items()},
-            results)
+    return summary, launch_record(
+        capture, launches, {k: n * dispatches for k, n in per.items()},
+        window, {k: n * profiled_dispatches for k, n in per.items()}), results
 
 
 def serve_phases(place):
     """fp, weight_only and dynamic serving, each captured and eager in
     turns (the order flips from mode to mode, as host load drifts within
     a call); the generated tokens and the recorded logits of the two runs
-    must be the same bits.  Returns {path: (summary, launches, launches
-    implied)}, the captured runs as ``serve`` / ``serve_int8:<mode>`` and
-    the eager ones with ``:eager`` after."""
+    must be the same bits.  Returns {path: (summary, launch record)}, the
+    captured runs as ``serve`` / ``serve_int8:<mode>`` and the eager ones
+    with ``:eager`` after."""
     # what a captured dispatch adds: the clone of a prefill's fetched
     # [slots, 512, vocab] logits (a replay rewrites the graph's own)
     logits = torch.empty((MODEL["slots"], 512, MODEL["vocab_size"]),
@@ -1324,12 +1373,12 @@ def serve_phases(place):
         path = "serve_int8:" + quantize if quantize else "serve"
         runs = {}
         for capture in ((True, False) if i % 2 else (False, True)):
-            summary, launches, need, results = serve_phase(
+            summary, record, results = serve_phase(
                 place, quantize=quantize, capture=capture)
             runs[capture] = results
             name = path if capture else path + ":eager"
             log("serve_int8" if quantize else "serve", summary)
-            out[name] = summary, launches, need
+            out[name] = summary, record
         same = [a["tokens"] == b["tokens"]
                 and all(np.array_equal(x, y)
                         for x, y in zip(a["logits"], b["logits"]))
@@ -1365,7 +1414,7 @@ def _serve_infer(eng, reqs):
     """Two dispatches of every bucket ``reqs`` fall in, then ``reqs`` with
     the launch counters zeroed just before and read just after (timed),
     then once more under the profiler; returns (outputs, launches,
-    summary)."""
+    summary, with the profiled pass's batches)."""
     from paddle_tpu_torch.ops import cuda
     from paddle_tpu_torch.serving.metrics import ServingMetrics
 
@@ -1392,8 +1441,10 @@ def _serve_infer(eng, reqs):
         "p50_batch_ms": eng.metrics.percentiles("batch")["p50_s"] * 1e3,
         "p50_request_ms": eng.metrics.percentiles()["p50_s"] * 1e3,
         "peak_mem_gb": peak / 1e9}
+    eng.metrics = ServingMetrics()
     summary["profiled_pass"] = device_window(
         lambda: [r.result(900) for r in [eng.submit(q) for q in reqs]])
+    summary["profiled_batches"] = eng.metrics.summary()["counts"]["batches"]
     summary["graphs"] = sum(s.graph is not None
                             for s in eng._exe._steps.values())
     return outs, launches, summary
@@ -1409,7 +1460,7 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
     quantized program (2e-4) and the fp program (relative L1 < 0.02).  The
     first engine is served eagerly too (``capture=False``, before the
     captured one): the two give the same bits.  Returns (summary, {path:
-    (launches, launches implied)}) for the engines' runs."""
+    launch record}) for the engines' runs."""
     import shutil
     import tempfile
 
@@ -1446,9 +1497,8 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
                         for a, b in zip(outs, eager_outs))
         prog, logits = eng._program, eng._fetch_vars[0]
         n_dq = count_ops(prog, "dequant_matmul")
-        need = {"dequant_matmul": n_dq * summary["batches"],
-                "flash_attention_fwd": model["n_layer"] * summary["batches"],
-                "layer_norm_fwd": 2 * model["n_layer"] * summary["batches"]}
+        per = {"dequant_matmul": n_dq, "flash_attention_fwd": model["n_layer"],
+               "layer_norm_fwd": 2 * model["n_layer"]}
         int8 = {n for n in eng._scope.local_var_names()
                 if n.endswith("@INT8")}
         assert int8 and all(eng._scope.var(n).dtype == torch.int8
@@ -1481,7 +1531,6 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
             cold_outs, cold_launches, cold_summary = _serve_infer(cold, reqs)
         finally:
             cold.close()
-        cold_need = {"dequant_matmul": n_dq * cold_summary["batches"]}
         cold_err = max(float(np.abs(a - b).max())
                        for a, b in zip(cold_outs, outs))
         assert cold_err <= 2e-4, cold_err
@@ -1500,11 +1549,16 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
         shutil.rmtree(work, ignore_errors=True)
         if not os.listdir(tmp):
             os.rmdir(tmp)
-    eager_need = {k: n // summary["batches"] * eager_summary["batches"]
-                  for k, n in need.items()}
-    return summary, {"infer": (launches, need),
-                     "infer:eager": (eager_launches, eager_need),
-                     "infer_cold": (cold_launches, cold_need)}
+
+    def record(launches, s):
+        return launch_record(
+            s["capture"], launches,
+            {k: n * s["batches"] for k, n in per.items()},
+            s["profiled_pass"],
+            {k: n * s["profiled_batches"] for k, n in per.items()})
+    return summary, {"infer": record(launches, summary),
+                     "infer:eager": record(eager_launches, eager_summary),
+                     "infer_cold": record(cold_launches, cold_summary)}
 
 
 # ---------------------------------------------------------------------------
@@ -1674,7 +1728,7 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
     is swapped in both scopes (a tensor in the eager one, a numpy array in
     the captured one) between two runs, and the next step must again give
     the same bits, with the captured scope pointed back at the captured
-    tensor.  Returns (summary, {path: (launches, launches implied)})."""
+    tensor.  Returns (summary, {path: launch record})."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import cuda
 
@@ -1717,13 +1771,13 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
         and not state_rel_l2(runs["captured"]["scope"],
                              runs["eager"]["scope"])
     swap_seen = runs["captured"]["scope"].find_var(name) is captured_tensor
-    need = {k: n * steps for k, n in kernel_launches_per_step(main).items()}
+    per_step = kernel_launches_per_step(main)
     summary = {"batch": batch, "seq": TRAIN_SEQ, "steps": steps,
                "ops": len(main.global_block().ops),
                "same_loss_bits": same_losses,
                "state_not_bit_equal": diff, "swap_param": name,
                "swap_same_bits": swap_same, "swap_seen_by_replay": swap_seen,
-               "launches_implied": need,
+               "launches_per_step": per_step,
                "reserved_gb": torch.cuda.memory_reserved() / 1e9}
     for arm, r in runs.items():
         step_s = statistics.median(r["times"])
@@ -1745,8 +1799,12 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
                              k: summary[k] for k in (
                                  "same_loss_bits", "state_not_bit_equal",
                                  "swap_same_bits", "swap_seen_by_replay")})
-    return summary, {"train": (runs["captured"]["launches"], need),
-                     "train:eager": (runs["eager"]["launches"], need)}
+    return summary, {
+        ("train" if arm == "captured" else "train:eager"): launch_record(
+            arm == "captured", r["launches"],
+            {k: n * steps for k, n in per_step.items()}, windows[arm],
+            per_step)
+        for arm, r in runs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1755,11 +1813,6 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
 
 RESNET_MODES = ("plain", "fuse", "nhwc_fuse")
 RESNET_BATCH, RESNET_STEPS, RESNET_FUSED = 128, 5, 30
-# captured within this multiple of two eager runs' distance (the nearer of
-# its distances to the two eager runs): each pair differs by the atomics'
-# order alone, and one pair's distance read 0.97-3.3x another's over six
-# pairs on the H100 (the worst a step's loss, a max of scalars)
-RESNET_SPREAD = 10.0
 
 
 def build_resnet(mode):
@@ -1898,55 +1951,40 @@ def resnet_check_phase(batch=4, floor_scale=3.0):
     return summary
 
 
-def resnet_distance(a, b, groups):
-    """How far run ``a`` is from run ``b``: the largest relative difference
-    of a step's loss, and for each group of scope tensors ({group: names};
-    the rest form ``velocities``) their relative L2 distance pooled (a
-    tensor near zero would make its own relative distance large); 0.0
-    where they are the same bits."""
-    out = {"loss": max(abs(x - y) / abs(y)
-                       for x, y in zip(a["losses"], b["losses"]))}
-    sums = {}
-    for n in b["scope"].local_var_names():
-        g = next((k for k, names in groups.items() if n in names),
-                 "velocities")
-        x, y = a["scope"].var(n).double(), b["scope"].var(n).double()
-        num, den = sums.get(g, (0.0, 0.0))
-        sums[g] = (num + float(((x - y) ** 2).sum()),
-                   den + float((y ** 2).sum()))
-    out.update((g, (num / max(den, 1e-300)) ** 0.5)
-               for g, (num, den) in sums.items())
-    return out
-
-
 def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
-                       spread_scale=RESNET_SPREAD):
+                       deterministic=True):
     """bench.py's ResNet-50 at batch 128 (images ``rand`` in [0, 1) from
     ``RandomState(0)``, labels in [0, 1000)) on ``CUDAPlace(0)``: the three
-    programs of ``RESNET_MODES``, each from one startup state in three
-    arms: eager, captured and a second eager run.  The arms run on three
-    executors (the captured one holds the three programs' graphs in one
-    memory pool), each program in a scope of its own per arm, all on the
-    same batches.  Two untimed steps each (the captured arm's second is
-    its capture), then ``steps`` timed steps of the eager and captured
-    arms taken in turns (plain, fused, NHWC, then the reverse; eager and
+    programs of ``RESNET_MODES``, each from one startup state in two arms,
+    eager and captured, on two executors (the captured one holds the three
+    programs' graphs in one memory pool), each program in a scope of its
+    own per arm, all on the same batches.  Two untimed steps each (the
+    captured arm's second is its capture), then ``steps`` timed steps
+    taken in turns (plain, fused, NHWC, then the reverse; eager and
     captured flipping each step), each bracketed by zeroing the launch
     counters and reading them, then one profiled step each for the
-    device's busy time and idle share.  The second eager arm measures how
-    far two eager runs already differ (cuDNN's backward sums with atomics):
-    the captured arm, from the nearer eager arm, must stay within
-    ``spread_scale`` times that spread (``resnet_distance``: losses,
-    parameters, running statistics, velocities), and be its bits where
-    eager runs are.  Returns {mode: (summary, {arm:
-    launches}, launches the program implies)}."""
+    device's busy time, idle share and launches.
+
+    With ``deterministic`` the phase runs with cuDNN's deterministic
+    algorithms and PyTorch's deterministic mode
+    (``use_deterministic_algorithms``, warning where an op has none; the
+    warnings seen are logged), so two runs of one program sum in one
+    order: the captured arm's losses at every step and every scope tensor
+    after them (parameters, running statistics, velocities) must be the
+    eager arm's bits.  Without it, cuDNN picks its default algorithms,
+    whose backward sums with atomics in no fixed order, and the bits are
+    only reported (``--resnet-default``: what determinism costs).
+    Returns {mode: (summary, {arm: launch record})}."""
+    import warnings
+
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import cuda
 
     rng = np.random.RandomState(0)
     feeds = [resnet_feed(rng, batch) for _ in range(steps + 3)]
     # the captured arm first in the untimed steps: a capture empties the
-    # allocator's cache, which the eager arms then refill
-    arms = ("captured", "eager", "eager2")
+    # allocator's cache, which the eager arm then refills
+    arms = ("captured", "eager")
     exes = {arm: pt.Executor(pt.CUDAPlace(0), capture=arm == "captured")
             for arm in arms}
     runs = {}
@@ -1962,54 +2000,51 @@ def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
             runs[mode, arm] = dict(main=main, loss=loss, exe=exes[arm],
                                    scope=copy_scope(start), fused=fused,
                                    times=[], losses=[], peak=0, launches={})
-    first = {key: [_step(r, r["main"], f, r["loss"]) for f in feeds[:2]]
-             for key, r in runs.items()}
-    for i in range(steps):
-        f = feeds[2 + i]
-        for mode in (RESNET_MODES if i % 2 == 0 else RESNET_MODES[::-1]):
-            for arm in (("eager", "captured") if i % 2 == 0
-                        else ("captured", "eager")):
-                r = runs[mode, arm]
-                cuda.reset_launch_counts()
-                r["times"].append(_step(r, r["main"], f, r["loss"]))
-                for k, n in cuda.launch_counts().items():
-                    r["launches"][k] = r["launches"].get(k, 0) + n
-            r = runs[mode, "eager2"]
-            _step(r, r["main"], f, r["loss"])
-    windows = {}
-    for key, r in runs.items():
-        def step(r=r):
-            return _step(r, r["main"], feeds[-1], r["loss"])
-        if key[1] == "eager2":
-            step()   # the same steps, unprofiled: it only measures spread
-        else:
-            windows[key] = device_window(step)
+    torch.backends.cudnn.deterministic = deterministic
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            first = {key: [_step(r, r["main"], f, r["loss"])
+                           for f in feeds[:2]]
+                     for key, r in runs.items()}
+            for i in range(steps):
+                f = feeds[2 + i]
+                for mode in (RESNET_MODES if i % 2 == 0
+                             else RESNET_MODES[::-1]):
+                    for arm in (arms[::-1] if i % 2 == 0 else arms):
+                        r = runs[mode, arm]
+                        cuda.reset_launch_counts()
+                        r["times"].append(_step(r, r["main"], f, r["loss"]))
+                        for k, n in cuda.launch_counts().items():
+                            r["launches"][k] = r["launches"].get(k, 0) + n
+            windows = {key: device_window(
+                lambda r=r: _step(r, r["main"], feeds[-1], r["loss"]))
+                for key, r in runs.items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+    nondeterministic = sorted({str(w.message)[:200] for w in seen
+                               if "deterministic" in str(w.message)})
     nchw = "conv_bn_fwd", "conv_bn_bwd"
     nhwc = "conv_bn_fwd_nhwc", "conv_bn_bwd_nhwc"
     out, bad = {}, []
     for mode in RESNET_MODES:
-        c, e, e2 = (runs[mode, arm] for arm in arms)
-        # trainable parameters; the batch norms' running statistics
-        # (parameters that do not train); the rest are velocities and the
-        # learning rate
-        groups = {"params": set(), "bn_stats": set()}
-        for p in e["main"].all_parameters():
-            groups["params" if p.trainable else "bn_stats"].add(p.name)
-        spread = resnet_distance(e2, e, groups)
-        vs_e, vs_e2 = resnet_distance(c, e, groups), \
-            resnet_distance(c, e2, groups)
-        vs_eager = {k: min(vs_e[k], vs_e2[k]) for k in spread}
-        ok = all(vs_eager[k] <= spread_scale * spread[k] for k in spread)
+        c, e = runs[mode, "captured"], runs[mode, "eager"]
+        same_losses = c["losses"] == e["losses"]
+        diff = state_rel_l2(c["scope"], e["scope"])
         on = nhwc if mode == "nhwc_fuse" else nchw if mode == "fuse" else ()
-        need = {k: (e["fused"] * steps if k in on else 0)
-                for k in nchw + nhwc}
+        per_step = {k: e["fused"] for k in on}
         summary = {"mode": mode, "batch": batch, "steps": steps,
+                   "deterministic": deterministic,
                    "ops": len(e["main"].global_block().ops),
-                   "fused_layers": e["fused"], "launches_implied": need,
-                   "eager_spread": spread, "captured_vs_eager": vs_e,
-                   "captured_vs_eager2": vs_e2,
-                   "spread_scale": spread_scale, "within_spread": ok,
+                   "fused_layers": e["fused"],
+                   "launches_per_step": per_step,
+                   "same_loss_bits": same_losses,
+                   "state_not_bit_equal": diff,
+                   "nondeterministic_ops_warned": nondeterministic,
                    "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+        records = {}
         for arm, r in (("eager", e), ("captured", c)):
             step_s = statistics.median(r["times"])
             summary[arm] = {
@@ -2022,15 +2057,18 @@ def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
                 "profiled_step": windows[mode, arm],
                 "launches": r["launches"]}
             assert all(np.isfinite(r["losses"])), r["losses"]
-        if not ok:
+            records[arm] = launch_record(
+                arm == "captured", r["launches"],
+                {k: n * steps for k, n in per_step.items()},
+                windows[mode, arm], per_step)
+        if deterministic and (not same_losses or diff):
             bad.append(mode)
-        out[mode] = summary, {"captured": c["launches"],
-                              "eager": e["launches"]}, need
+        out[mode] = summary, records
     if bad:
         for mode in bad:
             log("resnet_train", out[mode][0])
-        raise SystemExit("captured ResNet-50 steps leave the eager runs' "
-                         "spread: %s" % bad)
+        raise SystemExit("captured ResNet-50 steps differ from the eager "
+                         "ones: %s" % bad)
     return out
 
 
@@ -2288,6 +2326,10 @@ def main():
             profile_phase(pt.CUDAPlace(0), quantize=quantize)
         train_profile_phase(pt.CUDAPlace(0))
         return 0
+    if "--resnet-default" in sys.argv[1:]:
+        for r, _ in resnet_train_phase(deterministic=False).values():
+            log("resnet_train", r)
+        return 0
     if "--serve-ab" in sys.argv[1:]:
         # fp and int8 serving in turns (fp, weight_only, dynamic, then the
         # reverse), so host load drifting within the call shows as spread
@@ -2305,40 +2347,37 @@ def main():
     # NHWC + fused (#10, #11)
     short, path_launches = {}, {}
 
-    def check_path(path, launches, need, exact=()):
-        path_launches[path] = launches
-        short.update({"%s:%s" % (path, k): (launches[k], n)
-                      for k, n in need.items()
-                      if (launches[k] != n if k in exact or n == 0
-                          else launches[k] < n)})
+    def check_path(path, record):
+        # the kernel table reports each path's launches in its profiled
+        # window's device trace
+        path_launches[path] = record["window"]["trace_launches"]
+        short.update({"%s:%s" % (path, k): v
+                      for k, v in launch_faults(record).items()})
 
     # every path runs captured (the main path, whose counts the kernel
     # table reports) and eager (``:eager``), in turns
-    for path, (summary, launches, need) in serve_phases(
-            pt.CUDAPlace(0)).items():
-        check_path(path, launches, need, exact=tuple(need))
+    for path, (summary, record) in serve_phases(pt.CUDAPlace(0)).items():
+        check_path(path, record)
     infer, paths = infer_phase(pt.CUDAPlace(0))
     log("infer", infer)
     if not infer["same_bits_as_eager"]:
         raise SystemExit("captured one-shot serving differs from eager")
-    for path, (launches, need) in paths.items():
-        check_path(path, launches, need, exact=tuple(need))
+    for path, record in paths.items():
+        check_path(path, record)
     train_check_phase()
     _, paths = train_phase(pt.CUDAPlace(0))
-    for path, (launches, need) in paths.items():
-        check_path(path, launches, need, exact=tuple(need))
+    for path, record in paths.items():
+        check_path(path, record)
     release_memory()
     resnet_check_phase()
     release_memory()
-    for mode, (r, launches, need) in resnet_train_phase().items():
+    for mode, (r, records) in resnet_train_phase().items():
         log("resnet_train", r)
-        check_path("resnet_train:" + mode, launches["captured"], need,
-                   exact=tuple(need))
-        check_path("resnet_train:%s:eager" % mode, launches["eager"], need,
-                   exact=tuple(need))
+        check_path("resnet_train:" + mode, records["captured"])
+        check_path("resnet_train:%s:eager" % mode, records["eager"])
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
-                         "implies (launches, implied): %s" % short)
+                         "implies (counted, implied): %s" % short)
 
     rows = []
     for name, src, tpu, main_path in KERNEL_ROWS:

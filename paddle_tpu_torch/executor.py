@@ -48,9 +48,15 @@ the grad ops' ``torch.autograd.grad`` recompute.  Around it:
   registered with every graph that captures such a program, so a replay
   advances it as the eager run does; no run reads a host seed
   (``ComputeContext``);
-* kernel launch counts: the wrappers count in Python, which a replay
-  skips, so each entry keeps the counts its capture made and adds them
-  on every replay.
+* kernel launch counts: each wrapper counts the launches it makes from
+  the host, and a run that captures makes them once (into the graph); a
+  replay runs the graph, not the wrappers, and counts nothing, so a
+  replayed step's launches are read from a device trace
+  (``ops.cuda.device_launch_counts``).
+
+An entry lives as long as its program and its scope: when either dies,
+the entry, its graph and the tensors the graph holds are dropped at the
+executor's next run.
 
 A capture that fails raises, naming the op that broke it; nothing falls
 back to the eager path.  ``Executor(place, capture=False)`` keeps every
@@ -157,17 +163,14 @@ def _interpret(block, live, release, env, ctx, where=None):
             env.pop(n, None)
 
 
-def _kernel_counts():
-    from .ops.cuda import launch_counts
-
-    return launch_counts()
-
-
-def _add_kernel_counts(delta):
-    from .ops.cuda import KERNELS
-
-    for name, n in delta.items():
-        KERNELS[name].launches += n
+def _entry_died(exe_ref, key, analysis):
+    """``weakref.finalize`` callback: the program or the scope of an entry
+    died.  The executor drops the entry at the start of its next run, not
+    here, where a collection in the middle of a capture may have called
+    this."""
+    exe = exe_ref()
+    if exe is not None:
+        exe._dead.append((key, analysis))
 
 
 class _StaticFeed:
@@ -209,7 +212,6 @@ class _CapturedStep:
         self.bound = {}      # scope name -> the tensor the graph uses
         self.reads = set()   # the bound names the graph reads
         self.fetches = []    # the fetched tensors the graph writes
-        self.launches = {}   # kernel launches a replay makes
 
     def bind(self, scope):
         """Point the scope at the captured tensors before a replay,
@@ -242,7 +244,7 @@ class Executor:
         self.capture = bool(capture)
         self._analysis = {}
         self._steps = {}
-        self._owners = {}
+        self._dead = []      # (key, analysis) of entries whose owner died
         self._generators = {}
         self._lock = threading.RLock()
         self._stream = None
@@ -339,18 +341,16 @@ class Executor:
                      for n in feed_names),
                tuple(fetch_names), id(scope))
         with self._lock:
-            owners = self._owners.get(key)
-            if owners is not None and (owners[0]() is not program
-                                       or owners[1]() is not scope):
-                # the key's program or scope died and its id was reused
-                del self._analysis[key]
-                self._steps.pop(key, None)
+            self._drop_dead()
             analysis = self._analysis.get(key)
             if analysis is None:
-                self._owners[key] = (weakref.ref(program),
-                                     weakref.ref(scope))
                 analysis = self._analysis[key] = self._analyze(
                     program, feed_names, scope, fetch_names)
+                # reported when either owner dies, which is before another
+                # program or scope can take its id
+                for owner in (program, scope):
+                    weakref.finalize(owner, _entry_died, weakref.ref(self),
+                                     key, analysis).atexit = False
             if not (self.capture and self.place.device.type == "cuda"):
                 fetches = self._run_eager(program, analysis, feed,
                                           feed_dtypes, scope, fetch_names)
@@ -365,6 +365,20 @@ class Executor:
             if return_numpy:
                 fetches = [_to_numpy(f) for f in fetches]
         return fetches
+
+    def _drop_dead(self):
+        """Drop the entries whose program or scope died."""
+        synced = False
+        while self._dead:
+            key, analysis = self._dead.pop()
+            if self._analysis.get(key) is not analysis:
+                continue
+            del self._analysis[key]
+            step = self._steps.pop(key, None)
+            if step is not None and step.graph is not None and not synced:
+                # a replay of the graph may still be running
+                torch.cuda.synchronize(self.place.device)
+                synced = True
 
     def _run_eager(self, program, analysis, feed, feed_dtypes, scope,
                    fetch_names, out_meta=None):
@@ -401,7 +415,6 @@ class Executor:
         for n, f in step.feeds.items():
             f.load(feed[n])
         step.graph.replay()
-        _add_kernel_counts(step.launches)
         return step.fetches
 
     def _capture(self, step, program, analysis, feed, feed_dtypes, scope,
@@ -434,7 +447,6 @@ class Executor:
         generator = self._generator(program.random_seed)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(generator)
-        before = _kernel_counts()
         env = {n: f.buffer for n, f in step.feeds.items()}
         env.update((n, step.bound[n]) for n in state_names)
         ctx = ComputeContext(dev, generator, len(block.ops))
@@ -449,17 +461,10 @@ class Executor:
                         step.bound[n].copy_(env[n])
                 step.fetches = [env[n] for n in fetch_names]
         except Exception as e:
-            _add_kernel_counts({k: before[k] - n
-                                for k, n in _kernel_counts().items()})
             raise RuntimeError(
                 "CUDA graph capture of program %d (version %d) failed at "
                 "%s: %s" % (id(program), program._version, where[0], e)) \
                 from e
-        after = _kernel_counts()
-        # the capture launched nothing: the counts move on each replay
-        step.launches = {k: n - before[k] for k, n in after.items()
-                         if n != before[k]}
-        _add_kernel_counts({k: -n for k, n in step.launches.items()})
         step.graph = graph
 
 

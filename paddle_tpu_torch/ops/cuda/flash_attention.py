@@ -19,70 +19,33 @@ Masks: ``k_len`` [B] valid keys per batch row (clamped to Tk; None = all);
 Dropout is ``downgrade_in_infer``'s training half: weights masked by the
 counter hash, not upscaled.  The hash's seed is device data: a one-element
 int32 tensor holding the uint32 (``seed_tensor``; the executor derives one
-per op and run with ``op_seeds``), which the kernels read from device
-memory, so a replayed CUDA graph draws the run's own mask.  Fully masked
-rows come back as zeros.
+per op and run with ``hash32.op_seeds``), which the kernels read from
+device memory, so a replayed CUDA graph draws the run's own mask.  Fully
+masked rows come back as zeros.
 """
 
 import ctypes
 
 import torch
 
+from ...hash32 import M32, as_int32, mix32, mul32
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "reference_attention", "reference_attention_lse",
-           "attention_bwd_reference", "keep_mask", "seed_tensor", "op_seeds",
+           "attention_bwd_reference", "keep_mask", "seed_tensor",
            "SUPPORTED_HEAD_DIMS"]
 
 _NEG_INF = -1e30
 _POS_BIG = 1e30
-_M32 = 0xFFFFFFFF
 SUPPORTED_HEAD_DIMS = (64,)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-# ---------------------------------------------------------------------------
-# the dropout hash, in int64 arithmetic masked to 32 bits
-# ---------------------------------------------------------------------------
-
-def _mul32(a, c):
-    """(a * c) mod 2**32 for an int64 tensor ``a`` in [0, 2**32) and a
-    constant ``c`` < 2**32, without int64 overflow: split c in 16-bit
-    halves so every partial product stays below 2**48."""
-    lo = a * (c & 0xFFFF)
-    hi = ((a * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _mix32(h):
-    """murmur3 finalizer on values held as uint32 in int64."""
-    h = h ^ (h >> 16)
-    h = _mul32(h, 0x7FEB352D)
-    h = h ^ (h >> 15)
-    h = _mul32(h, 0x846CA68B)
-    return h ^ (h >> 16)
-
-
-def _as_int32(h):
-    """uint32 values held in int64 as int32 tensors with the same bits."""
-    return torch.where(h >= 1 << 31, h - (1 << 32), h).to(torch.int32)
 
 
 def seed_tensor(seed, device):
     """The uint32 ``seed`` as the kernels read it: one int32 element on
     ``device`` holding its bits."""
-    return _as_int32(torch.tensor([int(seed) & _M32], device=device))
-
-
-def op_seeds(run_key, n):
-    """The dropout seeds of ops 0..n-1 of one run: int32 [n] on the run
-    key's device, element i a murmur3 mix of the run key (int64 [1]) and
-    op index i alone, so the generic grad's recompute of op i (which
-    passes the forward's index) draws the forward's mask."""
-    i = torch.arange(n, device=run_key.device)
-    h = _mix32((run_key & _M32) ^ _mul32(i, 0x9E3779B1))
-    return _as_int32(_mix32(h ^ ((run_key >> 32) & _M32)))
+    return as_int32(torch.tensor([int(seed) & M32], device=device))
 
 
 def keep_mask(seed, bh, gq, gk, rate):
@@ -92,10 +55,10 @@ def keep_mask(seed, bh, gq, gk, rate):
     Bit-identical to the JAX package's ``_keep_mask`` and to the kernel's
     ``keep``."""
     seed = (seed.reshape(()).long() if isinstance(seed, torch.Tensor)
-            else int(seed)) & _M32
-    h = _mul32(gq.long(), 0x85EBCA6B) ^ _mul32(gk.long(), 0xC2B2AE35)
-    h = h ^ ((seed + _mul32(bh.long(), 0x9E3779B1)) & _M32)
-    h = _mix32(h)
+            else int(seed)) & M32
+    h = mul32(gq.long(), 0x85EBCA6B) ^ mul32(gk.long(), 0xC2B2AE35)
+    h = h ^ ((seed + mul32(bh.long(), 0x9E3779B1)) & M32)
+    h = mix32(h)
     return (h >> 8) >= int(rate * float(1 << 24))
 
 

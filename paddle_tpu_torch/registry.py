@@ -19,6 +19,7 @@ import torch
 
 from .core import convert_dtype
 from .framework import grad_var_name
+from .hash32 import op_seeds
 
 __all__ = ["OpDef", "register_op", "get_op_def", "infer_op", "compute_op",
            "make_grad_ops", "ComputeContext", "OPS", "int_list"]
@@ -53,8 +54,6 @@ class ComputeContext:
         """The uint32 dropout-hash seed of op ``op_index`` in this run: a
         one-element int32 tensor on the run's device (a view into the
         run's table of every op's seed, made at the first call)."""
-        from .ops.cuda.flash_attention import op_seeds
-
         if self.run_key is None:
             self.run_key = torch.randint(0, 1 << 62, (1,), device=self.device,
                                          generator=self.generator)

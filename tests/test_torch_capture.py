@@ -35,6 +35,7 @@ from paddle_tpu.ops.pallas import flash_attention as jfa
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import backward as pt_backward
 from paddle_tpu_torch import framework as pt_framework
+from paddle_tpu_torch import hash32
 from paddle_tpu_torch import optimizer as pt_optimizer
 from paddle_tpu_torch import registry
 from paddle_tpu_torch import unique_name as pt_unique_name
@@ -172,8 +173,35 @@ def test_an_entry_is_not_found_through_a_reused_id(monkeypatch):
     (out,) = exe.run(feed=feed, fetch_list=[y], scope=scope)
     assert list(exe._analysis) == [key]
     assert exe._analysis[key] is not first
-    assert exe._owners[key][1]() is scope
+    assert exe._dead == []
     np.testing.assert_array_equal(out, np.full((2, 4), 2.0))
+
+
+def test_an_entry_is_dropped_when_its_scope_or_program_dies():
+    """An entry (on the card: its graph, its feed buffers and the state
+    tensors it holds) lives as long as its program and its scope; the
+    executor drops it at its next run after either died."""
+    import gc
+
+    x = pt.layers.data("x", shape=[4])
+    y = pt.layers.scale(x, scale=2.0)
+    exe = pt.Executor(pt.CPUPlace())
+    feed = {"x": np.ones((2, 4), "float32")}
+    keep = pt.Scope()
+    exe.run(feed=feed, fetch_list=[y], scope=keep)
+    scope = pt.Scope()
+    exe.run(feed=feed, fetch_list=[y], scope=scope)
+    other = pt.Program()
+    with pt.program_guard(other, pt.Program()):
+        z = pt.layers.scale(pt.layers.data("x", shape=[4]), scale=3.0)
+    exe.run(other, feed=feed, fetch_list=[z], scope=keep)
+    assert len(exe._analysis) == 3
+    del scope, other, z
+    gc.collect()
+    exe.run(feed=feed, fetch_list=[y], scope=keep)
+    assert [k[-1] for k in exe._analysis] == [id(keep)]
+    assert [k[0] for k in exe._analysis] == [id(pt.default_main_program())]
+    assert exe._dead == []
 
 
 def test_two_serving_buckets_are_two_entries():
@@ -191,24 +219,67 @@ def test_two_serving_buckets_are_two_entries():
     assert len(decode) == 1
 
 
+def test_device_trace_names_count_each_wrapper_call_once():
+    """A replayed graph runs its kernels without their wrappers, so its
+    launches are counted from the device trace's kernel names: each
+    wrapper's one kernel a call counts, its helpers (the weight split, the
+    partial-sum reductions, the dynamic row grid) and PyTorch's kernels do
+    not, and the two conv+BN layouts' same-named kernels stay apart."""
+    anon = "void (anonymous namespace)::"
+    names = [anon + n for n in (
+        "flash_fwd_kernel<float>(float const*, float const*, int)",
+        "flash_decode_kernel<float>(float const*, float const*, int)",
+        "flash_bwd_kernel<__nv_bfloat16>(__nv_bfloat16 const*, int)",
+        "dq_sum<float>(float const*, float*, int, int, float, long)",
+        "layer_norm_fwd_kernel<float>(float const*, float const*)",
+        "layer_norm_bwd_rows<float, 4, 1>(float const*, float const*)",
+        "layer_norm_bwd_columns<float>(float const*, float*)",
+        "softmax_xent_fwd_kernel<float>(float const*, long const*)",
+        "softmax_xent_bwd_kernel<float>(float const*, long const*)",
+        "gemv_kernel<1, float, 1>(float const*, signed char const*)",
+        "gemm_kernel<1, float>(void const*, signed char const*)",
+        "quantize_rows_kernel<float>(float const*, float const*)",
+        "split_w<float>(float const*, long, long, int, int, int, long)",
+        "fwd_kernel<float>((anonymous namespace)::Act, unsigned char "
+        "const*, int)",
+        "dx_kernel<float>((anonymous namespace)::Act, unsigned char const*)",
+        "dw_kernel<float>((anonymous namespace)::Act, (anonymous "
+        "namespace)::Act, float*)",
+        "fwd_kernel<float>((anonymous namespace)::Src, (anonymous "
+        "namespace)::Src, float const*)",
+        "dx_kernel<__nv_bfloat16>((anonymous namespace)::Src, (anonymous "
+        "namespace)::Src)",
+        "sum_rows(float const*, int, long, float*)")]
+    names += ["void at::native::(anonymous namespace)::fwd_kernel<float>("
+              "(anonymous namespace)::Act)", "Memcpy HtoD (Pageable -> "
+              "Device)", "void at::native::vectorized_elementwise_kernel<4>"]
+    counts = pt_cuda.device_launch_counts(names)
+    assert counts == {"flash_attention_fwd": 2, "flash_attention_bwd": 1,
+                      "layer_norm_fwd": 1, "layer_norm_bwd": 1,
+                      "softmax_xent_fwd": 1, "softmax_xent_bwd": 1,
+                      "dequant_matmul": 2, "conv_bn_fwd": 1,
+                      "conv_bn_bwd": 1, "conv_bn_fwd_nhwc": 1,
+                      "conv_bn_bwd_nhwc": 1}
+
+
 # ---------------------------------------------------------------------------
 # randomness keyed from device memory
 # ---------------------------------------------------------------------------
 
 def test_op_seeds_are_a_pure_function_of_run_key_and_op_index():
     key = torch.tensor([0x0123456789ABCDEF & ((1 << 62) - 1)])
-    short, long = fa.op_seeds(key, 5), fa.op_seeds(key, 9)
+    short, long = hash32.op_seeds(key, 5), hash32.op_seeds(key, 9)
     assert short.dtype == torch.int32 and short.shape == (5,)
     assert torch.equal(short, long[:5])
     assert len(set(long.tolist())) == 9
-    assert not torch.equal(fa.op_seeds(key + 1, 5), short)
+    assert not torch.equal(hash32.op_seeds(key + 1, 5), short)
     # two contexts whose generators start alike give equal seeds, from
     # any op at any point of the run
     a = ComputeContext("cpu", torch.Generator().manual_seed(3), 6)
     b = ComputeContext("cpu", torch.Generator().manual_seed(3), 2)
     assert torch.equal(a.seed32(4), b.seed32(4))
     assert torch.equal(a.seed32(1), b.seed32(1))
-    assert torch.equal(a.seed32(4), fa.op_seeds(a.run_key, 5)[4:])
+    assert torch.equal(a.seed32(4), hash32.op_seeds(a.run_key, 5)[4:])
 
 
 @pytest.mark.parametrize("seed", [1234, 0xDEADBEEF, 0x80000000])
@@ -508,8 +579,12 @@ def _state(scope, names):
 def test_captured_training_matches_eager_bits(card):
     """Five dropout-on steps captured (the first eager, the second captured
     and replayed, the rest replayed) against five eager ones from the same
-    startup state and seeds: equal losses and parameters, bit for bit, and
-    equal kernel launch counts."""
+    startup state and seeds: equal losses and parameters, bit for bit.
+    The captured executor's wrappers launch the kernels of two steps (the
+    eager one and the capture) and no more; a sixth step, replayed, runs
+    one step's kernels as the device trace counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
     runs = {}
     for capture in (False, True):
         pt_cuda.reset_launch_counts()
@@ -517,13 +592,25 @@ def test_captured_training_matches_eager_bits(card):
                                                 dims=CARD_TINY)
         params = [p.name for p in main.all_parameters()]
         runs[capture] = ([float(x[0]) for x in losses], _state(scope, params),
-                         pt_cuda.launch_counts(), exe)
+                         pt_cuda.launch_counts(), exe, scope, main)
     eager, captured = runs[False], runs[True]
     assert captured[0] == eager[0]
     assert all(torch.equal(captured[1][n], eager[1][n]) for n in eager[1])
-    assert captured[2] == eager[2] and eager[2]["flash_attention_fwd"] > 0
+    assert eager[2]["flash_attention_fwd"] > 0
+    assert captured[2] == {k: n // 5 * 2 for k, n in eager[2].items()}
     assert sum(s.graph is not None
                for s in captured[3]._steps.values()) == 1
+    exe, scope, main = captured[3:]
+    (key,) = _entries(exe, main)
+    pt_cuda.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        exe.run(main, feed=train_feed(np.random.RandomState(4)),
+                fetch_list=list(key[3]), scope=scope)
+        torch.cuda.synchronize()
+    assert _entries(exe, main) == [key]
+    assert all(n == 0 for n in pt_cuda.launch_counts().values())
+    traced = pt_cuda.device_launch_counts(e.name for e in prof.events())
+    assert traced == {k: n // 5 for k, n in eager[2].items()}
 
 
 @pytest.mark.cuda
