@@ -16,7 +16,8 @@ Run from the root of a checkout.  Phases, one line each:
 
 1. ``device``  — the card's name and power limit (``nvidia-smi``), and the
    TF32 switches, which this script turns off so that float32 products
-   stay float32;
+   stay float32, and cuBLAS's reduced-precision bf16 reduction, which the
+   port turns off so that bf16 products sum in float32;
 2. ``build``   — compiles every kernel under ``paddle_tpu_torch/csrc``
    with ``nvcc`` (in parallel) and reports the seconds taken, each
    kernel's registers and spills, the ``HGMMA`` (wgmma) instructions in
@@ -43,7 +44,9 @@ Run from the root of a checkout.  Phases, one line each:
    three TF32 passes, bound at 3 x operations / 495 TFLOP/s beside the
    float32-unit bound), and at a ragged shape in each (NHWC M 1000, NCHW 3
    images of 7x7; C 72, O 200); #2, #4 and their library calls also name
-   the device kernels they ran (SDPA's backend);
+   the device kernels they ran (SDPA's backend); the AMP paths' shapes
+   and types too: #1/#2 in bfloat16 at the training shape with dropout
+   0.1, #8-#11 in bfloat16 at stages 1, 3 and 4;
 Every path below runs twice, in turns: captured (the default
 ``Executor``: each dispatch signature's first run eager, its second
 captured as a CUDA graph and replayed, later ones replayed; the main path,
@@ -86,6 +89,12 @@ counts of each path's profiled window.
    against a direct ``Executor.run`` of the quantized program (2e-4) and of
    the fp program (relative L1 0.02); the quantized program saved again
    and served cold with no pass, to the same outputs;
+6b. ``infer_bf16`` — the score program saved in float32, rewritten by
+   ``contrib.Bfloat16Transpiler`` (bf16 parameters, #1 and #3 in bf16,
+   the logits cast back to float32), saved, and served cold by
+   ``InferenceEngine`` (captured): every output float32 and within
+   relative L1 0.02 of a direct run of the float32 program, the engine's
+   parameters bf16 on the card, #1 6 and #3 12 launches a batch;
 7. ``train_check`` — the Transformer-base train program at dropout 0,
    one batch of 4 rows at full width, one step on ``CUDAPlace(0)`` (the
    kernels) and one on ``CPUPlace()`` (the plain versions) from one
@@ -103,6 +112,13 @@ counts of each path's profiled window.
    tensor after them are the same bits, and after a parameter is swapped
    in both scopes (``scope.set_var``; numpy in the captured one) the next
    step is too, the captured scope pointing back at its captured tensor;
+7b/8b. ``train_amp_check`` and ``train_amp`` — the same two phases with
+   the optimizer wrapped in ``contrib.mixed_precision.decorate``
+   (bench.py's default rungs): #1/#2 in bfloat16, #3-#6 in float32; the
+   check holds the loss within rtol 1e-2 and the gradients within 3x a
+   floor measured in the same call by ``resnet_check``'s 1e-7 nudge (no
+   fixed band holds under AMP at batch 4: ``AMP_NUDGE``), and every
+   float32 persistable (parameters, moments, counters) stays float32;
 9. ``resnet_check`` — bench.py's ResNet-50 (depth 50, 3x224x224, class_dim
    1000, Momentum(1e-3, 0.9)) after ``fuse_conv_bn`` and after
    ``convert_to_nhwc`` + ``fuse_conv_bn``, batch 4 at full width: one step
@@ -120,7 +136,12 @@ counts of each path's profiled window.
    deterministic algorithms and ``torch.use_deterministic_algorithms``
    (cuDNN's default backward sums with atomics in no fixed order), and
    the captured arm's losses and every scope tensor (parameters, running
-   statistics, velocities) are the eager arm's bits.
+   statistics, velocities) are the eager arm's bits;
+9b/10b. ``resnet_amp_check`` and ``resnet_amp`` — the same two phases
+   under ``decorate``: the trunk runs in bfloat16 after the first
+   convolution, #8-#11 in bfloat16; the check's loss band is rtol 1e-2
+   and its gradient floor is of the order of the gradients under AMP
+   (``resnet_check_phase``); every float32 persistable stays float32.
 
 Then the script's total seconds (``total``), the kernel table as one JSON
 line, the ``nvidia-smi`` line, and, as the last line, ``{"ok": true,
@@ -945,8 +966,9 @@ def conv_bn_cases(cb, timer):
     at 14x14, the most frequent fused layer, with the BN + ReLU prologue
     and, backward, the stats fold), then stage 1 (64 -> 256 at 56x56, raw
     input), stage 4 (2048 -> 512 at 7x7, no stats cotangent backward) and
-    stage 3 in bfloat16; each layout.  Then each layout's ragged shape in
-    both types, with the prologue and the fold."""
+    stages 3, 1 and 4 in bfloat16 (the AMP path's); each layout.  Then
+    each layout's ragged shape in both types, with the prologue and the
+    fold."""
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     for nhwc in (False, True):
@@ -956,14 +978,17 @@ def conv_bn_cases(cb, timer):
         out["conv_bn_fwd" + sfx] = [
             conv_bn_fwd_case(cb, timer, st, nhwc, bn, dt)
             for st, bn, dt in (("stage3", True, f32), ("stage1", False, f32),
-                               ("stage4", True, f32), ("stage3", True, bf16))
+                               ("stage4", True, f32), ("stage3", True, bf16),
+                               ("stage1", False, bf16), ("stage4", True, bf16))
             + tuple((st, True, dt) for st, dt in ragged)]
         out["conv_bn_bwd" + sfx] = [
             conv_bn_bwd_case(cb, timer, st, nhwc, bn, ws, dt)
             for st, bn, ws, dt in (("stage3", True, True, f32),
                                    ("stage1", False, True, f32),
                                    ("stage4", True, False, f32),
-                                   ("stage3", True, True, bf16))
+                                   ("stage3", True, True, bf16),
+                                   ("stage1", False, True, bf16),
+                                   ("stage4", True, False, bf16))
             + tuple((st, True, True, dt) for st, dt in ragged)]
     return out
 
@@ -997,6 +1022,13 @@ def attention_fwd_cases(timer):
     fwd.append(attention_case(fa, timer, "train_self_dropout_klen0", t, t,
                               False, train_klen0, torch.float32, rate=0.1,
                               seed=1234))
+    # the AMP training path's calls: bfloat16 with dropout 0.1, causal
+    # (decoder self-attention) and not (encoder and cross attention)
+    for causal, tag in ((True, "causal"), (False, "self")):
+        fwd.append(attention_case(fa, timer,
+                                  "train_%s_dropout_bfloat16" % tag, t, t,
+                                  causal, train_klen, torch.bfloat16,
+                                  rate=0.1, seed=1234))
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).replace("torch.", "")
         fwd.append(attention_case(fa, timer, "prefill_" + tag, 1024, 1024,
@@ -1069,6 +1101,11 @@ def train_kernel_cases(timer):
     bwd.append(attention_bwd_case(fa, timer, "train_causal_dropout_klen0", t,
                                   t, True, train_klen0, torch.float32,
                                   rate=0.1, seed=1234))
+    for causal, tag in ((True, "causal"), (False, "self")):
+        bwd.append(attention_bwd_case(fa, timer,
+                                      "train_%s_dropout_bfloat16" % tag, t,
+                                      t, causal, train_klen, torch.bfloat16,
+                                      rate=0.1, seed=1234))
     # off the training path: several tiles per row, ragged last tiles,
     # and the suffix (Tq < Tk) causal alignment
     ragged_klen = [200, 150, 65, 64, 1, 0, 130, 199]
@@ -1146,6 +1183,10 @@ def rel_l1(ref, out):
 
 
 INT8_BUDGET = 0.02
+# the bfloat16 score program's logits against the float32 program's, by
+# the same metric: the one-shot inference band (bf16 weights and
+# activations round at 2^-8 relative, well inside the int8 budget)
+INFER_BF16_BAND = 0.02
 
 
 def device_window(fn):
@@ -1561,16 +1602,102 @@ def infer_phase(place, model=MODEL, n_requests=N_REQUESTS,
                      "infer_cold": record(cold_launches, cold_summary)}
 
 
+def infer_bf16_phase(place, model=MODEL, n_requests=N_REQUESTS,
+                     length_range=(32, 256)):
+    """The decoder's score program saved in float32, loaded, rewritten by
+    ``contrib.Bfloat16Transpiler`` (bfloat16 parameters in the scope, #1
+    and #3 in bfloat16, the logits cast back to float32) and saved again
+    (``io`` writes bfloat16 as float32); served cold from that artifact
+    by ``InferenceEngine`` (captured: each bucket's second dispatch
+    captured, the rest replayed).  Each request's [T, vocab] logits come
+    back float32 and within relative L1 ``INFER_BF16_BAND`` of a direct
+    run of the float32 program; the engine's parameters are bfloat16 on
+    the card.  Returns (summary, {path: launch record})."""
+    import shutil
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import Bfloat16Transpiler
+    from paddle_tpu_torch.serving import InferenceEngine, build_decoder_lm
+
+    tmp = os.path.join(REPO, "_smoke_tmp")
+    os.makedirs(tmp, exist_ok=True)
+    work = tempfile.mkdtemp(dir=tmp)
+    try:
+        spec = build_decoder_lm(**model)
+        exe, scope = pt.Executor(place), pt.Scope()
+        spec.init_scope(exe, scope)
+        feeds = ["tok", "tok@LEN", "pos"]
+        fp_dir, bf_dir = os.path.join(work, "fp"), os.path.join(work, "bf16")
+        with pt.scope_guard(scope):
+            pt.io.save_inference_model(fp_dir, feeds, [spec.score_logits],
+                                       exe, main_program=spec.score_program)
+        rewrite_scope = pt.Scope()
+        with pt.scope_guard(rewrite_scope):
+            prog, _, fetch = pt.io.load_inference_model(fp_dir, exe)
+            Bfloat16Transpiler().transpile(prog, place, scope=rewrite_scope,
+                                           fetch_targets=fetch)
+            pt.io.save_inference_model(bf_dir, feeds, fetch, exe,
+                                       main_program=prog)
+        del rewrite_scope
+        reqs = _infer_requests(n_requests, length_range,
+                               model["vocab_size"])
+        eng = InferenceEngine(model_dir=bf_dir, place=place,
+                              slots=model["slots"], timeout_s=900.0)
+        try:
+            outs, launches, summary = _serve_infer(eng, reqs)
+            params = [p.name for p in eng._program.all_parameters()]
+            not_bf16 = [n for n in params
+                        if eng._scope.var(n).dtype != torch.bfloat16
+                        or eng._scope.var(n).device != place.device]
+            casts = count_ops(eng._program, "cast")
+            fetch_dtype = str(eng._fetch_vars[0].dtype)
+        finally:
+            eng.close()
+        deltas = []
+        with torch.inference_mode():
+            for q, out in zip(reqs, outs):
+                assert out.dtype == np.float32, out.dtype
+                assert out.shape == (len(q["tok"]), model["vocab_size"])
+                deltas.append(rel_l1(_direct(
+                    exe, spec.score_program, spec.score_logits.name, scope,
+                    q), out))
+        per = {"flash_attention_fwd": model["n_layer"],
+               "layer_norm_fwd": 2 * model["n_layer"]}
+        summary.update(params=len(params), not_bfloat16=not_bf16,
+                       cast_ops=casts, fetch_dtype=fetch_dtype,
+                       vs_fp32_rel_l1_max=max(deltas),
+                       vs_fp32_rel_l1_median=statistics.median(deltas),
+                       band=INFER_BF16_BAND, launches=launches)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if not os.listdir(tmp):
+            os.rmdir(tmp)
+    log("infer_bf16", summary)
+    if not_bf16 or max(deltas) >= INFER_BF16_BAND \
+            or fetch_dtype != "torch.float32":
+        raise SystemExit("the bf16 score program disagrees: %s" % summary)
+    return summary, {"infer_bf16": launch_record(
+        summary["capture"], launches,
+        {k: n * summary["batches"] for k, n in per.items()},
+        summary["profiled_pass"],
+        {k: n * summary["profiled_batches"] for k, n in per.items()})}
+
+
 # ---------------------------------------------------------------------------
 # phases 7 and 8: the training slice
 # ---------------------------------------------------------------------------
 
-def build_train(dropout):
+def build_train(dropout, amp=False):
     """(main, startup, cost) of bench.py's Transformer-base train program,
-    built with the port's layers.  Fixed program seeds: every run starts
-    from the same random weights and draws the same dropout masks."""
+    built with the port's layers; with ``amp`` the optimizer is wrapped in
+    ``contrib.mixed_precision.decorate``, as bench.py's ``_maybe_amp``
+    does for its default (bf16) rungs.  Fixed program seeds: every run
+    starts from the same random weights and draws the same dropout
+    masks."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models import transformer
 
     main, startup = pt.Program(), pt.Program()
@@ -1582,9 +1709,22 @@ def build_train(dropout):
             *words, TRAIN_SEQ, TRAIN_SEQ, TRAIN_VOCAB, TRAIN_VOCAB,
             dropout_rate=dropout, label_smooth_eps=0.1, **TRAIN)
         lr = pt.layers.noam_decay(TRAIN["d_model"], 4000)
-        optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.997,
-                       epsilon=1e-9).minimize(cost)
+        opt = optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.997,
+                             epsilon=1e-9)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(cost)
     return main, startup, cost
+
+
+def float32_state_faults(program, scope):
+    """The persistables ``program`` declares float32 whose scope value is
+    not: under AMP the parameters, the optimizer's moments and velocities
+    and the running statistics stay float32 masters."""
+    return sorted(v.name for v in program.list_vars()
+                  if v.persistable and v.dtype == torch.float32
+                  and scope.find_var(v.name) is not None
+                  and scope.find_var(v.name).dtype != torch.float32)
 
 
 def train_feed(rng, batch):
@@ -1617,11 +1757,27 @@ def kernel_launches_per_step(program):
     return per
 
 
-def train_check_phase(batch=4):
+# Under AMP no fixed gradient band holds at batch 4, on either device:
+# scaling every weight by (1 + 1e-7 N(0, 1)) moves the AMP step's
+# gradients by 3.5e-2 relative L2 at the median and 2.46 at most on the
+# CPU (the decoder's self-attention q/k weights: near-uniform attention
+# at initialisation makes their gradient a difference of near-equal sums,
+# and bf16 rounds each term at 2^-8).  So under AMP the card is held to
+# the CPU as ``resnet_check`` holds it: within ``floor_scale`` times a
+# floor that nudge gives on the card in the same call, median and maximum.
+AMP_NUDGE = 1e-7
+
+
+def train_check_phase(batch=4, amp=False, floor_scale=3.0):
     """One step of the dropout-0 program on the card and on the CPU from
     one startup state: losses within rtol 1e-4; the parameters' gradients
     within relative L2 1e-4 at the median and 1e-2 for every one; the
-    parameters moved.
+    parameters moved.  With ``amp`` (``train_amp_check``) the program is
+    built under ``decorate``; the losses agree within rtol 1e-2, the
+    gradients within ``floor_scale`` times the floor of an ``AMP_NUDGE``
+    nudge (the CPU tests' fixed band, 2e-2 at the median, is reported
+    beside it), and every float32 persistable is still float32 after the
+    step.
 
     The per-parameter band is wider than the median's for a reason of the
     model, not of the kernels: where a ReLU input lies within float32
@@ -1637,7 +1793,7 @@ def train_check_phase(batch=4):
     1e-2."""
     import paddle_tpu_torch as pt
 
-    main, startup, cost = build_train(0.0)
+    main, startup, cost = build_train(0.0, amp)
     params = [p.name for p in main.all_parameters() if p.trainable]
     card_scope, cpu_scope = pt.Scope(), pt.Scope()
     card = pt.Executor(pt.CUDAPlace(0))
@@ -1647,6 +1803,16 @@ def train_check_phase(batch=4):
     before = {n: cpu_scope.var(n).clone() for n in params}
     feed = train_feed(np.random.RandomState(11), batch)
     fetch = [cost.name] + [n + "@GRAD" for n in params]
+    if amp:
+        g = torch.Generator().manual_seed(0)
+        nudged_scope = pt.Scope()
+        for n in cpu_scope.local_var_names():
+            v = cpu_scope.var(n).clone()
+            if n in params:
+                v.mul_(1 + AMP_NUDGE * torch.randn(v.shape, generator=g))
+            nudged_scope.set_var(n, v.cuda())
+        nudged = card.run(main, feed=feed, fetch_list=fetch,
+                          scope=nudged_scope)
     t0 = time.perf_counter()
     got = card.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
     card_s = time.perf_counter() - t0
@@ -1655,25 +1821,34 @@ def train_check_phase(batch=4):
                                           scope=cpu_scope)
     cpu_s = time.perf_counter() - t0
     assert all(np.isfinite(a).all() for a in got), "non-finite on the card"
-    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
-    rel = {}
-    for n, a, b in zip(params, got[1:], want[1:]):
-        den = float(np.linalg.norm(b))
-        rel[n] = float(np.linalg.norm(a - b)) / den if den else \
-            float(np.linalg.norm(a))
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-2 if amp else 1e-4)
+    rel = _grad_rel_l2(params, got[1:], want[1:])
     ranked = sorted(rel, key=rel.get, reverse=True)
-    worst = ranked[0]
+    med = statistics.median(rel.values())
     moved = sum(not torch.equal(before[n], card_scope.var(n).cpu())
                 for n in params)
-    summary = {"batch": batch, "tokens": batch * TRAIN_SEQ,
+    summary = {"batch": batch, "tokens": batch * TRAIN_SEQ, "amp": amp,
                "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
                "params": len(params), "moved": moved,
                "grad_rel_l2_top5": [[n, rel[n]] for n in ranked[:5]],
-               "grad_rel_l2_median": statistics.median(rel.values()),
+               "grad_rel_l2_median": med,
+               "not_float32": float32_state_faults(main, card_scope),
                "card_step_s": card_s, "cpu_step_s": cpu_s}
-    log("train_check", summary)
-    if rel[worst] > 1e-2 or summary["grad_rel_l2_median"] > 1e-4 \
-            or moved != len(params):
+    if amp:
+        floor = _grad_rel_l2(params, nudged[1:], got[1:])
+        floor_med = statistics.median(floor.values())
+        floor_max = max(floor.values())
+        summary.update(nudge=AMP_NUDGE, floor_scale=floor_scale,
+                       floor_rel_l2_median=floor_med,
+                       floor_rel_l2_max=floor_max,
+                       floor_worst=max(floor, key=floor.get),
+                       fixed_band_median_2e_2_met=med <= 2e-2)
+        within = med <= floor_scale * floor_med \
+            and rel[ranked[0]] <= floor_scale * floor_max
+    else:
+        within = rel[ranked[0]] <= 1e-2 and med <= 1e-4
+    log("train_amp_check" if amp else "train_check", summary)
+    if not within or moved != len(params) or summary["not_float32"]:
         raise SystemExit("card and CPU disagree on the training step: %s"
                          % summary)
     return summary
@@ -1715,7 +1890,7 @@ def _step(run, program, feed, fetch):
     return dt
 
 
-def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
+def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH, amp=False):
     """The dropout-0.1 program from one startup state in two executors:
     eager (``capture=False``) and captured (the default: the first step
     eager, the second captured and replayed, the rest replayed).  Two
@@ -1728,11 +1903,15 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
     is swapped in both scopes (a tensor in the eager one, a numpy array in
     the captured one) between two runs, and the next step must again give
     the same bits, with the captured scope pointed back at the captured
-    tensor.  Returns (summary, {path: launch record})."""
+    tensor.  With ``amp`` (``train_amp``, paths ``train_amp`` and
+    ``train_amp:eager``) the program is built under ``decorate``: #1 and #2
+    run in bfloat16, and every float32 persistable (parameters, Adam
+    moments, the step counter) must still be float32 in both scopes at
+    the end.  Returns (summary, {path: launch record})."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import cuda
 
-    main, startup, cost = build_train(0.1)
+    main, startup, cost = build_train(0.1, amp)
     start = pt.Scope()
     pt.Executor(place).run(startup, scope=start)
     rng = np.random.RandomState(0)
@@ -1772,8 +1951,11 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
                              runs["eager"]["scope"])
     swap_seen = runs["captured"]["scope"].find_var(name) is captured_tensor
     per_step = kernel_launches_per_step(main)
-    summary = {"batch": batch, "seq": TRAIN_SEQ, "steps": steps,
+    not_f32 = {arm: float32_state_faults(main, r["scope"])
+               for arm, r in runs.items()}
+    summary = {"batch": batch, "seq": TRAIN_SEQ, "steps": steps, "amp": amp,
                "ops": len(main.global_block().ops),
+               "not_float32": not_f32,
                "same_loss_bits": same_losses,
                "state_not_bit_equal": diff, "swap_param": name,
                "swap_same_bits": swap_same, "swap_seen_by_replay": swap_seen,
@@ -1792,15 +1974,18 @@ def train_phase(place, steps=TRAIN_STEPS, batch=TRAIN_BATCH):
             "profiled_step": windows[arm], "peak_mem_gb": r["peak"] / 1e9,
             "launches": r["launches"]}
         assert all(np.isfinite(r["losses"])), r["losses"]
-    log("train", summary)
-    if not (same_losses and not diff and swap_same and swap_seen):
+    name = "train_amp" if amp else "train"
+    log(name, summary)
+    if not (same_losses and not diff and swap_same and swap_seen) \
+            or any(not_f32.values()):
         raise SystemExit("the captured training step differs from the "
-                         "eager one: %s" % {
+                         "eager one, or a master left float32: %s" % {
                              k: summary[k] for k in (
                                  "same_loss_bits", "state_not_bit_equal",
-                                 "swap_same_bits", "swap_seen_by_replay")})
+                                 "swap_same_bits", "swap_seen_by_replay",
+                                 "not_float32")})
     return summary, {
-        ("train" if arm == "captured" else "train:eager"): launch_record(
+        (name if arm == "captured" else name + ":eager"): launch_record(
             arm == "captured", r["launches"],
             {k: n * steps for k, n in per_step.items()}, windows[arm],
             per_step)
@@ -1815,15 +2000,17 @@ RESNET_MODES = ("plain", "fuse", "nhwc_fuse")
 RESNET_BATCH, RESNET_STEPS, RESNET_FUSED = 128, 5, 30
 
 
-def build_resnet(mode):
+def build_resnet(mode, amp=False):
     """(main, startup, loss) of bench.py's ResNet-50 train program
     (``resnet_imagenet`` depth 50 on 3x224x224 float32, class_dim 1000,
     mean cross-entropy, Momentum(1e-3, 0.9)), built with the port's
     layers; ``mode`` adds ``fuse_conv_bn`` (fuse) or ``convert_to_nhwc``
     then ``fuse_conv_bn`` (nhwc_fuse) before ``minimize``, as bench.py
-    does.  Fixed seeds and fresh names: every mode has the same parameters
-    and the same startup state."""
+    does, and ``amp`` wraps the optimizer in ``decorate`` (bench.py's
+    default rungs).  Fixed seeds and fresh names: every mode has the same
+    parameters and the same startup state."""
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import mixed_precision
     from paddle_tpu_torch.models.resnet import resnet_imagenet
 
     main, startup = pt.Program(), pt.Program()
@@ -1837,8 +2024,10 @@ def build_resnet(mode):
             assert pt.transpiler.convert_to_nhwc(main) == 53
         if mode != "plain":
             assert pt.transpiler.fuse_conv_bn(main) == 53
-        pt.optimizer.Momentum(learning_rate=1e-3, momentum=0.9).minimize(
-            loss)
+        opt = pt.optimizer.Momentum(learning_rate=1e-3, momentum=0.9)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(loss)
     return main, startup, loss
 
 
@@ -1856,7 +2045,7 @@ def _grad_rel_l2(names, got, want):
     return rel
 
 
-def resnet_check_phase(batch=4, floor_scale=3.0):
+def resnet_check_phase(batch=4, floor_scale=3.0, amp=False):
     """The fused programs (NCHW and NHWC) at full width, batch 4, from one
     startup state: one step on the card (kernels #8-#11) against one on the
     CPU (their plain versions), and against the plain program on the card.
@@ -1875,13 +2064,25 @@ def resnet_check_phase(batch=4, floor_scale=3.0):
     On the CPU the fused program sat at 7.2e-3 / 1.0e-2 from the plain
     one, and a fused backward folding with the running mean after its
     update (the JAX package's shift fault) at 2.9e-2 / 4.15: the maximum
-    is what catches a wrong backward."""
+    is what catches a wrong backward.
+
+    With ``amp`` (``resnet_amp_check``) every program is built under
+    ``decorate`` and held by the same method; the losses agree within
+    rtol 1e-2, and every float32 persistable must still be float32 after
+    the card's step.  Under AMP the floor is of the order of the gradients
+    themselves: on the CPU the nudge moved the batch-4 step's gradients by
+    0.96 relative L2 at the median (1.16 at most), and the last stage's
+    forward activations by 0.33 already (bf16 rounds each layer's output
+    at 2^-8 and the net amplifies it block by block); at batch 64 still
+    0.97.  So there the gradients catch only a gross fault; the fused
+    kernels are held to their plain versions in bfloat16 in the kernels
+    phase."""
     import paddle_tpu_torch as pt
 
     card = pt.Executor(pt.CUDAPlace(0))
     cpu = pt.Executor(pt.CPUPlace())
     feed = resnet_feed(np.random.RandomState(11), batch)
-    plain, startup, plain_loss = build_resnet("plain")
+    plain, startup, plain_loss = build_resnet("plain", amp)
     start = pt.Scope()
     card.run(startup, scope=start)
     params = [p.name for p in plain.all_parameters() if p.trainable]
@@ -1905,13 +2106,13 @@ def resnet_check_phase(batch=4, floor_scale=3.0):
     floor = _grad_rel_l2(params, nudged[1:], plain_out[1:])
     floor_med, floor_max = statistics.median(floor.values()), \
         max(floor.values())
-    summary = {"batch": batch, "params": len(params),
+    summary = {"batch": batch, "params": len(params), "amp": amp,
                "floor_rel_l2_median": floor_med, "floor_rel_l2_max": floor_max,
                "floor_scale": floor_scale,
                "loss_plain_card": float(plain_out[0][0])}
     bad = []
     for mode in ("fuse", "nhwc_fuse"):
-        main, _, loss = build_resnet(mode)
+        main, _, loss = build_resnet(mode, amp)
         card_scope = scope_copy("cuda")
         before = {n: card_scope.var(n).clone() for n in params}
         t0 = time.perf_counter()
@@ -1929,6 +2130,7 @@ def resnet_check_phase(batch=4, floor_scale=3.0):
                     for n in params)
         s = {"loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
              "moved": moved,
+             "not_float32": float32_state_faults(main, card_scope),
              "vs_cpu_rel_l2_median": statistics.median(rel.values()),
              "vs_cpu_rel_l2_max": max(rel.values()),
              "vs_cpu_worst": max(rel, key=rel.get),
@@ -1941,10 +2143,12 @@ def resnet_check_phase(batch=4, floor_scale=3.0):
             s[k + "_median"] <= floor_scale * floor_med
             and s[k + "_max"] <= floor_scale * floor_max
             for k in ("vs_cpu_rel_l2", "vs_plain_rel_l2"))
-        if abs(s["loss_card"] - s["loss_cpu"]) > 1e-4 * abs(s["loss_cpu"]) \
-                or not within or moved != len(params):
+        loss_rtol = 1e-2 if amp else 1e-4
+        if abs(s["loss_card"] - s["loss_cpu"]) \
+                > loss_rtol * abs(s["loss_cpu"]) \
+                or not within or moved != len(params) or s["not_float32"]:
             bad.append(mode)
-    log("resnet_check", summary)
+    log("resnet_amp_check" if amp else "resnet_check", summary)
     if bad:
         raise SystemExit("ResNet step disagrees (card vs CPU, or fused vs "
                          "plain): %s" % bad)
@@ -1952,7 +2156,7 @@ def resnet_check_phase(batch=4, floor_scale=3.0):
 
 
 def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
-                       deterministic=True):
+                       deterministic=True, amp=False):
     """bench.py's ResNet-50 at batch 128 (images ``rand`` in [0, 1) from
     ``RandomState(0)``, labels in [0, 1000)) on ``CUDAPlace(0)``: the three
     programs of ``RESNET_MODES``, each from one startup state in two arms,
@@ -1974,6 +2178,12 @@ def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
     eager arm's bits.  Without it, cuDNN picks its default algorithms,
     whose backward sums with atomics in no fixed order, and the bits are
     only reported (``--resnet-default``: what determinism costs).
+
+    With ``amp`` (``resnet_amp``) the three programs are built under
+    ``decorate``: the trunk is bfloat16 after the first convolution, so the
+    fused layers launch the bfloat16 #8-#11, and every float32 persistable
+    (parameters, velocities, running statistics) must still be float32 in
+    every scope at the end.
     Returns {mode: (summary, {arm: launch record})}."""
     import warnings
 
@@ -1989,7 +2199,7 @@ def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
             for arm in arms}
     runs = {}
     for mode in RESNET_MODES:
-        main, startup, loss = build_resnet(mode)
+        main, startup, loss = build_resnet(mode, amp)
         fused = count_ops(main, "bn_act_conv2d")
         assert fused == count_ops(main, "bn_act_conv2d_grad") \
             == (RESNET_FUSED if mode != "plain" else 0), fused
@@ -2035,8 +2245,11 @@ def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
         diff = state_rel_l2(c["scope"], e["scope"])
         on = nhwc if mode == "nhwc_fuse" else nchw if mode == "fuse" else ()
         per_step = {k: e["fused"] for k in on}
+        not_f32 = {arm: float32_state_faults(r["main"], r["scope"])
+                   for arm, r in (("eager", e), ("captured", c))}
         summary = {"mode": mode, "batch": batch, "steps": steps,
-                   "deterministic": deterministic,
+                   "deterministic": deterministic, "amp": amp,
+                   "not_float32": not_f32,
                    "ops": len(e["main"].global_block().ops),
                    "fused_layers": e["fused"],
                    "launches_per_step": per_step,
@@ -2061,14 +2274,15 @@ def resnet_train_phase(steps=RESNET_STEPS, batch=RESNET_BATCH,
                 arm == "captured", r["launches"],
                 {k: n * steps for k, n in per_step.items()},
                 windows[mode, arm], per_step)
-        if deterministic and (not same_losses or diff):
+        if deterministic and (not same_losses or diff) \
+                or any(not_f32.values()):
             bad.append(mode)
         out[mode] = summary, records
     if bad:
         for mode in bad:
-            log("resnet_train", out[mode][0])
+            log("resnet_amp" if amp else "resnet_train", out[mode][0])
         raise SystemExit("captured ResNet-50 steps differ from the eager "
-                         "ones: %s" % bad)
+                         "ones, or a master left float32: %s" % bad)
     return out
 
 
@@ -2201,28 +2415,56 @@ def profile_phase(place, model=MODEL, steps=20, prompt=400, bucket=512,
                     ", quantize=%s" % (s, prompt, bucket, steps, quantize))
 
 
-def train_profile_phase(place, steps=2, batch=TRAIN_BATCH):
-    """torch.profiler over ``steps`` training steps of the train phase's
-    program (after one warm-up step), each fetched as the train phase
-    fetches it."""
+def _profile_steps(place, program, startup, loss, feeds, warm, window):
+    """torch.profiler over the steps of ``feeds[warm:]``, after ``warm``
+    untimed steps (the second of which captures the step), each fetched
+    as the train phases fetch it."""
     import paddle_tpu_torch as pt
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    main, startup, cost = build_train(0.1)
     exe, scope = pt.Executor(place), pt.Scope()
     exe.run(startup, scope=scope)
-    rng = np.random.RandomState(2)
-    feeds = [train_feed(rng, batch) for _ in range(steps + 1)]
-    exe.run(main, feed=feeds[0], fetch_list=[cost], scope=scope)
+    for f in feeds[:warm]:
+        exe.run(program, feed=f, fetch_list=[loss], scope=scope)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for f in feeds[1:]:
+        for f in feeds[warm:]:
             with record_function("dispatch/train_step"):
-                exe.run(main, feed=f, fetch_list=[cost], scope=scope)
+                exe.run(program, feed=f, fetch_list=[loss], scope=scope)
         torch.cuda.synchronize()
-    _profile_report(prof, "%d training steps, batch %d x %d" % (
-        steps, batch, TRAIN_SEQ))
+    _profile_report(prof, window)
+
+
+def train_profile_phase(place, steps=2, batch=TRAIN_BATCH, amp=False):
+    """torch.profiler over ``steps`` replayed training steps of the train
+    phase's program (under ``amp``, ``train_amp``'s)."""
+    main, startup, cost = build_train(0.1, amp)
+    rng = np.random.RandomState(2)
+    feeds = [train_feed(rng, batch) for _ in range(steps + 2)]
+    _profile_steps(place, main, startup, cost, feeds, 2,
+                   "%d training steps%s, batch %d x %d" % (
+                       steps, " (AMP)" if amp else "", batch, TRAIN_SEQ))
+
+
+def resnet_profile_phase(place, steps=2, batch=RESNET_BATCH, amp=False):
+    """torch.profiler over ``steps`` replayed steps of each ResNet-50
+    program of ``resnet_train`` (under ``amp``: ``resnet_amp``'s), with
+    cuDNN's deterministic algorithms as those phases run."""
+    rng = np.random.RandomState(0)
+    feeds = [resnet_feed(rng, batch) for _ in range(steps + 2)]
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in RESNET_MODES:
+            main, startup, loss = build_resnet(mode, amp)
+            _profile_steps(place, main, startup, loss, feeds, 2,
+                           "%d ResNet-50 %s steps%s, batch %d" % (
+                               steps, mode, " (AMP)" if amp else "", batch))
+            release_memory()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
 
 
 # (kernel, source, the TPU kernel's pallas_call, the path whose launches
@@ -2251,6 +2493,27 @@ KERNEL_ROWS = (
     ("conv_bn_bwd_nhwc", "csrc/conv_bn_nhwc.cu",
      "paddle_tpu/ops/pallas/conv_bn.py:417", "resnet_train:nhwc_fuse"),
 )
+
+
+# each kernel's AMP path and the kernels-phase check at its dtype and shape
+# there (#7 serves int8 and has none): #1/#2 in bfloat16 with dropout, #3-#6
+# in float32 (the residual stream and the black-listed loss), #8-#11 in
+# bfloat16 at stage 3
+AMP_ROWS = {
+    "flash_attention_fwd": ("train_amp", "train_causal_dropout_bfloat16"),
+    "flash_attention_bwd": ("train_amp", "train_causal_dropout_bfloat16"),
+    "layer_norm_fwd": ("train_amp", "layer_norm_16384x512"),
+    "layer_norm_bwd": ("train_amp", "layer_norm_bwd_16384x512"),
+    "softmax_xent_fwd": ("train_amp", "softmax_xent_fwd_16384x32000_float32"),
+    "softmax_xent_bwd": ("train_amp", "softmax_xent_bwd_16384x32000_float32"),
+    "dequant_matmul": (None, None),
+    "conv_bn_fwd": ("resnet_amp:fuse", "nchw_stage3_bn_relu_bfloat16"),
+    "conv_bn_bwd": ("resnet_amp:fuse", "nchw_stage3_bn_relu_stats_bfloat16"),
+    "conv_bn_fwd_nhwc": ("resnet_amp:nhwc_fuse",
+                         "nhwc_stage3_bn_relu_bfloat16"),
+    "conv_bn_bwd_nhwc": ("resnet_amp:nhwc_fuse",
+                         "nhwc_stage3_bn_relu_stats_bfloat16"),
+}
 
 
 def release_memory():
@@ -2288,7 +2551,11 @@ def main():
                    "torch": torch.__version__, "cuda": torch.version.cuda,
                    "matmul.allow_tf32":
                        torch.backends.cuda.matmul.allow_tf32,
-                   "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32})
+                   "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+                   # the port turns it off: bf16 products sum in float32
+                   "matmul.allow_bf16_reduced_precision_reduction":
+                       torch.backends.cuda.matmul
+                       .allow_bf16_reduced_precision_reduction})
 
     t0 = time.perf_counter()
     built = build.build()
@@ -2324,7 +2591,10 @@ def main():
     if "--profile" in sys.argv[1:]:
         for quantize in (None, "weight_only", "dynamic"):
             profile_phase(pt.CUDAPlace(0), quantize=quantize)
-        train_profile_phase(pt.CUDAPlace(0))
+        for amp in (False, True):
+            train_profile_phase(pt.CUDAPlace(0), amp=amp)
+            release_memory()
+            resnet_profile_phase(pt.CUDAPlace(0), amp=amp)
         return 0
     if "--resnet-default" in sys.argv[1:]:
         for r, _ in resnet_train_phase(deterministic=False).values():
@@ -2342,9 +2612,10 @@ def main():
     checks = kernels_phase()
     # each path with the counters zeroed just before it and read just
     # after: fp serving (kernels #1 and #3), int8 serving in both modes and
-    # one-shot int8 inference (#1, #3 and #7), Transformer training
-    # (#1-#6), then ResNet-50 training: plain (none), fused (#8, #9) and
-    # NHWC + fused (#10, #11)
+    # one-shot int8 inference (#1, #3 and #7), the bf16 score program (#1,
+    # #3), Transformer training in float32 and under AMP (#1-#6), then
+    # ResNet-50 training in float32 and under AMP: plain (none), fused
+    # (#8, #9) and NHWC + fused (#10, #11)
     short, path_launches = {}, {}
 
     def check_path(path, record):
@@ -2364,17 +2635,22 @@ def main():
         raise SystemExit("captured one-shot serving differs from eager")
     for path, record in paths.items():
         check_path(path, record)
-    train_check_phase()
-    _, paths = train_phase(pt.CUDAPlace(0))
-    for path, record in paths.items():
+    for path, record in infer_bf16_phase(pt.CUDAPlace(0))[1].items():
         check_path(path, record)
-    release_memory()
-    resnet_check_phase()
-    release_memory()
-    for mode, (r, records) in resnet_train_phase().items():
-        log("resnet_train", r)
-        check_path("resnet_train:" + mode, records["captured"])
-        check_path("resnet_train:%s:eager" % mode, records["eager"])
+    for amp in (False, True):
+        train_check_phase(amp=amp)
+        _, paths = train_phase(pt.CUDAPlace(0), amp=amp)
+        for path, record in paths.items():
+            check_path(path, record)
+        release_memory()
+    for amp, name in ((False, "resnet_train"), (True, "resnet_amp")):
+        resnet_check_phase(amp=amp)
+        release_memory()
+        for mode, (r, records) in resnet_train_phase(amp=amp).items():
+            log(name, r)
+            check_path("%s:%s" % (name, mode), records["captured"])
+            check_path("%s:%s:eager" % (name, mode), records["eager"])
+        release_memory()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)
@@ -2403,6 +2679,20 @@ def main():
                        bound_simt_ms=head["bound_simt_ms"])
         row.update({"launches_" + p: path_launches[p][name]
                     for p in path_launches})
+        # the kernel on its AMP path: the check at that path's dtype and
+        # shape, and the path's launches
+        amp_path, amp_check = AMP_ROWS[name]
+        row["amp"] = None
+        if amp_path:
+            amp = next(c for c in checks[name] if c["check"] == amp_check)
+            row["amp"] = {
+                "path": amp_path, "dtype": amp["dtype"],
+                "launches": path_launches[amp_path][name], "at": amp_check,
+                "max_abs_err": amp["max_abs_err"], "ms": amp["kernel_ms"],
+                "device_ms": amp["device_ms"], "plain_ms": amp["plain_ms"],
+                "bound_ms": amp["bound_ms"],
+                "bound_by": amp["bound_by"].split(" ")[0],
+                "library_ms": amp["library_ms"]}
         rows.append(row)
     log("total", {"seconds": time.perf_counter() - t_start})
     print(json.dumps({"kernels": rows}), flush=True)

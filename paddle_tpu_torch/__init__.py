@@ -3,12 +3,12 @@ NVIDIA H100.
 
 The layout mirrors the JAX package (``framework``, ``registry``,
 ``backward``, ``optimizer``, ``executor``, ``io``, ``layers``, ``ops``,
-``models``, ``serving``, ``transpiler``) so each module's counterpart is
-easy to find; the programs it builds serialize to the same schema, and
-``io`` writes the JAX package's file format.  Op computes are plain
-functions on tensors; the hand-written Hopper kernels live in ``ops/cuda``
-(sources in ``csrc/``), each beside its plain PyTorch version, which runs
-only for tensors on the CPU.
+``models``, ``serving``, ``transpiler``, ``contrib``) so each module's
+counterpart is easy to find; the programs it builds serialize to the
+same schema, and ``io`` writes the JAX package's file format.  Op
+computes are plain functions on tensors; the hand-written Hopper kernels
+live in ``ops/cuda`` (sources in ``csrc/``), each beside its plain
+PyTorch version, which runs only for tensors on the CPU.
 
 This package imports neither JAX nor any module of ``paddle_tpu``.
 Entry points run on the card (``CUDAPlace(0)``) unless the caller passes
@@ -31,6 +31,7 @@ from . import io
 from . import models
 from . import transpiler
 from . import serving
+from . import contrib
 
 __version__ = "0.1.0"
 
@@ -40,5 +41,5 @@ __all__ = [
     "program_guard", "ops", "layers", "initializer", "Executor", "CPUPlace",
     "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
     "backward", "clip", "optimizer", "regularizer", "convert", "io",
-    "models", "transpiler", "serving",
+    "models", "transpiler", "serving", "contrib",
 ]

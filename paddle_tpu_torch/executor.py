@@ -21,14 +21,15 @@ effect from buffer donation.
 
 **The compiled step.**  The JAX executor jit-compiles each (program, feed
 signature) once.  Here each entry — (program, its version, the feeds'
-names, shapes and dtypes, the fetch names, the scope) — runs eagerly the
-first time (which builds the kernels, picks cuDNN's algorithms and sizes
-the workspaces), and on a CUDA place the second run captures the step as
-one CUDA graph (``torch.cuda.CUDAGraph``, on the executor's side stream,
-``capture_error_mode="thread_local"`` because the serving engines run
-their loop on a thread of their own) and replays it; every later run
-replays it.  The graph holds the live ops, the release of temporaries and
-the grad ops' ``torch.autograd.grad`` recompute.  Around it:
+names, shapes and dtypes, the fetch names, the program's AMP policy, the
+scope) — runs eagerly the first time (which builds the kernels, picks
+cuDNN's algorithms and sizes the workspaces), and on a CUDA place the
+second run captures the step as one CUDA graph (``torch.cuda.CUDAGraph``,
+on the executor's side stream, ``capture_error_mode="thread_local"``
+because the serving engines run their loop on a thread of their own) and
+replays it; every later run replays it.  The graph holds the live ops,
+the release of temporaries and the grad ops' ``torch.autograd.grad``
+recompute.  Around it:
 
 * feeds: each entry owns one device buffer a feed; a run copies the feed
   into it, from numpy through a pinned staging buffer (``non_blocking``),
@@ -336,10 +337,13 @@ class Executor:
             v = block._find_var_recursive(n)
             feed_dtypes[n] = (v.dtype if v is not None and v.dtype is not None
                               else feed[n].dtype)
+        # the AMP policy changes what every op computes without a version
+        # bump (bf16_program_guard), so it keys the entry too (policies
+        # compare by their lists)
         key = (id(program), program._version,
                tuple((n, tuple(feed[n].shape), feed_dtypes[n])
                      for n in feed_names),
-               tuple(fetch_names), id(scope))
+               tuple(fetch_names), program._amp_policy, id(scope))
         with self._lock:
             self._drop_dead()
             analysis = self._analysis.get(key)
@@ -390,7 +394,8 @@ class Executor:
         env = {n: feed[n].to(device=dev, dtype=feed_dtypes[n]) for n in feed}
         env.update((n, _scope_tensor(scope, n, dev)) for n in state_names)
         _interpret(block, live, release, env, ComputeContext(
-            dev, self._generator(program.random_seed), len(block.ops)))
+            dev, self._generator(program.random_seed), len(block.ops),
+            program._amp_policy))
         for n in writeback:
             scope.set_var(n, env[n])
             if out_meta is not None:
@@ -449,7 +454,8 @@ class Executor:
         graph.register_generator_state(generator)
         env = {n: f.buffer for n, f in step.feeds.items()}
         env.update((n, step.bound[n]) for n in state_names)
-        ctx = ComputeContext(dev, generator, len(block.ops))
+        ctx = ComputeContext(dev, generator, len(block.ops),
+                             program._amp_policy)
         where = ["the start of the step"]
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,

@@ -94,6 +94,12 @@ class Variable:
             "lod_level": self.lod_level,
         }
 
+    def astype(self, dtype):
+        """This variable cast to ``dtype`` by a ``cast`` op."""
+        from .layers.tensor import cast  # local import to avoid a cycle
+
+        return cast(self, dtype)
+
     def __repr__(self):
         return "Variable(name=%s, shape=%s, dtype=%s%s)" % (
             self.name, self.shape,
@@ -259,6 +265,12 @@ class Block:
         self._infer_and_mark(op)
         return op
 
+    def insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
+        op = Operator(self, type=type, inputs=inputs, outputs=outputs, attrs=attrs)
+        self.ops.insert(index, op)
+        self._infer_and_mark(op)
+        return op
+
     def _infer_and_mark(self, op):
         from .registry import infer_op  # local import to avoid a cycle
 
@@ -306,6 +318,9 @@ class Program:
         self.random_seed = 0
         # bumped on every structural change (the executor's analysis cache)
         self._version = 0
+        # the bfloat16 mixed-precision policy (contrib.mixed_precision);
+        # set without a version bump, so the executor keys on it as well
+        self._amp_policy = None
 
     def global_block(self):
         return self.blocks[0]

@@ -10,7 +10,9 @@ beside its persistables.  Scope values are tensors: they go to numpy on
 save (bfloat16, which numpy lacks, as float32) and come back on load as
 tensors on the executor's device, in the dtype the program declares (int8
 weights stay int8; token ids the JAX package wrote as int32 become the
-declared int64).
+declared int64).  The JAX package saves a bfloat16 array as two raw bytes
+an element (numpy reads it back as ``|V2``); those bytes load as the
+bfloat16 bits they are.
 
 Not ported yet: the checkpoint helpers (``save_checkpoint`` and family,
 ``save_train_program``).
@@ -53,6 +55,16 @@ def _numpy(value):
             value = value.float()
         return value.detach().cpu().numpy()
     return np.asarray(value)
+
+
+def _tensor(arr):
+    """A loaded array as a tensor; 2-byte raw or bfloat16 elements are
+    bfloat16 bits."""
+    arr = np.array(arr)
+    if arr.dtype.itemsize == 2 and (arr.dtype.kind == "V"
+                                    or arr.dtype.name == "bfloat16"):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _select(main_program, vars, predicate):
@@ -103,8 +115,7 @@ def load_vars(executor, dirname, main_program=None, vars=None,
     device = executor.place.device
 
     def put(v, arr):
-        scope.set_var(v.name, torch.from_numpy(np.array(arr)).to(
-            device=device, dtype=v.dtype))
+        scope.set_var(v.name, _tensor(arr).to(device=device, dtype=v.dtype))
 
     if filename is not None:
         with np.load(_npz_path(dirname, filename)) as data:

@@ -1,7 +1,7 @@
 """Neural-network layers of the serving and training slices (counterpart
 of ``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``dropout``,
 ``softmax``, ``cross_entropy``, ``softmax_with_cross_entropy``, ``mean``,
-``fused_attention``, the elementwise layers and
+``matmul``, ``fused_attention``, the elementwise layers and
 ``autoincreased_step_counter``.  They append the same ops with
 the same attrs as the JAX package, so the programs serialize alike."""
 
@@ -9,7 +9,7 @@ from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
-           "softmax_with_cross_entropy", "mean", "fused_attention",
+           "softmax_with_cross_entropy", "mean", "matmul", "fused_attention",
            "elementwise_add", "elementwise_mul", "elementwise_div",
            "autoincreased_step_counter"]
 
@@ -130,6 +130,17 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y,
+                            "alpha": float(alpha)})
+    return out
 
 
 def fused_attention(q, k, v, k_len=None, causal=False, dropout_rate=0.0,

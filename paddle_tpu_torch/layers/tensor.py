@@ -1,9 +1,10 @@
-"""``reshape``, ``transpose``, ``unsqueeze`` and ``reduce_sum`` layers
-(counterpart of ``paddle_tpu/layers/tensor.py``)."""
+"""``reshape``, ``transpose``, ``unsqueeze``, ``reduce_sum`` and ``cast``
+layers (counterpart of ``paddle_tpu/layers/tensor.py``)."""
 
+from ..core import dtype_name
 from ..layer_helper import LayerHelper
 
-__all__ = ["reshape", "transpose", "unsqueeze", "reduce_sum"]
+__all__ = ["reshape", "transpose", "unsqueeze", "reduce_sum", "cast"]
 
 
 def reshape(x, shape, act=None, name=None):
@@ -40,4 +41,12 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
                  "keep_dim": keep_dim, "reduce_all": False}
     helper.append_op(type="reduce_sum", inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"out_dtype": dtype_name(dtype)})
     return out

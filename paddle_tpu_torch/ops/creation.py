@@ -1,9 +1,9 @@
 """Creation ops (counterpart of ``paddle_tpu/ops/creation.py``): the
 startup program's init ops ``fill_constant``, ``uniform_random``,
 ``gaussian_random``, ``truncated_gaussian_random`` and ``assign_value``,
-plus ``assign`` and the step counter's ``increment``.  Random ops draw from
-``ComputeContext.generator``, the executor's explicit ``torch.Generator``
-for the program's seed on the run's device."""
+plus ``assign``, ``cast`` and the step counter's ``increment``.  Random
+ops draw from ``ComputeContext.generator``, the executor's explicit
+``torch.Generator`` for the program's seed on the run's device."""
 
 import numpy as np
 import torch
@@ -72,6 +72,16 @@ register_op("assign_value", [], ["Out"], infer=_shape_infer,
 
 register_op("assign", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
             compute=lambda ins, attrs, ctx, op_index: {"Out": ins["X"][0]})
+
+
+def _cast_infer(op, block):
+    set_output(op, block, "Out", in_var(op, block, "X").shape,
+               op.attrs["out_dtype"])
+
+
+register_op("cast", ["X"], ["Out"], infer=_cast_infer,
+            compute=lambda ins, attrs, ctx, op_index: {
+                "Out": ins["X"][0].to(convert_dtype(attrs["out_dtype"]))})
 
 
 def _increment_compute(ins, attrs, ctx, op_index):

@@ -126,7 +126,11 @@ def _dequant_infer(op, block):
 def _dequant_compute(ins, attrs, ctx, op_index):
     x = ins["X"][0]
     scale = ins["Scale"][0]
-    return {"Out": x * scale.reshape(()) / float(attrs["max_range"])}
+    # a 0-dim tensor promotes like a Python number in torch (bfloat16 x
+    # float32 0-dim gives bfloat16) but not in jnp: promote explicitly
+    dt = torch.promote_types(x.dtype, scale.dtype)
+    return {"Out": x.to(dt) * scale.to(dt).reshape(())
+            / float(attrs["max_range"])}
 
 
 register_op(

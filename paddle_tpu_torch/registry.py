@@ -42,10 +42,12 @@ class ComputeContext:
     a device tensor that is a pure function of the run key (one int64 the
     run draws from ``generator`` at its first use) and the op index."""
 
-    def __init__(self, device, generator, n_ops=0):
+    def __init__(self, device, generator, n_ops=0, amp=None):
         self.device = device
         self.generator = generator
         self.n_ops = int(n_ops)
+        # the program's AMPPolicy (contrib.mixed_precision) or None
+        self.amp = amp
         self.saved = {}
         self.run_key = None
         self._seeds = None
@@ -108,7 +110,8 @@ def infer_op(op, block):
 
 
 def compute_op(op, env, ctx, op_index=0):
-    """Execute one op: read its inputs from ``env``, write its outputs.
+    """Execute one op: read its inputs from ``env``, cast them as the
+    run's AMP policy says, write its outputs.
 
     Empty names are holes (pruned grad slots) and read as None.  The
     ``Out::`` inputs of grad ops are lenient (an optional forward output
@@ -124,6 +127,8 @@ def compute_op(op, env, ctx, op_index=0):
             ins[slot] = [_grad_input(env, n) if n else None for n in names]
         else:
             ins[slot] = [env[n] if n else None for n in names]
+    if ctx.amp is not None:
+        ins = ctx.amp.cast_inputs(op.type, ins)
     outs = d.compute(ins, op.attrs, ctx, op_index)
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
@@ -207,7 +212,10 @@ def _generic_grad_infer(gop, block):
 
 def _generic_grad_compute(ins, attrs, ctx, op_index):
     """Rerun the forward with its floating inputs as fresh leaves and pull
-    the given output cotangents back through it with autograd."""
+    the given output cotangents back through it with autograd.  Under AMP
+    ``ins`` arrive cast in the forward's colour (``compute_op``), so the
+    recompute runs in the forward's dtype and each gradient comes back in
+    its leaf's dtype, as ``jax.vjp`` gives it."""
     fwd_def = get_op_def(attrs["__fwd_type__"])
     fwd_attrs = {k: v for k, v in attrs.items()
                  if k not in ("__fwd_type__", "__fwd_op_index__")}

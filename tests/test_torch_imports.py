@@ -25,6 +25,8 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
         "import paddle_tpu_torch\n"
         "import paddle_tpu_torch.serving, paddle_tpu_torch.ops.cuda\n"
         "import paddle_tpu_torch.io, paddle_tpu_torch.transpiler\n"
+        "import paddle_tpu_torch.contrib.mixed_precision\n"
+        "import paddle_tpu_torch.contrib.float16\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "

@@ -180,3 +180,100 @@ def test_kv_cache_write_op(case):
     if case.endswith("clamped"):
         # a clamped write still lands t whole rows (a slice would not)
         assert not np.array_equal(out, cache0)
+
+
+def run_both_raw(build, feed):
+    """Build ``build(pkg)`` (returns the fetch vars) in each package and
+    run it on the CPU with ``return_numpy=False``; returns [(JAX fetch,
+    port fetch), ...] after checking that the programs serialize alike."""
+    outs, want_dict = [], None
+    for pkg in (fluid, pt):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard("t_"):
+            fetch = build(pkg)
+        if pkg is fluid:
+            want_dict = main.to_dict()
+        else:
+            assert main.to_dict() == want_dict
+        outs.append(pkg.Executor(pkg.CPUPlace()).run(
+            main, feed=feed, fetch_list=fetch, scope=pkg.Scope(),
+            return_numpy=False))
+    return list(zip(*outs))
+
+
+def _dtype_names(want, got):
+    """(JAX dtype name with int32 read as int64, port dtype name)."""
+    from paddle_tpu_torch.core import dtype_name
+
+    wd = str(np.dtype(want.dtype))
+    return ("int64" if wd == "int32" else wd), dtype_name(got.dtype)
+
+
+@pytest.mark.parametrize("src,dst", [
+    ("float32", "bfloat16"), ("bfloat16", "float32"),
+    ("float32", "int64"), ("int64", "float32"),
+    ("bfloat16", "int64"), ("int64", "bfloat16"),
+])
+def test_cast_op(src, dst):
+    """``layers.cast`` (and ``Variable.astype``) between float32, bfloat16
+    and int64, against the JAX ``cast`` compute: equal dtypes and equal
+    values (round to nearest even into bfloat16, truncation toward zero
+    into int64)."""
+    rng = np.random.RandomState(0)
+    if src == "int64":
+        feed = {"x": rng.randint(-300, 300, (4, 6)).astype("int64")}
+    else:
+        feed = {"x": (rng.randn(4, 6) * 50).astype("float32")}
+
+    def build(pkg):
+        x = pkg.layers.data("x", shape=[6],
+                            dtype="int64" if src == "int64" else "float32")
+        a = pkg.layers.cast(x, "bfloat16") if src == "bfloat16" else x
+        return [a, pkg.layers.cast(a, dst), a.astype(dst)]
+
+    for want, got in run_both_raw(build, feed):
+        wd, gd = _dtype_names(want, got)
+        assert wd == gd
+        np.testing.assert_array_equal(
+            got.float().numpy() if gd == "bfloat16" else got.numpy(),
+            np.asarray(want).astype(np.float32 if wd == "bfloat16"
+                                    else np.asarray(want).dtype))
+    assert gd == dst
+
+
+@pytest.mark.parametrize("case", ["dequantize_0dim_scale", "add_bias",
+                                  "mul_one_element", "min_one_element"])
+def test_mixed_dtype_promotion(case):
+    """A bfloat16 activation meets a float32 operand, as under AMP: the
+    dtype follows ``jnp`` promotion.  ``fake_dequantize_max_abs`` reshapes
+    its float32 scale to 0-dim, which torch would promote like a Python
+    number (to bfloat16) and ``jnp`` does not (float32); the elementwise
+    ops with a float32 bias or one-element operand give float32."""
+    rng = np.random.RandomState(1)
+    feed = {"x": rng.randn(3, 8).astype("float32"),
+            "s": np.abs(rng.randn(1)).astype("float32") + 0.5,
+            "b": rng.randn(8).astype("float32")}
+
+    def build(pkg):
+        x = pkg.layers.data("x", shape=[8])
+        s = pkg.layers.data("s", shape=[1], append_batch_size=False)
+        b = pkg.layers.data("b", shape=[8], append_batch_size=False)
+        xb = pkg.layers.cast(x, "bfloat16")
+        block = pkg.default_main_program().global_block()
+        out = block.create_var(name="out", dtype="float32")
+        if case == "dequantize_0dim_scale":
+            block.append_op(type="fake_dequantize_max_abs",
+                            inputs={"X": [xb], "Scale": [s]},
+                            outputs={"Out": [out]},
+                            attrs={"max_range": 127.0})
+        else:
+            op_type, y = {"add_bias": ("elementwise_add", b),
+                          "mul_one_element": ("elementwise_mul", s),
+                          "min_one_element": ("elementwise_min", s)}[case]
+            block.append_op(type=op_type, inputs={"X": [xb], "Y": [y]},
+                            outputs={"Out": [out]}, attrs={"axis": -1})
+        return [out]
+
+    ((want, got),) = run_both_raw(build, feed)
+    assert _dtype_names(want, got) == ("float32", "float32")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
