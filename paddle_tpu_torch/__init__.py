@@ -3,7 +3,8 @@ NVIDIA H100.
 
 The layout mirrors the JAX package (``framework``, ``registry``,
 ``backward``, ``optimizer``, ``executor``, ``io``, ``layers``, ``ops``,
-``models``, ``serving``, ``transpiler``, ``contrib``) so each module's
+``nets``, ``models``, ``reader``, ``data_feeder``, ``serving``,
+``transpiler``, ``contrib``) so each module's
 counterpart is easy to find; the programs it builds serialize to the
 same schema, and ``io`` writes the JAX package's file format.  Op
 computes are plain functions on tensors; the hand-written Hopper kernels
@@ -28,6 +29,10 @@ from .param_attr import ParamAttr
 from . import backward, clip, optimizer, regularizer
 from . import convert
 from . import io
+from . import nets
+from . import reader
+from .data_feeder import DataFeeder
+from .reader import batch
 from . import models
 from . import transpiler
 from . import serving
@@ -41,5 +46,6 @@ __all__ = [
     "program_guard", "ops", "layers", "initializer", "Executor", "CPUPlace",
     "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
     "backward", "clip", "optimizer", "regularizer", "convert", "io",
-    "models", "transpiler", "serving", "contrib",
+    "nets", "reader", "DataFeeder", "batch", "models", "transpiler",
+    "serving", "contrib",
 ]

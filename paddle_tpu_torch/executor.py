@@ -32,8 +32,10 @@ the release of temporaries and the grad ops' ``torch.autograd.grad``
 recompute.  Around it:
 
 * feeds: each entry owns one device buffer a feed; a run copies the feed
-  into it, from numpy through a pinned staging buffer (``non_blocking``),
-  from a CUDA tensor device to device;
+  into it on the current stream, the one that then replays the graph:
+  from numpy through a pinned staging buffer (``non_blocking``), from a
+  CUDA tensor (a ``DevicePrefetcher`` batch, ready on this stream when it
+  was handed out) device to device;
 * state: the graph reads and writes the scope's own tensors.  A
   persistable output that an op returns as a new tensor (``increment``,
   the batch-norm running statistics) is copied into the state tensor at
@@ -185,6 +187,8 @@ class _StaticFeed:
         self._copied = None
 
     def load(self, value):
+        """Copy ``value`` into the buffer on the current stream, the one
+        that replays the graph."""
         if isinstance(value, torch.Tensor) and value.device.type == "cuda":
             self.buffer.copy_(value)
             return

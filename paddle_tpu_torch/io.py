@@ -1,6 +1,8 @@
 """Model persistence (counterpart of ``paddle_tpu/io.py``:
 ``save/load_vars``, ``save/load_params``, ``save/load_persistables``,
-``save/load_inference_model``).
+``save/load_inference_model`` and the serial checkpoints
+``save_checkpoint``, ``get_latest_checkpoint_serial``, ``load_checkpoint``
+and ``clean_checkpoint``).
 
 The on-disk format is the JAX package's, so either package loads the
 other's files: one ``<name>.npy`` per variable, or one combined ``.npz``
@@ -12,14 +14,17 @@ tensors on the executor's device, in the dtype the program declares (int8
 weights stay int8; token ids the JAX package wrote as int32 become the
 declared int64).  The JAX package saves a bfloat16 array as two raw bytes
 an element (numpy reads it back as ``|V2``); those bytes load as the
-bfloat16 bits they are.
+bfloat16 bits they are.  A serial checkpoint is
+``<dir>/checkpoint_<serial>/trainer_<id>/persistables.npz``, the JAX
+package's layout.
 
-Not ported yet: the checkpoint helpers (``save_checkpoint`` and family,
-``save_train_program``).
+Not ported yet: ``save_train_program`` / ``load_train_program`` (ROADMAP
+Queue A6).
 """
 
 import json
 import os
+import shutil
 
 import numpy as np
 import torch
@@ -31,6 +36,8 @@ __all__ = [
     "save_vars", "save_params", "save_persistables",
     "load_vars", "load_params", "load_persistables",
     "save_inference_model", "load_inference_model",
+    "save_checkpoint", "get_latest_checkpoint_serial", "load_checkpoint",
+    "clean_checkpoint",
 ]
 
 
@@ -171,3 +178,63 @@ def load_inference_model(dirname, executor, model_filename=None,
     fetch_vars = [program.global_block().var(n)
                   for n in payload["fetch_names"]]
     return program, payload["feed_names"], fetch_vars
+
+
+# ---- serial checkpoints (the reference io.py save_checkpoint family) ----
+
+def _serials(checkpoint_dir):
+    return [int(n.split("_")[1]) for n in os.listdir(checkpoint_dir)
+            if n.startswith("checkpoint_")]
+
+
+def save_checkpoint(executor, checkpoint_dir, trainer_id=0, main_program=None,
+                    serial=None, max_num_checkpoints=3):
+    """Save every persistable under ``checkpoint_<serial>/trainer_<id>``
+    (``serial`` None: one past the latest), then drop the oldest serials
+    beyond ``max_num_checkpoints``.  Returns the directory written."""
+    if serial is None:
+        serial = get_latest_checkpoint_serial(checkpoint_dir) + 1
+    d = os.path.join(checkpoint_dir, "checkpoint_%d" % serial,
+                     "trainer_%d" % trainer_id)
+    save_persistables(executor, d, main_program, filename="persistables.npz")
+    existing = sorted(_serials(checkpoint_dir))
+    while len(existing) > max_num_checkpoints:
+        victim = existing.pop(0)
+        shutil.rmtree(os.path.join(checkpoint_dir, "checkpoint_%d" % victim),
+                      ignore_errors=True)
+    return d
+
+
+def get_latest_checkpoint_serial(checkpoint_dir):
+    """The largest serial under ``checkpoint_dir``; -1 when none."""
+    if not os.path.isdir(checkpoint_dir):
+        return -1
+    serials = _serials(checkpoint_dir)
+    return max(serials) if serials else -1
+
+
+def load_checkpoint(executor, checkpoint_dir, trainer_id=0,
+                    main_program=None, serial=None):
+    """Load serial ``serial`` (None: the latest) into the global scope;
+    False when the directory holds none."""
+    if serial is None:
+        serial = get_latest_checkpoint_serial(checkpoint_dir)
+    if serial < 0:
+        return False
+    d = os.path.join(checkpoint_dir, "checkpoint_%d" % serial,
+                     "trainer_%d" % trainer_id)
+    load_persistables(executor, d, main_program, filename="persistables.npz")
+    return True
+
+
+def clean_checkpoint(checkpoint_dir, delete_dir=False):
+    """Remove every serial; with ``delete_dir`` the directory too, when
+    nothing else is left in it."""
+    if not os.path.isdir(checkpoint_dir):
+        return
+    for n in os.listdir(checkpoint_dir):
+        if n.startswith("checkpoint_"):
+            shutil.rmtree(os.path.join(checkpoint_dir, n),
+                          ignore_errors=True)
+    if delete_dir and not os.listdir(checkpoint_dir):
+        os.rmdir(checkpoint_dir)

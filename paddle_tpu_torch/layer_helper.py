@@ -3,6 +3,8 @@
 program plus an init op in the startup program), temporaries, and the
 bias/activation tails."""
 
+import copy
+
 from . import unique_name
 from .framework import default_main_program, default_startup_program
 from .initializer import ConstantInitializer, XavierInitializer
@@ -48,6 +50,10 @@ class LayerHelper:
         inputs = self.multiple_input(input_param_name)
         attr = self.param_attr
         attrs = attr if isinstance(attr, list) else [attr]
+        if len(attrs) == 1 and len(inputs) != 1:
+            # one attr for several inputs: a copy each, one parameter each
+            attrs = attrs + [copy.deepcopy(attrs[0])
+                             for _ in range(len(inputs) - 1)]
         if len(attrs) != len(inputs):
             raise ValueError("parameter number mismatch")
         yield from zip(inputs, attrs)

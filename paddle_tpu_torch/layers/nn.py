@@ -1,8 +1,8 @@
 """Neural-network layers of the serving and training slices (counterpart
 of ``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``dropout``,
 ``softmax``, ``cross_entropy``, ``softmax_with_cross_entropy``, ``mean``,
-``matmul``, ``fused_attention``, the elementwise layers and
-``autoincreased_step_counter``.  They append the same ops with
+``matmul``, ``fused_attention``, ``square_error_cost``, ``topk``, the
+elementwise layers and ``autoincreased_step_counter``.  They append the same ops with
 the same attrs as the JAX package, so the programs serialize alike."""
 
 from ..initializer import ConstantInitializer
@@ -10,7 +10,8 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "matmul", "fused_attention",
-           "elementwise_add", "elementwise_mul", "elementwise_div",
+           "square_error_cost", "topk", "elementwise_add", "elementwise_sub",
+           "elementwise_mul", "elementwise_div",
            "autoincreased_step_counter"]
 
 
@@ -36,10 +37,12 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
             attrs={"x_num_col_dims": num_flatten_dims, "y_num_col_dims": 1},
         )
         mul_results.append(tmp)
-    if len(mul_results) != 1:
-        raise NotImplementedError(
-            "fc over several inputs (a sum op) is not ported yet")
-    pre_bias = mul_results[0]
+    if len(mul_results) == 1:
+        pre_bias = mul_results[0]
+    else:
+        pre_bias = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="sum", inputs={"X": mul_results},
+                         outputs={"Out": [pre_bias]})
     if helper.bias_attr and helper.kwargs.get("bias_attr") is not False:
         pre_act = helper.append_bias_op(pre_bias, dim_start=num_flatten_dims)
     else:
@@ -161,6 +164,33 @@ def fused_attention(q, k, v, k_len=None, causal=False, dropout_rate=0.0,
     return out
 
 
+def square_error_cost(input, label):
+    """Per-sample squared error (input - label)^2."""
+    helper = LayerHelper("square_error_cost", input=input)
+    minus_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="elementwise_sub",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [minus_out]}, attrs={"axis": -1})
+    square_out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="square", inputs={"X": [minus_out]},
+                     outputs={"Out": [square_out]})
+    return square_out
+
+
+def topk(input, k, name=None):
+    """The k largest values of the last axis and their indices (equal
+    values lowest index first)."""
+    helper = LayerHelper("top_k", name=name)
+    values = helper.create_variable_for_type_inference(dtype=input.dtype)
+    indices = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [values], "Indices": [indices]},
+                     attrs={"k": k})
+    values.stop_gradient = True
+    indices.stop_gradient = True
+    return values, indices
+
+
 def _elementwise_layer(op_type):
     def layer(x, y, axis=-1, act=None, name=None):
         helper = LayerHelper(op_type, name=name, act=act)
@@ -174,6 +204,7 @@ def _elementwise_layer(op_type):
 
 
 elementwise_add = _elementwise_layer("elementwise_add")
+elementwise_sub = _elementwise_layer("elementwise_sub")
 elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
 

@@ -1,9 +1,9 @@
-"""``scale`` (counterpart of ``paddle_tpu/layers/ops.py``; the activation
-layers come with the slices that use them)."""
+"""``scale`` and ``square`` (counterpart of ``paddle_tpu/layers/ops.py``;
+the other activation layers come with the slices that use them)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["scale"]
+__all__ = ["scale", "square"]
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -15,3 +15,11 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
         attrs={"scale": float(scale), "bias": float(bias),
                "bias_after_scale": bias_after_scale})
     return helper.append_activation(out)
+
+
+def square(x, name=None):
+    helper = LayerHelper("square", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="square", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out

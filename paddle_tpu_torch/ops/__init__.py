@@ -5,5 +5,5 @@ toolchain until a kernel is first launched."""
 
 from . import (activation, attention, conv, creation,  # noqa: F401
                elementwise, fused_conv_bn, kv_cache, loss, manipulation,
-               math, norm, optimizer_ops, pool, quantize, random, reduction,
-               sequence)
+               math, metric, norm, optimizer_ops, pool, quantize, random,
+               reduction, sequence)

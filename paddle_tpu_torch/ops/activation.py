@@ -1,4 +1,4 @@
-"""``relu``, ``rsqrt`` and ``softmax`` (over ``axis``, the last by
+"""``relu``, ``rsqrt``, ``square`` and ``softmax`` (over ``axis``, the last by
 default) (counterpart of ``paddle_tpu/ops/activation.py``; the other
 activations come with the slices that use them)."""
 
@@ -6,7 +6,8 @@ import torch
 
 from ..registry import register_op, same_shape_infer
 
-for _name, _fn in (("relu", torch.relu), ("rsqrt", torch.rsqrt)):
+for _name, _fn in (("relu", torch.relu), ("rsqrt", torch.rsqrt),
+                   ("square", lambda x: x * x)):
     register_op(
         _name, ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
         compute=lambda ins, attrs, ctx, op_index, fn=_fn: {

@@ -1,4 +1,4 @@
-"""``elementwise_{add,mul,div,min}`` with Fluid's axis-broadcast semantics
+"""``elementwise_{add,sub,mul,div,min}`` with Fluid's axis-broadcast semantics
 (counterpart of ``paddle_tpu/ops/elementwise.py``): a lower-rank Y aligns
 against X starting at ``axis``, reproduced by right-padding Y with
 singleton dims."""
@@ -40,6 +40,7 @@ def _make_ew(name, fn):
 
 
 _make_ew("elementwise_add", torch.add)
+_make_ew("elementwise_sub", torch.sub)
 _make_ew("elementwise_mul", torch.mul)
 _make_ew("elementwise_div", torch.div)
 _make_ew("elementwise_min", torch.minimum)

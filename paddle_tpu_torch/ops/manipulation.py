@@ -1,5 +1,5 @@
-"""``reshape``, ``transpose``, ``unsqueeze`` and ``lookup_table``
-(counterpart of ``paddle_tpu/ops/manipulation.py``).  ``transpose``
+"""``reshape``, ``transpose``, ``unsqueeze``, ``lookup_table`` and
+``top_k`` (counterpart of ``paddle_tpu/ops/manipulation.py``).  ``transpose``
 returns a strided view; consumers that need contiguous memory (the
 kernels) make it so.  ``lookup_table``'s table gradient sums the rows of
 repeated ids in a fixed order (``_Gather``), so that two runs of a step
@@ -131,3 +131,24 @@ def _unsqueeze_compute(ins, attrs, ctx, op_index):
 
 register_op("unsqueeze", ["X"], ["Out"], infer=_unsqueeze_infer,
             compute=_unsqueeze_compute)
+
+
+def _top_k_infer(op, block):
+    x = in_var(op, block, "X")
+    out = tuple(x.shape[:-1]) + (op.attrs["k"],)
+    set_output(op, block, "Out", out, x.dtype)
+    set_output(op, block, "Indices", out, "int64")
+
+
+def _top_k_compute(ins, attrs, ctx, op_index):
+    """The k largest of the last axis, largest first; equal values in the
+    order of their index, lowest first, as ``jax.lax.top_k`` gives them
+    (``torch.topk`` promises no order among ties on the card)."""
+    vals, idx = torch.sort(ins["X"][0], dim=-1, descending=True,
+                           stable=True)
+    k = attrs["k"]
+    return {"Out": vals[..., :k], "Indices": idx[..., :k]}
+
+
+register_op("top_k", ["X"], ["Out", "Indices"], infer=_top_k_infer,
+            compute=_top_k_compute, grad=None)

@@ -277,3 +277,95 @@ def test_mixed_dtype_promotion(case):
     ((want, got),) = run_both_raw(build, feed)
     assert _dtype_names(want, got) == ("float32", "float32")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_top_k_breaks_ties_by_lowest_index(k):
+    """``top_k`` against ``jax.lax.top_k``: values and indices equal, rows
+    with ties (a saturated softmax row, a row of equal values) giving the
+    lowest index first."""
+    x = _rand(5, 7)
+    x[1] = 0.25                      # every value tied
+    x[2, [1, 4, 6]] = 3.0            # a three-way tie at the top
+    x[3, [0, 5]] = -1.0              # a tie further down
+    x[4] = [0, 0, 1, 0, 1, 1, 0]     # saturated one-hot-like rows
+
+    def build(pkg):
+        xv = pkg.layers.data("x", shape=[7])
+        return list(pkg.layers.topk(xv, k))
+
+    out = run_both_raw(build, {"x": x})
+    for want, got in out:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    idx = out[1][1].numpy()
+    assert idx[2].tolist() == [1, 4, 6][:k]
+    assert idx[1].tolist() == list(range(k))
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_accuracy_op(k):
+    """``layers.accuracy`` (``top_k`` + ``accuracy``): Accuracy, Correct
+    and Total equal the JAX op's, with tied rows in the batch."""
+    rng = np.random.RandomState(3)
+    probs = rng.rand(9, 5).astype("float32")
+    probs[0] = 0.2                   # a tied row: index 0 (and 1) win
+    label = rng.randint(0, 5, (9, 1)).astype("int64")
+    label[0] = 1
+
+    def build(pkg):
+        p = pkg.layers.data("p", shape=[5])
+        lab = pkg.layers.data("label", shape=[1], dtype="int64")
+        acc = pkg.layers.accuracy(p, lab, k=k)
+        ops = pkg.default_main_program().global_block().ops
+        return [acc] + ops[-1].outputs["Correct"] + ops[-1].outputs["Total"]
+
+    out = run_both_raw(build, {"p": probs, "label": label})
+    for want, got in out:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert [str(g.dtype) for _, g in out] == ["torch.float32", "torch.int32",
+                                              "torch.int32"]
+
+
+def test_elementwise_sub_and_square_with_grads():
+    """``square_error_cost`` (``elementwise_sub`` + ``square``) with its
+    gradients through the generic grad: the loss and both inputs'
+    gradients against the JAX package's."""
+    rng = np.random.RandomState(4)
+    feed = {"x": rng.randn(6, 3).astype("float32"),
+            "y": rng.randn(6, 3).astype("float32")}
+
+    def build(pkg):
+        x = pkg.layers.data("x", shape=[3], stop_gradient=False)
+        y = pkg.layers.data("y", shape=[3], stop_gradient=False)
+        loss = pkg.layers.mean(pkg.layers.square_error_cost(x, y))
+        pkg.backward.append_backward(loss)
+        return [loss, "x@GRAD", "y@GRAD"]
+
+    loss, gx, gy = [(np.asarray(w), g.numpy())
+                    for w, g in run_both_raw(build, feed)]
+    for want, got in (loss, gx, gy):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(gx[1], 2 * (feed["x"] - feed["y"]) / 18,
+                               rtol=1e-6)
+    np.testing.assert_allclose(gy[1], -gx[1], rtol=1e-6)
+
+
+def test_fc_over_two_inputs():
+    """``fc([x1, x2])``: one ``mul`` per input and a ``sum``, the same
+    program as the JAX builder's, and the same output on its weights;
+    the gradients of both weights too."""
+    def build(pkg):
+        x1 = pkg.layers.data("x1", shape=[4])
+        x2 = pkg.layers.data("x2", shape=[6])
+        out = pkg.layers.fc([x1, x2], size=3, act="relu")
+        loss = pkg.layers.mean(out)
+        pkg.backward.append_backward(loss)
+        main = pkg.default_main_program()
+        types = [op.type for op in main.global_block().ops]
+        assert types[:4] == ["mul", "mul", "sum", "elementwise_add"]
+        weights = [p.name + "@GRAD" for p in main.all_parameters()
+                   if len(p.shape) == 2]
+        assert len(weights) == 2
+        return [out] + weights
+
+    run_both(build, {"x1": _rand(5, 4, seed=5), "x2": _rand(5, 6, seed=6)})
