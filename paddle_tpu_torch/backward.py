@@ -9,7 +9,7 @@ gradient, a ``sum`` op adds the contributions.  The programs built here
 serialize exactly as the JAX package's do.
 """
 
-from .core import dtype_name
+from .core import VarType, dtype_name
 from .framework import Variable, grad_var_name
 from .registry import make_grad_ops
 
@@ -71,15 +71,27 @@ class _GradAccumulator:
                 self.block.append_op(
                     type="assign", inputs={"X": [cs[0]]}, outputs={"Out": [target]}
                 )
+                self._propagate_sparse_type(cs, target)
             self.pending[fwd_name] = [target]
             self._maybe_error_clip(fwd_name, target)
             return target
         self.block.append_op(
             type="sum", inputs={"X": list(cs)}, outputs={"Out": [target]}
         )
+        self._propagate_sparse_type(cs, target)
         self.pending[fwd_name] = [target]
         self._maybe_error_clip(fwd_name, target)
         return target
+
+    def _propagate_sparse_type(self, contributions, target):
+        """A sum or alias of only SELECTED_ROWS contributions is itself
+        SELECTED_ROWS (the sum concatenates the row lists), so the summed
+        gradient keeps the type for the clip and regularizer appenders."""
+        if all(getattr(self.block._find_var_recursive(c), "type", None)
+               == VarType.SELECTED_ROWS for c in contributions):
+            v = self.block._find_var_recursive(target)
+            if v is not None:
+                v.type = VarType.SELECTED_ROWS
 
     def _maybe_error_clip(self, fwd_name, grad_name):
         """Apply the forward var's ``error_clip`` to its summed gradient,
@@ -93,10 +105,7 @@ class _GradAccumulator:
         error_clip = getattr(fwd_var, "error_clip", None) if fwd_var \
             else None
         if error_clip is not None:
-            # the clip classes and their ops are not ported yet
-            raise NotImplementedError(
-                "error_clip on %r: gradient clipping is not ported to "
-                "paddle_tpu_torch yet (ROADMAP Queue A)" % fwd_name)
+            error_clip._append_clip_op(self.block, grad_name)
 
 
 def append_backward(loss, parameter_list=None, no_grad_set=None,

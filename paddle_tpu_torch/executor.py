@@ -57,6 +57,11 @@ recompute.  Around it:
   replayed step's launches are read from a device trace
   (``ops.cuda.device_launch_counts``).
 
+A SelectedRows gradient (an ``is_sparse`` table's, ``ops/selected_rows``)
+is a value of the run's environment like a tensor: freed after its last
+reader, captured and replayed with the step; a fetch of one returns it as
+the JAX executor does (``_to_numpy``).
+
 An entry lives as long as its program and its scope: when either dies,
 the entry, its graph and the tensors the graph holds are dropped at the
 executor's next run.
@@ -89,6 +94,7 @@ import torch
 
 from . import registry
 from .framework import Variable, default_main_program
+from .ops.selected_rows import SelectedRows
 from .registry import ComputeContext
 from .scope import global_scope
 
@@ -369,7 +375,7 @@ class Executor:
                         fetch_names)
                     if not return_numpy:
                         # a later replay rewrites the graph's outputs
-                        fetches = [f.clone() for f in fetches]
+                        fetches = [_clone(f) for f in fetches]
             if return_numpy:
                 fetches = [_to_numpy(f) for f in fetches]
         return fetches
@@ -478,8 +484,26 @@ class Executor:
         step.graph = graph
 
 
+def _clone(f):
+    if isinstance(f, SelectedRows):
+        return SelectedRows(f.rows.clone(), f.values.clone(), f.height)
+    return f.clone()
+
+
 def _to_numpy(t):
+    """A fetch on the host.  A SelectedRows comes back as the JAX executor
+    returns it, in a 0-d object array, its rows and values numpy
+    (``get_tensor_from_selected_rows`` gives the dense tensor)."""
+    if isinstance(t, SelectedRows):
+        sr = SelectedRows(_to_numpy(t.rows), _to_numpy(t.values), t.height)
+        out = np.empty((), dtype=object)
+        out[()] = sr
+        return out
     # numpy has no bfloat16: widen to float32 on the way out
     if t.dtype == torch.bfloat16:
         t = t.float()
+    if t.device.type == "cpu":
+        # a CPU tensor's numpy() shares its memory, and state is updated
+        # in place by later runs: the fetch is a copy, as from the card
+        return t.detach().numpy().copy()
     return t.detach().cpu().numpy()

@@ -75,8 +75,8 @@ class Variable:
         self.lod_level = lod_level
         self.initializer = initializer
         self.op = None
-        # clip applied to this var's gradient as backward sums it (no
-        # error-clip class is ported yet: backward raises on one)
+        # clip applied to this var's gradient as backward sums it
+        # (clip.ErrorClipByValue)
         self.error_clip = kwargs.get("error_clip", None)
         # name of the companion [batch] int32 length var of a padded
         # sequence ("<name>@LEN", see layers.data)

@@ -94,6 +94,19 @@ class LayerHelper:
             persistable=False,
         )
 
+    def create_global_variable(self, persistable=False, *args, **kwargs):
+        return self.main_program.global_block().create_var(
+            *args, persistable=persistable, **kwargs)
+
+    def set_variable_initializer(self, var, initializer):
+        """Initialize ``var`` in the startup program (once)."""
+        startup_blk = self.startup_program.global_block()
+        if not startup_blk.has_var(var.name):
+            sv = startup_blk.create_var(name=var.name, shape=var.shape,
+                                        dtype=var.dtype, persistable=True)
+            initializer(sv, startup_blk)
+        return var
+
     def append_op(self, *args, **kwargs):
         return self.main_program.current_block().append_op(*args, **kwargs)
 

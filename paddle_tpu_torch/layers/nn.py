@@ -11,7 +11,7 @@ from ..layer_helper import LayerHelper
 __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "matmul", "fused_attention",
            "square_error_cost", "topk", "elementwise_add", "elementwise_sub",
-           "elementwise_mul", "elementwise_div",
+           "elementwise_mul", "elementwise_div", "elementwise_max",
            "autoincreased_step_counter"]
 
 
@@ -52,9 +52,12 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32"):
-    """Embedding lookup (``lookup_table``).  ``is_sparse`` and
-    ``is_distributed`` are recorded for program parity; the sparse
-    gradient and sharded tables come with later slices."""
+    """Embedding lookup (``lookup_table``).  ``is_sparse`` makes the
+    table's gradient a SelectedRows of the looked-up rows
+    (``ops/selected_rows.py``), which the optimizers update lazily.
+    ``is_distributed`` is recorded for program parity; on one device the
+    table trains unsharded, as the JAX package's does without a mesh (the
+    sharded tables wait for ROADMAP A7)."""
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype, is_bias=False)
@@ -207,6 +210,7 @@ elementwise_add = _elementwise_layer("elementwise_add")
 elementwise_sub = _elementwise_layer("elementwise_sub")
 elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
+elementwise_max = _elementwise_layer("elementwise_max")
 
 
 def autoincreased_step_counter(counter_name=None, begin=1, step=1,

@@ -1,9 +1,10 @@
-"""``scale`` and ``square`` (counterpart of ``paddle_tpu/layers/ops.py``;
-the other activation layers come with the slices that use them)."""
+"""``scale``, ``square`` and ``sqrt`` (counterpart of
+``paddle_tpu/layers/ops.py``; the other activation layers come with the
+slices that use them)."""
 
 from ..layer_helper import LayerHelper
 
-__all__ = ["scale", "square"]
+__all__ = ["scale", "square", "sqrt"]
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
@@ -22,4 +23,12 @@ def square(x, name=None):
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     helper.append_op(type="square", inputs={"X": [x]},
                      outputs={"Out": [out]})
+    return out
+
+
+def sqrt(x, name=None, **attrs):
+    helper = LayerHelper("sqrt", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sqrt", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs=attrs)
     return out

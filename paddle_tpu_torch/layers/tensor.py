@@ -1,10 +1,12 @@
-"""``reshape``, ``transpose``, ``unsqueeze``, ``reduce_sum`` and ``cast``
-layers (counterpart of ``paddle_tpu/layers/tensor.py``)."""
+"""``reshape``, ``transpose``, ``unsqueeze``, ``reduce_sum``,
+``reduce_mean``, ``cast`` and ``concat`` layers (counterpart of
+``paddle_tpu/layers/tensor.py``)."""
 
 from ..core import dtype_name
 from ..layer_helper import LayerHelper
 
-__all__ = ["reshape", "transpose", "unsqueeze", "reduce_sum", "cast"]
+__all__ = ["reshape", "transpose", "unsqueeze", "reduce_sum", "reduce_mean",
+           "cast", "concat"]
 
 
 def reshape(x, shape, act=None, name=None):
@@ -31,17 +33,25 @@ def unsqueeze(input, axes, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
-    out = helper.create_variable_for_type_inference(dtype=input.dtype)
-    if dim is None:
-        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
-    else:
-        attrs = {"dim": [dim] if isinstance(dim, int) else list(dim),
-                 "keep_dim": keep_dim, "reduce_all": False}
-    helper.append_op(type="reduce_sum", inputs={"X": [input]},
-                     outputs={"Out": [out]}, attrs=attrs)
-    return out
+def _reduce_layer(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(dtype=input.dtype)
+        if dim is None:
+            attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+        else:
+            attrs = {"dim": [dim] if isinstance(dim, int) else list(dim),
+                     "keep_dim": keep_dim, "reduce_all": False}
+        helper.append_op(type=op_type, inputs={"X": [input]},
+                         outputs={"Out": [out]}, attrs=attrs)
+        return out
+
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce_layer("reduce_sum")
+reduce_mean = _reduce_layer("reduce_mean")
 
 
 def cast(x, dtype):
@@ -49,4 +59,12 @@ def cast(x, dtype):
     out = helper.create_variable_for_type_inference(dtype=dtype)
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"out_dtype": dtype_name(dtype)})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out

@@ -1,3 +1,3 @@
 """Model builders of the port (counterpart of ``paddle_tpu/models``)."""
 
-from . import resnet, transformer  # noqa: F401
+from . import ctr_dnn, resnet, transformer  # noqa: F401

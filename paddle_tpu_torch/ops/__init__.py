@@ -6,4 +6,4 @@ toolchain until a kernel is first launched."""
 from . import (activation, attention, conv, creation,  # noqa: F401
                elementwise, fused_conv_bn, kv_cache, loss, manipulation,
                math, metric, norm, optimizer_ops, pool, quantize, random,
-               reduction, sequence)
+               reduction, selected_rows, sequence)

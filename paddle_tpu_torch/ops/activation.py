@@ -1,12 +1,14 @@
-"""``relu``, ``rsqrt``, ``square`` and ``softmax`` (over ``axis``, the last by
-default) (counterpart of ``paddle_tpu/ops/activation.py``; the other
-activations come with the slices that use them)."""
+"""``relu``, ``sqrt``, ``rsqrt``, ``square`` and ``softmax`` (over
+``axis``, the last by default) (counterpart of
+``paddle_tpu/ops/activation.py``; the other activations come with the
+slices that use them)."""
 
 import torch
 
 from ..registry import register_op, same_shape_infer
 
-for _name, _fn in (("relu", torch.relu), ("rsqrt", torch.rsqrt),
+for _name, _fn in (("relu", torch.relu), ("sqrt", torch.sqrt),
+                   ("rsqrt", torch.rsqrt),
                    ("square", lambda x: x * x)):
     register_op(
         _name, ["X"], ["Out"], infer=same_shape_infer("X", "Out"),

@@ -1,11 +1,14 @@
-"""``elementwise_{add,sub,mul,div,min}`` with Fluid's axis-broadcast semantics
-(counterpart of ``paddle_tpu/ops/elementwise.py``): a lower-rank Y aligns
-against X starting at ``axis``, reproduced by right-padding Y with
-singleton dims."""
+"""``elementwise_{add,sub,mul,div,max,min}`` with Fluid's axis-broadcast
+semantics (counterpart of ``paddle_tpu/ops/elementwise.py``): a lower-rank
+Y aligns against X starting at ``axis``, reproduced by right-padding Y
+with singleton dims.  A SelectedRows X times a one-element Y (the
+global-norm clip's scale) stays sparse; any other SelectedRows X is made
+dense first, as in the JAX package."""
 
 import torch
 
 from ..registry import broadcast_shapes, in_var, register_op, set_output
+from .selected_rows import SelectedRows, map_values, to_dense
 
 
 def _align_y(x, y, axis):
@@ -34,6 +37,12 @@ def _ew_infer(op, block):
 def _make_ew(name, fn):
     def compute(ins, attrs, ctx, op_index):
         x, y = ins["X"][0], ins["Y"][0]
+        if isinstance(x, SelectedRows):
+            # a uniform scale commutes with merging duplicate rows
+            if name == "elementwise_mul" and y.numel() == 1:
+                return {"Out": map_values(
+                    x, lambda v: v * y.reshape(()).to(v.dtype))}
+            x = to_dense(x)
         return {"Out": fn(x, _align_y(x, y, attrs.get("axis", -1)))}
 
     register_op(name, ["X", "Y"], ["Out"], infer=_ew_infer, compute=compute)
@@ -43,4 +52,5 @@ _make_ew("elementwise_add", torch.add)
 _make_ew("elementwise_sub", torch.sub)
 _make_ew("elementwise_mul", torch.mul)
 _make_ew("elementwise_div", torch.div)
+_make_ew("elementwise_max", torch.maximum)
 _make_ew("elementwise_min", torch.minimum)

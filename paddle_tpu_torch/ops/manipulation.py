@@ -1,13 +1,16 @@
-"""``reshape``, ``transpose``, ``unsqueeze``, ``lookup_table`` and
-``top_k`` (counterpart of ``paddle_tpu/ops/manipulation.py``).  ``transpose``
-returns a strided view; consumers that need contiguous memory (the
-kernels) make it so.  ``lookup_table``'s table gradient sums the rows of
-repeated ids in a fixed order (``_Gather``), so that two runs of a step
-give the same bits, as XLA's scatter-add does on the TPU."""
+"""``reshape``, ``transpose``, ``unsqueeze``, ``lookup_table``, ``concat``
+and ``top_k`` (counterpart of ``paddle_tpu/ops/manipulation.py``).
+``transpose`` returns a strided view; consumers that need contiguous
+memory (the kernels) make it so.  ``lookup_table``'s dense table gradient
+sums the rows of repeated ids in a fixed order (``_Gather``), so that two
+runs of a step give the same bits, as XLA's scatter-add does on the TPU;
+with ``is_sparse`` its gradient is a SelectedRows
+(``selected_rows.lookup_table_grad_maker``)."""
 
 import torch
 
-from ..registry import _auto_grad_maker, in_var, register_op, set_output
+from ..registry import in_var, register_op, set_output
+from .selected_rows import lookup_table_grad_maker
 
 
 class _Gather(torch.autograd.Function):
@@ -101,17 +104,24 @@ def _lookup_table_compute(ins, attrs, ctx, op_index):
     return {"Out": out.reshape(shape)}
 
 
-def _lookup_table_grad(op, no_grad_set):
-    if op.attrs.get("is_sparse", False):
-        raise NotImplementedError(
-            "lookup_table(is_sparse=True): the SelectedRows gradient is not "
-            "ported to paddle_tpu_torch yet (ROADMAP Queue A4)")
-    return _auto_grad_maker(op, no_grad_set)
-
-
 register_op("lookup_table", ["W", "Ids"], ["Out"], infer=_lookup_table_infer,
-            compute=_lookup_table_compute, grad=_lookup_table_grad,
+            compute=_lookup_table_compute, grad=lookup_table_grad_maker,
             no_grad_inputs=("Ids",))
+
+
+def _concat_infer(op, block):
+    xs = [block.var_recursive(n) for n in op.inputs["X"]]
+    axis = op.attrs.get("axis", 0) % len(xs[0].shape)
+    out = list(xs[0].shape)
+    sizes = [v.shape[axis] for v in xs]
+    # an unknown (-1) part makes the result unknown
+    out[axis] = -1 if any(s < 0 for s in sizes) else sum(sizes)
+    set_output(op, block, "Out", out, xs[0].dtype)
+
+
+register_op("concat", ["X"], ["Out"], infer=_concat_infer,
+            compute=lambda ins, attrs, ctx, op_index: {
+                "Out": torch.cat(ins["X"], dim=attrs.get("axis", 0))})
 
 
 def _unsqueeze_infer(op, block):

@@ -1,5 +1,7 @@
-"""``mul``, ``matmul``, ``sum``, ``scale`` and ``mean`` (counterpart of
-``paddle_tpu/ops/math.py``).  ``mul`` is fc's matmul: flatten both
+"""``mul``, ``matmul``, ``sum``, ``scale``, ``mean``, ``sign`` and the clip
+family ``clip``, ``clip_by_norm``, ``squared_l2_norm`` (counterpart of
+``paddle_tpu/ops/math.py``).  ``sum``, ``scale`` and the clip family take
+SelectedRows gradients and keep them sparse where the JAX package does.  ``mul`` is fc's matmul: flatten both
 operands to 2-D, one product; ``matmul`` is the batched product with
 transpose flags.  The products go to ``torch.matmul``, as the JAX package
 leaves them to XLA outside any kernel: operands of two dtypes are promoted
@@ -13,6 +15,8 @@ default."""
 import torch
 
 from ..registry import in_var, register_op, same_shape_infer, set_output
+from .selected_rows import (SelectedRows, map_values, mask_to, merge_rows,
+                            merged_sumsq, to_dense)
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
@@ -98,8 +102,16 @@ register_op("matmul", ["X", "Y"], ["Out"], infer=_matmul_infer,
 def _sum_compute(ins, attrs, ctx, op_index):
     # variadic add (backward's gradient accumulation)
     xs = [x for x in ins["X"] if x is not None]
-    out = xs[0]
-    for x in xs[1:]:
+    sparse = [x for x in xs if isinstance(x, SelectedRows)]
+    dense = [x for x in xs if not isinstance(x, SelectedRows)]
+    if sparse and not dense:
+        # all sparse: concatenating the row lists is the addition
+        return {"Out": SelectedRows(
+            torch.cat([x.rows for x in sparse]),
+            torch.cat([x.values for x in sparse]), sparse[0].height)}
+    dense += [to_dense(x) for x in sparse]
+    out = dense[0]
+    for x in dense[1:]:
         out = out + x
     return {"Out": out}
 
@@ -111,6 +123,12 @@ register_op("sum", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
 def _scale_compute(ins, attrs, ctx, op_index):
     x = ins["X"][0]
     scale, bias = attrs.get("scale", 1.0), attrs.get("bias", 0.0)
+    if isinstance(x, SelectedRows):
+        # a scale without bias commutes with merging duplicates; a bias
+        # would be added once a duplicate, so that case densifies
+        if bias == 0.0:
+            return {"Out": map_values(x, lambda v: v * scale)}
+        x = to_dense(x)
     if attrs.get("bias_after_scale", True):
         return {"Out": x * scale + bias}
     return {"Out": (x + bias) * scale}
@@ -127,3 +145,62 @@ def _mean_infer(op, block):
 register_op("mean", ["X"], ["Out"], infer=_mean_infer,
             compute=lambda ins, attrs, ctx, op_index: {
                 "Out": ins["X"][0].mean().reshape(1)})
+
+
+register_op("sign", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
+            compute=lambda ins, attrs, ctx, op_index: {
+                "Out": torch.sign(ins["X"][0])})
+
+
+def _clip_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    if isinstance(x, SelectedRows):
+        # the clip applies to each row's summed gradient, so duplicates
+        # merge first; the padded slots go back to zero (clip(0) is not 0
+        # when min > 0)
+        uniq, merged, valid = merge_rows(x)
+        clipped = torch.clamp(merged, attrs["min"], attrs["max"])
+        clipped = clipped * mask_to(valid, clipped).to(clipped.dtype)
+        return {"Out": SelectedRows(uniq, clipped, x.height)}
+    return {"Out": torch.clamp(x, attrs["min"], attrs["max"])}
+
+
+register_op("clip", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
+            compute=_clip_compute)
+
+
+def _norm_scale(sumsq, max_norm):
+    """clip_by_norm's factor: max_norm / norm where the norm exceeds it."""
+    norm = torch.sqrt(sumsq)
+    limit = torch.full_like(norm, max_norm)
+    return torch.where(norm > max_norm,
+                       limit / torch.clamp_min(norm, 1e-12),
+                       torch.ones_like(norm))
+
+
+def _clip_by_norm_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    if isinstance(x, SelectedRows):
+        # the norm of the merged rows (the dense gradient's); the scale is
+        # uniform, so it applies to the unmerged values
+        scale = _norm_scale(merged_sumsq(x), attrs["max_norm"])
+        return {"Out": map_values(x, lambda v: v * scale.to(v.dtype))}
+    scale = _norm_scale(torch.sum(x * x), attrs["max_norm"])
+    return {"Out": x * scale.to(x.dtype)}
+
+
+register_op("clip_by_norm", ["X"], ["Out"],
+            infer=same_shape_infer("X", "Out"),
+            compute=_clip_by_norm_compute)
+
+
+def _squared_l2_norm_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    if isinstance(x, SelectedRows):
+        # global-norm clipping's term: ||dense(x)||^2 without the dense x
+        return {"Out": merged_sumsq(x).reshape(1)}
+    return {"Out": torch.sum(x * x).reshape(1)}
+
+
+register_op("squared_l2_norm", ["X"], ["Out"], infer=_mean_infer,
+            compute=_squared_l2_norm_compute)

@@ -1,15 +1,28 @@
-"""Dense optimizer update ops ``sgd``, ``momentum`` and ``adam``
-(counterpart of ``paddle_tpu/ops/optimizer_ops.py``; the SelectedRows
-branch and the other optimizers wait).
+"""Optimizer update ops ``sgd``, ``momentum``, ``adam`` and ``adagrad``,
+dense and SelectedRows (counterpart of ``paddle_tpu/ops/optimizer_ops.py``;
+the other optimizers wait).
 
-All three update the parameter and moment tensors IN PLACE and return them:
+Each updates the parameter and moment tensors IN PLACE and returns them:
 the JAX package gets the same effect from buffer donation, and at
 Transformer-base size it saves one parameter-sized allocation per output.
-The arithmetic is the JAX package's, in the same order."""
+The arithmetic is the JAX package's, in the same order.
+
+With a SelectedRows gradient (``selected_rows``) the updates are lazy, as
+the JAX package's: only the touched rows move, and a row a step does not
+touch keeps its parameter and accumulators bit for bit.  Sparse SGD adds
+the unmerged rows one by one (``p + (-lr v1) + (-lr v2)``); Momentum, Adam
+and Adagrad merge duplicates first, update the touched rows gathered from
+the tables and write them back.  The JAX package writes them back as
+``p + (p_new - p)``; the port writes ``p_new`` itself, so a touched row is
+exactly what the dense update computes from the same merged gradient.  A
+table sharded over a mesh (the JAX package's ``_maybe_sharded_rows``)
+waits for ROADMAP A7; on one device both packages take this route."""
 
 import torch
 
 from ..registry import in_var, register_op, set_output
+from .selected_rows import (SelectedRows, merge_rows, scatter_add_rows,
+                            scatter_update_rows)
 
 
 def _mirror_infer(*pairs):
@@ -24,18 +37,21 @@ def _mirror_infer(*pairs):
     return infer
 
 
-def _dense(g, op_type):
-    if not isinstance(g, torch.Tensor):
-        raise NotImplementedError(
-            "%s on a SelectedRows gradient is not ported to "
-            "paddle_tpu_torch yet (ROADMAP Queue A4)" % op_type)
-    return g
+def _touched(g, *tables):
+    """(unique rows, their merged gradient, valid, safe row indices) of a
+    SelectedRows and each table's touched rows (gathered, so a copy)."""
+    uniq, gm, valid = merge_rows(g)
+    safe = torch.where(valid, uniq, 0)
+    return (uniq, gm, valid) + tuple(t[safe] for t in tables)
 
 
 def _sgd_compute(ins, attrs, ctx, op_index):
-    p, lr = ins["Param"][0], ins["LearningRate"][0]
-    g = _dense(ins["Grad"][0], "sgd")
-    p.sub_(lr.to(p.dtype) * g.to(p.dtype))
+    p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
+    lr = lr.to(p.dtype)
+    if isinstance(g, SelectedRows):
+        scatter_add_rows(p, g.rows, -lr * g.values.to(p.dtype))
+    else:
+        p.sub_(lr * g.to(p.dtype))
     return {"ParamOut": p}
 
 
@@ -44,28 +60,23 @@ register_op("sgd", ["Param", "Grad", "LearningRate"], ["ParamOut"],
             grad=None)
 
 
-def _adam_compute(ins, attrs, ctx, op_index):
-    p, g = ins["Param"][0], _dense(ins["Grad"][0], "adam")
-    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
-    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
-    lr = ins["LearningRate"][0].to(p.dtype)
-    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
-    eps = attrs.get("epsilon", 1e-8)
-    lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
-    # m1 = b1 * m1 + (1 - b1) * g;  m2 = b2 * m2 + (1 - b2) * g * g
-    m1.mul_(b1).add_((1 - b1) * g)
-    m2.mul_(b2).add_((1 - b2) * g * g)
-    p.sub_(lr_t * m1 / (torch.sqrt(m2) + eps))
-    return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
-
-
 def _momentum_compute(ins, attrs, ctx, op_index):
-    p, v = ins["Param"][0], ins["Velocity"][0]
-    g = _dense(ins["Grad"][0], "momentum")
+    p, g, v = ins["Param"][0], ins["Grad"][0], ins["Velocity"][0]
     lr = ins["LearningRate"][0].to(p.dtype)
     mu = attrs["mu"]
+    nesterov = attrs.get("use_nesterov", False)
+    if isinstance(g, SelectedRows):
+        uniq, gm, valid, p_r, v_r = _touched(g, p, v)
+        v_new = mu * v_r + gm
+        if nesterov:
+            p_new = p_r - (gm + mu * v_new) * lr
+        else:
+            p_new = p_r - lr * v_new
+        scatter_update_rows(p, uniq, valid, p_new)
+        scatter_update_rows(v, uniq, valid, v_new)
+        return {"ParamOut": p, "VelocityOut": v}
     v.mul_(mu).add_(g)               # v = mu * v + g
-    if attrs.get("use_nesterov", False):
+    if nesterov:
         p.sub_((g + mu * v) * lr)
     else:
         p.sub_(lr * v)
@@ -79,6 +90,30 @@ register_op(
     compute=_momentum_compute, grad=None)
 
 
+def _adam_compute(ins, attrs, ctx, op_index):
+    p, g = ins["Param"][0], ins["Grad"][0]
+    m1, m2 = ins["Moment1"][0], ins["Moment2"][0]
+    b1p, b2p = ins["Beta1Pow"][0], ins["Beta2Pow"][0]
+    lr = ins["LearningRate"][0].to(p.dtype)
+    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+    if isinstance(g, SelectedRows):
+        uniq, gm, valid, p_r, m1_r, m2_r = _touched(g, p, m1, m2)
+        m1_new = b1 * m1_r + (1 - b1) * gm
+        m2_new = b2 * m2_r + (1 - b2) * gm * gm
+        p_new = p_r - lr_t * m1_new / (torch.sqrt(m2_new) + eps)
+        scatter_update_rows(p, uniq, valid, p_new)
+        scatter_update_rows(m1, uniq, valid, m1_new)
+        scatter_update_rows(m2, uniq, valid, m2_new)
+        return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
+    # m1 = b1 * m1 + (1 - b1) * g;  m2 = b2 * m2 + (1 - b2) * g * g
+    m1.mul_(b1).add_((1 - b1) * g)
+    m2.mul_(b2).add_((1 - b2) * g * g)
+    p.sub_(lr_t * m1 / (torch.sqrt(m2) + eps))
+    return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
+
+
 register_op(
     "adam",
     ["Param", "Grad", "LearningRate", "Moment1", "Moment2", "Beta1Pow",
@@ -87,3 +122,26 @@ register_op(
     infer=_mirror_infer(("Param", "ParamOut"), ("Moment1", "Moment1Out"),
                         ("Moment2", "Moment2Out")),
     compute=_adam_compute, grad=None)
+
+
+def _adagrad_compute(ins, attrs, ctx, op_index):
+    p, g, mom = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
+    lr = ins["LearningRate"][0].to(p.dtype)
+    eps = attrs.get("epsilon", 1e-6)
+    if isinstance(g, SelectedRows):
+        uniq, gm, valid, p_r, mom_r = _touched(g, p, mom)
+        mom_new = mom_r + gm * gm
+        p_new = p_r - lr * gm / (torch.sqrt(mom_new) + eps)
+        scatter_update_rows(p, uniq, valid, p_new)
+        scatter_update_rows(mom, uniq, valid, mom_new)
+        return {"ParamOut": p, "MomentOut": mom}
+    mom.add_(g * g)                  # mom = mom + g * g
+    p.sub_(lr * g / (torch.sqrt(mom) + eps))
+    return {"ParamOut": p, "MomentOut": mom}
+
+
+register_op(
+    "adagrad", ["Param", "Grad", "Moment", "LearningRate"],
+    ["ParamOut", "MomentOut"],
+    infer=_mirror_infer(("Param", "ParamOut"), ("Moment", "MomentOut")),
+    compute=_adagrad_compute, grad=None)

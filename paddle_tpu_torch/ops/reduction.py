@@ -1,5 +1,6 @@
-"""``reduce_sum`` (counterpart of ``paddle_tpu/ops/reduction.py``; the
-other reductions come with the slices that use them)."""
+"""``reduce_sum`` and ``reduce_mean`` (counterpart of
+``paddle_tpu/ops/reduction.py``; the other reductions come with the slices
+that use them)."""
 
 import torch
 
@@ -23,17 +24,20 @@ def _reduce_infer(op, block):
     set_output(op, block, "Out", out, x.dtype)
 
 
-def _reduce_sum_compute(ins, attrs, ctx, op_index):
-    x = ins["X"][0]
-    keep = attrs.get("keep_dim", False)
-    if attrs.get("reduce_all", False):
-        out = x.sum()
-        return {"Out": out.reshape((1,) * x.dim()) if keep
-                else out.reshape(1)}
-    dims = tuple(d % x.dim() for d in attrs.get("dim", [0]))
-    out = torch.sum(x, dim=dims, keepdim=keep)
-    return {"Out": out.reshape(1) if out.dim() == 0 else out}
+def _make_reduce(name, fn):
+    def compute(ins, attrs, ctx, op_index):
+        x = ins["X"][0]
+        keep = attrs.get("keep_dim", False)
+        if attrs.get("reduce_all", False):
+            out = fn(x)
+            return {"Out": out.reshape((1,) * x.dim()) if keep
+                    else out.reshape(1)}
+        dims = tuple(d % x.dim() for d in attrs.get("dim", [0]))
+        out = fn(x, dim=dims, keepdim=keep)
+        return {"Out": out.reshape(1) if out.dim() == 0 else out}
+
+    register_op(name, ["X"], ["Out"], infer=_reduce_infer, compute=compute)
 
 
-register_op("reduce_sum", ["X"], ["Out"], infer=_reduce_infer,
-            compute=_reduce_sum_compute)
+_make_reduce("reduce_sum", torch.sum)
+_make_reduce("reduce_mean", torch.mean)

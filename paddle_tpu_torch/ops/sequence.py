@@ -1,6 +1,8 @@
-"""The Transformer's sequence ops (counterpart of the ``add_position_
-encoding`` and ``padding_mask`` ops of ``paddle_tpu/ops/sequence.py``).
-Sequences are padded [B, T, ...] tensors with a [B] length companion."""
+"""Sequence ops (counterpart of the ``add_position_encoding``,
+``padding_mask`` and ``sequence_pool`` ops of
+``paddle_tpu/ops/sequence.py``).  Sequences are padded [B, T, ...]
+tensors with a [B] length companion; positions at or past a row's length
+are masked, and the gradient through the mask is zero there."""
 
 import torch
 
@@ -40,3 +42,60 @@ def _padding_mask_compute(ins, attrs, ctx, op_index):
 register_op("padding_mask", ["Length", "Ref"], ["Out"],
             infer=_padding_mask_infer, compute=_padding_mask_compute,
             grad=None)
+
+
+def _time_mask(length, t, extra_dims):
+    """[B, T] (+ trailing singleton dims) validity mask."""
+    m = torch.arange(t, device=length.device)[None, :] < length[:, None]
+    return m.reshape(tuple(m.shape) + (1,) * extra_dims)
+
+
+def _seq_pool_infer(op, block):
+    x = in_var(op, block, "X")
+    out_shape = (x.shape[0],) + tuple(x.shape[2:])
+    set_output(op, block, "Out", out_shape, x.dtype)
+    set_output(op, block, "MaxIndex", out_shape, "int32")
+
+
+def _seq_pool_compute(ins, attrs, ctx, op_index):
+    """Pool [B, T, ...] over the first ``length`` steps of each row:
+    AVERAGE, SUM, SQRT (sum / sqrt(length)), MAX (with ``MaxIndex``, the
+    first maximum's step), LAST, FIRST.  An empty row pools to 0."""
+    x, length = ins["X"][0], ins["Length"][0]
+    ptype = attrs.get("pooltype", "AVERAGE").upper()
+    length = length.to(x.device)
+    mask = _time_mask(length, x.shape[1], x.dim() - 2)
+    lead = (-1,) + (1,) * (x.dim() - 2)
+    denom = torch.clamp_min(length, 1).to(x.dtype).reshape(lead)
+    nonempty = (length > 0).reshape(lead)
+    res = {}
+    if ptype in ("AVERAGE", "SUM", "SQRT"):
+        out = torch.where(mask, x, 0).sum(dim=1)
+        if ptype == "AVERAGE":
+            out = out / denom
+        elif ptype == "SQRT":
+            out = out / torch.sqrt(denom)
+    elif ptype == "MAX":
+        masked = torch.where(mask, x, torch.finfo(x.dtype).min
+                             if x.is_floating_point()
+                             else torch.iinfo(x.dtype).min)
+        # amax spreads the gradient over tied maxima, as jnp.max does
+        out = torch.where(nonempty, torch.amax(masked, dim=1), 0)
+        res["MaxIndex"] = torch.argmax(masked, dim=1).to(torch.int32)
+    elif ptype == "LAST":
+        last = torch.clamp_min(length - 1, 0).to(torch.int64).reshape(
+            (-1, 1) + (1,) * (x.dim() - 2))
+        out = torch.take_along_dim(
+            x, last.expand((-1, 1) + tuple(x.shape[2:])), dim=1).squeeze(1)
+        out = torch.where(nonempty, out, 0)
+    elif ptype == "FIRST":
+        out = torch.where(nonempty, x[:, 0], 0)
+    else:
+        raise ValueError("unknown pooltype %r" % ptype)
+    res["Out"] = out
+    return res
+
+
+register_op("sequence_pool", ["X", "Length"], ["Out", "MaxIndex"],
+            infer=_seq_pool_infer, compute=_seq_pool_compute,
+            no_grad_inputs=("Length",))

@@ -5,8 +5,8 @@ of ``paddle_tpu/optimizer.py``).
 update op per parameter.  Optimizer state (moments, beta powers, the
 learning rate) are persistable scope vars that the update ops advance
 inside the same ``Executor.run`` as the step.  Ported: the base class,
-``SGD``, ``Momentum`` and ``Adam`` (dense gradients); the other optimizers
-wait (ROADMAP Queue A).
+``SGD``, ``Momentum``, ``Adagrad`` and ``Adam``, with dense and
+SelectedRows gradients; the other optimizers wait (ROADMAP Queue A1c).
 """
 
 from collections import defaultdict
@@ -20,8 +20,8 @@ from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
 
-__all__ = ["SGD", "Momentum", "Adam", "SGDOptimizer", "MomentumOptimizer",
-           "AdamOptimizer"]
+__all__ = ["SGD", "Momentum", "Adagrad", "Adam", "SGDOptimizer",
+           "MomentumOptimizer", "AdagradOptimizer", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -204,6 +204,36 @@ class MomentumOptimizer(Optimizer):
         )
 
 
+class AdagradOptimizer(Optimizer):
+    """mom += g * g; p -= lr g / (sqrt(mom) + epsilon)."""
+
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adagrad"
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str,
+                                       param_and_grad[0])
+        return block.append_op(
+            type="adagrad",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Moment": [moment],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={"ParamOut": [param_and_grad[0]], "MomentOut": [moment]},
+            attrs={"epsilon": self._epsilon},
+        )
+
+
 class AdamOptimizer(Optimizer):
     _moment1_acc_str = "moment1"
     _moment2_acc_str = "moment2"
@@ -268,4 +298,5 @@ class AdamOptimizer(Optimizer):
 
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
+Adagrad = AdagradOptimizer
 Adam = AdamOptimizer

@@ -1,8 +1,7 @@
 """ParamAttr: per-parameter configuration (counterpart of
 ``paddle_tpu/param_attr.py``): name, initializer, learning-rate
-multiplier, regularizer, trainability, gradient clip.  The regularizer and
-clip classes are not ported yet; the optimizer raises on a parameter that
-sets one."""
+multiplier, regularizer (``regularizer.L1Decay`` / ``L2Decay``),
+trainability, gradient clip (the ``clip`` classes)."""
 
 from .initializer import Initializer
 

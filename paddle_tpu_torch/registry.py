@@ -226,10 +226,11 @@ def _generic_grad_compute(ins, attrs, ctx, op_index):
 
     primal = {slot: vals for slot, vals in ins.items()
               if not slot.startswith(("Out::", "GRAD::"))}
+    # the floating tensors (a SelectedRows passes through undifferentiated)
     diff_slots = [slot for slot, vals in primal.items()
                   if slot not in fwd_def.no_grad_inputs and vals
-                  and all(v is not None and v.is_floating_point()
-                          for v in vals)]
+                  and all(isinstance(v, torch.Tensor)
+                          and v.is_floating_point() for v in vals)]
     full = dict(primal)
     with torch.enable_grad():
         for slot in diff_slots:

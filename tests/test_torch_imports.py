@@ -31,6 +31,8 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
         "import paddle_tpu_torch.nets\n"
         "import paddle_tpu_torch.contrib.trainer\n"
         "import paddle_tpu_torch.contrib.inferencer\n"
+        "import paddle_tpu_torch.models.ctr_dnn, paddle_tpu_torch.clip\n"
+        "import paddle_tpu_torch.ops.selected_rows\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "

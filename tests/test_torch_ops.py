@@ -369,3 +369,307 @@ def test_fc_over_two_inputs():
         return [out] + weights
 
     run_both(build, {"x1": _rand(5, 4, seed=5), "x2": _rand(5, 6, seed=6)})
+
+
+# ---------------------------------------------------------------------------
+# the sparse-embedding slice's dense ops, clip classes, regularizers and
+# Adagrad
+# ---------------------------------------------------------------------------
+
+POOL_TYPES = ["average", "sum", "sqrt", "max", "last", "first"]
+
+
+@pytest.mark.parametrize("pool_type", POOL_TYPES)
+def test_sequence_pool_op(pool_type):
+    """``sequence_pool`` of a padded [4, 5, 3] batch with lengths 5, 2, 0,
+    1 (a zero-length row pools to 0), its output, MaxIndex (MAX) and
+    input gradient against the JAX op's (rtol 1e-6)."""
+    x = _rand(4, 5, 3, seed=7)
+    x[1, 3] = x[1, 0]            # equal values past a row's end
+
+    def build(pkg):
+        xv = pkg.layers.data("x", shape=[4, 5, 3], append_batch_size=False,
+                             stop_gradient=False)
+        ln = pkg.layers.data("len", shape=[4], append_batch_size=False,
+                             dtype="int64")
+        out = pkg.layers.sequence_pool(xv, pool_type, length=ln)
+        w = pkg.layers.data("w", shape=[4, 3], append_batch_size=False)
+        loss = pkg.layers.reduce_sum(pkg.layers.elementwise_mul(out, w))
+        pkg.backward.append_backward(loss)
+        op = [o for o in pkg.default_main_program().global_block().ops
+              if o.type == "sequence_pool"][0]
+        extra = op.outputs["MaxIndex"] if pool_type == "max" else []
+        return [out, "x@GRAD"] + extra
+
+    feed = {"x": x, "len": np.array([5, 2, 0, 1], "int64"),
+            "w": _rand(4, 3, seed=8)}
+    out = run_both_raw(build, feed)
+    for want, got in out:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-7)
+    assert not out[0][1][2].any()            # the empty row pools to 0
+    if pool_type == "max":
+        assert str(out[2][1].dtype) == "torch.int32"
+
+
+def test_sequence_first_and_last_step_layers():
+    """``sequence_first_step`` / ``sequence_last_step`` over a
+    ``lod_level=1`` input take its ``@LEN`` companion."""
+    def build(pkg):
+        x = pkg.layers.data("x", shape=[3], lod_level=1)
+        return [pkg.layers.sequence_first_step(x),
+                pkg.layers.sequence_last_step(x)]
+
+    feed = {"x": _rand(3, 4, 3, seed=9),
+            "x@LEN": np.array([4, 1, 3], "int64")}
+    out = run_both_raw(build, feed)
+    for want, got in out:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    first, last = [g.numpy() for _, g in out]
+    np.testing.assert_array_equal(first, feed["x"][:, 0])
+    np.testing.assert_array_equal(last, feed["x"][[0, 1, 2], [3, 0, 2]])
+
+
+def test_concat_op_with_grads():
+    """``concat`` along axis 1 and the gradient of each input."""
+    def build(pkg):
+        a = pkg.layers.data("a", shape=[3], stop_gradient=False)
+        b = pkg.layers.data("b", shape=[1], stop_gradient=False)
+        out = pkg.layers.concat([a, b], axis=1)
+        w = pkg.layers.data("w", shape=[4])
+        pkg.backward.append_backward(pkg.layers.reduce_sum(
+            pkg.layers.elementwise_mul(out, w)))
+        return [out, "a@GRAD", "b@GRAD"]
+
+    feed = {"a": _rand(5, 3, seed=1), "b": _rand(5, 1, seed=2),
+            "w": _rand(5, 4, seed=3)}
+    out = run_both_raw(build, feed)
+    for want, got in out:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert out[0][1].shape == (5, 4)
+
+
+def test_auc_op_streams_like_jax():
+    """``layers.auc`` over two batches (the histograms persist in the
+    scope).  The JAX package holds int32 histograms and a float32 AUC (x64
+    off), the port int64 and float64.  A prediction on a bucket edge may
+    land one bin apart after a one-ulp difference, so: the histogram
+    totals exactly, each bin within 2 counts, the AUC at atol 1e-4."""
+    rng = np.random.RandomState(5)
+    batches = []
+    for _ in range(2):
+        label = rng.randint(0, 2, (300, 1)).astype("int64")
+        p1 = np.clip(label[:, 0] * 0.3 + rng.rand(300) * 0.7, 0, 1)
+        batches.append({"p": np.stack([1 - p1, p1], 1).astype("float32"),
+                        "label": label})
+    got = {}
+    for pkg in (fluid, pt):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard("t_"):
+            p = pkg.layers.data("p", shape=[2])
+            lab = pkg.layers.data("label", shape=[1], dtype="int64")
+            auc, (pos, neg) = pkg.layers.auc(p, lab)
+        if pkg is fluid:
+            want_dict = main.to_dict()
+        else:
+            assert main.to_dict() == want_dict
+            assert pos.name == "t_auc_0.stat_pos" and pos.persistable
+        exe, scope = pkg.Executor(pkg.CPUPlace()), pkg.Scope()
+        exe.run(startup, scope=scope)
+        got[pkg] = [[np.asarray(v) for v in exe.run(
+            main, feed=f, fetch_list=[auc, pos, neg], scope=scope)]
+            for f in batches]
+    for (ja, jp, jn), (ta, tp, tn) in zip(got[fluid], got[pt]):
+        assert ta.dtype == np.float64 and tp.dtype == np.int64
+        assert tp.sum() == jp.sum() and tn.sum() == jn.sum()
+        assert np.abs(tp - jp).max() <= 2 and np.abs(tn - jn).max() <= 2
+        np.testing.assert_allclose(ta, ja, atol=1e-4)
+    assert got[pt][1][1].sum() + got[pt][1][2].sum() == 600
+    assert got[pt][1][0][0] > 0.7
+
+
+def _one_op(op_type, attrs, x):
+    """A program of one ``op_type`` op on a [N, ...] float input, with
+    its output fetched."""
+    def build(pkg):
+        xv = pkg.layers.data("x", shape=list(x.shape),
+                             append_batch_size=False)
+        out = pkg.default_main_program().global_block().create_var(
+            name="out", dtype="float32")
+        pkg.default_main_program().global_block().append_op(
+            type=op_type, inputs={"X": [xv]}, outputs={"Out": [out]},
+            attrs=attrs)
+        return [out]
+    return build
+
+
+UNARY_CASES = {
+    "clip": ("clip", {"min": -0.3, "max": 0.5}),
+    "clip_by_norm_scaled": ("clip_by_norm", {"max_norm": 1.0}),
+    "clip_by_norm_kept": ("clip_by_norm", {"max_norm": 100.0}),
+    "squared_l2_norm": ("squared_l2_norm", {}),
+    "sign": ("sign", {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNARY_CASES))
+def test_clip_family_and_sign_ops(case):
+    """``clip``, ``clip_by_norm`` (above and below the norm),
+    ``squared_l2_norm`` and ``sign`` on a dense input (with exact zeros)
+    against the JAX ops (rtol 1e-6)."""
+    x = _rand(6, 5, seed=11)
+    x[0, :2] = 0.0
+    op_type, attrs = UNARY_CASES[case]
+    (want, got), = run_both_raw(_one_op(op_type, attrs, x), {"x": x})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["sqrt", "reduce_mean_dim",
+                                  "reduce_mean_all_keep",
+                                  "elementwise_max_axis"])
+def test_sqrt_reduce_mean_elementwise_max_layers(case):
+    """The layers ``sqrt``, ``reduce_mean`` and ``elementwise_max`` (with
+    Fluid's axis broadcast) with the input gradients."""
+    def build(pkg):
+        x = pkg.layers.data("x", shape=[4, 3, 5], append_batch_size=False,
+                            stop_gradient=False)
+        y = pkg.layers.data("y", shape=[3], append_batch_size=False,
+                            stop_gradient=False)
+        L = pkg.layers
+        out = {"sqrt": lambda: L.sqrt(x),
+               "reduce_mean_dim": lambda: L.reduce_mean(x, dim=[0, 2]),
+               "reduce_mean_all_keep": lambda: L.reduce_mean(
+                   x, keep_dim=True),
+               "elementwise_max_axis": lambda: L.elementwise_max(
+                   x, y, axis=1)}[case]()
+        pkg.backward.append_backward(L.reduce_sum(out))
+        return [out, "x@GRAD"] + (["y@GRAD"] if case.startswith("elem")
+                                  else [])
+
+    x = np.abs(_rand(4, 3, 5, seed=12)) + 0.1
+    feed = {"x": x, "y": np.array([0.5, 1.0, 2.0], "float32")}
+    for want, got in run_both_raw(build, feed):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def _clip_step(pkg, clip, reg=None, error_clip=None):
+    """``tests/test_metrics_clip_reg.py``'s programs: one SGD step (lr 1)
+    of a linear model whose loss is 100 x the sum of its output (so the
+    unclipped gradient of each weight is 200), or with ``reg`` its mean
+    (lr 0.1); with ``error_clip`` the clip is on the output's error."""
+    pkg.default_startup_program().random_seed = 9
+    x = pkg.layers.data("x", shape=[3])
+    y = pkg.layers.fc(x, size=1, param_attr=pkg.ParamAttr(
+        name="w_clip", regularizer=reg), bias_attr=False)
+    if error_clip is not None:
+        y.error_clip = error_clip
+    if reg is None:
+        loss = pkg.layers.scale(pkg.layers.reduce_sum(y), scale=100.0)
+    else:
+        loss = pkg.layers.mean(y)
+    if clip is not None:
+        pkg.clip.set_gradient_clip(clip)
+    pkg.optimizer.SGD(learning_rate=1.0 if reg is None else 0.1).minimize(
+        loss)
+    return [loss]
+
+
+@pytest.mark.parametrize("case", ["value", "norm", "global_norm", "none",
+                                  "error_value", "l2", "l1"])
+def test_dense_clip_and_decay_match_jax(case):
+    """The clip classes and L1/L2 decay on a dense program: equal programs,
+    and the applied gradient, (w0 - w1) / lr, against the JAX package's
+    (rtol 1e-5) and the formulas of ``tests/test_metrics_clip_reg.py``."""
+    def build(pkg):
+        c, r, e = None, None, None
+        if case == "value":
+            c = pkg.clip.GradientClipByValue(max=5.0)
+        elif case == "norm":
+            c = pkg.clip.GradientClipByNorm(clip_norm=3.0)
+        elif case == "global_norm":
+            c = pkg.clip.GradientClipByGlobalNorm(clip_norm=1.0)
+        elif case == "error_value":
+            e = pkg.clip.ErrorClipByValue(max=0.5)
+        elif case == "l2":
+            r = pkg.regularizer.L2Decay(0.5)
+        elif case == "l1":
+            r = pkg.regularizer.L1Decay(0.5)
+        return _clip_step(pkg, c, r, e)
+
+    w = {}
+    for pkg in (fluid, pt):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard("t_"):
+            fetch = build(pkg)
+        if pkg is fluid:
+            want = main.to_dict()
+            exe, scope = pkg.Executor(pkg.CPUPlace()), pkg.Scope()
+            exe.run(startup, scope=scope)
+            w0 = np.array(scope.find_var("w_clip"), copy=True)
+        else:
+            assert main.to_dict() == want
+            exe, scope = pkg.Executor(pkg.CPUPlace()), pkg.Scope()
+            load_numpy_params(scope, {"w_clip": w0}, "cpu")
+            for v in startup.list_vars():
+                if v.persistable and v.name != "w_clip":
+                    load_numpy_params(scope, {v.name: np.array(
+                        fluid_scope.find_var(v.name), copy=True)}, "cpu")
+        fluid_scope = scope if pkg is fluid else fluid_scope
+        xv = (np.zeros if case in ("l1", "l2") else np.ones)((2, 3),
+                                                             "float32")
+        exe.run(main, feed={"x": xv}, fetch_list=fetch, scope=scope)
+        w[pkg] = np.asarray(scope.find_var("w_clip"))
+    lr = 0.1 if case in ("l1", "l2") else 1.0
+    g = (w0 - w[pt]) / lr
+    np.testing.assert_allclose(w[pt], w[fluid], rtol=1e-5, atol=1e-6)
+    expect = {"value": np.full((3, 1), 5.0), "none": np.full((3, 1), 200.0),
+              # d loss / d y = 100, clipped to 0.5 on each of 2 rows
+              "error_value": np.full((3, 1), 1.0),
+              "l2": 0.5 * w0, "l1": 0.5 * np.sign(w0)}
+    if case in expect:
+        np.testing.assert_allclose(g, expect[case], rtol=1e-4, atol=1e-6)
+    else:
+        assert np.linalg.norm(g) == pytest.approx(
+            3.0 if case == "norm" else 1.0, rel=1e-4)
+
+
+def test_adagrad_trajectory_matches_jax():
+    """``tests/test_optimizers.py``'s quadratic problem under
+    Adagrad(0.3): 25 steps, the loss falls and follows the JAX package's
+    (rtol 1e-4), and the first step is the formula."""
+    def build(pkg):
+        x = pkg.layers.data("x", shape=[4])
+        y = pkg.layers.fc(x, size=1, bias_attr=False,
+                          param_attr=pkg.ParamAttr(
+                              name="w0", initializer=pkg.initializer
+                              .ConstantInitializer(1.0)))
+        loss = pkg.layers.mean(pkg.layers.square(y))
+        pkg.optimizer.Adagrad(learning_rate=0.3).minimize(loss)
+        return [loss]
+
+    xv = np.random.RandomState(0).uniform(0.5, 1.5, (16, 4)).astype(
+        "float32")
+    losses = {}
+    for pkg in (fluid, pt):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard("t_"):
+            fetch = build(pkg)
+        if pkg is fluid:
+            want = main.to_dict()
+        else:
+            assert main.to_dict() == want
+        exe, scope = pkg.Executor(pkg.CPUPlace()), pkg.Scope()
+        exe.run(startup, scope=scope)
+        losses[pkg] = []
+        for i in range(25):
+            losses[pkg].append(float(np.asarray(exe.run(
+                main, feed={"x": xv}, fetch_list=fetch, scope=scope)[0])[0]))
+            if i == 0 and pkg is pt:
+                w1 = scope.find_var("w0").numpy().ravel().copy()
+    np.testing.assert_allclose(losses[pt], losses[fluid], rtol=1e-4)
+    assert losses[pt][-1] < losses[pt][0] * 0.9
+    # the first step from w = 1: g = 2 mean((x . w) x), mom = g * g,
+    # w1 = 1 - 0.3 g / (sqrt(mom) + 1e-6)
+    g = 2 * (xv * xv.sum(1, keepdims=True)).mean(0)
+    np.testing.assert_allclose(w1, 1 - 0.3 * g / (np.abs(g) + 1e-6),
+                               rtol=1e-6)

@@ -228,13 +228,18 @@ def test_training_options_not_ported_raise():
         pt.Executor(pt.CPUPlace()).run(
             feed={"logits": np.zeros((2, VOCAB), "float32"),
                   "label": np.zeros((2, 1), "int64")}, fetch_list=[loss])
-    w = pt.layers.fc(logits, 3, param_attr=pt.ParamAttr(regularizer=0.1))
-    with pytest.raises(NotImplementedError, match="regularizer"):
-        pt_optimizer.SGD(0.1).minimize(pt.layers.reduce_sum(w))
-    c = pt.layers.fc(logits, 3, bias_attr=False,
-                     param_attr=pt.ParamAttr(gradient_clip=1.0))
-    with pytest.raises(NotImplementedError, match="gradient clip"):
-        pt_optimizer.SGD(0.1).minimize(pt.layers.reduce_sum(c))
+    # the regularizers and gradient clips are ported (they raised before
+    # the sparse-embedding slice): a parameter's decay and clip append
+    # their ops between the backward and the update
+    w = pt.layers.fc(logits, 3, param_attr=pt.ParamAttr(
+        regularizer=pt.regularizer.L2Decay(0.1)))
+    c = pt.layers.fc(logits, 3, bias_attr=False, param_attr=pt.ParamAttr(
+        gradient_clip=pt.clip.GradientClipByValue(1.0)))
+    pt_optimizer.SGD(0.1).minimize(pt.layers.reduce_sum(
+        pt.layers.elementwise_add(w, c)))
+    ops = pt.default_main_program().global_block().ops
+    first_sgd = [op.type for op in ops].index("sgd")
+    assert {"clip", "scale", "sum"} <= {op.type for op in ops[:first_sgd]}
 
 
 def test_executor_frees_temporaries_and_keeps_fetches():
