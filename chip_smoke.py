@@ -67,6 +67,12 @@ a few kernel records of a long serving window (about 1 to 11 of 15,000
 events, the window's wrappers having launched every one): a serving
 pass, which changes no state, is then profiled again, up to
 ``TRACE_TRIES`` windows, and the losses are logged (``trace_losses``).
+Each window first runs ``TRACE_PADS`` tiny spin kernels, left out of its
+counts, since late in a whole run the trace dropped the first records of
+a window (``pads_traced`` shows how many pads it kept; not gated).  A
+window whose trace holds no device event at all is a fault; where the
+path's bit comparison is taken before the window (phases 16-20), an
+empty window is profiled again first (``empty_windows``).
 
 4. ``serve``   — a decoder LM at Transformer-base width (6 layers,
    d_model 512, 8 heads, d_inner 2048, vocab 32000, 1024-token cache,
@@ -196,7 +202,26 @@ pass, which changes no state, is then profiled again, up to
    the sparse and with dense gradients, the same bits; then 200 Adam
    steps at batch 512 (1-16 dnn ids a row, padded to 16), captured =
    eager over the first 20, examples/s, busy, idle share, peak memory,
-   the streaming AUC after 200 steps (> 0.85), no hand kernel launches.
+   the streaming AUC after 200 steps (> 0.85), no hand kernel launches;
+16. ``resnext_check`` — ``resnet_check`` on SE-ResNeXt-50, NCHW fused,
+   float32, dropout 0, the other runs taking the fused card step's ReLU
+   decisions at the squeeze fcs; the same comparison with each run's own
+   decisions and the units the fused step and the others decide
+   differently are logged beside it (``resnext_check_phase``);
+17. ``zoo`` — bench.py's image ladder (SmallNet, AlexNet, VGG-16,
+   GoogLeNet, SE-ResNeXt-50) under AMP and in float32, captured = eager
+   (``two_arm_run``), images/s, no hand kernel launches;
+18. ``zoo_infer`` — the ``--infer`` rungs at batch 16, float32 and bf16
+   (``Bfloat16Transpiler``), captured = eager, bf16 within relative L1
+   0.02 of float32, no hand kernel launches;
+19. ``se_resnext_fused`` and ``se_resnext152`` — SE-ResNeXt-50 after
+   ``fuse_conv_bn`` (#8 and #9 33 times a step each), float32 and AMP;
+   BASELINE's SE-ResNeXt-152 under AMP at the largest batch up to 128
+   that leaves 8 GB free;
+20. ``optimizers`` — bench.py's MLP under the six new optimizers, five
+   LR schedules, ``append_LARS``, ``ModelAverage`` and QAT: 3 steps card
+   against CPU at ``train_check``'s band, 20 steps captured = eager, no
+   hand kernel launches.
 
 Then the script's total seconds (``total``), the kernel table as one JSON
 line, the ``nvidia-smi`` line, and, as the last line, ``{"ok": true,
@@ -426,6 +451,15 @@ def _pairs_and_keys(b, h, tq, tk, causal, kl):
 # the trace (a serving window lost most of its first dispatch's), while
 # none went missing once the profiler had this long to settle
 TRACE_SETTLE_S = 0.05
+# and may still drop the first records of a window: late in a whole run
+# (past ~400 s) a captured inference pass's window lost its first 21-32
+# device records every time (all of SmallNet's), the eager pass's none.
+# Each ``device_window`` first runs this many tiny spin kernels
+# (``torch.cuda._sleep``), which take such a loss and are left out of
+# its counts by name; ``pads_traced`` reports how many the trace kept
+# (0-41 lost a window over a whole run, once all 128 with every record
+# of the window's own work kept: NVIDIA H100 80GB HBM3)
+TRACE_PADS = 128
 
 
 def _device_kernels(fn, tries=3):
@@ -806,7 +840,17 @@ CONV_BN_STAGES = {"stage1": (128, 64, 256, 3136),
                   "ragged": (1, 72, 200, 1000),
                   # the same in NCHW: 147 positions, HW 49 straddles the
                   # 16-byte chunks of positions and the images the tiles
-                  "ragged_hw49": (3, 72, 200, 49)}
+                  "ragged_hw49": (3, 72, 200, 49),
+                  # SE-ResNeXt-50's fused layers at batch 128, inner widths
+                  # twice ResNet-50's: stage 1's conv2 (BN + ReLU prologue)
+                  # and conv0 (raw), stage 4's conv2
+                  "rx_s1_conv2": (128, 128, 256, 3136),
+                  "rx_s1_conv0": (128, 256, 128, 3136),
+                  "rx_s4_conv2": (128, 1024, 2048, 49)}
+# the SE-ResNeXt-50 cases of kernels #8/#9 (NCHW, the fused program's
+# layout): (stage, apply_bn); every one folds the next BN's stats backward
+SE_CONV_BN_CASES = (("rx_s1_conv2", True), ("rx_s1_conv0", False),
+                    ("rx_s4_conv2", True))
 # allclose with a magnitude term: |kernel - plain| <= rtol |plain| +
 # scale_tol * scale, where scale is the sum of the absolute values of the
 # terms each output sums (|W| @ |xn| for z); the two sum ~1e2-4e5 terms in
@@ -1032,7 +1076,8 @@ def conv_bn_cases(cb, timer):
     input), stage 4 (2048 -> 512 at 7x7, no stats cotangent backward) and
     stages 3, 1 and 4 in bfloat16 (the AMP path's); each layout.  Then
     each layout's ragged shape in both types, with the prologue and the
-    fold."""
+    fold.  Then #8/#9 at SE-ResNeXt-50's fused shapes (``SE_CONV_BN_CASES``)
+    in both types."""
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     for nhwc in (False, True):
@@ -1054,6 +1099,14 @@ def conv_bn_cases(cb, timer):
                                    ("stage1", False, True, bf16),
                                    ("stage4", True, False, bf16))
             + tuple((st, True, True, dt) for st, dt in ragged)]
+    # SE-ResNeXt-50's shapes, float32 and bfloat16, after the others (the
+    # first check of each kernel stays its main path's)
+    for dt in (f32, bf16):
+        for st, bn in SE_CONV_BN_CASES:
+            out["conv_bn_fwd"].append(
+                conv_bn_fwd_case(cb, timer, st, False, bn, dt))
+            out["conv_bn_bwd"].append(
+                conv_bn_bwd_case(cb, timer, st, False, bn, True, dt))
     return out
 
 
@@ -1286,7 +1339,7 @@ INFER_BF16_BAND = 0.02
 TRACE_TRIES = 3
 
 
-def device_window(fn, lost=None):
+def device_window(fn, lost=None, again=False):
     """Run ``fn`` under ``torch.profiler``: its host wall (which the
     profiler's own host work lengthens), the device's busy time (the union
     of the kernel and copy intervals) and idle share, the number of device
@@ -1301,15 +1354,23 @@ def device_window(fn, lost=None):
     a serving pass) takes the window and returns the kernels whose records
     the trace lost (``trace_lost``); while it returns any, ``fn`` is
     profiled again, up to ``TRACE_TRIES`` windows in all, and each lossy
-    window's losses are kept in ``trace_losses``."""
-    losses = []
-    for _ in range(TRACE_TRIES if lost else 1):
+    window's losses are kept in ``trace_losses``.  With ``lost`` or
+    ``again`` (an ``fn`` whose extra runs nothing compares) a window whose
+    trace holds no device event at all is profiled again too, counted in
+    ``empty_windows``: every path runs device work, so such a trace lost
+    the window (seen once on a SmallNet inference pass, captured and
+    eager alike), and ``launch_faults`` refuses a window left empty."""
+    losses, empty = [], 0
+    for _ in range(TRACE_TRIES if lost or again else 1):
         out = _profiled(fn)
+        if not out["device_events"]:
+            empty += 1
+            continue
         missing = lost(out) if lost else {}
         if not missing:
             break
         losses.append(missing)
-    out["trace_losses"] = losses
+    out.update(trace_losses=losses, empty_windows=empty)
     return out
 
 
@@ -1324,19 +1385,25 @@ def _profiled(fn):
     cuda.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_PADS):
+            torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         time.sleep(TRACE_SETTLE_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     wrapper = cuda.launch_counts()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
               and not e.name.startswith("dispatch/")]
+    events = [e for e in device if "spin_kernel" not in e.name]
     busy_ms = _union_us([(e.time_range.start, e.time_range.end)
                          for e in events]) / 1e3
     out = {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / (wall * 1e3),
            "device_events": len(events),
+           # under TRACE_PADS: the trace dropped records at the head
+           "pads_traced": len(device) - len(events),
            "trace_launches": cuda.device_launch_counts(
                e.name for e in events),
            "wrapper_launches": wrapper}
@@ -1365,7 +1432,9 @@ def launch_faults(rec):
     launch nothing, and the window's device trace shows each kernel as
     often as the program implies.  An eager path's wrappers launch each
     kernel as often as the program implies, in the timed runs and in the
-    window, whose trace shows the same counts."""
+    window, whose trace shows the same counts.  A window whose trace holds
+    no device event measured nothing (every path runs device work): it is
+    a fault, ``window_trace:device_events``, whatever the counts."""
     from paddle_tpu_torch.ops.cuda import KERNELS
 
     window, eager = rec["window"], not rec["captured"]
@@ -1373,9 +1442,12 @@ def launch_faults(rec):
               ("window_wrapper", window["wrapper_launches"],
                rec["window_need"] if eager else {}),
               ("window_trace", window["trace_launches"], rec["window_need"]))
-    return {"%s:%s" % (check, k): (got.get(k, 0), want.get(k, 0))
-            for check, got, want in checks for k in KERNELS
-            if got.get(k, 0) != want.get(k, 0)}
+    faults = {"%s:%s" % (check, k): (got.get(k, 0), want.get(k, 0))
+              for check, got, want in checks for k in KERNELS
+              if got.get(k, 0) != want.get(k, 0)}
+    if not window["device_events"]:
+        faults["window_trace:device_events"] = (0, "at least 1")
+    return faults
 
 
 def trace_lost(window, need, captured):
@@ -1955,19 +2027,29 @@ def relu_inputs(program):
 def relu_decisions(program, card_inputs):
     """While open, each ``relu`` op of ``program`` keeps the units that the
     card kept: Out = X * (the card's X > 0), ``card_inputs`` being the
-    card's fetches of ``relu_inputs``.  The CPU step then takes the card's
-    side wherever a ReLU input lies within float32 rounding of 0 and
-    computes every value itself; its backward (the generic grad reruns
-    the forward) passes the gradient through the same units."""
+    card's fetches of ``relu_inputs`` (or {relu input name: the card's
+    fetch of it}; a relu whose input is not named computes as usual).  The
+    CPU step then takes the card's side wherever a ReLU input lies within
+    float32 rounding of 0 and computes every value itself; its backward
+    (the generic grad reruns the forward) passes the gradient through the
+    same units."""
     from paddle_tpu_torch import registry
 
-    at = [i for i, op in enumerate(program.global_block().ops)
-          if op.type == "relu"]
-    keep = {i: torch.from_numpy(a > 0) for i, a in zip(at, card_inputs)}
+    if not isinstance(card_inputs, dict):
+        card_inputs = dict(zip(relu_inputs(program), card_inputs))
+    keep = {i: torch.from_numpy(card_inputs[op.inputs["X"][0]] > 0)
+            for i, op in enumerate(program.global_block().ops)
+            if op.type == "relu" and op.inputs["X"][0] in card_inputs}
     relu = registry.get_op_def("relu")
     plain = relu.compute
-    relu.compute = lambda ins, attrs, ctx, op_index: {
-        "Out": ins["X"][0] * keep[op_index].to(ins["X"][0].dtype)}
+
+    def compute(ins, attrs, ctx, op_index):
+        if op_index not in keep:
+            return plain(ins, attrs, ctx, op_index)
+        x = ins["X"][0]
+        return {"Out": x * keep[op_index].to(x.device, x.dtype)}
+
+    relu.compute = compute
     try:
         yield
     finally:
@@ -2290,6 +2372,17 @@ def resnet_feed(rng, batch):
             "label": rng.randint(0, 1000, (batch, 1)).astype("int64")}
 
 
+def shared_relus(main, other):
+    """The inputs of the ``relu`` ops that ``main`` runs (their output is
+    read by a later op) and ``other`` has too."""
+    ops = main.global_block().ops
+    read = {n for op in ops for n in op.input_arg_names}
+    other_inputs = set(relu_inputs(other))
+    return [op.inputs["X"][0] for op in ops if op.type == "relu"
+            and op.outputs["Out"][0] in read
+            and op.inputs["X"][0] in other_inputs]
+
+
 def _grad_rel_l2(names, got, want):
     rel = {}
     for n, a, b in zip(names, got, want):
@@ -2299,7 +2392,9 @@ def _grad_rel_l2(names, got, want):
     return rel
 
 
-def resnet_check_phase(batch=4, floor_scale=3.0, amp=False):
+def resnet_check_phase(batch=4, floor_scale=3.0, amp=False,
+                       build=build_resnet, modes=("fuse", "nhwc_fuse"),
+                       name=None, take_relus=None):
     """The fused programs (NCHW and NHWC) at full width, batch 4, from one
     startup state: one step on the card (kernels #8-#11) against one on the
     CPU (their plain versions), and against the plain program on the card.
@@ -2330,13 +2425,28 @@ def resnet_check_phase(batch=4, floor_scale=3.0, amp=False):
     at 2^-8 and the net amplifies it block by block); at batch 64 still
     0.97.  So there the gradients catch only a gross fault; the fused
     kernels are held to their plain versions in bfloat16 in the kernels
-    phase."""
+    phase.
+
+    ``build(mode, amp)`` and ``modes`` take another model through the same
+    check (``resnext_check``: SE-ResNeXt-50, NCHW fused), logged under
+    ``name``.  With ``take_relus`` (a name prefix) every other run (the
+    plain program, the nudged one, the CPU) takes the fused card step's
+    ReLU decisions (``relu_decisions``) at the ``relu`` ops both programs
+    run on the same input (``shared_relus``) whose input is named with
+    that prefix: at SE-ResNeXt's squeeze fcs (``fc_*``, 128-512 units a
+    block at batch 4) an input within rounding of 0 that takes the other
+    sign moves that fc's whole gradient column, which a 1e-7 nudge of the
+    weights seldom does.  The same comparison with each run's own
+    decisions is logged beside it, not gated (``own_relus``), and each
+    comparison logs the units of every shared relu whose input takes the
+    other sign than in the fused card step (``relus_differ_plain_card``,
+    ``relus_differ_cpu``)."""
     import paddle_tpu_torch as pt
 
     card = pt.Executor(pt.CUDAPlace(0))
     cpu = pt.Executor(pt.CPUPlace())
     feed = resnet_feed(np.random.RandomState(11), batch)
-    plain, startup, plain_loss = build_resnet("plain", amp)
+    plain, startup, plain_loss = build("plain", amp)
     start = pt.Scope()
     card.run(startup, scope=start)
     params = [p.name for p in plain.all_parameters() if p.trainable]
@@ -2353,59 +2463,108 @@ def resnet_check_phase(batch=4, floor_scale=3.0, amp=False):
             sc.set_var(n, v)
         return sc
 
-    plain_out = card.run(plain, feed=feed, fetch_list=[plain_loss] + fetch,
-                         scope=scope_copy("cuda"))
-    nudged = card.run(plain, feed=feed, fetch_list=[plain_loss] + fetch,
-                      scope=scope_copy("cuda", perturb=1e-7))
-    floor = _grad_rel_l2(params, nudged[1:], plain_out[1:])
-    floor_med, floor_max = statistics.median(floor.values()), \
-        max(floor.values())
+    relus, fused, decisions = [], {}, {}
+    if take_relus:
+        main, _, loss = build(modes[0], amp)
+        relus = shared_relus(main, plain)
+        got = card.run(main, feed=feed, fetch_list=[loss] + relus,
+                       scope=scope_copy("cuda"))
+        fused = dict(zip(relus, got[1:]))
+        decisions = {n: x for n, x in fused.items()
+                     if n.startswith(take_relus)}
+    n_fetch = 1 + len(fetch)
+
+    def differ(inputs):
+        # {relu input: [units whose input takes the other sign than in the
+        # fused card step (with each run's own decisions: the units that
+        # decide otherwise; with the fused step's: those it overrides),
+        # the largest |fused card input| among them]}
+        out = {}
+        for n, x in zip(relus, inputs):
+            d = (fused[n] > 0) != (x > 0)
+            if d.any():
+                out[n] = [int(d.sum()), float(np.abs(fused[n][d]).max())]
+        return out
+
+    def compare(taken):
+        """(summary, modes out of bounds): every run but the fused card
+        step taking the ReLU decisions ``taken``."""
+        with relu_decisions(plain, taken):
+            plain_out = card.run(plain, feed=feed,
+                                 fetch_list=[plain_loss] + fetch + relus,
+                                 scope=scope_copy("cuda"))
+            nudged = card.run(plain, feed=feed,
+                              fetch_list=[plain_loss] + fetch,
+                              scope=scope_copy("cuda", perturb=1e-7))
+        floor = _grad_rel_l2(params, nudged[1:], plain_out[1:n_fetch])
+        floor_med, floor_max = statistics.median(floor.values()), \
+            max(floor.values())
+        summary = {"floor_rel_l2_median": floor_med,
+                   "floor_rel_l2_max": floor_max,
+                   "loss_plain_card": float(plain_out[0][0])}
+        if relus:
+            summary["relus_differ_plain_card"] = differ(plain_out[n_fetch:])
+        bad = []
+        for mode in modes:
+            main, _, loss = build(mode, amp)
+            card_scope = scope_copy("cuda")
+            before = {n: card_scope.var(n).clone() for n in params}
+            t0 = time.perf_counter()
+            got = card.run(main, feed=feed, fetch_list=[loss] + fetch,
+                           scope=card_scope)
+            card_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with relu_decisions(main, taken):
+                want = cpu.run(main, feed=feed,
+                               fetch_list=[loss] + fetch + relus,
+                               scope=scope_copy("cpu"))
+            cpu_s = time.perf_counter() - t0
+            assert all(np.isfinite(a).all() for a in got), \
+                "non-finite on card"
+            rel = _grad_rel_l2(params, got[1:], want[1:n_fetch])
+            vs_plain = _grad_rel_l2(params, got[1:], plain_out[1:n_fetch])
+            moved = sum(not torch.equal(before[n], card_scope.var(n))
+                        for n in params)
+            m = {"loss_card": float(got[0][0]),
+                 "loss_cpu": float(want[0][0]), "moved": moved,
+                 "not_float32": float32_state_faults(main, card_scope),
+                 "vs_cpu_rel_l2_median": statistics.median(rel.values()),
+                 "vs_cpu_rel_l2_max": max(rel.values()),
+                 "vs_cpu_worst": max(rel, key=rel.get),
+                 "vs_plain_rel_l2_median":
+                     statistics.median(vs_plain.values()),
+                 "vs_plain_rel_l2_max": max(vs_plain.values()),
+                 "vs_plain_worst": max(vs_plain, key=vs_plain.get),
+                 "card_step_s": card_s, "cpu_step_s": cpu_s}
+            if relus:
+                m["relus_differ_cpu"] = differ(want[n_fetch:])
+            m["within"] = all(
+                m[k + "_median"] <= floor_scale * floor_med
+                and m[k + "_max"] <= floor_scale * floor_max
+                for k in ("vs_cpu_rel_l2", "vs_plain_rel_l2"))
+            summary[mode] = m
+            loss_rtol = 1e-2 if amp else 1e-4
+            if abs(m["loss_card"] - m["loss_cpu"]) \
+                    > loss_rtol * abs(m["loss_cpu"]) \
+                    or not m["within"] or moved != len(params) \
+                    or m["not_float32"]:
+                bad.append(mode)
+        return summary, bad
+
     summary = {"batch": batch, "params": len(params), "amp": amp,
-               "floor_rel_l2_median": floor_med, "floor_rel_l2_max": floor_max,
                "floor_scale": floor_scale,
-               "loss_plain_card": float(plain_out[0][0])}
-    bad = []
-    for mode in ("fuse", "nhwc_fuse"):
-        main, _, loss = build_resnet(mode, amp)
-        card_scope = scope_copy("cuda")
-        before = {n: card_scope.var(n).clone() for n in params}
-        t0 = time.perf_counter()
-        got = card.run(main, feed=feed, fetch_list=[loss] + fetch,
-                       scope=card_scope)
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        want = cpu.run(main, feed=feed, fetch_list=[loss] + fetch,
-                       scope=scope_copy("cpu"))
-        cpu_s = time.perf_counter() - t0
-        assert all(np.isfinite(a).all() for a in got), "non-finite on card"
-        rel = _grad_rel_l2(params, got[1:], want[1:])
-        vs_plain = _grad_rel_l2(params, got[1:], plain_out[1:])
-        moved = sum(not torch.equal(before[n], card_scope.var(n))
-                    for n in params)
-        s = {"loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
-             "moved": moved,
-             "not_float32": float32_state_faults(main, card_scope),
-             "vs_cpu_rel_l2_median": statistics.median(rel.values()),
-             "vs_cpu_rel_l2_max": max(rel.values()),
-             "vs_cpu_worst": max(rel, key=rel.get),
-             "vs_plain_rel_l2_median": statistics.median(vs_plain.values()),
-             "vs_plain_rel_l2_max": max(vs_plain.values()),
-             "vs_plain_worst": max(vs_plain, key=vs_plain.get),
-             "card_step_s": card_s, "cpu_step_s": cpu_s}
-        summary[mode] = s
-        within = all(
-            s[k + "_median"] <= floor_scale * floor_med
-            and s[k + "_max"] <= floor_scale * floor_max
-            for k in ("vs_cpu_rel_l2", "vs_plain_rel_l2"))
-        loss_rtol = 1e-2 if amp else 1e-4
-        if abs(s["loss_card"] - s["loss_cpu"]) \
-                > loss_rtol * abs(s["loss_cpu"]) \
-                or not within or moved != len(params) or s["not_float32"]:
-            bad.append(mode)
-    log("resnet_amp_check" if amp else "resnet_check", summary)
+               "relus_taken_from_fused_card": len(decisions)}
+    if take_relus:
+        # the same comparison, not gated, with each run's own decisions:
+        # the units that decide otherwise, and how far that moves it
+        summary["own_relus"] = compare({})[0]
+    out, bad = compare(decisions)
+    summary.update(out)
+    name = name or ("resnet_amp_check" if amp else "resnet_check")
+    log(name, summary)
     if bad:
-        raise SystemExit("ResNet step disagrees (card vs CPU, or fused vs "
-                         "plain): %s" % bad)
+        raise SystemExit("%s: the step disagrees (card vs CPU, or fused vs "
+                         "plain): %s" % (name, bad))
     return summary
 
 
@@ -3625,6 +3784,695 @@ def ctr_phase(compare_steps=20, profile_steps=10):
 
 
 # ---------------------------------------------------------------------------
+# bench.py's image-model ladder, fused SE-ResNeXt, SE-ResNeXt-152 and the
+# rest of the optimizers
+# ---------------------------------------------------------------------------
+
+# bench.py's ``_bench_image_model`` rungs (``bench.py:1712-1850``): image
+# size, class_dim, training batch, and the reference's published K40m ms a
+# training batch at that batch (``benchmark/README.md``), where it has one
+ZOO = {"smallnet": (32, 10, 256, 33.1),
+       "alexnet": (227, 1000, 128, 334.0),
+       "vgg16": (224, 1000, 128, None),
+       "googlenet": (224, 1000, 128, 1149.0),
+       "se_resnext50": (224, 1000, 128, None),
+       "se_resnext152": (224, 1000, 128, None)}
+# timed steps a training rung takes: 20 where 20 steps take under 4 s,
+# 3 for VGG-16 and the SE-ResNeXts (0.2-0.5 s a step, and two arms)
+ZOO_STEPS = {"smallnet": 20, "alexnet": 20, "googlenet": 20, "vgg16": 3,
+             "se_resnext50": 3, "se_resnext152": 3}
+ZOO_INFER_BATCH, ZOO_INFER_STEPS = 16, 5
+SE_FUSED = 33     # fused conv+BN layers of SE-ResNeXt-50
+SE152_FREE_GB = 8.0   # the least device memory a SE-ResNeXt-152 step leaves
+
+
+def zoo_model(name):
+    """The port's builder of a ladder model: fn(img, class_dim, is_test)."""
+    from paddle_tpu_torch.models import (alexnet, googlenet, se_resnext,
+                                         smallnet, vgg)
+
+    return {"smallnet": smallnet.smallnet, "alexnet": alexnet.alexnet,
+            "vgg16": vgg.vgg16_bn_drop, "googlenet": googlenet.googlenet_v1,
+            "se_resnext50": se_resnext.se_resnext_50,
+            "se_resnext152": lambda img, class_dim, is_test=False:
+            se_resnext.SE_ResNeXt(img, class_dim=class_dim, depth=152,
+                                  is_test=is_test)}[name]
+
+
+def build_zoo(name, amp=False, fuse=False, infer=False, dropout=True):
+    """(main, startup, fetches) of bench.py's ``_bench_image_model``
+    program for ``name``: training (mean cross-entropy, Momentum(1e-3,
+    0.9), under ``decorate`` with ``amp``, ``fuse_conv_bn`` before
+    minimize with ``fuse``; fetches [loss]) or inference (``is_test``;
+    fetches [softmax, its mean], bench.py fetching the mean).  Fixed
+    seeds and fresh names; ``dropout`` False sets every dropout's rate to
+    0 (the card-against-CPU checks: the two devices draw other masks)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import mixed_precision
+
+    size, classes, _, _ = ZOO[name]
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed, startup.random_seed = 2, 1
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = pt.layers.data("img", shape=[3, size, size])
+        pred = zoo_model(name)(img, class_dim=classes, is_test=infer)
+        if infer:
+            fetches = [pred, pt.layers.mean(pred)]
+        else:
+            label = pt.layers.data("label", shape=[1], dtype="int64")
+            loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+            if fuse:
+                assert pt.transpiler.fuse_conv_bn(main) == 53
+            opt = pt.optimizer.Momentum(learning_rate=1e-3, momentum=0.9)
+            if amp:
+                opt = mixed_precision.decorate(opt)
+            opt.minimize(loss)
+            fetches = [loss]
+    if not dropout:
+        for op in main.global_block().ops:
+            if op.type == "dropout":
+                op.attrs["dropout_prob"] = 0.0
+    return main, startup, fetches
+
+
+def zoo_feeds(name, n, batch, infer=False):
+    """bench.py's feed: ``RandomState(0)`` images ``rand`` in [0, 1) and
+    labels in [0, class_dim)."""
+    size, classes, _, _ = ZOO[name]
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        f = {"img": rng.rand(batch, 3, size, size).astype("float32")}
+        if not infer:
+            f["label"] = rng.randint(0, classes, (batch, 1)).astype("int64")
+        out.append(f)
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's deterministic algorithms and PyTorch's deterministic mode
+    (warning where an op has none) while open; yields the list of the
+    warnings seen."""
+    import warnings
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+
+
+def started(startup):
+    """A scope holding ``startup``'s state, run on ``CUDAPlace(0)``."""
+    import paddle_tpu_torch as pt
+
+    scope = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=scope)
+    return scope
+
+
+def two_arm_run(main, start, fetch, feeds, steps, batch, need=None, warm=2,
+                sequential=False, deterministic=True):
+    """One program from one state (``start``, a scope: each arm takes a
+    copy) in two arms, captured and eager (each an executor and a scope of
+    its own), on the same feeds: ``warm`` untimed runs each (the captured
+    arm's second is its capture), then ``steps`` timed runs in turns, each
+    bracketed by zeroing the launch counters and reading them.  With
+    ``sequential`` the eager arm takes all its runs and is freed before
+    the captured arm starts (a model whose two arms do not fit the card
+    together).  Under deterministic algorithms (``deterministic``: the
+    training ladder's convolutions; no other path needs them, and they
+    fill every new tensor, which slows an eager step) the fetches of every
+    run and every scope tensor after them must be the same bits in the two
+    arms; then each arm runs once more under the profiler
+    (``device_window``; the bits are compared before it).  A window whose
+    trace holds no device event is profiled again, up to ``TRACE_TRIES``
+    windows, in both arms when they run in turns (so that their states
+    stay equal for what the caller runs next), and ``empty_windows``
+    counts the windows profiled again.  ``fetch`` is a training program's
+    [loss] or an inference program's outputs.  Returns (summary, {arm:
+    launch record}, {arm: its run: ``out`` (every run's fetches), and
+    ``exe`` and ``scope`` but in a freed arm}) with ``need`` the launches
+    a run implies."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+
+    need = need or {}
+    arms = ("captured", "eager")
+    runs = {arm: dict(exe=pt.Executor(pt.CUDAPlace(0),
+                                      capture=arm == "captured"),
+                      scope=copy_scope(start), times=[], out=[], peak=0,
+                      launches={}, first=[])
+            for arm in arms}
+
+    def run(r, f):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = r["exe"].run(main, feed=f, fetch_list=fetch, scope=r["scope"])
+        dt = time.perf_counter() - t0
+        r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+        return got, dt
+
+    def warm_runs(r):
+        for f in feeds[:warm]:
+            got, dt = run(r, f)
+            r["out"].append(got)
+            r["first"].append(dt)
+
+    def timed(r, f):
+        cuda.reset_launch_counts()
+        got, dt = run(r, f)
+        r["out"].append(got)
+        r["times"].append(dt)
+        for k, n in cuda.launch_counts().items():
+            r["launches"][k] = r["launches"].get(k, 0) + n
+
+    windows = {}
+    with (deterministic_algorithms() if deterministic
+          else contextlib.nullcontext([])) as seen:
+        if sequential:
+            keep = {}
+            for arm in ("eager", "captured"):
+                r = runs[arm]
+                warm_runs(r)
+                for f in feeds[warm:warm + steps]:
+                    timed(r, f)
+                keep[arm] = {n: r["scope"].var(n).to("cpu", copy=True)
+                             for n in r["scope"].local_var_names()}
+                windows[arm] = device_window(lambda: run(r, feeds[-1]),
+                                             again=True)
+                if arm == "eager":
+                    del r["exe"], r["scope"]
+                    release_memory()
+            diff = {}
+            for n, t in keep["eager"].items():
+                if not torch.equal(t, keep["captured"][n]):
+                    x, y = t.double(), keep["captured"][n].double()
+                    diff[n] = float((x - y).norm()
+                                    / y.norm().clamp_min(1e-30))
+        else:
+            for arm in arms:
+                warm_runs(runs[arm])
+            for i in range(steps):
+                for arm in (arms[::-1] if i % 2 == 0 else arms):
+                    timed(runs[arm], feeds[warm + i])
+            diff = state_rel_l2(runs["captured"]["scope"],
+                                runs["eager"]["scope"])
+            for empty in range(TRACE_TRIES):
+                windows = {arm: device_window(lambda r=r: run(r, feeds[-1]))
+                           for arm, r in runs.items()}
+                if all(w["device_events"] for w in windows.values()):
+                    break
+            for w in windows.values():
+                w["empty_windows"] = empty
+    nondeterministic = sorted({str(w.message)[:200] for w in seen
+                               if "deterministic" in str(w.message)})
+    c, e = runs["captured"], runs["eager"]
+    same = [[a.tobytes() for a in o] for o in c["out"]] \
+        == [[a.tobytes() for a in o] for o in e["out"]]
+    finite = all(np.isfinite(a).all() for r in (c, e) for o in r["out"]
+                 for a in o)
+    summary = {"batch": batch, "steps": steps, "sequential": sequential,
+               "ops": len(main.global_block().ops),
+               "launches_per_run": need, "same_bits": same,
+               "finite": finite, "state_not_bit_equal": diff,
+               "nondeterministic_ops_warned": nondeterministic}
+    records = {}
+    for arm in arms:
+        r = runs[arm]
+        step_s = statistics.median(r["times"])
+        summary[arm] = {
+            "first_ms": [t * 1e3 for t in r["first"]],
+            # a training program's losses
+            "values": [float(o[0].ravel()[0]) for o in r["out"]],
+            "step_ms": [t * 1e3 for t in r["times"]],
+            "median_step_ms": step_s * 1e3,
+            "step_ms_range": [min(r["times"]) * 1e3, max(r["times"]) * 1e3],
+            "images_per_s": batch / step_s,
+            "peak_mem_gb": r["peak"] / 1e9,
+            "device_events": windows[arm]["device_events"],
+            "empty_windows": windows[arm]["empty_windows"],
+            "profiled_step": windows[arm], "launches": r["launches"]}
+        records[arm] = launch_record(
+            arm == "captured", r["launches"],
+            {k: n * steps for k, n in need.items()}, windows[arm], need)
+    summary["ok"] = same and finite and not diff
+    return summary, records, runs
+
+
+def zoo_phase(steps=ZOO_STEPS):
+    """bench.py's image ladder on ``CUDAPlace(0)`` (``two_arm_run``,
+    ``steps[name]`` timed steps):
+    SmallNet (batch 256, 32x32, 10 classes), AlexNet (128, 227x227),
+    VGG-16, GoogLeNet and SE-ResNeXt-50 (128, 224x224), 1000 classes,
+    under AMP (bench.py's scored dtype), then each in float32:
+    images/s and ms a step of each arm, busy and idle share of a profiled
+    step, peak memory; for AlexNet, GoogLeNet and SmallNet the reference's
+    K40m ms a batch beside (not a target).  Captured = eager bit for bit;
+    no hand kernel launches (the gate expects 0).  Returns {path: launch
+    record}."""
+    paths, bad = {}, []
+    for amp in (True, False):
+        for name in ("smallnet", "alexnet", "vgg16", "googlenet",
+                     "se_resnext50"):
+            s, records = _zoo_rung(name, amp, steps[name])
+            path = "zoo:%s%s" % (name, "" if amp else "_float32")
+            paths[path] = records["captured"]
+            paths[path + ":eager"] = records["eager"]
+            if not s["ok"]:
+                bad.append(path)
+            release_memory()
+    if bad:
+        raise SystemExit("zoo: captured steps differ from eager: %s" % bad)
+    return paths
+
+
+def _zoo_rung(name, amp, steps):
+    """One ``zoo`` rung: (summary, launch records).  VGG-16 runs its arms
+    one after the other (``sequential``): under AMP its captured graph's
+    pool held 47.6 GB and an eager step peaks at 34 GB, which with what
+    the earlier phases leave does not fit the 80 GB card (NVIDIA H100
+    80GB HBM3: out of memory in a whole run)."""
+    batch, era = ZOO[name][2], ZOO[name][3]
+    main, startup, fetch = build_zoo(name, amp=amp)
+    s, records, _ = two_arm_run(main, started(startup), fetch,
+                                zoo_feeds(name, steps + 3, batch), steps,
+                                batch, sequential=name == "vgg16")
+    s.update(model=name, dtype="amp_bf16" if amp else "float32")
+    if era:
+        s["era_ms_per_batch_k40m"] = era
+        s["era_ratio_k40m_over_captured"] = \
+            era / s["captured"]["median_step_ms"]
+    log("zoo", s)
+    return s, records
+
+
+def zoo_infer_phase(steps=ZOO_INFER_STEPS, batch=ZOO_INFER_BATCH):
+    """bench.py's ``--infer`` rungs at batch 16 (``bench.py:1736-1748``):
+    each model's ``is_test`` program in float32, and in bfloat16 through
+    ``contrib.Bfloat16Transpiler`` after startup, captured and eager
+    (``two_arm_run``: two untimed runs each, ``steps`` timed runs in
+    turns, one profiled run each).  Captured = eager bit for bit; the
+    bfloat16 softmax within relative L1 ``INFER_BF16_BAND`` (0.02) of the
+    float32 one on the same images; images/s; no hand kernel.  Returns
+    {path: launch record}."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import Bfloat16Transpiler
+
+    paths, bad = {}, []
+    for name in ("smallnet", "alexnet", "vgg16", "googlenet",
+                 "se_resnext50"):
+        feeds = zoo_feeds(name, steps + 3, batch, infer=True)
+        out = {"model": name, "batch": batch}
+        preds = {}
+        for dtype in ("float32", "bfloat16"):
+            main, startup, fetch = build_zoo(name, infer=True)
+            start = started(startup)
+            if dtype == "bfloat16":
+                Bfloat16Transpiler().transpile(main, pt.CUDAPlace(0),
+                                               scope=start,
+                                               fetch_targets=fetch)
+            s, records, runs = two_arm_run(main, start, fetch, feeds,
+                                           steps, batch, deterministic=False)
+            preds[dtype] = runs["eager"]["out"][0][0]
+            s["out_dtype"] = str(preds[dtype].dtype)
+            out[dtype] = s
+            for arm, rec in records.items():
+                paths["zoo_infer:%s:%s%s" % (
+                    name, dtype, "" if arm == "captured" else ":eager")] = rec
+            if not s["ok"]:
+                bad.append("%s:%s" % (name, dtype))
+            del runs, start, main, startup
+            release_memory()
+        out["bf16_rel_l1"] = rel_l1(preds["float32"], preds["bfloat16"])
+        out["band"] = INFER_BF16_BAND
+        log("zoo_infer", out)
+        if not out["bf16_rel_l1"] <= INFER_BF16_BAND:
+            bad.append("%s:bf16_rel_l1" % name)
+    if bad:
+        raise SystemExit("zoo_infer: captured differs from eager, or bf16 "
+                         "out of its band: %s" % bad)
+    return paths
+
+
+def resnext_check_phase(batch=4, floor_scale=3.0):
+    """``resnet_check_phase`` on SE-ResNeXt-50 (NCHW fused against plain
+    and against the CPU, dropout 0 in every copy of the program, float32)
+    under deterministic algorithms, every other run taking the fused card
+    step's ReLU decisions at the squeeze fcs (relu inputs ``fc_*``).
+    With each run's own decisions (``own_relus``, logged) the card run
+    (NVIDIA H100 80GB HBM3, 700 W) reads 1.38e-2 at the median against a
+    floor of 1.27e-2, but 7.47e-2 at most (3x the floor's maximum: 5.2e-2)
+    at stage 4's first squeeze fc (``fc_26.w_0``), fused against plain
+    and against the CPU alike; the one squeeze unit that decides
+    otherwise is ``fc_26.tmp_1``'s (|input| 9.5e-7), and with its
+    decision taken the maximum falls to 1.74e-2 / 1.88e-2 (floor 1.74e-2);
+    the other 87-103 units that flip, in the conv and residual relus
+    (|input| up to 8e-5), stay within the floor."""
+    def build(mode, amp):
+        main, startup, (loss,) = build_zoo("se_resnext50", amp=amp,
+                                           fuse=mode == "fuse",
+                                           dropout=False)
+        return main, startup, loss
+
+    with deterministic_algorithms():
+        return resnet_check_phase(batch=batch, floor_scale=floor_scale,
+                                  build=build, modes=("fuse",),
+                                  name="resnext_check", take_relus="fc_")
+
+
+def se_resnext_fused_phase(steps=ZOO_STEPS["se_resnext50"], batch=128):
+    """SE-ResNeXt-50 after ``fuse_conv_bn`` at batch 128, float32 and AMP
+    (``two_arm_run``): #8 and #9 launch exactly ``SE_FUSED`` (33) times
+    a step, counted by the eager arm's wrappers and by both arms' traces.
+    Returns {path: launch record}."""
+    paths, bad = {}, []
+    need = {"conv_bn_fwd": SE_FUSED, "conv_bn_bwd": SE_FUSED}
+    for amp in (False, True):
+        main, startup, fetch = build_zoo("se_resnext50", amp=amp,
+                                         fuse=True)
+        assert count_ops(main, "bn_act_conv2d") == SE_FUSED \
+            == count_ops(main, "bn_act_conv2d_grad")
+        s, records, _ = two_arm_run(main, started(startup), fetch,
+                                    zoo_feeds("se_resnext50", steps + 3,
+                                              batch), steps, batch, need)
+        s.update(model="se_resnext50", fused_layers=SE_FUSED,
+                 dtype="amp_bf16" if amp else "float32")
+        log("se_resnext_fused", s)
+        path = "se_resnext_fused" + ("_amp" if amp else "")
+        paths[path] = records["captured"]
+        paths[path + ":eager"] = records["eager"]
+        if not s["ok"]:
+            bad.append(path)
+        del main, startup, fetch, records, _
+        release_memory()
+    if bad:
+        raise SystemExit("se_resnext_fused: captured steps differ from "
+                         "eager: %s" % bad)
+    return paths
+
+
+def se_resnext152_phase(steps=ZOO_STEPS["se_resnext152"], batch=128):
+    """BASELINE's fifth configuration on one card: SE-ResNeXt-152 (the
+    3-conv stem, cardinality 32, reduction 16) under AMP, Momentum(1e-3,
+    0.9).  The batch is 128 if an eager step's peak leaves
+    ``SE152_FREE_GB`` of the card free (else the largest power of two
+    that does, the cut logged); the eager arm then the captured one
+    (``two_arm_run(sequential=True)``), the same bits.  Multi-card
+    ParallelExecutor stays ROADMAP A7.  Returns {path: launch record}."""
+    import paddle_tpu_torch as pt
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    main, startup, fetch = build_zoo("se_resnext152", amp=True)
+    loss = fetch[0]
+    first, probes = batch, []
+    while True:
+        scope = pt.Scope()
+        exe = pt.Executor(pt.CUDAPlace(0), capture=False)
+        try:
+            exe.run(startup, scope=scope)
+            torch.cuda.reset_peak_memory_stats()
+            exe.run(main, feed=zoo_feeds("se_resnext152", 1, batch)[0],
+                    fetch_list=[loss], scope=scope)
+            peak = torch.cuda.max_memory_allocated()
+        except torch.cuda.OutOfMemoryError:
+            peak = None
+        probes.append({"batch": batch,
+                       "peak_gb": None if peak is None else peak / 1e9})
+        del scope, exe
+        release_memory()
+        if peak is not None and total - peak >= SE152_FREE_GB * 1e9:
+            break
+        if batch == 1:
+            raise SystemExit("se_resnext152: no batch fits: %s" % probes)
+        batch //= 2
+    s, records, _ = two_arm_run(main, started(startup), fetch,
+                                zoo_feeds("se_resnext152", steps + 3,
+                                          batch), steps, batch,
+                                sequential=True)
+    s.update(model="se_resnext152", dtype="amp_bf16", batch=batch,
+             batch_probes=probes, card_memory_gb=total / 1e9,
+             batch_cut_from=first if batch != first else None,
+             multi_card="ROADMAP A7 (not run)")
+    log("se_resnext152", s)
+    if not s["ok"]:
+        raise SystemExit("se_resnext152: captured steps differ from eager")
+    return {"se_resnext152": records["captured"],
+            "se_resnext152:eager": records["eager"]}
+
+
+# ---------------------------------------------------------------------------
+# the optimizers, schedules, ModelAverage and QAT on bench.py's MLP
+# ---------------------------------------------------------------------------
+
+OPT_STEPS, OPT_CHECK_STEPS = 20, 3
+
+
+def _opt_configs():
+    """{name: fn(pt, loss) appending the update ops}: the six dense
+    optimizers, Momentum under each of five schedules and under
+    ``append_LARS``, ModelAverage, and QAT (``abs_max`` / ``range_abs_max``
+    activations; the rewrite is made before ``minimize`` by the builder).
+    The rates keep 20 steps finite: DecayedAdagrad, RMSProp and Ftrl move
+    each weight by about 4.5, 4.5 and 1 times the rate a step whatever the
+    gradient's size (at 1e-2 and 1e-1 the MLP diverges in two steps)."""
+    def momentum(lr):
+        return lambda pt, loss: pt.optimizer.Momentum(
+            learning_rate=lr(pt.layers), momentum=0.9).minimize(loss)
+
+    def lars(pt, loss):
+        params_grads = pt.backward.append_backward(loss)
+        pt.layers.append_LARS(params_grads, 0.01, weight_decay=5e-4)
+        pt.optimizer.Momentum(learning_rate=0.01, momentum=0.9) \
+            .apply_gradients(params_grads, loss)
+
+    return {
+        "adamax": lambda pt, loss: pt.optimizer.Adamax(1e-3).minimize(loss),
+        "decayed_adagrad": lambda pt, loss: pt.optimizer.DecayedAdagrad(
+            2e-4).minimize(loss),
+        "adadelta": lambda pt, loss: pt.optimizer.Adadelta(
+            1.0, rho=0.95).minimize(loss),
+        "rmsprop": lambda pt, loss: pt.optimizer.RMSProp(1e-3).minimize(loss),
+        "rmsprop_centered": lambda pt, loss: pt.optimizer.RMSProp(
+            1e-4, momentum=0.9, centered=True).minimize(loss),
+        "ftrl": lambda pt, loss: pt.optimizer.Ftrl(
+            1e-3, l1=1e-4, l2=1e-4).minimize(loss),
+        "exponential_staircase": momentum(
+            lambda L: L.exponential_decay(0.05, 5, 0.5, staircase=True)),
+        "natural_exp": momentum(lambda L: L.natural_exp_decay(0.05, 5, 0.5)),
+        "inverse_time": momentum(
+            lambda L: L.inverse_time_decay(0.05, 5, 0.5)),
+        "polynomial_cycle": momentum(lambda L: L.polynomial_decay(
+            0.05, 6, 1e-3, power=2.0, cycle=True)),
+        "piecewise": momentum(
+            lambda L: L.piecewise_decay([5, 10], [0.05, 0.01, 0.002])),
+        "lars": lars,
+        "model_average": lambda pt, loss: pt.optimizer.Momentum(
+            0.05, momentum=0.9).minimize(loss),
+        "qat_abs_max": lambda pt, loss: pt.optimizer.Momentum(
+            0.05, momentum=0.9).minimize(loss),
+        "qat_range_abs_max": lambda pt, loss: pt.optimizer.Momentum(
+            0.05, momentum=0.9).minimize(loss),
+    }
+
+
+def build_opt_mlp(name):
+    """bench.py's MLP (``mlp_train_func``, batch 256) under the optimizer
+    ``name`` of ``_opt_configs``; (main, startup, loss, eval program,
+    softmax, ModelAverage or None, QuantizeTranspiler or None).  The
+    evaluation program is the forward, cloned before minimize."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import QuantizeTranspiler
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 4
+    ma = qt = None
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss = mlp_train_func()[0]
+        pred = [op for op in main.global_block().ops
+                if op.type == "softmax"][-1].outputs["Out"][0]
+        if name.startswith("qat_"):
+            qt = QuantizeTranspiler(activation_quantize_type=name[4:])
+            assert qt.training_transpile(main, startup) == 6
+        test = main.clone(for_test=True)
+        _opt_configs()[name](pt, loss)
+        if name == "model_average":
+            ma = pt.optimizer.ModelAverage(0.15, min_average_window=4,
+                                           max_average_window=8)
+            ma._ensure_accumulators(main)
+    return main, startup, loss, test, pred, ma, qt
+
+
+def _state_rel(card_scope, cpu_scope, names):
+    out = {}
+    for n in names:
+        a = card_scope.var(n).detach().cpu().double()
+        b = cpu_scope.var(n).detach().double()
+        out[n] = float((a - b).norm() / b.norm().clamp_min(1e-30)) \
+            if not torch.equal(a, b) else 0.0
+    return out
+
+
+def optimizers_phase(steps=OPT_STEPS, check_steps=OPT_CHECK_STEPS):
+    """bench.py's MLP (784-256-256-10, batch 256; ``rand`` pixels and
+    random labels) trained ``steps`` steps under each of ``_opt_configs``
+    on ``CUDAPlace(0)``:
+
+    * the first ``check_steps`` steps on the card (eager) against the
+      CPU from one startup state, the CPU taking the card's ReLU
+      decisions: each loss within rtol 1e-4, and every persistable tensor
+      after them (parameters, moments, counters, running scales) within
+      relative L2 1e-4 at the median and 1e-2 each (``train_check``'s
+      band);
+    * captured and eager from one startup state (``two_arm_run``): 3
+      untimed steps each, ``steps`` - 3 timed ones in turns, the losses
+      and every scope tensor the same bits; ms a step of each arm, a
+      profiled step each; no hand kernel;
+    * ModelAverage: the evaluation program run captured inside
+      ``apply()`` gives the softmax of the averaged parameters, computed
+      on the host from the sums (rtol 1e-5), and the parameters are the
+      same bits after the block as before it;
+    * QAT: the frozen program (``freeze_program``) captured = eager, its
+      running scales unmoved.
+    Returns {path: launch record} (``optimizers:<name>`` and ``:eager``)."""
+    import paddle_tpu_torch as pt
+
+    # random labels: no step saturates the loss to exactly 0, where a
+    # zero gradient makes LARS's rate for a zero bias 0 / 0
+    rng = np.random.RandomState(0)
+    feeds = [{"img": rng.rand(MLP_BATCH, 784).astype("float32"),
+              "label": rng.randint(0, 10, (MLP_BATCH, 1)).astype("int64")}
+             for _ in range(steps)]
+    paths, bad = {}, []
+    for name in _opt_configs():
+        main, startup, loss, test, pred, ma, qt = build_opt_mlp(name)
+        start = started(startup)
+        persist = [v.name for v in main.list_vars()
+                   if v.persistable and start.find_var(v.name) is not None]
+        # card against CPU
+        card_scope, cpu_scope = copy_scope(start), pt.Scope()
+        for n in start.local_var_names():
+            cpu_scope.set_var(n, start.var(n).cpu().clone())
+        card = pt.Executor(pt.CUDAPlace(0), capture=False)
+        cpu = pt.Executor(pt.CPUPlace())
+        fetch = [loss.name] + relu_inputs(main)
+        losses = []
+        for f in feeds[:check_steps]:
+            got = card.run(main, feed=f, fetch_list=fetch, scope=card_scope)
+            with relu_decisions(main, got[1:]):
+                want = cpu.run(main, feed=f, fetch_list=fetch,
+                               scope=cpu_scope)
+            losses.append((float(got[0][0]), float(want[0][0])))
+        rel = _state_rel(card_scope, cpu_scope, persist)
+        med = statistics.median(rel.values())
+        check_ok = all(abs(g - w) <= 1e-4 * abs(w) for g, w in losses) \
+            and med <= 1e-4 and max(rel.values()) <= 1e-2
+        del card_scope, cpu_scope
+        # captured against eager
+        cmp, records, runs = two_arm_run(main, start, [loss], feeds,
+                                         steps - 3, MLP_BATCH, warm=3,
+                                         deterministic=False)
+        values = cmp["eager"]["values"]
+        s = {"optimizer": name, "batch": MLP_BATCH, "steps": steps,
+             "check_losses_card_cpu": losses, "check_rel_l2_median": med,
+             "check_rel_l2_max": max(rel.values()),
+             "check_worst": max(rel, key=rel.get), "check_ok": check_ok,
+             "same_bits_captured_eager": cmp["same_bits"],
+             "state_not_bit_equal": cmp["state_not_bit_equal"],
+             "first_loss": values[0], "last_loss": values[-1]}
+        for arm, rec in records.items():
+            s[arm + "_ms_per_step"] = cmp[arm]["median_step_ms"]
+            s[arm + "_ms_range"] = cmp[arm]["step_ms_range"]
+            s[arm + "_busy_ms"] = rec["window"]["busy_ms"]
+            s[arm + "_idle_share"] = rec["window"]["idle_share"]
+            s[arm + "_device_events"] = rec["window"]["device_events"]
+            paths["optimizers:%s%s" % (
+                name, "" if arm == "captured" else ":eager")] = rec
+        ok = check_ok and cmp["ok"]
+        c = runs["captured"]
+        if ma is not None:
+            s["model_average"] = _model_average_check(
+                ma, main, test, pred, c["exe"], c["scope"], feeds[0])
+            ok = ok and s["model_average"]["ok"]
+        if qt is not None:
+            s["frozen"] = _qat_frozen_check(qt, main, pred, c["exe"],
+                                            runs["eager"]["exe"],
+                                            c["scope"], runs["eager"]["scope"],
+                                            feeds[0])
+            ok = ok and s["frozen"]["ok"]
+        s["ok"] = ok
+        log("optimizers", s)
+        if not ok:
+            bad.append(name)
+        del runs, start
+        release_memory()
+    if bad:
+        raise SystemExit("optimizers: card against CPU out of the band, or "
+                         "captured differs from eager: %s" % bad)
+    return paths
+
+
+def _model_average_check(ma, main, test, pred, exe, scope, feed):
+    """The evaluation program captured (two runs before the block), then
+    run inside ``ma.apply``: its softmax against the float64 host forward
+    of the averages computed from the scope's sums; the parameters the
+    same bits after the block."""
+    for _ in range(2):
+        exe.run(test, feed=feed, fetch_list=[pred], scope=scope)
+    params = [p.name for p in main.all_parameters()]
+    before = {n: scope.var(n).clone() for n in params}
+    avg = {}
+    for n in params:
+        s1, s2, s3, na, ona, _ = ma._avg_sums[n]
+        total = sum(scope.var(a.name).double() for a in (s1, s2, s3))
+        cnt = max(int(scope.var(na.name)[0]) + int(scope.var(ona.name)[0]),
+                  1)
+        avg[n] = (total / cnt).cpu()
+    with ma.apply(exe, scope):
+        (got,) = exe.run(test, feed=feed, fetch_list=[pred], scope=scope)
+    restored = all(torch.equal(before[n], scope.var(n)) for n in params)
+    h = torch.from_numpy(feed["img"]).double()
+    ws = [p.name for p in main.all_parameters() if p.name.endswith(".w_0")]
+    bs = [p.name for p in main.all_parameters() if p.name.endswith(".b_0")]
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        h = h @ avg[w] + avg[b]
+        h = torch.relu(h) if i < len(ws) - 1 else torch.softmax(h, dim=1)
+    err = float(np.abs(got - h.numpy()).max())
+    ok = bool(np.allclose(got, h.numpy(), rtol=1e-5, atol=1e-6)) \
+        and restored
+    return {"max_abs_err_vs_host_average": err, "restored": restored,
+            "captured_eval_entries": sum(
+                st.graph is not None for st in exe._steps.values()),
+            "ok": ok}
+
+
+def _qat_frozen_check(qt, main, pred, exe_c, exe_e, scope_c, scope_e, feed):
+    """``freeze_program``'s program captured and eager: the softmax the
+    same bits in the two arms and finite, and the running scales unmoved
+    by it."""
+    frozen = qt.freeze_program(main, scope=scope_c)
+    scales = [op.inputs["InScale"][0] for op in frozen.global_block().ops
+              if op.type == "fake_quantize_range_abs_max"]
+    before = {n: scope_c.var(n).clone() for n in scales}
+    # the frozen program still holds the optimizer ops; evaluate on the
+    # forward: prune to the softmax
+    fwd = frozen.prune_feed_fetch(["img"], [pred])
+    outs = [[exe.run(fwd, feed=feed, fetch_list=[pred], scope=sc)[0]
+             for _ in range(3)] for exe, sc in ((exe_c, scope_c),
+                                                (exe_e, scope_e))]
+    same = all(a.tobytes() == b.tobytes() for a, b in zip(*outs))
+    unmoved = all(torch.equal(before[n], scope_c.var(n)) for n in scales)
+    return {"running_scales": len(scales), "same_bits": same,
+            "scales_unmoved": unmoved,
+            "ok": same and unmoved and bool(np.isfinite(outs[0][0]).all())}
+
+
+# ---------------------------------------------------------------------------
 # --profile: where a dispatch's time goes
 # ---------------------------------------------------------------------------
 
@@ -4009,6 +4857,16 @@ def main():
     for path, record in ctr_phase().items():
         check_path(path, record)
     release_memory()
+    # bench.py's image ladder (no hand kernel), fused SE-ResNeXt-50 (#8,
+    # #9 at its shapes, after its card-against-CPU check), BASELINE's
+    # SE-ResNeXt-152, and the optimizers on the MLP (no hand kernel)
+    resnext_check_phase()
+    release_memory()
+    for phase in (zoo_phase, zoo_infer_phase, se_resnext_fused_phase,
+                  se_resnext152_phase, optimizers_phase):
+        for path, record in phase().items():
+            check_path(path, record)
+        release_memory()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)
@@ -4037,6 +4895,14 @@ def main():
                        bound_simt_ms=head["bound_simt_ms"])
         row.update({"launches_" + p: path_launches[p][name]
                     for p in path_launches})
+        if name in ("conv_bn_fwd", "conv_bn_bwd"):
+            # the other shapes: SE-ResNeXt-50's fused layers
+            row["se_resnext_shapes"] = [
+                {k: c.get(k) for k in ("check", "bcoh", "dtype",
+                                       "max_abs_err", "kernel_ms",
+                                       "device_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}
+                for c in checks[name] if c["check"].startswith("nchw_rx_")]
         # the kernel on its AMP path: the check at that path's dtype and
         # shape, and the path's launches
         amp_path, amp_check = AMP_ROWS[name]

@@ -27,6 +27,7 @@ from .executor import CPUPlace, CUDAPlace, Executor
 from .scope import Scope, global_scope, scope_guard
 from .param_attr import ParamAttr
 from . import backward, clip, optimizer, regularizer
+from . import average, learning_rate_decay
 from . import convert
 from . import io
 from . import nets
@@ -45,7 +46,8 @@ __all__ = [
     "Parameter", "default_main_program", "default_startup_program",
     "program_guard", "ops", "layers", "initializer", "Executor", "CPUPlace",
     "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
-    "backward", "clip", "optimizer", "regularizer", "convert", "io",
+    "backward", "clip", "optimizer", "regularizer", "average",
+    "learning_rate_decay", "convert", "io",
     "nets", "reader", "DataFeeder", "batch", "models", "transpiler",
     "serving", "contrib",
 ]

@@ -9,7 +9,12 @@ feeds and fetches float32.  Only the boundaries change:
    reads, and the readers take its ``@BF16`` twin;
 3. the black-listed ops (the AMP black list less the training-only ops)
    read float32 through a ``cast`` to an ``@FP32`` twin;
-4. each bfloat16 fetch target's producer writes a ``@BF16`` twin, and a
+4. a convolution whose input is float32 (a black-listed op's output,
+   such as AlexNet's ``lrn``) reads it through a ``cast`` to bfloat16,
+   steps 3 and 4 repeating until nothing changes.  The JAX package
+   leaves that input float32, where ``lax.conv_general_dilated`` refuses
+   a bfloat16 filter; the port differs from its rewrite only there;
+5. each bfloat16 fetch target's producer writes a ``@BF16`` twin, and a
    ``cast`` back to float32 writes the fetch name, so fetch dtypes stay
    float32.
 """
@@ -35,6 +40,8 @@ _FP32_OPS = set(AutoMixedPrecisionLists.BLACK) - _TRAIN_ONLY
 
 _SKIP_RENAME = {"cast", "feed", "fetch"}
 
+_CONV_OPS = {"conv2d", "depthwise_conv2d"}
+
 
 class Bfloat16Transpiler:
     """Rewrite an inference program and its scope for bfloat16."""
@@ -53,6 +60,10 @@ class Bfloat16Transpiler:
         self._repropagate(block)
         self._guard_fp32_ops(block)
         self._repropagate(block)
+        while self._cast_conv_inputs(block):
+            self._repropagate(block)
+            self._guard_fp32_ops(block)
+            self._repropagate(block)
         self._cast_fetches(block, fetch_targets or [])
         self._repropagate(block)
         return program
@@ -127,6 +138,34 @@ class Bfloat16Transpiler:
                         new_names.append(cast_name)
                     op.inputs[slot] = new_names
             i += 1
+
+    def _cast_conv_inputs(self, block):
+        """A cast to bfloat16 before each float32 input of a convolution
+        whose filter is bfloat16 (a black-listed op's output, such as
+        ``lrn``'s in AlexNet): the JAX package leaves it float32, and its
+        convolution refuses operands of two dtypes.  Returns the number
+        of casts inserted."""
+        n, i = 0, 0
+        while i < len(block.ops):
+            op = block.ops[i]
+            if op.type in _CONV_OPS:
+                x = block._find_var_recursive(op.inputs["Input"][0])
+                w = block._find_var_recursive(op.inputs["Filter"][0])
+                if x.dtype == torch.float32 and w.dtype == torch.bfloat16:
+                    cast_name = x.name + "@BF16"
+                    if block._find_var_recursive(cast_name) is None:
+                        block.create_var(name=cast_name, shape=x.shape,
+                                         dtype="bfloat16",
+                                         stop_gradient=True)
+                        block.insert_op(i, type="cast",
+                                        inputs={"X": [x.name]},
+                                        outputs={"Out": [cast_name]},
+                                        attrs={"out_dtype": "bfloat16"})
+                        i += 1
+                    op.inputs["Input"] = [cast_name]
+                    n += 1
+            i += 1
+        return n
 
     def _cast_fetches(self, block, fetch_targets):
         for t in fetch_targets:

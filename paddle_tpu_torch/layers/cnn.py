@@ -1,4 +1,5 @@
-"""CNN layers ``conv2d``, ``pool2d``, ``batch_norm`` and ``layer_norm``
+"""CNN layers ``conv2d``, ``pool2d``, ``batch_norm``, ``layer_norm`` and
+``lrn``
 (counterpart of ``paddle_tpu/layers/cnn.py``): NCHW activations, OIHW
 filters with the MSRA-style default Normal(0, sqrt(2 / fan_in)), the same
 ops and attrs as the JAX package, so the programs serialize alike."""
@@ -8,7 +9,7 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..registry import int_list as _pair
 
-__all__ = ["conv2d", "pool2d", "batch_norm", "layer_norm"]
+__all__ = ["conv2d", "pool2d", "batch_norm", "layer_norm", "lrn"]
 
 
 def _channel_bias(helper, input_var):
@@ -148,3 +149,16 @@ def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
         attrs={"epsilon": epsilon, "begin_norm_axis": begin_norm_axis},
     )
     return helper.append_activation(out)
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    """Local response norm across channels (``ops/norm.py``)."""
+    helper = LayerHelper("lrn", input=input, name=name)
+    dtype = helper.input_dtype()
+    mid = helper.create_variable_for_type_inference(dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="lrn", inputs={"X": [input]},
+        outputs={"Out": [out], "MidOut": [mid]},
+        attrs={"n": n, "k": k, "alpha": alpha, "beta": beta})
+    return out

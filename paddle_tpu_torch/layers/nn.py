@@ -1,8 +1,10 @@
 """Neural-network layers of the serving and training slices (counterpart
 of ``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``dropout``,
 ``softmax``, ``cross_entropy``, ``softmax_with_cross_entropy``, ``mean``,
-``matmul``, ``fused_attention``, ``square_error_cost``, ``topk``, the
-elementwise layers and ``autoincreased_step_counter``.  They append the same ops with
+``matmul``, ``fused_attention``, ``square_error_cost``, ``topk``,
+``prelu``, ``maxout``, the elementwise layers and
+``autoincreased_step_counter`` (``relu`` and ``log`` are generated with
+the activations, ``layers/ops.py``).  They append the same ops with
 the same attrs as the JAX package, so the programs serialize alike."""
 
 from ..initializer import ConstantInitializer
@@ -12,6 +14,7 @@ __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "matmul", "fused_attention",
            "square_error_cost", "topk", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
+           "elementwise_min", "elementwise_pow", "prelu", "maxout",
            "autoincreased_step_counter"]
 
 
@@ -211,6 +214,39 @@ elementwise_sub = _elementwise_layer("elementwise_sub")
 elementwise_mul = _elementwise_layer("elementwise_mul")
 elementwise_div = _elementwise_layer("elementwise_div")
 elementwise_max = _elementwise_layer("elementwise_max")
+elementwise_min = _elementwise_layer("elementwise_min")
+elementwise_pow = _elementwise_layer("elementwise_pow")
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """Parametric ReLU with one learnable slope (``all``), one a channel
+    (``channel``) or one an element (``element``), initialised to 0.25."""
+    helper = LayerHelper("prelu", name=name, param_attr=param_attr)
+    if mode == "all":
+        alpha_shape = [1]
+    elif mode == "channel":
+        alpha_shape = [x.shape[1]]
+    elif mode == "element":
+        alpha_shape = [1]
+        for s in x.shape[1:]:
+            alpha_shape[0] *= s
+    else:
+        raise ValueError("mode must be all|channel|element")
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype=x.dtype,
+        default_initializer=ConstantInitializer(0.25))
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="prelu", inputs={"X": [x], "Alpha": [alpha]},
+                     outputs={"Out": [out]}, attrs={"mode": mode})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper("maxout", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="maxout", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"groups": groups})
+    return out
 
 
 def autoincreased_step_counter(counter_name=None, begin=1, step=1,

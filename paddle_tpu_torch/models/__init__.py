@@ -1,3 +1,4 @@
 """Model builders of the port (counterpart of ``paddle_tpu/models``)."""
 
-from . import ctr_dnn, resnet, transformer  # noqa: F401
+from . import (alexnet, ctr_dnn, googlenet, resnet,  # noqa: F401
+               se_resnext, smallnet, transformer, vgg)

@@ -1,12 +1,13 @@
-"""Composite networks (counterpart of ``paddle_tpu/nets.py``): only
-``simple_img_conv_pool``, which the recognize_digits chapter needs.  The
-other composites (``img_conv_group``, ``sequence_conv_pool``, ``glu``,
-``scaled_dot_product_attention``, ``simple_attention``,
-``dot_product_attention``) wait for ROADMAP Queue A8."""
+"""Composite networks (counterpart of ``paddle_tpu/nets.py``):
+``simple_img_conv_pool``, which the recognize_digits chapter needs, and
+``img_conv_group``, VGG's block.  The other composites
+(``sequence_conv_pool``, ``glu``, ``scaled_dot_product_attention``,
+``simple_attention``, ``dot_product_attention``) wait for ROADMAP Queue
+A8."""
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool"]
+__all__ = ["simple_img_conv_pool", "img_conv_group"]
 
 
 def simple_img_conv_pool(
@@ -26,4 +27,48 @@ def simple_img_conv_pool(
         input=conv_out, pool_size=pool_size, pool_type=pool_type,
         pool_stride=pool_stride, pool_padding=pool_padding,
         global_pooling=global_pooling,
+    )
+
+
+def img_conv_group(
+    input, conv_num_filter, pool_size, conv_padding=1, conv_filter_size=3,
+    conv_act=None, param_attr=None, conv_with_batchnorm=False,
+    conv_batchnorm_drop_rate=0.0, pool_stride=1, pool_type="max",
+    use_cudnn=True,
+):
+    """``len(conv_num_filter)`` convolutions, each with its ``conv_act``
+    or, where ``conv_with_batchnorm`` says, a batch norm carrying it and a
+    dropout of ``conv_batchnorm_drop_rate`` (none at 0), then one
+    ``pool2d``.  A per-conv argument is a list of that length or one
+    value for all."""
+    tmp = input
+    assert isinstance(conv_num_filter, (list, tuple))
+
+    def _expand(obj):
+        if isinstance(obj, (list, tuple)):
+            assert len(obj) == len(conv_num_filter)
+            return list(obj)
+        return [obj] * len(conv_num_filter)
+
+    conv_padding = _expand(conv_padding)
+    conv_filter_size = _expand(conv_filter_size)
+    param_attr = _expand(param_attr)
+    conv_with_batchnorm = _expand(conv_with_batchnorm)
+    conv_batchnorm_drop_rate = _expand(conv_batchnorm_drop_rate)
+
+    for i in range(len(conv_num_filter)):
+        local_conv_act = None if conv_with_batchnorm[i] else conv_act
+        tmp = layers.conv2d(
+            input=tmp, num_filters=conv_num_filter[i],
+            filter_size=conv_filter_size[i], padding=conv_padding[i],
+            param_attr=param_attr[i], act=local_conv_act,
+        )
+        if conv_with_batchnorm[i]:
+            tmp = layers.batch_norm(input=tmp, act=conv_act)
+            drop_rate = conv_batchnorm_drop_rate[i]
+            if abs(drop_rate) > 1e-5:
+                tmp = layers.dropout(x=tmp, dropout_prob=drop_rate)
+    return layers.pool2d(
+        input=tmp, pool_size=pool_size, pool_type=pool_type,
+        pool_stride=pool_stride,
     )

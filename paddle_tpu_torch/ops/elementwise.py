@@ -1,4 +1,4 @@
-"""``elementwise_{add,sub,mul,div,max,min}`` with Fluid's axis-broadcast
+"""``elementwise_{add,sub,mul,div,max,min,pow}`` with Fluid's axis-broadcast
 semantics (counterpart of ``paddle_tpu/ops/elementwise.py``): a lower-rank
 Y aligns against X starting at ``axis``, reproduced by right-padding Y
 with singleton dims.  A SelectedRows X times a one-element Y (the
@@ -54,3 +54,4 @@ _make_ew("elementwise_mul", torch.mul)
 _make_ew("elementwise_div", torch.div)
 _make_ew("elementwise_max", torch.maximum)
 _make_ew("elementwise_min", torch.minimum)
+_make_ew("elementwise_pow", torch.pow)

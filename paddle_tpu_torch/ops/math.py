@@ -1,7 +1,8 @@
-"""``mul``, ``matmul``, ``sum``, ``scale``, ``mean``, ``sign`` and the clip
-family ``clip``, ``clip_by_norm``, ``squared_l2_norm`` (counterpart of
-``paddle_tpu/ops/math.py``).  ``sum``, ``scale`` and the clip family take
-SelectedRows gradients and keep them sparse where the JAX package does.  ``mul`` is fc's matmul: flatten both
+"""``mul``, ``matmul``, ``sum``, ``scale``, ``mean``, ``sign``, the clip
+family ``clip``, ``clip_by_norm``, ``squared_l2_norm``, and
+``piecewise_lr``, ``layers.piecewise_decay``'s step-function rate
+(counterpart of ``paddle_tpu/ops/math.py``).  ``sum``, ``scale`` and the
+clip family take SelectedRows gradients and keep them sparse where the JAX package does.  ``mul`` is fc's matmul: flatten both
 operands to 2-D, one product; ``matmul`` is the batched product with
 transpose flags.  The products go to ``torch.matmul``, as the JAX package
 leaves them to XLA outside any kernel: operands of two dtypes are promoted
@@ -204,3 +205,20 @@ def _squared_l2_norm_compute(ins, attrs, ctx, op_index):
 
 register_op("squared_l2_norm", ["X"], ["Out"], infer=_mean_infer,
             compute=_squared_l2_norm_compute)
+
+
+def _piecewise_lr_compute(ins, attrs, ctx, op_index):
+    step = ins["Step"][0]
+    out = torch.full_like(step, attrs["values"][-1])
+    # from the right, so that the earliest boundary the step is below wins
+    for b, v in zip(reversed(attrs["boundaries"]),
+                    reversed(attrs["values"][:-1])):
+        out = torch.where(step < b, torch.full_like(step, v), out)
+    return {"Out": out}
+
+
+register_op(
+    "piecewise_lr", ["Step"], ["Out"],
+    infer=lambda op, block: set_output(
+        op, block, "Out", in_var(op, block, "Step").shape, "float32"),
+    compute=_piecewise_lr_compute, grad=None)

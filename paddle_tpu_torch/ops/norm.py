@@ -1,4 +1,4 @@
-"""``layer_norm`` and ``batch_norm`` (counterpart of
+"""``layer_norm``, ``batch_norm`` and ``lrn`` (counterpart of
 ``paddle_tpu/ops/norm.py``).
 
 ``layer_norm``: rows are the dims before ``begin_norm_axis``; the op
@@ -18,6 +18,12 @@ two-pass form.  MeanOut/VarianceOut are new tensors, never the running
 stats updated in place: a fused conv's grad op reads back the running
 mean its forward saw.  The gradient is the hand-written three-term
 ``batch_norm_grad`` from the saved batch statistics.
+
+``lrn``: the cross-channel local response norm of NCHW ``x``,
+``x * (k + alpha * S)^-beta`` where S sums ``x^2`` over a window of ``n``
+channels padded ``(n // 2, n - 1 - n // 2)`` as the JAX package's
+``reduce_window`` pads it (asymmetric for an even n); ``MidOut`` is ``k +
+alpha * S``.  Its gradient is the generic ``lrn_grad``.
 """
 
 import torch
@@ -191,3 +197,29 @@ register_op("batch_norm_grad",
             ["X", "Scale", "Out::SavedMean", "Out::SavedVariance", "GRAD::Y"],
             ["GRAD::X", "GRAD::Scale", "GRAD::Bias"], infer=_bn_grad_infer,
             compute=_bn_grad_compute, grad=None)
+
+
+def _lrn_infer(op, block):
+    x = in_var(op, block, "X")
+    set_output(op, block, "Out", x.shape, x.dtype)
+    set_output(op, block, "MidOut", x.shape, x.dtype)
+
+
+def _lrn_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    n = attrs.get("n", 5)
+    k = attrs.get("k", 2.0)
+    alpha = attrs.get("alpha", 1e-4)
+    beta = attrs.get("beta", 0.75)
+    half = n // 2
+    sq = torch.nn.functional.pad(x * x, (0, 0, 0, 0, half, n - 1 - half))
+    c = x.shape[1]
+    window = sq[:, 0:c]
+    for i in range(1, n):
+        window = window + sq[:, i:i + c]
+    mid = k + alpha * window
+    return {"Out": x * torch.pow(mid, -beta), "MidOut": mid}
+
+
+register_op("lrn", ["X"], ["Out", "MidOut"], infer=_lrn_infer,
+            compute=_lrn_compute)

@@ -4,10 +4,16 @@ of ``paddle_tpu/optimizer.py``).
 ``minimize`` = ``append_backward`` + clip and regularizer hooks + one
 update op per parameter.  Optimizer state (moments, beta powers, the
 learning rate) are persistable scope vars that the update ops advance
-inside the same ``Executor.run`` as the step.  Ported: the base class,
-``SGD``, ``Momentum``, ``Adagrad`` and ``Adam``, with dense and
-SelectedRows gradients; the other optimizers wait (ROADMAP Queue A1c).
+inside the same ``Executor.run`` as the step.  ``SGD``, ``Momentum``,
+``Adagrad`` and ``Adam`` take dense and SelectedRows gradients;
+``Adamax``, ``DecayedAdagrad``, ``Adadelta``, ``RMSProp`` and ``Ftrl``
+dense ones (their ops raise on a SelectedRows gradient, see
+``ops/optimizer_ops.py``).  ``ModelAverage`` keeps a running window of
+parameter sums in the step and swaps the averages into a scope for
+evaluation.
 """
+
+import contextlib
 
 from collections import defaultdict
 
@@ -19,9 +25,15 @@ from .framework import Variable, default_main_program, \
 from .initializer import ConstantInitializer
 from .layer_helper import LayerHelper
 from .regularizer import append_regularization_ops
+from .scope import global_scope
 
-__all__ = ["SGD", "Momentum", "Adagrad", "Adam", "SGDOptimizer",
-           "MomentumOptimizer", "AdagradOptimizer", "AdamOptimizer"]
+__all__ = [
+    "SGD", "Momentum", "Adagrad", "Adam", "Adamax", "DecayedAdagrad",
+    "Adadelta", "RMSProp", "Ftrl", "ModelAverage",
+    "SGDOptimizer", "MomentumOptimizer", "AdagradOptimizer", "AdamOptimizer",
+    "AdamaxOptimizer", "DecayedAdagradOptimizer", "AdadeltaOptimizer",
+    "RMSPropOptimizer", "FtrlOptimizer",
+]
 
 
 class Optimizer:
@@ -296,7 +308,296 @@ class AdamOptimizer(Optimizer):
             )
 
 
+class AdamaxOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+    _inf_norm_acc_str = "inf_norm"
+    _beta1_pow_acc_str = "beta1_pow_acc"
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adamax"
+        self._beta1 = beta1
+        self._beta2 = beta2
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+            self._add_accumulator(self._inf_norm_acc_str, p)
+            self._add_accumulator(self._beta1_pow_acc_str, p,
+                                  fill_value=self._beta1, shape=[1])
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str, param_and_grad[0])
+        inf_norm = self._get_accumulator(self._inf_norm_acc_str,
+                                         param_and_grad[0])
+        b1p = self._get_accumulator(self._beta1_pow_acc_str, param_and_grad[0])
+        return block.append_op(
+            type="adamax",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+                "Moment": [moment],
+                "InfNorm": [inf_norm],
+                "Beta1Pow": [b1p],
+            },
+            outputs={"ParamOut": [param_and_grad[0]], "MomentOut": [moment],
+                     "InfNormOut": [inf_norm]},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+        )
+
+    def _finish_update(self, block, parameters_and_grads):
+        for p, g in parameters_and_grads:
+            if g is None:
+                continue
+            b1p = self._get_accumulator(self._beta1_pow_acc_str, p)
+            block.append_op(
+                type="scale", inputs={"X": [b1p]}, outputs={"Out": [b1p]},
+                attrs={"scale": self._beta1},
+            )
+
+
+class DecayedAdagradOptimizer(Optimizer):
+    _moment_acc_str = "moment"
+
+    def __init__(self, learning_rate, decay=0.95, epsilon=1e-6, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "decayed_adagrad"
+        self._decay = decay
+        self._epsilon = epsilon
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._moment_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        moment = self._get_accumulator(self._moment_acc_str, param_and_grad[0])
+        return block.append_op(
+            type="decayed_adagrad",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Moment": [moment],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={"ParamOut": [param_and_grad[0]], "MomentOut": [moment]},
+            attrs={"decay": self._decay, "epsilon": self._epsilon},
+        )
+
+
+class AdadeltaOptimizer(Optimizer):
+    _avg_squared_grad_acc_str = "_avg_squared_grad"
+    _avg_squared_update_acc_str = "_avg_squared_update"
+
+    def __init__(self, learning_rate, epsilon=1e-6, rho=0.95, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "adadelta"
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._avg_squared_grad_acc_str, p)
+            self._add_accumulator(self._avg_squared_update_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        g_acc = self._get_accumulator(self._avg_squared_grad_acc_str,
+                                      param_and_grad[0])
+        u_acc = self._get_accumulator(self._avg_squared_update_acc_str,
+                                      param_and_grad[0])
+        return block.append_op(
+            type="adadelta",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "AvgSquaredGrad": [g_acc],
+                "AvgSquaredUpdate": [u_acc],
+            },
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "AvgSquaredGradOut": [g_acc],
+                     "AvgSquaredUpdateOut": [u_acc]},
+            attrs={"epsilon": self._epsilon, "rho": self._rho},
+        )
+
+
+class RMSPropOptimizer(Optimizer):
+    _momentum_acc_str = "momentum"
+    _mean_square_acc_str = "mean_square"
+    _mean_grad_acc_str = "mean_grad"
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "rmsprop"
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._momentum_acc_str, p)
+            self._add_accumulator(self._mean_square_acc_str, p)
+            self._add_accumulator(self._mean_grad_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        momentum_acc = self._get_accumulator(self._momentum_acc_str,
+                                             param_and_grad[0])
+        mean_square_acc = self._get_accumulator(self._mean_square_acc_str,
+                                                param_and_grad[0])
+        mean_grad_acc = self._get_accumulator(self._mean_grad_acc_str,
+                                              param_and_grad[0])
+        return block.append_op(
+            type="rmsprop",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "Moment": [momentum_acc],
+                "MeanSquare": [mean_square_acc],
+                "MeanGrad": [mean_grad_acc],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={
+                "ParamOut": [param_and_grad[0]],
+                "MomentOut": [momentum_acc],
+                "MeanSquareOut": [mean_square_acc],
+                "MeanGradOut": [mean_grad_acc],
+            },
+            attrs={"epsilon": self._epsilon, "decay": self._rho,
+                   "momentum": self._momentum, "centered": self._centered},
+        )
+
+
+class FtrlOptimizer(Optimizer):
+    _squared_acc_str = "squared"
+    _linear_acc_str = "linear"
+
+    def __init__(self, learning_rate, l1=0.0, l2=0.0, lr_power=-0.5,
+                 **kwargs):
+        super().__init__(learning_rate, **kwargs)
+        self.type = "ftrl"
+        self._l1 = l1
+        self._l2 = l2
+        self._lr_power = lr_power
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator(self._squared_acc_str, p)
+            self._add_accumulator(self._linear_acc_str, p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        squared_acc = self._get_accumulator(self._squared_acc_str,
+                                            param_and_grad[0])
+        linear_acc = self._get_accumulator(self._linear_acc_str,
+                                           param_and_grad[0])
+        return block.append_op(
+            type="ftrl",
+            inputs={
+                "Param": [param_and_grad[0]],
+                "Grad": [param_and_grad[1]],
+                "SquaredAccumulator": [squared_acc],
+                "LinearAccumulator": [linear_acc],
+                "LearningRate": [self._create_param_lr(param_and_grad)],
+            },
+            outputs={"ParamOut": [param_and_grad[0]],
+                     "SquaredAccumOut": [squared_acc],
+                     "LinearAccumOut": [linear_acc]},
+            attrs={"l1": self._l1, "l2": self._l2,
+                   "lr_power": self._lr_power},
+        )
+
+
+class ModelAverage(Optimizer):
+    """A running average of the parameters for evaluation, driven by the
+    ``average_accumulates`` op (three staggered sum buffers and a
+    restartable trailing window, see ``ops/optimizer_ops.py``).
+    ``_ensure_accumulators(program)`` appends one such op a parameter to
+    ``program``, as in the JAX package; ``apply(executor)`` is a context
+    manager that puts (sum_1 + sum_2 + sum_3) / (num_accumulates +
+    old_num_accumulates) into the scope for each parameter and restores
+    the parameters after."""
+
+    def __init__(self, average_window_rate=0.15, min_average_window=10000,
+                 max_average_window=10000, **kwargs):
+        super().__init__(0.0, **kwargs)
+        self.average_window = average_window_rate
+        self.min_average_window = min_average_window
+        self.max_average_window = max_average_window
+        self.params_grads = []
+        self._avg_sums = {}
+
+    def _ensure_accumulators(self, program):
+        block = program.global_block()
+        for p in block.all_parameters():
+            if p.name in self._avg_sums:
+                continue
+            sums = (self._add_accumulator("sum_1", p),
+                    self._add_accumulator("sum_2", p),
+                    self._add_accumulator("sum_3", p))
+            counts = (
+                self._add_accumulator("num_accumulates", p, shape=[1],
+                                      dtype="int64"),
+                self._add_accumulator("old_num_accumulates", p, shape=[1],
+                                      dtype="int64"),
+                self._add_accumulator("num_updates", p, shape=[1],
+                                      dtype="int64"),
+            )
+            self._avg_sums[p.name] = sums + counts
+            s1, s2, s3, na, ona, nu = self._avg_sums[p.name]
+            block.append_op(
+                type="average_accumulates",
+                inputs={"param": [p], "in_sum_1": [s1], "in_sum_2": [s2],
+                        "in_sum_3": [s3], "in_num_accumulates": [na],
+                        "in_old_num_accumulates": [ona],
+                        "in_num_updates": [nu]},
+                outputs={"out_sum_1": [s1], "out_sum_2": [s2],
+                         "out_sum_3": [s3], "out_num_accumulates": [na],
+                         "out_old_num_accumulates": [ona],
+                         "out_num_updates": [nu]},
+                attrs={"average_window": self.average_window,
+                       "min_average_window": self.min_average_window,
+                       "max_average_window": self.max_average_window},
+            )
+
+    def apply(self, executor, scope=None):
+        """Swap the averaged parameters into ``scope`` (a context manager).
+
+        The averages are new tensors put with ``scope.set_var``: a
+        captured step run inside the block copies them into the tensors
+        its graph reads, as for any value set since its capture.  So the
+        parameters are saved as clones, and put back the same way on
+        exit."""
+        scope = scope if scope is not None else global_scope()
+
+        @contextlib.contextmanager
+        def _ctx():
+            saved = {}
+            for name, accs in self._avg_sums.items():
+                s1, s2, s3, na, ona, _ = accs
+                saved[name] = scope.var(name).clone()
+                total = (scope.var(s1.name) + scope.var(s2.name)
+                         + scope.var(s3.name))
+                cnt = (scope.var(na.name) + scope.var(ona.name)).to(
+                    total.dtype).clamp_min(1)
+                scope.set_var(name, total / cnt)
+            try:
+                yield
+            finally:
+                for name, v in saved.items():
+                    scope.set_var(name, v)
+
+        return _ctx()
+
+
 SGD = SGDOptimizer
 Momentum = MomentumOptimizer
 Adagrad = AdagradOptimizer
 Adam = AdamOptimizer
+Adamax = AdamaxOptimizer
+DecayedAdagrad = DecayedAdagradOptimizer
+Adadelta = AdadeltaOptimizer
+RMSProp = RMSPropOptimizer
+Ftrl = FtrlOptimizer

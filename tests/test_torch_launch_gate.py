@@ -1,7 +1,9 @@
 """``chip_smoke.py``'s launch gate, on the CPU: ``trace_lost`` tells the
 kernel records a profiler lost from kernels a serving path did not run,
 and ``device_window`` profiles a serving pass again only for the former,
-so that ``launch_faults`` still fails a path whose kernels did not run."""
+so that ``launch_faults`` still fails a path whose kernels did not run;
+a window whose trace holds no device event is profiled again where the
+caller allows it and fails the gate if it stays so."""
 import os
 import sys
 
@@ -17,8 +19,9 @@ NEED = {"flash_attention_fwd": 414, "layer_norm_fwd": 828,
         "dequant_matmul": 2553}
 
 
-def window(trace, wrapper):
-    return {"trace_launches": dict(trace), "wrapper_launches": dict(wrapper)}
+def window(trace, wrapper, events=100):
+    return {"trace_launches": dict(trace), "wrapper_launches": dict(wrapper),
+            "device_events": events, "pads_traced": cs.TRACE_PADS}
 
 
 @pytest.mark.parametrize("captured, trace, wrapper, want", [
@@ -88,3 +91,44 @@ def test_device_window_without_a_loss_test_profiles_once(monkeypatch):
     monkeypatch.setattr(cs, "_profiled", profiled)
     out = cs.device_window(lambda: runs.append(1))
     assert len(runs) == 1 and out["trace_losses"] == []
+
+
+def _empty_then(monkeypatch, events, **kw):
+    """``device_window(fn, **kw)`` over windows holding ``events`` device
+    events, one per profiled run; returns (the window, the runs of
+    ``fn``)."""
+    runs = []
+    shown = iter(events)
+
+    def profiled(fn):
+        fn()
+        return window({}, {}, events=next(shown))
+
+    monkeypatch.setattr(cs, "_profiled", profiled)
+    out = cs.device_window(lambda: runs.append(1), **kw)
+    return out, len(runs)
+
+
+@pytest.mark.parametrize("kw", [{"again": True},
+                                {"lost": lambda w: {}}])
+def test_device_window_profiles_an_empty_trace_again(monkeypatch, kw):
+    out, runs = _empty_then(monkeypatch, [0, 0, 7], **kw)
+    assert runs == 3 and out["empty_windows"] == 2
+    assert out["device_events"] == 7
+    assert cs.launch_faults(cs.launch_record(True, {}, {}, out, {})) == {}
+
+
+def test_device_window_left_empty_fails_the_gate(monkeypatch):
+    out, runs = _empty_then(monkeypatch, [0] * cs.TRACE_TRIES, again=True)
+    assert runs == cs.TRACE_TRIES
+    assert out["empty_windows"] == cs.TRACE_TRIES
+    assert cs.launch_faults(cs.launch_record(True, {}, {}, out, {})) == {
+        "window_trace:device_events": (0, "at least 1")}
+
+
+def test_device_window_profiles_once_unless_asked(monkeypatch):
+    # a training step's window: another run would change the state a
+    # later comparison reads, so an empty one is not profiled again
+    out, runs = _empty_then(monkeypatch, [0, 7])
+    assert runs == 1 and out["empty_windows"] == 1
+
