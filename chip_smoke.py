@@ -11,6 +11,9 @@
                                            # #7
     python3 chip_smoke.py --resnet-default # device, build, ResNet-50 steps
                                            # with cuDNN's default algorithms
+    python3 chip_smoke.py rnn         # device, build, #5/#6 at machine
+                                      # translation's shape, rnn_check,
+                                      # and the rnn phase (21) alone
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -46,7 +49,8 @@ Run from the root of a checkout.  Phases, one line each:
    images of 7x7; C 72, O 200); #2, #4 and their library calls also name
    the device kernels they ran (SDPA's backend); the AMP paths' shapes
    and types too: #1/#2 in bfloat16 at the training shape with dropout
-   0.1, #8-#11 in bfloat16 at stages 1, 3 and 4;
+   0.1, #8-#11 in bfloat16 at stages 1, 3 and 4; #5/#6 at machine
+   translation's loss, [1920, 30000] float32;
 Every path below runs twice, in turns: captured (the default
 ``Executor``: each dispatch signature's first run eager, its second
 captured as a CUDA graph and replayed, later ones replayed; the main path,
@@ -221,9 +225,24 @@ empty window is profiled again first (``empty_windows``).
 20. ``optimizers`` — bench.py's MLP under the six new optimizers, five
    LR schedules, ``append_LARS``, ``ModelAverage`` and QAT: 3 steps card
    against CPU at ``train_check``'s band, 20 steps captured = eager, no
-   hand kernel launches.
+   hand kernel launches;
+21. ``rnn_check``, ``rnn_fault_length`` and ``rnn`` — bench.py's two RNN
+   rungs: the stacked dynamic LSTM (batch 64 x 80 words, dict 5147, 512
+   wide, 3 layers, the second reversed, Adam(1e-3)) and attention
+   machine translation (64 x 30 tokens, dicts 30000, 512 wide, bi-LSTM
+   encoder, ``DynamicRNN`` decoder: the ``recurrent`` op, Adam(1e-4)).
+   First one step of each at a small width (dict 50, 32 wide, T 7,
+   batch 4, ragged lengths), card against CPU at ``train_check``'s band
+   (the CPU taking the card's max-pool decisions, ``max_decisions``),
+   and again with the lengths one short on the card, which the check must
+   fail.  Then each in float32 and under ``decorate``, captured = eager
+   bit for bit (``two_arm_run``), words/s, wall, busy, idle share, top
+   device events, peak memory, one graph an entry, the capture's
+   seconds; #5 twice and #6 once a machine-translation step, no hand
+   kernel in the LSTM.
 
-Then the script's total seconds (``total``), the kernel table as one JSON
+Then the script's total seconds (``total``, with the seconds since the
+previous log line summed by phase name), the kernel table as one JSON
 line, the ``nvidia-smi`` line, and, as the last line, ``{"ok": true,
 "device": {...}}``.  Any failure raises and
 exits nonzero; without a CUDA device the script exits 2 and prints no
@@ -274,11 +293,17 @@ TRAIN_VOCAB, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 32000, 64, 256, 5
 
 
 _T0 = time.perf_counter()
+# seconds from the previous log line to each line, summed by phase name
+PHASE_SECONDS = {}
+_LAST = [0.0]
 
 
 def log(phase, payload):
+    at = time.perf_counter() - _T0
+    PHASE_SECONDS[phase] = PHASE_SECONDS.get(phase, 0.0) + at - _LAST[0]
+    _LAST[0] = at
     if isinstance(payload, dict):
-        payload = dict(payload, at_s=time.perf_counter() - _T0)
+        payload = dict(payload, at_s=at)
     print("%s: %s" % (phase, json.dumps(payload)), flush=True)
 
 
@@ -1271,9 +1296,10 @@ def train_kernel_cases(timer):
         f, b = softmax_xent_cases(sx, timer, rows, TRAIN_VOCAB, 0.1, dtype)
         xent_fwd.append(f)
         xent_bwd += b
-    # 300 x 1000: off the path; 8192 and 8160: the realdist buckets
+    # 300 x 1000: off the path; 8192 and 8160: the realdist buckets;
+    # machine translation's loss
     for n, c, eps in ((300, 1000, 0.0), (8192, TRAIN_VOCAB, 0.1),
-                      (8160, TRAIN_VOCAB, 0.1)):
+                      (8160, TRAIN_VOCAB, 0.1)) + MT_XENT:
         f, b = softmax_xent_cases(sx, timer, n, c, eps, torch.float32)
         xent_fwd.append(f)
         xent_bwd += b
@@ -1282,6 +1308,19 @@ def train_kernel_cases(timer):
             "layer_norm_fwd": layer_norm_fwd_cases(timer),
             "layer_norm_bwd": norm_bwd,
             "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd}
+
+
+# machine translation's loss (``rnn``): [64 x 30, 30000] float32 (black
+# under AMP too), no smoothing
+MT_XENT = ((64 * 30, 30000, 0.0),)
+
+
+def mt_xent_cases(timer):
+    """#5/#6 at machine translation's shape alone (``rnn`` mode)."""
+    from paddle_tpu_torch.ops.cuda import softmax_xent as sx
+
+    f, b = softmax_xent_cases(sx, timer, *MT_XENT[0], torch.float32)
+    return {"softmax_xent_fwd": [f], "softmax_xent_bwd": b}
 
 
 def log_checks(checks):
@@ -3202,7 +3241,7 @@ def realdist_checks(per_bound):
 RESNET_FEED_POOL = 8
 
 
-def resnet_feed_phase(windows=3, window_steps=20, batch=RESNET_BATCH):
+def resnet_feed_phase(windows=3, window_steps=7, batch=RESNET_BATCH):
     """ResNet-50 plain under AMP at batch 128 (the fastest of the three
     AMP programs at that batch), fed three ways from one pool of
     ``RESNET_FEED_POOL`` host batches built before timing (so the arms
@@ -4653,6 +4692,259 @@ def resnet_profile_phase(place, steps=2, batch=RESNET_BATCH, amp=False):
         torch.use_deterministic_algorithms(False)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: bench.py's RNN rungs
+# ---------------------------------------------------------------------------
+
+# bench.py's two RNN rungs (``bench.py:1852-1929``): batch, words a
+# sequence (full length), dictionary size, Adam's learning rate; 512 wide
+RNN = {"stacked_lstm": (64, 80, 5147, 1e-3),
+       "machine_translation": (64, 30, 30000, 1e-4)}
+RNN_WIDTH = 512
+# ``rnn_check``'s configuration, the CPU tests' size: ragged lengths in
+# [2, seq]
+RNN_SMALL = dict(batch=4, seq=7, dict_dim=50, width=32)
+RNN_STEPS = 8
+# the length feed that ``rnn_check``'s planted fault shortens
+RNN_LEN = {"stacked_lstm": "word@LEN", "machine_translation": "src@LEN"}
+
+
+def build_rnn(name, amp=False, small=False):
+    """bench.py's ``stacked_lstm`` (3 layers, the second reversed) or
+    ``machine_translation`` (bi-LSTM encoder, ``DynamicRNN`` attention
+    decoder) program through the port, seed 1, Adam at bench's rate, under
+    ``decorate`` with ``amp``; at ``RNN_SMALL``'s widths with ``small``.
+    Returns (main, startup, [loss])."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import mixed_precision
+    from paddle_tpu_torch.models import (machine_translation,
+                                         stacked_dynamic_lstm)
+
+    dict_dim, lr = RNN[name][2:]
+    width = RNN_WIDTH
+    if small:
+        dict_dim, width = RNN_SMALL["dict_dim"], RNN_SMALL["width"]
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 1
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        if name == "stacked_lstm":
+            word = pt.layers.data("word", shape=[1], dtype="int64",
+                                  lod_level=1)
+            label = pt.layers.data("label", shape=[1], dtype="int64")
+            pred = stacked_dynamic_lstm.stacked_lstm_net(
+                word, dict_dim, emb_dim=width, hid_dim=width)
+            loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+        else:
+            src, tgt, lbl = (pt.layers.data(n, shape=[1], dtype="int64",
+                                            lod_level=1)
+                             for n in ("src", "tgt", "lbl"))
+            loss, _ = machine_translation.seq_to_seq_net(
+                src, tgt, lbl, dict_dim, dict_dim, width, width, width)
+        opt = pt.optimizer.Adam(learning_rate=lr)
+        if amp:
+            opt = mixed_precision.decorate(opt)
+        opt.minimize(loss)
+    return main, startup, [loss]
+
+
+def rnn_feeds(name, n, small=False, seed=0):
+    """bench.py's feeds, drawn in its order from ``RandomState(seed)``:
+    random ids (MT: from 1) at full length, the LSTM's 2-way labels; with
+    ``small``, ``RNN_SMALL``'s shape and ragged lengths in [2, seq]."""
+    batch, seq, dict_dim = RNN[name][:3]
+    if small:
+        batch, seq, dict_dim = (RNN_SMALL[k] for k in
+                                ("batch", "seq", "dict_dim"))
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        if name == "stacked_lstm":
+            ids = rng.randint(0, dict_dim, (batch, seq, 1)).astype("int64")
+            lens = (rng.randint(2, seq + 1, batch) if small
+                    else np.full(batch, seq)).astype("int32")
+            out.append({"word": ids, "word@LEN": lens,
+                        "label": rng.randint(0, 2, (batch, 1))
+                        .astype("int64")})
+            continue
+        f = {}
+        lens = (rng.randint(2, seq + 1, batch) if small
+                else np.full(batch, seq)).astype("int32")
+        for n_ in ("src", "tgt", "lbl"):
+            f[n_] = rng.randint(1, dict_dim, (batch, seq, 1)).astype("int64")
+            f[n_ + "@LEN"] = lens
+        out.append(f)
+    return out
+
+
+def max_pools(program):
+    """The ``sequence_pool`` ops of ``program`` that take the maximum."""
+    return [op for op in program.global_block().ops
+            if op.type == "sequence_pool"
+            and op.attrs.get("pooltype") == "MAX"]
+
+
+@contextlib.contextmanager
+def max_decisions(program, card_index):
+    """While open, each max ``sequence_pool`` of ``program`` pools the
+    steps the card picked (``card_index``: {MaxIndex name: the card's
+    fetch}) instead of its own argmax, the analogue of ``relu_decisions``
+    for the LSTM's max pools: where two steps' values lie within float32
+    rounding of each other, the two devices may pick different ones, and
+    the gradient then flows to different steps.  Yields {op index: the
+    units whose own argmax differed from the card's}."""
+    from paddle_tpu_torch import registry
+
+    keep = {i: torch.from_numpy(card_index[op.outputs["MaxIndex"][0]])
+            .long() for i, op in enumerate(program.global_block().ops)
+            if op in max_pools(program)}
+    pool = registry.get_op_def("sequence_pool")
+    plain = pool.compute
+    flips = {}
+
+    def compute(ins, attrs, ctx, op_index):
+        out = plain(ins, attrs, ctx, op_index)
+        if op_index not in keep:
+            return out
+        x, length = ins["X"][0], ins["Length"][0]
+        idx = keep[op_index].to(x.device)
+        flips[op_index] = int((out["MaxIndex"].long() != idx).sum())
+        picked = torch.take_along_dim(x, idx.unsqueeze(1), dim=1).squeeze(1)
+        nonempty = (length > 0).reshape((-1,) + (1,) * (x.dim() - 2))
+        return {"Out": torch.where(nonempty, picked, 0),
+                "MaxIndex": idx.to(torch.int32)}
+
+    pool.compute = compute
+    try:
+        yield flips
+    finally:
+        pool.compute = plain
+
+
+def rnn_check(name, fault=None):
+    """One Adam step of ``build_rnn(name, small=True)`` on a ragged batch,
+    float32, on ``CUDAPlace(0)`` and on ``CPUPlace()`` from one startup
+    state, at ``train_check``'s band: the losses within rtol 1e-4, the
+    parameters' gradients within relative L2 1e-4 at the median and 1e-2
+    for each; the step moved every parameter.  The CPU takes the card's
+    max-pool decisions (``max_decisions``; the units that decided
+    otherwise are counted).  ``fault="length"`` feeds the card the
+    ``RNN_LEN`` lengths one short: the check must fail, and the phase
+    returns its summary instead of raising."""
+    import paddle_tpu_torch as pt
+
+    assert fault in (None, "length")
+    main, startup, (loss,) = build_rnn(name, small=True)
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    card_scope, cpu_scope = pt.Scope(), pt.Scope()
+    card = pt.Executor(pt.CUDAPlace(0))
+    card.run(startup, scope=card_scope)
+    for n in card_scope.local_var_names():
+        cpu_scope.set_var(n, card_scope.var(n).cpu().clone())
+    before = {n: cpu_scope.var(n).clone() for n in params}
+    feed = rnn_feeds(name, 1, small=True, seed=5)[0]
+    card_feed = dict(feed)
+    if fault:
+        card_feed[RNN_LEN[name]] = np.maximum(feed[RNN_LEN[name]] - 1,
+                                              1).astype("int32")
+    idx_names = [op.outputs["MaxIndex"][0] for op in max_pools(main)]
+    fetch = [loss.name] + [n + "@GRAD" for n in params] + idx_names
+    k = 1 + len(params)
+    got = card.run(main, feed=card_feed, fetch_list=fetch, scope=card_scope)
+    with max_decisions(main, dict(zip(idx_names, got[k:]))) as flips:
+        want = pt.Executor(pt.CPUPlace()).run(main, feed=feed,
+                                              fetch_list=fetch,
+                                              scope=cpu_scope)
+    finite = all(np.isfinite(a).all() for a in got[:k])
+    got, want = got[:k], want[:k]
+    loss_within = bool(np.all(np.abs(got[0] - want[0])
+                              <= 1e-4 * np.abs(want[0])))
+    rel = _grad_rel_l2(params, got[1:], want[1:])
+    ranked = sorted(rel, key=rel.get, reverse=True)
+    med = statistics.median(rel.values())
+    moved = sum(not torch.equal(before[n], card_scope.var(n).cpu())
+                for n in params)
+    within = bool(finite and loss_within and med <= 1e-4
+                  and rel[ranked[0]] <= 1e-2)
+    summary = {"model": name, "fault": fault, "config": RNN_SMALL,
+               "lengths": feed[RNN_LEN[name]].tolist(),
+               "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+               "params": len(params), "moved": moved,
+               "grad_rel_l2_top5": [[n, rel[n]] for n in ranked[:5]],
+               "grad_rel_l2_median": med,
+               "max_pools": len(idx_names),
+               "max_decisions_taken_from_card": sum(flips.values()),
+               "within": within}
+    log("rnn_fault_length" if fault else "rnn_check", summary)
+    if fault:
+        return summary
+    if not within or moved != len(params):
+        raise SystemExit("rnn_check: card and CPU disagree on %s: %s"
+                         % (name, summary))
+    return summary
+
+
+def rnn_checks():
+    """``rnn_check`` on both models, and on both with the planted fault,
+    which it must catch."""
+    caught = {}
+    for name in RNN:
+        rnn_check(name)
+        caught[name] = not rnn_check(name, fault="length")["within"]
+    if not all(caught.values()):
+        raise SystemExit("rnn_check passed a planted fault: %s" % caught)
+
+
+def rnn_phase(steps=RNN_STEPS):
+    """bench.py's ``stacked_lstm`` (batch 64 x 80 words, dict 5147, 512
+    wide, 3 layers) and ``machine_translation`` (64 x 30 tokens, dicts
+    30000, 512 wide) rungs on ``CUDAPlace(0)``, float32 and under
+    ``decorate`` (bench's ``--amp``), each captured and eager from one
+    startup state (``two_arm_run``, ``steps`` timed steps in turns): the
+    same bits, words/s (batch x seq / the median step), wall and busy ms
+    a step and idle share of a profiled step, its top device events,
+    peak memory, the captured executor's entries and graphs, and the
+    capture's seconds (the captured arm's second run: capture and first
+    replay).  Launches are exact (``launch_faults``): #5 twice and #6
+    once a machine-translation step (its loss), none in the LSTM.
+    Returns {path: launch record}."""
+    paths, bad = {}, []
+    for name in RNN:
+        batch, seq = RNN[name][:2]
+        for amp in (False, True):
+            t0 = time.perf_counter()
+            main, startup, fetch = build_rnn(name, amp)
+            need = {k: n for k, n in kernel_launches_per_step(main).items()
+                    if n}
+            s, records, runs = two_arm_run(
+                main, started(startup), fetch, rnn_feeds(name, steps + 3),
+                steps, batch, need=need, deterministic=False)
+            exe = runs["captured"]["exe"]
+            for arm in ("captured", "eager"):
+                a, w = s[arm], s[arm]["profiled_step"]
+                a.update(words_per_s=batch * seq / a["median_step_ms"] * 1e3,
+                         wall_ms=w["wall_ms"], busy_ms=w["busy_ms"],
+                         idle_share=w["idle_share"],
+                         top_device_us=w["top_device_us"])
+            s["captured"]["capture_s"] = s["captured"]["first_ms"][1] / 1e3
+            s.update(model=name, dtype="amp_bf16" if amp else "float32",
+                     words=batch * seq, entries=len(exe._steps),
+                     graphs=sum(st.graph is not None
+                                for st in exe._steps.values()),
+                     seconds=time.perf_counter() - t0)
+            log("rnn", s)
+            path = "rnn:%s%s" % (name, "_amp" if amp else "")
+            paths[path] = records["captured"]
+            paths[path + ":eager"] = records["eager"]
+            if not s["ok"] or s["graphs"] != 1:
+                bad.append(path)
+            del runs, exe
+            release_memory()
+    if bad:
+        raise SystemExit("rnn: captured steps differ from eager, or an "
+                         "entry is not one graph: %s" % bad)
+    return paths
+
+
 # (kernel, source, the TPU kernel's pallas_call, the path whose launches
 # the row's "launches" reports)
 KERNEL_ROWS = (
@@ -4786,6 +5078,14 @@ def main():
         for r, _ in resnet_train_phase(deterministic=False).values():
             log("resnet_train", r)
         return 0
+    if "rnn" in sys.argv[1:]:
+        log_checks(mt_xent_cases(Timer()))
+        rnn_checks()
+        for path, record in rnn_phase().items():
+            faults = launch_faults(record)
+            if faults:
+                raise SystemExit("rnn: %s launched %s" % (path, faults))
+        return 0
     if "--serve-ab" in sys.argv[1:]:
         # fp and int8 serving in turns (fp, weight_only, dynamic, then the
         # reverse), so host load drifting within the call shows as spread
@@ -4867,6 +5167,13 @@ def main():
         for path, record in phase().items():
             check_path(path, record)
         release_memory()
+    # bench.py's RNN rungs: the stacked LSTM (no hand kernel) and attention
+    # machine translation (#5/#6 at [1920, 30000]), after their
+    # card-against-CPU checks
+    rnn_checks()
+    for path, record in rnn_phase().items():
+        check_path(path, record)
+    release_memory()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)
@@ -4895,6 +5202,14 @@ def main():
                        bound_simt_ms=head["bound_simt_ms"])
         row.update({"launches_" + p: path_launches[p][name]
                     for p in path_launches})
+        if name in ("softmax_xent_fwd", "softmax_xent_bwd"):
+            # machine translation's loss ([1920, 30000] float32, rnn)
+            row["machine_translation_shape"] = [
+                {k: c.get(k) for k in ("check", "max_abs_err", "kernel_ms",
+                                       "device_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}
+                for c in checks[name]
+                if c["logits"] == list(MT_XENT[0][:2])]
         if name in ("conv_bn_fwd", "conv_bn_bwd"):
             # the other shapes: SE-ResNeXt-50's fused layers
             row["se_resnext_shapes"] = [
@@ -4918,7 +5233,8 @@ def main():
                 "bound_by": amp["bound_by"].split(" ")[0],
                 "library_ms": amp["library_ms"]}
         rows.append(row)
-    log("total", {"seconds": time.perf_counter() - t_start})
+    log("total", {"seconds": time.perf_counter() - t_start,
+                  "phase_seconds": dict(PHASE_SECONDS)})
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -323,7 +323,12 @@ class Executor:
         release = [[] for _ in block.ops]
         for n, i in last.items():
             release[i].append(n)
-        return state, writeback, live, release
+        # the forward ops whose generic grad op runs (registry keep_graph)
+        graph_ops = frozenset(
+            op.attrs["__fwd_op_index__"] for i, op in enumerate(block.ops)
+            if live[i] and "__fwd_type__" in op.attrs
+            and "__fwd_op_index__" in op.attrs)
+        return state, writeback, live, release, graph_ops
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
@@ -398,14 +403,14 @@ class Executor:
                    fetch_names, out_meta=None):
         """Interpret the live ops one by one; ``out_meta`` collects the
         persistable outputs' (shape, dtype)."""
-        state_names, writeback, live, release = analysis
+        state_names, writeback, live, release, graph_ops = analysis
         dev = self.place.device
         block = program.global_block()
         env = {n: feed[n].to(device=dev, dtype=feed_dtypes[n]) for n in feed}
         env.update((n, _scope_tensor(scope, n, dev)) for n in state_names)
         _interpret(block, live, release, env, ComputeContext(
             dev, self._generator(program.random_seed), len(block.ops),
-            program._amp_policy))
+            program._amp_policy, program, graph_ops))
         for n in writeback:
             scope.set_var(n, env[n])
             if out_meta is not None:
@@ -436,7 +441,7 @@ class Executor:
                  fetch_names):
         """Capture the entry's step into ``step.graph`` on the feeds' and
         the scope's current tensors; the caller replays it."""
-        state_names, writeback, live, release = analysis
+        state_names, writeback, live, release, graph_ops = analysis
         dev = self.place.device
         block = program.global_block()
         for n in feed:
@@ -465,7 +470,7 @@ class Executor:
         env = {n: f.buffer for n, f in step.feeds.items()}
         env.update((n, step.bound[n]) for n in state_names)
         ctx = ComputeContext(dev, generator, len(block.ops),
-                             program._amp_policy)
+                             program._amp_policy, program, graph_ops)
         where = ["the start of the step"]
         try:
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,

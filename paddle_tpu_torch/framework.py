@@ -5,9 +5,10 @@ IR; shape/dtype inference runs at ``append_op`` time through the op
 registry, and programs serialize to the same plain-dict schema as the JAX
 package (``Program.to_dict`` / ``to_json`` / ``from_dict``), with dtypes
 written by name, so a program built by either package serializes to the
-same JSON and loads in the other.  Only the global block is executed by
-the port's executor (neither the decoder nor the Transformer has control
-flow).  Gradients are ordinary variables named ``<var>@GRAD``
+same JSON and loads in the other.  The executor runs the global block; a
+sub-block (``_create_block``, made by ``StaticRNN`` / ``DynamicRNN``) is
+run by the op that owns it (``recurrent``, ``ops/control_flow.py``).
+Gradients are ordinary variables named ``<var>@GRAD``
 (``grad_var_name``), appended by ``backward.append_backward``.
 """
 
@@ -235,6 +236,9 @@ class Block:
     def has_var(self, name):
         return name in self.vars
 
+    def has_var_recursive(self, name):
+        return self._find_var_recursive(name) is not None
+
     def var(self, name):
         v = self.vars.get(name)
         if v is None:
@@ -330,6 +334,20 @@ class Program:
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def _create_block(self, parent_idx=None, forward_block_idx=-1):
+        """Append a block under ``parent_idx`` (default: the current
+        block) and make it current."""
+        new_idx = len(self.blocks)
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.blocks.append(Block(self, new_idx, parent_idx=parent,
+                                 forward_block_idx=forward_block_idx))
+        self.current_block_idx = new_idx
+        return self.current_block()
+
+    def _rollback(self):
+        """Make the current block's parent current again."""
+        self.current_block_idx = self.current_block().parent_idx
 
     def all_parameters(self):
         return self.global_block().all_parameters()

@@ -2,6 +2,7 @@
 ``paddle_tpu/layers``)."""
 
 from .cnn import *  # noqa: F401,F403
+from .control_flow import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403

@@ -2,7 +2,8 @@
 of ``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``dropout``,
 ``softmax``, ``cross_entropy``, ``softmax_with_cross_entropy``, ``mean``,
 ``matmul``, ``fused_attention``, ``square_error_cost``, ``topk``,
-``prelu``, ``maxout``, the elementwise layers and
+``prelu``, ``maxout``, ``cos_sim``, ``margin_rank_loss``,
+``lstm_unit``, ``gru_unit``, the elementwise layers and
 ``autoincreased_step_counter`` (``relu`` and ``log`` are generated with
 the activations, ``layers/ops.py``).  They append the same ops with
 the same attrs as the JAX package, so the programs serialize alike."""
@@ -15,6 +16,7 @@ __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
            "square_error_cost", "topk", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "prelu", "maxout",
+           "cos_sim", "margin_rank_loss", "lstm_unit", "gru_unit",
            "autoincreased_step_counter"]
 
 
@@ -247,6 +249,84 @@ def maxout(x, groups, name=None):
     helper.append_op(type="maxout", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"groups": groups})
     return out
+
+
+def cos_sim(X, Y):
+    helper = LayerHelper("cos_sim")
+    out = helper.create_variable_for_type_inference(dtype=X.dtype)
+    xnorm = helper.create_variable_for_type_inference(dtype=X.dtype)
+    ynorm = helper.create_variable_for_type_inference(dtype=X.dtype)
+    helper.append_op(
+        type="cos_sim", inputs={"X": [X], "Y": [Y]},
+        outputs={"Out": [out], "XNorm": [xnorm], "YNorm": [ynorm]},
+    )
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    """Pairwise hinge max(0, -label*(left-right) + margin); label is
+    +-1."""
+    helper = LayerHelper("margin_rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(dtype=left.dtype)
+    act = helper.create_variable_for_type_inference(dtype=left.dtype)
+    helper.append_op(
+        type="margin_rank_loss",
+        inputs={"Label": [label], "X1": [left], "X2": [right]},
+        outputs={"Out": [out], "Activated": [act]},
+        attrs={"margin": float(margin)},
+    )
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step: fc([x_t, h_prev]) -> 4 gates -> lstm_unit op.
+    Returns (hidden, cell)."""
+    if len(x_t.shape) != 2 or len(hidden_t_prev.shape) != 2 or \
+            len(cell_t_prev.shape) != 2:
+        raise ValueError("lstm_unit takes 2-D x_t/hidden/cell")
+    from .tensor import concat
+    size = int(cell_t_prev.shape[1])
+    concat_in = concat([x_t, hidden_t_prev], axis=1)
+    fc_out = fc(concat_in, size=4 * size, param_attr=param_attr,
+                bias_attr=bias_attr, name=name)
+    helper = LayerHelper("lstm_unit", name=name)
+    h = helper.create_variable_for_type_inference(dtype=x_t.dtype)
+    c = helper.create_variable_for_type_inference(dtype=x_t.dtype)
+    helper.append_op(
+        type="lstm_unit",
+        inputs={"X": [fc_out], "C_prev": [cell_t_prev]},
+        outputs={"H": [h], "C": [c]},
+        attrs={"forget_bias": float(forget_bias)})
+    return h, c
+
+
+def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
+             activation="tanh", gate_activation="sigmoid"):
+    """One GRU step over a pre-projected input (``input`` is the
+    fc-transformed x, ``size`` = 3x the hidden dim).  Returns (hidden,
+    reset_hidden_prev, gate)."""
+    h_dim = size // 3
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr)
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[h_dim, 3 * h_dim],
+                                dtype=input.dtype)
+    inputs = {"Input": [input], "HiddenPrev": [hidden], "Weight": [w]}
+    if helper.kwargs.get("bias_attr") is not False:
+        b = helper.create_parameter(attr=helper.bias_attr,
+                                    shape=[1, 3 * h_dim],
+                                    dtype=input.dtype, is_bias=True)
+        inputs["Bias"] = [b]
+    h = helper.create_variable_for_type_inference(dtype=input.dtype)
+    gate = helper.create_variable_for_type_inference(dtype=input.dtype)
+    rhp = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="gru_unit", inputs=inputs,
+        outputs={"Hidden": [h], "Gate": [gate], "ResetHiddenPrev": [rhp]},
+        attrs={"activation": activation,
+               "gate_activation": gate_activation})
+    return h, rhp, gate
 
 
 def autoincreased_step_counter(counter_name=None, begin=1, step=1,

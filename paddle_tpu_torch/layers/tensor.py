@@ -1,12 +1,14 @@
-"""``reshape``, ``transpose``, ``unsqueeze``, ``reduce_sum``,
-``reduce_mean``, ``cast`` and ``concat`` layers (counterpart of
-``paddle_tpu/layers/tensor.py``)."""
+"""``reshape``, ``transpose``, ``squeeze``, ``unsqueeze``, ``slice``,
+``reduce_sum``, ``reduce_mean``, ``cast``, ``concat``, ``sums``,
+``fill_constant`` and ``fill_constant_batch_size_like`` layers
+(counterpart of ``paddle_tpu/layers/tensor.py``)."""
 
 from ..core import dtype_name
 from ..layer_helper import LayerHelper
 
-__all__ = ["reshape", "transpose", "unsqueeze", "reduce_sum", "reduce_mean",
-           "cast", "concat"]
+__all__ = ["reshape", "transpose", "squeeze", "unsqueeze", "slice",
+           "reduce_sum", "reduce_mean", "cast", "concat", "sums",
+           "fill_constant", "fill_constant_batch_size_like"]
 
 
 def reshape(x, shape, act=None, name=None):
@@ -22,6 +24,14 @@ def transpose(x, perm, name=None):
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     helper.append_op(type="transpose", inputs={"X": [x]},
                      outputs={"Out": [out]}, attrs={"axis": list(perm)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="squeeze", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axes": list(axes)})
     return out
 
 
@@ -67,4 +77,50 @@ def concat(input, axis=0, name=None):
     out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
     helper.append_op(type="concat", inputs={"X": input},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    helper = LayerHelper("slice")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out
+
+
+def sums(input, out=None):
+    """The elementwise sum of the Variables in ``input`` (a ``sum`` op)."""
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": input}, outputs={"Out": [out]})
+    return out
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None):
+    helper = LayerHelper("fill_constant")
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype_name(dtype),
+                            "value": float(value)})
+    out.stop_gradient = True
+    return out
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """A ``value``-filled tensor of ``shape`` whose dim ``output_dim_idx``
+    is ``input``'s dim ``input_dim_idx`` at run time."""
+    helper = LayerHelper("fill_constant_batch_size_like")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="fill_constant_batch_size_like",
+                     inputs={"Input": [input]}, outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "dtype": dtype_name(dtype),
+                            "value": float(value),
+                            "input_dim_idx": input_dim_idx,
+                            "output_dim_idx": output_dim_idx})
+    out.stop_gradient = True
     return out

@@ -1,4 +1,5 @@
 """Model builders of the port (counterpart of ``paddle_tpu/models``)."""
 
-from . import (alexnet, ctr_dnn, googlenet, resnet,  # noqa: F401
-               se_resnext, smallnet, transformer, vgg)
+from . import (alexnet, ctr_dnn, googlenet, machine_translation,  # noqa: F401
+               resnet, se_resnext, simnet_bow, smallnet, stacked_dynamic_lstm,
+               transformer, vgg)

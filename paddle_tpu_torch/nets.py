@@ -1,13 +1,14 @@
 """Composite networks (counterpart of ``paddle_tpu/nets.py``):
-``simple_img_conv_pool``, which the recognize_digits chapter needs, and
-``img_conv_group``, VGG's block.  The other composites
-(``sequence_conv_pool``, ``glu``, ``scaled_dot_product_attention``,
-``simple_attention``, ``dot_product_attention``) wait for ROADMAP Queue
-A8."""
+``simple_img_conv_pool``, which the recognize_digits chapter needs,
+``img_conv_group``, VGG's block, and the attention of the RNN seq2seq
+decoder, ``simple_attention`` and ``dot_product_attention``.  The other
+composites (``sequence_conv_pool``, ``glu``,
+``scaled_dot_product_attention``) wait for ROADMAP Queue A8."""
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "simple_attention",
+           "dot_product_attention"]
 
 
 def simple_img_conv_pool(
@@ -72,3 +73,49 @@ def img_conv_group(
         input=tmp, pool_size=pool_size, pool_type=pool_type,
         pool_stride=pool_stride,
     )
+
+
+def simple_attention(encoded_sequence, encoded_proj, decoder_state,
+                     decoder_size, length=None):
+    """Bahdanau additive attention over a padded sequence.
+
+    ``encoded_sequence`` [B, T, H] values; ``encoded_proj`` [B, T, D]
+    pre-projected keys (hoist the key projection out of the decode loop
+    — one big gemm instead of one per step); ``decoder_state`` [B, D].
+    ``length`` masks padded timesteps (defaults to encoded_sequence's
+    @LEN companion).  Returns the context vector [B, H].
+
+    score[b,t] = v . tanh(enc_proj[b,t] + W s[b]); masked softmax over
+    t; context = sum_t w[b,t] * enc[b,t].
+    """
+    dec_proj = layers.fc(decoder_state, size=decoder_size, bias_attr=False)
+    mixed = layers.tanh(
+        layers.elementwise_add(encoded_proj,
+                               layers.unsqueeze(dec_proj, axes=[1])))
+    scores = layers.squeeze(
+        layers.fc(mixed, size=1, num_flatten_dims=2, bias_attr=False),
+        axes=[2])                                           # [B, T]
+    weights = layers.sequence_softmax(scores, length=length)
+    return layers.reduce_sum(
+        layers.elementwise_mul(encoded_sequence,
+                               layers.unsqueeze(weights, axes=[2])),
+        dim=1)
+
+
+def dot_product_attention(encoded_sequence, attended_sequence,
+                          transformed_state, length=None):
+    """Single-query dot-product attention.
+
+    ``encoded_sequence`` [B, T, D] keys; ``attended_sequence`` [B, T, H]
+    values; ``transformed_state`` [B, D] query (pre-projected).  Returns the context [B, H].
+    """
+    scores = layers.reduce_sum(
+        layers.elementwise_mul(encoded_sequence,
+                               layers.unsqueeze(transformed_state,
+                                                axes=[1])),
+        dim=2)                                              # [B, T]
+    weights = layers.sequence_softmax(scores, length=length)
+    return layers.reduce_sum(
+        layers.elementwise_mul(attended_sequence,
+                               layers.unsqueeze(weights, axes=[2])),
+        dim=1)

@@ -3,7 +3,7 @@
 and their plain PyTorch versions; nothing there builds or imports a GPU
 toolchain until a kernel is first launched."""
 
-from . import (activation, attention, conv, creation,  # noqa: F401
-               elementwise, fused_conv_bn, kv_cache, loss, manipulation,
-               math, metric, norm, optimizer_ops, pool, quantize, random,
-               reduction, selected_rows, sequence)
+from . import (activation, attention, control_flow,  # noqa: F401
+               conv, creation, elementwise, fused_conv_bn, kv_cache, loss,
+               manipulation, math, metric, norm, optimizer_ops, pool,
+               quantize, random, reduction, rnn, selected_rows, sequence)

@@ -1,7 +1,8 @@
 """Creation ops (counterpart of ``paddle_tpu/ops/creation.py``): the
 startup program's init ops ``fill_constant``, ``uniform_random``,
 ``gaussian_random``, ``truncated_gaussian_random`` and ``assign_value``,
-plus ``assign``, ``cast`` and the step counter's ``increment``.  Random
+plus ``fill_constant_batch_size_like``, ``assign``, ``cast`` and the step
+counter's ``increment``.  Random
 ops draw from ``ComputeContext.generator``, the executor's explicit
 ``torch.Generator`` for the program's seed on the run's device."""
 
@@ -59,6 +60,21 @@ for _type, _compute in (("fill_constant", _fill_constant_compute),
                          _truncated_gaussian_compute)):
     register_op(_type, [], ["Out"], infer=_shape_infer, compute=_compute,
                 grad=None, stateful_random=_type != "fill_constant")
+
+
+def _fcbsl_compute(ins, attrs, ctx, op_index):
+    """``fill_constant`` of ``shape`` with dim ``output_dim_idx`` taken
+    from the input's dim ``input_dim_idx`` (its batch size)."""
+    x = ins["Input"][0]
+    shape = list(attrs["shape"])
+    shape[attrs.get("output_dim_idx", 0)] = \
+        x.shape[attrs.get("input_dim_idx", 0)]
+    return {"Out": torch.full(tuple(shape), attrs.get("value", 0.0),
+                              dtype=_dtype(attrs), device=x.device)}
+
+
+register_op("fill_constant_batch_size_like", ["Input"], ["Out"],
+            infer=_shape_infer, compute=_fcbsl_compute, grad=None)
 
 
 def _assign_value_compute(ins, attrs, ctx, op_index):

@@ -1,5 +1,5 @@
-"""``reshape``, ``transpose``, ``unsqueeze``, ``lookup_table``, ``concat``
-and ``top_k`` (counterpart of ``paddle_tpu/ops/manipulation.py``).
+"""``reshape``, ``transpose``, ``squeeze``, ``unsqueeze``, ``slice``,
+``lookup_table``, ``concat`` and ``top_k`` (counterpart of ``paddle_tpu/ops/manipulation.py``).
 ``transpose`` returns a strided view; consumers that need contiguous
 memory (the kernels) make it so.  ``lookup_table``'s dense table gradient
 sums the rows of repeated ids in a fixed order (``_Gather``), so that two
@@ -124,6 +124,33 @@ register_op("concat", ["X"], ["Out"], infer=_concat_infer,
                 "Out": torch.cat(ins["X"], dim=attrs.get("axis", 0))})
 
 
+def _squeeze_infer(op, block):
+    x = in_var(op, block, "X")
+    axes = [a % len(x.shape) for a in op.attrs.get("axes", [])]
+    if axes:
+        out = tuple(s for i, s in enumerate(x.shape)
+                    if i not in axes or s != 1)
+    else:
+        out = tuple(s for s in x.shape if s != 1)
+    set_output(op, block, "Out", out, x.dtype)
+
+
+def _squeeze_compute(ins, attrs, ctx, op_index):
+    """Drop the size-1 dims among ``axes`` (a listed dim of another size
+    stays), or every size-1 dim when ``axes`` is empty."""
+    x = ins["X"][0]
+    axes = attrs.get("axes", [])
+    if not axes:
+        return {"Out": x.squeeze()}
+    keep = [s for i, s in enumerate(x.shape)
+            if s != 1 or i not in {a % x.dim() for a in axes}]
+    return {"Out": x.reshape(keep)}
+
+
+register_op("squeeze", ["X"], ["Out"], infer=_squeeze_infer,
+            compute=_squeeze_compute)
+
+
 def _unsqueeze_infer(op, block):
     x = in_var(op, block, "X")
     out = list(x.shape)
@@ -141,6 +168,30 @@ def _unsqueeze_compute(ins, attrs, ctx, op_index):
 
 register_op("unsqueeze", ["X"], ["Out"], infer=_unsqueeze_infer,
             compute=_unsqueeze_compute)
+
+
+def _slice_infer(op, block):
+    x = in_var(op, block, "Input")
+    shape = list(x.shape)
+    for ax, st, en in zip(op.attrs["axes"], op.attrs["starts"],
+                          op.attrs["ends"]):
+        dim = shape[ax]
+        st2 = max(st + dim, 0) if st < 0 else min(st, dim)
+        en2 = max(en + dim, 0) if en < 0 else min(en, dim)
+        shape[ax] = max(en2 - st2, 0)
+    set_output(op, block, "Out", shape, x.dtype)
+
+
+def _slice_compute(ins, attrs, ctx, op_index):
+    x = ins["Input"][0]
+    idx = [slice(None)] * x.dim()
+    for ax, st, en in zip(attrs["axes"], attrs["starts"], attrs["ends"]):
+        idx[ax] = slice(st, en)
+    return {"Out": x[tuple(idx)]}
+
+
+register_op("slice", ["Input"], ["Out"], infer=_slice_infer,
+            compute=_slice_compute)
 
 
 def _top_k_infer(op, block):

@@ -1,5 +1,6 @@
-"""``mul``, ``matmul``, ``sum``, ``scale``, ``mean``, ``sign``, the clip
-family ``clip``, ``clip_by_norm``, ``squared_l2_norm``, and
+"""``mul``, ``matmul``, ``sum``, ``scale``, ``mean``, ``sign``,
+``cos_sim``, the clip family ``clip``, ``clip_by_norm``,
+``squared_l2_norm``, and
 ``piecewise_lr``, ``layers.piecewise_decay``'s step-function rate
 (counterpart of ``paddle_tpu/ops/math.py``).  ``sum``, ``scale`` and the
 clip family take SelectedRows gradients and keep them sparse where the JAX package does.  ``mul`` is fc's matmul: flatten both
@@ -151,6 +152,26 @@ register_op("mean", ["X"], ["Out"], infer=_mean_infer,
 register_op("sign", ["X"], ["Out"], infer=same_shape_infer("X", "Out"),
             compute=lambda ins, attrs, ctx, op_index: {
                 "Out": torch.sign(ins["X"][0])})
+
+
+def _cos_sim_infer(op, block):
+    x, y = in_var(op, block, "X"), in_var(op, block, "Y")
+    set_output(op, block, "Out", (x.shape[0], 1), x.dtype)
+    set_output(op, block, "XNorm", (x.shape[0], 1), x.dtype)
+    set_output(op, block, "YNorm", (y.shape[0], 1), y.dtype)
+
+
+def _cos_sim_compute(ins, attrs, ctx, op_index):
+    """Row-wise cosine similarity of X and Y [B, D] (Y may be [1, D])."""
+    x, y = ins["X"][0], ins["Y"][0]
+    xn = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y * y, dim=-1, keepdim=True))
+    out = torch.sum(x * y, dim=-1, keepdim=True) / (xn * yn)
+    return {"Out": out, "XNorm": xn, "YNorm": yn}
+
+
+register_op("cos_sim", ["X", "Y"], ["Out", "XNorm", "YNorm"],
+            infer=_cos_sim_infer, compute=_cos_sim_compute)
 
 
 def _clip_compute(ins, attrs, ctx, op_index):

@@ -1,6 +1,6 @@
 """Sequence ops (counterpart of the ``add_position_encoding``,
-``padding_mask`` and ``sequence_pool`` ops of
-``paddle_tpu/ops/sequence.py``).  Sequences are padded [B, T, ...]
+``padding_mask``, ``sequence_pool``, ``sequence_softmax`` and
+``sequence_expand`` ops of ``paddle_tpu/ops/sequence.py``).  Sequences are padded [B, T, ...]
 tensors with a [B] length companion; positions at or past a row's length
 are masked, and the gradient through the mask is zero there."""
 
@@ -99,3 +99,41 @@ def _seq_pool_compute(ins, attrs, ctx, op_index):
 register_op("sequence_pool", ["X", "Length"], ["Out", "MaxIndex"],
             infer=_seq_pool_infer, compute=_seq_pool_compute,
             no_grad_inputs=("Length",))
+
+
+def _seq_softmax_compute(ins, attrs, ctx, op_index):
+    """Softmax over the time axis of [B, T, ...] within each row's length;
+    positions at or past it are 0."""
+    x, length = ins["X"][0], ins["Length"][0]
+    mask = _time_mask(length.to(x.device), x.shape[1], x.dim() - 2)
+    sm = torch.softmax(torch.where(mask, x, torch.finfo(x.dtype).min), dim=1)
+    return {"Out": torch.where(mask, sm, 0)}
+
+
+register_op(
+    "sequence_softmax", ["X", "Length"], ["Out"],
+    infer=lambda op, block: set_output(
+        op, block, "Out", in_var(op, block, "X").shape,
+        in_var(op, block, "X").dtype),
+    compute=_seq_softmax_compute, no_grad_inputs=("Length",))
+
+
+def _seq_expand_infer(op, block):
+    x, y = in_var(op, block, "X"), in_var(op, block, "Y")
+    set_output(op, block, "Out",
+               (x.shape[0], y.shape[1]) + tuple(x.shape[1:]), x.dtype)
+
+
+def _seq_expand_compute(ins, attrs, ctx, op_index):
+    """Repeat row b of X [B, ...] over the first length[b] steps of Y's
+    time axis; 0 past it."""
+    x, y, length = ins["X"][0], ins["Y"][0], ins["Length"][0]
+    t = y.shape[1]
+    expanded = x[:, None].expand((x.shape[0], t) + tuple(x.shape[1:]))
+    mask = _time_mask(length.to(x.device), t, expanded.dim() - 2)
+    return {"Out": torch.where(mask, expanded, 0)}
+
+
+register_op("sequence_expand", ["X", "Y", "Length"], ["Out"],
+            infer=_seq_expand_infer, compute=_seq_expand_compute,
+            no_grad_inputs=("Y", "Length"))

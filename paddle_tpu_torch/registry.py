@@ -13,13 +13,21 @@ merges the recompute with the forward), the port reruns it eagerly under
 work is paid twice, the hand-written kernels' forward launches included.
 Ops whose forward draws randomness that the recompute must not re-draw
 (``dropout``) register custom grad makers that read saved outputs.
+
+An op registered with ``keep_graph=True`` (the ``recurrent`` op, whose
+body may hold a ``dropout``, and the LSTM/GRU family) is not recomputed:
+when the run holds its generic grad op, ``compute_op`` runs the forward
+under autograd, keeps the graph in ``ctx.saved`` under the forward's op
+index, and the grad op pulls the cotangents back through that graph, so
+the gradient sees the forward's random draws and the forward's work is
+paid once.
 """
 
 import torch
 
 from .core import convert_dtype
 from .framework import grad_var_name
-from .hash32 import op_seeds
+from .hash32 import M32, op_seeds
 
 __all__ = ["OpDef", "register_op", "get_op_def", "infer_op", "compute_op",
            "make_grad_ops", "ComputeContext", "OPS", "int_list"]
@@ -40,34 +48,58 @@ class ComputeContext:
     that captures the program): ``dropout`` and the random creation ops
     draw from it.  The attention-dropout hash takes ``seed32(op_index)``,
     a device tensor that is a pure function of the run key (one int64 the
-    run draws from ``generator`` at its first use) and the op index."""
+    run draws from ``generator`` at its first use) and the op index.
 
-    def __init__(self, device, generator, n_ops=0, amp=None):
+    ``program`` is the program being run (an op that owns a sub-block finds
+    it there); ``graph_ops`` holds the indices of the forward ops whose
+    generic grad op runs in this run (see ``keep_graph``).  A sub-block's
+    ops run in a context of their own (``sub_context``)."""
+
+    def __init__(self, device, generator, n_ops=0, amp=None, program=None,
+                 graph_ops=()):
         self.device = device
         self.generator = generator
         self.n_ops = int(n_ops)
         # the program's AMPPolicy (contrib.mixed_precision) or None
         self.amp = amp
+        self.program = program
+        self.graph_ops = frozenset(graph_ops)
         self.saved = {}
         self.run_key = None
         self._seeds = None
+        self._draw_run_key = lambda: torch.randint(
+            0, 1 << 62, (1,), device=self.device, generator=self.generator)
 
     def seed32(self, op_index):
         """The uint32 dropout-hash seed of op ``op_index`` in this run: a
         one-element int32 tensor on the run's device (a view into the
         run's table of every op's seed, made at the first call)."""
         if self.run_key is None:
-            self.run_key = torch.randint(0, 1 << 62, (1,), device=self.device,
-                                         generator=self.generator)
+            self.run_key = self._draw_run_key()
         if self._seeds is None or op_index >= len(self._seeds):
             self._seeds = op_seeds(self.run_key,
                                    max(self.n_ops, op_index + 1))
         return self._seeds[op_index:op_index + 1]
 
+    def sub_context(self, op_index, step):
+        """The context of one run of the sub-block of op ``op_index`` (step
+        ``step`` of a loop).  It shares the device, generator, AMP policy
+        and program, and has a ``saved`` of its own and seeds of its own:
+        its run key is op ``op_index``'s seed in the low 32 bits and
+        ``step`` in the high ones, so body op i neither reads nor
+        overwrites outer op i's saved values or seed, and no two steps
+        share a seed."""
+        sub = ComputeContext(self.device, self.generator, 0, self.amp,
+                             self.program)
+        sub._draw_run_key = lambda: (
+            (self.seed32(op_index).to(torch.int64) & M32)
+            + (int(step) << 32))
+        return sub
+
 
 class OpDef:
     def __init__(self, type, inputs, outputs, infer, compute, grad=None,
-                 no_grad_inputs=(), stateful_random=False):
+                 no_grad_inputs=(), stateful_random=False, keep_graph=False):
         self.type = type
         self.input_slots = tuple(inputs)
         self.output_slots = tuple(outputs)
@@ -78,14 +110,17 @@ class OpDef:
         self.grad = grad
         self.no_grad_inputs = frozenset(no_grad_inputs)
         self.stateful_random = stateful_random
+        # the generic grad pulls back through the forward's own autograd
+        # graph instead of recomputing it (module docstring)
+        self.keep_graph = keep_graph
 
 
 def register_op(type, inputs, outputs, infer, compute, grad="auto",
-                no_grad_inputs=(), stateful_random=False):
+                no_grad_inputs=(), stateful_random=False, keep_graph=False):
     if type in OPS:
         raise ValueError("op type %r already registered" % type)
     OPS[type] = OpDef(type, inputs, outputs, infer, compute, grad,
-                      no_grad_inputs, stateful_random)
+                      no_grad_inputs, stateful_random, keep_graph)
     return OPS[type]
 
 
@@ -129,7 +164,10 @@ def compute_op(op, env, ctx, op_index=0):
             ins[slot] = [env[n] if n else None for n in names]
     if ctx.amp is not None:
         ins = ctx.amp.cast_inputs(op.type, ins)
-    outs = d.compute(ins, op.attrs, ctx, op_index)
+    if d.keep_graph and op_index in ctx.graph_ops:
+        outs = _compute_keeping_graph(d, ins, op.attrs, ctx, op_index)
+    else:
+        outs = d.compute(ins, op.attrs, ctx, op_index)
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
         if vals is None:
@@ -140,6 +178,38 @@ def compute_op(op, env, ctx, op_index=0):
             if name:
                 env[name] = val
     return env
+
+
+_GRAPH = "__graph__"
+
+
+def _run_with_leaves(fwd_def, primal, attrs, ctx, op_index):
+    """The forward computed with its differentiable inputs (floating
+    tensors not in ``no_grad_inputs``; a SelectedRows passes through) as
+    fresh autograd leaves: (those slots, the inputs with the leaves, the
+    outputs)."""
+    diff_slots = [slot for slot, vals in primal.items()
+                  if slot not in fwd_def.no_grad_inputs and vals
+                  and all(isinstance(v, torch.Tensor)
+                          and v.is_floating_point() for v in vals)]
+    full = dict(primal)
+    with torch.enable_grad():
+        for slot in diff_slots:
+            full[slot] = [v.detach().requires_grad_() for v in primal[slot]]
+        outs = fwd_def.compute(full, attrs, ctx, op_index)
+    return diff_slots, full, outs
+
+
+def _compute_keeping_graph(d, ins, attrs, ctx, op_index):
+    """Run a ``keep_graph`` forward under autograd and keep the graph for
+    its grad op; the run's environment gets detached outputs, so the ops
+    after it record nothing."""
+    graph = _run_with_leaves(d, ins, attrs, ctx, op_index)
+    ctx.saved[(op_index, _GRAPH)] = graph
+    return {slot: ([v.detach() if isinstance(v, torch.Tensor) else v
+                    for v in vals] if isinstance(vals, (list, tuple))
+                   else vals.detach())
+            for slot, vals in graph[2].items()}
 
 
 def _grad_input(env, name):
@@ -212,7 +282,8 @@ def _generic_grad_infer(gop, block):
 
 def _generic_grad_compute(ins, attrs, ctx, op_index):
     """Rerun the forward with its floating inputs as fresh leaves and pull
-    the given output cotangents back through it with autograd.  Under AMP
+    the given output cotangents back through it with autograd (or pull
+    them back through the graph a ``keep_graph`` forward kept).  Under AMP
     ``ins`` arrive cast in the forward's colour (``compute_op``), so the
     recompute runs in the forward's dtype and each gradient comes back in
     its leaf's dtype, as ``jax.vjp`` gives it."""
@@ -224,18 +295,12 @@ def _generic_grad_compute(ins, attrs, ctx, op_index):
     # from the forward op's index, not the grad op's
     op_index = attrs.get("__fwd_op_index__", op_index)
 
-    primal = {slot: vals for slot, vals in ins.items()
-              if not slot.startswith(("Out::", "GRAD::"))}
-    # the floating tensors (a SelectedRows passes through undifferentiated)
-    diff_slots = [slot for slot, vals in primal.items()
-                  if slot not in fwd_def.no_grad_inputs and vals
-                  and all(isinstance(v, torch.Tensor)
-                          and v.is_floating_point() for v in vals)]
-    full = dict(primal)
-    with torch.enable_grad():
-        for slot in diff_slots:
-            full[slot] = [v.detach().requires_grad_() for v in primal[slot]]
-        outs = fwd_def.compute(full, fwd_attrs, ctx, op_index)
+    graph = ctx.saved.pop((op_index, _GRAPH), None)
+    if graph is None:
+        primal = {slot: vals for slot, vals in ins.items()
+                  if not slot.startswith(("Out::", "GRAD::"))}
+        graph = _run_with_leaves(fwd_def, primal, fwd_attrs, ctx, op_index)
+    diff_slots, full, outs = graph
 
     # cotangents: the given GRAD:: inputs, cast to the recomputed output's
     # dtype.  An output with no cotangent has a zero one; it is left out

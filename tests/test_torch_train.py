@@ -222,12 +222,14 @@ def test_training_options_not_ported_raise():
                                    pipeline_microbatches=2, **TINY)
     logits = pt.layers.data("logits", shape=[VOCAB], stop_gradient=False)
     label = pt.layers.data("label", shape=[1], dtype="int64")
+    # ignore_index is ported (it raised before the RNN slice): a row whose
+    # label is the ignored one has loss 0
     loss = pt.layers.reduce_sum(pt.layers.softmax_with_cross_entropy(
         logits, label, ignore_index=0))
-    with pytest.raises(NotImplementedError, match="Queue A4"):
-        pt.Executor(pt.CPUPlace()).run(
-            feed={"logits": np.zeros((2, VOCAB), "float32"),
-                  "label": np.zeros((2, 1), "int64")}, fetch_list=[loss])
+    (lv,) = pt.Executor(pt.CPUPlace()).run(
+        feed={"logits": np.zeros((2, VOCAB), "float32"),
+              "label": np.array([[0], [3]], "int64")}, fetch_list=[loss])
+    np.testing.assert_allclose(lv, [np.log(VOCAB)], rtol=1e-6)
     # the regularizers and gradient clips are ported (they raised before
     # the sparse-embedding slice): a parameter's decay and clip append
     # their ops between the backward and the update
@@ -254,8 +256,8 @@ def test_executor_frees_temporaries_and_keeps_fetches():
     f = feed(np.random.RandomState(1))
     cost, lg = exe.run(tm, feed=f, fetch_list=[tc, logits], scope=scope)
     assert cost.shape == (1,) and lg.shape == (4, MAX_LEN, VOCAB)
-    (_, _, _, release), = [a for k, a in exe._analysis.items()
-                           if k[0] == id(tm)]
+    (_, _, _, release, _), = [a for k, a in exe._analysis.items()
+                              if k[0] == id(tm)]
     freed = {n for names in release for n in names}
     assert logits not in freed and tc.name not in freed
     assert not any(tm.global_block()._find_var_recursive(n).persistable
