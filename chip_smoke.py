@@ -50,7 +50,12 @@ Run from the root of a checkout.  Phases, one line each:
    the device kernels they ran (SDPA's backend); the AMP paths' shapes
    and types too: #1/#2 in bfloat16 at the training shape with dropout
    0.1, #8-#11 in bfloat16 at stages 1, 3 and 4; #5/#6 at machine
-   translation's loss, [1920, 30000] float32;
+   translation's loss, [1920, 30000] float32; #3 and #5 also give the
+   same bits twice and report the plan they launched with, #5 at
+   rows that start off 16-byte boundaries ([64, 30001] float32, [64,
+   1001] bfloat16) and on its streaming path ([128, 100003]), #3 on its
+   generic loop ([1000, 97] float32, [5, 4096] bfloat16) with the host
+   time of a call beside ``F.layer_norm``'s;
 Every path below runs twice, in turns: captured (the default
 ``Executor``: each dispatch signature's first run eager, its second
 captured as a CUDA graph and replayed, later ones replayed; the main path,
@@ -323,7 +328,10 @@ class Timer:
     def __init__(self):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, iters=15, warmup=2):
+    def __call__(self, fn, iters=15, warmup=2, queued=False):
+        """``queued``: a spin kernel of ~60 us runs after the flush, so
+        that ``fn``'s launches are queued before the card reaches them and
+        its host path stays out of the reading."""
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
@@ -332,6 +340,8 @@ class Timer:
                   for _ in range(iters)]
         for start, end in events:
             self.flush.zero_()
+            if queued:
+                torch.cuda._sleep(100_000)
             start.record()
             fn()
             end.record()
@@ -427,23 +437,54 @@ def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
     return res
 
 
+def host_us(fn, calls=200):
+    """Host microseconds a call of ``fn`` takes to return (its launches
+    enqueued, not run): the wrapper's own path, which a launch-bound
+    caller waits for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return t
+
+
 def layer_norm_case(ln, timer, n, d, dtype):
+    """Kernel #3 against ``layer_norm_reference`` and twice against
+    itself (each row's sums are one warp's, in a fixed order: the same
+    bits), with the plan it launched with (``ptt_layer_norm_fwd_plan``).
+    Also the host time of a wrapper call and of ``F.layer_norm``'s
+    (``host_us``)."""
+    import ctypes
+
     from torch.nn.functional import layer_norm
+    from paddle_tpu_torch.ops.cuda import build
 
     g = torch.Generator(device="cuda").manual_seed(n)
     x = (torch.randn((n, d), generator=g, device="cuda") * 3 + 1).to(dtype)
     gamma = torch.randn((d,), generator=g, device="cuda").to(dtype)
     beta = torch.randn((d,), generator=g, device="cuda").to(dtype)
     got = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
+    again = ln.layer_norm_fwd(x, gamma, beta, 1e-5)
     want = ln.layer_norm_reference(x, gamma, beta, 1e-5)
     torch.cuda.synchronize()
     errs = [max_err(a, b, dtype) for a, b in zip(got, want)]
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
     item = x.element_size()
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, gamma, beta, got[0]))
+    out = (ctypes.c_int * 5)()
+    build.check(build.library("layer_norm_fwd").ptt_layer_norm_fwd_plan(
+        n, d, ln._DTYPE_CODE[dtype], int(aligned), x.device.index, out),
+        "ptt_layer_norm_fwd_plan")
     nbytes = 2 * x.numel() * item + 2 * d * item + 2 * n * 4
     bound_ms, bound_by = bound(nbytes, 8 * n * d, dtype)
     return {"check": "layer_norm_%dx%d" % (n, d), "x": [n, d],
             "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": max(e for e, _ in errs), "tol": TOL[dtype],
+            "repeatable_bits": same_bits,
+            "plan": list(out[:3]), "sms_blocks_an_sm": list(out[3:5]),
             "kernel_ms": timer(lambda: ln.layer_norm_fwd(x, gamma, beta,
                                                          1e-5)),
             "device_ms": device_ms(library_kernels(
@@ -454,8 +495,22 @@ def layer_norm_case(ln, timer, n, d, dtype):
                                                    1e-5)),
             "library_device_ms": device_ms(library_kernels(
                 lambda: layer_norm(x, (d,), gamma, beta, 1e-5))),
+            # the same two readings with the launches queued behind a
+            # spin kernel: at a few rows the plain reading can hold the
+            # wrapper's host path, which ``host_us`` gives apart
+            "kernel_ms_queued": timer(lambda: ln.layer_norm_fwd(
+                x, gamma, beta, 1e-5), queued=True),
+            "library_ms_queued": timer(lambda: layer_norm(
+                x, (d,), gamma, beta, 1e-5), queued=True),
+            # the same bytes through a device-to-device copy: what the
+            # card and this timer give a pass that reads x and writes y
+            "copy_ms": timer(lambda: got[0].copy_(x)),
+            "host_us": host_us(lambda: ln.layer_norm_fwd(x, gamma, beta,
+                                                         1e-5)),
+            "library_host_us": host_us(lambda: layer_norm(
+                x, (d,), gamma, beta, 1e-5)),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "ok": all(ok for _, ok in errs)}
+            "ok": all(ok for _, ok in errs) and same_bits}
 
 
 def _pairs_and_keys(b, h, tq, tk, causal, kl):
@@ -656,11 +711,18 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
     label_in = label.clone()
     label[n // 2] = c + 3
     loss, sm = sx.softmax_xent_fwd(logits, label, eps)
+    again = sx.softmax_xent_fwd(logits, label, eps)
     want_loss, want_sm = sx.softmax_xent_reference(logits, label, eps)
     torch.cuda.synchronize()
     errs = [max_err(loss, want_loss, dtype), max_err(sm, want_sm, dtype,
                                                      TOL_P)]
+    # the cluster's partials meet in rank order: the same bits every launch
+    same_bits = torch.equal(loss, again[0]) and torch.equal(sm, again[1])
+    del again
     item = logits.element_size()
+    # the plan the wrapper launched with
+    plan = list(sx._fwd_plan(n, c, item, torch.cuda.get_device_properties(
+        0).multi_processor_count))
     nbytes = 2 * logits.numel() * item + n * 8 + n * item
     bound_ms, bound_by = bound(nbytes, 6 * n * c, dtype)
     lib_leaf = logits.detach().clone().requires_grad_()
@@ -668,10 +730,16 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
                              reduction="none")
     fwd = {"check": "softmax_xent_fwd_%dx%d_%s" % (n, c, tag),
            "logits": [n, c], "dtype": tag, "eps": eps,
+           "plan": plan, "path": "streaming" if plan[0] == 0 else "cluster",
+           "repeatable_bits": same_bits,
            "max_abs_err": max(e for e, _ in errs),
            "tol": {"loss": TOL[dtype], "softmax": TOL_P[dtype]},
            "kernel_ms": timer(lambda: sx.softmax_xent_fwd(logits, label,
                                                           eps)),
+           # the launches queued behind a spin kernel: the wrapper's host
+           # path out of the reading
+           "kernel_ms_queued": timer(lambda: sx.softmax_xent_fwd(
+               logits, label, eps), queued=True),
            "device_ms": device_ms(library_kernels(
                lambda: sx.softmax_xent_fwd(logits, label, eps))),
            "plain_ms": timer(lambda: sx.softmax_xent_reference(
@@ -682,7 +750,7 @@ def softmax_xent_cases(sx, timer, n, c, eps, dtype):
                lambda: cross_entropy(logits, label_in, label_smoothing=eps,
                                      reduction="none"))),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "ok": all(o for _, o in errs)}
+           "ok": all(o for _, o in errs) and same_bits}
     del want_loss, want_sm
 
     bwd = []
@@ -1233,6 +1301,10 @@ def layer_norm_fwd_cases(timer):
     norm = [layer_norm_case(ln, timer, n, d, torch.float32)
             for n in (rows, 8 * 1024, 8, 8160)]
     norm.append(layer_norm_case(ln, timer, rows, d, torch.bfloat16))
+    # off the path: the generic loop (a width that is not a multiple of 4,
+    # a width other than 512 in bfloat16, both with fewer rows than SMs)
+    norm += [layer_norm_case(ln, timer, 1000, 97, torch.float32),
+             layer_norm_case(ln, timer, 5, 4096, torch.bfloat16)]
     return norm
 
 
@@ -1291,28 +1363,46 @@ def train_kernel_cases(timer):
                  layer_norm_bwd_case(ln, timer, 5, 1024, torch.bfloat16)]
     norm_bwd += [layer_norm_bwd_case(ln, timer, n, d, torch.float32)
                  for n in (8192, 8160)]
-    xent_fwd, xent_bwd = [], []
-    for dtype in (torch.float32, torch.bfloat16):
-        f, b = softmax_xent_cases(sx, timer, rows, TRAIN_VOCAB, 0.1, dtype)
-        xent_fwd.append(f)
-        xent_bwd += b
-    # 300 x 1000: off the path; 8192 and 8160: the realdist buckets;
-    # machine translation's loss
-    for n, c, eps in ((300, 1000, 0.0), (8192, TRAIN_VOCAB, 0.1),
-                      (8160, TRAIN_VOCAB, 0.1)) + MT_XENT:
-        f, b = softmax_xent_cases(sx, timer, n, c, eps, torch.float32)
-        xent_fwd.append(f)
-        xent_bwd += b
-    return {"flash_attention_fwd": attention_fwd_cases(timer),
-            "flash_attention_bwd": bwd,
-            "layer_norm_fwd": layer_norm_fwd_cases(timer),
-            "layer_norm_bwd": norm_bwd,
-            "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd}
+    return dict({"flash_attention_fwd": attention_fwd_cases(timer),
+                 "flash_attention_bwd": bwd, "layer_norm_bwd": norm_bwd},
+                **row_kernel_cases(timer))
 
 
 # machine translation's loss (``rnn``): [64 x 30, 30000] float32 (black
 # under AMP too), no smoothing
 MT_XENT = ((64 * 30, 30000, 0.0),)
+
+
+# kernel #5's shapes (rows, classes, smoothing, dtype), the Transformer's
+# first: its float32 and bfloat16 loss; 300 x 1000 off the path; 8192 and
+# 8160: the realdist buckets; machine translation's loss (MT_XENT); rows
+# that start off 16-byte boundaries (C * itemsize mod 16 != 0: a scalar
+# head and tail), and rows too wide for a cluster's registers (the
+# streaming path)
+XENT_CASES = (
+    (TRAIN_BATCH * TRAIN_SEQ, TRAIN_VOCAB, 0.1, torch.float32),
+    (TRAIN_BATCH * TRAIN_SEQ, TRAIN_VOCAB, 0.1, torch.bfloat16),
+    (300, 1000, 0.0, torch.float32),
+    (8192, TRAIN_VOCAB, 0.1, torch.float32),
+    (8160, TRAIN_VOCAB, 0.1, torch.float32),
+    MT_XENT[0] + (torch.float32,),
+    (64, 30001, 0.1, torch.float32),
+    (64, 1001, 0.0, torch.bfloat16),
+    (128, 100003, 0.1, torch.float32))
+
+
+def row_kernel_cases(timer):
+    """Kernels #3, #5 and #6 (the row kernels) against their plain
+    versions at ``layer_norm_fwd_cases``' and ``XENT_CASES``' shapes."""
+    from paddle_tpu_torch.ops.cuda import softmax_xent as sx
+
+    xent_fwd, xent_bwd = [], []
+    for n, c, eps, dtype in XENT_CASES:
+        f, b = softmax_xent_cases(sx, timer, n, c, eps, dtype)
+        xent_fwd.append(f)
+        xent_bwd += b
+    return {"layer_norm_fwd": layer_norm_fwd_cases(timer),
+            "softmax_xent_fwd": xent_fwd, "softmax_xent_bwd": xent_bwd}
 
 
 def mt_xent_cases(timer):

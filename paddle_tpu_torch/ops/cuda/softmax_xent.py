@@ -78,6 +78,33 @@ def softmax_xent_bwd_reference(softmax, label, dloss, dsm=None, eps=0.0):
     return out.to(softmax.dtype)
 
 
+# kernel #5's launch (``csrc/softmax_xent.cu``): threads a block, the
+# blocks an SM holds, the portable cluster size, the row values a thread
+# keeps in registers
+_NT, _BLOCKS_PER_SM, _MAX_CLUSTER, _VALUES = 256, 4, 8, 32
+
+
+def _fwd_plan(n, c, itemsize, sms):
+    """(cluster blocks a row, 16-byte chunks a thread) that kernel #5
+    launches n rows of c values with on a card of ``sms`` SMs; (0, 0) is
+    the streaming path (a block a row, two passes).  A row has at most
+    qmax chunks (a misaligned start adds one): the fewest blocks whose
+    registers hold them, doubled while the grid stays within a wave and
+    each block keeps a chunk a thread, then the fewest chunks a thread."""
+    ve = 16 // itemsize
+    qmax = (c + 2 * ve - 2) // ve
+    cl = -(-qmax // (_NT * (_VALUES // ve)))
+    if cl > _MAX_CLUSTER:
+        return 0, 0
+    while cl * 2 <= _MAX_CLUSTER and n * cl * 2 <= _BLOCKS_PER_SM * sms \
+            and qmax >= cl * 2 * _NT:
+        cl *= 2
+    ch = 1
+    while _NT * ch * cl < qmax:
+        ch *= 2
+    return cl, ch
+
+
 def _check(name, t, shape, dtype, device):
     if tuple(t.shape) != tuple(shape) or t.dtype != dtype \
             or t.device != device or not t.is_contiguous():
@@ -91,8 +118,10 @@ def _lib(name):
     fn = getattr(build.library("softmax_xent"), "ptt_" + name)
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        n_ptr = 4 if name == "softmax_xent_fwd" else 5
-        fn.argtypes = [p] * n_ptr + [i, i, ctypes.c_float, i, i, p]
+        if name == "softmax_xent_fwd":  # ..., dtype, cluster, chunks, ...
+            fn.argtypes = [p] * 4 + [i, i, ctypes.c_float, i, i, i, i, p]
+        else:
+            fn.argtypes = [p] * 5 + [i, i, ctypes.c_float, i, i, p]
         fn.restype = i
     return fn
 
@@ -115,10 +144,13 @@ def softmax_xent_fwd(logits, label, eps=0.0):
     softmax = torch.empty_like(logits)
     if n == 0 or c == 0:
         return loss, softmax
+    cluster, chunks = _fwd_plan(
+        n, c, logits.element_size(),
+        torch.cuda.get_device_properties(logits.device).multi_processor_count)
     err = _lib("softmax_xent_fwd")(
         logits.data_ptr(), label.data_ptr(), loss.data_ptr(),
         softmax.data_ptr(), n, c, float(eps), _DTYPE_CODE[logits.dtype],
-        logits.device.index,
+        cluster, chunks, logits.device.index,
         torch.cuda.current_stream(logits.device).cuda_stream)
     build.check(err, "softmax_xent_fwd logits%s" % (tuple(logits.shape),))
     softmax_xent_fwd.launches += 1
