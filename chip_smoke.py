@@ -49,7 +49,8 @@ Run from the root of a checkout.  Phases, one line each:
    images of 7x7; C 72, O 200); #2, #4 and their library calls also name
    the device kernels they ran (SDPA's backend); the AMP paths' shapes
    and types too: #1/#2 in bfloat16 at the training shape with dropout
-   0.1, #8-#11 in bfloat16 at stages 1, 3 and 4; #5/#6 at machine
+   0.1, #8-#11 in bfloat16 at stages 1, 3 and 4, and at SE-ResNeXt-50's
+   fused shapes (``SE_CONV_BN_CASES``, each layout); #5/#6 at machine
    translation's loss, [1920, 30000] float32; #3 and #5 also give the
    same bits twice and report the plan they launched with, #5 at
    rows that start off 16-byte boundaries ([64, 30001] float32, [64,
@@ -220,13 +221,29 @@ empty window is profiled again first (``empty_windows``).
 17. ``zoo`` — bench.py's image ladder (SmallNet, AlexNet, VGG-16,
    GoogLeNet, SE-ResNeXt-50) under AMP and in float32, captured = eager
    (``two_arm_run``), images/s, no hand kernel launches;
-18. ``zoo_infer`` — the ``--infer`` rungs at batch 16, float32 and bf16
+18. ``zoo_infer`` — the ``--infer`` rungs at batch 16 (ResNet-50 too,
+   its batch norms calibrated on the first batch), float32 and bf16
    (``Bfloat16Transpiler``), captured = eager, bf16 within relative L1
-   0.02 of float32, no hand kernel launches;
+   0.02 of float32 (ResNet-50, whose bf16 drift is ~0.13 on the CPU too:
+   held against the same programs on the CPU), no hand kernel launches;
+18b. ``zoo_infer_bn_folded`` and ``zoo_infer_predictor`` — ResNet-50's
+   inference program after ``InferenceTranspiler`` (53 batch norms
+   folded), captured = eager, its softmax within relative L1 1e-4 of the
+   unfolded program's; the unfolded program saved and served by
+   ``create_paddle_predictor(AnalysisConfig(model_dir))`` on
+   ``CUDAPlace(0)`` and a clone, bit-equal to an executor's run of the
+   saved program, images/s;
 19. ``se_resnext_fused`` and ``se_resnext152`` — SE-ResNeXt-50 after
    ``fuse_conv_bn`` (#8 and #9 33 times a step each), float32 and AMP;
    BASELINE's SE-ResNeXt-152 under AMP at the largest batch up to 128
    that leaves 8 GB free;
+19b. ``resnext_nhwc_check`` and ``se_resnext_nhwc_fused`` (between the
+   two above) — ``resnext_check`` on the NHWC + fused program, then
+   SE-ResNeXt-50 after ``convert_to_nhwc`` and ``fuse_conv_bn`` at batch
+   128, float32 and AMP, captured = eager, one graph, #10 and #11 33
+   times a step each and #8/#9 none; the program's 50 transposes and 49
+   ``transpose_grad``s run alone under the profiler as the port runs
+   them (``permute`` views, ``transpose_ops_ms``);
 20. ``optimizers`` — bench.py's MLP under the six new optimizers, five
    LR schedules, ``append_LARS``, ``ModelAverage`` and QAT: 3 steps card
    against CPU at ``train_check``'s band, 20 steps captured = eager, no
@@ -244,7 +261,14 @@ empty window is profiled again first (``empty_windows``).
    bit for bit (``two_arm_run``), words/s, wall, busy, idle share, top
    device events, peak memory, one graph an entry, the capture's
    seconds; #5 twice and #6 once a machine-translation step, no hand
-   kernel in the LSTM.
+   kernel in the LSTM;
+22. ``cnn_ops`` — each op type of the CNN family (``conv3d``, the
+   transposed convolutions, ``conv_shift``, adaptive ``pool2d`` /
+   ``pool3d``, ``pool3d``, ``max_pool*_with_index``, ``spp``,
+   ``unpool``, ``group_norm``, ``norm``, the two interpolations) as a
+   one-op program on the card against the CPU, forward and gradients
+   (``Mask``, the max picks, ``unpool`` with offsets out of the plane and
+   ``nearest_interp`` bit for bit).
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -941,7 +965,8 @@ CONV_BN_STAGES = {"stage1": (128, 64, 256, 3136),
                   "rx_s1_conv0": (128, 256, 128, 3136),
                   "rx_s4_conv2": (128, 1024, 2048, 49)}
 # the SE-ResNeXt-50 cases of kernels #8/#9 (NCHW, the fused program's
-# layout): (stage, apply_bn); every one folds the next BN's stats backward
+# layout) and #10/#11 (NHWC, the NHWC + fused program's): (stage,
+# apply_bn); every one folds the next BN's stats backward
 SE_CONV_BN_CASES = (("rx_s1_conv2", True), ("rx_s1_conv0", False),
                     ("rx_s4_conv2", True))
 # allclose with a magnitude term: |kernel - plain| <= rtol |plain| +
@@ -1169,8 +1194,8 @@ def conv_bn_cases(cb, timer):
     input), stage 4 (2048 -> 512 at 7x7, no stats cotangent backward) and
     stages 3, 1 and 4 in bfloat16 (the AMP path's); each layout.  Then
     each layout's ragged shape in both types, with the prologue and the
-    fold.  Then #8/#9 at SE-ResNeXt-50's fused shapes (``SE_CONV_BN_CASES``)
-    in both types."""
+    fold.  Then #8/#9 and #10/#11 at SE-ResNeXt-50's fused shapes
+    (``SE_CONV_BN_CASES``) in both types."""
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
     for nhwc in (False, True):
@@ -1194,12 +1219,14 @@ def conv_bn_cases(cb, timer):
             + tuple((st, True, True, dt) for st, dt in ragged)]
     # SE-ResNeXt-50's shapes, float32 and bfloat16, after the others (the
     # first check of each kernel stays its main path's)
-    for dt in (f32, bf16):
-        for st, bn in SE_CONV_BN_CASES:
-            out["conv_bn_fwd"].append(
-                conv_bn_fwd_case(cb, timer, st, False, bn, dt))
-            out["conv_bn_bwd"].append(
-                conv_bn_bwd_case(cb, timer, st, False, bn, True, dt))
+    for nhwc in (False, True):
+        sfx = "_nhwc" if nhwc else ""
+        for dt in (f32, bf16):
+            for st, bn in SE_CONV_BN_CASES:
+                out["conv_bn_fwd" + sfx].append(
+                    conv_bn_fwd_case(cb, timer, st, nhwc, bn, dt))
+                out["conv_bn_bwd" + sfx].append(
+                    conv_bn_bwd_case(cb, timer, st, nhwc, bn, True, dt))
     return out
 
 
@@ -2311,13 +2338,16 @@ def train_check_phase(batch=4, amp=False, floor_scale=3.0, feed=None,
     return summary
 
 
-def copy_scope(scope):
-    """A scope holding clones of ``scope``'s tensors."""
+def copy_scope(scope, device=None):
+    """A scope holding clones of ``scope``'s tensors (copies on ``device``
+    if given)."""
     import paddle_tpu_torch as pt
 
     out = pt.Scope()
     for n in scope.local_var_names():
-        out.set_var(n, scope.var(n).clone())
+        t = scope.var(n)
+        out.set_var(n, t.clone() if device is None
+                    else t.to(device, copy=True))
     return out
 
 
@@ -2610,6 +2640,9 @@ def resnet_check_phase(batch=4, floor_scale=3.0, amp=False,
         # the largest |fused card input| among them]}
         out = {}
         for n, x in zip(relus, inputs):
+            if x.ndim == 4 and fused[n].shape != x.shape:
+                # an NHWC fused step against the NCHW plain program
+                x = x.transpose(0, 2, 3, 1)
             d = (fused[n] > 0) != (x > 0)
             if d.any():
                 out[n] = [int(d.sum()), float(np.abs(fused[n][d]).max())]
@@ -3925,7 +3958,9 @@ ZOO = {"smallnet": (32, 10, 256, 33.1),
        "vgg16": (224, 1000, 128, None),
        "googlenet": (224, 1000, 128, 1149.0),
        "se_resnext50": (224, 1000, 128, None),
-       "se_resnext152": (224, 1000, 128, None)}
+       "se_resnext152": (224, 1000, 128, None),
+       # bench.py's ``--infer`` rung of ResNet-50 (``bench.py:1451-1461``)
+       "resnet50": (224, 1000, 16, None)}
 # timed steps a training rung takes: 20 where 20 steps take under 4 s,
 # 3 for VGG-16 and the SE-ResNeXts (0.2-0.5 s a step, and two arms)
 ZOO_STEPS = {"smallnet": 20, "alexnet": 20, "googlenet": 20, "vgg16": 3,
@@ -3937,10 +3972,13 @@ SE152_FREE_GB = 8.0   # the least device memory a SE-ResNeXt-152 step leaves
 
 def zoo_model(name):
     """The port's builder of a ladder model: fn(img, class_dim, is_test)."""
-    from paddle_tpu_torch.models import (alexnet, googlenet, se_resnext,
-                                         smallnet, vgg)
+    from paddle_tpu_torch.models import (alexnet, googlenet, resnet,
+                                         se_resnext, smallnet, vgg)
 
-    return {"smallnet": smallnet.smallnet, "alexnet": alexnet.alexnet,
+    return {"resnet50": lambda img, class_dim, is_test=False:
+            resnet.resnet_imagenet(img, class_dim=class_dim, depth=50,
+                                   is_test=is_test),
+            "smallnet": smallnet.smallnet, "alexnet": alexnet.alexnet,
             "vgg16": vgg.vgg16_bn_drop, "googlenet": googlenet.googlenet_v1,
             "se_resnext50": se_resnext.se_resnext_50,
             "se_resnext152": lambda img, class_dim, is_test=False:
@@ -3948,11 +3986,13 @@ def zoo_model(name):
                                   is_test=is_test)}[name]
 
 
-def build_zoo(name, amp=False, fuse=False, infer=False, dropout=True):
+def build_zoo(name, amp=False, fuse=False, infer=False, dropout=True,
+              nhwc=False):
     """(main, startup, fetches) of bench.py's ``_bench_image_model``
     program for ``name``: training (mean cross-entropy, Momentum(1e-3,
     0.9), under ``decorate`` with ``amp``, ``fuse_conv_bn`` before
-    minimize with ``fuse``; fetches [loss]) or inference (``is_test``;
+    minimize with ``fuse``, after ``convert_to_nhwc`` with ``nhwc`` too;
+    fetches [loss]) or inference (``is_test``;
     fetches [softmax, its mean], bench.py fetching the mean).  Fixed
     seeds and fresh names; ``dropout`` False sets every dropout's rate to
     0 (the card-against-CPU checks: the two devices draw other masks)."""
@@ -3970,6 +4010,8 @@ def build_zoo(name, amp=False, fuse=False, infer=False, dropout=True):
         else:
             label = pt.layers.data("label", shape=[1], dtype="int64")
             loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+            if nhwc:
+                assert pt.transpiler.convert_to_nhwc(main) == 53
             if fuse:
                 assert pt.transpiler.fuse_conv_bn(main) == 53
             opt = pt.optimizer.Momentum(learning_rate=1e-3, momentum=0.9)
@@ -4202,26 +4244,37 @@ def _zoo_rung(name, amp, steps):
 
 
 def zoo_infer_phase(steps=ZOO_INFER_STEPS, batch=ZOO_INFER_BATCH):
-    """bench.py's ``--infer`` rungs at batch 16 (``bench.py:1736-1748``):
-    each model's ``is_test`` program in float32, and in bfloat16 through
-    ``contrib.Bfloat16Transpiler`` after startup, captured and eager
-    (``two_arm_run``: two untimed runs each, ``steps`` timed runs in
-    turns, one profiled run each).  Captured = eager bit for bit; the
-    bfloat16 softmax within relative L1 ``INFER_BF16_BAND`` (0.02) of the
-    float32 one on the same images; images/s; no hand kernel.  Returns
+    """bench.py's ``--infer`` rungs at batch 16 (``bench.py:1736-1748``,
+    ResNet-50's ``bench.py:1451-1461``): each model's ``is_test`` program
+    in float32, and in bfloat16 through ``contrib.Bfloat16Transpiler``
+    after startup, captured and eager (``two_arm_run``: two untimed runs
+    each, ``steps`` timed runs in turns, one profiled run each).  Captured
+    = eager bit for bit; the bfloat16 softmax within relative L1
+    ``INFER_BF16_BAND`` (0.02) of the float32 one on the same images;
+    images/s; no hand kernel.  ResNet-50 runs with its batch norms
+    calibrated on the first batch (``calibrate_batch_norms``), and its
+    bfloat16 program is held against its own run on the CPU instead of
+    the band (``resnet50_host_witness``); it also runs its BN-folded
+    program and the predictor (``resnet50_fold_and_predictor``).  Returns
     {path: launch record}."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.contrib import Bfloat16Transpiler
 
     paths, bad = {}, []
     for name in ("smallnet", "alexnet", "vgg16", "googlenet",
-                 "se_resnext50"):
+                 "se_resnext50", "resnet50"):
         feeds = zoo_feeds(name, steps + 3, batch, infer=True)
         out = {"model": name, "batch": batch}
         preds = {}
         for dtype in ("float32", "bfloat16"):
             main, startup, fetch = build_zoo(name, infer=True)
             start = started(startup)
+            if name == "resnet50":
+                calibrate_batch_norms(pt.Executor(pt.CUDAPlace(0),
+                                                  capture=False),
+                                      main, start, feeds[0])
+                if dtype == "float32":
+                    host = copy_scope(start, "cpu")
             if dtype == "bfloat16":
                 Bfloat16Transpiler().transpile(main, pt.CUDAPlace(0),
                                                scope=start,
@@ -4240,20 +4293,191 @@ def zoo_infer_phase(steps=ZOO_INFER_STEPS, batch=ZOO_INFER_BATCH):
             release_memory()
         out["bf16_rel_l1"] = rel_l1(preds["float32"], preds["bfloat16"])
         out["band"] = INFER_BF16_BAND
+        if name == "resnet50":
+            out["host_witness"] = witness = resnet50_host_witness(
+                host, feeds[0], preds)
+            held = witness["ok"]
+            del host
+        else:
+            held = out["bf16_rel_l1"] <= INFER_BF16_BAND
         log("zoo_infer", out)
-        if not out["bf16_rel_l1"] <= INFER_BF16_BAND:
+        if not held:
             bad.append("%s:bf16_rel_l1" % name)
+        if name == "resnet50":
+            more, faults = resnet50_fold_and_predictor(feeds, steps, batch)
+            paths.update(more)
+            bad.extend(faults)
     if bad:
         raise SystemExit("zoo_infer: captured differs from eager, or bf16 "
                          "out of its band: %s" % bad)
     return paths
 
 
-def resnext_check_phase(batch=4, floor_scale=3.0):
-    """``resnet_check_phase`` on SE-ResNeXt-50 (NCHW fused against plain
-    and against the CPU, dropout 0 in every copy of the program, float32)
-    under deterministic algorithms, every other run taking the fused card
-    step's ReLU decisions at the squeeze fcs (relu inputs ``fc_*``).
+INFER_FOLD_BAND = 1e-4   # relative L1, BN-folded against unfolded softmax
+# relative L1 of ResNet-50's float32 softmax on the card against the CPU
+INFER_HOST_BAND = 1e-4
+HOST_IMAGES = 4          # the images ResNet-50's host witness runs
+# how far the card's bf16 drift from float32 may exceed the CPU's on the
+# same images (an H100 reads 0.125 against the CPU's 0.126)
+HOST_DRIFT_SCALE = 1.5
+RESNET_BNS = 53
+
+
+def calibrate_batch_norms(exe, main, scope, feed):
+    """Set every batch norm's running statistics in ``scope`` to the batch
+    statistics of ``feed``: ``exe`` runs once a copy of the inference
+    program ``main`` with each batch norm in training mode, momentum 0
+    (``tools/resnet50_bf16_drift.py`` passes either package's executor
+    and program).  Without it ResNet-50's inference program at its
+    initial statistics (mean 0, variance 1) normalizes nothing, its logits
+    grow through the 53 blocks and the softmax saturates to exact 0s and
+    1s in float32 and bfloat16 alike, so a comparison of two programs'
+    softmax reads 0 whatever they compute."""
+    calib = main.clone()
+    for op in calib.global_block().ops:
+        if op.type == "batch_norm":
+            op.attrs.update(is_test=False, momentum=0.0)
+    exe.run(calib, feed=feed, fetch_list=[], scope=scope)
+
+
+def resnet50_host_witness(host, feed, card):
+    """ResNet-50's calibrated inference program in float32 and after
+    ``Bfloat16Transpiler`` on ``CPUPlace()``, from ``host`` (the card's
+    calibrated state, copied to the CPU), on the first ``HOST_IMAGES``
+    images of ``feed``; ``card`` holds the card's softmaxes of ``feed``
+    {dtype: array}.  bfloat16 moves an untrained ResNet-50's calibrated softmax
+    far from float32's, on the CPU as on the card and in the reference
+    package (``tools/resnet50_bf16_drift.py``), and the net amplifies
+    every rounding that the two devices' sums order differently, so the
+    card's bfloat16 program is held against the CPU's run of it, not to
+    ``INFER_BF16_BAND``: its drift from float32 within
+    ``HOST_DRIFT_SCALE`` times the CPU's on the same images, and its
+    softmax within half of ``other_image_rel_l1`` (the distance between
+    two images' float32 softmaxes on the card, which an answer to another
+    image would read) of the CPU's.  The float32 softmax within
+    ``INFER_HOST_BAND`` of the CPU's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import Bfloat16Transpiler
+
+    exe = pt.Executor(pt.CPUPlace())
+    sub = {"img": feed["img"][:HOST_IMAGES]}
+    main, _, fetch = build_zoo("resnet50", infer=True)
+    f32 = exe.run(main, feed=sub, fetch_list=fetch, scope=host)[0]
+    main16, _, fetch16 = build_zoo("resnet50", infer=True)
+    Bfloat16Transpiler().transpile(main16, pt.CPUPlace(), scope=host,
+                                   fetch_targets=fetch16)
+    b16 = exe.run(main16, feed=sub, fetch_list=fetch16, scope=host)[0]
+    c32 = card["float32"][:HOST_IMAGES]
+    c16 = card["bfloat16"][:HOST_IMAGES]
+    out = {"images": HOST_IMAGES,
+           "float32_softmax_max": float(c32.max()),
+           "card_vs_host_float32": rel_l1(f32, c32),
+           "card_vs_host_bf16": rel_l1(b16, c16),
+           "bf16_rel_l1_card": rel_l1(c32, c16),
+           "bf16_rel_l1_host": rel_l1(f32, b16),
+           "top1_agree_card": int((c32.argmax(1) == c16.argmax(1)).sum()),
+           "top1_agree_host": int((f32.argmax(1) == b16.argmax(1)).sum()),
+           "other_image_rel_l1": rel_l1(c32, np.roll(c32, 1, axis=0)),
+           "float32_band": INFER_HOST_BAND,
+           "drift_scale": HOST_DRIFT_SCALE}
+    out["ok"] = (out["card_vs_host_float32"] <= INFER_HOST_BAND
+                 and out["bf16_rel_l1_card"]
+                 <= HOST_DRIFT_SCALE * out["bf16_rel_l1_host"]
+                 and out["card_vs_host_bf16"]
+                 <= out["other_image_rel_l1"] / 2)
+    return out
+
+
+def resnet50_fold_and_predictor(feeds, steps, batch):
+    """ResNet-50's inference program with its batch norms calibrated on
+    ``feeds[0]`` (``calibrate_batch_norms``), float32, one eager run on
+    ``feeds[0]``.  Then the program after ``InferenceTranspiler`` (all 53
+    batch norms folded into their convs) in ``two_arm_run``: captured =
+    eager bit for bit, its softmax within relative L1 ``INFER_FOLD_BAND``
+    of the unfolded program's on ``feeds[0]``.  Then the unfolded program
+    saved with ``io.save_inference_model`` and served by
+    ``create_paddle_predictor(AnalysisConfig(model_dir))`` (``CUDAPlace(0)``
+    by default) and by a clone: every output bit-equal to an executor's
+    run of the same saved program on the same images, images/s of the
+    predictor's replays.  Returns ({path: launch record}, [faults])."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.inference import (AnalysisConfig,
+                                            create_paddle_predictor)
+
+    paths, bad = {}, []
+    main, startup, fetch = build_zoo("resnet50", infer=True)
+    start = started(startup)
+    eager = pt.Executor(pt.CUDAPlace(0), capture=False)
+    calibrate_batch_norms(eager, main, start, feeds[0])
+    unfolded = eager.run(main, feed=feeds[0], fetch_list=fetch,
+                         scope=copy_scope(start))[0]
+    folded = pt.transpiler.InferenceTranspiler().transpile(
+        main, pt.CUDAPlace(0), scope=start)
+    n_folded = sum("@BNFOLD_BIAS@" in n for n in start.local_var_names())
+    s, records, runs = two_arm_run(folded, start, fetch, feeds, steps, batch,
+                                   deterministic=False)
+    s.update(model="resnet50", program="bn_folded",
+             batch_norms_left=count_ops(folded, "batch_norm"),
+             batch_norms_folded=n_folded,
+             rel_l1_vs_unfolded=rel_l1(unfolded,
+                                       runs["eager"]["out"][0][0]),
+             band=INFER_FOLD_BAND)
+    log("zoo_infer_bn_folded", s)
+    for arm, rec in records.items():
+        paths["zoo_infer:resnet50:bn_folded%s" % (
+            "" if arm == "captured" else ":eager")] = rec
+    if not (s["ok"] and n_folded == RESNET_BNS
+            and s["batch_norms_left"] == 0
+            and s["rel_l1_vs_unfolded"] <= INFER_FOLD_BAND):
+        bad.append("resnet50:bn_folded")
+    del runs, folded
+
+    with tempfile.TemporaryDirectory() as model_dir:
+        with pt.scope_guard(start):
+            pt.io.save_inference_model(model_dir, ["img"], [fetch[0]],
+                                       pt.Executor(pt.CUDAPlace(0)),
+                                       main_program=main)
+        pred = create_paddle_predictor(AnalysisConfig(model_dir))
+        clone = pred.clone()
+        exe, scope = pt.Executor(pt.CUDAPlace(0)), pt.Scope()
+        with pt.scope_guard(scope):
+            program, feed_names, fetch_vars = pt.io.load_inference_model(
+                model_dir, exe)
+        same, times = [], []
+        for i, f in enumerate(feeds):
+            want = exe.run(program, feed=f, fetch_list=fetch_vars,
+                           scope=scope)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = (pred if i % 2 == 0 else clone).run(f)
+            times.append(time.perf_counter() - t0)
+            same.append(all(np.asarray(g.data).tobytes() == w.tobytes()
+                            for g, w in zip(got, want)))
+        r = {"model": "resnet50", "place": repr(pred._place),
+             "feed_names": feed_names, "runs": len(feeds),
+             "same_bits_as_executor": same,
+             "run_ms": [t * 1e3 for t in times],
+             # the replays (each predictor's third run on)
+             "images_per_s": batch / statistics.median(times[4:])}
+        log("zoo_infer_predictor", r)
+        if not all(same) or pred._place != pt.CUDAPlace(0):
+            bad.append("resnet50:predictor")
+        del pred, clone, exe, scope, program
+    del start
+    release_memory()
+    return paths, bad
+
+
+def resnext_check_phase(batch=4, floor_scale=3.0, modes=("fuse",),
+                        name="resnext_check"):
+    """``resnet_check_phase`` on SE-ResNeXt-50 (the fused program of each
+    of ``modes``: NCHW ``fuse``, or ``nhwc_fuse`` as
+    ``resnext_nhwc_check``; against plain and against the CPU, dropout 0
+    in every copy of the program, float32) under deterministic
+    algorithms, every other run taking the fused card step's ReLU
+    decisions at the squeeze fcs (relu inputs ``fc_*``).
     With each run's own decisions (``own_relus``, logged) the card run
     (NVIDIA H100 80GB HBM3, 700 W) reads 1.38e-2 at the median against a
     floor of 1.27e-2, but 7.47e-2 at most (3x the floor's maximum: 5.2e-2)
@@ -4265,14 +4489,15 @@ def resnext_check_phase(batch=4, floor_scale=3.0):
     (|input| up to 8e-5), stay within the floor."""
     def build(mode, amp):
         main, startup, (loss,) = build_zoo("se_resnext50", amp=amp,
-                                           fuse=mode == "fuse",
+                                           fuse=mode != "plain",
+                                           nhwc=mode == "nhwc_fuse",
                                            dropout=False)
         return main, startup, loss
 
     with deterministic_algorithms():
         return resnet_check_phase(batch=batch, floor_scale=floor_scale,
-                                  build=build, modes=("fuse",),
-                                  name="resnext_check", take_relus="fc_")
+                                  build=build, modes=modes, name=name,
+                                  take_relus="fc_")
 
 
 def se_resnext_fused_phase(steps=ZOO_STEPS["se_resnext50"], batch=128):
@@ -4303,6 +4528,81 @@ def se_resnext_fused_phase(steps=ZOO_STEPS["se_resnext50"], batch=128):
     if bad:
         raise SystemExit("se_resnext_fused: captured steps differ from "
                          "eager: %s" % bad)
+    return paths
+
+
+def transpose_ops_ms(program, batch, dtype, device="cuda"):
+    """``program``'s ``transpose`` ops and their ``transpose_grad`` ops run
+    alone at ``batch`` in ``dtype`` as the port runs them (``permute``: a
+    view), each on inputs made with ``torch.empty`` (no kernel), under the
+    profiler (``_profiled``: device busy ms, device events, the top
+    events)."""
+    from paddle_tpu_torch import registry
+
+    block = program.global_block()
+    ops = [op for op in block.ops
+           if op.type in ("transpose", "transpose_grad")]
+    ctx = registry.ComputeContext(torch.device(device), None,
+                                  len(block.ops), program=program)
+
+    def shape(name):
+        return [batch if d in (-1, None) else d
+                for d in block._find_var_recursive(name).shape]
+
+    def run():
+        for op in ops:
+            ins = {slot: [torch.empty(shape(n), dtype=dtype, device=device)
+                          for n in names]
+                   for slot, names in op.inputs.items()}
+            attrs = {k: v for k, v in op.attrs.items()
+                     if k != "__fwd_op_index__"}
+            registry.get_op_def(op.type).compute(ins, attrs, ctx, 0)
+
+    w = _profiled(run)
+    return {"ops": len(ops),
+            "transpose": sum(op.type == "transpose" for op in ops),
+            "dtype": str(dtype).replace("torch.", ""), "batch": batch,
+            "as_run": {k: w[k] for k in ("busy_ms", "wall_ms",
+                                         "device_events", "top_device_us")}}
+
+
+def se_resnext_nhwc_fused_phase(steps=ZOO_STEPS["se_resnext50"],
+                                batch=128):
+    """SE-ResNeXt-50 after ``convert_to_nhwc`` (53 convs) then
+    ``fuse_conv_bn`` (53 batch norms) at batch 128, float32 and AMP
+    (``two_arm_run``): one graph for the entry, #10 and #11 exactly
+    ``SE_FUSED`` (33) times a step and #8/#9 none, counted by the eager
+    arm's wrappers and by both arms' traces; the step's transposes (50
+    forward, 49 backward) timed alone (``transpose_ops_ms``).  Returns
+    {path: launch record}."""
+    paths, bad = {}, []
+    need = {"conv_bn_fwd_nhwc": SE_FUSED, "conv_bn_bwd_nhwc": SE_FUSED}
+    for amp in (False, True):
+        main, startup, fetch = build_zoo("se_resnext50", amp=amp,
+                                         fuse=True, nhwc=True)
+        assert count_ops(main, "bn_act_conv2d") == SE_FUSED \
+            == count_ops(main, "bn_act_conv2d_grad")
+        assert count_ops(main, "transpose") == 50
+        s, records, runs = two_arm_run(main, started(startup), fetch,
+                                       zoo_feeds("se_resnext50", steps + 3,
+                                                 batch), steps, batch, need)
+        s.update(model="se_resnext50", layout="NHWC", fused_layers=SE_FUSED,
+                 dtype="amp_bf16" if amp else "float32",
+                 graphs=sum(st.graph is not None for st in
+                            runs["captured"]["exe"]._steps.values()),
+                 transposes=transpose_ops_ms(
+                     main, batch, torch.bfloat16 if amp else torch.float32))
+        log("se_resnext_nhwc_fused", s)
+        path = "se_resnext_nhwc_fused" + ("_amp" if amp else "")
+        paths[path] = records["captured"]
+        paths[path + ":eager"] = records["eager"]
+        if not s["ok"] or s["graphs"] != 1:
+            bad.append(path)
+        del main, startup, fetch, records, runs
+        release_memory()
+    if bad:
+        raise SystemExit("se_resnext_nhwc_fused: captured steps differ from "
+                         "eager, or more than one graph: %s" % bad)
     return paths
 
 
@@ -4353,6 +4653,156 @@ def se_resnext152_phase(steps=ZOO_STEPS["se_resnext152"], batch=128):
         raise SystemExit("se_resnext152: captured steps differ from eager")
     return {"se_resnext152": records["captured"],
             "se_resnext152:eager": records["eager"]}
+
+
+# ---------------------------------------------------------------------------
+# the CNN op family's plain ops on the card against the CPU
+# ---------------------------------------------------------------------------
+
+def _cnn_op_cases():
+    """(op type, inputs, attrs, outputs, differentiated inputs, outputs
+    compared exactly): each op type of the CNN family the port gained
+    beside ``pool2d``'s adaptive form, at small shapes (values distinct
+    where a max picks)."""
+    rng = np.random.RandomState(0)
+
+    def randn(*shape):
+        return rng.randn(*shape).astype("float32")
+
+    def distinct(*shape):
+        n = int(np.prod(shape))
+        return (rng.permutation(n).reshape(shape) / n * 4 - 2) \
+            .astype("float32")
+
+    idx = np.stack([rng.permutation(47)[:12] for _ in range(6)])
+    idx[:, 3], idx[:, 7], idx[:, 10] = -1, 48, -60   # -1 wraps; 2 dropped
+    conv = ("Output",)
+    io = ("Input", "Filter")
+    return [
+        ("conv3d", {"Input": randn(2, 3, 5, 6, 4),
+                    "Filter": randn(4, 3, 3, 3, 3)},
+         {"strides": [1, 2, 1], "paddings": [1, 0, 1],
+          "dilations": [1, 1, 2], "groups": 1}, conv, io, ()),
+        ("conv2d_transpose", {"Input": randn(2, 4, 5, 6),
+                              "Filter": randn(4, 3, 3, 3)},
+         {"strides": [2, 1], "paddings": [1, 0], "dilations": [1, 2],
+          "groups": 1}, conv, io, ()),
+        ("conv3d_transpose", {"Input": randn(2, 4, 3, 4, 3),
+                              "Filter": randn(4, 2, 2, 3, 2)},
+         {"strides": [2, 1, 2], "paddings": [0, 1, 0],
+          "dilations": [1, 1, 1], "groups": 1}, conv, io, ()),
+        ("depthwise_conv2d_transpose", {"Input": randn(2, 4, 5, 5),
+                                        "Filter": randn(4, 1, 3, 3)},
+         {"strides": [2, 2], "paddings": [1, 1], "dilations": [1, 1],
+          "groups": 4}, conv, io, ()),
+        ("conv_shift", {"X": randn(3, 8), "Y": randn(3, 5)}, {}, ("Out",),
+         ("X", "Y"), ()),
+        ("pool2d", {"X": distinct(2, 3, 7, 9)},
+         {"pooling_type": "max", "ksize": [3, 4], "adaptive": True},
+         ("Out",), ("X",), ("Out",)),
+        ("pool2d", {"X": randn(2, 7, 9, 3)},
+         {"pooling_type": "avg", "ksize": [2, 5], "adaptive": True,
+          "data_format": "NHWC"}, ("Out",), ("X",), ()),
+        ("pool3d", {"X": randn(2, 3, 5, 6, 7)},
+         {"pooling_type": "avg", "ksize": [3, 3, 2], "strides": [2, 2, 2],
+          "paddings": [1, 1, 0], "ceil_mode": True}, ("Out",), ("X",), ()),
+        ("pool3d", {"X": randn(2, 3, 5, 6, 7)},
+         {"pooling_type": "avg", "ksize": [2, 4, 3], "adaptive": True},
+         ("Out",), ("X",), ()),
+        ("max_pool2d_with_index", {"X": distinct(2, 3, 7, 8)},
+         {"ksize": [3, 3], "strides": [2, 2], "paddings": [1, 1]},
+         ("Out", "Mask"), ("X",), ("Out", "Mask")),
+        ("max_pool3d_with_index", {"X": distinct(2, 2, 5, 6, 4)},
+         {"ksize": [2, 3, 2], "strides": [2, 2, 2], "paddings": [1, 0, 1]},
+         ("Out", "Mask"), ("X",), ("Out", "Mask")),
+        ("spp", {"X": distinct(2, 3, 9, 7)},
+         {"pyramid_height": 3, "pooling_type": "max"}, ("Out",), ("X",),
+         ("Out",)),
+        ("unpool", {"X": randn(2, 3, 3, 4),
+                    "Indices": idx.reshape(2, 3, 3, 4).astype("int32")},
+         {"ksize": [2, 2], "strides": [2, 2], "paddings": [0, 0]},
+         ("Out",), ("X",), ("Out",)),
+        ("group_norm", {"X": randn(2, 6, 4, 5) + 0.5,
+                        "Scale": randn(6) + 1, "Bias": randn(6)},
+         {"groups": 3, "epsilon": 1e-5}, ("Y", "Mean", "Variance"),
+         ("X", "Scale", "Bias"), ()),
+        ("norm", {"X": randn(3, 5, 4)}, {"axis": 1, "epsilon": 1e-10},
+         ("Out", "Norm"), ("X",), ()),
+        ("bilinear_interp", {"X": randn(2, 3, 5, 7)},
+         {"out_h": 8, "out_w": 4}, ("Out",), ("X",), ()),
+        ("nearest_interp", {"X": randn(2, 3, 5, 7)},
+         {"out_h": 9, "out_w": 13}, ("Out",), ("X",), ("Out",)),
+    ]
+
+
+def _one_op_run(place, op_type, inputs, attrs, outputs, diff):
+    """Forward outputs and the gradients of ``mean(outputs[0] * w)`` with
+    respect to ``diff``'s inputs, one op program run at ``place``."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        block = main.global_block()
+        ins = {}
+        for slot, arr in inputs.items():
+            v = pt.layers.data(slot.lower(), shape=list(arr.shape),
+                               append_batch_size=False, dtype=str(arr.dtype))
+            v.stop_gradient = slot not in diff
+            ins[slot] = [v]
+        outs = {k: block.create_var(name=pt.unique_name.generate(k.lower()))
+                for k in outputs}
+        block.append_op(type=op_type, inputs=ins,
+                        outputs={k: [v] for k, v in outs.items()},
+                        attrs=dict(attrs))
+        head = outs[outputs[0]]
+        w = pt.layers.data("w", shape=list(head.shape),
+                           append_batch_size=False)
+        pt.backward.append_backward(
+            pt.layers.mean(pt.layers.elementwise_mul(head, w)))
+    feed = {k.lower(): a for k, a in inputs.items()}
+    feed["w"] = np.random.RandomState(1).rand(*head.shape).astype("float32")
+    return pt.Executor(place).run(
+        main, feed=feed, scope=pt.Scope(),
+        fetch_list=[outs[k] for k in outputs]
+        + [k.lower() + "@GRAD" for k in diff])
+
+
+def cnn_ops_phase():
+    """Each op type of the CNN family (no hand kernel: ``F.conv*``, pooling,
+    gathers and scatters) as a one-op program on ``CUDAPlace(0)`` against
+    ``CPUPlace()``: forward outputs within rtol 1e-5 / atol 1e-6 (``Mask``,
+    the max picks, ``unpool``'s placement with offsets out of the plane
+    and ``nearest_interp``'s gather bit for bit) and the gradients of
+    every floating input within relative L2 1e-5.  Raises on a fault."""
+    import paddle_tpu_torch as pt
+
+    rows, bad = [], []
+    for op_type, inputs, attrs, outputs, diff, exact in _cnn_op_cases():
+        card = _one_op_run(pt.CUDAPlace(0), op_type, inputs, attrs, outputs,
+                           diff)
+        host = _one_op_run(pt.CPUPlace(), op_type, inputs, attrs, outputs,
+                           diff)
+        names = list(outputs) + [k + "@GRAD" for k in diff]
+        errs, ok = {}, True
+        for name, c, h in zip(names, card, host):
+            if name in exact:
+                same = c.dtype == h.dtype and np.array_equal(c, h)
+                errs[name] = "same bits" if same else "differ"
+                ok = ok and same
+            elif name.endswith("@GRAD"):
+                den = max(float(np.linalg.norm(h)), 1e-30)
+                errs[name] = float(np.linalg.norm(c - h)) / den
+                ok = ok and errs[name] <= 1e-5
+            else:
+                errs[name] = float(np.abs(c - h).max())
+                ok = ok and bool(np.allclose(c, h, rtol=1e-5, atol=1e-6))
+        tag = op_type + ("_adaptive" if attrs.get("adaptive") else "")
+        rows.append({"op": tag, "attrs": attrs, "errors": errs, "ok": ok})
+        if not ok:
+            bad.append(tag)
+    log("cnn_ops", {"cases": rows, "ok": not bad})
+    if bad:
+        raise SystemExit("cnn_ops: the card differs from the CPU: %s" % bad)
 
 
 # ---------------------------------------------------------------------------
@@ -5247,13 +5697,21 @@ def main():
     for path, record in ctr_phase().items():
         check_path(path, record)
     release_memory()
-    # bench.py's image ladder (no hand kernel), fused SE-ResNeXt-50 (#8,
-    # #9 at its shapes, after its card-against-CPU check), BASELINE's
-    # SE-ResNeXt-152, and the optimizers on the MLP (no hand kernel)
+    # bench.py's image ladder (no hand kernel; inference with ResNet-50,
+    # its BN-folded program and the predictor), fused SE-ResNeXt-50 (#8,
+    # #9 at its shapes, after its card-against-CPU check), NHWC + fused
+    # SE-ResNeXt-50 (#10, #11 at its shapes, after its own), BASELINE's
+    # SE-ResNeXt-152 and the optimizers on the MLP (no hand kernel)
     resnext_check_phase()
     release_memory()
-    for phase in (zoo_phase, zoo_infer_phase, se_resnext_fused_phase,
-                  se_resnext152_phase, optimizers_phase):
+    for phase in (zoo_phase, zoo_infer_phase, se_resnext_fused_phase):
+        for path, record in phase().items():
+            check_path(path, record)
+        release_memory()
+    resnext_check_phase(modes=("nhwc_fuse",), name="resnext_nhwc_check")
+    release_memory()
+    for phase in (se_resnext_nhwc_fused_phase, se_resnext152_phase,
+                  optimizers_phase):
         for path, record in phase().items():
             check_path(path, record)
         release_memory()
@@ -5264,6 +5722,8 @@ def main():
     for path, record in rnn_phase().items():
         check_path(path, record)
     release_memory()
+    # the CNN op family, card against CPU (no hand kernel)
+    cnn_ops_phase()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)
@@ -5300,14 +5760,16 @@ def main():
                                        "bound_by", "library_ms")}
                 for c in checks[name]
                 if c["logits"] == list(MT_XENT[0][:2])]
-        if name in ("conv_bn_fwd", "conv_bn_bwd"):
-            # the other shapes: SE-ResNeXt-50's fused layers
+        if name.startswith("conv_bn_"):
+            # the other shapes: SE-ResNeXt-50's fused layers (NCHW for
+            # #8/#9, NHWC for #10/#11)
+            prefix = "nhwc_rx_" if name.endswith("_nhwc") else "nchw_rx_"
             row["se_resnext_shapes"] = [
                 {k: c.get(k) for k in ("check", "bcoh", "dtype",
                                        "max_abs_err", "kernel_ms",
                                        "device_ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")}
-                for c in checks[name] if c["check"].startswith("nchw_rx_")]
+                for c in checks[name] if c["check"].startswith(prefix)]
         # the kernel on its AMP path: the check at that path's dtype and
         # shape, and the path's launches
         amp_path, amp_check = AMP_ROWS[name]

@@ -4,7 +4,8 @@ NVIDIA H100.
 The layout mirrors the JAX package (``framework``, ``registry``,
 ``backward``, ``optimizer``, ``executor``, ``io``, ``layers``, ``ops``,
 ``nets``, ``models``, ``reader``, ``data_feeder``, ``serving``,
-``transpiler``, ``contrib``) so each module's
+``transpiler``, ``inference``, ``debugger``, ``net_drawer``, ``contrib``)
+so each module's
 counterpart is easy to find; the programs it builds serialize to the
 same schema, and ``io`` writes the JAX package's file format.  Op
 computes are plain functions on tensors; the hand-written Hopper kernels
@@ -36,8 +37,12 @@ from .data_feeder import DataFeeder
 from .reader import batch
 from . import models
 from . import transpiler
+from .transpiler import InferenceTranspiler, memory_optimize, release_memory
 from . import serving
 from . import contrib
+from . import inference
+from . import debugger
+from . import net_drawer
 
 __version__ = "0.1.0"
 
@@ -49,5 +54,6 @@ __all__ = [
     "backward", "clip", "optimizer", "regularizer", "average",
     "learning_rate_decay", "convert", "io",
     "nets", "reader", "DataFeeder", "batch", "models", "transpiler",
-    "serving", "contrib",
+    "InferenceTranspiler", "memory_optimize", "release_memory", "serving",
+    "contrib", "inference", "debugger", "net_drawer",
 ]

@@ -17,7 +17,8 @@ __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
            "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "prelu", "maxout",
            "cos_sim", "margin_rank_loss", "lstm_unit", "gru_unit",
-           "autoincreased_step_counter"]
+           "autoincreased_step_counter", "l2_normalize",
+           "image_resize_short"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -220,6 +221,26 @@ elementwise_min = _elementwise_layer("elementwise_min")
 elementwise_pow = _elementwise_layer("elementwise_pow")
 
 
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """``x / sqrt(max(sum(x^2, axis), epsilon))``, built from ``square``,
+    ``reduce_sum``, ``clip``, ``sqrt`` and ``elementwise_div`` as the JAX
+    package builds it."""
+    helper = LayerHelper("l2_normalize", name=name)
+
+    def append(op_type, inputs, attrs=None):
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+        helper.append_op(type=op_type, inputs=inputs, outputs={"Out": [out]},
+                         attrs=attrs)
+        return out
+
+    sq = append("square", {"X": [x]})
+    ssum = append("reduce_sum", {"X": [sq]},
+                  {"dim": [axis], "keep_dim": True, "reduce_all": False})
+    norm = append("clip", {"X": [ssum]}, {"min": epsilon, "max": 3.4e38})
+    root = append("sqrt", {"X": [norm]})
+    return append("elementwise_div", {"X": [x], "Y": [root]}, {"axis": 0})
+
+
 def prelu(x, mode, param_attr=None, name=None):
     """Parametric ReLU with one learnable slope (``all``), one a channel
     (``channel``) or one an element (``element``), initialised to 0.25."""
@@ -349,3 +370,19 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1,
             outputs={"Out": [counter]}, attrs={"step": float(step)})
         counter.stop_gradient = True
     return counter
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize NCHW ``input`` so its shorter side is ``out_short_len``,
+    keeping the aspect ratio."""
+    from .cnn import image_resize
+
+    if len(input.shape) != 4:
+        raise ValueError("image_resize_short expects NCHW input")
+    hw = list(input.shape[2:4])
+    short = hw.index(min(hw))
+    out_shape = list(hw)
+    out_shape[short] = int(out_short_len)
+    out_shape[1 - short] = int(round(float(hw[1 - short]) / hw[short]
+                                     * out_short_len))
+    return image_resize(input, out_shape=out_shape, resample=resample)

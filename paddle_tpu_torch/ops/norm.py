@@ -1,4 +1,5 @@
-"""``layer_norm``, ``batch_norm`` and ``lrn`` (counterpart of
+"""``layer_norm``, ``batch_norm``, ``lrn``, ``group_norm``, ``norm`` and the
+image resizes ``bilinear_interp`` / ``nearest_interp`` (counterpart of
 ``paddle_tpu/ops/norm.py``).
 
 ``layer_norm``: rows are the dims before ``begin_norm_axis``; the op
@@ -24,6 +25,16 @@ mean its forward saw.  The gradient is the hand-written three-term
 channels padded ``(n // 2, n - 1 - n // 2)`` as the JAX package's
 ``reduce_window`` pads it (asymmetric for an even n); ``MidOut`` is ``k +
 alpha * S``.  Its gradient is the generic ``lrn_grad``.
+
+``group_norm``: NCHW or NHWC (``data_layout``), ``Mean`` / ``Variance`` of
+shape [N, groups], the variance the mean of squared deviations.  ``norm``:
+``x / sqrt(sum(x^2, axis) + epsilon)`` (epsilon inside the root), ``Norm``
+the root.  ``bilinear_interp`` / ``nearest_interp`` resize NCHW to the
+static ``out_h`` x ``out_w`` with align-corners ratios ``(in - 1) / (out -
+1)``, as the JAX package does (a dynamic ``OutSize`` raises there too);
+nearest rounds ``i * ratio`` half to even in float32 (``jnp.round``), where
+``F.interpolate(mode="nearest")`` would floor.  Their gradients are the
+generic ``<type>_grad``.
 """
 
 import torch
@@ -223,3 +234,118 @@ def _lrn_compute(ins, attrs, ctx, op_index):
 
 register_op("lrn", ["X"], ["Out", "MidOut"], infer=_lrn_infer,
             compute=_lrn_compute)
+
+
+# -- group_norm ---------------------------------------------------------------
+
+def _gn_infer(op, block):
+    x = in_var(op, block, "X")
+    g = op.attrs.get("groups", 1)
+    set_output(op, block, "Y", x.shape, x.dtype)
+    set_output(op, block, "Mean", (x.shape[0], g), x.dtype)
+    set_output(op, block, "Variance", (x.shape[0], g), x.dtype)
+
+
+def _gn_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    scale = (ins.get("Scale") or [None])[0]
+    bias = (ins.get("Bias") or [None])[0]
+    g = attrs.get("groups", 1)
+    eps = attrs.get("epsilon", 1e-5)
+    nhwc = attrs.get("data_layout", "NCHW") == "NHWC"
+    if nhwc:
+        x = torch.movedim(x, -1, 1)
+    n, c = x.shape[:2]
+    xg = x.reshape((n, g, c // g) + tuple(x.shape[2:]))
+    red = tuple(range(2, xg.dim()))
+    mean = torch.mean(xg, dim=red, keepdim=True)
+    var = torch.mean(torch.square(xg - mean), dim=red, keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    bshape = (1, c) + (1,) * (x.dim() - 2)
+    if scale is not None:
+        y = y * scale.reshape(bshape)
+    if bias is not None:
+        y = y + bias.reshape(bshape)
+    if nhwc:
+        y = torch.movedim(y, 1, -1)
+    return {"Y": y, "Mean": mean.reshape(n, g),
+            "Variance": var.reshape(n, g)}
+
+
+register_op("group_norm", ["X", "Scale", "Bias"], ["Y", "Mean", "Variance"],
+            infer=_gn_infer, compute=_gn_compute)
+
+
+# -- norm: L2 normalisation along an axis -------------------------------------
+
+def _norm_infer(op, block):
+    x = in_var(op, block, "X")
+    nshape = list(x.shape)
+    nshape[op.attrs.get("axis", 1)] = 1
+    set_output(op, block, "Out", x.shape, x.dtype)
+    set_output(op, block, "Norm", tuple(nshape), x.dtype)
+
+
+def _norm_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    norm = torch.sqrt(torch.sum(torch.square(x), dim=attrs.get("axis", 1),
+                                keepdim=True) + attrs.get("epsilon", 1e-10))
+    return {"Out": x / norm, "Norm": norm}
+
+
+register_op("norm", ["X"], ["Out", "Norm"], infer=_norm_infer,
+            compute=_norm_compute)
+
+
+# -- bilinear_interp / nearest_interp (align corners) -------------------------
+
+def _interp_infer(op, block):
+    x = in_var(op, block, "X")
+    set_output(op, block, "Out", (x.shape[0], x.shape[1],
+                                  op.attrs.get("out_h", -1),
+                                  op.attrs.get("out_w", -1)), x.dtype)
+
+
+def _align_corners_pos(size, out, device):
+    """``i (size - 1) / (out - 1)`` for i < out, in float32."""
+    ratio = (size - 1.0) / (out - 1.0) if out > 1 else 0.0
+    return torch.arange(out, dtype=torch.float32, device=device) * ratio
+
+
+def _static_out(ins, attrs):
+    if ins.get("OutSize") and ins["OutSize"][0] is not None:
+        raise NotImplementedError(
+            "a dynamic OutSize is not supported (as in the JAX package); "
+            "set out_h / out_w")
+    return attrs["out_h"], attrs["out_w"]
+
+
+def _bilinear_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    oh, ow = _static_out(ins, attrs)
+    h, w = x.shape[2:]
+    ys = _align_corners_pos(h, oh, x.device)
+    xs = _align_corners_pos(w, ow, x.device)
+    y0, x0 = torch.floor(ys).long(), torch.floor(xs).long()
+    y1, x1 = torch.clamp(y0 + 1, max=h - 1), torch.clamp(x0 + 1, max=w - 1)
+    wy, wx = (ys - y0).to(x.dtype), (xs - x0).to(x.dtype)
+    top = x[:, :, y0, :][:, :, :, x0] * (1 - wx) + \
+        x[:, :, y0, :][:, :, :, x1] * wx
+    bot = x[:, :, y1, :][:, :, :, x0] * (1 - wx) + \
+        x[:, :, y1, :][:, :, :, x1] * wx
+    return {"Out": top * (1 - wy)[None, None, :, None]
+            + bot * wy[None, None, :, None]}
+
+
+def _nearest_compute(ins, attrs, ctx, op_index):
+    x = ins["X"][0]
+    oh, ow = _static_out(ins, attrs)
+    ys = torch.round(_align_corners_pos(x.shape[2], oh, x.device)).long()
+    xs = torch.round(_align_corners_pos(x.shape[3], ow, x.device)).long()
+    return {"Out": x[:, :, ys, :][:, :, :, xs]}
+
+
+for _type, _compute in (("bilinear_interp", _bilinear_compute),
+                        ("nearest_interp", _nearest_compute)):
+    register_op(_type, ["X", "OutSize"], ["Out"], infer=_interp_infer,
+                compute=_compute, no_grad_inputs=("OutSize",))

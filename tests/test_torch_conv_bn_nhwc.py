@@ -11,11 +11,21 @@ two apart.  NHWC takes M = 300 positions; NCHW 6 images of 7x7 (HW = 49,
 so the positions run across images as in ResNet-50's stage 4).  The
 kernels themselves run only on the card (``chip_smoke.py``'s ``kernels``
 phase holds them in the same band).
+
+The plain versions of #10/#11 are also held against the JAX package's
+Pallas kernels in interpret mode at a scaled-down SE-ResNeXt-50 stage-1
+conv2 ([2, 128 -> 256, 8x8] NHWC, the BN + ReLU prologue; backward with
+the stats fold), the shape the NHWC + fused SE-ResNeXt program gives them.
 """
 
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.ops.pallas import conv_bn as jax_conv_bn
 
 from paddle_tpu_torch.ops.cuda import conv_bn as cb
 
@@ -188,3 +198,50 @@ def test_tf32_round_is_cvt_rna():
     hi = cb.tf32_round(r)
     assert bool(((r - hi).abs() <= hi.abs() * 2.0 ** -11).all())
     assert torch.equal(cb.tf32_round(hi), hi)
+
+
+# SE-ResNeXt-50's stage-1 conv2 (128 -> 256 after the grouped conv's BN +
+# ReLU), cut to 2 images of 8x8
+SE_B, SE_HW, SE_C, SE_O = 2, 64, 128, 256
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"],
+                         ids=["nhwc-se_resnext-forward",
+                              "nhwc-se_resnext-backward-fold"])
+def test_plain_follows_pallas_at_se_resnext_shape(direction):
+    """``bn_act_matmul_nhwc`` (the plain #10 / #11 under autograd) against
+    the JAX ``custom_vjp`` whose Pallas kernels run in interpret mode:
+    z, sum, sumsq, and backward every cotangent with the stats fold, rtol
+    1e-4 with an absolute term of 1e-5 of the output's largest magnitude
+    (float32 sums over 128 positions or 128 channels in another order)."""
+    rng = np.random.RandomState(11)
+    m = SE_B * SE_HW
+    args = [rng.randn(m, SE_C).astype("float32") + 0.5,
+            (rng.randn(SE_C, SE_O) * SE_C ** -0.5).astype("float32"),
+            (rng.randn(SE_C) * 0.1 + 0.5).astype("float32"),
+            (rng.rand(SE_C) + 0.5).astype("float32"),
+            (rng.rand(SE_C) + 0.5).astype("float32"),
+            (rng.randn(SE_C) * 0.1).astype("float32")]
+    shift = (rng.randn(SE_O) * 0.1).astype("float32")
+    cts = [rng.randn(m, SE_O).astype("float32"),
+           rng.randn(SE_O).astype("float32"),
+           (rng.randn(SE_O) * 1e-2).astype("float32")]
+
+    def ker(*a):
+        return jax_conv_bn.bn_act_matmul_nhwc(*a, jnp.asarray(shift), 1e-5,
+                                              "relu", True, True, True)
+
+    want, vjp = jax.vjp(ker, *map(jnp.asarray, args))
+    leaves = [torch.tensor(a, requires_grad=True) for a in args]
+    got = cb.bn_act_matmul_nhwc(*leaves, torch.tensor(shift), 1e-5, "relu",
+                                True, True)
+    names = ["z", "sum", "sumsq"]
+    if direction == "backward":
+        want = vjp(tuple(map(jnp.asarray, cts)))
+        got = torch.autograd.grad(got, leaves, [torch.tensor(c) for c in cts])
+        names = ["dx", "dw", "dmean", "dvar", "dgamma", "dbeta"]
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(
+            g.detach().numpy(), w, rtol=1e-4,
+            atol=1e-5 * float(np.abs(w).max()) + 1e-7, err_msg=name)
