@@ -14,6 +14,9 @@
     python3 chip_smoke.py rnn         # device, build, #5/#6 at machine
                                       # translation's shape, rnn_check,
                                       # and the rnn phase (21) alone
+    python3 chip_smoke.py serve_paged # device, build, #1/#3 at the
+                                      # verify's shapes, and the
+                                      # serve_paged phase (4b) alone
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -56,7 +59,9 @@ Run from the root of a checkout.  Phases, one line each:
    rows that start off 16-byte boundaries ([64, 30001] float32, [64,
    1001] bfloat16) and on its streaming path ([128, 100003]), #3 on its
    generic loop ([1000, 97] float32, [5, 4096] bfloat16) with the host
-   time of a call beside ``F.layer_norm``'s;
+   time of a call beside ``F.layer_norm``'s; #1 and #3 at the
+   speculative verify's shapes ([8, 8, 4, 64] over 1024 keys with its key
+   lengths, [32, 512]);
 Every path below runs twice, in turns: captured (the default
 ``Executor``: each dispatch signature's first run eager, its second
 captured as a CUDA graph and replayed, later ones replayed; the main path,
@@ -103,6 +108,25 @@ empty window is profiled again first (``empty_windows``).
    relative L1 0.02), and the quantized score logits the fp ones within
    relative L1 0.02 (the int8 accuracy budget); the int8 weights are a
    quarter of the float32 bytes;
+4b. ``serve_paged`` — the same width with a paged cache (pages of 8, the
+   default 1024 pages): 16 requests of 64..700 tokens (the serve phase's
+   lengths) whose first 32 tokens are one system prompt (4 shared pages),
+   32 new tokens each, through the fixed region (the reference) and three
+   arms, each eager and captured: paged float32 (tokens equal the fixed
+   region's, logits within 2e-4; the live shared pages a later prefill
+   writes again, and how many changed bits), paged int8 KV (logits within
+   relative L1 0.02 of paged float32; bytes a session against the fixed
+   region's, bench.py's accounting) and speculative decoding (spec_k 4,
+   a fixed-region draft carrying the target's weights: tokens equal paged
+   float32's, a parting allowed only under a top-two gap of
+   ``PARTING_GAP`` and printed; the acceptance rate).  Captured = eager
+   bit for bit, one graph for every signature (prefill buckets, decode,
+   verify, the draft's prefill buckets and decode), no leaked page,
+   prefix hits, and exact launches (a speculative prefill #1 11 / #3 22:
+   the draft's prefill fetches nothing, so its last layer's attention and
+   norms do not run; a round 24 / 48).  Then ``kv_cache_paged_write`` on
+   card tensors against the same op on CPU copies, bit for bit (prefill,
+   decode and verify writes with sentinel entries, float32 and int8);
 6. ``infer``   — the score program saved with ``io.save_inference_model``
    and served cold by ``InferenceEngine(model_dir=..., quantize=
    "weight_only")``: 16 requests of 32..256 tokens, each [T, 32000] output
@@ -304,6 +328,14 @@ MODEL = dict(vocab_size=32000, max_len=1024, slots=8, n_layer=6, n_head=8,
              d_model=512, d_inner=2048, dtype="float32")
 N_REQUESTS, MAX_NEW = 16, 32
 SERVE_PROMPTS = (64, 700)   # the served prompts' shortest and longest
+# the paged slice (serve_paged): pages of 8 tokens (the default buckets
+# 8..1024 are page-aligned), the default pool of 1024 pages (the fixed
+# region's footprint), a 32-token system prompt shared by every request
+# (4 full pages), speculative rounds of 4 tokens
+PAGE_SIZE, SYSTEM_TOKENS, SPEC_K = 8, 32, 4
+# the verify dispatch's key lengths (cache_len = base + SPEC_K; an
+# inactive slot's is SPEC_K)
+VERIFY_KLEN = [1024, 68, 704, SPEC_K, 337, 516, 1000, 36]
 
 # tolerances (allclose: |kernel - plain| <= atol + rtol * |plain|).
 # float32: both sum ~1e3 terms in float32 in different orders.  bfloat16:
@@ -1314,12 +1346,29 @@ def attention_fwd_cases(timer):
     t = max(SERVE_PROMPTS) + MAX_NEW
     fwd.append(attention_case(fa, timer, "score_b1_float32", t, t, True, [t],
                               torch.float32, split=True))
+    fwd.append(verify_attention_case(fa, timer))
     return fwd + _bucket_attention_cases(attention_case, fa, timer)
+
+
+def verify_attention_case(fa, timer):
+    """#1 at the speculative verify's shape (``serve_paged``): a
+    SPEC_K-row suffix query a slot over the 1024 keys gathered from its
+    pages, [8, 8, 4, 64] over [8, 8, 1024, 64] with the verify's key
+    lengths (the key split: cluster 4)."""
+    return attention_case(fa, timer, "verify_float32", SPEC_K,
+                          MODEL["max_len"], True, VERIFY_KLEN,
+                          torch.float32, split=True)
+
+
+def verify_layer_norm_case(ln, timer):
+    """#3 at the verify's rows: 8 slots x SPEC_K tokens, 512 wide."""
+    return layer_norm_case(ln, timer, MODEL["slots"] * SPEC_K,
+                           MODEL["d_model"], torch.float32)
 
 
 def layer_norm_fwd_cases(timer):
     """Kernel #3 at the training rows (the main path's shape first), the
-    prefill and decode rows, and bfloat16."""
+    prefill, decode and verify rows, and bfloat16."""
     from paddle_tpu_torch.ops.cuda import layer_norm as ln
 
     rows, d = TRAIN_BATCH * TRAIN_SEQ, TRAIN["d_model"]
@@ -1328,11 +1377,22 @@ def layer_norm_fwd_cases(timer):
     norm = [layer_norm_case(ln, timer, n, d, torch.float32)
             for n in (rows, 8 * 1024, 8, 8160)]
     norm.append(layer_norm_case(ln, timer, rows, d, torch.bfloat16))
+    norm.append(verify_layer_norm_case(ln, timer))
     # off the path: the generic loop (a width that is not a multiple of 4,
     # a width other than 512 in bfloat16, both with fewer rows than SMs)
     norm += [layer_norm_case(ln, timer, 1000, 97, torch.float32),
              layer_norm_case(ln, timer, 5, 4096, torch.bfloat16)]
     return norm
+
+
+def serve_paged_kernel_cases(timer):
+    """Kernels #1 and #3 at the shapes the paged slice adds (the
+    speculative verify's), against their plain versions."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import layer_norm as ln
+
+    return {"flash_attention_fwd": [verify_attention_case(fa, timer)],
+            "layer_norm_fwd": [verify_layer_norm_case(ln, timer)]}
 
 
 def serve_kernel_cases(timer):
@@ -1812,6 +1872,508 @@ def serve_phases(place):
     if bad:
         raise SystemExit("captured serving differs from eager: %s" % bad)
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the paged cache, int8 KV and speculative decoding
+# ---------------------------------------------------------------------------
+
+# the arms of serve_paged: build_decoder_lm's options and the kernel path
+# each reports under (its eager run with ":eager" after)
+PAGED_ARMS = {
+    "fixed": ({}, None),
+    "f32": (dict(paged=True, page_size=PAGE_SIZE), "serve_paged"),
+    "int8": (dict(paged=True, page_size=PAGE_SIZE, kv_dtype="int8"),
+             "serve_paged_int8"),
+    "spec": (dict(paged=True, page_size=PAGE_SIZE, spec_k=SPEC_K),
+             "serve_paged_spec"),
+}
+# a speculative parting is rounding only where the target's two best
+# logits lie within twice the 2e-4 decode band of each other
+PARTING_GAP = 4e-4
+
+
+def paged_prompts(model=MODEL, n_requests=N_REQUESTS,
+                  prompt_range=SERVE_PROMPTS):
+    """The serve phase's prompt lengths (same seed), each prompt's first
+    SYSTEM_TOKENS tokens one shared system prompt: (lengths, prompts)."""
+    rng = np.random.RandomState(0)
+    lens = rng.permutation(np.linspace(prompt_range[0], prompt_range[1],
+                                       n_requests).astype(int))
+    prompts = [list(rng.randint(0, model["vocab_size"], n)) for n in lens]
+    system = list(np.random.RandomState(1).randint(
+        0, model["vocab_size"], SYSTEM_TOKENS))
+    return lens, [system + p[SYSTEM_TOKENS:] for p in prompts]
+
+
+def live_kernel_ops(program, fetch_names):
+    """{kernel: launches} one dispatch of ``program`` fetching
+    ``fetch_names`` implies: the executor runs only the ops whose outputs
+    a later running op reads, a fetch names or the scope keeps (the
+    draft's prefill fetches nothing, so its last layer's attention and
+    norms do not run)."""
+    block = program.global_block()
+    needed = set(fetch_names)
+    for op in block.ops:
+        for n in op.output_arg_names:
+            v = block._find_var_recursive(n) if n else None
+            if v is not None and v.persistable:
+                needed.add(n)
+    types = []
+    for op in reversed(block.ops):
+        outs = [n for n in op.output_arg_names if n]
+        if not outs or any(n in needed for n in outs):
+            needed.update(n for n in op.input_arg_names if n)
+            types.append(op.type)
+    return {"flash_attention_fwd": types.count("fused_attention")
+            + types.count("paged_attention"),
+            "layer_norm_fwd": types.count("layer_norm"),
+            "dequant_matmul": types.count("dequant_matmul")}
+
+
+def _add(*counts):
+    out = {}
+    for c in counts:
+        for k, n in c.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+def _scale(counts, n):
+    return {k: v * n for k, v in counts.items()}
+
+
+def _submit_all(eng, prompts):
+    """Queue every prompt before the loop admits any (the scheduler's lock
+    held while submitting), so that admissions, and with them the prefill
+    buckets that write the shared pages, are the same in every pass."""
+    with eng._sched._cv:
+        reqs = [eng.submit(p) for p in prompts]
+    return [r.result(900) for r in reqs]
+
+
+def _rewrite_watch(eng):
+    """Wrap the engine's executor so that each target prefill records the
+    live shared pages it writes again (pages held by a slot outside the
+    admitted batch): how many, and how many came out in other bits.
+    Returns the record dict."""
+    spec, real = eng.spec, eng._exe.run
+    rec = {"prefills": 0, "page_rewrites": 0, "pages_changed": 0,
+           "max_abs_diff": 0.0, "buckets": []}
+
+    def run(program, feed=None, **kw):
+        if program is not spec.prefill_program:
+            return real(program, feed=feed, **kw)
+        batch = {int(x) for x in feed["slot"]}
+        npg = feed["tok"].shape[1] // PAGE_SIZE
+        held = set()
+        for slot, pages in eng._alloc._slot_pages.items():
+            if slot not in batch:
+                held.update(pages)
+        pages = sorted({int(p) for slot in batch
+                        for p in eng._table[slot, :npg]} & held)
+        dev = eng._scope.find_var(spec.cache.names()[0]).device
+        idx = torch.tensor(pages, dtype=torch.long, device=dev)
+        before = {n: eng._scope.find_var(n)[idx].clone()
+                  for n in spec.cache.names()}
+        out = real(program, feed=feed, **kw)
+        torch.cuda.synchronize()
+        rec["prefills"] += 1
+        if pages:
+            rec["page_rewrites"] += len(pages)
+            rec["buckets"].append(feed["tok"].shape[1])
+            changed = torch.zeros(len(pages), dtype=torch.bool,
+                                  device=dev)
+            for n, old in before.items():
+                new = eng._scope.find_var(n)[idx]
+                changed |= (new != old).reshape(len(pages), -1).any(1)
+                rec["max_abs_diff"] = max(rec["max_abs_diff"], float(
+                    (new.float() - old.float()).abs().max()))
+            rec["pages_changed"] += int(changed.sum())
+        return out
+
+    eng._exe.run = run
+    return rec
+
+
+def _signatures(eng, spec, draft):
+    """{program: [executor entries, CUDA graphs]} of the serving programs
+    the engine ran (an entry a feed signature: a prefill bucket, the
+    decode or verify step)."""
+    programs = {"prefill": spec.prefill_program,
+                "decode": spec.decode_program,
+                "verify": spec.verify_program}
+    if draft is not None:
+        programs.update(draft_prefill=draft.prefill_program,
+                        draft_decode=draft.decode_program)
+    names = {id(p): n for n, p in programs.items() if p is not None}
+    out = {}
+    for key in eng._exe._analysis:
+        name = names.get(key[0])
+        if name is not None:
+            step = eng._exe._steps.get(key)
+            n = out.setdefault(name, [0, 0])
+            n[0] += 1
+            n[1] += int(step is not None and step.graph is not None)
+    return out
+
+
+def paged_arm(arm, capture, lens, prompts, model=MODEL, max_new=MAX_NEW,
+              rewrite_check=False):
+    """Serve ``prompts`` through a ``GenerationEngine`` of the arm
+    (``PAGED_ARMS``) on the card, captured or eager, as ``serve_phase``
+    does: every bucket dispatched twice first, then the requests with the
+    launch counters zeroed just before and read just after (timed), then
+    once more under the profiler; with ``rewrite_check`` once more
+    watching the shared pages (``_rewrite_watch``).  Returns (summary,
+    launch record, results, the spec)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+    from paddle_tpu_torch.serving import (GenerationEngine, build_decoder_lm,
+                                          sync_draft_weights)
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+
+    kw, _ = PAGED_ARMS[arm]
+    spec = build_decoder_lm(**model, **kw)
+    draft = (build_decoder_lm(**model, prefix="draft") if arm == "spec"
+             else None)
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(spec, place=pt.CUDAPlace(0),
+                           max_new_tokens=max_new, record_logits=True,
+                           timeout_s=900.0, start=False, capture=capture,
+                           draft_spec=draft)
+    if draft is not None:
+        assert sync_draft_weights(eng._scope, spec, draft) > 0
+    # every arm draws the same weights from the startup program's seed
+    weights = float(eng._scope.find_var(
+        "declm_logits.w_0").double().sum())
+    # one dispatch of each kind implies these launches
+    prefill = live_kernel_ops(spec.prefill_program,
+                              [spec.prefill_logits.name])
+    step = live_kernel_ops(spec.decode_program, [spec.decode_logits.name])
+    if draft is not None:
+        prefill = _add(prefill, live_kernel_ops(draft.prefill_program, []))
+        step = _add(live_kernel_ops(spec.verify_program,
+                                    [spec.verify_logits.name]),
+                    _scale(live_kernel_ops(draft.decode_program,
+                                           [draft.decode_logits.name]),
+                           SPEC_K - 1))
+
+    def implied(counts):
+        return _add(_scale(prefill, counts["batches"]),
+                    _scale(step, counts["decode_steps"]))
+
+    rewrites = None
+    # each pass's admissions, (bucket, requests) in order
+    admissions, admit = [], eng._sched.admit
+
+    def logged_admit(*args, **kw):
+        plan, expired = admit(*args, **kw)
+        if plan is not None:
+            admissions.append([plan.bucket, len(plan.requests)])
+        return plan, expired
+
+    eng._sched.admit = logged_admit
+    try:
+        eng.start()
+        _warm_buckets(eng, lens, lambda n: eng.submit(
+            prompts[list(lens).index(n)], max_new_tokens=2))
+        eng.metrics = ServingMetrics()
+        cuda.reset_launch_counts()
+        del admissions[:]
+        t0 = time.perf_counter()
+        results = _submit_all(eng, prompts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cuda.launch_counts()
+        metrics = eng.metrics
+        counts = metrics.summary()["counts"]
+        timed_admissions, again = list(admissions), []
+
+        def served():
+            eng.metrics = ServingMetrics()
+            del admissions[:]
+            again[:] = _submit_all(eng, prompts)
+
+        def lost(win):
+            return trace_lost(win, implied(eng.metrics.summary()["counts"]),
+                              capture)
+        window = device_window(served, lost)
+        profiled_counts = eng.metrics.summary()["counts"]
+        profiled = implied(profiled_counts)
+        # the profiled pass against the timed one: same admissions, same
+        # tokens (the same prompts, the engine's state aside)
+        window["passes_agree"] = {
+            "prefills": [counts["batches"], profiled_counts["batches"]],
+            "decode_steps": [counts["decode_steps"],
+                             profiled_counts["decode_steps"]],
+            "tokens_equal": [r["tokens"] for r in again]
+            == [r["tokens"] for r in results],
+            "admissions": [timed_admissions, list(admissions)]}
+        if rewrite_check:
+            rewrites = _rewrite_watch(eng)
+            eng.metrics = ServingMetrics()
+            _submit_all(eng, prompts)
+        peak = torch.cuda.max_memory_allocated()
+        leaks = eng._alloc.check_leaks() if eng.paged else []
+        in_use = eng._alloc.pages_in_use() if eng.paged else 0
+        signatures = _signatures(eng, spec, draft)
+        # a CPU place (a rehearsal) never captures
+        graphs = capture and eng.place.device.type == "cuda"
+    finally:
+        eng.close()
+    assert counts["completed"] == len(prompts), counts
+    assert all(len(r["tokens"]) == max_new for r in results)
+    assert all(np.isfinite(np.stack(r["logits"])).all() for r in results)
+    tokens = sum(len(r["tokens"]) for r in results)
+    dec = metrics.percentiles("decode")
+    snap = metrics.paged_snapshot()
+    summary = {
+        "arm": arm, "capture": capture, "requests": len(prompts),
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "prefills": counts["batches"], "decode_steps": counts["decode_steps"],
+        "p50_prefill_ms": metrics.percentiles("prefill")["p50_s"] * 1e3,
+        # a speculative round: SPEC_K - 1 draft decodes and one verify
+        "p50_decode_step_ms": dec["p50_s"] * 1e3,
+        "p50_request_ms": metrics.percentiles()["p50_s"] * 1e3,
+        "peak_mem_gb": peak / 1e9, "profiled_pass": window,
+        "launches": launches, "per_prefill": prefill, "per_step": step,
+        "paged_snapshot": snap, "leaked_pages": leaks,
+        "pages_in_use_after": in_use, "weights_sum": weights,
+        "cache_mb": spec.cache.bytes() / 1e6, "signatures": signatures,
+        "graphs_expected": graphs}
+    if arm == "spec":
+        v = metrics.percentiles("verify")
+        summary["p50_verify_ms"] = v["p50_s"] * 1e3
+    if rewrites is not None:
+        summary["shared_page_rewrites"] = rewrites
+    record = launch_record(capture, launches, implied(counts), window,
+                           profiled)
+    return summary, record, results, spec
+
+
+def paged_write_check(model=MODEL, seed=0, device="cuda"):
+    """``kv_cache_paged_write`` on card tensors at the serving width
+    against the same op on CPU copies of the same inputs, bit for bit:
+    the prefill (scattered, a 128 bucket), decode (identity) and verify
+    (SPEC_K tokens across page edges) writes, each table holding sentinel
+    entries, float32 and int8 pools (values and scales); the pages no
+    table entry names keep their bits.  The inputs are drawn on the
+    card (``device``)."""
+    from paddle_tpu_torch.ops import kv_cache as pkv
+
+    s, h = model["slots"], model["n_head"]
+    d = model["d_model"] // h
+    n_pages = model["slots"] * model["max_len"] // PAGE_SIZE
+    mp = model["max_len"] // PAGE_SIZE
+    g = torch.Generator(device=device).manual_seed(seed)
+    perm = torch.randperm(n_pages, generator=g, device=device)
+    table = perm[:s * mp].reshape(s, mp).to(torch.int32)
+    # unheld entries: the back half of every row, all of one slot's, and
+    # a hole in another
+    table[:, mp // 2:] = n_pages
+    table[s // 2] = n_pages
+    table[s - 1, 1] = n_pages
+    rng = np.random.RandomState(seed)
+
+    def positions(hi, first):
+        pos = rng.randint(0, hi, s)
+        pos[0] = first
+        return torch.tensor(pos, dtype=torch.int32, device=device)
+
+    held = mp // 2 * PAGE_SIZE
+    cases = {
+        # a scattered prefill of the 128 bucket, slots rotated by one
+        "prefill_b128": (torch.randn((s, h, 128, d), generator=g,
+                                     device=device),
+                         torch.zeros(s, dtype=torch.int32, device=device),
+                         torch.roll(torch.arange(s, dtype=torch.int32,
+                                                 device=device), 1)),
+        # decode, some positions past the held pages
+        "decode": (torch.randn((s, h, 1, d), generator=g, device=device),
+                   positions(held + 2 * PAGE_SIZE, held - 1), None),
+        # the verify's tokens, the first slot's across a page edge
+        "verify_k4": (torch.randn((s, h, SPEC_K, d), generator=g,
+                                  device=device),
+                      positions(held, PAGE_SIZE - 2), None),
+    }
+    out = {}
+    for kv_dtype in ("float32", "int8"):
+        if kv_dtype == "int8":
+            pool = torch.randint(-127, 128, (n_pages, h, PAGE_SIZE, d),
+                                 generator=g, device=device,
+                                 dtype=torch.int8)
+            scale = torch.rand((n_pages, h, PAGE_SIZE), generator=g,
+                               device=device)
+        else:
+            pool = torch.randn((n_pages, h, PAGE_SIZE, d), generator=g,
+                               device=device)
+            scale = None
+        for name, (x, pos, slot) in cases.items():
+            ins = {"Cache": pool, "X": x, "Pos": pos, "PageTable": table}
+            if slot is not None:
+                ins["Slot"] = slot
+            if scale is not None:
+                ins["Scale"] = scale
+            card = pkv._paged_write_compute(
+                {k: [v.clone()] for k, v in ins.items()}, {}, None, 0)
+            host = pkv._paged_write_compute(
+                {k: [v.to("cpu", copy=True)] for k, v in ins.items()}, {},
+                None, 0)
+            named = set(table.reshape(-1).tolist()) - {n_pages}
+            untouched = torch.tensor(sorted(set(range(n_pages)) - named),
+                                     device=device)
+            same = all(torch.equal(card[k].cpu(), host[k]) for k in card)
+            kept = torch.equal(card["Out"][untouched], pool[untouched])
+            if scale is not None:
+                kept = kept and torch.equal(card["OutScale"][untouched],
+                                            scale[untouched])
+            out["%s_%s" % (name, kv_dtype)] = {
+                "x": list(x.shape), "outputs": sorted(card),
+                "same_bits_as_cpu": same, "untouched_pages_kept": kept,
+                "pages_written": int((card["Out"] != pool).reshape(
+                    n_pages, -1).any(1).sum())}
+    log("serve_paged_write_check", out)
+    bad = [k for k, v in out.items()
+           if not (v["same_bits_as_cpu"] and v["untouched_pages_kept"])]
+    if bad:
+        raise SystemExit("kv_cache_paged_write on the card differs from "
+                         "the CPU: %s" % bad)
+    return out
+
+
+def _partings(got, want):
+    """Where a speculative stream first leaves the plain one: (request,
+    position, the plain run's top-two logit gap there)."""
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])):
+            if x != y:
+                top = np.sort(b["logits"][j])[-2:]
+                out.append({"request": i, "position": j,
+                            "top_two_gap": float(top[1] - top[0])})
+                break
+    return out
+
+
+def serve_paged_phase(model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
+                      prompt_range=SERVE_PROMPTS, device="cuda"):
+    """The paged slice at Transformer-base width: the fixed-region engine
+    on the phase's prompts (captured; the reference), then the paged
+    float32, int8-KV and speculative arms, each eager and captured in
+    turns.  Gates: paged float32 tokens equal the fixed region's, logits
+    within 2e-4; int8 KV logits within relative L1 0.02 of paged float32
+    and ``kv_cache_paged_write`` card = CPU bit for bit; speculative tokens
+    equal paged float32's (a parting only where the top-two gap is under
+    ``PARTING_GAP``, each printed); captured = eager bit for bit; every
+    entry captured (one graph a signature); no leaked page; prefix hits;
+    exact launches (``launch_faults``, by the caller).  Returns {path:
+    launch record}."""
+    lens, prompts = paged_prompts(model, n_requests, prompt_range)
+    # the reference, profiled too: its busy time beside the paged arms'
+    # is what the pages cost the device
+    fixed, _, want, _ = paged_arm("fixed", True, lens, prompts, model,
+                                  max_new)
+    log("serve_paged", fixed)
+    release_memory()
+    paths, runs, summaries, bad = {}, {}, {}, []
+    for i, arm in enumerate(("f32", "int8", "spec")):
+        path = PAGED_ARMS[arm][1]
+        for capture in ((True, False) if i % 2 else (False, True)):
+            summary, record, results, spec = paged_arm(
+                arm, capture, lens, prompts, model, max_new,
+                rewrite_check=(arm == "f32" and capture))
+            name = path if capture else path + ":eager"
+            paths[name] = record
+            runs[arm, capture] = results
+            summaries[arm, capture] = summary
+            if summary["weights_sum"] != fixed["weights_sum"]:
+                bad.append("%s: other weights" % name)
+            if summary["leaked_pages"] or summary["pages_in_use_after"]:
+                bad.append("%s: pages leaked" % name)
+            if summary["paged_snapshot"]["prefix_hits"] <= 0:
+                bad.append("%s: no prefix hit" % name)
+            # one graph a signature: every entry captured (none eager),
+            # one entry for each step program
+            sig = summary["signatures"]
+            if any(g != (e if summary["graphs_expected"] else 0)
+                   for e, g in sig.values()) \
+                    or any(sig.get(k, [1])[0] != 1 for k in (
+                        "decode", "verify", "draft_decode")):
+                bad.append("%s: signatures %s" % (name, sig))
+            if arm == "int8":
+                # bench.py's accounting: the pages the prompts and their
+                # new tokens need less the prefix hits, against the fixed
+                # region's cache a slot
+                store = spec.cache
+                alloc = store.make_allocator()
+                demand = sum(alloc.pages_needed(len(p), max_new)
+                             for p in prompts)
+                fresh = demand - summary["paged_snapshot"]["prefix_hits"]
+                f32_page = 2 * store.n_layer * store.n_head * PAGE_SIZE \
+                    * store.head_dim * 4
+                per = {"fixed": fixed["cache_mb"] * 1e6 / model["slots"],
+                       "paged_int8": fresh / len(prompts)
+                       * store.bytes_per_page(),
+                       "paged_f32": fresh / len(prompts) * f32_page}
+                summary["bytes_per_session"] = per
+                summary["sessions_at_fixed_bytes"] = \
+                    per["fixed"] / per["paged_int8"]
+            log("serve_paged", summary)
+            release_memory()
+        same = [a["tokens"] == b["tokens"]
+                and all(np.array_equal(x, y)
+                        for x, y in zip(a["logits"], b["logits"]))
+                for a, b in zip(runs[arm, True], runs[arm, False])]
+        log("capture_check", {"path": path,
+                              "same_bits_as_eager": all(same)})
+        if not all(same):
+            bad.append("%s: captured differs from eager" % path)
+
+    def logits_err(a_runs, b_runs):
+        return max(float(np.abs(np.stack(a["logits"])
+                                - np.stack(b["logits"])).max())
+                   for a, b in zip(a_runs, b_runs))
+
+    paged = runs["f32", True]
+    f32_tokens = [r["tokens"] for r in paged] == [r["tokens"] for r in want]
+    f32_err = logits_err(paged, want)
+    int8_rel = max(rel_l1(np.stack(a["logits"]), np.stack(b["logits"]))
+                   for a, b in zip(paged, runs["int8", True]))
+    partings = _partings(runs["spec", True], paged)
+    # the logits up to each stream's parting (all of them without one)
+    spec_err = 0.0
+    cut = {p["request"]: p["position"] for p in partings}
+    for i, (a, b) in enumerate(zip(runs["spec", True], paged)):
+        n = cut.get(i, len(a["logits"]))
+        if n:
+            spec_err = max(spec_err, float(np.abs(
+                np.stack(a["logits"][:n]) - np.stack(b["logits"][:n]))
+                .max()))
+    gates = {
+        "f32_tokens_equal_fixed": f32_tokens,
+        "f32_logits_max_abs_err_vs_fixed": f32_err,
+        "int8_logits_rel_l1_vs_f32": int8_rel,
+        "spec_tokens_equal_f32": not partings,
+        "spec_partings": partings,
+        "spec_logits_max_abs_err_vs_f32": spec_err,
+        "spec_acceptance_rate":
+            summaries["spec", True]["paged_snapshot"]["spec_acceptance_rate"],
+        "write_check_cases": sorted(paged_write_check(model,
+                                                      device=device))}
+    log("serve_paged_gates", gates)
+    if not f32_tokens or f32_err > 2e-4:
+        bad.append("paged f32 against the fixed region: tokens %s, logits "
+                   "%.3g" % (f32_tokens, f32_err))
+    if int8_rel >= INT8_BUDGET:
+        bad.append("int8 KV logits %.4g from f32" % int8_rel)
+    if spec_err > 2e-4 or any(p["top_two_gap"] > PARTING_GAP
+                              for p in partings):
+        bad.append("speculative against paged f32: logits %.3g, partings "
+                   "%s" % (spec_err, partings))
+    if bad:
+        raise SystemExit("serve_paged: %s" % bad)
+    return paths
 
 
 def _infer_requests(n_requests, length_range, vocab, seed=0):
@@ -5626,6 +6188,16 @@ def main():
             if faults:
                 raise SystemExit("rnn: %s launched %s" % (path, faults))
         return 0
+    if "serve_paged" in sys.argv[1:]:
+        log_checks(serve_paged_kernel_cases(Timer()))
+        for path, record in serve_paged_phase().items():
+            faults = launch_faults(record)
+            if faults:
+                raise SystemExit("serve_paged: %s launched %s"
+                                 % (path, faults))
+        log("total", {"seconds": time.perf_counter() - t_start,
+                      "phase_seconds": dict(PHASE_SECONDS)})
+        return 0
     if "--serve-ab" in sys.argv[1:]:
         # fp and int8 serving in turns (fp, weight_only, dynamic, then the
         # reverse), so host load drifting within the call shows as spread
@@ -5658,6 +6230,11 @@ def main():
     # table reports) and eager (``:eager``), in turns
     for path, (summary, record) in serve_phases(pt.CUDAPlace(0)).items():
         check_path(path, record)
+    # the paged cache, int8 KV and speculative decoding (#1 over gathered
+    # pages, at decode and at the verify's 4-row suffix query; #3)
+    for path, record in serve_paged_phase().items():
+        check_path(path, record)
+    release_memory()
     infer, paths = infer_phase(pt.CUDAPlace(0))
     log("infer", infer)
     if not infer["same_bits_as_eager"]:
@@ -5760,6 +6337,16 @@ def main():
                                        "bound_by", "library_ms")}
                 for c in checks[name]
                 if c["logits"] == list(MT_XENT[0][:2])]
+        if name in ("flash_attention_fwd", "layer_norm_fwd"):
+            # the speculative verify's shapes (serve_paged)
+            row["serve_paged_shapes"] = [
+                {k: c.get(k) for k in ("check", "max_abs_err", "kernel_ms",
+                                       "device_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "library_device_ms")}
+                for c in checks[name]
+                if c["check"] in ("verify_float32", "layer_norm_%dx%d" % (
+                    MODEL["slots"] * SPEC_K, MODEL["d_model"]))]
         if name.startswith("conv_bn_"):
             # the other shapes: SE-ResNeXt-50's fused layers (NCHW for
             # #8/#9, NHWC for #10/#11)

@@ -88,11 +88,11 @@ class AnalysisConfig(NativeConfig):
         """Run this config's predictors through one shared
         ``serving.InferenceEngine`` (its keyword arguments).  The
         TunedConfig artifact and quarantine dumps are not ported yet
-        (ROADMAP A5), so ``tuned_config`` and ``quarantine_dir`` raise."""
+        (ROADMAP A6), so ``tuned_config`` and ``quarantine_dir`` raise."""
         if tuned_config is not None or quarantine_dir is not None:
             raise NotImplementedError(
                 "tuned_config= and quarantine_dir= are not ported yet "
-                "(ROADMAP A5: the TunedConfig artifact, quarantine dumps)")
+                "(ROADMAP A6: the TunedConfig artifact, quarantine dumps)")
         self.serving = {"slots": slots, "timeout_s": timeout_s,
                         "bucket_bounds": bucket_bounds}
         return self

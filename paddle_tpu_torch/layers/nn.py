@@ -13,6 +13,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
            "softmax_with_cross_entropy", "mean", "matmul", "fused_attention",
+           "paged_attention",
            "square_error_cost", "topk", "elementwise_add", "elementwise_sub",
            "elementwise_mul", "elementwise_div", "elementwise_max",
            "elementwise_min", "elementwise_pow", "prelu", "maxout",
@@ -169,6 +170,32 @@ def fused_attention(q, k, v, k_len=None, causal=False, dropout_rate=0.0,
     if scale is not None:
         attrs["scale"] = float(scale)
     helper.append_op(type="fused_attention", inputs=inputs,
+                     outputs={"Out": [out]}, attrs=attrs)
+    return out
+
+
+def paged_attention(q, k_cache, v_cache, page_table, k_len=None,
+                    k_scale=None, v_scale=None, causal=True, scale=None,
+                    name=None):
+    """Attention over a block-indexed KV pool (serving's paged cache):
+    ``q`` [S, H, Tq, D] attends the pages ``page_table`` [S, max_pages]
+    maps for each slot out of ``k_cache``/``v_cache`` [P, H, page_size,
+    D]; ``k_len`` [S] is each slot's valid length.  int8 pools dequantize
+    through ``k_scale``/``v_scale`` [P, H, page_size].  Causal ``Tq > 1``
+    is the bottom-aligned suffix query the speculative verify uses."""
+    helper = LayerHelper("paged_attention", name=name)
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    inputs = {"Q": [q], "KCache": [k_cache], "VCache": [v_cache],
+              "PageTable": [page_table]}
+    if k_len is not None:
+        inputs["KLen"] = [k_len]
+    if k_scale is not None:
+        inputs["KScale"] = [k_scale]
+        inputs["VScale"] = [v_scale]
+    attrs = {"causal": causal}
+    if scale is not None:
+        attrs["scale"] = float(scale)
+    helper.append_op(type="paged_attention", inputs=inputs,
                      outputs={"Out": [out]}, attrs=attrs)
     return out
 

@@ -52,8 +52,10 @@ class ComputeContext:
 
     ``program`` is the program being run (an op that owns a sub-block finds
     it there); ``graph_ops`` holds the indices of the forward ops whose
-    generic grad op runs in this run (see ``keep_graph``).  A sub-block's
-    ops run in a context of their own (``sub_context``)."""
+    generic grad op runs in this run (see ``keep_graph``).  ``shared``
+    keeps what several ops of the run compute alike from the same input
+    tensors (``shared_value``).  A sub-block's ops run in a context of
+    their own (``sub_context``)."""
 
     def __init__(self, device, generator, n_ops=0, amp=None, program=None,
                  graph_ops=()):
@@ -65,6 +67,7 @@ class ComputeContext:
         self.program = program
         self.graph_ops = frozenset(graph_ops)
         self.saved = {}
+        self.shared = {}
         self.run_key = None
         self._seeds = None
         self._draw_run_key = lambda: torch.randint(
@@ -80,6 +83,19 @@ class ComputeContext:
             self._seeds = op_seeds(self.run_key,
                                    max(self.n_ops, op_index + 1))
         return self._seeds[op_index:op_index + 1]
+
+    def shared_value(self, key, tensors, make):
+        """``make()``, computed once a run for every op that asks with the
+        same ``key`` and the same input ``tensors`` (by identity): what XLA's
+        common-subexpression elimination does for the JAX package (the
+        paged cache's K and V writes of every layer derive one index plan
+        from one page table).  The entry keeps the tensors, so their ids
+        are not reused while the run lasts."""
+        full = (key,) + tuple(id(t) for t in tensors)
+        hit = self.shared.get(full)
+        if hit is None or any(a is not b for a, b in zip(hit[0], tensors)):
+            hit = self.shared[full] = (tuple(tensors), make())
+        return hit[1]
 
     def sub_context(self, op_index, step):
         """The context of one run of the sub-block of op ``op_index`` (step

@@ -10,11 +10,20 @@ Two engines share the scheduler, the metrics and the loop thread
   bounds, runs one ``Executor.run`` per batch and fans the fetches back
   out, trimmed to each request's own length.
 * :class:`GenerationEngine` — prefill/decode serving of a
-  :class:`~.decoder.DecoderSpec` with the fixed-region cache and greedy
-  decoding: admitted prompts prefill into recycled cache slots (scattered
-  ``kv_cache_write``), then one decode step advances every active slot by
-  one token, with the cache updated in place; a finished slot is refilled
-  between decode steps without draining the batch.
+  :class:`~.decoder.DecoderSpec` with greedy decoding: admitted prompts
+  prefill into recycled cache slots (scattered cache writes), then one
+  decode step advances every active slot by one token, with the cache
+  updated in place; a finished slot is refilled between decode steps
+  without draining the batch.  A paged spec (``build_decoder_lm(paged=
+  True)``) serves from a page pool: the engine owns the host
+  ``PageAllocator`` and the [slots, max_pages] page table it feeds, admits
+  a request only when the pool covers its worst case, aliases full prompt
+  pages shared with earlier prompts, and frees a request's pages on every
+  terminal path.  With ``draft_spec`` (a fixed-region spec; the target
+  built with ``spec_k``) each decode step is a speculative round: the
+  draft proposes ``spec_k - 1`` tokens, one verify dispatch of the target
+  rules on them, and the host keeps the longest prefix that matches the
+  target's greedy choice plus the target's own next token.
 
 ``quantize="weight_only"`` or ``"dynamic"`` rewrites the served programs to
 int8 weights (``transpiler.quantize_inference``; kernel #7 on the card).
@@ -30,15 +39,15 @@ the engine keeps serving.
 The engines run on ``CUDAPlace(0)`` unless the caller passes a place; with
 no place and no card they raise instead of falling back to the CPU.  On
 the card each dispatch signature (a bucket of the one-shot program, the
-prefill in each bucket, the decode step) replays a CUDA graph from its
-second dispatch on (``Executor``); ``capture=False`` keeps every dispatch
+prefill in each bucket, the decode step, the verify step, the draft's
+prefill buckets and decode step) replays a CUDA graph from its second
+dispatch on (``Executor``); ``capture=False`` keeps every dispatch
 eager, for comparison.  The loop runs on its own thread, so
 ``torch.inference_mode()`` is entered there: grad mode is thread-local in
 PyTorch.
 
-Not ported yet: the paged cache, speculative decoding with a draft model,
-the TunedConfig artifact (``tuned_config=`` raises), quarantine dumps and
-request tracing.
+Not ported yet: the TunedConfig artifact (``tuned_config=`` raises),
+quarantine dumps and request tracing.
 """
 
 import sys
@@ -51,6 +60,7 @@ import torch
 from .. import io as pt_io
 from ..executor import CUDAPlace, Executor
 from ..scope import Scope, scope_guard
+from .kv_cache import OutOfPagesError
 from .metrics import ServingMetrics
 from .scheduler import (ContinuousBatchingScheduler, PoisonedRequestError,
                         RequestTimeoutError)
@@ -74,8 +84,8 @@ def _resolve_quantize(quantize, tuned_config):
     can also take it from a TunedConfig ruling, which is not ported."""
     if tuned_config is not None:
         raise NotImplementedError(
-            "the TunedConfig artifact (tuned_config=) is not ported yet; "
-            "pass quantize= instead")
+            "the TunedConfig artifact (tuned_config=) is not ported yet "
+            "(ROADMAP A6); pass quantize= instead")
     if not quantize:
         return None
     return "weight_only" if quantize is True else str(quantize)
@@ -332,35 +342,75 @@ class GenerationEngine(_EngineBase):
     """Prefill/decode continuous batching over a decoder spec.
 
     The decode step is one program over every cache slot: inactive slots
-    ride along masked (their writes land at position 0 of a free slot and
-    are overwritten by the next prefill), so slot recycling changes host
-    bookkeeping only.  Sampling is greedy argmax.  ``quantize`` rewrites
-    the spec's three programs to int8 weights over the engine's scope
-    (``DecoderSpec.quantize``)."""
+    ride along masked (fixed region: their writes land at position 0 of a
+    free slot and are overwritten by the next prefill; paged: their table
+    rows hold the sentinel ``num_pages``, so their writes drop), and slot
+    recycling changes host bookkeeping only.  Sampling is greedy argmax.
+    ``quantize`` rewrites the spec's programs to int8 weights over the
+    engine's scope (``DecoderSpec.quantize``); ``draft_spec`` turns on
+    speculative decoding (see the module docstring)."""
 
     def __init__(self, spec, place=None, scope=None, eos_id=None,
                  max_new_tokens=32, timeout_s=60.0, bucket_bounds=None,
                  record_logits=False, start=True, quantize=None,
-                 tuned_config=None, capture=True):
+                 tuned_config=None, capture=True, draft_spec=None):
         super().__init__()
         self.place = _default_place(place, "GenerationEngine")
         self.eos_id = eos_id
         self.max_new_tokens = int(max_new_tokens)
         self.record_logits = bool(record_logits)
         self._exe = Executor(self.place, capture=capture)
-        if scope is None:
+        fresh_scope = scope is None
+        if fresh_scope:
             scope = Scope()
             spec.init_scope(self._exe, scope)
         self._scope = scope
-        # int8 decode: the three programs are rewritten over the SHARED
-        # scope (one int8 copy per weight name)
+        # int8 decode: the programs are rewritten over the SHARED scope
+        # (one int8 copy per weight name)
         self.quantize_mode = _resolve_quantize(quantize, tuned_config)
         if self.quantize_mode:
             spec = spec.quantize(scope, mode=self.quantize_mode)
         self.spec = spec
+        # paged KV: the host allocator and the [slots, max_pages] table fed
+        # to the paged programs; an unheld entry holds the sentinel
+        # num_pages, whose writes drop
+        self.paged = spec.paged
+        self._alloc = spec.cache.make_allocator() if self.paged else None
+        self._table = (np.full(
+            (spec.slots, spec.cache.max_pages_per_slot),
+            spec.cache.num_pages, "int32") if self.paged else None)
+        # speculative decoding: a fixed-region draft shares the scope; the
+        # target verifies spec_k tokens a dispatch
+        self.draft_spec = draft_spec
+        if draft_spec is not None:
+            if spec.verify_program is None:
+                raise ValueError(
+                    "speculative decoding needs a spec built with "
+                    "spec_k (no verify program present)")
+            if draft_spec.paged:
+                raise ValueError(
+                    "the draft model uses the fixed-region cache (it "
+                    "is small by design; paging it buys nothing)")
+            if draft_spec.slots != spec.slots \
+                    or draft_spec.vocab_size != spec.vocab_size \
+                    or draft_spec.max_len < spec.max_len:
+                raise ValueError(
+                    "draft spec must match the target's slots/vocab "
+                    "and cover its max_len")
+            if fresh_scope:
+                draft_spec.init_scope(self._exe, scope)
+        bucket_bounds = bucket_bounds or _default_buckets(spec.max_len)
+        if self.paged:
+            ps = spec.cache.page_size
+            for b in bucket_bounds:
+                if b % ps:
+                    raise ValueError(
+                        "bucket bound %d is not page-aligned (page_size "
+                        "%d) — paged prefill scatters whole pages"
+                        % (b, ps))
         self._sched = ContinuousBatchingScheduler(
-            spec.slots, bucket_bounds or _default_buckets(spec.max_len),
-            default_timeout_s=timeout_s)
+            spec.slots, bucket_bounds, default_timeout_s=timeout_s,
+            admission_gate=self._page_gate if self.paged else None)
         self.metrics = ServingMetrics()
         self._active = {}             # slot -> decode state dict
         if start:
@@ -368,7 +418,41 @@ class GenerationEngine(_EngineBase):
 
     def close(self):
         super().close()
+        # in-flight generations were failed by the scheduler's close;
+        # their pages go with them
+        if self._alloc is not None:
+            for slot in list(self._alloc._slot_pages):
+                self._free_pages(slot)
         self._active.clear()
+
+    # -- paged-KV bookkeeping ----------------------------------------------
+    def _page_gate(self, req, picked):
+        """Admission gate: admit only when the pool covers this request's
+        worst case (no sharing assumed) on top of what this admission
+        already picked.  A refused request stays queued."""
+        reserved = sum(
+            self._alloc.pages_needed(len(r.payload["prompt"]),
+                                     r.payload["max_new"])
+            for r in picked)
+        need = self._alloc.pages_needed(len(req.payload["prompt"]),
+                                        req.payload["max_new"])
+        return need <= self._alloc.free_pages() - reserved
+
+    def _free_pages(self, slot):
+        """Release every page ref a slot holds and put its table row back
+        to the sentinel; every terminal path comes here (complete, fail,
+        expire, quarantine, close)."""
+        if self._alloc is None:
+            return
+        self._alloc.release(slot)
+        self._table[slot, :] = self.spec.cache.num_pages
+        self.metrics.note_kv_pages(self._alloc.pages_in_use(),
+                                   self._alloc.free_pages())
+
+    def _fail(self, req, error, status="failed"):
+        if req.slot is not None:
+            self._free_pages(req.slot)
+        super()._fail(req, error, status=status)
 
     # -- client side -------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=None, timeout_s=None):
@@ -418,6 +502,7 @@ class GenerationEngine(_EngineBase):
     def _evict_expired_running(self):
         for req in self._sched.expired_running():
             self._active.pop(req.slot, None)
+            # its pages free here, not at the slot's reuse
             self._fail(req, RequestTimeoutError(
                 "request %s evicted mid-decode after its timeout budget"
                 % req.id), status="expired")
@@ -432,9 +517,36 @@ class GenerationEngine(_EngineBase):
                                   return_numpy=False)
         return logits[rows].float().cpu().numpy()
 
+    def _allocate(self, reqs):
+        """The paged prefill's pre-pass: each request's pages (aliasing
+        shared full prompt pages), its table row and the prefix metrics.
+        The admission gate sized this against the free list, so running
+        out here fails that request only.  Returns the requests kept."""
+        spec = self.spec
+        kept = []
+        for r in reqs:
+            try:
+                pages, shared = self._alloc.alloc_for_prompt(
+                    r.slot, r.payload["prompt"], r.payload["max_new"])
+            except OutOfPagesError as e:
+                self._fail(r, e)
+                continue
+            self._table[r.slot, :] = spec.cache.num_pages
+            self._table[r.slot, :len(pages)] = pages
+            full = len(r.payload["prompt"]) // spec.cache.page_size
+            self.metrics.note_prefix_cache(shared, full - shared)
+            kept.append(r)
+        self.metrics.note_kv_pages(self._alloc.pages_in_use(),
+                                   self._alloc.free_pages())
+        return kept
+
     def _prefill(self, plan):
         spec = self.spec
         reqs = plan.requests
+        if self.paged:
+            reqs = self._allocate(reqs)
+            if not reqs:
+                return
         n, t, p = len(reqs), plan.bucket, spec.slots
         self.metrics.note_admit(plan, self._sched.occupancy(),
                                 self._sched.queue_depth())
@@ -454,10 +566,20 @@ class GenerationEngine(_EngineBase):
             np.arange(t, dtype="int64")[None, :, None], (p, t, 1)).copy()
         feed = {"tok": tok, "tok@LEN": lens, "pos": pos, "slot": slots,
                 "wpos": np.zeros((p,), "int32")}
+        if self.paged:
+            feed["page_table"] = self._table
         t0 = time.perf_counter()
         last = (torch.arange(n), torch.from_numpy(lens[:n].astype("int64") - 1))
         rows = self._run(spec.prefill_program, feed, spec.prefill_logits,
                          last)
+        if self.draft_spec is not None:
+            # the draft takes the same prompts into its own fixed-region
+            # cache; nothing is fetched, so only the ops that feed its
+            # cache writes run
+            dfeed = dict(feed)
+            dfeed.pop("page_table", None)
+            self._exe.run(self.draft_spec.prefill_program, feed=dfeed,
+                          fetch_list=[], scope=self._scope)
         self.metrics.note_dispatch("prefill", time.perf_counter() - t0)
         for i, r in enumerate(reqs):
             row = rows[i]
@@ -475,6 +597,8 @@ class GenerationEngine(_EngineBase):
                 self._active[r.slot] = st
 
     def _decode_step(self):
+        if self.draft_spec is not None:
+            return self._speculative_step()
         spec = self.spec
         s = spec.slots
         tok = np.zeros((s, 1, 1), "int64")
@@ -487,6 +611,8 @@ class GenerationEngine(_EngineBase):
             wpos[slot] = st["pos"]
             clen[slot] = st["pos"] + 1
         feed = {"tok": tok, "pos": pos, "wpos": wpos, "cache_len": clen}
+        if self.paged:
+            feed["page_table"] = self._table
         t0 = time.perf_counter()
         logits = self._run(spec.decode_program, feed, spec.decode_logits,
                            (slice(None), 0))
@@ -509,12 +635,85 @@ class GenerationEngine(_EngineBase):
                 self._active.pop(slot)
                 self._complete(slot, st)
 
+    def _speculative_step(self):
+        """One speculative round: the draft proposes ``k-1`` tokens (one
+        decode dispatch each), the target rules on all of them in ONE
+        ``spec_k``-token verify dispatch, and the host accepts the longest
+        prefix that matches the target's argmax plus the target's own next
+        token (correction or bonus).  Every emitted token is the argmax of
+        a target logits row whose context the target already ruled valid,
+        so greedy outputs are the non-speculative ones up to the bits of
+        the logits.  Rejected positions need no rollback: they lie past
+        the slot's valid length (masked) and the next round overwrites
+        them, in both caches."""
+        spec, draft = self.spec, self.draft_spec
+        s, k = spec.slots, spec.spec_k
+        last = np.zeros((s,), "int64")
+        base = np.zeros((s,), "int32")
+        for slot, st in self._active.items():
+            last[slot] = st["generated"][-1]
+            base[slot] = st["pos"]
+        toks = np.zeros((s, k), "int64")
+        toks[:, 0] = last
+        cur = last.copy()
+        t0 = time.perf_counter()
+        for j in range(k - 1):
+            wp = base + j
+            dfeed = {"tok": cur.reshape(s, 1, 1),
+                     "pos": wp.astype("int64").reshape(s, 1, 1),
+                     "wpos": wp.astype("int32"),
+                     "cache_len": (wp + 1).astype("int32")}
+            dl = self._run(draft.decode_program, dfeed, draft.decode_logits,
+                           (slice(None), 0))
+            cur = dl.argmax(-1).astype("int64")
+            toks[:, j + 1] = cur
+        pos = base[:, None].astype("int64") + np.arange(k, dtype="int64")
+        vfeed = {"tok": toks.reshape(s, k, 1),
+                 "pos": pos.reshape(s, k, 1),
+                 "wpos": base.astype("int32"),
+                 "cache_len": (base + k).astype("int32")}
+        if self.paged:
+            vfeed["page_table"] = self._table
+        tv = time.perf_counter()
+        vl = self._run(spec.verify_program, vfeed, spec.verify_logits,
+                       slice(None))                   # [s, k, V]
+        now = time.perf_counter()
+        self.metrics.note_dispatch("verify", now - tv)
+        self.metrics.note_dispatch("decode", now - t0)
+        greedy = vl.argmax(-1)                        # [s, k]
+        self.metrics.note_decode_step(len(self._active),
+                                      self._sched.occupancy())
+        for slot in list(self._active):
+            st = self._active[slot]
+            if not np.isfinite(vl[slot]).all():
+                self._active.pop(slot)
+                self._poisoned(st["req"], "non-finite verify logits")
+                continue
+            accepted = 0
+            while accepted < k - 1 and \
+                    int(toks[slot, accepted + 1]) == \
+                    int(greedy[slot, accepted]):
+                accepted += 1
+            self.metrics.note_speculation(accepted, k - 1)
+            emitted = [int(toks[slot, j + 1]) for j in range(accepted)]
+            emitted.append(int(greedy[slot, accepted]))
+            for j, t in enumerate(emitted):
+                st["generated"].append(t)
+                st["pos"] += 1
+                if self.record_logits:
+                    st["logits"].append(vl[slot, j].copy())
+                if self._finished(st, t):
+                    self._active.pop(slot)
+                    self._complete(slot, st)
+                    break
+
     def _finished(self, st, last_tok):
         return (len(st["generated"]) >= st["max_new"]
                 or (self.eos_id is not None and last_tok == self.eos_id))
 
     def _complete(self, slot, st):
         req = st["req"]
+        self._free_pages(slot)
         result = {"tokens": list(st["generated"]),
                   "prompt_len": len(req.payload["prompt"])}
         if self.record_logits:

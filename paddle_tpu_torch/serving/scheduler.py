@@ -1,12 +1,14 @@
 """Continuous-batching request scheduler (counterpart of
-``paddle_tpu/serving/scheduler.py``, without its tracing hooks and its
-admission gate for the paged cache).
+``paddle_tpu/serving/scheduler.py``, without its tracing hooks).
 
 Requests queue with a length; the scheduler admits them into a fixed
 number of slots, padding each admitted prompt to the smallest bucket
 bound that covers it, and recycles a finished request's slot to the next
 queued request without draining the rest of the batch.  A request may
-hold several rows of the batch (a client micro-batch, ``rows``).  It is pure
+hold several rows of the batch (a client micro-batch, ``rows``).  An
+optional ``admission_gate(req, picked_so_far) -> bool`` vets each
+candidate (the paged engine's free-page check); a refused request stays
+queued, in order, for a later admission.  It is pure
 control logic: time enters only through the injected ``clock``.  One
 condition variable makes ``submit`` safe from any thread; the engine's
 loop thread calls ``admit`` / ``complete`` / ``fail``.
@@ -110,7 +112,8 @@ class ContinuousBatchingScheduler:
     """Thread-safe FIFO queue + fixed-slot admission + timeout expiry."""
 
     def __init__(self, slots, bucket_bounds=None, clock=time.monotonic,
-                 default_timeout_s=None, max_queue=4096):
+                 default_timeout_s=None, max_queue=4096,
+                 admission_gate=None):
         if slots < 1:
             raise ValueError("need at least one slot")
         self.slots = int(slots)
@@ -119,6 +122,7 @@ class ContinuousBatchingScheduler:
         self._clock = clock
         self.default_timeout_s = default_timeout_s
         self.max_queue = int(max_queue)
+        self.admission_gate = admission_gate
         self._cv = threading.Condition()
         self._queue = collections.deque()
         self._free = collections.deque(range(self.slots))
@@ -180,7 +184,9 @@ class ContinuousBatchingScheduler:
             while self._queue and rows < limit:
                 req = self._queue.popleft()
                 if (bucket is None or req.length <= bucket) \
-                        and rows + req.rows <= limit:
+                        and rows + req.rows <= limit \
+                        and (self.admission_gate is None
+                             or self.admission_gate(req, picked)):
                     picked.append(req)
                     rows += req.rows
                 else:

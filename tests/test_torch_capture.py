@@ -433,14 +433,17 @@ def test_kv_cache_scatter_matches_jax(case):
 
 class _HostReads(TorchDispatchMode):
     """Records ``aten._local_scalar_dense`` (``.item()``, ``bool()``,
-    ``int()``, ``float()`` of a tensor) under the op being computed."""
+    ``int()``, ``float()`` of a tensor) under the op being computed, and
+    ``aten.item`` (the same reads under ``torch.inference_mode``, where
+    the engines run, and indexing by a 0-dim integer tensor)."""
 
     def __init__(self, hits, op_type):
         super().__init__()
         self.hits, self.op_type = hits, op_type
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten._local_scalar_dense.default:
+        if func in (torch.ops.aten._local_scalar_dense.default,
+                    torch.ops.aten.item.default):
             self.hits.append((self.op_type, str(func)))
         return func(*args, **(kwargs or {}))
 

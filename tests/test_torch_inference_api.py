@@ -206,7 +206,7 @@ def test_predictor_serving_delegation_matches_direct(saved_model):
 def test_enable_serving_refuses_what_is_not_ported():
     cfg = AnalysisConfig(model_dir="unused", use_gpu=False)
     for kw in ({"tuned_config": "t.json"}, {"quarantine_dir": "q"}):
-        with pytest.raises(NotImplementedError, match="A5"):
+        with pytest.raises(NotImplementedError, match="A6"):
             cfg.enable_serving(**kw)
     assert cfg.enable_quantization() is cfg
     assert cfg.quantize_mode == "weight_only"

@@ -162,15 +162,18 @@ def test_engine_without_place_needs_a_card(monkeypatch):
         GenerationEngine(spec)
 
 
-@pytest.mark.parametrize("kwargs", [dict(paged=True), dict(spec_k=2),
-                                    dict(kv_dtype="int8"), "quantize"])
+@pytest.mark.parametrize("kwargs", [dict(kv_dtype="int8"), "quantize"])
 def test_unported_decoder_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        if kwargs == "quantize":
-            # int8 serving is ported; its TunedConfig ruling is not
+    if kwargs == "quantize":
+        # int8 serving is ported; its TunedConfig ruling is not
+        with pytest.raises(NotImplementedError, match="not ported yet"):
             GenerationEngine(build_decoder_lm(**SMALL), place=pt.CPUPlace(),
                              tuned_config="tuned.json", start=False)
-        else:
+    else:
+        # the paged cache, int8 KV and spec_k are ported
+        # (test_torch_paged_kv.py, test_torch_speculative.py); int8 KV
+        # without paged=True is refused, as in the JAX package
+        with pytest.raises(ValueError, match="paged=True"):
             build_decoder_lm(**SMALL, **kwargs)
 
 
