@@ -17,6 +17,9 @@
     python3 chip_smoke.py serve_paged # device, build, #1/#3 at the
                                       # verify's shapes, and the
                                       # serve_paged phase (4b) alone
+    python3 chip_smoke.py plain_ops   # device, build, and phase 23 alone
+    python3 chip_smoke.py mnist_cnn   # device, build, and phase 24 alone
+                                      # (both words: both phases)
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -292,7 +295,28 @@ empty window is profiled again first (``empty_windows``).
    ``unpool``, ``group_norm``, ``norm``, the two interpolations) as a
    one-op program on the card against the CPU, forward and gradients
    (``Mask``, the max picks, ``unpool`` with offsets out of the plane and
-   ``nearest_interp`` bit for bit).
+   ``nearest_interp`` bit for bit);
+23. ``plain_ops`` — each of the 58 op types of the plain op library as a
+   one-op program on the card (its second run a CUDA graph's replay,
+   which must repeat the eager run's bits) against the CPU, the row ops
+   at serving-logit shape [256, 32000], ``gather`` / ``scatter`` on a
+   [32000, 512] table with 8192 repeated, negative and out-of-range ids:
+   bool, integer, index and copied outputs bit for bit, the rest within
+   rtol 1e-5 / atol 1e-6 (``cumsum`` within ``CUMSUM_BAND`` of the
+   running sum of |x|), gradients within relative L2 1e-5; the four
+   random ops by their moments, range and frequencies, captured = eager
+   bit for bit; ``print`` on both devices; no hand kernel launches;
+24. ``mnist_cnn_check``, ``mnist_cnn`` and ``mnist_cnn_print`` —
+   ``models/mnist.py``'s conv net with its loss and accuracy written in
+   the frontend (``Variable`` operators, ``argmax`` / ``equal`` /
+   ``cast``): one step at batch 4 card against CPU within 3x the
+   same-call floor; at bench.py's batch 256 under Adam(1e-3), captured
+   = eager bit for bit over 20 steps (``two_arm_run``, deterministic
+   algorithms; paths ``mnist_cnn`` and ``mnist_cnn:eager``, no hand
+   kernel), images/s, idle share, peak memory, one graph; ``Trainer``
+   epochs over a ``reader.batch`` reader with ``metrics.Accuracy``; a
+   program holding a ``print`` op runs eagerly every time, never
+   captured, and prints each run.
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -5297,38 +5321,6 @@ def _cnn_op_cases():
     ]
 
 
-def _one_op_run(place, op_type, inputs, attrs, outputs, diff):
-    """Forward outputs and the gradients of ``mean(outputs[0] * w)`` with
-    respect to ``diff``'s inputs, one op program run at ``place``."""
-    import paddle_tpu_torch as pt
-
-    main, startup = pt.Program(), pt.Program()
-    with pt.program_guard(main, startup), pt.unique_name.guard():
-        block = main.global_block()
-        ins = {}
-        for slot, arr in inputs.items():
-            v = pt.layers.data(slot.lower(), shape=list(arr.shape),
-                               append_batch_size=False, dtype=str(arr.dtype))
-            v.stop_gradient = slot not in diff
-            ins[slot] = [v]
-        outs = {k: block.create_var(name=pt.unique_name.generate(k.lower()))
-                for k in outputs}
-        block.append_op(type=op_type, inputs=ins,
-                        outputs={k: [v] for k, v in outs.items()},
-                        attrs=dict(attrs))
-        head = outs[outputs[0]]
-        w = pt.layers.data("w", shape=list(head.shape),
-                           append_batch_size=False)
-        pt.backward.append_backward(
-            pt.layers.mean(pt.layers.elementwise_mul(head, w)))
-    feed = {k.lower(): a for k, a in inputs.items()}
-    feed["w"] = np.random.RandomState(1).rand(*head.shape).astype("float32")
-    return pt.Executor(place).run(
-        main, feed=feed, scope=pt.Scope(),
-        fetch_list=[outs[k] for k in outputs]
-        + [k.lower() + "@GRAD" for k in diff])
-
-
 def cnn_ops_phase():
     """Each op type of the CNN family (no hand kernel: ``F.conv*``, pooling,
     gathers and scatters) as a one-op program on ``CUDAPlace(0)`` against
@@ -5340,10 +5332,11 @@ def cnn_ops_phase():
 
     rows, bad = [], []
     for op_type, inputs, attrs, outputs, diff, exact in _cnn_op_cases():
-        card = _one_op_run(pt.CUDAPlace(0), op_type, inputs, attrs, outputs,
-                           diff)
-        host = _one_op_run(pt.CPUPlace(), op_type, inputs, attrs, outputs,
-                           diff)
+        slots = {k: 1 for k in outputs}
+        (card,), _ = _one_op_run(pt.CUDAPlace(0), op_type, inputs, attrs,
+                                 slots, diff)
+        (host,), _ = _one_op_run(pt.CPUPlace(), op_type, inputs, attrs,
+                                 slots, diff)
         names = list(outputs) + [k + "@GRAD" for k in diff]
         errs, ok = {}, True
         for name, c, h in zip(names, card, host):
@@ -5365,6 +5358,667 @@ def cnn_ops_phase():
     log("cnn_ops", {"cases": rows, "ok": not bad})
     if bad:
         raise SystemExit("cnn_ops: the card differs from the CPU: %s" % bad)
+
+
+# ---------------------------------------------------------------------------
+# the plain op library and the Fluid frontend: each op type card against
+# CPU, and models/mnist.py's conv net through the Trainer
+# ---------------------------------------------------------------------------
+
+ROW = (256, 32000)          # serving logits: the row ops' shape
+TABLE = (32000, 512)        # gather / scatter table
+N_IDS = 8192
+PLAIN_RTOL, PLAIN_ATOL, PLAIN_GRAD = 1e-5, 1e-6, 1e-5
+# a scan of k float32 terms rounds within ~k u sum|x|; the card's scan
+# adds in another order than the host's, so cumsum is held elementwise to
+# CUMSUM_BAND times the running sum of |x| (about 8 u at k = 1)
+CUMSUM_BAND = 1e-6
+
+
+def _plain_ids(rng, rows, n):
+    """``n`` ids into ``rows`` rows: repeated ids, negative ones (counting
+    from the end) and ids out of range either way (gathered as NaN,
+    dropped by a scatter)."""
+    ids = rng.randint(0, rows, n).astype("int64")
+    ids[: n // 8] = ids[n // 8: n // 4]                  # repeats
+    ids[n // 4: n // 4 + 64] = -rng.randint(1, rows, 64)  # from the end
+    ids[n // 2: n // 2 + 32] = rows + rng.randint(0, 9, 32)
+    ids[-32:] = -rows - 1 - rng.randint(0, 9, 32)
+    return rng.permutation(ids)
+
+
+def _plain_op_cases():
+    """(op type, inputs, attrs, {output slot: vars}, differentiated
+    slots, check): each of the 58 op types of the plain op library but the
+    random four and ``print`` (``_plain_random_checks``,
+    ``mnist_cnn_print_check``); ``check`` is "exact" (bool, integer and
+    index outputs, copies), "float" (rtol 1e-5 / atol 1e-6) or "cumsum"
+    (``CUMSUM_BAND``).  Row ops at serving-logit shape [256, 32000];
+    ``gather`` / ``scatter`` on a [32000, 512] table with 8192 ids."""
+    rng = np.random.RandomState(0)
+
+    def randn(*shape, scale=1.0):
+        return (rng.randn(*shape) * scale).astype("float32")
+
+    def ties(*shape):
+        return rng.randint(-3, 4, shape).astype("float32")
+
+    def divisor(*shape):
+        return ((rng.rand(*shape) * 2 + 0.5)
+                * rng.choice([-1, 1], shape)).astype("float32")
+
+    row_b = rng.rand(*ROW) > 0.5
+    sort_x = ties(*ROW)
+    sort_x[rng.randint(0, ROW[0], 64), rng.randint(0, ROW[1], 64)] = np.nan
+    prod = randn(64, 16) * 0.5 + 1.0
+    prod[3, 5] = 0.0
+    prod[7, [1, 9]] = 0.0
+    bad = [randn(*ROW), randn(8, 8)]
+    bad[1][2, 3] = np.inf
+    bad[0][100, 200] = np.nan
+    ids = _plain_ids(rng, TABLE[0], N_IDS)
+    mux_ids = rng.randint(0, 3, (8192, 1)).astype("int32")
+    mux_ids[:16] = -1
+    mux_ids[16:32] = 3
+    lens = rng.randint(1, 51, 512).astype("int32")
+    one = {"Out": 1}
+    cases = [
+        ("elementwise_mod", {"X": randn(*ROW, scale=5), "Y": divisor(*ROW)},
+         {}, one, ("X", "Y"), "float"),
+        ("elementwise_mod", {"X": rng.randint(-99, 99, (256, 1000))
+                             .astype("int32"),
+                             "Y": rng.randint(-4, 5, (256, 1000))
+                             .astype("int32")},
+         {}, one, (), "exact"),
+        ("elementwise_floordiv", {"X": randn(*ROW, scale=5),
+                                  "Y": divisor(*ROW)},
+         {}, one, ("X", "Y"), "float"),
+        ("elementwise_floordiv", {"X": rng.randint(-99, 99, (256, 1000))
+                                  .astype("int64"),
+                                  "Y": rng.randint(-4, 5, (256, 1000))
+                                  .astype("int64")},
+         {}, one, (), "exact"),
+    ]
+    cmp_x, cmp_y = ties(*ROW), ties(*ROW)
+    for t in ("less_than", "less_equal", "greater_than", "greater_equal",
+              "equal", "not_equal"):
+        cases.append((t, {"X": cmp_x, "Y": cmp_y}, {}, one, (), "exact"))
+    cases.append(("less_than", {"X": cmp_x, "Y": cmp_y[:1]}, {}, one, (),
+                  "exact"))
+    by = rng.rand(*ROW) > 0.5
+    for t in ("logical_and", "logical_or", "logical_xor"):
+        cases.append((t, {"X": row_b, "Y": by}, {}, one, (), "exact"))
+    cases += [
+        ("logical_not", {"X": row_b}, {}, one, (), "exact"),
+        ("reduce_max", {"X": ties(*ROW)}, {"dim": [1]}, one, ("X",),
+         "float"),
+        ("reduce_min", {"X": randn(*ROW)}, {"dim": [0], "keep_dim": True},
+         one, ("X",), "float"),
+        ("reduce_prod", {"X": prod}, {"dim": [1]}, one, ("X",), "float"),
+        ("arg_max", {"X": ties(*ROW)}, {"axis": 1}, one, (), "exact"),
+        ("arg_min", {"X": ties(*ROW)}, {"axis": 1}, one, (), "exact"),
+        ("cumsum", {"X": randn(*ROW)}, {"axis": -1}, one, ("X",),
+         "cumsum"),
+        ("cumsum", {"X": randn(*ROW)},
+         {"axis": 1, "exclusive": True, "reverse": True}, one, ("X",),
+         "cumsum"),
+        ("minus", {"X": randn(*ROW), "Y": randn(*ROW)}, {}, one,
+         ("X", "Y"), "float"),
+        ("l1_norm", {"X": randn(*ROW)}, {}, one, ("X",), "float"),
+        ("squared_l2_distance", {"X": randn(4096, 512),
+                                 "Y": randn(1, 512)}, {},
+         {"Out": 1, "sub_result": 1}, ("X", "Y"), "float"),
+        ("isfinite", {"X": bad}, {}, one, (), "exact"),
+        ("has_inf", {"X": bad}, {}, one, (), "exact"),
+        ("has_nan", {"X": bad}, {}, one, (), "exact"),
+        ("flatten", {"X": randn(64, 8, 16, 32)}, {"axis": 2}, one, ("X",),
+         "exact"),
+        ("split", {"X": randn(*ROW)},
+         {"axis": 1, "sections": [16000, 8000, 8000], "num": 3},
+         {"Out": 3}, ("X",), "exact"),
+        ("stack", {"X": [randn(256, 4096) for _ in range(3)]},
+         {"axis": 1}, {"Y": 1}, ("X",), "exact"),
+        ("unstack", {"X": randn(16, 256, 512)}, {"axis": 0, "num": 16},
+         {"Y": 16}, ("X",), "exact"),
+        ("expand", {"X": randn(256, 1, 128)}, {"expand_times": [1, 8, 1]},
+         one, ("X",), "exact"),
+        ("reverse", {"X": randn(*ROW)}, {"axis": [0, 1]}, one, ("X",),
+         "exact"),
+        ("pad", {"X": randn(256, 1000)}, {"paddings": [3, 1, 0, 24],
+                                          "pad_value": -1.5},
+         one, ("X",), "exact"),
+        ("gather", {"X": randn(*TABLE), "Index": ids}, {}, one, ("X",),
+         "exact"),
+        ("scatter", {"X": randn(*TABLE), "Ids": ids,
+                     "Updates": randn(N_IDS, TABLE[1])},
+         {"overwrite": True}, one, ("X", "Updates"), "exact"),
+        ("scatter", {"X": randn(*TABLE), "Ids": ids,
+                     "Updates": randn(N_IDS, TABLE[1])},
+         {"overwrite": False}, one, ("X", "Updates"), "float"),
+        ("one_hot", {"X": np.concatenate([rng.randint(
+            0, ROW[1], (ROW[0] - 4, 1)), [[-1], [ROW[1]], [0],
+                                          [ROW[1] - 1]]]).astype("int64")},
+         {"depth": ROW[1]}, one, (), "exact"),
+        ("label_smooth", {"X": rng.rand(*ROW).astype("float32")},
+         {"epsilon": 0.1}, one, ("X",), "float"),
+        ("multiplex", {"X": [randn(8192, 64) for _ in range(3)],
+                       "Ids": mux_ids}, {}, one, ("X",), "exact"),
+        ("argsort", {"X": sort_x}, {"axis": -1},
+         {"Out": 1, "Indices": 1}, (), "exact"),
+        ("crop", {"X": randn(64, 128, 96),
+                  "Offsets": np.asarray([3, -40, 70], "int32")},
+         {"shape": [32, 64, 48]}, one, ("X",), "exact"),
+        ("pad2d", {"X": randn(32, 16, 64, 64)},
+         {"paddings": [2, 1, 3, 2], "mode": "reflect"}, one, ("X",),
+         "float"),
+        ("pad_constant_like", {"X": randn(256, 1024),
+                               "Y": randn(200, 1000)},
+         {"pad_value": 0.5}, one, ("Y",), "exact"),
+        ("is_empty", {"X": randn(256, 64)}, {}, one, (), "exact"),
+        ("fill", {}, {"shape": [64, 8], "dtype": "float32",
+                      "value": rng.randn(512).tolist()}, one, (), "exact"),
+        ("scale_sub_region", {"X": randn(32, 16, 64, 64),
+                              "Indices": np.stack([
+                                  rng.randint(1, 8, 32),
+                                  rng.randint(8, 17, 32),
+                                  rng.randint(1, 32, 32),
+                                  rng.randint(32, 65, 32),
+                                  rng.randint(1, 32, 32),
+                                  rng.randint(32, 65, 32)], 1)
+                              .astype("int32")},
+         {"value": 2.5}, one, ("X",), "float"),
+        ("shape", {"Input": randn(64, 8, 16)}, {}, one, (), "exact"),
+        ("fill_zeros_like", {"X": randn(*ROW)}, {}, one, (), "exact"),
+        ("sigmoid_cross_entropy_with_logits",
+         {"X": randn(*ROW, scale=3), "Label": (rng.rand(*ROW) > 0.5)
+          .astype("float32")}, {}, one, ("X",), "float"),
+        ("huber_loss", {"X": randn(8192, 1), "Y": randn(8192, 1)},
+         {"delta": 0.7}, {"Out": 1, "Residual": 1}, ("X",), "float"),
+        ("smooth_l1_loss", {"X": randn(4096, 64), "Y": randn(4096, 64),
+                            "InsideWeight": rng.rand(4096, 64)
+                            .astype("float32"),
+                            "OutsideWeight": rng.rand(4096, 64)
+                            .astype("float32")},
+         {"sigma": 1.5}, {"Out": 1, "Diff": 1}, ("X",), "float"),
+        ("hinge_loss", {"Logits": randn(8192, 1),
+                        "Labels": rng.randint(0, 2, (8192, 1))
+                        .astype("float32")},
+         {}, {"Loss": 1}, ("Logits",), "float"),
+        ("log_loss", {"Predicted": rng.rand(8192, 1).astype("float32"),
+                      "Labels": rng.randint(0, 2, (8192, 1))
+                      .astype("float32")},
+         {"epsilon": 1e-4}, {"Loss": 1}, ("Predicted",), "float"),
+        ("rank_loss", {"Label": rng.randint(0, 2, (8192, 1))
+                       .astype("float32"), "Left": randn(8192, 1),
+                       "Right": randn(8192, 1)},
+         {}, one, ("Left", "Right"), "float"),
+        ("modified_huber_loss", {"X": randn(8192, 1, scale=2),
+                                 "Y": rng.randint(0, 2, (8192, 1))
+                                 .astype("float32")},
+         {}, {"Out": 1, "IntermediateVal": 1}, ("X",), "float"),
+        ("lambda_cost", {"Score": randn(512, 50, 1),
+                         "Rel": rng.randint(0, 4, (512, 50, 1))
+                         .astype("float32"), "Length": lens},
+         {"ndcg_num": 5}, one, ("Score",), "float"),
+    ]
+    return cases
+
+
+def _one_op_run(place, op_type, inputs, attrs, outputs, diff, seed=0,
+                capture=True, runs=1):
+    """The outputs (flattened in slot order) and the gradients of
+    ``mean(first output * w)`` with respect to ``diff``'s inputs of a
+    one-op program at ``place``, for each of ``runs`` runs of one
+    executor."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = seed
+    feed = {}
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        block = main.global_block()
+        ins = {}
+        for slot, arr in inputs.items():
+            arrs = arr if isinstance(arr, list) else [arr]
+            ins[slot] = []
+            for i, a in enumerate(arrs):
+                name = slot.lower() + ("%d" % i if isinstance(arr, list)
+                                       else "")
+                v = pt.layers.data(name, shape=list(a.shape),
+                                   append_batch_size=False,
+                                   dtype=str(a.dtype))
+                v.stop_gradient = slot not in diff
+                ins[slot].append(v)
+                feed[name] = a
+        outs = {k: [block.create_var(name=pt.unique_name.generate(
+            k.lower())) for _ in range(n)] for k, n in outputs.items()}
+        block.append_op(type=op_type, inputs=ins, outputs=outs,
+                        attrs=dict(attrs))
+        head = next(iter(outs.values()))[0]
+        grads = []
+        if diff:
+            w = pt.layers.data("loss_w", shape=list(head.shape),
+                               append_batch_size=False)
+            feed["loss_w"] = np.random.RandomState(1).rand(
+                *head.shape).astype("float32")
+            pt.backward.append_backward(
+                pt.layers.mean(pt.layers.elementwise_mul(head, w)))
+            grads = [v.name + "@GRAD" for k in diff for v in ins[k]]
+    exe = pt.Executor(place, capture=capture)
+    scope = pt.Scope()
+    fetch = [v for k in outputs for v in outs[k]] + grads
+    return [exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            for _ in range(runs)], len(fetch) - len(grads)
+
+
+def _plain_compare(check, card, host, x=None):
+    """(error, within) of one output: "exact" bits (NaN at the same
+    places), "float" rtol / atol, "cumsum" the scan band."""
+    if check == "exact":
+        same = card.dtype == host.dtype and np.array_equal(
+            card, host, equal_nan=card.dtype.kind == "f")
+        return ("same bits" if same else "differ"), bool(same)
+    diff = np.abs(card.astype(np.float64) - host)
+    err = float(np.nanmax(diff)) if diff.size else 0.0
+    if not np.array_equal(np.isnan(card), np.isnan(host)):
+        return err, False
+    if check == "cumsum":
+        return err, bool(np.all(diff <= CUMSUM_BAND * x + 1e-30))
+    return err, bool(np.allclose(card, host, rtol=PLAIN_RTOL,
+                                 atol=PLAIN_ATOL, equal_nan=True))
+
+
+def _running_abs(x, attrs):
+    """cumsum's band scale: the running sum of |x| along the scan."""
+    a = np.abs(x.astype(np.float64))
+    axis = attrs.get("axis", -1)
+    if attrs.get("reverse"):
+        a = np.flip(a, axis)
+    a = np.cumsum(a, axis=axis)
+    return np.flip(a, axis) if attrs.get("reverse") else a
+
+
+def plain_ops_phase():
+    """Each of the 58 op types of the plain op library (no hand kernel) as
+    a one-op program on ``CUDAPlace(0)`` against ``CPUPlace()``: bool,
+    integer and index outputs and the copies (gather, scatter's
+    overwrite, the pads, crop, split, ...) bit for bit, the rest within
+    rtol 1e-5 / atol 1e-6 (cumsum: ``CUMSUM_BAND``), the gradient of
+    every floating input the op differentiates within relative L2 1e-5,
+    all read from the card's second run, a CUDA graph's replay, whose
+    outputs must be the first (eager) run's bits; the random ops by their
+    moments and range, captured = eager bit for bit over three runs
+    (``_plain_random_checks``); ``print`` passes its
+    input through bit for bit, and writes a line a run on both devices.
+    The launch counters, zeroed before and read after, count no hand
+    kernel.  Raises on a fault."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+
+    cuda.reset_launch_counts()
+    rows, bad, types = [], [], set()
+    for op_type, inputs, attrs, outputs, diff, check in _plain_op_cases():
+        t0 = time.perf_counter()
+        # the first run eager, the second captured into a graph and
+        # replayed: the graph's outputs are compared with the CPU's
+        (first, card), n = _one_op_run(pt.CUDAPlace(0), op_type, inputs,
+                                         attrs, outputs, diff, runs=2)
+        card_s = time.perf_counter() - t0
+        repeatable = all(np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+                         for a, b in zip(first[:n], card[:n]))
+        t0 = time.perf_counter()
+        (host,), _ = _one_op_run(pt.CPUPlace(), op_type, inputs, attrs,
+                                   outputs, diff)
+        cpu_s = time.perf_counter() - t0
+        x = _running_abs(inputs["X"], attrs) if check == "cumsum" else None
+        errs, ok = {}, repeatable
+        for i, (c, h) in enumerate(zip(card, host)):
+            if i < n:
+                e, within = _plain_compare(check, c, h, x)
+            else:
+                den = max(float(np.linalg.norm(h)), 1e-30)
+                e = float(np.linalg.norm(c.astype(np.float64) - h)) / den
+                within = e <= PLAIN_GRAD and bool(
+                    np.isfinite(c).all() == np.isfinite(h).all())
+            errs["out%d" % i if i < n else "grad%d" % (i - n)] = e
+            ok = ok and within
+        rows.append({"op": op_type, "check": check, "errors": errs,
+                     "captured_repeats_eager": repeatable, "ok": ok,
+                     "card_s": card_s, "cpu_s": cpu_s})
+        types.add(op_type)
+        if not ok:
+            bad.append(op_type)
+    random_rows, random_bad = _plain_random_checks()
+    types.update(r["op"] for r in random_rows)
+    bad += random_bad
+    printed = _plain_print_check()
+    types.add("print")
+    if not printed["ok"]:
+        bad.append("print")
+    launches = {k: n for k, n in cuda.launch_counts().items() if n}
+    summary = {"types": len(types), "cases": rows, "random": random_rows,
+               "print": printed, "hand_kernel_launches": launches,
+               "ok": not bad and not launches and len(types) == 58}
+    log("plain_ops", summary)
+    if not summary["ok"]:
+        raise SystemExit("plain_ops: the card differs from the CPU or a "
+                         "case is missing: %s %s (%d types)"
+                         % (bad, launches, len(types)))
+    return summary
+
+
+def _plain_random_checks():
+    """The four random op types: a program of seed 11 run three times by
+    a capturing executor and by an eager one on the card (the first run
+    eager in both, the second the capture, the third a replay): every run
+    the same bits in the two; the third run's draws within their bounds:
+    the batch-size-like randoms' range and first two moments within 1% of
+    the distribution's, ``sampling_id``'s frequencies within 0.01 of the
+    probabilities (262144 rows), ``random_crop``'s windows whole and each
+    offset's frequency within 0.01 of uniform (32768 planes: ~6 standard
+    deviations); a replay draws numbers the run before did not."""
+    import paddle_tpu_torch as pt
+
+    rng = np.random.RandomState(2)
+    p = np.asarray([0.05, 0.4, 0.0, 0.25, 0.3], "float32")
+    planes = rng.rand(32768, 16, 20).astype("float32")
+    cases = [
+        ("uniform_random_batch_size_like",
+         {"Input": np.zeros((4096, 3), "float32")},
+         {"shape": [-1, 512], "min": -2.0, "max": 3.0,
+          "dtype": "float32"}, {"Out": 1}),
+        ("gaussian_random_batch_size_like",
+         {"Input": np.zeros((4096, 3), "float32")},
+         {"shape": [-1, 512], "mean": 1.5, "std": 0.5,
+          "dtype": "float32"}, {"Out": 1}),
+        ("sampling_id", {"X": np.tile(p, (262144, 1))}, {}, {"Out": 1}),
+        ("random_crop", {"X": planes, "Seed": np.asarray([5], "int64")},
+         {"shape": [8, 12], "startup_seed": 0},
+         {"Out": 1, "SeedOut": 1}),
+    ]
+    rows, bad = [], []
+    for op_type, inputs, attrs, outputs in cases:
+        arms = {cap: _one_op_run(pt.CUDAPlace(0), op_type, inputs, attrs,
+                                   outputs, (), seed=11, capture=cap,
+                                   runs=3)[0]
+                for cap in (True, False)}
+        same = all(np.array_equal(a, b)
+                   for ra, rb in zip(arms[True], arms[False])
+                   for a, b in zip(ra, rb))
+        out = arms[True][2][0]
+        row = {"op": op_type, "same_bits_captured_eager": same,
+               "replay_draws_anew": not np.array_equal(arms[True][1][0],
+                                                       out)}
+        if op_type == "uniform_random_batch_size_like":
+            lo, hi = attrs["min"], attrs["max"]
+            mean, var = (lo + hi) / 2, (hi - lo) ** 2 / 12
+            within = lo <= out.min() and out.max() < hi
+        elif op_type == "gaussian_random_batch_size_like":
+            mean, var, within = attrs["mean"], attrs["std"] ** 2, True
+        if "Input" in inputs:
+            row.update(shape=list(out.shape), mean=float(out.mean()),
+                       var=float(out.var()), want_mean=mean, want_var=var)
+            within = within and out.shape == (4096, 512) \
+                and abs(out.mean() - mean) < 0.01 * max(abs(mean), 1.0) \
+                and abs(out.var() - var) < 0.01 * var
+        elif op_type == "sampling_id":
+            freq = np.bincount(out, minlength=len(p)) / len(out)
+            row["freq"] = freq.tolist()
+            within = np.abs(freq - p).max() < 0.01 and freq[2] == 0
+        else:
+            # each window's first value names its offset (the values of
+            # a plane are distinct)
+            first = np.argmax((planes == out[:, :1, :1])
+                              .reshape(len(out), -1), axis=1)
+            oh, ow = first // 20, first % 20
+            window = planes[np.arange(len(out))[:, None, None],
+                            oh[:, None, None] + np.arange(8)[:, None],
+                            ow[:, None, None] + np.arange(12)]
+            fh = np.bincount(oh, minlength=9) / len(oh)
+            fw = np.bincount(ow, minlength=9) / len(ow)
+            row.update(offset_freq_h=fh.tolist(), offset_freq_w=fw.tolist(),
+                       seed_out=int(arms[True][2][1][0]))
+            within = np.array_equal(out, window) and len(fh) == len(fw) == 9 \
+                and np.abs(fh - 1 / 9).max() < 0.01 \
+                and np.abs(fw - 1 / 9).max() < 0.01 and row["seed_out"] == 5
+        row["within"] = bool(within)
+        row["ok"] = bool(same and row["replay_draws_anew"] and within)
+        rows.append(row)
+        if not row["ok"]:
+            bad.append(op_type)
+    return rows, bad
+
+
+def _plain_print_check():
+    """A ``print`` of a [4, 3] tensor with its backward printed too, on
+    the card (a capturing executor, three runs) and on the CPU: the
+    output and the gradient the same bits, a forward and a backward line
+    a run on both devices (the card's entry is never captured)."""
+    import io
+
+    import paddle_tpu_torch as pt
+
+    x = np.random.RandomState(3).randn(4, 3).astype("float32")
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        v = pt.layers.data("x", shape=[4, 3], append_batch_size=False)
+        v.stop_gradient = False
+        out = pt.layers.Print(v, message="plain_ops_print",
+                              print_phase="both")
+        pt.backward.append_backward(pt.layers.mean(out))
+    res, lines = {}, {}
+    for name, place, runs in (("card", pt.CUDAPlace(0), 3),
+                              ("cpu", pt.CPUPlace(), 1)):
+        exe, buf = pt.Executor(place), io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            for _ in range(runs):
+                got = exe.run(main, feed={"x": x},
+                              fetch_list=[out, "x@GRAD"], scope=pt.Scope())
+        res[name] = got
+        lines[name] = [ln for ln in buf.getvalue().splitlines()
+                       if ln.startswith("plain_ops_print")]
+        if name == "card":
+            graphs = sum(st.graph is not None for st in exe._steps.values())
+    same = all(np.array_equal(a, b) for a, b in zip(res["card"],
+                                                    res["cpu"]))
+    return {"same_bits": same, "card_lines": len(lines["card"]),
+            "cpu_lines": len(lines["cpu"]), "graphs": graphs,
+            "first_line": lines["card"][:1],
+            "ok": bool(same and len(lines["card"]) == 6
+                       and len(lines["cpu"]) == 2 and graphs == 0)}
+
+
+MNIST_BATCH = 256           # bench.py's MNIST batch (bench.py:1411)
+MNIST_STEPS = 20
+
+
+def mnist_cnn_train_func():
+    """``models/mnist.py``'s ``cnn_model`` (two conv-pools of 20 and 50
+    5x5 filters, a softmax fc over 1x28x28) with its loss written in the
+    frontend: the mean cross-entropy plus a confidence penalty ``1e-4 *
+    sum(p * p)`` (``Variable`` operators), and an in-program accuracy
+    (``argmax`` / ``equal`` / ``cast``).  Returns [loss, accuracy]."""
+    import paddle_tpu_torch as pt
+
+    L = pt.layers
+    img = L.data("img", shape=[1, 28, 28])
+    label = L.data("label", shape=[1], dtype="int64")
+    pred = pt.models.mnist.cnn_model(img)
+    loss = L.mean(L.cross_entropy(pred, label)) \
+        + 1e-4 * L.reduce_sum(pred * pred)
+    hit = L.equal(L.argmax(pred, axis=1), L.reshape(label, [-1]))
+    return [loss, L.mean(L.cast(hit, "float32"))]
+
+
+def synthetic_digits(rng, n):
+    """``n`` learnable 1x28x28 images: the class is the row band (rows
+    2c .. 2c + 3) lit above uniform noise."""
+    y = rng.randint(0, 10, n)
+    x = rng.rand(n, 1, 28, 28).astype("float32") * 0.2
+    for c in range(10):
+        x[y == c, 0, 2 * c:2 * c + 4, :] += 1.0
+    return x, y.astype("int64").reshape(-1, 1)
+
+
+def build_mnist_cnn(batch=None):
+    """(main, startup, [loss, accuracy]) under Adam(1e-3)."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        fetch = mnist_cnn_train_func()
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(fetch[0])
+    return main, startup, fetch
+
+
+def mnist_cnn_check(floor_scale=3.0):
+    """One step at batch 4, card against CPU from one startup state,
+    within ``floor_scale`` times the floor a 1e-7 nudge of every weight
+    gives on the card in the same call (``amp_small_check``; float32)."""
+    def build():
+        main, startup, fetch = build_mnist_cnn()
+        x, y = synthetic_digits(np.random.RandomState(8), 4)
+        return main, startup, fetch[0], {"img": x, "label": y}
+
+    r = amp_small_check(build, floor_scale)
+    r = {k: r[k] for k in ("params", "loss_card", "loss_cpu", "loss_rel",
+                           "grad_rel_l2_median", "grad_rel_l2_max",
+                           "grad_rel_l2_top3", "floor_rel_l2_median",
+                           "floor_rel_l2_max", "within_3x_floor",
+                           "not_float32")}
+    r.update(batch=4, floor_scale=floor_scale,
+             ok=r["within_3x_floor"] and not r["not_float32"])
+    log("mnist_cnn_check", r)
+    if not r["ok"]:
+        raise SystemExit("mnist_cnn: the card's step is not within %gx "
+                         "its floor of the CPU's" % floor_scale)
+    return r
+
+
+def mnist_cnn_print_check():
+    """The rule for ``print``: a program holding one (the conv net's
+    first two predictions) on a capturing executor runs eagerly every
+    time and is never captured, so each of three runs prints; its
+    wrappers launch no hand kernel."""
+    import io
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        img = pt.layers.data("img", shape=[1, 28, 28])
+        pred = pt.models.mnist.cnn_model(img)
+        shown = pt.layers.Print(pt.layers.slice(pred, [0], [0], [2]),
+                                message="mnist_cnn_print")
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = started(startup)
+    x, _ = synthetic_digits(np.random.RandomState(9), 8)
+    buf = io.StringIO()
+    cuda.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        for _ in range(3):
+            exe.run(main, feed={"img": x}, fetch_list=[shown], scope=scope)
+    launches = {k: n for k, n in cuda.launch_counts().items() if n}
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("mnist_cnn_print")]
+    graphs = sum(st.graph is not None for st in exe._steps.values())
+    r = {"runs": 3, "lines": len(lines), "graphs": graphs,
+         "never_captured": len(exe._host_entries) == 1,
+         "output": buf.getvalue().splitlines(),
+         "hand_kernel_launches": launches}
+    r["ok"] = len(lines) == 3 and graphs == 0 and r["never_captured"] \
+        and not launches
+    log("mnist_cnn_print", r)
+    if not r["ok"]:
+        raise SystemExit("mnist_cnn: the print rule does not hold: %s" % r)
+    return r
+
+
+def mnist_cnn_phase(steps=MNIST_STEPS, trainer_epochs=4,
+                    trainer_batches=40):
+    """``models/mnist.py``'s conv net at bench.py's MNIST batch (256),
+    Adam(1e-3), float32, on ``CUDAPlace(0)``:
+
+    * ``mnist_cnn_check``: batch 4, card against CPU within 3x the
+      same-call floor;
+    * ``two_arm_run``: captured and eager from one startup state over
+      ``steps`` steps on the same batches, under deterministic algorithms
+      (cuDNN's convolution backward): the losses and accuracies and every
+      scope tensor the same bits; images/s of each arm, peak memory, the
+      idle share of a profiled step; one graph for the entry; no hand
+      kernel launches (the launch gate expects 0);
+    * the user path: ``Trainer.train`` over a ``reader.batch`` reader
+      (``trainer_batches`` batches of 256 an epoch, ``DataFeeder``
+      converting each): images/s of each epoch after the first, the loss
+      falling, ``metrics.Accuracy`` over the fetched accuracies;
+    * ``mnist_cnn_print_check``.
+
+    Returns {path: launch record}."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import metrics
+    from paddle_tpu_torch.contrib import Trainer
+
+    mnist_cnn_check()
+    main, startup, fetch = build_mnist_cnn()
+    rng = np.random.RandomState(42)
+    feeds = [dict(zip(("img", "label"), synthetic_digits(rng, MNIST_BATCH)))
+             for _ in range(steps + 3)]
+    s, records, runs = two_arm_run(main, started(startup), fetch, feeds,
+                                   steps, MNIST_BATCH)
+    s["graphs"] = sum(st.graph is not None
+                      for st in runs["captured"]["exe"]._steps.values())
+    s["accuracy_last"] = [float(o[1][0]) for o in
+                          runs["captured"]["out"][-3:]]
+    del runs
+    release_memory()
+
+    x, y = synthetic_digits(np.random.RandomState(7),
+                            MNIST_BATCH * trainer_batches)
+    rows = [(x[i], [int(y[i, 0])]) for i in range(len(x))]
+    losses, epoch_s, acc = [], [], metrics.Accuracy()
+    epoch_acc = []
+
+    def handler(e):
+        name = type(e).__name__
+        if name == "BeginEpochEvent":
+            epoch_s.append(time.perf_counter())
+            acc.reset()
+        elif name == "EndEpochEvent":
+            epoch_s[-1] = time.perf_counter() - epoch_s[-1]
+            epoch_acc.append(acc.eval())
+        elif name == "EndStepEvent":
+            losses.append(float(e.metrics[0][0]))
+            acc.update(value=float(e.metrics[1][0]), weight=MNIST_BATCH)
+
+    trainer = Trainer(mnist_cnn_train_func, lambda: pt.optimizer.Adam(1e-3),
+                      place=pt.CUDAPlace(0))
+    trainer.train(trainer_epochs, handler,
+                  reader=pt.batch(lambda: iter(rows), MNIST_BATCH),
+                  feed_order=["img", "label"])
+    per_epoch = [MNIST_BATCH * trainer_batches / t for t in epoch_s[1:]]
+    falls = bool(losses[-1] < 0.5 * losses[0]
+                 and epoch_acc[-1] > epoch_acc[0])
+    s["trainer"] = {"epochs": trainer_epochs, "steps": len(losses),
+                    "epoch_s": epoch_s,
+                    "images_per_s_median": statistics.median(per_epoch),
+                    "images_per_s_range": [min(per_epoch), max(per_epoch)],
+                    "first_loss": losses[0], "last_loss": losses[-1],
+                    "epoch_accuracy": epoch_acc, "loss_falls": falls}
+    del trainer
+    release_memory()
+    s["model"] = "mnist_cnn"
+    log("mnist_cnn", s)
+    if not (s["ok"] and s["graphs"] == 1 and falls):
+        raise SystemExit("mnist_cnn: captured differs from eager, the "
+                         "graphs are not 1, or the loss did not fall: %s"
+                         % {k: s[k] for k in ("same_bits",
+                                              "state_not_bit_equal",
+                                              "graphs")})
+    mnist_cnn_print_check()
+    return {"mnist_cnn": records["captured"],
+            "mnist_cnn:eager": records["eager"]}
 
 
 # ---------------------------------------------------------------------------
@@ -6188,6 +6842,20 @@ def main():
             if faults:
                 raise SystemExit("rnn: %s launched %s" % (path, faults))
         return 0
+    if "plain_ops" in sys.argv[1:] or "mnist_cnn" in sys.argv[1:]:
+        # the frontend slice alone (no hand kernel on either path)
+        if "plain_ops" in sys.argv[1:]:
+            plain_ops_phase()
+            release_memory()
+        if "mnist_cnn" in sys.argv[1:]:
+            for path, record in mnist_cnn_phase().items():
+                faults = launch_faults(record)
+                if faults:
+                    raise SystemExit("mnist_cnn: %s launched %s"
+                                     % (path, faults))
+        log("total", {"seconds": time.perf_counter() - t_start,
+                      "phase_seconds": dict(PHASE_SECONDS)})
+        return 0
     if "serve_paged" in sys.argv[1:]:
         log_checks(serve_paged_kernel_cases(Timer()))
         for path, record in serve_paged_phase().items():
@@ -6299,8 +6967,14 @@ def main():
     for path, record in rnn_phase().items():
         check_path(path, record)
     release_memory()
-    # the CNN op family, card against CPU (no hand kernel)
+    # the CNN op family and the plain op library, card against CPU, and
+    # models/mnist.py's conv net through the Trainer (no hand kernel)
     cnn_ops_phase()
+    plain_ops_phase()
+    release_memory()
+    for path, record in mnist_cnn_phase().items():
+        check_path(path, record)
+    release_memory()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)

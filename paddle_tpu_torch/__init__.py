@@ -4,7 +4,8 @@ NVIDIA H100.
 The layout mirrors the JAX package (``framework``, ``registry``,
 ``backward``, ``optimizer``, ``executor``, ``io``, ``layers``, ``ops``,
 ``nets``, ``models``, ``reader``, ``data_feeder``, ``serving``,
-``transpiler``, ``inference``, ``debugger``, ``net_drawer``, ``contrib``)
+``transpiler``, ``inference``, ``debugger``, ``net_drawer``, ``contrib``,
+``metrics``, ``lod_tensor``, ``compat``, ``op``, ``default_scope_funcs``)
 so each module's
 counterpart is easy to find; the programs it builds serialize to the
 same schema, and ``io`` writes the JAX package's file format.  Op
@@ -43,6 +44,9 @@ from . import contrib
 from . import inference
 from . import debugger
 from . import net_drawer
+from . import compat, metrics, lod_tensor
+from .lod_tensor import (LoDTensor, LoDTensorArray, create_lod_tensor,
+                         create_random_int_lodtensor)
 
 __version__ = "0.1.0"
 
@@ -55,5 +59,7 @@ __all__ = [
     "learning_rate_decay", "convert", "io",
     "nets", "reader", "DataFeeder", "batch", "models", "transpiler",
     "InferenceTranspiler", "memory_optimize", "release_memory", "serving",
-    "contrib", "inference", "debugger", "net_drawer",
+    "contrib", "inference", "debugger", "net_drawer", "compat", "metrics",
+    "lod_tensor", "LoDTensor", "LoDTensorArray", "create_lod_tensor",
+    "create_random_int_lodtensor",
 ]

@@ -66,6 +66,11 @@ An entry lives as long as its program and its scope: when either dies,
 the entry, its graph and the tensors the graph holds are dropped at the
 executor's next run.
 
+An entry that holds a live op that calls the host on every run
+(``registry.calls_host``: a ``print`` op, or a ``print_grad`` whose phase
+prints) runs eagerly on every run and is never captured: a graph cannot
+call the host, and a capture would print once.
+
 A capture that fails raises, naming the op that broke it; nothing falls
 back to the eager path.  ``Executor(place, capture=False)`` keeps every
 run eager on the card (the comparison path, as ``jax.disable_jit``);
@@ -256,6 +261,7 @@ class Executor:
         self._analysis = {}
         self._steps = {}
         self._dead = []      # (key, analysis) of entries whose owner died
+        self._host_entries = set()   # keys of entries that call the host
         self._generators = {}
         self._lock = threading.RLock()
         self._stream = None
@@ -370,7 +376,11 @@ class Executor:
                 for owner in (program, scope):
                     weakref.finalize(owner, _entry_died, weakref.ref(self),
                                      key, analysis).atexit = False
-            if not (self.capture and self.place.device.type == "cuda"):
+                if any(live and registry.calls_host(op) for op, live in
+                       zip(block.ops, analysis[2])):
+                    self._host_entries.add(key)
+            if not (self.capture and self.place.device.type == "cuda") \
+                    or key in self._host_entries:
                 fetches = self._run_eager(program, analysis, feed,
                                           feed_dtypes, scope, fetch_names)
             else:
@@ -393,6 +403,7 @@ class Executor:
             if self._analysis.get(key) is not analysis:
                 continue
             del self._analysis[key]
+            self._host_entries.discard(key)
             step = self._steps.pop(key, None)
             if step is not None and step.graph is not None and not synced:
                 # a replay of the graph may still be running

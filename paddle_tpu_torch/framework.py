@@ -47,7 +47,9 @@ def grad_var_name(var_name):
 class Variable:
     """A typed symbol in a Block.  Storage lives in a ``Scope``; a Variable
     is only the build-time description: shape (-1 for dynamic dims),
-    ``torch.dtype``, persistable, lod_level (padded-sequence marker)."""
+    ``torch.dtype``, persistable, lod_level (padded-sequence marker).
+    Its arithmetic and comparison operators and ``astype`` append ops
+    (``layers/math_op_patch.py``, installed by ``layers``)."""
 
     def __init__(
         self,
@@ -94,12 +96,6 @@ class Variable:
             "is_data": self.is_data,
             "lod_level": self.lod_level,
         }
-
-    def astype(self, dtype):
-        """This variable cast to ``dtype`` by a ``cast`` op."""
-        from .layers.tensor import cast  # local import to avoid a cycle
-
-        return cast(self, dtype)
 
     def __repr__(self):
         return "Variable(name=%s, shape=%s, dtype=%s%s)" % (

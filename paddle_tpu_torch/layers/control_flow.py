@@ -1,6 +1,7 @@
-"""``StaticRNN`` and ``DynamicRNN`` (counterpart of the recurrent half of
-``paddle_tpu/layers/control_flow.py``; ``While``, ``IfElse``, ``Switch``,
-the tensor arrays and beam search are still to be ported).
+"""``StaticRNN``, ``DynamicRNN``, ``Print`` and ``is_empty`` (counterpart
+of the recurrent half of ``paddle_tpu/layers/control_flow.py``;
+``While``, ``IfElse``, ``Switch``, the tensor arrays and beam search are
+still to be ported).
 
 Each builds a sub-block (``Program._create_block``) from the layer calls
 made inside ``rnn.step()`` / ``rnn.block()`` and, when the block closes,
@@ -15,7 +16,7 @@ from .. import unique_name
 from ..framework import Variable
 from ..layer_helper import LayerHelper
 
-__all__ = ["StaticRNN", "DynamicRNN"]
+__all__ = ["StaticRNN", "DynamicRNN", "Print", "is_empty"]
 
 
 def _classify_externals(sub_block, bound_names):
@@ -295,3 +296,35 @@ class DynamicRNN(StaticRNN):
             op.inputs["Length"] = [self._length_var.name]
             for v in self._out_vars:
                 v._seq_len_name = self._length_var.name
+
+
+def Print(input, first_n=-1, message=None, summarize=-1,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=True,
+          print_phase="both"):
+    """``input``, printed to standard output on every run (``first_n``
+    and ``summarize`` are kept for the API).  An executor entry holding
+    it runs eagerly and is never captured (``ops/creation.py``)."""
+    helper = LayerHelper("print")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="print", inputs={"In": [input]}, outputs={"Out": [out]},
+        attrs={"first_n": first_n, "message": message or "",
+               "summarize": summarize,
+               "print_tensor_name": print_tensor_name,
+               "print_tensor_type": print_tensor_type,
+               "print_tensor_shape": print_tensor_shape,
+               "print_tensor_lod": print_tensor_lod,
+               "print_phase": print_phase.upper(),
+               "__var_name__": input.name})
+    return out
+
+
+def is_empty(x, cond=None):
+    """A [1] bool: whether ``x`` has no element."""
+    helper = LayerHelper("is_empty")
+    if cond is None:
+        cond = helper.create_variable_for_type_inference(dtype="bool")
+    helper.append_op(type="is_empty", inputs={"X": [x]},
+                     outputs={"Out": [cond]})
+    return cond

@@ -3,11 +3,16 @@ of ``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``dropout``,
 ``softmax``, ``cross_entropy``, ``softmax_with_cross_entropy``, ``mean``,
 ``matmul``, ``fused_attention``, ``square_error_cost``, ``topk``,
 ``prelu``, ``maxout``, ``cos_sim``, ``margin_rank_loss``,
-``lstm_unit``, ``gru_unit``, the elementwise layers and
-``autoincreased_step_counter`` (``relu`` and ``log`` are generated with
-the activations, ``layers/ops.py``).  They append the same ops with
+``lstm_unit``, ``gru_unit``, the elementwise layers,
+``autoincreased_step_counter``, and the plain op library's ``one_hot``,
+``mul``, ``label_smooth``, ``sampling_id``, ``smooth_l1``, ``clip``,
+``clip_by_norm``, ``flatten``, ``sum``, ``multiplex``, ``rank_loss``,
+``sigmoid_cross_entropy_with_logits``, ``gaussian_random`` and
+``dice_loss`` (``relu`` and ``log`` are generated with the activations,
+``layers/ops.py``).  They append the same ops with
 the same attrs as the JAX package, so the programs serialize alike."""
 
+from ..framework import Variable
 from ..initializer import ConstantInitializer
 from ..layer_helper import LayerHelper
 
@@ -19,7 +24,11 @@ __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
            "elementwise_min", "elementwise_pow", "prelu", "maxout",
            "cos_sim", "margin_rank_loss", "lstm_unit", "gru_unit",
            "autoincreased_step_counter", "l2_normalize",
-           "image_resize_short"]
+           "image_resize_short", "one_hot", "mul", "label_smooth",
+           "sampling_id", "smooth_l1", "clip", "clip_by_norm", "flatten",
+           "sum", "multiplex", "rank_loss",
+           "sigmoid_cross_entropy_with_logits", "gaussian_random",
+           "dice_loss"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -413,3 +422,162 @@ def image_resize_short(input, out_short_len, resample="BILINEAR"):
     out_shape[1 - short] = int(round(float(hw[1 - short]) / hw[short]
                                      * out_short_len))
     return image_resize(input, out_shape=out_shape, resample=resample)
+
+
+def one_hot(input, depth):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference(dtype="float32")
+    helper.append_op(type="one_hot", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"depth": depth})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="mul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"x_num_col_dims": x_num_col_dims,
+                            "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"epsilon": float(epsilon)})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype="float32"):
+    helper = LayerHelper("sampling_id")
+    out = helper.create_variable_for_type_inference(dtype="int64")
+    helper.append_op(type="sampling_id", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"min": min, "max": max, "seed": seed})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype)
+    loss = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {"X": [x], "Y": [y]}
+    if inside_weight is not None:
+        inputs["InsideWeight"] = [inside_weight]
+    if outside_weight is not None:
+        inputs["OutsideWeight"] = [outside_weight]
+    helper.append_op(type="smooth_l1_loss", inputs=inputs,
+                     outputs={"Diff": [diff], "Out": [loss]},
+                     attrs={"sigma": sigma if sigma is not None else 1.0})
+    return loss
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper("clip", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="clip", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"min": float(min), "max": float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"max_norm": float(max_norm)})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    """``x`` as a matrix: the dims before ``axis`` make the rows."""
+    helper = LayerHelper("flatten", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="flatten", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": int(axis)})
+    return out
+
+
+def sum(x):
+    """The elementwise sum of a list of tensors."""
+    if isinstance(x, Variable):
+        x = [x]
+    helper = LayerHelper("sum")
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op(type="sum", inputs={"X": list(x)},
+                     outputs={"Out": [out]})
+    return out
+
+
+def multiplex(inputs, index):
+    """Row i of the result is row i of ``inputs[index[i]]``."""
+    if not isinstance(inputs, (list, tuple)) or len(inputs) < 2:
+        raise ValueError("multiplex needs at least 2 candidate tensors")
+    helper = LayerHelper("multiplex")
+    out = helper.create_variable_for_type_inference(dtype=inputs[0].dtype)
+    helper.append_op(type="multiplex",
+                     inputs={"X": list(inputs), "Ids": [index]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def rank_loss(label, left, right, name=None):
+    """RankNet's pairwise loss log(1 + e^(left - right)) - label (left -
+    right)."""
+    helper = LayerHelper("rank_loss", name=name)
+    out = helper.create_variable_for_type_inference(dtype=left.dtype)
+    helper.append_op(type="rank_loss",
+                     inputs={"Label": [label], "Left": [left],
+                             "Right": [right]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, name=None):
+    """Elementwise binary cross-entropy of logits ``x``."""
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32"):
+    """A normal random tensor drawn at every run; ``seed`` is kept for the
+    API (the executor's generator draws)."""
+    helper = LayerHelper("gaussian_random")
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="gaussian_random", inputs={},
+                     outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "mean": float(mean),
+                            "std": float(std), "seed": int(seed),
+                            "dtype": dtype})
+    return out
+
+
+def dice_loss(input, label, epsilon=1e-5):
+    """1 - 2 |input . one_hot(label)| / (|input| + |one_hot| + epsilon),
+    averaged over the batch, composed of the ops the JAX layer uses."""
+    from . import tensor as tensor_layers
+    from .ops import scale
+
+    label = one_hot(label, depth=input.shape[-1])
+    dims = list(range(1, len(input.shape)))
+    inse = tensor_layers.reduce_sum(elementwise_mul(input, label), dim=dims)
+    denom = elementwise_add(tensor_layers.reduce_sum(input, dim=dims),
+                            tensor_layers.reduce_sum(label, dim=dims))
+    one = tensor_layers.fill_constant(shape=[1], dtype=input.dtype,
+                                      value=1.0)
+    score = elementwise_sub(one, elementwise_div(
+        scale(inse, scale=2.0),
+        elementwise_add(denom, tensor_layers.fill_constant(
+            shape=[1], dtype=input.dtype, value=float(epsilon)))))
+    return tensor_layers.reduce_mean(score)

@@ -1,6 +1,8 @@
-"""``mul``, ``matmul``, ``sum``, ``scale``, ``mean``, ``sign``,
+"""``mul``, ``matmul``, ``sum``, ``scale``, ``mean``, ``sign``, ``minus``,
 ``cos_sim``, the clip family ``clip``, ``clip_by_norm``,
-``squared_l2_norm``, and
+``squared_l2_norm``, the norms ``l1_norm`` and ``squared_l2_distance``,
+the checks ``isfinite``, ``has_inf`` and ``has_nan`` (one bool over every
+input of the X slot), and
 ``piecewise_lr``, ``layers.piecewise_decay``'s step-function rate
 (counterpart of ``paddle_tpu/ops/math.py``).  ``sum``, ``scale`` and the
 clip family take SelectedRows gradients and keep them sparse where the JAX package does.  ``mul`` is fc's matmul: flatten both
@@ -21,6 +23,12 @@ from .selected_rows import (SelectedRows, map_values, mask_to, merge_rows,
                             merged_sumsq, to_dense)
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def jnp_abs(x):
+    """``|x|`` with ``jnp.abs``'s gradient: +1 at 0 (``torch.abs`` gives
+    0 there)."""
+    return torch.where(x >= 0, x, -x)
 
 
 def _flatten_to_2d(x, num_col_dims):
@@ -243,3 +251,50 @@ register_op(
     infer=lambda op, block: set_output(
         op, block, "Out", in_var(op, block, "Step").shape, "float32"),
     compute=_piecewise_lr_compute, grad=None)
+
+
+register_op("minus", ["X", "Y"], ["Out"], infer=same_shape_infer("X", "Out"),
+            compute=lambda ins, attrs, ctx, op_index: {
+                "Out": ins["X"][0] - ins["Y"][0]})
+
+register_op("l1_norm", ["X"], ["Out"], infer=_mean_infer,
+            compute=lambda ins, attrs, ctx, op_index: {
+                "Out": torch.sum(jnp_abs(ins["X"][0])).reshape(1)})
+
+
+def _squared_l2_distance_infer(op, block):
+    x = in_var(op, block, "X")
+    set_output(op, block, "sub_result", x.shape, x.dtype)
+    set_output(op, block, "Out", (x.shape[0], 1), x.dtype)
+
+
+def _squared_l2_distance_compute(ins, attrs, ctx, op_index):
+    """Row-wise ||x - y||^2 of X [N, ...] and Y (N or 1 rows)."""
+    sub = ins["X"][0] - ins["Y"][0]
+    sq = sub * sub
+    # an empty dim tuple would sum everything in torch, nothing in jnp
+    if sub.dim() > 1:
+        sq = torch.sum(sq, dim=tuple(range(1, sub.dim())))
+    return {"sub_result": sub, "Out": sq.reshape(-1, 1)}
+
+
+register_op("squared_l2_distance", ["X", "Y"], ["sub_result", "Out"],
+            infer=_squared_l2_distance_infer,
+            compute=_squared_l2_distance_compute)
+
+
+def _make_check(name, test, combine):
+    # one [1] bool over every tensor of the X slot, never read on the host
+    def compute(ins, attrs, ctx, op_index):
+        return {"Out": combine(torch.stack(
+            [combine(test(x)) for x in ins["X"]])).reshape(1)}
+
+    register_op(name, ["X"], ["Out"],
+                infer=lambda op, block: set_output(op, block, "Out", (1,),
+                                                   "bool"),
+                compute=compute, grad=None)
+
+
+_make_check("isfinite", torch.isfinite, torch.all)
+_make_check("has_inf", torch.isinf, torch.any)
+_make_check("has_nan", torch.isnan, torch.any)

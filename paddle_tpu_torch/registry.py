@@ -30,7 +30,8 @@ from .framework import grad_var_name
 from .hash32 import M32, op_seeds
 
 __all__ = ["OpDef", "register_op", "get_op_def", "infer_op", "compute_op",
-           "make_grad_ops", "ComputeContext", "OPS", "int_list"]
+           "make_grad_ops", "calls_host", "ComputeContext", "OPS",
+           "int_list"]
 
 OPS = {}
 
@@ -115,7 +116,8 @@ class ComputeContext:
 
 class OpDef:
     def __init__(self, type, inputs, outputs, infer, compute, grad=None,
-                 no_grad_inputs=(), stateful_random=False, keep_graph=False):
+                 no_grad_inputs=(), stateful_random=False, keep_graph=False,
+                 doc="", calls_host=None):
         self.type = type
         self.input_slots = tuple(inputs)
         self.output_slots = tuple(outputs)
@@ -129,14 +131,21 @@ class OpDef:
         # the generic grad pulls back through the forward's own autograd
         # graph instead of recomputing it (module docstring)
         self.keep_graph = keep_graph
+        # the text ``layers.layer_function_generator`` gives a layer
+        self.doc = doc
+        # calls_host(attrs) -> True where the op calls back into the host
+        # on every run (``print``): its executor entry is never captured
+        self.calls_host = calls_host
 
 
 def register_op(type, inputs, outputs, infer, compute, grad="auto",
-                no_grad_inputs=(), stateful_random=False, keep_graph=False):
+                no_grad_inputs=(), stateful_random=False, keep_graph=False,
+                doc="", calls_host=None):
     if type in OPS:
         raise ValueError("op type %r already registered" % type)
     OPS[type] = OpDef(type, inputs, outputs, infer, compute, grad,
-                      no_grad_inputs, stateful_random, keep_graph)
+                      no_grad_inputs, stateful_random, keep_graph, doc,
+                      calls_host)
     return OPS[type]
 
 
@@ -151,6 +160,12 @@ def get_op_def(type):
         raise KeyError("op type %r is not ported to paddle_tpu_torch yet"
                        % type)
     return OPS[type]
+
+
+def calls_host(op):
+    """Whether ``op`` calls back into the host when it runs."""
+    d = get_op_def(op.type)
+    return d.calls_host is not None and bool(d.calls_host(op.attrs))
 
 
 def infer_op(op, block):

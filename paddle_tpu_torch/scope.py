@@ -1,6 +1,7 @@
 """Scope: the runtime store of variable values (counterpart of
 ``paddle_tpu/scope.py``).  Values are ``torch.Tensor``s on the executor's
-device; the map is a plain dict with parent lookup."""
+device; the map is a plain dict with parent lookup.  A scope keeps the
+kid scopes made from it (``new_scope``) until ``drop_kids``."""
 
 import contextlib
 
@@ -11,6 +12,16 @@ class Scope:
     def __init__(self, parent=None):
         self._vars = {}
         self.parent = parent
+        self.kids = []
+
+    def new_scope(self):
+        """A kid scope that looks names up in this one."""
+        kid = Scope(parent=self)
+        self.kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        self.kids = []
 
     def set_var(self, name, value):
         self._vars[name] = value

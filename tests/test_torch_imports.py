@@ -33,6 +33,12 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
         "import paddle_tpu_torch.contrib.inferencer\n"
         "import paddle_tpu_torch.models.ctr_dnn, paddle_tpu_torch.clip\n"
         "import paddle_tpu_torch.ops.selected_rows\n"
+        "import paddle_tpu_torch.lod_tensor, paddle_tpu_torch.metrics\n"
+        "import paddle_tpu_torch.op, paddle_tpu_torch.default_scope_funcs\n"
+        "import paddle_tpu_torch.compat, paddle_tpu_torch.annotations\n"
+        "import paddle_tpu_torch.models.mnist\n"
+        "import paddle_tpu_torch.layers.math_op_patch\n"
+        "import paddle_tpu_torch.layers.layer_function_generator\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "

@@ -191,10 +191,32 @@ def test_const_fold_follows_jax():
     assert len(startup.global_block().ops) == n
 
 
-def test_const_fold_keeps_an_op_type_the_port_lacks():
-    """``minus`` is not ported: a JAX program with a foldable ``minus``
-    loaded into the port keeps it (its inputs fold), where the JAX pass
-    folds it away."""
+def test_const_fold_keeps_an_op_type_the_port_lacks(monkeypatch):
+    """An op type the port lacks stays in the program (its inputs fold),
+    where the JAX pass folds it away.  Every type of the pass's foldable
+    set is ported now, so ``minus`` is taken out of the port's registry
+    for the pass, as it was before the plain op library came."""
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        x = fluid.layers.fill_constant(shape=[3], dtype="float32", value=5.)
+        y = fluid.layers.fill_constant(shape=[3], dtype="float32", value=2.)
+        out = main.global_block().create_var(name="diff", shape=[3],
+                                             dtype="float32")
+        main.global_block().append_op(type="minus",
+                                      inputs={"X": [x], "Y": [y]},
+                                      outputs={"Out": [out]})
+        fluid.layers.scale(out, scale=2.0)
+    port = pt.Program.from_dict(main.to_dict())
+    monkeypatch.delitem(pt.registry.OPS, "minus")
+    assert fluid.transpiler.const_fold(main) == 4
+    assert pt.transpiler.const_fold(port) == 2
+    types = [op.type for op in port.global_block().ops]
+    assert types == ["assign_value", "assign_value", "minus", "scale"]
+
+
+def test_const_fold_folds_an_op_type_the_port_gained():
+    """``minus`` is ported now: the JAX program with a foldable ``minus``
+    folds alike in both packages, to the same constant."""
     main = fluid.Program()
     with fluid.program_guard(main, fluid.Program()):
         x = fluid.layers.fill_constant(shape=[3], dtype="float32", value=5.)
@@ -207,9 +229,10 @@ def test_const_fold_keeps_an_op_type_the_port_lacks():
         fluid.layers.scale(out, scale=2.0)
     port = pt.Program.from_dict(main.to_dict())
     assert fluid.transpiler.const_fold(main) == 4
-    assert pt.transpiler.const_fold(port) == 2
-    types = [op.type for op in port.global_block().ops]
-    assert types == ["assign_value", "assign_value", "minus", "scale"]
+    assert pt.transpiler.const_fold(port) == 4
+    assert [op.type for op in port.global_block().ops] \
+        == [op.type for op in main.global_block().ops] == ["assign_value"]
+    assert port.global_block().ops[0].attrs["values"] == [6.0] * 3
 
 
 def _resnet_infer(pkg, depth, size=32, class_dim=10):
