@@ -19,7 +19,9 @@
                                       # serve_paged phase (4b) alone
     python3 chip_smoke.py plain_ops   # device, build, and phase 23 alone
     python3 chip_smoke.py mnist_cnn   # device, build, and phase 24 alone
-                                      # (both words: both phases)
+    python3 chip_smoke.py seq_ops     # device, build, and phase 25 alone
+    python3 chip_smoke.py beam        # device, build, and phase 26 alone
+                                      # (several words: those phases)
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -316,7 +318,38 @@ empty window is profiled again first (``empty_windows``).
    kernel), images/s, idle share, peak memory, one graph; ``Trainer``
    epochs over a ``reader.batch`` reader with ``metrics.Accuracy``; a
    program holding a ``print`` op runs eagerly every time, never
-   captured, and prints each run.
+   captured, and prints each run;
+25. ``seq_ops`` — each of the 31 op types of the control-flow and
+   sequence slice (no hand kernel) on the card against the CPU: the 29
+   one-op types as one-op programs at machine translation's shapes
+   ([64, 30, 512] sequences, ragged lengths with a zero, ``beam_search``
+   on [16, 4, 30000] log-probs with planted ties, ``sequence_scatter``
+   with repeated, negative and out-of-row ids), ``while`` (unbounded:
+   three segments, its body graph replayed a trip; bounded with
+   ``while_grad``) and ``conditional_block`` (taken and not, with its
+   gradient) in programs: integer, bool and index outputs exact, floats
+   within rtol 1e-5 / atol 1e-6 (the programs' fc outputs, 512-term
+   sums, within relative L2 1e-5), gradients within relative L2 1e-5, all
+   read from the card's second run, a replay of its CUDA graphs, which
+   must repeat the eager run's bits; an unbounded ``while`` nested in a
+   ``while`` body raises under capture and runs with ``capture=False``
+   (equal to the CPU); no hand kernel launches;
+26. ``beam`` — beam-search decoding at machine translation's width
+   (``build_beam_decoder``: dicts 30000, 512 wide, an embedding and a
+   ``DynamicRNN`` tanh-fc encoder, a ``StateCell`` with dot-product
+   attention over the tiled encoder states, ``BeamSearchDecoder`` with
+   beam 4, ``max_len`` 30, ``end_id`` 0) on 16 sentences of 30 tokens,
+   float32, random weights of seed 1: captured and eager, each with two
+   weight settings in one entry (the random weights, which run all 30
+   trips, and the score bias at ``end_id`` raised by ``BEAM_END_BIAS`` in
+   place, which finishes every beam after a few trips): captured = eager
+   bit for bit in ids, scores and trips; one graph a segment and one body
+   graph (3), a host flag read a trip, no hand kernel launch; card = CPU
+   at batch 4 (ids equal, a parting allowed only under a top-two
+   candidate gap of ``PARTING_GAP`` at some step of that sentence;
+   scores within rtol 1e-4); ms a decode and a trip, sentences/s,
+   beam-tokens/s, capture seconds, peak memory, and a profiled decode's
+   idle share and top device events.
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -6701,6 +6734,614 @@ def rnn_phase(steps=RNN_STEPS):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the control-flow and sequence slice's op types
+# ---------------------------------------------------------------------------
+
+SEQ = (64, 30, 512)           # machine translation's batch, length, width
+
+
+def _seq_lengths(rng, b, t):
+    lens = rng.randint(1, t + 1, b).astype("int32")
+    lens[3] = 0
+    lens[:2] = t
+    return lens
+
+
+def _seq_batch(rng, b, t, d, lens):
+    x = rng.randn(b, t, d).astype("float32")
+    x[np.arange(t)[None, :] >= lens[:, None]] = 0.0
+    return x
+
+
+def _beam_ties(rng, b, k, v):
+    """``beam_search`` inputs with exact ties: half the rows have finished
+    beams (their other candidates at -1e9 + score, absorbed into -1e9),
+    the rest take the -1e9 lane penalty on every beam but one, and beams
+    carry equal log-prob rows."""
+    pre_ids = rng.randint(1, v, (b, k)).astype("int64")
+    pre_ids[: b // 2, :2] = 0
+    pre_scores = -rng.rand(b, k).astype("float32")
+    pre_scores[b // 2:, 1:] = -1e9
+    logp = np.log(rng.dirichlet(np.ones(v), size=(b, k)).astype("float32")
+                  + 1e-30).astype("float32")
+    logp[:, 1] = logp[:, 0]
+    return {"PreIds": pre_ids, "PreScores": pre_scores, "Scores": logp}
+
+
+def _seq_op_cases():
+    """(op type, inputs, attrs, {output slot: vars}, differentiated slots)
+    of the 29 one-op types of the slice at machine translation's shapes."""
+    rng = np.random.RandomState(0)
+    b, t, d = SEQ
+    lens = _seq_lengths(rng, b, t)
+    lens2 = _seq_lengths(rng, b, t)
+    x = _seq_batch(rng, b, t, d, lens)
+    x2 = _seq_batch(rng, b, t, d, lens2)
+    ids = rng.randint(0, 8, (b, t)).astype("int64")
+    table = np.stack([np.argsort(-lens, kind="stable"),
+                      np.sort(lens)[::-1]], 1).astype("int64")
+    scatter_ids = rng.randint(-40, 36, (b, t, 1)).astype("int64")
+    one = {"Out": 1}
+    two = {"Out": 1, "OutLength": 1}
+    return [
+        ("sequence_mask", {"X": lens}, {"maxlen": t, "out_dtype": "float32"},
+         {"Y": 1}, ()),
+        ("sequence_concat", {"X": [x, x2], "Length": [lens, lens2]}, {},
+         two, ("X",)),
+        ("sequence_conv", {"X": x, "Filter": rng.randn(3 * d, d).astype(
+            "float32") * 0.05, "Length": lens},
+         {"contextLength": 3, "contextStart": -1}, one, ("X", "Filter")),
+        ("row_conv", {"X": x, "Filter": rng.randn(3, d).astype("float32"),
+                      "Length": lens}, {}, one, ("X", "Filter")),
+        ("sequence_erase", {"X": ids, "Length": lens}, {"tokens": [2, 5]},
+         two, ()),
+        ("sequence_enumerate", {"X": ids, "Length": lens},
+         {"win_size": 3, "pad_value": 0}, one, ()),
+        ("sequence_slice", {"X": x, "Offset": rng.randint(
+            0, 10, (b, 1)).astype("int64"), "Size": rng.randint(
+            0, 20, (b, 1)).astype("int64"), "Length": lens}, {}, two,
+         ("X",)),
+        ("sequence_reverse", {"X": x, "Length": lens}, {}, one, ("X",)),
+        ("causal_mask", {"Ref": x}, {"mask_value": -1e9,
+                                     "dtype": "float32"}, one, ()),
+        ("padding_attn_bias", {"Length": lens, "Ref": x},
+         {"mask_value": -1e9, "dtype": "float32"}, one, ()),
+        ("sequence_pad", {"X": x, "Length": lens, "PadValue": np.asarray(
+            [-1.5], "float32")}, {"padded_length": 40},
+         {"Out": 1, "SeqLength": 1}, ("X",)),
+        ("sequence_unpad", {"X": rng.randn(b, t, d).astype("float32"),
+                            "Length": lens}, {}, two, ("X",)),
+        ("sequence_reshape", {"X": x, "Length": lens}, {"new_dim": d // 2},
+         two, ("X",)),
+        ("sequence_expand_as", {"X": rng.randn(b, d).astype("float32"),
+                                "Y": x, "YLength": lens}, {}, two, ("X",)),
+        ("sequence_scatter", {"X": rng.randn(b, 32).astype("float32"),
+                              "Ids": scatter_ids,
+                              "Updates": rng.randn(b, t, 1)
+                              .astype("float32"), "Length": lens}, {}, one,
+         ("X", "Updates")),
+        ("im2sequence", {"X": rng.randn(16, 3, 32, 32).astype("float32")},
+         {"kernels": [3, 3], "strides": [2, 2], "paddings": [1, 1, 1, 1]},
+         two, ("X",)),
+        ("lod_reset", {"X": x, "Y": np.concatenate(
+            [[0], np.cumsum(lens2)]).astype("int64")}, {},
+         {"Out": 1, "Length": 1}, ("X",)),
+        ("lod_rank_table", {"Length": lens}, {}, one, ()),
+        ("max_sequence_len", {"RankTable": table}, {}, one, ()),
+        ("reorder_lod_tensor_by_rank", {"X": x, "RankTable": table}, {},
+         two, ("X",)),
+        ("lod_tensor_to_array", {"X": x, "RankTable": table}, {}, two,
+         ("X",)),
+        ("array_to_lod_tensor", {"X": rng.randn(t, b, d).astype("float32"),
+                                 "RankTable": table}, {}, two, ("X",)),
+        ("array_write", {"X": rng.randn(16, 4, d).astype("float32"),
+                         "I": np.asarray([7], "int64"),
+                         "Array": rng.randn(t, 16, 4, d).astype("float32")},
+         {}, one, ("X", "Array")),
+        ("array_read", {"Array": rng.randn(t, 16, 4, d).astype("float32"),
+                        "I": np.asarray([-2], "int64")}, {}, one,
+         ("Array",)),
+        ("lod_array_length", {"X": rng.randn(t, 16, 4).astype("float32")},
+         {}, one, ()),
+        ("split_lod_tensor", {"X": rng.randn(b, d).astype("float32"),
+                              "Mask": rng.rand(b, 1) > 0.5}, {},
+         {"OutTrue": 1, "OutFalse": 1}, ("X",)),
+        ("merge_lod_tensor", {"Mask": rng.rand(b, 1) > 0.5,
+                              "InTrue": rng.randn(b, d).astype("float32"),
+                              "InFalse": rng.randn(b, d).astype("float32")},
+         {}, one, ("InTrue", "InFalse")),
+        ("beam_search", _beam_ties(rng, 16, 4, 30000),
+         {"beam_size": 4, "end_id": 0},
+         {"SelectedIds": 1, "SelectedScores": 1, "ParentIdx": 1}, ()),
+        ("beam_search_decode", {
+            "Ids": rng.randint(0, 30000, (30, 16, 4)).astype("int64"),
+            "Parents": rng.randint(0, 4, (30, 16, 4)).astype("int64"),
+            "Scores": rng.randn(16, 4).astype("float32")},
+         {"beam_size": 4, "end_id": 0},
+         {"SentenceIds": 1, "SentenceScores": 1}, ()),
+    ]
+
+
+def _seq_compare(card, host, n, summed=False):
+    """(errors, within): outputs ``[:n]`` exact where integer or bool,
+    else within rtol 1e-5 / atol 1e-6 (with ``summed``, outputs of
+    512-term products, whose values near 0 carry the sums' rounding:
+    within relative L2 1e-5); the gradients after them within relative L2
+    1e-5."""
+    errs, ok = {}, True
+    for i, (c, h) in enumerate(zip(card, host)):
+        if i >= n or (summed and c.dtype.kind == "f"):
+            den = max(float(np.linalg.norm(h)), 1e-30)
+            e = float(np.linalg.norm(c.astype(np.float64) - h)) / den
+            within = e <= PLAIN_GRAD and bool(np.isfinite(c).all())
+        elif c.dtype.kind in "biu":
+            e = "same bits" if np.array_equal(c, h) else "differ"
+            within = c.dtype == h.dtype and e == "same bits"
+        else:
+            e, within = _plain_compare("float", c, h)
+        errs["out%d" % i if i < n else "grad%d" % (i - n)] = e
+        ok = ok and within
+    return errs, ok
+
+
+def _loop_program(kind):
+    """(main, startup, fetch, feeds) of a program holding a ``while``
+    (``kind`` "while": unbounded, y <- tanh(fc(y)) over [64, 512] for n
+    trips; "while_bounded": the same bounded at 8, with the gradient of
+    sum(y^2) to x and the fc weight) or a ``conditional_block`` (y =
+    tanh(fc(x)) where the fed flag is set, with the same gradient; two
+    feeds, taken and not)."""
+    import paddle_tpu_torch as pt
+
+    L = pt.layers
+    b, d = SEQ[0], SEQ[2]
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 3
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = L.data("x", shape=[d])
+        x.stop_gradient = False
+        y = L.scale(x, scale=1.0)
+        fc = dict(size=d, act="tanh", param_attr=pt.ParamAttr(name="cf_w"),
+                  bias_attr=pt.ParamAttr(name="cf_b"))
+        if kind == "cond_block":
+            flag = L.data("flag", shape=[1], dtype="bool",
+                          append_batch_size=False)
+            with L.ConditionalBlock([flag]).block():
+                L.assign(L.fc(x, **fc), output=y)
+        else:
+            n = L.data("n", shape=[1], dtype="int64", append_batch_size=False)
+            i = L.fill_constant(shape=[1], dtype="int64", value=0)
+            cond = L.less_than(i, n)
+            loop = L.While(cond, max_trip_count=8 if kind == "while_bounded"
+                           else None)
+            with loop.block():
+                L.assign(L.fc(y, **fc), output=y)
+                L.increment(i, value=1)
+                L.less_than(i, n, cond=cond)
+        fetch = [y]
+        if kind != "while":
+            (gx, gw) = pt.backward.calc_gradient(
+                L.reduce_sum(L.square(y)),
+                [x, main.global_block().var("cf_w")])
+            fetch += [gx, gw]
+    rng = np.random.RandomState(4)
+    xv = rng.randn(b, d).astype("float32")
+    if kind == "cond_block":
+        feeds = [{"x": xv, "flag": np.asarray([v])} for v in (True, False)]
+    else:
+        feeds = [{"x": xv, "n": np.asarray([5], "int64")}]
+    return main, startup, fetch, feeds
+
+
+def _loop_checks():
+    """The ``while`` and ``conditional_block`` programs, card (captured:
+    eager, then a capture and its replay) against the CPU from one
+    startup state."""
+    import paddle_tpu_torch as pt
+
+    rows, bad = [], []
+    for kind in ("while", "while_bounded", "cond_block"):
+        main, startup, fetch, feeds = _loop_program(kind)
+        start = started(startup)
+        exe = pt.Executor(pt.CUDAPlace(0))
+        scope = copy_scope(start)
+        host = pt.Executor(pt.CPUPlace())
+        host_scope = copy_scope(start, "cpu")
+        for f in feeds:
+            first = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+            card = exe.run(main, feed=f, fetch_list=fetch, scope=scope)
+            trips = list(exe.loop_trips)
+            want = host.run(main, feed=f, fetch_list=fetch,
+                            scope=host_scope)
+            repeat = all(np.array_equal(a, c) for a, c in zip(first, card))
+            errs, ok = _seq_compare(card, want, 1, summed=True)
+            # one graph a run of ops and one body graph a loop
+            graphs = [st.graphs for st in exe._steps.values()]
+            plans = [len(a[-1]) for a in exe._analysis.values()]
+            ok = ok and trips == host.loop_trips and graphs == plans
+            row = {"op": "while" if kind.startswith("while") else
+                   "conditional_block", "program": kind,
+                   "feed": {k: v.tolist() for k, v in f.items()
+                            if k != "x"}, "errors": errs,
+                   "captured_repeats_eager": repeat, "trips": trips,
+                   "graphs": graphs, "segments": plans,
+                   "ok": ok and repeat}
+            rows.append(row)
+            if not row["ok"]:
+                bad.append(kind)
+        del exe, scope
+        release_memory()
+    return rows, bad
+
+
+def _nested_loop_check():
+    """An unbounded ``while`` in a ``while`` body: a capturing executor
+    on the card refuses the entry, naming the inner op; ``capture=False``
+    runs it, equal to the CPU."""
+    import paddle_tpu_torch as pt
+
+    L = pt.layers
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = L.data("x", shape=[8])
+        y = L.scale(x, scale=1.0)
+        i = L.fill_constant(shape=[1], dtype="int64", value=0)
+        n = L.fill_constant(shape=[1], dtype="int64", value=3)
+        cond = L.less_than(i, n)
+        outer = L.While(cond)
+        with outer.block():
+            j = L.fill_constant(shape=[1], dtype="int64", value=0)
+            two = L.fill_constant(shape=[1], dtype="int64", value=2)
+            c2 = L.less_than(j, two)
+            inner = L.While(c2)
+            with inner.block():
+                L.assign(L.scale(y, scale=1.5, bias=0.25), output=y)
+                L.increment(j, value=1)
+                L.less_than(j, two, cond=c2)
+            L.increment(i, value=1)
+            L.less_than(i, n, cond=cond)
+    feed = {"x": np.random.RandomState(5).randn(4, 8).astype("float32")}
+    try:
+        pt.Executor(pt.CUDAPlace(0)).run(main, feed=feed, fetch_list=[y])
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    (eager,) = pt.Executor(pt.CUDAPlace(0), capture=False).run(
+        main, feed=feed, fetch_list=[y])
+    (host,) = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=[y])
+    ok = bool(refused and "inside op" in refused) and np.allclose(
+        eager, host, rtol=1e-5, atol=1e-6)
+    return {"refused_under_capture": refused, "eager_equals_cpu": bool(
+        np.allclose(eager, host, rtol=1e-5, atol=1e-6)), "ok": ok}
+
+
+def seq_ops_phase():
+    """Phase 25: each of the 31 op types of the control-flow and sequence
+    slice, card against CPU (``_seq_op_cases``, ``_loop_checks``), and
+    the nested loop's refusal (``_nested_loop_check``).  Raises on a
+    fault."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+
+    cuda.reset_launch_counts()
+    rows, bad, types = [], [], set()
+    for op_type, inputs, attrs, outputs, diff in _seq_op_cases():
+        t0 = time.perf_counter()
+        (first, card), n = _one_op_run(pt.CUDAPlace(0), op_type, inputs,
+                                       attrs, outputs, diff, runs=2)
+        card_s = time.perf_counter() - t0
+        repeat = all(np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+                     for a, b in zip(first, card))
+        (host,), _ = _one_op_run(pt.CPUPlace(), op_type, inputs, attrs,
+                                 outputs, diff)
+        errs, ok = _seq_compare(card, host, n)
+        rows.append({"op": op_type, "errors": errs,
+                     "captured_repeats_eager": repeat, "ok": ok and repeat,
+                     "card_s": card_s})
+        types.add(op_type)
+        if not (ok and repeat):
+            bad.append(op_type)
+    loop_rows, loop_bad = _loop_checks()
+    rows += loop_rows
+    bad += loop_bad
+    types.update(r["op"] for r in loop_rows)
+    nested = _nested_loop_check()
+    if not nested["ok"]:
+        bad.append("nested_while")
+    launches = {k: v for k, v in cuda.launch_counts().items() if v}
+    summary = {"types": len(types), "cases": rows, "nested_while": nested,
+               "hand_kernel_launches": launches,
+               "ok": not bad and not launches and len(types) == 31}
+    log("seq_ops", summary)
+    if not summary["ok"]:
+        raise SystemExit("seq_ops: the card differs from the CPU, a replay "
+                         "from the eager run, or a case is missing: %s %s "
+                         "(%d types)" % (bad, launches, len(types)))
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phase 26: beam-search decoding at machine translation's width
+# ---------------------------------------------------------------------------
+
+# bench.py's machine_translation rung's dictionaries and width
+# (bench.py:1898-1900), the contrib decoder's beam and length
+BEAM = dict(dict_dim=30000, word_dim=512, hidden=512, src_len=30, beam=4,
+            max_len=30, end_id=0)
+BEAM_BATCH, BEAM_CHECK_BATCH = 16, 4
+BEAM_END_BIAS = 50.0
+BEAM_DECODES = 5
+
+
+def build_beam_decoder(pkg, dict_dim, word_dim, hidden, src_len, beam,
+                       max_len, end_id, seed=1):
+    """``tests/test_contrib_decoder.py``'s attention decoder built through
+    ``pkg`` (``paddle_tpu_torch``; the CPU tests build it through the JAX
+    package too): an embedding and a ``DynamicRNN`` tanh-fc encoder over
+    ``src`` [B, src_len]; a ``StateCell`` whose state h updates by
+    dot-product attention over the encoder states tiled across the beams
+    and a tanh fc; ``BeamSearchDecoder(...).decode()``, an unbounded
+    ``While`` of at most ``max_len`` trips that stops when every beam has
+    emitted ``end_id``.  The score fc's bias is ``score_b``.  Returns
+    (main, startup, [sentence ids [B, beam, max_len], scores [B, beam]])."""
+    import importlib
+
+    dec = importlib.import_module(pkg.__name__ + ".contrib.decoder")
+    L, P = pkg.layers, pkg.ParamAttr
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = seed
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        src = L.data("src", shape=[1], dtype="int64", lod_level=1)
+        emb = L.embedding(src, size=[dict_dim, word_dim],
+                          param_attr=P(name="src_emb"))
+        drnn = L.DynamicRNN()
+        with drnn.block():
+            x_t = drnn.step_input(emb)
+            hp = drnn.memory(shape=[hidden], value=0.0)
+            h = L.fc(L.concat([x_t, hp], axis=1), size=hidden, act="tanh",
+                     param_attr=P(name="enc_w"), bias_attr=P(name="enc_b"))
+            drnn.update_memory(hp, h)
+            drnn.output(h)
+        enc_seq = drnn()
+        enc_last = L.sequence_pool(enc_seq, "last")
+
+        def attend(cell):
+            x = cell.get_input("x")                  # [B*K, word_dim]
+            ctx_seq = cell.get_input("enc")          # [B*K, src_len, hidden]
+            h_pre = cell.get_state("h")              # [B*K, hidden]
+            att = L.matmul(ctx_seq, L.unsqueeze(h_pre, axes=[2]))
+            w = L.softmax(L.reshape(att, shape=[-1, src_len]))
+            ctx = L.reshape(L.matmul(L.unsqueeze(w, axes=[1]), ctx_seq),
+                            shape=[-1, hidden])
+            cell.set_state("h", L.fc(
+                L.concat([x, h_pre, ctx], axis=1), size=hidden, act="tanh",
+                param_attr=P(name="dec_w"), bias_attr=P(name="dec_b")))
+
+        cell = dec.StateCell(inputs={"x": None, "enc": None},
+                             states={"h": dec.InitState(init=enc_last)},
+                             out_state="h")
+        cell.state_updater(attend)
+        ids0 = L.fill_constant_batch_size_like(enc_last, shape=[-1, 1],
+                                               dtype="int64", value=1)
+        sc0 = L.fill_constant_batch_size_like(enc_last, shape=[-1, 1],
+                                              dtype="float32", value=0.0)
+        decoder = dec.BeamSearchDecoder(
+            cell, ids0, sc0, target_dict_dim=dict_dim, word_dim=word_dim,
+            input_var_dict={"enc": enc_seq}, max_len=max_len,
+            beam_size=beam, end_id=end_id, emb_param_attr=P(name="tgt_emb"),
+            score_param_attr=P(name="score_w"),
+            score_bias_attr=P(name="score_b"))
+        decoder.decode()
+        sent, scores = decoder()
+    return main, startup, [sent, scores]
+
+
+def beam_feed(batch, src_len, dict_dim, seed=0):
+    """``batch`` sentences of ``src_len`` ids in [2, dict_dim)."""
+    rng = np.random.RandomState(seed)
+    return {"src": rng.randint(2, dict_dim, (batch, src_len, 1))
+            .astype("int64"),
+            "src@LEN": np.full(batch, src_len, "int32")}
+
+
+@contextlib.contextmanager
+def beam_gaps():
+    """While open, each ``beam_search`` op records, a row, the least gap
+    between consecutive scores among its K + 1 best candidates (where a
+    device's rounding could swap two choices); yields the list of the
+    steps' [B] gaps."""
+    from paddle_tpu_torch import registry
+    from paddle_tpu_torch.ops.control_flow import beam_candidates
+
+    d = registry.get_op_def("beam_search")
+    plain, gaps = d.compute, []
+
+    def compute(ins, attrs, ctx, op_index):
+        out = plain(ins, attrs, ctx, op_index)
+        k = ins["Scores"][0].shape[1]
+        top = torch.topk(beam_candidates(
+            ins["PreIds"][0], ins["PreScores"][0], ins["Scores"][0],
+            attrs["end_id"]), k + 1, dim=1).values
+        gaps.append((top[:, :-1] - top[:, 1:]).min(dim=1).values.numpy())
+        return out
+
+    d.compute = compute
+    try:
+        yield gaps
+    finally:
+        d.compute = plain
+
+
+def _beam_partings(card, host, gaps):
+    """Sentences whose ids part between card and CPU, each with the least
+    candidate gap of its steps on the CPU, and whether every parting lies
+    under ``PARTING_GAP``."""
+    least = np.min(np.stack(gaps), axis=0) if gaps else None
+    parts = [[b, float(least[b])] for b in range(card.shape[0])
+             if not np.array_equal(card[b], host[b])]
+    return parts, all(g < PARTING_GAP for _, g in parts)
+
+
+def beam_check(start, main, fetch):
+    """Card (eager) = CPU at ``BEAM_CHECK_BATCH`` sentences, both weight
+    settings, from the card's startup state."""
+    import paddle_tpu_torch as pt
+
+    feed = beam_feed(BEAM_CHECK_BATCH, BEAM["src_len"], BEAM["dict_dim"],
+                     seed=1)
+    card_scope, host_scope = copy_scope(start), copy_scope(start, "cpu")
+    card, host = pt.Executor(pt.CUDAPlace(0), capture=False), \
+        pt.Executor(pt.CPUPlace())
+    out, ok = {}, True
+    for setting, bias in _beam_biases(start).items():
+        card_scope.var("score_b").copy_(bias)
+        host_scope.var("score_b").copy_(bias.cpu())
+        c = card.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+        c_trips = list(card.loop_trips)
+        with beam_gaps() as gaps:
+            h = host.run(main, feed=feed, fetch_list=fetch, scope=host_scope)
+        parts, allowed = _beam_partings(c[0], h[0], gaps)
+        same = [b for b in range(c[0].shape[0])
+                if np.array_equal(c[0][b], h[0][b])]
+        scores_ok = bool(np.allclose(c[1][same], h[1][same], rtol=1e-4))
+        out[setting] = {"trips_card": c_trips, "trips_cpu": host.loop_trips,
+                        "partings": parts, "scores_rtol_1e-4": scores_ok,
+                        "least_gap": float(np.min(np.stack(gaps))),
+                        "max_abs_score_diff": float(
+                            np.abs(c[1][same] - h[1][same]).max())
+                        if same else None}
+        ok = ok and allowed and scores_ok
+    out["ok"] = ok
+    return out
+
+
+def _beam_biases(start):
+    """The score bias of the two weight settings: as drawn, and raised by
+    ``BEAM_END_BIAS`` at ``end_id``."""
+    bias = start.var("score_b")
+    end = bias.clone()
+    end[BEAM["end_id"]] += BEAM_END_BIAS
+    return {"random": bias.clone(), "end": end}
+
+
+def beam_phase(decodes=BEAM_DECODES):
+    """Phase 26: the beam decoder at ``BEAM``'s width on
+    ``BEAM_BATCH`` sentences, captured and eager, each arm running both
+    weight settings in one entry (the bias copied into the scope's tensor
+    in place before each decode); ``decodes`` timed decodes of each in
+    turns.  Returns {path: launch record}."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+
+    t_start = time.perf_counter()
+    main, startup, fetch = build_beam_decoder(pt, **BEAM)
+    start = started(startup)
+    check = beam_check(start, main, fetch)
+    log("beam_check", check)
+    feed = beam_feed(BEAM_BATCH, BEAM["src_len"], BEAM["dict_dim"])
+    biases = _beam_biases(start)
+    arms = {arm: dict(exe=pt.Executor(pt.CUDAPlace(0),
+                                      capture=arm == "captured"),
+                      scope=copy_scope(start), runs=[], peak=0, first=[])
+            for arm in ("captured", "eager")}
+
+    def decode(r, setting):
+        r["scope"].var("score_b").copy_(biases[setting])
+        exe = r["exe"]
+        reads = exe.flag_reads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=r["scope"])
+        dt = time.perf_counter() - t0
+        r["peak"] = max(r["peak"], torch.cuda.max_memory_allocated())
+        trips = sum(n for _, n in exe.loop_trips)
+        return dict(setting=setting, out=out, s=dt, trips=trips,
+                    reads=exe.flag_reads - reads)
+
+    for arm, r in arms.items():
+        for setting in ("random", "end"):      # the capture: the second
+            r["first"].append(decode(r, setting))
+    launches = {}
+    for i in range(decodes):
+        for arm in (("eager", "captured") if i % 2 else
+                    ("captured", "eager")):
+            for setting in ("random", "end"):
+                cuda.reset_launch_counts()
+                arms[arm]["runs"].append(decode(arms[arm], setting))
+                for k, n in cuda.launch_counts().items():
+                    launches[k] = launches.get(k, 0) + n
+    windows = {arm: device_window(lambda r=r: decode(r, "random"),
+                                  again=True) for arm, r in arms.items()}
+    c_runs, e_runs = arms["captured"]["runs"], arms["eager"]["runs"]
+    same = all(a["setting"] == b["setting"] and a["trips"] == b["trips"]
+               and all(x.tobytes() == y.tobytes()
+                       for x, y in zip(a["out"], b["out"]))
+               for a, b in zip(c_runs + arms["captured"]["first"],
+                               e_runs + arms["eager"]["first"]))
+    reads_ok = all(r["reads"] == r["trips"]
+                   for a in arms.values() for r in a["runs"] + a["first"])
+    exe = arms["captured"]["exe"]
+    # ops / loop / ops: a graph each
+    graphs = [st.graphs for st in exe._steps.values()]
+    segments = [len(a[-1]) for a in exe._analysis.values()]
+    summary = {"config": dict(BEAM, batch=BEAM_BATCH),
+               "end_bias": BEAM_END_BIAS, "decodes": decodes,
+               "same_bits": same, "flag_reads_equal_trips": reads_ok,
+               "entries": len(exe._steps), "graphs": graphs,
+               "segments": segments,
+               "hand_kernel_launches": {k: n for k, n in launches.items()
+                                        if n}}
+    k = BEAM["beam"]
+    for arm, r in arms.items():
+        summary[arm] = {}
+        for setting in ("random", "end"):
+            runs = [x for x in r["runs"] if x["setting"] == setting]
+            ms = statistics.median(x["s"] for x in runs) * 1e3
+            trips = runs[0]["trips"]
+            out = runs[-1]["out"]
+            summary[arm][setting] = {
+                "trips": trips, "median_ms_per_decode": ms,
+                "ms_per_decode": [x["s"] * 1e3 for x in runs],
+                "ms_per_trip": ms / trips,
+                "sentences_per_s": BEAM_BATCH / ms * 1e3,
+                "beam_tokens_per_s": BEAM_BATCH * k * trips / ms * 1e3,
+                "finite": bool(np.isfinite(out[1]).all()),
+                "ids_in_range": bool(((out[0] >= 0)
+                                      & (out[0] < BEAM["dict_dim"])).all()),
+                "top_sentence_0": out[0][0, 0].tolist()}
+        w = windows[arm]
+        summary[arm].update(
+            first_ms=[x["s"] * 1e3 for x in r["first"]],
+            peak_mem_gb=r["peak"] / 1e9, profiled_decode={
+                key: w[key] for key in ("wall_ms", "busy_ms", "idle_share",
+                                        "device_events", "top_device_us",
+                                        "trace_launches")})
+    summary["captured"]["capture_s"] = arms["captured"]["first"][1]["s"]
+    rand_trips = summary["captured"]["random"]["trips"]
+    end_trips = summary["captured"]["end"]["trips"]
+    summary["seconds"] = time.perf_counter() - t_start
+    summary["ok"] = bool(
+        same and reads_ok and check["ok"] and graphs == segments == [3]
+        and not summary["hand_kernel_launches"]
+        and rand_trips == BEAM["max_len"] and end_trips < rand_trips
+        and all(summary[a][s]["finite"] and summary[a][s]["ids_in_range"]
+                for a in arms for s in ("random", "end")))
+    log("beam", summary)
+    if not summary["ok"]:
+        raise SystemExit("beam: captured differs from eager, the card from "
+                         "the CPU, or the loop ran other than planned: %s"
+                         % {k_: summary[k_] for k_ in (
+                             "same_bits", "flag_reads_equal_trips", "graphs",
+                             "hand_kernel_launches")})
+    need = {}
+    return {"beam": launch_record(True, launches, need, windows["captured"],
+                                  need),
+            "beam:eager": launch_record(False, {}, need, windows["eager"],
+                                        need)}
+
+
 # (kernel, source, the TPU kernel's pallas_call, the path whose launches
 # the row's "launches" reports)
 KERNEL_ROWS = (
@@ -6842,17 +7483,27 @@ def main():
             if faults:
                 raise SystemExit("rnn: %s launched %s" % (path, faults))
         return 0
-    if "plain_ops" in sys.argv[1:] or "mnist_cnn" in sys.argv[1:]:
-        # the frontend slice alone (no hand kernel on either path)
-        if "plain_ops" in sys.argv[1:]:
+    alone = {"plain_ops", "mnist_cnn", "seq_ops", "beam"} & set(sys.argv[1:])
+    if alone:
+        # the frontend and control-flow slices alone (no hand kernel on
+        # any of their paths)
+        if "plain_ops" in alone:
             plain_ops_phase()
             release_memory()
-        if "mnist_cnn" in sys.argv[1:]:
+        if "mnist_cnn" in alone:
             for path, record in mnist_cnn_phase().items():
                 faults = launch_faults(record)
                 if faults:
                     raise SystemExit("mnist_cnn: %s launched %s"
                                      % (path, faults))
+        if "seq_ops" in alone:
+            seq_ops_phase()
+            release_memory()
+        if "beam" in alone:
+            for path, record in beam_phase().items():
+                faults = launch_faults(record)
+                if faults:
+                    raise SystemExit("beam: %s launched %s" % (path, faults))
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
@@ -6973,6 +7624,14 @@ def main():
     plain_ops_phase()
     release_memory()
     for path, record in mnist_cnn_phase().items():
+        check_path(path, record)
+    release_memory()
+    # the control-flow and sequence slice's op types, card against CPU,
+    # and beam-search decoding at machine translation's width (no hand
+    # kernel)
+    seq_ops_phase()
+    release_memory()
+    for path, record in beam_phase().items():
         check_path(path, record)
     release_memory()
     if short:

@@ -71,6 +71,27 @@ An entry that holds a live op that calls the host on every run
 prints) runs eagerly on every run and is never captured: a graph cannot
 call the host, and a capture would print once.
 
+**Loops read on the host.**  An unbounded ``while`` op (no
+``max_trip_count``; ``registry.splits_capture``) reads its condition on
+the host after every trip.  ``segment_plan``, a plain function of the
+global block and its live ops, splits an entry at each such op: runs of
+ops, and the loops between them.  The eager path runs the same segments,
+so the CPU runs the split: a run of ops is interpreted, a loop runs one
+predicated trip (``ops/control_flow.while_trip``) and reads the condition
+on the host, until it is false.  A captured entry is one graph a run of
+ops, and one body graph a loop: the graph before the loop ends by copying
+the loop's initial values into static carry buffers, and the body graph
+computes one trip over them, writes the new values back (a trip after
+the condition fell changes no bit) and copies the condition into a
+pinned host flag.  The executor replays the body graph, waits on an
+event, reads the flag, and replays again until it is false: the only host
+read is that one read a trip, outside every graph, so a captured run
+gives the eager run's bits and trips.  ``loop_trips`` lists each loop's
+trips in the last run, ``flag_reads`` counts the reads.  An unbounded
+``while`` inside another op's sub-block (a ``while``, ``recurrent`` or
+``conditional_block`` body) cannot be split out: a capturing executor
+refuses the entry, naming the op; ``capture=False`` runs it eagerly.
+
 A capture that fails raises, naming the op that broke it; nothing falls
 back to the eager path.  ``Executor(place, capture=False)`` keeps every
 run eager on the card (the comparison path, as ``jax.disable_jit``);
@@ -99,11 +120,12 @@ import torch
 
 from . import registry
 from .framework import Variable, default_main_program
+from .ops import control_flow
 from .ops.selected_rows import SelectedRows
 from .registry import ComputeContext
 from .scope import global_scope
 
-__all__ = ["Executor", "CPUPlace", "CUDAPlace"]
+__all__ = ["Executor", "CPUPlace", "CUDAPlace", "segment_plan"]
 
 
 class Place:
@@ -164,17 +186,112 @@ def _scope_tensor(scope, name, device):
     return val
 
 
-def _interpret(block, live, release, env, ctx, where=None):
-    """Compute the live ops in program order, dropping each temporary after
+def _interpret(block, indices, release, env, ctx, where=None):
+    """Compute the ops ``indices`` in order, dropping each temporary after
     its last reader; ``where[0]`` names the op being computed."""
-    for i, op in enumerate(block.ops):
-        if not live[i]:
-            continue
+    for i in indices:
+        op = block.ops[i]
         if where is not None:
             where[0] = "op %d (%s)" % (i, op.type)
         registry.compute_op(op, env, ctx, op_index=i)
         for n in release[i]:
             env.pop(n, None)
+
+
+def _host_loops_in(program, block, path):
+    """Where each op of ``block`` and its sub-blocks that loops on the host
+    sits; ``path`` names the op that owns ``block``."""
+    found = []
+    for j, op in enumerate(block.ops):
+        where = "op %d (%s) of block %d, inside %s" % (j, op.type, block.idx,
+                                                       path)
+        if registry.splits_capture(op):
+            found.append(where)
+        if "sub_block" in op.attrs:
+            found += _host_loops_in(
+                program, program.block(op.attrs["sub_block"]), where)
+    return found
+
+
+def segment_plan(block, live, capture=False):
+    """The segments an entry runs in: ``("ops", [op indices])`` for a run
+    of live ops, ``("loop", i)`` for live op i that loops on the host
+    (``registry.splits_capture``).  With ``capture``, a live op whose
+    sub-blocks hold such a loop raises, naming both: a CUDA graph cannot
+    hold a host loop, and it is not split out of its op."""
+    plan, run = [], []
+    for i, op in enumerate(block.ops):
+        if not live[i]:
+            continue
+        if capture and "sub_block" in op.attrs:
+            nested = _host_loops_in(
+                block.program, block.program.block(op.attrs["sub_block"]),
+                "op %d (%s) of block %d" % (i, op.type, block.idx))
+            if nested:
+                raise RuntimeError(
+                    "cannot capture an unbounded while inside a sub-block "
+                    "(%s): it reads its condition on the host every trip. "
+                    "Give it max_trip_count, or run with "
+                    "Executor(capture=False)" % nested[0])
+        if registry.splits_capture(op):
+            if run:
+                plan.append(("ops", run))
+                run = []
+            plan.append(("loop", i))
+        else:
+            run.append(i)
+    if run:
+        plan.append(("ops", run))
+    return plan
+
+
+class _HostLoop:
+    """A loop of a captured entry: its body graph over static carry
+    buffers, the pinned flag the graph writes the condition into, and the
+    event a replay is waited on by."""
+
+    def __init__(self, block, index):
+        self.op = block.ops[index]
+        self.index = index
+        self.cond = control_flow.cond_index(self.op.attrs)
+        self.graph = None
+        self.ins = self.bufs = None
+        with torch.inference_mode(False):
+            self.flag = torch.zeros((), dtype=torch.bool, pin_memory=True)
+        self.done = torch.cuda.Event()
+
+    def enter(self, env, ctx, release):
+        """Captured at the end of the graph before the loop: the carry
+        buffers take the loop's initial values, and the body's seeds are
+        drawn."""
+        self.ins = registry.read_inputs(self.op, env, ctx)
+        ctx.seed32(self.index)
+        self.bufs = [v.clone() for v in self.ins.pop("LoopVars")]
+        registry.write_outputs(self.op, env, {"Out": self.bufs})
+        for n in release[self.index]:
+            env.pop(n, None)
+
+    def trip(self, ctx):
+        """Captured as the body graph: one predicated trip over the
+        buffers, written back, and the condition copied to the flag."""
+        new = control_flow.while_trip(self.ins, self.op.attrs, ctx,
+                                      self.index, self.bufs)
+        for b, v in zip(self.bufs, new):
+            b.copy_(v)
+        self.flag.copy_(self.bufs[self.cond].all(), non_blocking=True)
+
+    def run(self, exe):
+        """Replay the body until the flag reads false."""
+        trips = 0
+        while True:
+            self.graph.replay()
+            trips += 1
+            self.done.record()
+            self.done.synchronize()
+            exe.flag_reads += 1
+            if not bool(self.flag):
+                break
+        exe.loop_trips.append((self.index, trips))
 
 
 def _entry_died(exe_ref, key, analysis):
@@ -218,16 +335,34 @@ class _StaticFeed:
 
 
 class _CapturedStep:
-    """An entry's CUDA graph and the tensors it was captured on."""
+    """An entry's CUDA graphs and the tensors they were captured on."""
 
     def __init__(self, out_meta):
         # (shape, dtype) of each persistable output, from the eager run
         self.out_meta = out_meta
-        self.graph = None
+        # [(graph, the _HostLoop it is the body of, or None)] in order
+        self.pieces = None
         self.feeds = {}      # feed name -> _StaticFeed
         self.bound = {}      # scope name -> the tensor the graph uses
         self.reads = set()   # the bound names the graph reads
         self.fetches = []    # the fetched tensors the graph writes
+
+    @property
+    def graph(self):
+        """The entry's first graph; None before the capture."""
+        return self.pieces[0][0] if self.pieces else None
+
+    @property
+    def graphs(self):
+        """How many CUDA graphs the entry holds."""
+        return len(self.pieces or ())
+
+    def replay(self, exe):
+        for graph, loop in self.pieces:
+            if loop is None:
+                graph.replay()
+            else:
+                loop.run(exe)
 
     def bind(self, scope):
         """Point the scope at the captured tensors before a replay,
@@ -266,6 +401,8 @@ class Executor:
         self._lock = threading.RLock()
         self._stream = None
         self._pool = None
+        self.loop_trips = []   # (op index, trips) of each loop, last run
+        self.flag_reads = 0    # host reads of a loop's condition
 
     def _generator(self, seed):
         """The executor's generator for programs of ``seed`` (0: one seed
@@ -329,11 +466,12 @@ class Executor:
         release = [[] for _ in block.ops]
         for n, i in last.items():
             release[i].append(n)
-        # the forward ops whose generic grad op runs (registry keep_graph)
+        # the forward ops whose generic grad op (registry keep_graph) or
+        # while_grad runs
         graph_ops = frozenset(
             op.attrs["__fwd_op_index__"] for i, op in enumerate(block.ops)
-            if live[i] and "__fwd_type__" in op.attrs
-            and "__fwd_op_index__" in op.attrs)
+            if live[i] and "__fwd_op_index__" in op.attrs
+            and ("__fwd_type__" in op.attrs or op.type == "while_grad"))
         return state, writeback, live, release, graph_ops
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
@@ -369,16 +507,21 @@ class Executor:
             self._drop_dead()
             analysis = self._analysis.get(key)
             if analysis is None:
-                analysis = self._analysis[key] = self._analyze(
-                    program, feed_names, scope, fetch_names)
+                analysis = self._analyze(program, feed_names, scope,
+                                         fetch_names)
+                if any(live and registry.calls_host(op) for op, live in
+                       zip(block.ops, analysis[2])):
+                    self._host_entries.add(key)
+                captures = (self.capture and self.place.device.type == "cuda"
+                            and key not in self._host_entries)
+                analysis = self._analysis[key] = analysis + (segment_plan(
+                    block, analysis[2], capture=captures),)
                 # reported when either owner dies, which is before another
                 # program or scope can take its id
                 for owner in (program, scope):
                     weakref.finalize(owner, _entry_died, weakref.ref(self),
                                      key, analysis).atexit = False
-                if any(live and registry.calls_host(op) for op, live in
-                       zip(block.ops, analysis[2])):
-                    self._host_entries.add(key)
+            self.loop_trips = []
             if not (self.capture and self.place.device.type == "cuda") \
                     or key in self._host_entries:
                 fetches = self._run_eager(program, analysis, feed,
@@ -405,33 +548,52 @@ class Executor:
             del self._analysis[key]
             self._host_entries.discard(key)
             step = self._steps.pop(key, None)
-            if step is not None and step.graph is not None and not synced:
+            if step is not None and step.pieces and not synced:
                 # a replay of the graph may still be running
                 torch.cuda.synchronize(self.place.device)
                 synced = True
 
     def _run_eager(self, program, analysis, feed, feed_dtypes, scope,
                    fetch_names, out_meta=None):
-        """Interpret the live ops one by one; ``out_meta`` collects the
-        persistable outputs' (shape, dtype)."""
-        state_names, writeback, live, release, graph_ops = analysis
+        """Run the entry's segments eagerly (``segment_plan``);
+        ``out_meta`` collects the persistable outputs' (shape, dtype)."""
+        state_names, writeback, live, release, graph_ops, plan = analysis
         dev = self.place.device
         block = program.global_block()
         env = {n: feed[n].to(device=dev, dtype=feed_dtypes[n]) for n in feed}
         env.update((n, _scope_tensor(scope, n, dev)) for n in state_names)
-        _interpret(block, live, release, env, ComputeContext(
-            dev, self._generator(program.random_seed), len(block.ops),
-            program._amp_policy, program, graph_ops))
+        ctx = ComputeContext(dev, self._generator(program.random_seed),
+                             len(block.ops), program._amp_policy, program,
+                             graph_ops)
+        for kind, seg in plan:
+            if kind == "ops":
+                _interpret(block, seg, release, env, ctx)
+            else:
+                self._loop_eager(block, seg, release, env, ctx)
         for n in writeback:
             scope.set_var(n, env[n])
             if out_meta is not None:
                 out_meta[n] = (tuple(env[n].shape), env[n].dtype)
         return [env[n] for n in fetch_names]
 
+    def _loop_eager(self, block, i, release, env, ctx):
+        """Run loop op ``i``: predicated trips, the condition read on the
+        host after each, as a captured entry replays its body graph."""
+        op = block.ops[i]
+        ins = registry.read_inputs(op, env, ctx)
+        ctx.seed32(i)
+        carry, trips = control_flow.host_loop(ins, op.attrs, ctx, i,
+                                              ins.pop("LoopVars"))
+        self.flag_reads += trips
+        self.loop_trips.append((i, trips))
+        registry.write_outputs(op, env, {"Out": carry})
+        for n in release[i]:
+            env.pop(n, None)
+
     def _run_captured(self, key, program, analysis, feed, feed_dtypes,
                       scope, fetch_names):
         step = self._steps.get(key)
-        if step is not None and step.graph is not None \
+        if step is not None and step.pieces is not None \
                 and not step.bind(scope):
             step = None   # the state changed shape or dtype: cold again
         if step is None:
@@ -440,19 +602,22 @@ class Executor:
                                       scope, fetch_names, out_meta)
             self._steps[key] = _CapturedStep(out_meta)
             return fetches
-        if step.graph is None:
+        if step.pieces is None:
             self._capture(step, program, analysis, feed, feed_dtypes, scope,
                           fetch_names)
         for n, f in step.feeds.items():
             f.load(feed[n])
-        step.graph.replay()
+        step.replay(self)
         return step.fetches
 
     def _capture(self, step, program, analysis, feed, feed_dtypes, scope,
                  fetch_names):
-        """Capture the entry's step into ``step.graph`` on the feeds' and
-        the scope's current tensors; the caller replays it."""
-        state_names, writeback, live, release, graph_ops = analysis
+        """Capture the entry's segments into ``step.pieces`` on the feeds'
+        and the scope's current tensors: a graph for each run of ops (the
+        one before a loop ending with the loop's entry), a body graph for
+        each loop, and the write-back in the last graph.  The caller
+        replays them."""
+        state_names, writeback, live, release, graph_ops, plan = analysis
         dev = self.place.device
         block = program.global_block()
         for n in feed:
@@ -476,28 +641,59 @@ class Executor:
             self._stream = torch.cuda.Stream(dev)
             self._pool = torch.cuda.graph_pool_handle()
         generator = self._generator(program.random_seed)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(generator)
         env = {n: f.buffer for n, f in step.feeds.items()}
         env.update((n, step.bound[n]) for n in state_names)
         ctx = ComputeContext(dev, generator, len(block.ops),
                              program._amp_policy, program, graph_ops)
         where = ["the start of the step"]
-        try:
+
+        def capture(work):
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(generator)
             with torch.cuda.graph(graph, pool=self._pool, stream=self._stream,
                                   capture_error_mode="thread_local"):
-                _interpret(block, live, release, env, ctx, where)
-                where[0] = "the write-back of the persistable outputs"
-                for n in writeback:
-                    if env[n] is not step.bound[n]:
-                        step.bound[n].copy_(env[n])
-                step.fetches = [env[n] for n in fetch_names]
+                work()
+            return graph
+
+        def write_back():
+            where[0] = "the write-back of the persistable outputs"
+            for n in writeback:
+                if env[n] is not step.bound[n]:
+                    step.bound[n].copy_(env[n])
+
+        pieces, k = [], 0
+        try:
+            while True:
+                ops = plan[k][1] if k < len(plan) and plan[k][0] == "ops" \
+                    else []
+                k += bool(ops)
+                loop = _HostLoop(block, plan[k][1]) if k < len(plan) \
+                    else None
+
+                def head():
+                    _interpret(block, ops, release, env, ctx, where)
+                    if loop is not None:
+                        where[0] = "the entry of loop op %d" % loop.index
+                        loop.enter(env, ctx, release)
+                    else:
+                        write_back()
+
+                if ops or loop is not None or any(
+                        env[n] is not step.bound[n] for n in writeback):
+                    pieces.append((capture(head), None))
+                if loop is None:
+                    break
+                where[0] = "the body of loop op %d (while)" % loop.index
+                loop.graph = capture(lambda: loop.trip(ctx))
+                pieces.append((loop.graph, loop))
+                k += 1
+            step.fetches = [env[n] for n in fetch_names]
         except Exception as e:
             raise RuntimeError(
                 "CUDA graph capture of program %d (version %d) failed at "
                 "%s: %s" % (id(program), program._version, where[0], e)) \
                 from e
-        step.graph = graph
+        step.pieces = pieces
 
 
 def _clone(f):

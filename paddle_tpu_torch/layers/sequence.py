@@ -1,17 +1,23 @@
-"""``padding_mask``, ``sequence_length``, the recurrent layers
-``dynamic_lstm``, ``dynamic_lstmp``, ``dynamic_gru``, the pooling layers
-``sequence_pool``, ``sequence_first_step``, ``sequence_last_step``, and
-``sequence_softmax``, ``sequence_expand`` (counterpart of
-``paddle_tpu/layers/sequence.py``; the other sequence layers come with
-later slices).  A padded sequence var's lengths are its
-``<name>@LEN`` companion (``layers.data(lod_level=1)``)."""
+"""The sequence layers (counterpart of ``paddle_tpu/layers/sequence.py``)
+but ``linear_chain_crf``, ``crf_decoding``, ``chunk_eval``, ``warpctc``,
+``ctc_greedy_decoder`` and ``edit_distance``, which wait for their ops
+(ROADMAP A4d).  A padded sequence var's lengths are its ``<name>@LEN``
+companion (``layers.data(lod_level=1)``); lengths propagate through ops
+(``Block._infer_and_mark``), and every wrapper also takes an explicit
+``length=`` Variable."""
 
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 
 __all__ = ["padding_mask", "sequence_length", "dynamic_lstm",
            "dynamic_lstmp", "dynamic_gru", "sequence_pool",
            "sequence_first_step", "sequence_last_step", "sequence_softmax",
-           "sequence_expand"]
+           "sequence_expand", "sequence_conv", "sequence_reverse",
+           "sequence_mask", "sequence_concat", "sequence_erase",
+           "sequence_enumerate", "row_conv", "causal_mask",
+           "padding_attn_bias", "sequence_pad", "sequence_unpad",
+           "sequence_reshape", "sequence_expand_as", "sequence_scatter",
+           "im2sequence", "lod_reset"]
 
 
 def sequence_length(x, block=None):
@@ -182,4 +188,254 @@ def padding_mask(length, ref, dtype="float32", name=None):
         outputs={"Out": [out]}, attrs={"dtype": dtype})
     out.stop_gradient = True
     out._seq_len_name = None
+    return out
+
+
+def sequence_conv(input, num_filters, filter_size=3, filter_stride=1,
+                  padding=None, bias_attr=None, param_attr=None, act=None,
+                  name=None, length=None):
+    helper = LayerHelper("sequence_conv", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = helper.input_dtype()
+    d = input.shape[-1]
+    filter_shape = [filter_size * d, num_filters]
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="sequence_conv",
+        inputs={"X": [input], "Filter": [w],
+                "Length": [_len_of(helper, input, length)]},
+        outputs={"Out": [out]},
+        attrs={"contextLength": filter_size,
+               "contextStart": -((filter_size - 1) // 2),
+               "contextStride": filter_stride})
+    if helper.bias_attr is not None and \
+            helper.kwargs.get("bias_attr") is not False:
+        out = helper.append_bias_op(out, dim_start=2)
+    # (the length companion propagates through bias/activation ops via
+    # Block._infer_and_mark)
+    return helper.append_activation(out)
+
+
+def sequence_reverse(x, name=None, length=None):
+    helper = LayerHelper("sequence_reverse", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sequence_reverse",
+        inputs={"X": [x], "Length": [_len_of(helper, x, length)]},
+        outputs={"Out": [out]})
+    return out
+
+
+def sequence_mask(x, maxlen=None, dtype="int64", name=None):
+    """x: [batch] lengths -> [batch, maxlen] 0/1 mask."""
+    if maxlen is None or (isinstance(maxlen, Variable)):
+        raise ValueError("sequence_mask requires a static int maxlen")
+    helper = LayerHelper("sequence_mask", input=x, name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="sequence_mask", inputs={"X": [x]}, outputs={"Y": [out]},
+        attrs={"maxlen": int(maxlen), "out_dtype": dtype})
+    return out
+
+
+def sequence_concat(input, name=None, lengths=None):
+    helper = LayerHelper("sequence_concat", input=input, name=name)
+    xs = list(input)
+    lens = lengths or [sequence_length(v) for v in xs]
+    out = helper.create_variable_for_type_inference(xs[0].dtype)
+    out_len = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="sequence_concat",
+        inputs={"X": xs, "Length": lens},
+        outputs={"Out": [out], "OutLength": [out_len]})
+    out._seq_len_name = out_len.name
+    return out
+
+
+def sequence_erase(input, tokens, name=None, length=None):
+    helper = LayerHelper("sequence_erase", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_len = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="sequence_erase",
+        inputs={"X": [input], "Length": [_len_of(helper, input, length)]},
+        outputs={"Out": [out], "OutLength": [out_len]},
+        attrs={"tokens": list(tokens)})
+    out._seq_len_name = out_len.name
+    return out
+
+
+def sequence_enumerate(input, win_size, pad_value=0, name=None, length=None):
+    helper = LayerHelper("sequence_enumerate", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="sequence_enumerate",
+        inputs={"X": [input], "Length": [_len_of(helper, input, length)]},
+        outputs={"Out": [out]},
+        attrs={"win_size": win_size, "pad_value": pad_value})
+    return out
+
+
+def row_conv(input, future_context_size, param_attr=None, act=None,
+             name=None, length=None):
+    helper = LayerHelper("row_conv", input=input, param_attr=param_attr,
+                         act=act, name=name)
+    dtype = helper.input_dtype()
+    filter_shape = [future_context_size + 1, input.shape[-1]]
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="row_conv",
+        inputs={"X": [input], "Filter": [w],
+                "Length": [_len_of(helper, input, length)]},
+        outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def causal_mask(ref=None, seq_len=-1, mask_value=-1e9, dtype="float32",
+                name=None):
+    """[T, T] additive causal bias (0 on/below diagonal, mask_value above)
+    for decoder self-attention; T from ``ref``'s time axis (runtime pad
+    length) or a static ``seq_len``."""
+    helper = LayerHelper("causal_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"Ref": [ref]} if ref is not None else {}
+    helper.append_op(
+        type="causal_mask", inputs=inputs, outputs={"Out": [out]},
+        attrs={"seq_len": int(seq_len), "mask_value": float(mask_value),
+               "dtype": dtype})
+    out.stop_gradient = True
+    out._seq_len_name = None
+    return out
+
+
+def padding_attn_bias(length, ref, mask_value=-1e9, dtype="float32",
+                      name=None):
+    """[B] lengths -> [B, 1, 1, T] additive attention bias, T from ``ref``."""
+    helper = LayerHelper("padding_attn_bias", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="padding_attn_bias", inputs={"Length": [length], "Ref": [ref]},
+        outputs={"Out": [out]},
+        attrs={"mask_value": float(mask_value), "dtype": dtype})
+    out.stop_gradient = True
+    out._seq_len_name = None
+    return out
+
+
+def sequence_pad(x, pad_value=None, maxlen=None, name=None, length=None):
+    """Pad a sequence batch to dense [B, T, ...].  Returns (out,
+    lengths[int64])."""
+    helper = LayerHelper("sequence_pad", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    seq_len = helper.create_variable_for_type_inference("int64")
+    inputs = {"X": [x], "Length": [_len_of(helper, x, length)]}
+    if pad_value is not None:
+        inputs["PadValue"] = [pad_value]
+    helper.append_op(
+        type="sequence_pad", inputs=inputs,
+        outputs={"Out": [out], "SeqLength": [seq_len]},
+        attrs={"padded_length": int(maxlen) if maxlen else -1})
+    out._seq_len_name = None          # dense output
+    seq_len.stop_gradient = True
+    return out, seq_len
+
+
+def sequence_unpad(x, length, name=None):
+    """Dense [B, T, ...] + lengths -> sequence batch."""
+    helper = LayerHelper("sequence_unpad", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out_len = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="sequence_unpad", inputs={"X": [x], "Length": [length]},
+        outputs={"Out": [out], "OutLength": [out_len]})
+    out._seq_len_name = out_len.name
+    return out
+
+
+def sequence_reshape(input, new_dim, length=None):
+    """Re-chunk each sequence to rows of ``new_dim``."""
+    helper = LayerHelper("sequence_reshape", input=input)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_len = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="sequence_reshape",
+        inputs={"X": [input], "Length": [_len_of(helper, input, length)]},
+        outputs={"Out": [out], "OutLength": [out_len]},
+        attrs={"new_dim": int(new_dim)})
+    out._seq_len_name = out_len.name
+    return out
+
+
+def sequence_expand_as(x, y, name=None, y_length=None):
+    """Repeat row i of ``x`` to y's sequence-i length."""
+    helper = LayerHelper("sequence_expand_as", input=x, name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    out_len = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="sequence_expand_as",
+        inputs={"X": [x], "Y": [y],
+                "YLength": [_len_of(helper, y, y_length)]},
+        outputs={"Out": [out], "OutLength": [out_len]})
+    out._seq_len_name = out_len.name
+    return out
+
+
+def sequence_scatter(input, index, updates, name=None, length=None):
+    """Scatter-add update sequences into dense rows."""
+    helper = LayerHelper("sequence_scatter", input=input, name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="sequence_scatter",
+        inputs={"X": [input], "Ids": [index], "Updates": [updates],
+                "Length": [_len_of(helper, index, length)]},
+        outputs={"Out": [out]})
+    out._seq_len_name = None
+    return out
+
+
+def im2sequence(input, filter_size=1, stride=1, padding=0, name=None):
+    """Image [B, C, H, W] -> patch sequence [B, oh * ow, C * kh * kw]."""
+    helper = LayerHelper("im2sequence", input=input, name=name)
+    if isinstance(filter_size, int):
+        filter_size = [filter_size, filter_size]
+    if isinstance(stride, int):
+        stride = [stride, stride]
+    if isinstance(padding, int):
+        padding = [padding] * 4
+    elif len(padding) == 2:
+        padding = list(padding) * 2
+    out = helper.create_variable_for_type_inference(input.dtype)
+    out_len = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="im2sequence", inputs={"X": [input]},
+        outputs={"Out": [out], "OutLength": [out_len]},
+        attrs={"kernels": list(filter_size), "strides": list(stride),
+               "paddings": list(padding)})
+    out._seq_len_name = out_len.name
+    return out
+
+
+def lod_reset(x, y=None, target_lod=None):
+    """Replace the sequence-length companion of ``x``.  ``y``'s data is
+    read as level-0 offsets; otherwise ``target_lod`` (offsets) is
+    required."""
+    helper = LayerHelper("lod_reset")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    length = helper.create_variable_for_type_inference("int64")
+    inputs = {"X": [x]}
+    attrs = {}
+    if y is not None:
+        inputs["Y"] = [y]
+    elif target_lod is not None:
+        attrs["target_lod"] = [int(v) for v in target_lod]
+    else:
+        raise ValueError("lod_reset needs y or target_lod")
+    helper.append_op(type="lod_reset", inputs=inputs,
+                     outputs={"Out": [out], "Length": [length]},
+                     attrs=attrs)
+    out._seq_len_name = length.name
     return out

@@ -1,14 +1,14 @@
 """Composite networks (counterpart of ``paddle_tpu/nets.py``):
 ``simple_img_conv_pool``, which the recognize_digits chapter needs,
-``img_conv_group``, VGG's block, and the attention of the RNN seq2seq
-decoder, ``simple_attention`` and ``dot_product_attention``.  The other
-composites (``sequence_conv_pool``, ``glu``,
-``scaled_dot_product_attention``) wait for ROADMAP Queue A8."""
+``img_conv_group``, VGG's block, ``glu``, ``scaled_dot_product_attention``,
+``sequence_conv_pool``, and the attention of the RNN seq2seq decoder,
+``simple_attention`` and ``dot_product_attention``."""
 
 from . import layers
 
-__all__ = ["simple_img_conv_pool", "img_conv_group", "simple_attention",
-           "dot_product_attention"]
+__all__ = ["simple_img_conv_pool", "img_conv_group", "glu",
+           "scaled_dot_product_attention", "sequence_conv_pool",
+           "simple_attention", "dot_product_attention"]
 
 
 def simple_img_conv_pool(
@@ -73,6 +73,75 @@ def img_conv_group(
         input=tmp, pool_size=pool_size, pool_type=pool_type,
         pool_stride=pool_stride,
     )
+
+
+def glu(input, dim=-1):
+    """Gated linear unit: split in half, a * sigmoid(b)."""
+    a, b = layers.split(input, num_or_sections=2, dim=dim)
+    act_b = layers.sigmoid(b)
+    return layers.elementwise_mul(x=a, y=act_b)
+
+
+def scaled_dot_product_attention(
+    queries, keys, values, num_heads=1, dropout_rate=0.0,
+):
+    """Multi-head scaled-dot-product attention over [batch, seq, dim]
+    inputs, built from ``matmul``, ``scale`` and ``softmax`` ops (with a
+    ``dropout`` of the weights at ``dropout_rate``)."""
+    if not (len(queries.shape) == len(keys.shape) == len(values.shape) == 3):
+        raise ValueError("inputs must be 3-D [batch, seq, dim]")
+    if queries.shape[-1] != keys.shape[-1]:
+        raise ValueError("queries and keys must have the same hidden size")
+    if keys.shape[1] != values.shape[1]:
+        raise ValueError("keys and values must share sequence length")
+    if queries.shape[-1] % num_heads != 0:
+        raise ValueError("hidden size must divide num_heads")
+
+    def __split_heads(x, num_heads):
+        if num_heads == 1:
+            return x
+        hidden_size = x.shape[-1]
+        reshaped = layers.reshape(
+            x, shape=[0, 0, num_heads, hidden_size // num_heads]
+        )
+        return layers.transpose(reshaped, perm=[0, 2, 1, 3])
+
+    def __combine_heads(x):
+        if len(x.shape) == 3:
+            return x
+        trans = layers.transpose(x, perm=[0, 2, 1, 3])
+        return layers.reshape(
+            trans, shape=[0, 0, trans.shape[2] * trans.shape[3]]
+        )
+
+    q = __split_heads(queries, num_heads)
+    k = __split_heads(keys, num_heads)
+    v = __split_heads(values, num_heads)
+
+    key_dim_per_head = keys.shape[-1] // num_heads
+    scaled_q = layers.scale(x=q, scale=key_dim_per_head ** -0.5)
+    product = layers.matmul(x=scaled_q, y=k, transpose_y=True)
+
+    # softmax over the key axis directly
+    weights = layers.softmax(product)
+    if dropout_rate:
+        weights = layers.dropout(weights, dropout_prob=dropout_rate,
+                                 is_test=False)
+    ctx_multiheads = layers.matmul(weights, v)
+    return __combine_heads(ctx_multiheads)
+
+
+def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
+                       act="sigmoid", pool_type="max", bias_attr=None,
+                       length=None):
+    """sequence_conv followed by sequence_pool.  ``input`` is a padded
+    sequence batch [B, T, D] with a @LEN companion; returns the pooled
+    [B, num_filters] features."""
+    conv = layers.sequence_conv(input, num_filters=num_filters,
+                                filter_size=filter_size, act=act,
+                                param_attr=param_attr,
+                                bias_attr=bias_attr, length=length)
+    return layers.sequence_pool(conv, pool_type, length=length)
 
 
 def simple_attention(encoded_sequence, encoded_proj, decoder_state,

@@ -114,9 +114,10 @@ register_op("fill_constant_batch_size_like", ["Input"], ["Out"],
 
 
 def _assign_value_compute(ins, attrs, ctx, op_index):
+    # the attr's values: a constant of the op, copied to the card once
     vals = np.asarray(attrs["values"], dtype=attrs.get("dtype", "float32"))
-    return {"Out": torch.from_numpy(vals.reshape(tuple(attrs["shape"])))
-            .to(ctx.device)}
+    return {"Out": device_constant(vals.reshape(tuple(attrs["shape"])),
+                                   ctx.device)}
 
 
 register_op("assign_value", [], ["Out"], infer=_shape_infer,

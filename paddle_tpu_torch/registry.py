@@ -30,8 +30,8 @@ from .framework import grad_var_name
 from .hash32 import M32, op_seeds
 
 __all__ = ["OpDef", "register_op", "get_op_def", "infer_op", "compute_op",
-           "make_grad_ops", "calls_host", "ComputeContext", "OPS",
-           "int_list"]
+           "make_grad_ops", "calls_host", "splits_capture", "ComputeContext",
+           "OPS", "int_list", "read_inputs", "write_outputs"]
 
 OPS = {}
 
@@ -117,7 +117,7 @@ class ComputeContext:
 class OpDef:
     def __init__(self, type, inputs, outputs, infer, compute, grad=None,
                  no_grad_inputs=(), stateful_random=False, keep_graph=False,
-                 doc="", calls_host=None):
+                 doc="", calls_host=None, splits_capture=None):
         self.type = type
         self.input_slots = tuple(inputs)
         self.output_slots = tuple(outputs)
@@ -136,16 +136,20 @@ class OpDef:
         # calls_host(attrs) -> True where the op calls back into the host
         # on every run (``print``): its executor entry is never captured
         self.calls_host = calls_host
+        # splits_capture(attrs) -> True where the op loops on the host (an
+        # unbounded ``while``): the executor runs it between the captured
+        # segments of its entry, one body graph replayed a trip
+        self.splits_capture = splits_capture
 
 
 def register_op(type, inputs, outputs, infer, compute, grad="auto",
                 no_grad_inputs=(), stateful_random=False, keep_graph=False,
-                doc="", calls_host=None):
+                doc="", calls_host=None, splits_capture=None):
     if type in OPS:
         raise ValueError("op type %r already registered" % type)
     OPS[type] = OpDef(type, inputs, outputs, infer, compute, grad,
                       no_grad_inputs, stateful_random, keep_graph, doc,
-                      calls_host)
+                      calls_host, splits_capture)
     return OPS[type]
 
 
@@ -168,6 +172,13 @@ def calls_host(op):
     return d.calls_host is not None and bool(d.calls_host(op.attrs))
 
 
+def splits_capture(op):
+    """Whether ``op`` loops on the host, so that the executor splits the
+    capture of its entry there."""
+    d = get_op_def(op.type)
+    return d.splits_capture is not None and bool(d.splits_capture(op.attrs))
+
+
 def infer_op(op, block):
     """Run build-time shape/dtype inference for ``op`` in ``block``."""
     d = get_op_def(op.type)
@@ -175,16 +186,15 @@ def infer_op(op, block):
         d.infer(op, block)
 
 
-def compute_op(op, env, ctx, op_index=0):
-    """Execute one op: read its inputs from ``env``, cast them as the
-    run's AMP policy says, write its outputs.
+def read_inputs(op, env, ctx):
+    """``op``'s inputs from ``env``, slot by slot, cast as the run's AMP
+    policy says.
 
     Empty names are holes (pruned grad slots) and read as None.  The
     ``Out::`` inputs of grad ops are lenient (an optional forward output
     may never have been produced); a ``GRAD::`` input is lenient only when
     its forward output is itself absent, so a missing gradient of a
     produced output stays a loud KeyError."""
-    d = get_op_def(op.type)
     ins = {}
     for slot, names in op.inputs.items():
         if slot.startswith("Out::"):
@@ -195,10 +205,12 @@ def compute_op(op, env, ctx, op_index=0):
             ins[slot] = [env[n] if n else None for n in names]
     if ctx.amp is not None:
         ins = ctx.amp.cast_inputs(op.type, ins)
-    if d.keep_graph and op_index in ctx.graph_ops:
-        outs = _compute_keeping_graph(d, ins, op.attrs, ctx, op_index)
-    else:
-        outs = d.compute(ins, op.attrs, ctx, op_index)
+    return ins
+
+
+def write_outputs(op, env, outs):
+    """Bind ``outs`` (slot -> a value or a list) to ``op``'s output
+    names in ``env``."""
     for slot, names in op.outputs.items():
         vals = outs.get(slot)
         if vals is None:
@@ -209,6 +221,18 @@ def compute_op(op, env, ctx, op_index=0):
             if name:
                 env[name] = val
     return env
+
+
+def compute_op(op, env, ctx, op_index=0):
+    """Execute one op: read its inputs from ``env`` (``read_inputs``),
+    compute, write its outputs."""
+    d = get_op_def(op.type)
+    ins = read_inputs(op, env, ctx)
+    if d.keep_graph and op_index in ctx.graph_ops:
+        outs = _compute_keeping_graph(d, ins, op.attrs, ctx, op_index)
+    else:
+        outs = d.compute(ins, op.attrs, ctx, op_index)
+    return write_outputs(op, env, outs)
 
 
 _GRAPH = "__graph__"

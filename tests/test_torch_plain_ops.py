@@ -680,25 +680,15 @@ def test_shape_and_is_empty_read_nothing_on_the_host():
 
 # -- the sweep: every forward op type of the port has a parity case ---------
 
-# ROADMAP Queue A4b and A7: the op types still to port
+# ROADMAP Queue A4d, A4e and A7: the op types still to port
 STILL_TO_PORT = {
-    # A4b: control flow, tensor arrays, the rank table
-    "while", "conditional_block", "array_read", "array_write",
-    "lod_array_length", "lod_tensor_to_array", "array_to_lod_tensor",
-    "lod_rank_table", "max_sequence_len", "reorder_lod_tensor_by_rank",
-    "split_lod_tensor", "merge_lod_tensor", "beam_search",
-    "beam_search_decode",
-    # A4b: the rest of the sequence ops
-    "sequence_concat", "sequence_conv", "sequence_enumerate",
-    "sequence_erase", "sequence_expand_as", "sequence_mask",
-    "sequence_pad", "sequence_reshape", "sequence_reverse",
-    "sequence_scatter", "sequence_slice", "sequence_unpad", "row_conv",
-    "im2sequence", "lod_reset", "causal_mask", "padding_attn_bias",
-    # A4b: crf, ctc, sampled losses, metrics, detection
+    # A4d: crf, ctc, sampled losses, metrics
     "linear_chain_crf", "crf_decoding", "chunk_eval", "warpctc",
     "ctc_align", "edit_distance", "nce", "hierarchical_sigmoid",
     "bilinear_tensor_product", "mean_iou", "positive_negative_pair",
-    "precision_recall", "detection_map", "anchor_generator",
+    "precision_recall", "detection_map",
+    # A4e: detection
+    "anchor_generator",
     "bipartite_match", "box_coder", "generate_proposal_labels",
     "generate_proposals", "iou_similarity", "mine_hard_examples",
     "multiclass_nms", "polygon_box_transform", "prior_box",
@@ -742,10 +732,10 @@ def test_every_forward_op_type_has_a_parity_case():
 
     types = sorted(t for t in registry.OPS if not t.endswith("_grad"))
     jax_types = {t for t in jax_registry.OPS if not t.endswith("_grad")}
-    assert len(types) == 195
+    assert len(types) == 226
     assert set(types) <= jax_types
     assert jax_types - set(types) == STILL_TO_PORT
-    assert len(STILL_TO_PORT) == 59
+    assert len(STILL_TO_PORT) == 28
     plain = {c.values[0] for c in CASES} | {c[0] for c in RANDOM_CASES[2:]} \
         | {"sampling_id", "random_crop", "print"}
     assert len(plain) == 58

@@ -256,8 +256,8 @@ def test_executor_frees_temporaries_and_keeps_fetches():
     f = feed(np.random.RandomState(1))
     cost, lg = exe.run(tm, feed=f, fetch_list=[tc, logits], scope=scope)
     assert cost.shape == (1,) and lg.shape == (4, MAX_LEN, VOCAB)
-    (_, _, _, release, _), = [a for k, a in exe._analysis.items()
-                              if k[0] == id(tm)]
+    (_, _, _, release, _, _), = [a for k, a in exe._analysis.items()
+                                 if k[0] == id(tm)]
     freed = {n for names in release for n in names}
     assert logits not in freed and tc.name not in freed
     assert not any(tm.global_block()._find_var_recursive(n).persistable
