@@ -21,6 +21,9 @@
     python3 chip_smoke.py mnist_cnn   # device, build, and phase 24 alone
     python3 chip_smoke.py seq_ops     # device, build, and phase 25 alone
     python3 chip_smoke.py beam        # device, build, and phase 26 alone
+    python3 chip_smoke.py srl         # device, build, and phase 27 alone
+    python3 chip_smoke.py ssd         # device, build, and phase 28 alone
+    python3 chip_smoke.py a4_ops      # device, build, and phase 29 alone
                                       # (several words: those phases)
 
 Run from the root of a checkout.  Phases, one line each:
@@ -349,7 +352,36 @@ empty window is profiled again first (``empty_windows``).
    candidate gap of ``PARTING_GAP`` at some step of that sentence;
    scores within rtol 1e-4); ms a decode and a trip, sentences/s,
    beam-tokens/s, capture seconds, peak memory, and a profiled decode's
-   idle share and top device events.
+   idle share and top device events;
+27. ``srl`` — the Paddle book's label_semantic_roles (``build_srl``:
+   CoNLL-05's vocabularies, word_dim 32, mark_dim 5, hidden 512, depth 8,
+   59 tags, the CRF cost, SGD on exponential decay) at the book's batch
+   of 10 padded to 64 (lengths in [5, 64]), float32: ``srl_check`` (one
+   step at batch 4, card against CPU at ``train_check``'s band), the step
+   captured and eager over 20 steps (same bits, one graph, ms a step,
+   real tokens/s, idle share, top device events, capture seconds, peak
+   memory), 50 captured steps on one batch (the loss under ``SRL_FALL``
+   of the first), the pruned ``crf_decoding`` program captured (paths
+   equal the CPU's at batch 4) and a ``ChunkEvaluator`` over 5 batches
+   (counts on the card equal to a numpy chunk count of the same paths);
+   no hand kernel launches;
+28. ``ssd`` — the SSD300 head at VOC width (``build_ssd``: SSD300's six
+   feature maps fed as data, 8732 priors, 21 classes, ``ssd_loss`` against
+   1-16 synthetic boxes an image, Momentum(1e-3, 0.9); inference decodes,
+   softmaxes and runs ``multiclass_nms`` (0.01, top 400, 0.45, keep 200)
+   into an 11-point ``DetectionMAP``) at batch 32 under deterministic
+   algorithms: ``ssd_check`` (batch 2, card against CPU: the matching,
+   assignment and mining outputs and the NMS rows exact, NMS scores rtol
+   1e-5, loss rtol 1e-4, gradients at ``train_check``'s band, mAP equal),
+   the training step and the inference batch captured and eager (same
+   bits in the loss, the gradients, the NMS rows, ``OutLength`` and the
+   mAP; #5 twice and #6 once a training step, from ``ssd_loss``'s
+   ``softmax_with_cross_entropy``), the NMS op's share of the inference
+   batch, mAP over 3 batches;
+29. ``a4_ops`` — each of the slice's 27 op types card against CPU at its
+   path's shape (``_a4_op_cases``; ``nce`` and random
+   ``generate_proposal_labels`` by ``_a4_random_checks``), read from a
+   replay that repeats the eager bits; no hand kernel launches.
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -7342,6 +7374,1040 @@ def beam_phase(decodes=BEAM_DECODES):
                                         need)}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the Paddle book's label_semantic_roles, trained
+# ---------------------------------------------------------------------------
+
+# the book's db_lstm at its width (word_dim 32, mark_dim 5, hidden 512,
+# depth 8, SGD on exponential_decay(0.01, 100000, 0.5, staircase), the CRF
+# transition at mix_hidden_lr 1e-3) over CoNLL-05's vocabularies; 59 tags
+# (IOB over 29 chunk types and O); the book's batch of 10, padded to 64
+SRL = dict(word_dict=44068, pred_dict=3162, mark_dict=2, word_dim=32,
+           mark_dim=5, hidden=512, depth=8, labels=59)
+SRL_BATCH, SRL_CHECK_BATCH, SRL_LEN, SRL_MIN_LEN = 10, 4, 64, 5
+SRL_STEPS, SRL_FALL_STEPS, SRL_EVAL_BATCHES = 20, 50, 5
+SRL_FEATURES = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
+                "predicate", "mark")
+
+
+def build_srl(pkg, word_dict, pred_dict, mark_dict, word_dim, mark_dim,
+              hidden, depth, labels, lr=0.01, seed=1):
+    """The book's label_semantic_roles (``tests/test_label_semantic_roles.py``
+    ``_db_lstm``'s topology) through ``pkg`` (``paddle_tpu_torch``; the CPU
+    tests build it through the JAX package too): six word features share
+    the frozen embedding ``emb``, the predicate has ``vemb``, the mark its
+    own; each feature through an fc of ``hidden`` with tanh, summed, a
+    ``dynamic_lstm`` (relu candidate, sigmoid gates and cell) and
+    ``depth`` - 1 more, alternating direction, each fed by the sum of two
+    tanh fcs of the level below's input and output; ``feature_out`` the sum
+    of two tanh fcs to ``labels``; the cost ``linear_chain_crf`` (``crfw``
+    at learning rate 1e-3, the book's mix_hidden_lr) then ``mean``; SGD on
+    ``exponential_decay(lr, 100000, 0.5, staircase=True)``.  The Viterbi
+    decoding shares ``crfw``: ``infer`` is the train program pruned to it,
+    ``evaluate`` that program with a ``ChunkEvaluator`` (IOB, (labels - 1)
+    / 2 chunk types) of the paths against ``target``.  Returns (main,
+    startup, infer, evaluate, {"cost": .., "path": .., "evaluator": ..})."""
+    L, P = pkg.layers, pkg.ParamAttr
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = seed
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        feats = {n: L.data(n, shape=[1], dtype="int64", lod_level=1)
+                 for n in SRL_FEATURES}
+        target = L.data("target", shape=[1], dtype="int64", lod_level=1)
+        length = feats["word"]._seq_len_name
+        embs = [L.embedding(feats[n], size=[word_dict, word_dim],
+                            param_attr=P(name="emb", trainable=False))
+                for n in SRL_FEATURES[:6]]
+        embs.append(L.embedding(feats["predicate"],
+                                size=[pred_dict, word_dim],
+                                param_attr=P(name="vemb")))
+        embs.append(L.embedding(feats["mark"], size=[mark_dict, mark_dim]))
+
+        def mixed(xs, size):
+            out = L.sums([L.fc(x, size=size, num_flatten_dims=2, act="tanh")
+                          for x in xs])
+            out._seq_len_name = length
+            return out
+
+        hidden_0 = mixed(embs, hidden)
+        lstm, _ = L.dynamic_lstm(hidden_0, size=hidden,
+                                 candidate_activation="relu",
+                                 gate_activation="sigmoid",
+                                 cell_activation="sigmoid")
+        below = [hidden_0, lstm]
+        for i in range(1, depth):
+            mix = mixed(below, hidden)
+            lstm, _ = L.dynamic_lstm(mix, size=hidden,
+                                     candidate_activation="relu",
+                                     gate_activation="sigmoid",
+                                     cell_activation="sigmoid",
+                                     is_reverse=i % 2 == 1)
+            below = [mix, lstm]
+        feature_out = mixed(below, labels)
+        cost = L.linear_chain_crf(feature_out, target, param_attr=P(
+            name="crfw", learning_rate=1e-3))
+        avg_cost = L.mean(cost)
+        path = L.crf_decoding(feature_out, param_attr=P(name="crfw"))
+        feed_names = list(SRL_FEATURES) + [n + "@LEN" for n in SRL_FEATURES]
+        infer = main.clone(for_test=True).prune_feed_fetch(feed_names,
+                                                           [path.name])
+        evaluate = infer.clone(for_test=True)
+        with pkg.program_guard(evaluate, pkg.Program()):
+            block = evaluate.global_block()
+            tgt = L.data("target", shape=[1], dtype="int64", lod_level=1)
+            evaluator = pkg.evaluator.ChunkEvaluator(
+                block.var(path.name), tgt, "IOB", (labels - 1) // 2,
+                seq_length=block.var(length))
+        pkg.optimizer.SGD(learning_rate=L.exponential_decay(
+            learning_rate=lr, decay_steps=100000, decay_rate=0.5,
+            staircase=True)).minimize(avg_cost)
+    return main, startup, infer, evaluate, dict(
+        cost=avg_cost, path=path, evaluator=evaluator)
+
+
+def srl_feeds(n, batch, max_len, word_dict, pred_dict, mark_dict, labels,
+              min_len=SRL_MIN_LEN, seed=0, **_):
+    """``n`` batches drawn from ``RandomState(seed)``: lengths in
+    [min_len, max_len], random ids of each feature, and the JAX test's
+    learnable target (word + mark) mod labels."""
+    rng = np.random.RandomState(seed)
+    out = []
+    vocab = [word_dict] * 6 + [pred_dict, mark_dict]
+    for _ in range(n):
+        lens = rng.randint(min_len, max_len + 1, batch).astype("int32")
+        f = {}
+        for name, v in zip(SRL_FEATURES, vocab):
+            f[name] = rng.randint(0, v, (batch, max_len, 1)).astype("int64")
+            f[name + "@LEN"] = lens
+        f["target"] = (f["word"] + f["mark"]) % labels
+        f["target@LEN"] = lens
+        out.append(f)
+    return out
+
+
+def srl_infer_feed(feed):
+    return {k: v for k, v in feed.items() if not k.startswith("target")}
+
+
+def numpy_chunk_counts(paths, target, lens, num_chunk_types):
+    """(inferred, labelled, correct) IOB chunks of ``paths`` against
+    ``target`` ([B, T(, 1)] tags, O = 2 * num_chunk_types), counted by
+    walking each sequence: a chunk is (type, start, end)."""
+    def chunks(tags):
+        out, cur = set(), None
+        for i, t in enumerate(list(tags) + [2 * num_chunk_types]):
+            t = int(t)
+            other = t >= 2 * num_chunk_types
+            typ, inside = t // 2, t % 2 == 1
+            if cur is not None and (other or not inside or typ != cur[0]):
+                out.add((cur[0], cur[1], i - 1))
+                cur = None
+            if not other and cur is None:
+                cur = (typ, i)
+        return out
+
+    n_inf = n_lab = n_cor = 0
+    for b, ln in enumerate(lens):
+        a = chunks(np.asarray(paths[b]).reshape(-1)[:ln])
+        g = chunks(np.asarray(target[b]).reshape(-1)[:ln])
+        n_inf, n_lab, n_cor = n_inf + len(a), n_lab + len(g), \
+            n_cor + len(a & g)
+    return n_inf, n_lab, n_cor
+
+
+# ---------------------------------------------------------------------------
+# phase 28: the SSD300 head at VOC width
+# ---------------------------------------------------------------------------
+
+# SSD300's six feature maps (channels, side): VGG's conv4_3 and fc7 and
+# the four extra layers; VOC's 21 classes; the paper's scale schedule
+SSD_MAPS = ((512, 38), (1024, 19), (512, 10), (256, 5), (256, 3), (256, 1))
+SSD = dict(maps=SSD_MAPS, image_size=300, num_classes=21, base_size=300,
+           min_ratio=20, max_ratio=90,
+           aspect_ratios=((2.0,), (2.0, 3.0), (2.0, 3.0), (2.0, 3.0),
+                          (2.0,), (2.0,)), max_gt=16)
+SSD_NMS = dict(score_threshold=0.01, nms_top_k=400, nms_threshold=0.45,
+               keep_top_k=200)
+SSD_BATCH, SSD_CHECK_BATCH, SSD_STEPS, SSD_MAP_BATCHES = 32, 2, 5, 3
+
+
+def build_ssd(pkg, maps, image_size, num_classes, base_size, min_ratio,
+              max_ratio, aspect_ratios, max_gt, lr=1e-3, seed=1):
+    """The SSD head (``tests/test_multi_box_head.py``'s ``multi_box_head``
+    over fed feature maps ``f0``.. of ``maps``' (channels, side), 3x3
+    convolutions, flip) and its training and inference programs through
+    ``pkg``: ``ssd_loss`` against ``gt_box`` [B, max_gt, 4] / ``gt_label``
+    [B, max_gt, 1] (zero-area rows pad), summed, and a Momentum(lr, 0.9)
+    step; ``infer`` (the forward pruned before the loss) decodes the
+    locations on the priors (``box_coder``), takes the softmax and runs
+    ``multiclass_nms`` (``SSD_NMS``) into an 11-point ``DetectionMAP``
+    (overlap 0.5) against the ground truth and ``gt_difficult``.  Returns
+    (main, startup, infer, {"loss", "nms", "map", "evaluator", "head"})."""
+    L = pkg.layers
+    main, startup = pkg.Program(), pkg.Program()
+    main.random_seed = startup.random_seed = seed
+    with pkg.program_guard(main, startup), pkg.unique_name.guard():
+        feats = [L.data("f%d" % i, shape=[c, s, s])
+                 for i, (c, s) in enumerate(maps)]
+        image = L.data("image", shape=[3, image_size, image_size])
+        gt_box = L.data("gt_box", shape=[max_gt, 4])
+        gt_label = L.data("gt_label", shape=[max_gt, 1], dtype="int64")
+        difficult = L.data("gt_difficult", shape=[max_gt, 1], dtype="int64")
+        loc, conf, box, var = L.multi_box_head(
+            feats, image, base_size=base_size, num_classes=num_classes,
+            aspect_ratios=[list(a) for a in aspect_ratios],
+            min_ratio=min_ratio, max_ratio=max_ratio, flip=True,
+            kernel_size=3, pad=1)
+        decoded = L.box_coder(box, var, loc, code_type="decode_center_size")
+        scores = L.transpose(L.softmax(conf), perm=[0, 2, 1])
+        nms = L.multiclass_nms(decoded, scores, **SSD_NMS)
+        evaluator = pkg.evaluator.DetectionMAP(
+            nms, gt_label, gt_box, difficult, class_num=num_classes,
+            overlap_threshold=0.5, evaluate_difficult=False,
+            ap_version="11point")
+        cur_map, _ = evaluator.get_map_var()
+        feed_names = ["f%d" % i for i in range(len(maps))] + [
+            "image", "gt_box", "gt_label", "gt_difficult"]
+        infer = main.clone(for_test=True).prune_feed_fetch(
+            feed_names, [nms.name, cur_map.name])
+        loss = L.reduce_sum(L.ssd_loss(loc, conf, gt_box, gt_label, box,
+                                       var))
+        pkg.optimizer.Momentum(learning_rate=lr, momentum=0.9).minimize(loss)
+    return main, startup, infer, dict(loss=loss, nms=nms, map=cur_map,
+                                      evaluator=evaluator,
+                                      head=[loc, conf, box, var])
+
+
+def ssd_feeds(n, batch, maps, image_size, num_classes, max_gt, seed=0,
+              **_):
+    """``n`` batches from ``RandomState(seed)``: feature maps of normal
+    values, one zero image (the priors read its size), 1..max_gt ground
+    truths an image with labels 1..num_classes - 1 (a sixth difficult)
+    and zero-area padding rows, label 0."""
+    rng = np.random.RandomState(seed)
+    image = np.zeros((1, 3, image_size, image_size), "float32")
+    out = []
+    for _ in range(n):
+        f = {"f%d" % i: rng.randn(batch, c, s, s).astype("float32")
+             for i, (c, s) in enumerate(maps)}
+        n_gt = rng.randint(1, max_gt + 1, batch)
+        xy = rng.rand(batch, max_gt, 2) * 0.7
+        wh = 0.05 + rng.rand(batch, max_gt, 2) * 0.3
+        box = np.concatenate([xy, xy + wh], -1).astype("float32")
+        lbl = rng.randint(1, num_classes, (batch, max_gt, 1))
+        diff = (rng.rand(batch, max_gt, 1) < 1 / 6).astype("int64")
+        pad = np.arange(max_gt)[None, :] >= n_gt[:, None]
+        box[pad] = 0.0
+        lbl[pad] = 0
+        diff[pad] = 0
+        f.update(image=image, gt_box=box, gt_label=lbl.astype("int64"),
+                 gt_difficult=diff)
+        out.append(f)
+    return out
+
+
+# the loss after SRL_FALL_STEPS captured steps on one batch must be under
+# SRL_FALL of the first: at the book's SGD rate (0.01) the full-width
+# program falls from 136.58 to 126.45 (0.926) in 50 steps on the CPU
+SRL_FALL = 0.95
+
+
+def srl_check(start, main, cost, batch=SRL_CHECK_BATCH):
+    """One SGD step of ``build_srl`` at ``SRL``'s width on ``batch``
+    sequences, on ``CUDAPlace(0)`` and on ``CPUPlace()`` from one state
+    (``start``), at ``train_check``'s band: the losses within rtol 1e-4,
+    the trained parameters' gradients within relative L2 1e-4 at the
+    median and 1e-2 each; the step moved every trained parameter."""
+    import paddle_tpu_torch as pt
+
+    params = [p.name for p in main.all_parameters() if p.trainable]
+    card_scope, cpu_scope = copy_scope(start), copy_scope(start, "cpu")
+    before = {n: cpu_scope.var(n).clone() for n in params}
+    (feed,) = srl_feeds(1, batch, SRL_LEN, seed=5, **SRL)
+    fetch = [cost.name] + [n + "@GRAD" for n in params]
+    got = pt.Executor(pt.CUDAPlace(0), capture=False).run(
+        main, feed=feed, fetch_list=fetch, scope=card_scope)
+    want = pt.Executor(pt.CPUPlace()).run(main, feed=feed, fetch_list=fetch,
+                                         scope=cpu_scope)
+    rel = _grad_rel_l2(params, got[1:], want[1:])
+    ranked = sorted(rel, key=rel.get, reverse=True)
+    med = statistics.median(rel.values())
+    moved = sum(not torch.equal(before[n], card_scope.var(n).cpu())
+                for n in params)
+    loss_within = bool(abs(got[0][0] - want[0][0])
+                       <= 1e-4 * abs(want[0][0]))
+    summary = {"batch": batch, "lengths": feed["word@LEN"].tolist(),
+               "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+               "params": len(params), "moved": moved,
+               "grad_rel_l2_median": med,
+               "grad_rel_l2_top5": [[n, rel[n]] for n in ranked[:5]],
+               "finite": all(bool(np.isfinite(a).all()) for a in got)}
+    summary["ok"] = bool(summary["finite"] and loss_within and med <= 1e-4
+                         and rel[ranked[0]] <= 1e-2
+                         and moved == len(params))
+    return summary
+
+
+def srl_decode_checks(scope, infer, evaluate, path, evaluator):
+    """The pruned decoding program captured on the card (its second run a
+    replay) against ``CPUPlace()`` at ``SRL_CHECK_BATCH`` from ``scope``'s
+    state: the paths equal, and the replay repeats the eager bits; then
+    the ``ChunkEvaluator`` program over ``SRL_EVAL_BATCHES`` batches of
+    ``SRL_BATCH``, captured, its counts accumulating in the scope on the
+    card: the counts equal a numpy walk of the fetched paths, and
+    precision, recall and F1 the ratios of those counts."""
+    import paddle_tpu_torch as pt
+
+    (feed,) = srl_feeds(1, SRL_CHECK_BATCH, SRL_LEN, seed=6, **SRL)
+    card = pt.Executor(pt.CUDAPlace(0))
+    runs = [card.run(infer, feed=srl_infer_feed(feed), fetch_list=[path],
+                     scope=scope)[0] for _ in range(2)]
+    host = pt.Executor(pt.CPUPlace()).run(
+        infer, feed=srl_infer_feed(feed), fetch_list=[path],
+        scope=copy_scope(scope, "cpu"))[0]
+    out = {"paths_equal_cpu": bool(np.array_equal(runs[1], host)),
+           "replay_repeats_eager": bool(np.array_equal(runs[0], runs[1])),
+           "differing_positions": int((runs[1] != host).sum())}
+    feeds = srl_feeds(SRL_EVAL_BATCHES, SRL_BATCH, SRL_LEN, seed=7, **SRL)
+    with pt.scope_guard(scope):
+        evaluator.reset(card)
+        paths = [card.run(evaluate, feed=f, fetch_list=[path])[0]
+                 for f in feeds]
+        counts = [int(np.asarray(v).ravel()[0])
+                  for v in evaluator._fetch_states(card)]
+        prf = [float(v[0]) for v in evaluator.eval(card)]
+    types = (SRL["labels"] - 1) // 2
+    want = np.sum([numpy_chunk_counts(p, f["target"], f["word@LEN"], types)
+                   for p, f in zip(paths, feeds)], axis=0).tolist()
+    n_inf, n_lab, n_cor = want
+    p = n_cor / n_inf if n_inf else 0.0
+    r = n_cor / n_lab if n_lab else 0.0
+    f1 = 2 * p * r / (p + r) if n_cor else 0.0
+    out.update(chunk_counts=counts, numpy_counts=want,
+               precision_recall_f1=prf, numpy_prf=[p, r, f1],
+               counts_on_device=all(
+                   scope.var(s.name).device.type == "cuda"
+                   for s in evaluator.states))
+    out["ok"] = bool(out["paths_equal_cpu"] and out["replay_repeats_eager"]
+                     and counts == want and out["counts_on_device"]
+                     and np.allclose(prf, [p, r, f1], rtol=1e-6))
+    return out
+
+
+def srl_phase(steps=SRL_STEPS, fall_steps=SRL_FALL_STEPS):
+    """Phase 27: ``build_srl`` at ``SRL``'s width on ``CUDAPlace(0)``,
+    float32, TF32 off.  ``srl_check`` (card against CPU at batch 4); then
+    the train step captured and eager (``two_arm_run``, ``steps`` timed
+    steps in turns over ``SRL_BATCH`` x ``SRL_LEN`` batches of lengths in
+    [5, 64]): the same bits, ms a step, real tokens/s (the lengths' sum
+    over the median step), one profiled step's idle share and top device
+    events, capture seconds, peak memory, one graph; ``fall_steps``
+    captured steps on one batch from the start state, the loss under
+    ``SRL_FALL`` of the first; ``srl_decode_checks`` on the trained
+    state.  No hand kernel is on the path.  Returns {path: launch
+    record}."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    main, startup, infer, evaluate, v = build_srl(pt, **SRL)
+    start = started(startup)
+    check = srl_check(start, main, v["cost"])
+    log("srl_check", check)
+    feeds = srl_feeds(steps + 3, SRL_BATCH, SRL_LEN, **SRL)
+    need = {k: n for k, n in kernel_launches_per_step(main).items() if n}
+    s, records, runs = two_arm_run(main, start, [v["cost"]], feeds, steps,
+                                   SRL_BATCH, need=need, deterministic=False)
+    exe = runs["captured"]["exe"]
+    tokens = statistics.mean(int(f["word@LEN"].sum())
+                             for f in feeds[2:steps + 2])
+    for arm in ("captured", "eager"):
+        a, w = s[arm], s[arm]["profiled_step"]
+        a.update(real_tokens_per_s=tokens / a["median_step_ms"] * 1e3,
+                 wall_ms=w["wall_ms"], busy_ms=w["busy_ms"],
+                 idle_share=w["idle_share"], top_device_us=w["top_device_us"])
+    s["captured"]["capture_s"] = s["captured"]["first_ms"][1] / 1e3
+    s.update(config=dict(SRL, batch=SRL_BATCH, max_len=SRL_LEN,
+                         min_len=SRL_MIN_LEN, optimizer="SGD(exponential_"
+                         "decay(0.01, 100000, 0.5, staircase))"),
+             mean_real_tokens=tokens, entries=len(exe._steps),
+             graphs=sum(st.graph is not None for st in exe._steps.values()))
+    fall_scope = copy_scope(start)
+    fall = [float(exe.run(main, feed=feeds[0], fetch_list=[v["cost"]],
+                          scope=fall_scope)[0][0])
+            for _ in range(fall_steps)]
+    s["fall"] = {"steps": fall_steps, "first": fall[0], "last": fall[-1],
+                 "ratio": fall[-1] / fall[0], "gate": SRL_FALL,
+                 "losses": fall[::5]}
+    decode = srl_decode_checks(fall_scope, infer, evaluate, v["path"],
+                               v["evaluator"])
+    log("srl_decode", decode)
+    s["seconds"] = time.perf_counter() - t0
+    s["ok"] = bool(s["ok"] and s["graphs"] == 1 and check["ok"]
+                   and decode["ok"] and fall[-1] < SRL_FALL * fall[0])
+    log("srl", s)
+    if not s["ok"]:
+        raise SystemExit("srl: captured differs from eager, the card from "
+                         "the CPU, the loss did not fall or the decoding "
+                         "disagrees: %s" % {k: s[k] for k in (
+                             "same_bits", "graphs", "fall")})
+    del runs, exe
+    release_memory()
+    return {"srl": records["captured"], "srl:eager": records["eager"]}
+
+
+# the outputs of ssd_loss's matching that the card must give bit for bit
+# (target_assign's encoded location targets within rtol 1e-5)
+SSD_MATCHING = {"bipartite_match": ("ColToRowMatchIndices",
+                                     "ColToRowMatchDist"),
+                "target_assign": ("Out", "OutWeight"),
+                "mine_hard_examples": ("NegIndices", "NegCount",
+                                       "UpdatedMatchIndices")}
+
+
+def _ssd_intermediates(main):
+    """The names of ``ssd_loss``'s matching, assignment and mining
+    outputs in ``main``."""
+    return [op.outputs[slot][0] for op in main.global_block().ops
+            for slot in SSD_MATCHING.get(op.type, ())]
+
+
+def ssd_check(start, main, infer, v, batch=SSD_CHECK_BATCH):
+    """One Momentum step of ``build_ssd`` at ``SSD``'s width on ``batch``
+    images, eager on ``CUDAPlace(0)`` and on ``CPUPlace()`` from one state:
+    ``bipartite_match``'s, ``mine_hard_examples``' and the index and
+    weight outputs of ``target_assign`` equal (its encoded location
+    targets, ``box_coder``'s logs, within rtol 1e-5), the loss within
+    rtol 1e-4, the head's gradients within relative L2 1e-4 at the median
+    and 1e-2 each.  Then the inference program from the stepped state:
+    the NMS counts and classes equal, its boxes and scores (decoded with
+    ``exp`` on each device) within rtol 1e-5, the batch mAP equal; and
+    ``multiclass_nms`` on the CPU, fed the card's own decoded boxes and
+    scores, gives the card's rows bit for bit."""
+    import paddle_tpu_torch as pt
+
+    params = sorted(p.name for p in main.all_parameters())
+    inter = _ssd_intermediates(main)
+    (neg_count,) = [op.outputs["NegCount"][0]
+                    for op in main.global_block().ops
+                    if op.type == "mine_hard_examples"]
+    card_scope, cpu_scope = copy_scope(start), copy_scope(start, "cpu")
+    feed, test = ssd_feeds(2, batch, seed=5, **SSD)
+    fetch = [v["loss"].name] + [n + "@GRAD" for n in params] + inter
+    card = pt.Executor(pt.CUDAPlace(0), capture=False)
+    host = pt.Executor(pt.CPUPlace())
+    got = card.run(main, feed=feed, fetch_list=fetch, scope=card_scope)
+    want = host.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+    k = 1 + len(params)
+    rel = _grad_rel_l2(params, got[1:k], want[1:k])
+    med = statistics.median(rel.values())
+    differ = {}
+    for n, a, b in zip(inter, got[k:], want[k:]):
+        if a.dtype.kind == "f" and a.shape[-1] == 4:   # encoded targets
+            e, ok = _plain_compare("float", a, b)
+        else:
+            e, ok = ("same bits", True) if np.array_equal(a, b) else \
+                ("differ", False)
+        if not ok:
+            differ[n] = e
+    (nms_op,) = [op for op in infer.global_block().ops
+                 if op.type == "multiclass_nms"]
+    ifetch = [v["nms"].name, v["nms"]._seq_len_name, v["map"].name,
+              nms_op.inputs["BBoxes"][0], nms_op.inputs["Scores"][0]]
+    gi = card.run(infer, feed=test, fetch_list=ifetch, scope=card_scope)
+    wi = host.run(infer, feed=test, fetch_list=ifetch, scope=cpu_scope)
+    (alone,), _ = _one_op_run(pt.CPUPlace(), "multiclass_nms",
+                              {"BBoxes": gi[3], "Scores": gi[4]}, SSD_NMS,
+                              {"Out": 1, "OutLength": 1}, ())
+    box_err, box_ok = _plain_compare("float", gi[0][..., 1:], wi[0][..., 1:])
+    summary = {
+        "batch": batch, "priors": int(got[k].shape[-1]),
+        "loss_card": float(got[0][0]), "loss_cpu": float(want[0][0]),
+        "grad_rel_l2_median": med, "grad_rel_l2_max": max(rel.values()),
+        "matching_outputs": len(inter), "matching_differ": differ,
+        "neg_count": got[k + inter.index(neg_count)].tolist(),
+        "nms_count_card": gi[1].tolist(), "nms_count_cpu": wi[1].tolist(),
+        "nms_classes_equal": bool(np.array_equal(gi[0][..., 0],
+                                                 wi[0][..., 0])),
+        "nms_rows_differing": int((gi[0] != wi[0]).any(-1).sum()),
+        "nms_box_score_max_abs": box_err,
+        "nms_alone_on_card_inputs_same_bits": bool(
+            np.array_equal(alone[0], gi[0]) and np.array_equal(alone[1],
+                                                              gi[1])),
+        "map_card": float(gi[2][0]), "map_cpu": float(wi[2][0])}
+    summary["ok"] = bool(
+        abs(got[0][0] - want[0][0]) <= 1e-4 * abs(want[0][0])
+        and med <= 1e-4 and max(rel.values()) <= 1e-2 and not differ
+        and np.array_equal(gi[1], wi[1]) and int(gi[1].sum()) > 0
+        and summary["nms_classes_equal"] and box_ok
+        and summary["nms_alone_on_card_inputs_same_bits"]
+        and summary["map_card"] == summary["map_cpu"])
+    return summary
+
+
+def ssd_phase(steps=SSD_STEPS):
+    """Phase 28: ``build_ssd`` at ``SSD``'s width (8732 priors, 21
+    classes) on ``SSD_BATCH`` images, float32, under deterministic
+    algorithms (the head's convolutions).  ``ssd_check`` (card against CPU
+    at batch 2); the training step captured and eager (``two_arm_run``,
+    ``steps`` timed steps in turns; its ``softmax_with_cross_entropy``
+    launches #5 twice and #6 once a step, the generic grad rerunning the
+    forward) fetching the loss and every gradient; the inference program
+    (decode, softmax, ``multiclass_nms``, the batch mAP) captured and
+    eager the same way, its NMS rows and counts the same bits; the NMS
+    op alone (a one-op program on the inference's own decoded boxes and
+    scores, captured) for its share of the inference batch;
+    ``DetectionMAP`` over ``SSD_MAP_BATCHES`` batches.  Returns {path:
+    launch record}."""
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    main, startup, infer, v = build_ssd(pt, **SSD)
+    start = started(startup)
+    check = ssd_check(start, main, infer, v)
+    log("ssd_check", check)
+    params = sorted(p.name for p in main.all_parameters())
+    # the feature maps stand in for a backbone's output: staged on the card
+    # once, so a step times the head and not ~150 MB of host copies
+    feeds = [{k: torch.from_numpy(a).cuda() for k, a in f.items()}
+             for f in ssd_feeds(steps + 3, SSD_BATCH, **SSD)]
+    need = {k: n for k, n in kernel_launches_per_step(main).items() if n}
+    out, paths = {"check": check["ok"]}, {}
+    train, records, runs = two_arm_run(
+        main, start, [v["loss"]] + [n + "@GRAD" for n in params], feeds,
+        steps, SSD_BATCH, need=need)
+    trained = runs["captured"]["scope"]
+    paths["ssd"], paths["ssd:eager"] = records["captured"], records["eager"]
+    ifetch = [v["nms"], v["nms"]._seq_len_name, v["map"]]
+    infer_s, irecords, iruns = two_arm_run(infer, trained, ifetch, feeds,
+                                           steps, SSD_BATCH)
+    paths["ssd_infer"] = irecords["captured"]
+    paths["ssd_infer:eager"] = irecords["eager"]
+    for s, what in ((train, "step"), (infer_s, "batch")):
+        for arm in ("captured", "eager"):
+            a, w = s[arm], s[arm]["profiled_step"]
+            a.update(wall_ms=w["wall_ms"], busy_ms=w["busy_ms"],
+                     idle_share=w["idle_share"],
+                     top_device_us=w["top_device_us"])
+            a["ms_per_" + what] = a["median_step_ms"]
+        s["captured"]["capture_s"] = s["captured"]["first_ms"][1] / 1e3
+        exe = (runs if s is train else iruns)["captured"]["exe"]
+        s["graphs"] = sum(st.graph is not None for st in exe._steps.values())
+    # the NMS op alone on the inference's own decoded boxes and scores
+    (nms_op,) = [op for op in infer.global_block().ops
+                 if op.type == "multiclass_nms"]
+    dec, sc = iruns["captured"]["exe"].run(
+        infer, feed=feeds[-1], fetch_list=[nms_op.inputs["BBoxes"][0],
+                                           nms_op.inputs["Scores"][0]],
+        scope=trained, return_numpy=False)
+    nms = _captured_op_ms("multiclass_nms", {"BBoxes": dec, "Scores": sc},
+                          dict(SSD_NMS), {"Out": 1, "OutLength": 1})
+    # DetectionMAP over SSD_MAP_BATCHES batches, captured
+    ev = v["evaluator"]
+    ev.reset()
+    exe = iruns["captured"]["exe"]
+    for f in feeds[:SSD_MAP_BATCHES]:
+        ev.update(exe.run(infer, feed=f, fetch_list=[v["map"]],
+                          scope=trained)[0])
+    out.update(
+        config=dict(SSD, batch=SSD_BATCH, nms=SSD_NMS, priors=8732,
+                    optimizer="Momentum(1e-3, 0.9)"),
+        train=train, infer=infer_s, nms_alone=nms,
+        nms_share_of_infer_device=nms["device_ms"] / infer_s["captured"][
+            "busy_ms"],
+        map_batches=SSD_MAP_BATCHES, map_per_batch=list(ev._maps),
+        map=float(ev.eval()[0]), train_images_per_s=train["captured"][
+            "images_per_s"], infer_images_per_s=infer_s["captured"][
+            "images_per_s"], seconds=time.perf_counter() - t0)
+    out["ok"] = bool(check["ok"] and train["ok"] and infer_s["ok"]
+                     and train["graphs"] == 1 and infer_s["graphs"] == 1
+                     and np.isfinite(out["map"]))
+    log("ssd", out)
+    if not out["ok"]:
+        raise SystemExit("ssd: captured differs from eager or the card from "
+                         "the CPU: %s" % {k: out[k] for k in ("check",)})
+    del runs, iruns, exe
+    release_memory()
+    return paths
+
+
+def _captured_op_ms(op_type, inputs, attrs, outputs, runs=6):
+    """A one-op program whose inputs are ``inputs`` already on the card
+    (persistable vars in its scope, so a run copies nothing in), captured:
+    {"ms": the median wall of ``runs`` replays, "device_ms": the device
+    busy time of one profiled replay}."""
+    import paddle_tpu_torch as pt
+
+    main = pt.Program()
+    scope = pt.Scope()
+    with pt.program_guard(main, pt.Program()), pt.unique_name.guard():
+        block = main.global_block()
+        ins = {}
+        for slot, a in inputs.items():
+            ins[slot] = [block.create_var(name=slot.lower(), shape=a.shape,
+                                          dtype=str(a.dtype).split(".")[-1],
+                                          persistable=True)]
+            scope.set_var(slot.lower(), a)
+        outs = {k: [block.create_var(name=pt.unique_name.generate(
+            k.lower())) for _ in range(n)] for k, n in outputs.items()}
+        block.append_op(type=op_type, inputs=ins, outputs=outs, attrs=attrs)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    fetch = [v for k in outputs for v in outs[k]]
+
+    def run():
+        return exe.run(main, fetch_list=fetch, scope=scope)
+
+    times = []
+    for i in range(runs + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+    window = device_window(run, again=True)
+    return {"ms": statistics.median(times) * 1e3,
+            "device_ms": window["busy_ms"],
+            "device_events": window["device_events"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the CRF, CTC, sampled-loss, metric and detection op types
+# ---------------------------------------------------------------------------
+
+# Faster R-CNN at stride 16 on a 800 x 1344 image: a [1, 1024, 50, 84]
+# map, 5 anchor sizes x 3 ratios (63000 anchors), COCO's 81 classes
+RCNN = dict(channels=1024, h=50, w=84, image=(800, 1344), classes=81,
+            sizes=[32.0, 64.0, 128.0, 256.0, 512.0], ratios=[0.5, 1.0, 2.0])
+CHUNK_OUTS = ("Precision", "Recall", "F1-Score", "NumInferChunks",
+              "NumLabelChunks", "NumCorrectChunks")
+GPL_OUTS = ("Rois", "LabelsInt32", "BboxTargets", "BboxInsideWeights",
+            "BboxOutsideWeights", "RoisNum")
+
+
+def _pixel_boxes(rng, n, hw, lo=16.0, hi=400.0):
+    """n (x1, y1, x2, y2) pixel boxes inside an image of ``hw``."""
+    wh = lo + rng.rand(n, 2) * (hi - lo)
+    xy = rng.rand(n, 2) * (np.asarray(hw[::-1]) - wh)
+    return np.concatenate([xy, xy + wh], 1).astype("float32")
+
+
+def _rcnn_inputs(rng):
+    """The anchors of the RCNN map (the port's ``anchor_generator`` on the
+    host), 12 ground truths, and 2000 proposals: each ground truth
+    jittered 60 times, the rest at random."""
+    from paddle_tpu_torch import registry
+
+    attrs = {"anchor_sizes": RCNN["sizes"], "aspect_ratios": RCNN["ratios"],
+             "stride": [16.0, 16.0], "offset": 0.5}
+    anchors = registry.get_op_def("anchor_generator").compute(
+        {"Input": [torch.zeros(1, 1, RCNN["h"], RCNN["w"])]}, attrs, None,
+        0)["Anchors"].numpy()
+    gt = _pixel_boxes(rng, 12, RCNN["image"])
+    jit = np.repeat(gt, 60, 0) + rng.randn(720, 4).astype("float32") * 12
+    rois = np.concatenate([jit, _pixel_boxes(rng, 1280, RCNN["image"])])
+    return anchors, attrs, gt, rois.astype("float32")
+
+
+def _a4_op_cases():
+    """(op type, inputs, attrs, {output slot: vars}, differentiated
+    slots, whether float outputs are long sums) of the slice's deterministic
+    op types at their paths' shapes: the CRF at the SRL step's [10, 64,
+    59], CTC on a CRNN line ([32, 100, 96] logits, labels up to 24),
+    ``hierarchical_sigmoid`` over 30000 classes on machine translation's
+    [1920, 512] loss rows, the SSD types at SSD300's 8732 priors and batch
+    32 (planted equal scores in NMS and mining), the Faster R-CNN types
+    on one image of ``RCNN`` (pre-NMS 6000 / post 1000 at 0.7, 256 RPN
+    samples, 512 RoIs at fg 0.25, 7x7 RoI pooling at 1/16)."""
+    from paddle_tpu_torch import registry
+    from paddle_tpu_torch.ops.detection import bipartite_match, iou_matrix
+
+    rng = np.random.RandomState(0)
+    cases = []
+    b, t, d = SRL_BATCH, SRL_LEN, SRL["labels"]
+    lens = rng.randint(SRL_MIN_LEN, t + 1, b).astype("int32")
+    lens[:2] = [t, 1]
+    em = rng.randn(b, t, d).astype("float32")
+    trans = (rng.randn(d + 2, d) * 0.5).astype("float32")
+    tags = rng.randint(0, d, (b, t, 1)).astype("int64")
+    cases += [
+        ("linear_chain_crf", {"Emission": em, "Length": lens,
+                              "Transition": trans, "Label": tags}, {},
+         {"LogLikelihood": 1}, ("Emission", "Transition"), False),
+        ("crf_decoding", {"Emission": em, "Length": lens,
+                          "Transition": trans}, {}, {"ViterbiPath": 1}, (),
+         False),
+        ("chunk_eval", {"Inference": np.where(rng.rand(b, t, 1) < 0.7, tags,
+                                              rng.randint(0, d, (b, t, 1))),
+                        "Label": tags, "Length": lens},
+         {"num_chunk_types": (d - 1) // 2, "chunk_scheme": "IOB"},
+         {k: 1 for k in CHUNK_OUTS}, (), False)]
+    logits = rng.randn(32, 100, 96).astype("float32")
+    t_len = rng.randint(60, 101, 32).astype("int32")
+    lbl = rng.randint(1, 96, (32, 24, 1)).astype("int64")
+    l_len = rng.randint(1, 25, 32).astype("int32")
+    best = logits.argmax(-1).astype("int64")
+    cases += [
+        ("warpctc", {"Logits": logits, "LogitsLength": t_len, "Label": lbl,
+                     "LabelLength": l_len}, {"blank": 0}, {"Loss": 1},
+         ("Logits",), False),
+        ("ctc_align", {"Input": best, "Length": t_len}, {"blank": 0},
+         {"Output": 1, "OutputLength": 1}, (), False),
+        ("edit_distance", {"Hyps": best, "HypsLength": t_len,
+                           "Refs": lbl[:, :, 0], "RefsLength": l_len}, {},
+         {"Out": 1, "SequenceNum": 1}, (), False)]
+    x = rng.randn(1920, 512).astype("float32")
+    cases += [
+        ("hierarchical_sigmoid", {
+            "X": x, "W": (rng.randn(29999, 512) * 0.05).astype("float32"),
+            "Label": rng.randint(0, 30000, (1920, 1)).astype("int64"),
+            "Bias": rng.randn(29999, 1).astype("float32")},
+         {"num_classes": 30000}, {"Out": 1}, ("X", "W", "Bias"), True),
+        ("bilinear_tensor_product", {
+            "X": x[:256, :256], "Y": x[256:512, :256],
+            "Weight": (rng.randn(64, 256, 256) * 0.05).astype("float32"),
+            "Bias": rng.randn(1, 64).astype("float32")}, {}, {"Out": 1},
+         ("X", "Y", "Weight", "Bias"), True)]
+    seg = rng.randint(0, 21, (8, 512, 512)).astype("int32")
+    cases += [
+        ("mean_iou", {"Predictions": seg, "Labels": np.where(
+            rng.rand(8, 512, 512) < 0.6, seg, rng.randint(0, 21, seg.shape))
+            .astype("int32")}, {"num_classes": 21},
+         {"OutMeanIou": 1, "OutWrong": 1, "OutCorrect": 1}, (), False),
+        ("precision_recall", {
+            "MaxProbs": rng.rand(8192, 1).astype("float32"),
+            "Indices": rng.randint(0, 1000, (8192, 1)).astype("int64"),
+            "Labels": rng.randint(0, 1000, (8192, 1)).astype("int64"),
+            "Weights": rng.rand(8192, 1).astype("float32"),
+            "StatesInfo": rng.randint(0, 9, (1000, 4)).astype("float32")},
+         {"class_number": 1000}, {"BatchMetrics": 1, "AccumMetrics": 1,
+                                  "AccumStatesInfo": 1}, (), False),
+        ("positive_negative_pair", {
+            "Score": np.round(rng.rand(4096, 1), 3).astype("float32"),
+            "Label": rng.randint(0, 5, (4096, 1)).astype("float32"),
+            "QueryID": rng.randint(0, 64, (4096, 1)).astype("int64"),
+            "Weight": rng.rand(4096, 1).astype("float32")}, {},
+         {"PositivePair": 1, "NegativePair": 1, "NeutralPair": 1}, (),
+         True)]
+    # SSD300: 8732 priors, 32 images of up to 16 ground truths, 21 classes
+    n_p = 8732
+    xy = rng.rand(n_p, 2) * 0.8
+    pri = np.concatenate([xy, xy + 0.02 + rng.rand(n_p, 2) * 0.2], 1) \
+        .astype("float32")
+    var = np.tile(np.asarray([[0.1, 0.1, 0.2, 0.2]], "float32"), (n_p, 1))
+    gxy = rng.rand(32, 16, 2) * 0.7
+    gt = np.concatenate([gxy, gxy + 0.05 + rng.rand(32, 16, 2) * 0.25], -1) \
+        .astype("float32")
+    n_gt = rng.randint(1, 17, 32)
+    gt[np.arange(16)[None] >= n_gt[:, None]] = 0.0
+    iou = iou_matrix(torch.from_numpy(gt), torch.from_numpy(pri)).numpy()
+    match, mdist = (a.numpy() for a in bipartite_match(
+        torch.from_numpy(iou), True, 0.5))
+    enc = rng.randn(32, 16, n_p, 4).astype("float32")
+    cls_loss = np.round(rng.rand(32, n_p) * 4, 2).astype("float32")
+    scores = np.round(rng.dirichlet(np.ones(21), (32, n_p)), 3).astype(
+        "float32").transpose(0, 2, 1).copy()
+    dec = np.concatenate([rng.rand(32, n_p, 2) * 0.8, np.zeros(
+        (32, n_p, 2))], -1).astype("float32")
+    dec[..., 2:] = dec[..., :2] + 0.02 + rng.rand(32, n_p, 2).astype(
+        "float32") * 0.2
+    dets = np.zeros((32, 200, 6), "float32")
+    dets[..., 0] = rng.randint(1, 21, (32, 200))
+    dets[..., 1] = np.round(rng.rand(32, 200), 2)
+    dets[:, :16, 0] = rng.randint(1, 21, (32, 16))
+    dets[:, :16, 2:] = gt + rng.randn(32, 16, 4).astype("float32") * 0.02
+    dets[:, 16:, 2:4] = rng.rand(32, 184, 2) * 0.7
+    dets[:, 16:, 4:] = dets[:, 16:, 2:4] + 0.05 + rng.rand(32, 184, 2) * 0.2
+    glab = np.concatenate([rng.randint(1, 21, (32, 16, 1)), gt,
+                           rng.rand(32, 16, 1) < 0.15], -1).astype("float32")
+    glab[:, :, 0] = np.where(np.arange(16)[None] < n_gt[:, None],
+                             dets[:, :16, 0], 0)
+    mine_in = {"ClsLoss": cls_loss, "MatchIndices": match,
+               "MatchDist": mdist}
+    mine_attrs = {"neg_pos_ratio": 3.0, "neg_dist_threshold": 0.5,
+                  "mining_type": "max_negative"}
+    cases += [
+        ("iou_similarity", {"X": gt, "Y": pri}, {}, {"Out": 1}, (), False),
+        ("prior_box", {"Input": np.zeros((1, 512, 38, 38), "float32"),
+                       "Image": np.zeros((1, 3, 300, 300), "float32")},
+         {"min_sizes": [30.0], "max_sizes": [60.0], "aspect_ratios": [2.0],
+          "flip": True, "clip": False, "variances": [0.1, 0.1, 0.2, 0.2],
+          "step_w": 0.0, "step_h": 0.0, "offset": 0.5},
+         {"Boxes": 1, "Variances": 1}, (), False),
+        ("box_coder", {"TargetBox": gt.reshape(-1, 4), "PriorBox": pri,
+                       "PriorBoxVar": var},
+         {"code_type": "encode_center_size"}, {"OutputBox": 1}, (), False),
+        ("box_coder", {"TargetBox": (rng.randn(32, n_p, 4) * 0.5).astype(
+            "float32"), "PriorBox": pri, "PriorBoxVar": var},
+         {"code_type": "decode_center_size"}, {"OutputBox": 1}, (), False),
+        ("bipartite_match", {"DistMat": iou},
+         {"match_type": "per_prediction", "dist_threshold": 0.5},
+         {"ColToRowMatchIndices": 1, "ColToRowMatchDist": 1}, (), False),
+        ("target_assign", {"X": enc, "MatchIndices": match}, {},
+         {"Out": 1, "OutWeight": 1}, (), False),
+        ("mine_hard_examples", mine_in, mine_attrs,
+         {"NegIndices": 1, "NegCount": 1, "UpdatedMatchIndices": 1}, (),
+         False),
+        ("multiclass_nms", {"BBoxes": dec, "Scores": scores}, dict(SSD_NMS),
+         {"Out": 1, "OutLength": 1}, (), False),
+        ("detection_map", {"DetectRes": dets, "DetectResLength": np.full(
+            32, 200, "int32"), "Label": glab, "GtLength": n_gt.astype(
+            "int32")}, {"class_num": 21, "overlap_threshold": 0.5,
+                        "evaluate_difficult": False, "ap_type": "11point"},
+         {"MAP": 1, "AccumPosCount": 1}, (), False),
+        ("polygon_box_transform", {"X": rng.randn(8, 8, 128, 128).astype(
+            "float32")}, {}, {"Out": 1}, (), False)]
+    # the mined negatives of that case, as ``ssd_loss`` hands them to its
+    # second ``target_assign``
+    mined = registry.get_op_def("mine_hard_examples").compute(
+        {k: [torch.from_numpy(v)] for k, v in mine_in.items()},
+        mine_attrs, None, 0)["NegIndices"].numpy()
+    cases.append(("target_assign", {
+        "X": glab[..., :1].astype("int64"), "MatchIndices": match,
+        "NegIndices": mined}, {"mismatch_value": 0},
+        {"Out": 1, "OutWeight": 1}, (), False))
+    anchors, a_attrs, gt_px, rois = _rcnn_inputs(rng)
+    c, h, w = RCNN["channels"], RCNN["h"], RCNN["w"]
+    info = np.asarray([[RCNN["image"][0], RCNN["image"][1], 1.0]],
+                      "float32")
+    fmap = rng.randn(1, c, h, w).astype("float32")
+    quads = np.concatenate([_pixel_boxes(rng, 128, (256, 640), 20, 200)]
+                           * 2, 1)[:, [0, 1, 2, 1, 6, 7, 0, 7]]
+    quads[:, 2:6] += rng.randn(128, 4).astype("float32") * 3
+    cases += [
+        ("anchor_generator", {"Input": np.zeros((1, c, h, w), "float32")},
+         a_attrs, {"Anchors": 1, "Variances": 1}, (), False),
+        ("generate_proposals", {
+            "Scores": rng.randn(1, 15, h, w).astype("float32"),
+            "BboxDeltas": (rng.randn(1, 60, h, w) * 0.2).astype("float32"),
+            "ImInfo": info, "Anchors": anchors,
+            "Variances": np.ones_like(anchors)},
+         {"pre_nms_topN": 6000, "post_nms_topN": 1000, "nms_thresh": 0.7,
+          "min_size": 0.1}, {"RpnRois": 1, "RpnRoiProbs": 1,
+                             "RpnRoisLength": 1}, (), False),
+        ("rpn_target_assign", {"Anchor": anchors, "GtBoxes": gt_px[None],
+                               "GtLength": np.asarray([12], "int32")},
+         {"rpn_batch_size_per_im": 256, "rpn_fg_fraction": 0.5,
+          "rpn_positive_overlap": 0.7, "rpn_negative_overlap": 0.3},
+         {"ScoreLabels": 1, "TargetBBox": 1, "BBoxWeight": 1}, (), False),
+        ("generate_proposal_labels", _gpl_inputs(rng, gt_px, rois, info),
+         dict(GPL_ATTRS, use_random=False), {k: 1 for k in GPL_OUTS}, (),
+         False),
+        ("roi_pool", {"X": fmap, "ROIs": rois[::3][:512].copy()},
+         {"pooled_height": 7, "pooled_width": 7, "spatial_scale": 1 / 16},
+         {"Out": 1}, ("X",), False),
+        ("roi_perspective_transform", {
+            "X": rng.randn(1, 256, 64, 160).astype("float32"),
+            "ROIs": quads.astype("float32")},
+         {"transformed_height": 8, "transformed_width": 64,
+          "spatial_scale": 0.25}, {"Out": 1}, ("X",), False)]
+    return cases
+
+
+GPL_ATTRS = dict(batch_size_per_im=512, fg_fraction=0.25, fg_thresh=0.5,
+                 bg_thresh_hi=0.5, bg_thresh_lo=0.0, class_nums=81,
+                 bbox_reg_weights=[0.1, 0.1, 0.2, 0.2])
+
+
+def _gpl_inputs(rng, gt_px, rois, info):
+    crowd = np.zeros((1, 12), "int32")
+    crowd[0, 3] = 1
+    return {"RpnRois": rois[None], "RpnRoisLength": np.asarray(
+        [len(rois)], "int32"), "GtClasses": rng.randint(
+        1, RCNN["classes"], (1, 12)).astype("int32"), "IsCrowd": crowd,
+        "GtBoxes": gt_px[None], "GtLength": np.asarray([12], "int32"),
+        "ImInfo": info}
+
+
+def gpl_eligible(inputs, attrs):
+    """Per image: the candidate boxes (ground truths, then the proposals in
+    the image's scale) and which are fg- and bg-eligible, by a numpy IoU
+    of pixel boxes."""
+    out = []
+    for i in range(inputs["GtBoxes"].shape[0]):
+        g = inputs["GtBoxes"][i][:inputs["GtLength"][i]]
+        r = inputs["RpnRois"][i][:inputs["RpnRoisLength"][i]] / \
+            inputs["ImInfo"][i, 2]
+        cand = np.concatenate([g, r])
+
+        def area(bx):
+            return (bx[:, 2] - bx[:, 0] + 1) * (bx[:, 3] - bx[:, 1] + 1)
+
+        iw = np.minimum(cand[:, None, 2], g[None, :, 2]) - \
+            np.maximum(cand[:, None, 0], g[None, :, 0]) + 1
+        ih = np.minimum(cand[:, None, 3], g[None, :, 3]) - \
+            np.maximum(cand[:, None, 1], g[None, :, 1]) + 1
+        inter = np.maximum(iw, 0) * np.maximum(ih, 0)
+        ov = (inter / (area(cand)[:, None] + area(g)[None] - inter)).max(1)
+        ov[:len(g)][inputs["IsCrowd"][i][:len(g)] > 0] = -1
+        fg = ov > attrs["fg_thresh"]
+        bg = ~fg & (ov >= attrs["bg_thresh_lo"]) & \
+            (ov < attrs["bg_thresh_hi"])
+        out.append((cand, fg, bg))
+    return out
+
+
+def gpl_faults(inputs, attrs, got, want_counts):
+    """What breaks ``generate_proposal_labels``' invariants in ``got`` (its
+    six outputs): each image's fg and bg counts those of ``want_counts``
+    ([image][fg, bg], from a run without ``use_random``: the counts do not
+    depend on the draw), each fg row an fg-eligible box with four target
+    weights, each bg row a bg-eligible box, zeros past ``RoisNum``."""
+    rois, labels, _, inside, _, num = got
+    faults = []
+    for i, (cand, fg, bg) in enumerate(gpl_eligible(inputs, attrs)):
+        n = int(num[i])
+        lab = labels[i, :n, 0]
+        if [int((lab > 0).sum()), int((lab == 0).sum())] != \
+                list(want_counts[i]):
+            faults.append((i, "counts"))
+        for row in range(n):
+            box = rois[i, row] / inputs["ImInfo"][i, 2]
+            hit = np.abs(cand - box).max(1) < 1e-3
+            eligible = fg if lab[row] > 0 else bg
+            if not (hit & eligible).any() or \
+                    (inside[i, row] > 0).sum() != (4 if lab[row] > 0 else 0):
+                faults.append((i, row))
+        if rois[i, n:].any() or labels[i, n:].any():
+            faults.append((i, "padding"))
+    return faults
+
+
+def _a4_random_checks():
+    """``nce`` (100000 classes, 20 negatives, [2048, 512]) and
+    ``generate_proposal_labels`` with ``use_random`` (``RCNN``): a program
+    of seed 11 run three times by a capturing executor and an eager one
+    on the card, every run the same bits in the two, a replay drawing
+    anew; ``nce``'s Cost and SampleLogits, and its gradients, equal the
+    port's formula (``nce_cost``) evaluated on the CPU on the card's own
+    SampleLabels, the negatives in range with uniform moments; the random
+    labels keep ``gpl_faults``' invariants."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.sampled_loss import nce_cost
+
+    rng = np.random.RandomState(3)
+    n_cls, n_neg = 100000, 20
+    nce_in = {"Input": rng.randn(2048, 512).astype("float32"),
+              "Label": rng.randint(0, n_cls, (2048, 1)).astype("int64"),
+              "Weight": (rng.randn(n_cls, 512) * 0.05).astype("float32"),
+              "Bias": rng.randn(n_cls, 1).astype("float32")}
+    nce_attrs = {"num_total_classes": n_cls, "num_neg_samples": n_neg,
+                 "num_true": 1}
+    _, _, gt_px, rois = _rcnn_inputs(np.random.RandomState(4))
+    info = np.asarray([[RCNN["image"][0], RCNN["image"][1], 1.0]],
+                      "float32")
+    gpl_in = _gpl_inputs(rng, gt_px, rois, info)
+    rows, bad = [], []
+    for op_type, inputs, attrs, outputs, diff in (
+            ("nce", nce_in, nce_attrs, {"Cost": 1, "SampleLogits": 1,
+                                        "SampleLabels": 1},
+             ("Input", "Weight", "Bias")),
+            ("generate_proposal_labels", gpl_in,
+             dict(GPL_ATTRS, use_random=True), {k: 1 for k in GPL_OUTS},
+             ())):
+        arms = {cap: _one_op_run(pt.CUDAPlace(0), op_type, inputs, attrs,
+                                   outputs, diff, seed=11, capture=cap,
+                                   runs=3)[0]
+                for cap in (True, False)}
+        same = all(np.array_equal(a, b)
+                   for ra, rb in zip(arms[True], arms[False])
+                   for a, b in zip(ra, rb))
+        got = arms[True][2]
+        row = {"op": op_type, "same_bits_captured_eager": same,
+               "replay_draws_anew": not all(
+                   np.array_equal(a, b)
+                   for a, b in zip(arms[True][1], got))}
+        if op_type == "nce":
+            samples = torch.from_numpy(got[2])
+            t = {k: torch.from_numpy(v).requires_grad_(k in diff)
+                 for k, v in inputs.items()}
+            cost, o = nce_cost(t["Input"], samples, 1, t["Weight"],
+                               t["Bias"], None, n_neg / n_cls)
+            w = torch.from_numpy(np.random.RandomState(1).rand(
+                2048, 1).astype("float32"))
+            grads = torch.autograd.grad((cost[:, None] * w).mean(),
+                                        [t[k] for k in diff])
+            negs = got[2][:, 1:]
+            errs = {"cost": _plain_compare("float", got[0],
+                                           cost[:, None].detach().numpy()),
+                    "logits": _plain_compare("float", got[1],
+                                             o.detach().numpy())}
+            rel = [float(np.linalg.norm(g - h.numpy()) / max(
+                np.linalg.norm(h.numpy()), 1e-30))
+                for g, h in zip(got[3:], grads)]
+            row.update(errors={k: e for k, (e, _) in errs.items()},
+                       grad_rel_l2=rel, neg_mean=float(negs.mean()),
+                       neg_var=float(negs.var()))
+            within = all(ok for _, ok in errs.values()) and \
+                max(rel) <= PLAIN_GRAD and negs.min() >= 0 and \
+                negs.max() < n_cls and np.array_equal(
+                    got[2][:, :1], inputs["Label"]) and \
+                abs(negs.mean() - (n_cls - 1) / 2) < 0.01 * n_cls and \
+                abs(negs.var() / ((n_cls ** 2 - 1) / 12) - 1) < 0.02
+        else:
+            (host,), _ = _one_op_run(pt.CPUPlace(), op_type, inputs, dict(
+                attrs, use_random=False), outputs, ())
+            want = []
+            for lab, n in zip(host[1][..., 0], host[5]):
+                lab = lab[:int(n)]
+                want.append([int((lab > 0).sum()), int((lab == 0).sum())])
+            faults = gpl_faults(inputs, attrs, got, want)
+            row.update(counts=want, rois=int(got[5][0]), faults=faults[:5])
+            within = not faults
+        row["within"] = bool(within)
+        row["ok"] = bool(same and row["replay_draws_anew"] and within)
+        rows.append(row)
+        if not row["ok"]:
+            bad.append(op_type)
+    return rows, bad
+
+
+def a4_ops_phase():
+    """Phase 29: each of the 27 op types of the CRF, CTC, sampled-loss,
+    metric and detection families (no hand kernel) as a one-op program on
+    ``CUDAPlace(0)`` against ``CPUPlace()`` at their paths' shapes
+    (``_a4_op_cases``): integer, bool and index outputs exact, floats
+    within rtol 1e-5 / atol 1e-6 (the 512-term products within relative
+    L2 1e-5), gradients within relative L2 1e-5, all read from the card's
+    second run, a replay of its CUDA graph, which must repeat the eager
+    run's bits; the two random ones by ``_a4_random_checks``.  No hand
+    kernel launches.  Raises on a fault."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+
+    cuda.reset_launch_counts()
+    rows, bad, types = [], [], set()
+    for op_type, inputs, attrs, outputs, diff, summed in _a4_op_cases():
+        t0 = time.perf_counter()
+        (first, card), n = _one_op_run(pt.CUDAPlace(0), op_type, inputs,
+                                       attrs, outputs, diff, runs=2)
+        card_s = time.perf_counter() - t0
+        repeat = all(np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+                     for a, b in zip(first, card))
+        t0 = time.perf_counter()
+        (host,), _ = _one_op_run(pt.CPUPlace(), op_type, inputs, attrs,
+                                 outputs, diff)
+        errs, ok = _seq_compare(card, host, n, summed)
+        rows.append({"op": op_type, "errors": errs,
+                     "captured_repeats_eager": repeat, "ok": ok and repeat,
+                     "card_s": card_s, "cpu_s": time.perf_counter() - t0})
+        types.add(op_type)
+        if not (ok and repeat):
+            bad.append(op_type)
+    random_rows, random_bad = _a4_random_checks()
+    rows += random_rows
+    bad += random_bad
+    types.update(r["op"] for r in random_rows)
+    launches = {k: v for k, v in cuda.launch_counts().items() if v}
+    summary = {"types": len(types), "cases": rows,
+               "hand_kernel_launches": launches,
+               "ok": not bad and not launches and len(types) == 27}
+    log("a4_ops", summary)
+    if not summary["ok"]:
+        raise SystemExit("a4_ops: the card differs from the CPU, a replay "
+                         "from the eager run, or a case is missing: %s %s "
+                         "(%d types)" % (bad, launches, len(types)))
+    return summary
+
+
 # (kernel, source, the TPU kernel's pallas_call, the path whose launches
 # the row's "launches" reports)
 KERNEL_ROWS = (
@@ -7483,10 +8549,11 @@ def main():
             if faults:
                 raise SystemExit("rnn: %s launched %s" % (path, faults))
         return 0
-    alone = {"plain_ops", "mnist_cnn", "seq_ops", "beam"} & set(sys.argv[1:])
+    alone = {"plain_ops", "mnist_cnn", "seq_ops", "beam", "a4_ops", "srl",
+             "ssd"} & set(sys.argv[1:])
     if alone:
-        # the frontend and control-flow slices alone (no hand kernel on
-        # any of their paths)
+        # the frontend, control-flow and CRF / detection slices alone (no
+        # hand kernel on their paths but #5 / #6 in ssd_loss)
         if "plain_ops" in alone:
             plain_ops_phase()
             release_memory()
@@ -7504,6 +8571,16 @@ def main():
                 faults = launch_faults(record)
                 if faults:
                     raise SystemExit("beam: %s launched %s" % (path, faults))
+        if "a4_ops" in alone:
+            a4_ops_phase()
+            release_memory()
+        for name, phase in (("srl", srl_phase), ("ssd", ssd_phase)):
+            if name in alone:
+                for path, record in phase().items():
+                    faults = launch_faults(record)
+                    if faults:
+                        raise SystemExit("%s: %s launched %s"
+                                         % (name, path, faults))
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
@@ -7634,6 +8711,15 @@ def main():
     for path, record in beam_phase().items():
         check_path(path, record)
     release_memory()
+    # the CRF, CTC, sampled-loss, metric and detection op types, card
+    # against CPU; the book's label_semantic_roles trained (no hand
+    # kernel) and the SSD300 head (#5 / #6 in its ssd_loss)
+    a4_ops_phase()
+    release_memory()
+    for phase in (srl_phase, ssd_phase):
+        for path, record in phase().items():
+            check_path(path, record)
+        release_memory()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)

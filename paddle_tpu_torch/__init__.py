@@ -5,7 +5,8 @@ The layout mirrors the JAX package (``framework``, ``registry``,
 ``backward``, ``optimizer``, ``executor``, ``io``, ``layers``, ``ops``,
 ``nets``, ``models``, ``reader``, ``data_feeder``, ``serving``,
 ``transpiler``, ``inference``, ``debugger``, ``net_drawer``, ``contrib``,
-``metrics``, ``lod_tensor``, ``compat``, ``op``, ``default_scope_funcs``)
+``metrics``, ``evaluator``, ``lod_tensor``, ``compat``, ``op``,
+``default_scope_funcs``)
 so each module's
 counterpart is easy to find; the programs it builds serialize to the
 same schema, and ``io`` writes the JAX package's file format.  Op
@@ -45,6 +46,8 @@ from . import inference
 from . import debugger
 from . import net_drawer
 from . import compat, metrics, lod_tensor
+from . import evaluator
+from .evaluator import Evaluator
 from .lod_tensor import (LoDTensor, LoDTensorArray, create_lod_tensor,
                          create_random_int_lodtensor)
 
@@ -60,6 +63,6 @@ __all__ = [
     "nets", "reader", "DataFeeder", "batch", "models", "transpiler",
     "InferenceTranspiler", "memory_optimize", "release_memory", "serving",
     "contrib", "inference", "debugger", "net_drawer", "compat", "metrics",
-    "lod_tensor", "LoDTensor", "LoDTensorArray", "create_lod_tensor",
+    "evaluator", "Evaluator", "lod_tensor", "LoDTensor", "LoDTensorArray", "create_lod_tensor",
     "create_random_int_lodtensor",
 ]

@@ -2,11 +2,12 @@
 package installs the ``Variable`` operators (``math_op_patch``), as the
 JAX package does."""
 
-from . import (cnn, control_flow, io, layer_function_generator,  # noqa: F401
-               learning_rate_scheduler, math_op_patch, metric_op, nn, ops,
-               sequence, tensor)
+from . import (cnn, control_flow, detection, io,  # noqa: F401
+               layer_function_generator, learning_rate_scheduler,
+               math_op_patch, metric_op, nn, ops, sequence, tensor)
 from .cnn import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
+from .detection import *  # noqa: F401,F403
 from .io import *  # noqa: F401,F403
 from .layer_function_generator import *  # noqa: F401,F403
 from .learning_rate_scheduler import *  # noqa: F401,F403

@@ -8,7 +8,9 @@ of ``paddle_tpu/layers/nn.py``): ``fc``, ``embedding``, ``dropout``,
 ``mul``, ``label_smooth``, ``sampling_id``, ``smooth_l1``, ``clip``,
 ``clip_by_norm``, ``flatten``, ``sum``, ``multiplex``, ``rank_loss``,
 ``sigmoid_cross_entropy_with_logits``, ``gaussian_random`` and
-``dice_loss`` (``relu`` and ``log`` are generated with the activations,
+``dice_loss``, and the sampled losses and metric ``nce``, ``hsigmoid``,
+``bilinear_tensor_product`` and ``mean_iou`` (``relu`` and ``log`` are
+generated with the activations,
 ``layers/ops.py``).  They append the same ops with
 the same attrs as the JAX package, so the programs serialize alike."""
 
@@ -28,7 +30,8 @@ __all__ = ["fc", "embedding", "dropout", "softmax", "cross_entropy",
            "sampling_id", "smooth_l1", "clip", "clip_by_norm", "flatten",
            "sum", "multiplex", "rank_loss",
            "sigmoid_cross_entropy_with_logits", "gaussian_random",
-           "dice_loss"]
+           "dice_loss", "nce", "hsigmoid", "bilinear_tensor_product",
+           "mean_iou"]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -581,3 +584,91 @@ def dice_loss(input, label, epsilon=1e-5):
         elementwise_add(denom, tensor_layers.fill_constant(
             shape=[1], dtype=input.dtype, value=float(epsilon)))))
     return tensor_layers.reduce_mean(score)
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=None, name=None):
+    """Noise-contrastive estimation: each row's cost [B, 1] over its true
+    classes and ``num_neg_samples`` uniform negatives."""
+    helper = LayerHelper("nce", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    num_true = label.shape[-1] if len(label.shape) > 1 else 1
+    num_neg = int(num_neg_samples) if num_neg_samples else 10
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    inputs = {"Input": [input], "Label": [label], "Weight": [w]}
+    if helper.kwargs.get("bias_attr") is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[num_total_classes, 1],
+            dtype=input.dtype, is_bias=True)]
+    if sample_weight is not None:
+        inputs["SampleWeight"] = [sample_weight]
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    logits = helper.create_variable_for_type_inference(input.dtype)
+    labels_out = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="nce", inputs=inputs,
+        outputs={"Cost": [cost], "SampleLogits": [logits],
+                 "SampleLabels": [labels_out]},
+        attrs={"num_total_classes": int(num_total_classes),
+               "num_neg_samples": num_neg, "num_true": int(num_true)})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid over a complete binary tree: each row's cost
+    [B, 1]."""
+    helper = LayerHelper("hsigmoid", input=input, param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_classes - 1, input.shape[-1]],
+                                dtype=input.dtype)
+    inputs = {"X": [input], "W": [w], "Label": [label]}
+    if helper.kwargs.get("bias_attr") is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[num_classes - 1, 1],
+            dtype=input.dtype, is_bias=True)]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="hierarchical_sigmoid", inputs=inputs,
+                     outputs={"Out": [out]},
+                     attrs={"num_classes": int(num_classes)})
+    return out
+
+
+def bilinear_tensor_product(x, y, size, act=None, name=None,
+                            param_attr=None, bias_attr=None):
+    """out_k = x . W_k . y (+ b_k)."""
+    helper = LayerHelper("bilinear_tensor_product", input=x,
+                         param_attr=param_attr, bias_attr=bias_attr,
+                         act=act, name=name)
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[size, x.shape[-1], y.shape[-1]],
+                                dtype=x.dtype)
+    inputs = {"X": [x], "Y": [y], "Weight": [w]}
+    if helper.kwargs.get("bias_attr") is not False:
+        inputs["Bias"] = [helper.create_parameter(
+            attr=helper.bias_attr, shape=[1, size], dtype=x.dtype,
+            is_bias=True)]
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="bilinear_tensor_product", inputs=inputs,
+                     outputs={"Out": [out]})
+    return helper.append_activation(out)
+
+
+def mean_iou(input, label, num_classes):
+    """Mean intersection over union.  Returns (mean_iou, out_wrong,
+    out_correct)."""
+    helper = LayerHelper("mean_iou")
+    iou = helper.create_variable_for_type_inference(dtype="float32")
+    wrong = helper.create_variable_for_type_inference(dtype="int32")
+    correct = helper.create_variable_for_type_inference(dtype="int32")
+    helper.append_op(
+        type="mean_iou",
+        inputs={"Predictions": [input], "Labels": [label]},
+        outputs={"OutMeanIou": [iou], "OutWrong": [wrong],
+                 "OutCorrect": [correct]},
+        attrs={"num_classes": int(num_classes)})
+    return iou, wrong, correct

@@ -1,7 +1,7 @@
-"""The sequence layers (counterpart of ``paddle_tpu/layers/sequence.py``)
-but ``linear_chain_crf``, ``crf_decoding``, ``chunk_eval``, ``warpctc``,
-``ctc_greedy_decoder`` and ``edit_distance``, which wait for their ops
-(ROADMAP A4d).  A padded sequence var's lengths are its ``<name>@LEN``
+"""The sequence layers (counterpart of ``paddle_tpu/layers/sequence.py``),
+the CRF and CTC layers (``linear_chain_crf``, ``crf_decoding``,
+``chunk_eval``, ``warpctc``, ``ctc_greedy_decoder``, ``edit_distance``)
+among them.  A padded sequence var's lengths are its ``<name>@LEN``
 companion (``layers.data(lod_level=1)``); lengths propagate through ops
 (``Block._infer_and_mark``), and every wrapper also takes an explicit
 ``length=`` Variable."""
@@ -17,7 +17,8 @@ __all__ = ["padding_mask", "sequence_length", "dynamic_lstm",
            "sequence_enumerate", "row_conv", "causal_mask",
            "padding_attn_bias", "sequence_pad", "sequence_unpad",
            "sequence_reshape", "sequence_expand_as", "sequence_scatter",
-           "im2sequence", "lod_reset"]
+           "im2sequence", "lod_reset", "linear_chain_crf", "crf_decoding",
+           "chunk_eval", "warpctc", "ctc_greedy_decoder", "edit_distance"]
 
 
 def sequence_length(x, block=None):
@@ -439,3 +440,140 @@ def lod_reset(x, y=None, target_lod=None):
                      attrs=attrs)
     out._seq_len_name = length.name
     return out
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """Linear-chain CRF cost: ``input`` [B, T, D] emissions, ``label``
+    [B, T, 1] int64 tags.  Creates the [D+2, D] transition (rows: start,
+    end, D tag -> tag rows) and returns each sequence's negative
+    log-likelihood [B, 1]."""
+    helper = LayerHelper("linear_chain_crf", input=input,
+                         param_attr=param_attr)
+    size = input.shape[-1]
+    transition = helper.create_parameter(
+        attr=helper.param_attr, shape=[size + 2, size],
+        dtype=helper.input_dtype())
+    log_likelihood = helper.create_variable_for_type_inference(
+        helper.input_dtype())
+    helper.append_op(
+        type="linear_chain_crf",
+        inputs={"Emission": [input],
+                "Length": [_len_of(helper, input, length)],
+                "Transition": [transition], "Label": [label]},
+        outputs={"LogLikelihood": [log_likelihood]})
+    log_likelihood._seq_len_name = None
+    return log_likelihood
+
+
+def crf_decoding(input, param_attr=None, label=None, length=None):
+    """Viterbi paths under the transition ``linear_chain_crf`` created
+    with the same ``param_attr``; with ``label``, the per-position
+    correctness mask."""
+    helper = LayerHelper("crf_decoding", input=input, param_attr=param_attr)
+    transition = helper.main_program.global_block()._find_var_recursive(
+        helper.param_attr.name)
+    if transition is None:
+        raise ValueError(
+            "crf_decoding: transition parameter %r not found; pass the "
+            "same param_attr used by linear_chain_crf"
+            % helper.param_attr.name)
+    path = helper.create_variable_for_type_inference("int64")
+    inputs = {"Emission": [input],
+              "Length": [_len_of(helper, input, length)],
+              "Transition": [transition]}
+    if label is not None:
+        inputs["Label"] = [label]
+    helper.append_op(type="crf_decoding", inputs=inputs,
+                     outputs={"ViterbiPath": [path]})
+    path.stop_gradient = True
+    path._seq_len_name = getattr(input, "_seq_len_name", None)
+    return path
+
+
+def chunk_eval(input, label, chunk_scheme, num_chunk_types,
+               excluded_chunk_types=None, length=None):
+    """Chunk precision, recall and F1.  Returns (precision, recall, f1,
+    num_infer, num_label, num_correct)."""
+    helper = LayerHelper("chunk_eval", input=input)
+    outs = [helper.create_variable_for_type_inference(d)
+            for d in ("float32",) * 3 + ("int64",) * 3]
+    helper.append_op(
+        type="chunk_eval",
+        inputs={"Inference": [input], "Label": [label],
+                "Length": [_len_of(helper, input, length)]},
+        outputs=dict(zip(("Precision", "Recall", "F1-Score",
+                          "NumInferChunks", "NumLabelChunks",
+                          "NumCorrectChunks"), ([v] for v in outs))),
+        attrs={"chunk_scheme": chunk_scheme,
+               "num_chunk_types": int(num_chunk_types),
+               "excluded_chunk_types": list(excluded_chunk_types or [])})
+    for v in outs:
+        v.stop_gradient = True
+        v._seq_len_name = None
+    return tuple(outs)
+
+
+def warpctc(input, label, blank=0, norm_by_times=False, input_length=None,
+            label_length=None):
+    """CTC loss of ``input`` [B, T, num_classes + 1] unscaled logits
+    against ``label`` [B, U, 1]; [B, 1]."""
+    helper = LayerHelper("warpctc", input=input)
+    loss = helper.create_variable_for_type_inference(helper.input_dtype())
+    helper.append_op(
+        type="warpctc",
+        inputs={"Logits": [input],
+                "LogitsLength": [_len_of(helper, input, input_length)],
+                "Label": [label],
+                "LabelLength": [_len_of(helper, label, label_length)]},
+        outputs={"Loss": [loss]},
+        attrs={"blank": int(blank), "norm_by_times": bool(norm_by_times)})
+    loss._seq_len_name = None
+    return loss
+
+
+def ctc_greedy_decoder(input, blank, input_length=None, name=None):
+    """Greedy CTC decoding: the argmax a step, repeated tokens merged and
+    blanks dropped."""
+    from .tensor import argmax
+
+    helper = LayerHelper("ctc_greedy_decoder", input=input, name=name)
+    best = argmax(input, axis=-1)
+    out = helper.create_variable_for_type_inference("int64")
+    out_len = helper.create_variable_for_type_inference("int32")
+    helper.append_op(
+        type="ctc_align",
+        inputs={"Input": [best],
+                "Length": [_len_of(helper, input, input_length)]},
+        outputs={"Output": [out], "OutputLength": [out_len]},
+        attrs={"blank": int(blank), "merge_repeated": True})
+    out.stop_gradient = True
+    out._seq_len_name = out_len.name
+    return out
+
+
+def edit_distance(input, label, normalized=True, ignored_tokens=None,
+                  input_length=None, label_length=None):
+    """Levenshtein distance of each (input, label) sequence pair, the
+    ``ignored_tokens`` erased first.  Returns (distance [B, 1] float32,
+    sequence_num [1] int64)."""
+    helper = LayerHelper("edit_distance", input=input)
+    if ignored_tokens:
+        input = sequence_erase(input, tokens=list(ignored_tokens),
+                               length=input_length)
+        label = sequence_erase(label, tokens=list(ignored_tokens),
+                               length=label_length)
+        input_length = label_length = None
+    out = helper.create_variable_for_type_inference("float32")
+    seq_num = helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="edit_distance",
+        inputs={"Hyps": [input],
+                "HypsLength": [_len_of(helper, input, input_length)],
+                "Refs": [label],
+                "RefsLength": [_len_of(helper, label, label_length)]},
+        outputs={"Out": [out], "SequenceNum": [seq_num]},
+        attrs={"normalized": bool(normalized)})
+    for v in (out, seq_num):
+        v.stop_gradient = True
+        v._seq_len_name = None
+    return out, seq_num

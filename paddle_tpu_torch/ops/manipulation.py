@@ -491,6 +491,16 @@ register_op("gather", ["X", "Index"], ["Out"], infer=_gather_infer,
             compute=_gather_compute, no_grad_inputs=("Index",))
 
 
+def add_at(buf, idx, vals):
+    """``buf`` with ``vals`` added at rows ``idx`` (in range), each row's
+    units summed in their order: on the card ``index_put`` sorts by row;
+    on the host ``index_add`` adds unit by unit (the host's
+    ``index_put_`` adds with atomics across threads)."""
+    if buf.device.type == "cuda":
+        return buf.index_put((idx,), vals.to(buf.dtype), accumulate=True)
+    return buf.index_add(0, idx, vals.to(buf.dtype))
+
+
 def _scatter_compute(ins, attrs, ctx, op_index):
     """Rows of a [H + 1, ...] copy of X: the dropped units (and, with
     ``overwrite``, the units a later one overrides) write the extra row,
@@ -510,13 +520,8 @@ def _scatter_compute(ins, attrs, ctx, op_index):
             0, target, pos, reduce="amax")
         target = torch.where(last[target] == pos, target, spill)
         out = buf.index_put((target,), upd.to(x.dtype))
-    elif x.device.type == "cuda":
-        # a sort by row, then each row's units added in their order
-        out = buf.index_put((target,), upd.to(x.dtype), accumulate=True)
     else:
-        # the host's index_put_ adds with atomics across threads;
-        # index_add adds unit by unit, in their order
-        out = buf.index_add(0, target, upd.to(x.dtype))
+        out = add_at(buf, target, upd)
     return {"Out": out[:h]}
 
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from ..core import convert_dtype
 from ..registry import in_var, register_op, set_output
 from .creation import device_constant
+from .manipulation import add_at
 
 
 def _add_pos_enc_compute(ins, attrs, ctx, op_index):
@@ -551,13 +552,7 @@ def _seq_scatter_compute(ins, attrs, ctx, op_index):
     target = (rows * (d + 1) + torch.where(valid, ids, d)).reshape(-1)
     buf = torch.cat([x, x.new_zeros((b, 1))], dim=1).reshape(-1)
     upd = upd.to(x.dtype).reshape(-1)
-    if x.device.type == "cuda":
-        # sorted by slot, each slot's units added in their order
-        out = buf.index_put((target,), upd, accumulate=True)
-    else:
-        # the host's index_put adds with atomics across threads;
-        # index_add adds unit by unit, in their order
-        out = buf.index_add(0, target, upd)
+    out = add_at(buf, target, upd)
     return {"Out": out.reshape(b, d + 1)[:, :d]}
 
 

@@ -31,7 +31,7 @@ from .hash32 import M32, op_seeds
 
 __all__ = ["OpDef", "register_op", "get_op_def", "infer_op", "compute_op",
            "make_grad_ops", "calls_host", "splits_capture", "ComputeContext",
-           "OPS", "int_list", "read_inputs", "write_outputs"]
+           "OPS", "int_list", "read_inputs", "write_outputs", "optional"]
 
 OPS = {}
 
@@ -206,6 +206,13 @@ def read_inputs(op, env, ctx):
     if ctx.amp is not None:
         ins = ctx.amp.cast_inputs(op.type, ins)
     return ins
+
+
+def optional(ins, slot):
+    """The tensor of an optional input slot, or None where the op has no
+    such input."""
+    vals = ins.get(slot)
+    return vals[0] if vals and vals[0] is not None else None
 
 
 def write_outputs(op, env, outs):

@@ -222,14 +222,14 @@ LAYERS = sorted(_tensor_layers(pt)) + sorted(_nn_layers(pt))
 
 def test_layer_names_cover_the_jax_modules():
     """``layers`` has every name of ``layers/tensor.py``'s ``__all__`` and
-    of ``layers/nn.py``'s but the four whose op types wait for A4b, plus
-    ``Print``, ``is_empty`` and the generator's five; each of the slice's
-    names has a case below."""
-    waiting = {"bilinear_tensor_product", "hsigmoid", "nce", "mean_iou"}
+    of ``layers/nn.py``'s (``nce``, ``hsigmoid``,
+    ``bilinear_tensor_product`` and ``mean_iou`` since their op types
+    came, with their cases in ``test_torch_sampled_metric.py``), plus
+    ``Print``, ``is_empty`` and the generator's five; each of the
+    frontend slice's names has a case below."""
     missing = [n for n in jax_tensor.__all__ + jax_nn.__all__
-               if n not in waiting and not hasattr(pt.layers, n)]
+               if not hasattr(pt.layers, n)]
     assert missing == []
-    assert not any(hasattr(pt.layers, n) for n in waiting)
     for n in ("Print", "is_empty", "deprecated", "generate_layer_fn",
               "generate_layer_fn_noattr", "autodoc", "templatedoc"):
         assert callable(getattr(pt.layers, n)), n

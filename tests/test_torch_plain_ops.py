@@ -680,20 +680,8 @@ def test_shape_and_is_empty_read_nothing_on_the_host():
 
 # -- the sweep: every forward op type of the port has a parity case ---------
 
-# ROADMAP Queue A4d, A4e and A7: the op types still to port
+# ROADMAP Queue A7: the op types still to port
 STILL_TO_PORT = {
-    # A4d: crf, ctc, sampled losses, metrics
-    "linear_chain_crf", "crf_decoding", "chunk_eval", "warpctc",
-    "ctc_align", "edit_distance", "nce", "hierarchical_sigmoid",
-    "bilinear_tensor_product", "mean_iou", "positive_negative_pair",
-    "precision_recall", "detection_map",
-    # A4e: detection
-    "anchor_generator",
-    "bipartite_match", "box_coder", "generate_proposal_labels",
-    "generate_proposals", "iou_similarity", "mine_hard_examples",
-    "multiclass_nms", "polygon_box_transform", "prior_box",
-    "roi_perspective_transform", "roi_pool", "rpn_target_assign",
-    "target_assign",
     # A7: pipeline schedules
     "pipeline_region",
 }
@@ -732,10 +720,10 @@ def test_every_forward_op_type_has_a_parity_case():
 
     types = sorted(t for t in registry.OPS if not t.endswith("_grad"))
     jax_types = {t for t in jax_registry.OPS if not t.endswith("_grad")}
-    assert len(types) == 226
+    assert len(types) == 253
     assert set(types) <= jax_types
     assert jax_types - set(types) == STILL_TO_PORT
-    assert len(STILL_TO_PORT) == 28
+    assert len(STILL_TO_PORT) == 1
     plain = {c.values[0] for c in CASES} | {c[0] for c in RANDOM_CASES[2:]} \
         | {"sampling_id", "random_crop", "print"}
     assert len(plain) == 58
