@@ -25,6 +25,11 @@
     python3 chip_smoke.py ssd         # device, build, and phase 28 alone
     python3 chip_smoke.py a4_ops      # device, build, and phase 29 alone
                                       # (several words: those phases)
+    python3 chip_smoke.py observe     # device, build, and phase 30 alone
+    python3 chip_smoke.py train       # device, build, and the Transformer
+                                      # training steps (phases 8 and
+                                      # 8b) alone
+                                      # (with ``observe``: both)
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -90,9 +95,10 @@ a few kernel records of a long serving window (about 1 to 11 of 15,000
 events, the window's wrappers having launched every one): a serving
 pass, which changes no state, is then profiled again, up to
 ``TRACE_TRIES`` windows, and the losses are logged (``trace_losses``).
-Each window first runs ``TRACE_PADS`` tiny spin kernels, left out of its
-counts, since late in a whole run the trace dropped the first records of
-a window (``pads_traced`` shows how many pads it kept; not gated).  A
+Each window first runs ``paddle_tpu_torch.profiler``'s ``TRACE_PADS``
+tiny spin kernels, left out of its counts, since late in a whole run the
+trace dropped the first records of a window (``pads_traced`` shows how
+many pads it kept; not gated).  A
 window whose trace holds no device event at all is a fault; where the
 path's bit comparison is taken before the window (phases 16-20), an
 empty window is profiled again first (``empty_windows``).
@@ -382,6 +388,27 @@ empty window is profiled again first (``empty_windows``).
    path's shape (``_a4_op_cases``; ``nce`` and random
    ``generate_proposal_labels`` by ``_a4_random_checks``), read from a
    replay that repeats the eager bits; no hand kernel launches.
+30. ``observe_train``, ``observe_serve`` and ``observe_health_rung`` —
+   the monitor, the health probe and request tracing (``observe_phase``):
+   Transformer-base training at batch 256 x 64 (dropout 0) in three arms
+   stepped round robin in one executor (everything off; the monitor with
+   a JSONL log, the probe at cadence 10 and a profiler session; the probe
+   at cadence 1): median ms a step and each arm's overhead, losses and
+   state bit-equal, one graph an entry, the program profile (capture
+   seconds, replay device ms, peak memory, kernels a replay against a
+   profiled step), #1-#6 in that trace as the program implies, the
+   probe's stats against torch norms at ``HEALTH_RTOL``, and the JSONL
+   and host spans through ``tools/goodput_report.py``,
+   ``health_report.py`` and ``trace_summary.py`` (``run_tools``: the
+   port's modules under the names the tools import); the serving
+   slice's ``GenerationEngine``, fixed region and paged, 8 requests with
+   tracing off then on (same tokens, complete trees, queue / prefill /
+   decode ms, each prefill and decode span at least its dispatch's
+   device time, ``tools/request_trace.py``); bench.py's ``health`` rung
+   (the 784-1024-1024-10 MLP at batch 256: overheads at cadence 1 and
+   10, ``provenance_replay_ms``), ``first_nonfinite_op`` card = CPU,
+   ``FLAGS_check_nan_inf`` naming the variable, and a poisoned request
+   quarantined (npz and JSON sidecar).
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -392,6 +419,7 @@ result.
 """
 
 import contextlib
+import io
 import json
 import os
 import shutil
@@ -671,28 +699,14 @@ def _pairs_and_keys(b, h, tq, tk, causal, kl):
     return valid, int(valid.sum()) * h, int(valid.any(dim=2).sum()) * h
 
 
-# seconds a profiled window waits after the profiler starts before it
-# runs anything: kernels launched at once were now and then missing from
-# the trace (a serving window lost most of its first dispatch's), while
-# none went missing once the profiler had this long to settle
-TRACE_SETTLE_S = 0.05
-# and may still drop the first records of a window: late in a whole run
-# (past ~400 s) a captured inference pass's window lost its first 21-32
-# device records every time (all of SmallNet's), the eager pass's none.
-# Each ``device_window`` first runs this many tiny spin kernels
-# (``torch.cuda._sleep``), which take such a loss and are left out of
-# its counts by name; ``pads_traced`` reports how many the trace kept
-# (0-41 lost a window over a whole run, once all 128 with every record
-# of the window's own work kept: NVIDIA H100 80GB HBM3)
-TRACE_PADS = 128
-
-
 def _device_kernels(fn, tries=3):
     """The device kernels one call of ``fn`` runs, as ``torch.profiler``'s
     averages (after a warm-up call).  A window that recorded no device
     event at all is a profiler miss (it happens now and then), not a call
     that ran nothing: it is profiled again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.profiler import TRACE_SETTLE_S
 
     fn()
     torch.cuda.synchronize()
@@ -1681,34 +1695,30 @@ def device_window(fn, lost=None, again=False):
 
 def _profiled(fn):
     """One ``device_window`` of ``fn``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from paddle_tpu_torch import profiler
     from paddle_tpu_torch.ops import cuda
 
     torch.cuda.synchronize()
     cuda.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_PADS):
-            torch.cuda._sleep(1)
-        torch.cuda.synchronize()
-        time.sleep(TRACE_SETTLE_S)
+        profiler.open_trace_window()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     wrapper = cuda.launch_counts()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("dispatch/")]
-    events = [e for e in device if "spin_kernel" not in e.name]
+    events, pads = profiler.window_device_events(prof)
     busy_ms = _union_us([(e.time_range.start, e.time_range.end)
                          for e in events]) / 1e3
     out = {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
            "idle_share": 1.0 - busy_ms / (wall * 1e3),
            "device_events": len(events),
+           "kernels": len(profiler.kernel_events(events)),
            # under TRACE_PADS: the trace dropped records at the head
-           "pads_traced": len(device) - len(events),
+           "pads_traced": pads,
            "trace_launches": cuda.device_launch_counts(
                e.name for e in events),
            "wrapper_launches": wrapper}
@@ -8457,6 +8467,500 @@ AMP_ROWS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase 30: observe — the monitor, the health probe and request tracing
+# ---------------------------------------------------------------------------
+
+OBSERVE_STEPS = 12
+OBSERVE_SERVE = dict(n_requests=8, max_new=16, prompt_range=(64, 240))
+OBSERVE_MLP_ITERS, OBSERVE_MLP_WARM = 30, 3
+HEALTH_RTOL = 1e-5
+
+# runs one of the offline tools in ``tools/`` unchanged, with the port's
+# monitor modules under the names the tools import (the tools name the
+# JAX package's modules; the port's keep their formats), so no module of
+# the JAX package, and no JAX, loads
+_TOOL_BOOT = r"""
+import os, runpy, sys, types
+repo, tool = sys.argv[1], sys.argv[2]
+sys.path.insert(0, repo)
+from paddle_tpu_torch import monitor, profiler
+from paddle_tpu_torch.monitor import goodput, health, program_profile, tracing
+pkg = types.ModuleType("paddle_tpu")
+pkg.__path__ = []
+pkg.monitor, pkg.profiler = monitor, profiler
+sys.modules.update({
+    "paddle_tpu": pkg, "paddle_tpu.monitor": monitor,
+    "paddle_tpu.profiler": profiler, "paddle_tpu.monitor.goodput": goodput,
+    "paddle_tpu.monitor.health": health,
+    "paddle_tpu.monitor.program_profile": program_profile,
+    "paddle_tpu.monitor.tracing": tracing})
+sys.path.insert(0, os.path.dirname(tool))
+sys.argv = sys.argv[2:]
+runpy.run_path(tool, run_name="__main__")
+"""
+
+
+def run_tools(*calls):
+    """``tools/<name>`` on ``args`` for each ``(name, args)`` of ``calls``
+    (see ``_TOOL_BOOT``), all at once: [(exit code, standard output)]."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _TOOL_BOOT, REPO,
+         os.path.join(REPO, "tools", name)] + list(args),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name, args in calls]
+    out = []
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=300)
+        if p.returncode:
+            print(stderr[-2000:], file=sys.stderr, flush=True)
+        out.append((p.returncode, stdout))
+    return out
+
+
+def _observe_off():
+    """Monitor, tracing, health and the profiler session off."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import monitor, profiler
+
+    if profiler._enabled[0]:
+        with contextlib.redirect_stdout(io.StringIO()):
+            profiler.stop_profiler(profile_path="")
+    pt.flags.set_flags({"health": False, "health_every": 10, "trace": False,
+                        "check_nan_inf": False})
+    monitor.disable()
+
+
+def _gb(n):
+    return None if n is None else n / 1e9
+
+
+def observe_train(log_dir, steps=OBSERVE_STEPS, batch=TRAIN_BATCH):
+    """Transformer-base training (``build_train`` at dropout 0: the three
+    arms share one executor, whose generator would give each arm other
+    masks) at batch 256 x 64, three arms from one startup state stepped
+    round robin in one executor (one graph pool), each its own scope:
+    ``off`` (every flag off), ``monitor`` (the monitor with a JSONL log
+    dir, ``FLAGS_health`` at cadence 10 and a profiler session around its
+    steps) and ``health1`` (the probe at cadence 1).  Two untimed steps
+    an arm (warm-up, capture), then ``steps`` timed ones (CUDA synchronize
+    before, the fetched loss after).  Gates: losses and every scope
+    tensor bit-equal across the arms, one graph an entry; the program
+    profile of the monitor arm's entry (its capture and first replay)
+    against a profiled step of the same entry (kernels a replay); the
+    hand kernels' launches in that trace as the program implies; the
+    probe's stats of a replayed step against torch norms of the same
+    gradients and parameters (float64) at ``HEALTH_RTOL``; the JSONL
+    through ``tools/goodput_report.py`` and ``tools/health_report.py``
+    and the host spans' chrome trace through ``tools/trace_summary.py``.
+    Returns the summary."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import monitor, profiler
+    from paddle_tpu_torch.monitor import health, program_profile
+
+    card = pt.CUDAPlace(0)
+    main, startup, cost = build_train(0.0)
+    start = pt.Scope()
+    pt.Executor(card).run(startup, scope=start)
+    rng = np.random.RandomState(0)
+    feeds = [train_feed(rng, batch) for _ in range(steps + 6)]
+    exe = pt.Executor(card)
+    arms = {a: {"scope": copy_scope(start), "losses": [], "times": []}
+            for a in ("off", "monitor", "health1")}
+    del start
+
+    def configure(arm):
+        if arm == "monitor":
+            monitor.enable(log_dir=log_dir)
+            pt.flags.set_flags({"health": True, "health_every": 10})
+            profiler.start_profiler("CPU")
+        else:
+            _observe_off()
+            if arm == "health1":
+                pt.flags.set_flags({"health": True, "health_every": 1})
+
+    def step(arm, feed, timed, fetch=None):
+        configure(arm)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exe.run(main, feed=feed, fetch_list=fetch or [cost],
+                      scope=arms[arm]["scope"])
+        dt = time.perf_counter() - t0
+        if profiler._enabled[0]:
+            with contextlib.redirect_stdout(io.StringIO()):
+                profiler.stop_profiler(profile_path="")
+        if timed:
+            arms[arm]["times"].append(dt)
+        arms[arm]["losses"].append(out[0].tobytes())
+        return out
+
+    profiler.reset_profiler()
+    names = list(arms)
+    for f in feeds[:2]:
+        for arm in names:
+            step(arm, f, False)
+    for i, f in enumerate(feeds[2:2 + steps]):
+        # round robin, the first arm of a round rotating
+        for arm in names[i % 3:] + names[:i % 3]:
+            step(arm, f, True)
+    _observe_off()
+    same_losses = len({tuple(r["losses"]) for r in arms.values()}) == 1
+    diffs = {arm: state_rel_l2(arms[arm]["scope"], arms["off"]["scope"])
+             for arm in ("monitor", "health1")}
+    graphs = sorted(st.graphs for st in exe._steps.values())
+    fp = program_profile.program_fingerprint(main)
+    prof = program_profile.get(fp)
+    # the same entry's step under the profiler: kernels a replay, and the
+    # hand kernels' launches as the program implies
+    window = device_window(lambda: step("monitor", feeds[2 + steps], False))
+    n_kernels, trace_launches = window["kernels"], window["trace_launches"]
+    _observe_off()
+    per_step = kernel_launches_per_step(main)
+    launch_faults_ = {k: (trace_launches[k], n) for k, n in per_step.items()
+                      if trace_launches[k] != n}
+    trace_path = os.path.join(log_dir, "host_spans.json")
+    profiler.export_chrome_tracing(trace_path)
+    profiler.reset_profiler()
+    # the probe against torch: a fourth entry (the health1 arm's scope
+    # copied, the probed gradients fetched), read at its third run, a
+    # replay
+    probe = next(pr for _, pr in exe._probes.values() if pr is not None)
+    hscope = copy_scope(arms["health1"]["scope"])
+    arms["check"] = {"scope": hscope, "losses": [], "times": []}
+    pt.flags.set_flags({"health": True, "health_every": 1})
+    for f in feeds[3 + steps:5 + steps]:
+        exe.run(main, feed=f, fetch_list=[cost] + probe.grad_names,
+                scope=hscope, return_numpy=False)
+    before = {p: hscope.find_var(p).double() for p in probe.params}
+    outs = exe.run(main, feed=feeds[5 + steps],
+                   fetch_list=[cost] + probe.grad_names, scope=hscope,
+                   return_numpy=False)
+    snap = health.last_snapshot()
+    grads = dict(zip(probe.grad_names, outs[1:]))
+    worst = 0.0
+    for label in probe.labels:
+        g2 = p2 = u2 = 0.0
+        for p, g in probe.layers[label]:
+            after = hscope.find_var(p).double()
+            if g is not None:
+                g2 += float((grads[g].double() ** 2).sum())
+            p2 += float((after ** 2).sum())
+            u2 += float(((after - before[p]) ** 2).sum())
+        want = {"grad_norm": g2 ** 0.5, "param_norm": p2 ** 0.5,
+                "update_ratio": u2 ** 0.5 / (p2 ** 0.5 + 1e-12)}
+        for k, v in want.items():
+            got = snap["layers"][label][k]
+            worst = max(worst, abs(got - v) / max(abs(v), 1e-30))
+    check_graphs = sorted(st.graphs for st in exe._steps.values())
+    _observe_off()
+    calls = (("goodput_report.py", [log_dir], ("compute", "trace_compile")),
+             ("health_report.py", [log_dir], tuple(probe.labels)),
+             ("trace_summary.py", [trace_path],
+              ("executor/run", "executor/dispatch", "executor/capture")))
+    tools = {}
+    for (tool, _, must), (rc, out) in zip(
+            calls, run_tools(*[(t, a) for t, a, _ in calls])):
+        tools[tool] = {"rc": rc, "names": all(m in out for m in must),
+                       "head": out.splitlines()[:3]}
+    base = statistics.median(arms["off"]["times"])
+    summary = {
+        "batch": batch, "seq": TRAIN_SEQ, "timed_steps": steps,
+        "dropout": 0.0, "same_loss_bits": same_losses,
+        "state_not_bit_equal": diffs, "graphs": graphs,
+        "check_graphs": check_graphs, "tools": tools,
+        "health_max_rel_err": worst, "health_labels": probe.labels,
+        "health_params": len(probe.params),
+        "launches_per_step": per_step, "trace_launches": trace_launches,
+        "launch_faults": launch_faults_,
+        "profile": {"capture_s": prof.capture_seconds,
+                    "replay_device_ms": prof.replay_device_ms,
+                    "peak_capture_gb": _gb(prof.peak_capture_bytes),
+                    "warmup_peak_gb": _gb(prof.warmup_peak_bytes),
+                    "launches_per_replay": prof.launches_per_replay,
+                    "device_events_per_replay":
+                        prof.device_events_per_replay,
+                    "trace_pads_lost": prof.trace_pads_lost,
+                    "graphs": prof.graphs},
+        "profiled_step_kernels": n_kernels,
+        "profiled_step_device_events": window["device_events"]}
+    for arm in ("off", "monitor", "health1"):
+        med = statistics.median(arms[arm]["times"])
+        summary[arm] = {"median_step_ms": med * 1e3,
+                        "step_ms": [t * 1e3 for t in arms[arm]["times"]],
+                        "overhead_pct": (med - base) / base * 100.0}
+    log("observe_train", summary)
+    if not (same_losses and not any(diffs.values()) and graphs == [1, 1, 1]
+            and check_graphs == [1, 1, 1, 1] and not launch_faults_
+            and worst <= HEALTH_RTOL
+            and prof.launches_per_replay == n_kernels
+            and all(t["rc"] == 0 and t["names"] for t in tools.values())):
+        raise SystemExit("observe_train failed a gate: %s" % {
+            k: summary[k] for k in (
+                "same_loss_bits", "state_not_bit_equal", "graphs",
+                "check_graphs", "launch_faults", "health_max_rel_err",
+                "profile", "profiled_step_kernels", "tools")})
+    return summary
+
+
+def _timed_dispatches(eng):
+    """Wrap the engine's executor: each dispatch's host interval (the
+    tracing clock, from the call to its return) and two CUDA events around
+    its device work.  Nothing here waits on the device: the events are
+    read after the pass (``torch.cuda.synchronize`` first), so a span that
+    ended at a launch is shorter than its dispatch's device time."""
+    from paddle_tpu_torch.monitor import tracing
+
+    real, rec = eng._exe.run, []
+
+    def run(program, *a, **kw):
+        s, e = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        t0 = tracing.now_us()
+        s.record()
+        out = real(program, *a, **kw)
+        e.record()
+        rec.append((t0, tracing.now_us(), s, e))
+        return out
+
+    eng._exe.run = run
+    return rec
+
+
+def observe_serve(log_dir, model=MODEL, n_requests=8, max_new=16,
+                  prompt_range=(64, 240)):
+    """``GenerationEngine`` at the serving slice's width, fixed region and
+    paged (pages of ``PAGE_SIZE``), ``n_requests`` prompts queued before
+    the loop admits any: two passes with tracing off (the first runs each
+    entry eagerly, the second captures the prefill buckets), then one
+    with ``FLAGS_trace`` and the monitor's JSONL on.  Gates: the tokens
+    of the last two passes equal; every request's tree complete; every
+    prefill and decode span at least as long as the device time (CUDA
+    events) of a dispatch inside it; ``tools/request_trace.py`` reads the
+    JSONL with every tree complete.  Reports the stages a request (the
+    breakdown: its queue wait, its prefill, the sum of its decode ticks)
+    and each dispatch's span (p50 of the prefill and decode spans).
+    Returns the summary."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.monitor import tracing
+    from paddle_tpu_torch.serving import GenerationEngine, build_decoder_lm
+
+    rng = np.random.RandomState(0)
+    lens = rng.permutation(np.linspace(prompt_range[0], prompt_range[1],
+                                       n_requests).astype(int))
+    prompts = [list(rng.randint(0, model["vocab_size"], n)) for n in lens]
+    out = {}
+    for paged in (False, True):
+        spec = build_decoder_lm(**dict(model, paged=paged,
+                                       page_size=PAGE_SIZE,
+                                       prefix="obs_%s" % ("paged" if paged
+                                                          else "fixed")))
+        eng = GenerationEngine(spec, place=pt.CUDAPlace(0),
+                               max_new_tokens=max_new, timeout_s=900.0,
+                               start=False)
+        try:
+            eng.start()
+            _submit_all(eng, prompts)
+            off = _submit_all(eng, prompts)
+            tracing.reset()
+            monitor.enable(log_dir=log_dir)
+            tracing.enable()
+            dispatches = _timed_dispatches(eng)
+            t0 = time.perf_counter()
+            on = _submit_all(eng, prompts)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        finally:
+            eng.close()
+            _observe_off()
+        trees = tracing.assemble(tracing.spans())
+        summ = tracing.breakdown_summary(trees)
+        short = 0
+        checked = 0
+        # one span a dispatch (each rider of a dispatch has a copy)
+        per_dispatch = {"prefill": set(), "decode": set()}
+        for tree in trees.values():
+            for s in tree["spans"]:
+                if s["name"] in per_dispatch:
+                    per_dispatch[s["name"]].add((s["mono_us"], s["dur_ms"]))
+        for tree in trees.values():
+            for s in tree["spans"]:
+                if s["name"] not in ("prefill", "decode"):
+                    continue
+                lo = s["mono_us"]
+                hi = lo + s["dur_ms"] * 1e3
+                inside = [d for d in dispatches
+                          if d[0] >= lo - 1 and d[1] <= hi + 1]
+                checked += 1
+                if not inside or max(d[2].elapsed_time(d[3])
+                                     for d in inside) > s["dur_ms"]:
+                    short += 1
+        out["paged" if paged else "fixed"] = {
+            "requests": n_requests, "max_new": max_new,
+            "same_tokens": [r["tokens"] for r in off]
+            == [r["tokens"] for r in on],
+            "complete_fraction": summ["complete_fraction"],
+            "stages_ms": {k: {"p50": v.get("p50_ms"), "p99": v.get("p99_ms")}
+                          for k, v in summ["stages"].items()},
+            "dispatch_span_ms": {
+                k: {"n": len(v), "p50": float(np.median([d for _, d in v]))
+                    if v else None}
+                for k, v in per_dispatch.items()},
+            "spans_checked": checked, "spans_shorter_than_device": short,
+            "dispatch_device_ms": sum(d[2].elapsed_time(d[3])
+                                      for d in dispatches),
+            "traced_pass_wall_s": wall}
+        tracing.reset()
+        release_memory()
+    ((rc, text),) = run_tools(("request_trace.py", [
+        log_dir, "--json", "--assert-complete", "1.0"]))
+    out["request_trace_tool"] = {"rc": rc, "tail": text.splitlines()[-1:]}
+    log("observe_serve", out)
+    bad = [k for k in ("fixed", "paged")
+           if not (out[k]["same_tokens"] and out[k]["complete_fraction"] == 1.0
+                   and out[k]["spans_checked"]
+                   and not out[k]["spans_shorter_than_device"])]
+    if bad or rc:
+        raise SystemExit("observe_serve failed a gate: %s" % out)
+    return out
+
+
+def build_health_mlp():
+    """bench.py's health rung MLP (784-1024-1024-10, Adam 1e-3): (main,
+    startup, loss, the forward program cloned before the optimizer, its
+    prediction)."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 7
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        img = pt.layers.data("img", shape=[784])
+        h = pt.layers.fc(img, size=1024, act="relu")
+        h = pt.layers.fc(h, size=1024, act="relu")
+        pred = pt.layers.fc(h, size=10, act="softmax")
+        infer = main.clone(for_test=True)
+        label = pt.layers.data("label", shape=[1], dtype="int64")
+        loss = pt.layers.mean(pt.layers.cross_entropy(pred, label))
+        pt.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    return main, startup, loss, infer, pred
+
+
+def observe_health_rung(qdir, iters=OBSERVE_MLP_ITERS, warm=OBSERVE_MLP_WARM,
+                        batch=256):
+    """bench.py's ``health`` rung (``bench.py:1002-1112``) on the card:
+    the MLP at batch 256, arms probe off / cadence 1 / cadence 10 stepped
+    round robin in one executor, ``iters`` timed steps an arm after
+    ``warm``; the overheads, and ``provenance_replay_ms`` (a weight of the
+    cadence-10 arm poisoned with NaN, one step, the op-by-op replay).
+    Then NaN provenance: ``first_nonfinite_op`` on the card and on the CPU
+    (the same scope) name the same op, and ``FLAGS_check_nan_inf`` raises
+    naming the variable; and a poisoned request through
+    ``InferenceEngine`` over the forward program is quarantined (npz and
+    JSON sidecar under ``qdir``, status ``quarantined``)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.monitor import health
+    from paddle_tpu_torch.serving import InferenceEngine
+    from paddle_tpu_torch.serving.scheduler import PoisonedRequestError
+    from paddle_tpu_torch.transpiler import nan_debug
+
+    card = pt.CUDAPlace(0)
+    main, startup, loss, infer, pred = build_health_mlp()
+    rng = np.random.RandomState(0)
+    feed = {"img": rng.rand(batch, 784).astype("float32"),
+            "label": rng.randint(0, 10, (batch, 1)).astype("int64")}
+    start = pt.Scope()
+    pt.Executor(card).run(startup, scope=start)
+    exe = pt.Executor(card)
+    arms = {name: {"flags": fl, "scope": copy_scope(start), "times": []}
+            for name, fl in (("off", (False, 10)), ("c1", (True, 1)),
+                             ("c10", (True, 10)))}
+    order = list(arms)
+    for i in range(iters + warm):
+        for name in order[i % 3:] + order[:i % 3]:
+            a = arms[name]
+            pt.flags.set_flags({"health": a["flags"][0],
+                                "health_every": a["flags"][1]})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exe.run(main, feed=feed, fetch_list=[loss], scope=a["scope"])
+            if i >= warm:
+                a["times"].append(time.perf_counter() - t0)
+    base, c1, c10 = (statistics.median(arms[n]["times"])
+                     for n in ("off", "c1", "c10"))
+    # provenance: poison a weight of the cadence-10 arm, one more step
+    scope = arms["c10"]["scope"]
+    pt.flags.set_flags({"health": True, "health_every": 10})
+    scope.find_var("fc_0.w_0").view(-1)[0] = float("nan")
+    exe.run(main, feed=feed, fetch_list=[], scope=scope)
+    prov = health.nan_provenance(exe._run_counter - 1)
+    card_hit = nan_debug.first_nonfinite_op(main, feed, scope, place=card)
+    cpu_hit = nan_debug.first_nonfinite_op(
+        main, feed, copy_scope(scope, "cpu"), place=pt.CPUPlace())
+    pt.flags.set_flags({"check_nan_inf": True})
+    try:
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        nan_error = None
+    except RuntimeError as e:
+        nan_error = str(e)
+    _observe_off()
+    # a poisoned request, quarantined
+    eng = InferenceEngine(program=infer, feed_names=["img"],
+                          fetch_vars=[pred], scope=copy_scope(start),
+                          place=card, slots=8, quarantine_dir=qdir)
+    try:
+        good = eng.submit({"img": feed["img"][0]})
+        bad = eng.submit({"img": np.full(784, np.nan, "float32")})
+        good.result(300)
+        try:
+            bad.result(300)
+            quarantined = False
+        except PoisonedRequestError:
+            quarantined = bad.status == "quarantined"
+    finally:
+        eng.close()
+    side = [f for f in os.listdir(qdir) if f.endswith(".json")]
+    dumps = [f for f in os.listdir(qdir) if f.endswith(".npz")]
+    out = {"batch": batch, "iterations": iters,
+           "base_step_ms": base * 1e3,
+           "health_overhead_pct_c1": (c1 - base) / base * 100.0,
+           "health_overhead_pct_c10": (c10 - base) / base * 100.0,
+           "provenance_replay_ms": prov.get("replay_ms") if prov else None,
+           "provenance": {k: prov.get(k) for k in ("found", "op_type",
+                                                    "out_var", "op_index",
+                                                    "layer")}
+           if prov else None,
+           "card_hit": card_hit, "cpu_hit": cpu_hit,
+           "check_nan_inf_error": nan_error,
+           "quarantined": quarantined, "quarantine_files": side + dumps}
+    log("observe_health_rung", out)
+    if not (prov and prov["found"] and card_hit and cpu_hit
+            and (card_hit["op_type"], card_hit["out_var"])
+            == (cpu_hit["op_type"], cpu_hit["out_var"])
+            and nan_error and "contains nan" in nan_error
+            and quarantined and len(side) == 1 and len(dumps) == 1):
+        raise SystemExit("observe_health_rung failed a gate: %s" % out)
+    return out
+
+
+def observe_phase():
+    """Phase 30 (see ``observe_train``, ``observe_serve`` and
+    ``observe_health_rung``); the logs and traces go to a temporary
+    directory removed after."""
+    import tempfile
+
+    release_memory()
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = {"train": observe_train(os.path.join(tmp, "train"))}
+        release_memory()
+        summary["serve"] = observe_serve(os.path.join(tmp, "serve"),
+                                         **OBSERVE_SERVE)
+        release_memory()
+        os.makedirs(os.path.join(tmp, "q_mlp"))
+        summary["health"] = observe_health_rung(os.path.join(tmp, "q_mlp"))
+    release_memory()
+    return summary
+
+
 def release_memory():
     """Free what the last phase's executors, graphs and scopes held."""
     import gc
@@ -8581,6 +9085,21 @@ def main():
                     if faults:
                         raise SystemExit("%s: %s launched %s"
                                          % (name, path, faults))
+        log("total", {"seconds": time.perf_counter() - t_start,
+                      "phase_seconds": dict(PHASE_SECONDS)})
+        return 0
+    if {"train", "observe"} & set(sys.argv[1:]):
+        if "train" in sys.argv[1:]:
+            for amp in (False, True):
+                _, paths = train_phase(pt.CUDAPlace(0), amp=amp)
+                for path, record in paths.items():
+                    faults = launch_faults(record)
+                    if faults:
+                        raise SystemExit("train: %s launched %s"
+                                         % (path, faults))
+                release_memory()
+        if "observe" in sys.argv[1:]:
+            observe_phase()
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
@@ -8720,6 +9239,10 @@ def main():
         for path, record in phase().items():
             check_path(path, record)
         release_memory()
+    # the monitor, the health probe and request tracing on the training
+    # step and the engine (#1-#6 in the monitored step's trace as the
+    # program implies; no new kernel)
+    observe_phase()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)

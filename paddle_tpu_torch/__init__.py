@@ -6,7 +6,7 @@ The layout mirrors the JAX package (``framework``, ``registry``,
 ``nets``, ``models``, ``reader``, ``data_feeder``, ``serving``,
 ``transpiler``, ``inference``, ``debugger``, ``net_drawer``, ``contrib``,
 ``metrics``, ``evaluator``, ``lod_tensor``, ``compat``, ``op``,
-``default_scope_funcs``)
+``default_scope_funcs``, ``flags``, ``monitor``, ``profiler``)
 so each module's
 counterpart is easy to find; the programs it builds serialize to the
 same schema, and ``io`` writes the JAX package's file format.  Op
@@ -33,6 +33,7 @@ from . import backward, clip, optimizer, regularizer
 from . import average, learning_rate_decay
 from . import convert
 from . import io
+from . import flags, monitor, profiler
 from . import nets
 from . import reader
 from .data_feeder import DataFeeder
@@ -59,7 +60,7 @@ __all__ = [
     "program_guard", "ops", "layers", "initializer", "Executor", "CPUPlace",
     "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
     "backward", "clip", "optimizer", "regularizer", "average",
-    "learning_rate_decay", "convert", "io",
+    "learning_rate_decay", "convert", "io", "flags", "monitor", "profiler",
     "nets", "reader", "DataFeeder", "batch", "models", "transpiler",
     "InferenceTranspiler", "memory_optimize", "release_memory", "serving",
     "contrib", "inference", "debugger", "net_drawer", "compat", "metrics",

@@ -10,6 +10,11 @@ The place is ``CUDAPlace(0)`` unless the caller passes one; there is no
 fallback to the CPU.  On the card ``Executor.run`` captures the step as a
 CUDA graph at its second run and replays it after (``executor.py``).
 
+Each step runs inside a ``trainer/step`` span and ``save_params`` inside
+a ``trainer/checkpoint`` one; with the monitor on, the end of ``train``
+(also by an exception) stamps the run's goodput summary and the last
+health snapshot into the JSONL log, as the JAX Trainer does.
+
 Not ported, and refused by name: ``CheckpointConfig`` (the JAX Trainer's
 checkpoints are ``TrainState`` artifacts, ROADMAP Queue A6), the
 guardian, autotune and the preemption flush on SIGTERM (A6), and
@@ -21,11 +26,13 @@ import os
 import numpy as np
 
 from .. import io as fluid_io
+from .. import monitor
 from .. import unique_name
 from ..data_feeder import DataFeeder
 from ..executor import CUDAPlace, Executor
 from ..framework import Program, program_guard
 from ..optimizer import Optimizer
+from ..profiler import RecordEvent
 from ..scope import Scope, scope_guard
 
 __all__ = [
@@ -159,6 +166,21 @@ class Trainer:
         sample rows); ``event_handler`` receives the four events, and a
         ``BeginStepEvent`` with ``fetch_metrics`` False fetches nothing
         that step."""
+        try:
+            self._train(num_epochs, event_handler, reader, feed_order)
+        finally:
+            if monitor._enabled:
+                # the run's wall-clock attribution and final per-layer
+                # health at the boundary every post-mortem starts from;
+                # in the finally, because the runs that need one are the
+                # ones that do not return cleanly
+                try:
+                    monitor.goodput_stamp()
+                    monitor.health.stamp()
+                except Exception:  # noqa: BLE001 — telemetry must not
+                    pass           # mask the real exit
+
+    def _train(self, num_epochs, event_handler, reader, feed_order):
         with scope_guard(self.scope):
             executor = Executor(self.place)
             feeder = self._feeder(feed_order)
@@ -173,9 +195,10 @@ class Trainer:
                     begin = BeginStepEvent(epoch_id, step_id)
                     event_handler(begin)
                     fetch = fetch_all if begin.fetch_metrics else []
-                    metrics = executor.run(self.train_program,
-                                           feed=feeder.feed(data),
-                                           fetch_list=fetch)
+                    with RecordEvent("trainer/step"):
+                        metrics = executor.run(self.train_program,
+                                               feed=feeder.feed(data),
+                                               fetch_list=fetch)
                     event_handler(EndStepEvent(epoch_id, step_id, metrics))
                 event_handler(EndEpochEvent(epoch_id))
 
@@ -199,7 +222,7 @@ class Trainer:
             return [a / count for a in accumulated]
 
     def save_params(self, param_path):
-        with scope_guard(self.scope):
+        with RecordEvent("trainer/checkpoint"), scope_guard(self.scope):
             fluid_io.save_persistables(
                 Executor(self.place), param_path,
                 main_program=self.train_program)

@@ -110,16 +110,49 @@ step's memory rather than the sum.
 Places carry a ``torch.device``.  ``CUDAPlace(i)`` is the i-th card;
 ``CPUPlace()`` is the host, used only when the caller asks for it (the
 tests do).  ``Executor()`` with no place runs on ``CUDAPlace(0)``.
+
+**Observability.**  With the monitor or a profiler session on, a run
+records the JAX executor's spans under the port's names:
+``executor/analyze`` (a new entry's analysis and segment plan, where the
+JAX package traces), ``executor/run`` around the step span, which is
+``executor/warmup`` for an entry's first (eager) run, ``executor/capture``
+for the run that captures and ``executor/dispatch`` for the others (args:
+``run_id``, the program's fingerprint, the step and the goodput bucket),
+``executor/h2d_transfer`` around the feeds' copies and
+``executor/fetch_sync`` around the fetches' trip to the host.  No span,
+counter or monitor call sits inside a captured graph: they wrap the
+replay.  ``monitor.record_step`` ends the run; its ``warm`` is True when
+the run replayed a graph it captured before (on a place that never
+captures: when the entry existed).  The record's time ends when the
+fetches reach the host; with ``return_numpy=False`` on the card nothing
+waits for the device, and it ends at the replay's launch.  The first two
+runs of an entry are profiled (``monitor.program_profile``): the warm-up's
+peak memory, the capture's seconds and peak, and the first replay's
+device time and launches, from CUDA events and a ``torch.profiler``
+trace; the memory preflight runs before the capture.  With every flag off
+a run reads the monitor's and the profiler's enabled bools and makes no
+monitor call.
+
+With ``FLAGS_health`` an entry carries the health probe
+(``monitor.health``): the step keeps the probed gradients to its end and
+computes the per-layer stats inside the captured graph; the probe is
+part of the entry's key.  ``FLAGS_check_nan_inf`` checks every floating
+fetch and written-back variable after the step and raises naming the
+first non-finite one and the step (with the probe on, also the first
+op that made one, replayed op by op); ``FLAGS_benchmark`` prints each
+step's time after a ``torch.cuda.synchronize``.
 """
 
 import threading
+import time
 import weakref
 
 import numpy as np
 import torch
 
-from . import registry
+from . import flags, monitor, profiler, registry
 from .framework import Variable, default_main_program
+from .monitor import health, program_profile
 from .ops import control_flow
 from .ops.selected_rows import SelectedRows
 from .registry import ComputeContext
@@ -393,16 +426,27 @@ class Executor:
     def __init__(self, place=None, capture=True):
         self.place = place if place is not None else CUDAPlace(0)
         self.capture = bool(capture)
+        self._run_counter = 0
         self._analysis = {}
         self._steps = {}
         self._dead = []      # (key, analysis) of entries whose owner died
         self._host_entries = set()   # keys of entries that call the host
+        # key -> (the fetch list the step keeps, the health probe or None)
+        self._probes = {}
         self._generators = {}
         self._lock = threading.RLock()
         self._stream = None
         self._pool = None
         self.loop_trips = []   # (op index, trips) of each loop, last run
         self.flag_reads = 0    # host reads of a loop's condition
+        # the watchdog's stall dump lists the live executors' state
+        monitor.track(self)
+
+    def monitor_state(self):
+        return {"kind": "executor", "device": str(self.place.device),
+                "entries": len(self._analysis),
+                "graphs": sum(st.graphs for st in self._steps.values()),
+                "runs": self._run_counter}
 
     def _generator(self, seed):
         """The executor's generator for programs of ``seed`` (0: one seed
@@ -480,6 +524,11 @@ class Executor:
         ``fetch_list`` holds Variables or names; persistable results are
         written back to ``scope``.  Fetches come back as numpy arrays, or
         as tensors on the device with ``return_numpy=False``."""
+        # one module-global bool read each when telemetry is off
+        mon = monitor._enabled
+        obs = mon or profiler._active[0]
+        t_mon = time.perf_counter() if mon else None
+        t_bench = time.perf_counter() if flags.flag("benchmark") else None
         if program is None:
             program = default_main_program()
         scope = scope if scope is not None else global_scope()
@@ -498,45 +547,133 @@ class Executor:
                               else feed[n].dtype)
         # the AMP policy changes what every op computes without a version
         # bump (bf16_program_guard), so it keys the entry too (policies
-        # compare by their lists)
+        # compare by their lists); so does the health probe, which the
+        # step computes
+        probe_on = health._ENABLED
         key = (id(program), program._version,
                tuple((n, tuple(feed[n].shape), feed_dtypes[n])
                      for n in feed_names),
-               tuple(fetch_names), program._amp_policy, id(scope))
+               tuple(fetch_names), program._amp_policy, probe_on, id(scope))
+        step_idx = self._run_counter
+        self._run_counter += 1
+        fp = program_profile.program_fingerprint(program) if obs else None
+        span = profiler.RecordEvent if obs else _NoSpan
         with self._lock:
             self._drop_dead()
             analysis = self._analysis.get(key)
-            if analysis is None:
-                analysis = self._analyze(program, feed_names, scope,
-                                         fetch_names)
-                if any(live and registry.calls_host(op) for op, live in
-                       zip(block.ops, analysis[2])):
-                    self._host_entries.add(key)
-                captures = (self.capture and self.place.device.type == "cuda"
-                            and key not in self._host_entries)
-                analysis = self._analysis[key] = analysis + (segment_plan(
-                    block, analysis[2], capture=captures),)
-                # reported when either owner dies, which is before another
-                # program or scope can take its id
-                for owner in (program, scope):
-                    weakref.finalize(owner, _entry_died, weakref.ref(self),
-                                     key, analysis).atexit = False
+            cold_entry = analysis is None
+            if cold_entry:
+                if obs:
+                    # an entry miss: the JAX package marks its trace
+                    # cache's hits and misses the same way
+                    profiler.mark_event("executor/new_entry")
+                with span("executor/analyze"):
+                    analysis = self._new_entry(key, program, feed_names,
+                                               scope, fetch_names, probe_on)
+            captures = (self.capture and self.place.device.type == "cuda"
+                        and key not in self._host_entries)
+            phase = self._phase(key, captures, cold_entry)
+            profile = None
+            if phase != "dispatch" and (mon or program_profile._FORCED[0]):
+                profile = ((fp or program_profile.program_fingerprint(
+                    program)), tuple((n, tuple(feed[n].shape),
+                                      str(feed_dtypes[n]))
+                                     for n in feed_names), tuple(fetch_names))
+            span_args = {"run_id": monitor.run_id(), "fingerprint": fp[:12],
+                         "step": step_idx,
+                         "bucket": "compute" if phase == "dispatch"
+                         else "trace_compile"} if fp else None
             self.loop_trips = []
-            if not (self.capture and self.place.device.type == "cuda") \
-                    or key in self._host_entries:
-                fetches = self._run_eager(program, analysis, feed,
-                                          feed_dtypes, scope, fetch_names)
-            else:
-                with torch.cuda.device(self.place.device):
-                    fetches = self._run_captured(
-                        key, program, analysis, feed, feed_dtypes, scope,
-                        fetch_names)
-                    if not return_numpy:
-                        # a later replay rewrites the graph's outputs
-                        fetches = [_clone(f) for f in fetches]
+            kept, probe = self._probes[key]
+            # the step's generator state, for an op-by-op replay of it
+            gen_state = self._generator(program.random_seed).get_state() \
+                if probe is not None else None
+            with span("executor/run"):
+                with span("executor/" + phase, args=span_args):
+                    if not captures:
+                        fetches = self._run_eager(
+                            program, analysis, feed, feed_dtypes, scope,
+                            kept, profile=profile, span=span, probe=probe)
+                    else:
+                        with torch.cuda.device(self.place.device):
+                            fetches = self._run_captured(
+                                key, program, analysis, feed, feed_dtypes,
+                                scope, kept, profile=profile, span=span,
+                                probe=probe)
+                            if not return_numpy:
+                                # a later replay rewrites the graph's
+                                # outputs
+                                fetches = [_clone(f) for f in fetches]
+            if probe is not None:
+                health.note_step(
+                    "executor", step_idx, probe, fetches[-1],
+                    program=program, scope=scope,
+                    generator_state=gen_state,
+                    feed_names=feed_names,
+                    feed_vals=[feed[n] for n in feed_names],
+                    place=self.place)
+            fetches = fetches[:len(fetch_names)]
+            if flags.flag("check_nan_inf"):
+                _check_finite(
+                    list(zip(fetch_names, fetches))
+                    + [(n, scope.find_var(n)) for n in analysis[1]],
+                    step_idx, probe)
+            if t_bench is not None:
+                if self.place.device.type == "cuda":
+                    torch.cuda.synchronize(self.place.device)
+                print("[benchmark] step %.3f ms"
+                      % ((time.perf_counter() - t_bench) * 1e3))
             if return_numpy:
-                fetches = [_to_numpy(f) for f in fetches]
+                with span("executor/fetch_sync"):
+                    fetches = [_to_numpy(f) for f in fetches]
+        if t_mon is not None:
+            monitor.record_step(
+                "executor", time.perf_counter() - t_mon,
+                _batch_examples(block, feed_names, feed), 0,
+                device=self.place.device, warm=phase == "dispatch",
+                fingerprint=fp,
+                extras=_sparse_step_extras(program, feed_names, feed))
         return fetches
+
+    def _new_entry(self, key, program, feed_names, scope, fetch_names,
+                   probe_on):
+        """Analyze a new entry: (state, writeback, live, release,
+        graph_ops, plan); its kept fetch list and health probe go to
+        ``_probes``."""
+        block = program.global_block()
+        analysis = self._analyze(program, feed_names, scope, fetch_names)
+        probe = None
+        kept = list(fetch_names)
+        if probe_on:
+            probe = health.build_probe(program, analysis[0])
+            if probe is not None:
+                # the probe reads the gradients at the end of the step
+                kept += [g for g in probe.grad_names if g not in kept]
+                analysis = self._analyze(program, feed_names, scope, kept)
+        if any(live and registry.calls_host(op) for op, live in
+               zip(block.ops, analysis[2])):
+            self._host_entries.add(key)
+        captures = (self.capture and self.place.device.type == "cuda"
+                    and key not in self._host_entries)
+        analysis = self._analysis[key] = analysis + (
+            segment_plan(block, analysis[2], capture=captures),)
+        self._probes[key] = (kept, probe)
+        # reported when either owner dies, which is before another
+        # program or scope can take its id
+        for owner in (program, scope):
+            weakref.finalize(owner, _entry_died, weakref.ref(self),
+                             key, analysis).atexit = False
+        return analysis
+
+    def _phase(self, key, captures, cold_entry):
+        """The step span of this run: ``warmup`` (an entry's first, eager
+        run), ``capture`` or ``dispatch``."""
+        if not captures:
+            return "warmup" if cold_entry else "dispatch"
+        step = self._steps.get(key)
+        if step is None:
+            return "warmup"
+        return "capture" if step.pieces is None else "dispatch"
 
     def _drop_dead(self):
         """Drop the entries whose program or scope died."""
@@ -546,6 +683,7 @@ class Executor:
             if self._analysis.get(key) is not analysis:
                 continue
             del self._analysis[key]
+            self._probes.pop(key, None)
             self._host_entries.discard(key)
             step = self._steps.pop(key, None)
             if step is not None and step.pieces and not synced:
@@ -554,27 +692,46 @@ class Executor:
                 synced = True
 
     def _run_eager(self, program, analysis, feed, feed_dtypes, scope,
-                   fetch_names, out_meta=None):
+                   fetch_names, out_meta=None, profile=None, span=None,
+                   probe=None):
         """Run the entry's segments eagerly (``segment_plan``);
-        ``out_meta`` collects the persistable outputs' (shape, dtype)."""
+        ``out_meta`` collects the persistable outputs' (shape, dtype);
+        ``profile`` (fingerprint, feed signature, fetch names) records the
+        run as the entry's warm-up in its program profile.  With the
+        health probe the stats tensor follows the fetches."""
         state_names, writeback, live, release, graph_ops, plan = analysis
         dev = self.place.device
         block = program.global_block()
-        env = {n: feed[n].to(device=dev, dtype=feed_dtypes[n]) for n in feed}
+        cuda = dev.type == "cuda"
+        if profile is not None and cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        generator = self._generator(program.random_seed)
+        with (span or _NoSpan)("executor/h2d_transfer"):
+            env = {n: feed[n].to(device=dev, dtype=feed_dtypes[n])
+                   for n in feed}
         env.update((n, _scope_tensor(scope, n, dev)) for n in state_names)
-        ctx = ComputeContext(dev, self._generator(program.random_seed),
-                             len(block.ops), program._amp_policy, program,
-                             graph_ops)
+        ctx = ComputeContext(dev, generator, len(block.ops),
+                             program._amp_policy, program, graph_ops)
+        old = health.begin_step(probe, env, writeback) \
+            if probe is not None else None
         for kind, seg in plan:
             if kind == "ops":
                 _interpret(block, seg, release, env, ctx)
             else:
                 self._loop_eager(block, seg, release, env, ctx)
+        stats = health.probe_stats(probe, env, old) \
+            if probe is not None else None
         for n in writeback:
             scope.set_var(n, env[n])
             if out_meta is not None:
                 out_meta[n] = (tuple(env[n].shape), env[n].dtype)
-        return [env[n] for n in fetch_names]
+        if profile is not None:
+            program_profile.note_warmup(
+                profile[0], profile[1], dev,
+                torch.cuda.max_memory_allocated(dev) if cuda else None,
+                fetch_names=profile[2])
+        return [env[n] for n in fetch_names] + \
+            ([stats] if stats is not None else [])
 
     def _loop_eager(self, block, i, release, env, ctx):
         """Run loop op ``i``: predicated trips, the condition read on the
@@ -591,7 +748,9 @@ class Executor:
             env.pop(n, None)
 
     def _run_captured(self, key, program, analysis, feed, feed_dtypes,
-                      scope, fetch_names):
+                      scope, fetch_names, profile=None, span=None,
+                      probe=None):
+        span = span or _NoSpan
         step = self._steps.get(key)
         if step is not None and step.pieces is not None \
                 and not step.bind(scope):
@@ -599,19 +758,43 @@ class Executor:
         if step is None:
             out_meta = {}
             fetches = self._run_eager(program, analysis, feed, feed_dtypes,
-                                      scope, fetch_names, out_meta)
+                                      scope, fetch_names, out_meta,
+                                      profile=profile, span=span,
+                                      probe=probe)
             self._steps[key] = _CapturedStep(out_meta)
             return fetches
-        if step.pieces is None:
+        first = step.pieces is None
+        if first:
+            dev = self.place.device
+            if profile is not None:
+                program_profile.preflight(
+                    profile[0], profile[1], dev,
+                    torch.cuda.memory_allocated(dev),
+                    fetch_names=profile[2])
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
             self._capture(step, program, analysis, feed, feed_dtypes, scope,
-                          fetch_names)
-        for n, f in step.feeds.items():
-            f.load(feed[n])
-        step.replay(self)
+                          fetch_names, probe)
+            if profile is not None:
+                program_profile.note_capture(
+                    profile[0], profile[1], time.perf_counter() - t0,
+                    torch.cuda.max_memory_allocated(dev), step.graphs,
+                    fetch_names=profile[2])
+            if monitor._enabled:
+                monitor.note_graph("captures", step.graphs)
+        with span("executor/h2d_transfer"):
+            for n, f in step.feeds.items():
+                f.load(feed[n])
+        if first and profile is not None:
+            _profiled_replay(step, self, profile)
+        else:
+            step.replay(self)
+        if monitor._enabled:
+            monitor.note_graph("replays")
         return step.fetches
 
     def _capture(self, step, program, analysis, feed, feed_dtypes, scope,
-                 fetch_names):
+                 fetch_names, probe=None):
         """Capture the entry's segments into ``step.pieces`` on the feeds'
         and the scope's current tensors: a graph for each run of ops (the
         one before a loop ending with the loop's entry), a body graph for
@@ -622,6 +805,12 @@ class Executor:
         block = program.global_block()
         for n in feed:
             step.feeds[n] = _StaticFeed(feed[n].shape, feed_dtypes[n], dev)
+        if probe is not None:
+            # the stats buffer outlives the graph's pool: a replay writes
+            # it, the host reads it on the probe's cadence
+            with torch.inference_mode(False):
+                probe.buffer = torch.empty((len(probe.labels), 4),
+                                           dtype=torch.float32, device=dev)
         step.bound = {n: _scope_tensor(scope, n, dev) for n in state_names}
         step.reads = set(state_names)
         for n in writeback:
@@ -646,6 +835,7 @@ class Executor:
         ctx = ComputeContext(dev, generator, len(block.ops),
                              program._amp_policy, program, graph_ops)
         where = ["the start of the step"]
+        old = {}
 
         def capture(work):
             graph = torch.cuda.CUDAGraph()
@@ -656,6 +846,9 @@ class Executor:
             return graph
 
         def write_back():
+            if probe is not None:
+                where[0] = "the health probe's stats"
+                health.probe_stats(probe, env, old)
             where[0] = "the write-back of the persistable outputs"
             for n in writeback:
                 if env[n] is not step.bound[n]:
@@ -670,7 +863,12 @@ class Executor:
                 loop = _HostLoop(block, plan[k][1]) if k < len(plan) \
                     else None
 
+                first = not pieces
+
                 def head():
+                    if first and probe is not None:
+                        where[0] = "the health probe's parameter copies"
+                        old.update(health.begin_step(probe, env, writeback))
                     _interpret(block, ops, release, env, ctx, where)
                     if loop is not None:
                         where[0] = "the entry of loop op %d" % loop.index
@@ -687,13 +885,156 @@ class Executor:
                 loop.graph = capture(lambda: loop.trip(ctx))
                 pieces.append((loop.graph, loop))
                 k += 1
-            step.fetches = [env[n] for n in fetch_names]
+            step.fetches = [env[n] for n in fetch_names] + \
+                ([probe.buffer] if probe is not None else [])
         except Exception as e:
             raise RuntimeError(
                 "CUDA graph capture of program %d (version %d) failed at "
                 "%s: %s" % (id(program), program._version, where[0], e)) \
                 from e
         step.pieces = pieces
+
+
+class _NoSpan:
+    """The span of a run with the monitor and the profiler off."""
+
+    def __init__(self, name, args=None):
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _profiled_replay(step, exe, profile):
+    """The entry's first replay, measured for its program profile: its
+    device time between two CUDA events, and the kernels (and all device
+    events) a ``torch.profiler`` trace of it shows.  Inside another
+    profiler session the trace is not taken (launches None).  The trace's
+    window opens with ``profiler.open_trace_window``'s pads, left out of
+    the counts (``trace_pads_lost`` says how many of them it lost)."""
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    prof = None
+    if not torch._C._autograd._profiler_enabled():
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+        profiler.open_trace_window()
+    start.record()
+    step.replay(exe)
+    end.record()
+    end.synchronize()
+    launches = events = pads_lost = None
+    if prof is not None:
+        prof.__exit__(None, None, None)
+        device, pads = profiler.window_device_events(prof)
+        pads_lost = profiler.TRACE_PADS - pads
+        events = len(device)
+        launches = len(profiler.kernel_events(device))
+    program_profile.note_replay(profile[0], profile[1],
+                                start.elapsed_time(end), launches, events,
+                                fetch_names=profile[2], pads_lost=pads_lost)
+
+
+def _check_finite(named_vals, step, probe):
+    """``FLAGS_check_nan_inf``: raise naming the first floating variable
+    holding a NaN or an infinity after ``step``, the others found in the
+    same scan, and (with the health probe on) the first op that made
+    one."""
+    bad, first_kind = [], None
+    for name, v in named_vals:
+        if isinstance(v, SelectedRows):
+            v = v.values
+        if not isinstance(v, torch.Tensor) or not v.is_floating_point():
+            continue
+        if not bool(torch.isfinite(v).all()):
+            bad.append(name)
+            if first_kind is None:
+                first_kind = "nan" if bool(torch.isnan(v).any()) else "inf"
+    if not bad:
+        return
+    others = "" if len(bad) == 1 else " (+%d more non-finite: %s)" % (
+        len(bad) - 1, ", ".join(repr(n) for n in bad[1:5]))
+    msg = ("check_nan_inf: variable %r contains %s after step %d%s "
+           "[run_id=%s]" % (bad[0], first_kind, step, others,
+                            monitor.run_id()))
+    if probe is not None:
+        rec = health.nan_provenance(step)
+        if rec is not None and rec.get("found"):
+            msg += "; first non-finite op: %s -> %r (op #%d%s)" % (
+                rec["op_type"], rec["out_var"], rec["op_index"],
+                ", layer %s" % rec["layer"] if rec.get("layer") else "")
+    raise RuntimeError(msg)
+
+
+def _batch_examples(block, feed_names, feed):
+    """Examples a step for StepStats: the leading dim of a feed whose
+    program var declares a batch dim (shape[0] -1 or None), else the
+    largest leading dim of the feeds."""
+    best = 0
+    for n in feed_names:
+        v = feed[n]
+        if v.dim() < 1:
+            continue
+        pv = block._find_var_recursive(n)
+        if pv is not None and pv.shape is not None \
+                and len(pv.shape) >= 1 and pv.shape[0] in (-1, None):
+            return int(v.shape[0])
+        best = max(best, int(v.shape[0]))
+    return best
+
+
+def _sparse_feed_info(program):
+    """(the feeds that index an ``is_sparse`` table, the tables' bytes),
+    cached on the program by version."""
+    cached = getattr(program, "_sparse_feed_cache", None)
+    if cached is not None and cached[0] == program._version:
+        return cached[1]
+    from .ops.selected_rows import sparse_lookup_tables
+
+    table_bytes = 0
+    for v in sparse_lookup_tables(program).values():
+        dtype = v.dtype if isinstance(v.dtype, torch.dtype) \
+            else torch.float32
+        table_bytes += int(np.prod(v.shape)) * (
+            torch.finfo(dtype).bits if dtype.is_floating_point
+            else torch.iinfo(dtype).bits) // 8
+    feeds = []
+    for blk in program.blocks:
+        for op in blk.ops:
+            if op.type != "lookup_table" or \
+                    not op.attrs.get("is_sparse", False):
+                continue
+            for n in op.inputs.get("Ids", []):
+                v = blk._find_var_recursive(n)
+                if v is not None and getattr(v, "is_data", False) \
+                        and n not in feeds:
+                    feeds.append(n)
+    hit = (tuple(feeds), table_bytes)
+    program._sparse_feed_cache = (program._version, hit)
+    return hit
+
+
+def _sparse_step_extras(program, feed_names, feed):
+    """Step-record extras of the sparse embedding path: distinct rows the
+    step touched (host feeds only: a card's feed is not read back) and
+    the tables' bytes; bumps ``sparse/touched_rows``.  None without an
+    ``is_sparse`` table."""
+    feeds, table_bytes = _sparse_feed_info(program)
+    if not feeds:
+        return None
+    touched = 0
+    for n in feeds:
+        v = feed.get(n)
+        if v is not None and v.device.type == "cpu" and v.numel():
+            touched += int(np.unique(v.numpy()).size)
+    monitor.count("sparse/touched_rows", touched)
+    return {"sparse_touched_rows": touched,
+            "sparse_table_bytes": int(table_bytes)}
 
 
 def _clone(f):

@@ -30,6 +30,8 @@ _lock = threading.Lock()
 _libs = {}
 # kernel name -> the compiler's output (ptxas registers / shared memory)
 build_log = {}
+# libraries compiled by this process (the monitor's ``capture_stats``)
+build_count = [0]
 
 
 def kernel_names():
@@ -60,6 +62,14 @@ def _build_locked(names):
     todo = [(n, _target(n)) for n in names if not os.path.exists(_target(n))]
     if not todo:
         return
+    from ...profiler import RecordEvent
+
+    # a build is compile time in the goodput ledger (``cuda/build``)
+    with RecordEvent("cuda/build", args={"kernels": [n for n, _ in todo]}):
+        _compile(todo)
+
+
+def _compile(todo):
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     procs = []
@@ -77,6 +87,7 @@ def _build_locked(names):
             failed.append("nvcc failed on %s.cu:\n%s" % (name, text))
         else:
             os.replace(tmp, out)
+            build_count[0] += 1
     if failed:
         raise RuntimeError("\n".join(failed))
 

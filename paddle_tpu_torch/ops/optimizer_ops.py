@@ -21,11 +21,25 @@ exactly what the dense update computes from the same merged gradient.  A
 table sharded over a mesh (the JAX package's ``_maybe_sharded_rows``)
 waits for ROADMAP A7; on one device both packages take this route.
 
+Adam's moments round as the JAX package's compiled step does: XLA
+contracts ``b1 * m + (1 - b1) * g`` into one fused multiply-add,
+``fma(b1, m, (1 - b1) * g)``, and ``v`` likewise (``_fma``).  Rounded
+twice, as eager arithmetic does, a third of the float32 moments sit one
+ulp off the reference's; Adam divides by ``sqrt(v)``, so near a zero
+gradient that ulp shows in the parameter.  Its square roots are
+correctly rounded (``_sqrt``): the CPU's vectorized float32 ``sqrt`` is
+not (0.7% of a random ``v`` one ulp off).  Both hold for CPU tensors
+only: on the card the moments update in place in float32, rounded twice,
+since the float64 temporaries would add kernels to every parameter's
+step there, and what the card rounds is a compiler's choice in both
+packages (ROADMAP C5).
+
 The JAX package gives the dense-only updates no SelectedRows leg: an
 ``is_sparse`` gradient reaching one fails there inside the op's
 arithmetic.  Here it raises a TypeError naming the op
 (``_dense_grad``)."""
 
+import numpy as np
 import torch
 
 from ..registry import in_var, register_op, set_output
@@ -51,6 +65,35 @@ def _touched(g, *tables):
     uniq, gm, valid = merge_rows(g)
     safe = torch.where(valid, uniq, 0)
     return (uniq, gm, valid) + tuple(t[safe] for t in tables)
+
+
+def _fma(a, x, y):
+    """``a * x + y`` rounded once (a fused multiply-add), for a Python
+    number ``a`` taken as float32 and float32 CPU tensors: the product of
+    two float32 values is exact in float64, so the float64 sum rounds once
+    more only where it lands on a float32 tie.  Other dtypes, and tensors
+    on the card, round twice."""
+    if x.dtype != torch.float32 or x.is_cuda:
+        return a * x + y
+    return (float(np.float32(a)) * x.double() + y.double()).float()
+
+
+def _moment(m, b, u):
+    """``m = b * m + u`` in place: in one float32 step on the card, rounded
+    once through ``_fma`` on the CPU."""
+    if m.is_cuda:
+        m.mul_(b).add_(u)
+    else:
+        m.copy_(_fma(b, m, u))
+
+
+def _sqrt(x):
+    """Correctly rounded square root: the card's float32 ``sqrt`` is IEEE;
+    the CPU's vectorized one is not, so a CPU float32 tensor takes it in
+    float64 (one rounding to float32 after an exact-enough root)."""
+    if x.dtype == torch.float32 and not x.is_cuda:
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def _sgd_compute(ins, attrs, ctx, op_index):
@@ -105,20 +148,20 @@ def _adam_compute(ins, attrs, ctx, op_index):
     lr = ins["LearningRate"][0].to(p.dtype)
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
-    lr_t = lr * torch.sqrt(1 - b2p) / (1 - b1p)
+    lr_t = lr * _sqrt(1 - b2p) / (1 - b1p)
     if isinstance(g, SelectedRows):
         uniq, gm, valid, p_r, m1_r, m2_r = _touched(g, p, m1, m2)
-        m1_new = b1 * m1_r + (1 - b1) * gm
-        m2_new = b2 * m2_r + (1 - b2) * gm * gm
-        p_new = p_r - lr_t * m1_new / (torch.sqrt(m2_new) + eps)
+        m1_new = _fma(b1, m1_r, (1 - b1) * gm)
+        m2_new = _fma(b2, m2_r, (1 - b2) * gm * gm)
+        p_new = p_r - lr_t * m1_new / (_sqrt(m2_new) + eps)
         scatter_update_rows(p, uniq, valid, p_new)
         scatter_update_rows(m1, uniq, valid, m1_new)
         scatter_update_rows(m2, uniq, valid, m2_new)
         return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
     # m1 = b1 * m1 + (1 - b1) * g;  m2 = b2 * m2 + (1 - b2) * g * g
-    m1.mul_(b1).add_((1 - b1) * g)
-    m2.mul_(b2).add_((1 - b2) * g * g)
-    p.sub_(lr_t * m1 / (torch.sqrt(m2) + eps))
+    _moment(m1, b1, (1 - b1) * g)
+    _moment(m2, b2, (1 - b2) * g * g)
+    p.sub_(lr_t * m1 / (_sqrt(m2) + eps))
     return {"ParamOut": p, "Moment1Out": m1, "Moment2Out": m2}
 
 

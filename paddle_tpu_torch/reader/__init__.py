@@ -17,8 +17,11 @@ of it has finished.  The executor then copies the staged tensors device
 to device into its feed buffers, on the stream that replays the step.
 On a CPU place only the conversion runs.
 
-Not ported: ``monitor`` tracking and heartbeats and the profiler's
-``RecordEvent`` spans (ROADMAP Queue A6), and ``shardings`` (A7).
+The prefetcher is tracked by the monitor (its queue's occupancy reaches
+every step record and the watchdog's stall dump), its producer
+heartbeats once a batch while the monitor is on, and its staging is the
+``prefetch/h2d_transfer`` span (overlapped work in the goodput ledger).
+Not ported: ``shardings`` (ROADMAP A7).
 """
 
 import queue
@@ -28,6 +31,8 @@ import weakref
 import numpy as np
 import torch
 
+from .. import monitor
+from ..profiler import RecordEvent
 from .decorator import *  # noqa: F401,F403
 from . import creator  # noqa: F401
 from . import decorator  # noqa: F401
@@ -110,6 +115,13 @@ class DevicePrefetcher:
         # seen even before its first next() (when no producer exists
         # yet), and one dropped unadvanced reads as dead
         self._consumer = None
+        monitor.track(self)
+
+    def monitor_state(self):
+        return {"kind": "prefetcher", "epoch": self._epoch,
+                "occupancy": self._q.qsize(),
+                "capacity": self._q.maxsize,
+                "stopped": self._stop.is_set()}
 
     # -- staging -------------------------------------------------------
     def _stage(self, feed):
@@ -119,7 +131,8 @@ class DevicePrefetcher:
         if dev.type != "cuda":
             return feed
         out = {}
-        with torch.cuda.device(dev), torch.cuda.stream(self._stream):
+        with RecordEvent("prefetch/h2d_transfer"), torch.cuda.device(dev), \
+                torch.cuda.stream(self._stream):
             for k, v in feed.items():
                 t = v if isinstance(v, torch.Tensor) \
                     else torch.from_numpy(np.ascontiguousarray(v))
@@ -151,6 +164,10 @@ class DevicePrefetcher:
             for item in it:
                 if stop.is_set():
                     return
+                if monitor._enabled:
+                    # a producer wedged in its source or its copies shows
+                    # a stale heartbeat in the watchdog's dump
+                    monitor.heartbeat("prefetch/producer")
                 feed = self._feeder.feed(item) if self._feeder is not None \
                     else item
                 feed = self._stage(feed)

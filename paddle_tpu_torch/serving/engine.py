@@ -34,7 +34,17 @@ int8 with no pass.
 Per-request timeouts expire queued work and evict wedged decodes, and a
 request whose outputs come out non-finite fails with
 :class:`~.scheduler.PoisonedRequestError` (status ``quarantined``) while
-the engine keeps serving.
+the engine keeps serving; with ``quarantine_dir`` its feed lands there as
+an npz with a JSON sidecar (``ServingMetrics.quarantine``).
+
+Observability, as the JAX engines have it: each dispatch runs inside a
+``serving/batch``, ``serving/prefill``, ``serving/decode_step`` or
+``serving/speculative_step`` span (the paged, int8-KV and speculative
+paths alike), the engine is tracked by the monitor (the watchdog's dump
+lists its queued and running requests), and with ``FLAGS_trace`` each
+request's trace gets its queue wait, page wait and grant, and one span a
+dispatch it rode.  Those durations run from before the dispatch to its
+logits on the host, so they cover the phase's device work.
 
 The engines run on ``CUDAPlace(0)`` unless the caller passes a place; with
 no place and no card they raise instead of falling back to the CPU.  On
@@ -46,8 +56,7 @@ eager, for comparison.  The loop runs on its own thread, so
 ``torch.inference_mode()`` is entered there: grad mode is thread-local in
 PyTorch.
 
-Not ported yet: the TunedConfig artifact (``tuned_config=`` raises),
-quarantine dumps and request tracing.
+Not ported yet: the TunedConfig artifact (``tuned_config=`` raises).
 """
 
 import sys
@@ -58,7 +67,10 @@ import numpy as np
 import torch
 
 from .. import io as pt_io
+from .. import monitor
 from ..executor import CUDAPlace, Executor
+from ..monitor import tracing
+from ..profiler import RecordEvent
 from ..scope import Scope, scope_guard
 from .kv_cache import OutOfPagesError
 from .metrics import ServingMetrics
@@ -116,6 +128,29 @@ class _EngineBase:
     def __init__(self):
         self._thread = None
         self._stop = threading.Event()
+        # the watchdog's stall dump names the in-flight requests
+        monitor.track(self)
+
+    def _running_state(self, slot):
+        return "running"
+
+    def monitor_state(self):
+        """Every queued and running request with its trace_id, age and
+        state."""
+        now = self._sched._clock()
+        reqs = []
+        for r in self._sched.pending():
+            reqs.append({"id": r.id, "trace_id": r.trace.trace_id
+                         if r.trace is not None else None,
+                         "state": "queued",
+                         "age_s": round(now - r.arrival, 3)})
+        for slot, r in sorted(self._sched.running().items()):
+            reqs.append({"id": r.id, "trace_id": r.trace.trace_id
+                         if r.trace is not None else None,
+                         "state": self._running_state(slot),
+                         "age_s": round(now - r.arrival, 3)})
+        return {"kind": "serving_engine", "name": self.metrics.name,
+                "requests": reqs}
 
     def start(self):
         if self._thread is None:
@@ -142,9 +177,13 @@ class _EngineBase:
         self._sched.fail(req, error, status=status)
         self.metrics.note_failure(req, error, status=status)
 
-    def _poisoned(self, req, reason):
+    def _poisoned(self, req, reason, feed=None):
+        """Quarantine ``req`` (its ``feed`` persisted for repro) and fail
+        it with its status."""
+        self.metrics.quarantine(req, feed=feed, reason=reason)
         self._fail(req, PoisonedRequestError(
-            "request %s: %s" % (req.id, reason)), status="quarantined")
+            "request %s: %s (quarantined)" % (req.id, reason)),
+            status="quarantined")
 
     def _loop(self):
         """Run iterations until close(); a failed iteration is logged and
@@ -171,7 +210,9 @@ class InferenceEngine(_EngineBase):
     def __init__(self, model_dir=None, program=None, feed_names=None,
                  fetch_vars=None, scope=None, place=None, slots=None,
                  bucket_bounds=None, timeout_s=30.0, start=True,
-                 quantize=None, tuned_config=None, capture=True):
+                 quantize=None, tuned_config=None, capture=True,
+                 quarantine_dir=None, name="serving"):
+        self.metrics = ServingMetrics(name, quarantine_dir=quarantine_dir)
         super().__init__()
         self.place = _default_place(place, "InferenceEngine")
         self._exe = Executor(self.place, capture=capture)
@@ -221,8 +262,8 @@ class InferenceEngine(_EngineBase):
         if self._seq_feeds and not bucket_bounds:
             bucket_bounds = [2 ** i for i in range(3, 11)]
         self._sched = ContinuousBatchingScheduler(
-            self.slots, bucket_bounds, default_timeout_s=timeout_s)
-        self.metrics = ServingMetrics()
+            self.slots, bucket_bounds, default_timeout_s=timeout_s,
+            trace_kind="infer")
         if start:
             self.start()
 
@@ -288,6 +329,10 @@ class InferenceEngine(_EngineBase):
         n_rows = sum(r.rows for r in reqs)
         self.metrics.note_admit(plan, n_rows / float(self.slots),
                                 self._sched.queue_depth())
+        traced = [r for r in reqs if r.trace is not None]
+        for r in traced:
+            r.trace.admitted(plan.bucket, self._sched.queue_depth(),
+                             r is not reqs[0])
         feed = {}
         for name in self._feed_names:
             if name in self._len_feeds:
@@ -311,8 +356,19 @@ class InferenceEngine(_EngineBase):
                     [batch, np.repeat(batch[:1], self.slots - n_rows, 0)])
             feed[name] = batch
         t0 = time.perf_counter()
-        outs = self._exe.run(self._program, feed=feed,
-                             fetch_list=self._fetch_vars, scope=self._scope)
+        tt0 = tracing.now_us() if traced else 0.0
+        with RecordEvent("serving/batch",
+                         args={"batch": len(reqs), "rows": n_rows,
+                               "bucket": plan.bucket}):
+            outs = self._exe.run(self._program, feed=feed,
+                                 fetch_list=self._fetch_vars,
+                                 scope=self._scope)
+        if traced:
+            dur = tracing.now_us() - tt0
+            for r in traced:
+                r.trace.note_batch(
+                    tt0, dur, r.slot, len(reqs), plan.bucket,
+                    (plan.bucket - r.length) if plan.bucket else 0)
         self.metrics.note_dispatch("batch", time.perf_counter() - t0)
         off = 0
         for req in reqs:
@@ -320,7 +376,7 @@ class InferenceEngine(_EngineBase):
             off = hi
             if not all(_finite_row(outs, i, self.slots)
                        for i in range(lo, hi)):
-                self._poisoned(req, "non-finite outputs")
+                self._poisoned(req, "non-finite outputs", feed=req.payload)
                 continue
             result = []
             for j, o in enumerate(outs):
@@ -353,7 +409,9 @@ class GenerationEngine(_EngineBase):
     def __init__(self, spec, place=None, scope=None, eos_id=None,
                  max_new_tokens=32, timeout_s=60.0, bucket_bounds=None,
                  record_logits=False, start=True, quantize=None,
-                 tuned_config=None, capture=True, draft_spec=None):
+                 tuned_config=None, capture=True, draft_spec=None,
+                 quarantine_dir=None, name="serving"):
+        self.metrics = ServingMetrics(name, quarantine_dir=quarantine_dir)
         super().__init__()
         self.place = _default_place(place, "GenerationEngine")
         self.eos_id = eos_id
@@ -410,9 +468,10 @@ class GenerationEngine(_EngineBase):
                         % (b, ps))
         self._sched = ContinuousBatchingScheduler(
             spec.slots, bucket_bounds, default_timeout_s=timeout_s,
-            admission_gate=self._page_gate if self.paged else None)
-        self.metrics = ServingMetrics()
+            admission_gate=self._page_gate if self.paged else None,
+            trace_kind="generate")
         self._active = {}             # slot -> decode state dict
+        self._ticks = 0               # decode ticks served (trace attr)
         if start:
             self.start()
 
@@ -436,7 +495,11 @@ class GenerationEngine(_EngineBase):
             for r in picked)
         need = self._alloc.pages_needed(len(req.payload["prompt"]),
                                         req.payload["max_new"])
-        return need <= self._alloc.free_pages() - reserved
+        ok = need <= self._alloc.free_pages() - reserved
+        if not ok and req.trace is not None:
+            # back-pressure: the page_wait span opens at the first refusal
+            req.trace.page_refused()
+        return ok
 
     def _free_pages(self, slot):
         """Release every page ref a slot holds and put its table row back
@@ -453,6 +516,13 @@ class GenerationEngine(_EngineBase):
         if req.slot is not None:
             self._free_pages(req.slot)
         super()._fail(req, error, status=status)
+
+    def _running_state(self, slot):
+        return "decode" if slot in self._active else "prefill"
+
+    def _quarantine(self, req, reason):
+        self._poisoned(req, reason,
+                       feed={"prompt": np.asarray(req.payload["prompt"])})
 
     # -- client side -------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens=None, timeout_s=None):
@@ -535,6 +605,10 @@ class GenerationEngine(_EngineBase):
             self._table[r.slot, :len(pages)] = pages
             full = len(r.payload["prompt"]) // spec.cache.page_size
             self.metrics.note_prefix_cache(shared, full - shared)
+            if r.trace is not None:
+                r.trace.pages_granted(len(pages), shared,
+                                      self._alloc.pages_in_use(),
+                                      self._alloc.free_pages())
             kept.append(r)
         self.metrics.note_kv_pages(self._alloc.pages_in_use(),
                                    self._alloc.free_pages())
@@ -543,6 +617,10 @@ class GenerationEngine(_EngineBase):
     def _prefill(self, plan):
         spec = self.spec
         reqs = plan.requests
+        for r in reqs:
+            if r.trace is not None:
+                r.trace.admitted(plan.bucket, self._sched.queue_depth(),
+                                 r is not reqs[0])
         if self.paged:
             reqs = self._allocate(reqs)
             if not reqs:
@@ -569,22 +647,30 @@ class GenerationEngine(_EngineBase):
         if self.paged:
             feed["page_table"] = self._table
         t0 = time.perf_counter()
+        traced = [r for r in reqs if r.trace is not None]
+        tt0 = tracing.now_us() if traced else 0.0
         last = (torch.arange(n), torch.from_numpy(lens[:n].astype("int64") - 1))
-        rows = self._run(spec.prefill_program, feed, spec.prefill_logits,
-                         last)
-        if self.draft_spec is not None:
-            # the draft takes the same prompts into its own fixed-region
-            # cache; nothing is fetched, so only the ops that feed its
-            # cache writes run
-            dfeed = dict(feed)
-            dfeed.pop("page_table", None)
-            self._exe.run(self.draft_spec.prefill_program, feed=dfeed,
-                          fetch_list=[], scope=self._scope)
+        with RecordEvent("serving/prefill", args={"batch": n, "bucket": t}):
+            rows = self._run(spec.prefill_program, feed,
+                             spec.prefill_logits, last)
+            if self.draft_spec is not None:
+                # the draft takes the same prompts into its own
+                # fixed-region cache; nothing is fetched, so only the ops
+                # that feed its cache writes run
+                dfeed = dict(feed)
+                dfeed.pop("page_table", None)
+                self._exe.run(self.draft_spec.prefill_program, feed=dfeed,
+                              fetch_list=[], scope=self._scope)
+        if traced:
+            dur = tracing.now_us() - tt0
+            for r in traced:
+                r.trace.note_prefill(tt0, dur, r.slot, n, t,
+                                     t - len(r.payload["prompt"]))
         self.metrics.note_dispatch("prefill", time.perf_counter() - t0)
         for i, r in enumerate(reqs):
             row = rows[i]
             if not np.isfinite(row).all():
-                self._poisoned(r, "non-finite prefill logits")
+                self._quarantine(r, "non-finite prefill logits")
                 continue
             nxt = int(np.argmax(row))
             st = {"req": r, "generated": [nxt], "pos": int(lens[i]),
@@ -614,8 +700,22 @@ class GenerationEngine(_EngineBase):
         if self.paged:
             feed["page_table"] = self._table
         t0 = time.perf_counter()
-        logits = self._run(spec.decode_program, feed, spec.decode_logits,
-                           (slice(None), 0))
+        traced = any(st["req"].trace is not None
+                     for st in self._active.values())
+        tt0 = tracing.now_us() if traced else 0.0
+        with RecordEvent("serving/decode_step",
+                         args={"active": len(self._active)}):
+            logits = self._run(spec.decode_program, feed, spec.decode_logits,
+                               (slice(None), 0))
+        self._ticks += 1
+        if traced:
+            # every rider is attributed the whole tick: the batch is one
+            # dispatch, and each request waited on it
+            dur = tracing.now_us() - tt0
+            for slot, st in self._active.items():
+                if st["req"].trace is not None:
+                    st["req"].trace.note_decode(tt0, dur, slot, self._ticks,
+                                                len(self._active))
         self.metrics.note_dispatch("decode", time.perf_counter() - t0)
         self.metrics.note_decode_step(len(self._active),
                                       self._sched.occupancy())
@@ -624,7 +724,7 @@ class GenerationEngine(_EngineBase):
             row = logits[slot]
             if not np.isfinite(row).all():
                 self._active.pop(slot)
-                self._poisoned(st["req"], "non-finite decode logits")
+                self._quarantine(st["req"], "non-finite decode logits")
                 continue
             nxt = int(np.argmax(row))
             st["generated"].append(nxt)
@@ -657,26 +757,34 @@ class GenerationEngine(_EngineBase):
         toks[:, 0] = last
         cur = last.copy()
         t0 = time.perf_counter()
-        for j in range(k - 1):
-            wp = base + j
-            dfeed = {"tok": cur.reshape(s, 1, 1),
-                     "pos": wp.astype("int64").reshape(s, 1, 1),
-                     "wpos": wp.astype("int32"),
-                     "cache_len": (wp + 1).astype("int32")}
-            dl = self._run(draft.decode_program, dfeed, draft.decode_logits,
-                           (slice(None), 0))
-            cur = dl.argmax(-1).astype("int64")
-            toks[:, j + 1] = cur
-        pos = base[:, None].astype("int64") + np.arange(k, dtype="int64")
-        vfeed = {"tok": toks.reshape(s, k, 1),
-                 "pos": pos.reshape(s, k, 1),
-                 "wpos": base.astype("int32"),
-                 "cache_len": (base + k).astype("int32")}
-        if self.paged:
-            vfeed["page_table"] = self._table
-        tv = time.perf_counter()
-        vl = self._run(spec.verify_program, vfeed, spec.verify_logits,
-                       slice(None))                   # [s, k, V]
+        traced = any(st["req"].trace is not None
+                     for st in self._active.values())
+        tt0 = tracing.now_us() if traced else 0.0
+        with RecordEvent("serving/speculative_step",
+                         args={"active": len(self._active), "k": k}):
+            for j in range(k - 1):
+                wp = base + j
+                dfeed = {"tok": cur.reshape(s, 1, 1),
+                         "pos": wp.astype("int64").reshape(s, 1, 1),
+                         "wpos": wp.astype("int32"),
+                         "cache_len": (wp + 1).astype("int32")}
+                dl = self._run(draft.decode_program, dfeed,
+                               draft.decode_logits, (slice(None), 0))
+                cur = dl.argmax(-1).astype("int64")
+                toks[:, j + 1] = cur
+            pos = base[:, None].astype("int64") + np.arange(k, dtype="int64")
+            vfeed = {"tok": toks.reshape(s, k, 1),
+                     "pos": pos.reshape(s, k, 1),
+                     "wpos": base.astype("int32"),
+                     "cache_len": (base + k).astype("int32")}
+            if self.paged:
+                vfeed["page_table"] = self._table
+            tv = time.perf_counter()
+            vl = self._run(spec.verify_program, vfeed, spec.verify_logits,
+                           slice(None))               # [s, k, V]
+        self._ticks += 1
+        dur = (tracing.now_us() - tt0) if traced else 0.0
+        n_active = len(self._active)
         now = time.perf_counter()
         self.metrics.note_dispatch("verify", now - tv)
         self.metrics.note_dispatch("decode", now - t0)
@@ -687,7 +795,7 @@ class GenerationEngine(_EngineBase):
             st = self._active[slot]
             if not np.isfinite(vl[slot]).all():
                 self._active.pop(slot)
-                self._poisoned(st["req"], "non-finite verify logits")
+                self._quarantine(st["req"], "non-finite verify logits")
                 continue
             accepted = 0
             while accepted < k - 1 and \
@@ -695,6 +803,11 @@ class GenerationEngine(_EngineBase):
                     int(greedy[slot, accepted]):
                 accepted += 1
             self.metrics.note_speculation(accepted, k - 1)
+            if st["req"].trace is not None:
+                st["req"].trace.note_decode(tt0, dur, slot, self._ticks,
+                                            n_active,
+                                            spec_accepted=accepted,
+                                            spec_proposed=k - 1)
             emitted = [int(toks[slot, j + 1]) for j in range(accepted)]
             emitted.append(int(greedy[slot, accepted]))
             for j, t in enumerate(emitted):

@@ -1,5 +1,5 @@
 """Continuous-batching request scheduler (counterpart of
-``paddle_tpu/serving/scheduler.py``, without its tracing hooks).
+``paddle_tpu/serving/scheduler.py``).
 
 Requests queue with a length; the scheduler admits them into a fixed
 number of slots, padding each admitted prompt to the smallest bucket
@@ -12,12 +12,19 @@ queued, in order, for a later admission.  It is pure
 control logic: time enters only through the injected ``clock``.  One
 condition variable makes ``submit`` safe from any thread; the engine's
 loop thread calls ``admit`` / ``complete`` / ``fail``.
+
+With request tracing on (``FLAGS_trace``), ``submit`` hangs a
+``monitor.tracing.RequestTrace`` on each request before the loop can see
+it; the engine then closes its queue wait at admission and records its
+dispatches, and the terminal publishes the request's root span.
 """
 
 import collections
 import itertools
 import threading
 import time
+
+from ..monitor import tracing
 
 __all__ = [
     "ServingRequest", "BatchPlan", "ContinuousBatchingScheduler",
@@ -60,7 +67,9 @@ class ServingRequest:
         self.admitted_at = None
         self.finished_at = None
         self.bucket = None
-        self.trace = None          # request tracing is not ported
+        # the request's tracing.RequestTrace while FLAGS_trace is on;
+        # every later site gates on None, so a dark engine never calls it
+        self.trace = None
         self._result = None
         self._error = None
         self._done = threading.Event()
@@ -113,10 +122,12 @@ class ContinuousBatchingScheduler:
 
     def __init__(self, slots, bucket_bounds=None, clock=time.monotonic,
                  default_timeout_s=None, max_queue=4096,
-                 admission_gate=None):
+                 admission_gate=None, trace_kind="request"):
         if slots < 1:
             raise ValueError("need at least one slot")
         self.slots = int(slots)
+        # the ``kind`` of request trace roots ("infer" / "generate")
+        self.trace_kind = str(trace_kind)
         self.bucket_bounds = (sorted(int(b) for b in bucket_bounds)
                               if bucket_bounds else None)
         self._clock = clock
@@ -155,6 +166,12 @@ class ContinuousBatchingScheduler:
             deadline=(now + timeout_s) if timeout_s is not None else None,
             rows=rows)
         req.bucket = self.bucket_for(req.length)
+        # attached before the request is visible to the admission loop,
+        # so an admission racing this submit already sees it
+        if tracing._enabled:
+            req.trace = tracing.RequestTrace(
+                req.id, kind=self.trace_kind, length=req.length,
+                rows=req.rows, parent=tracing.current())
         with self._cv:
             if self._closed:
                 raise EngineClosedError("scheduler is closed")

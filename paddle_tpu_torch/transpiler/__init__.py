@@ -2,8 +2,11 @@
 inference pass ``quantize_inference``, the whole-trunk NHWC layout pass
 ``convert_to_nhwc``, the conv+BN fusion pass ``fuse_conv_bn``, the BN
 folding ``InferenceTranspiler``, ``memory_optimize`` / ``release_memory``,
-and the pass registry (``passes``).  The distributed transpiler, its
-dispatchers and ``nan_debug`` are not ported yet (ROADMAP A6, A7)."""
+the pass registry (``passes``) and ``nan_debug``, the op-by-op replay
+of NaN provenance.  The distributed transpiler and its dispatchers are
+not ported yet (ROADMAP A7)."""
+
+from . import nan_debug  # noqa: F401
 
 from .fusion import fuse_conv_bn
 from .inference_transpiler import InferenceTranspiler

@@ -14,6 +14,7 @@ if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
+from paddle_tpu_torch import profiler  # noqa: E402
 
 NEED = {"flash_attention_fwd": 414, "layer_norm_fwd": 828,
         "dequant_matmul": 2553}
@@ -21,7 +22,7 @@ NEED = {"flash_attention_fwd": 414, "layer_norm_fwd": 828,
 
 def window(trace, wrapper, events=100):
     return {"trace_launches": dict(trace), "wrapper_launches": dict(wrapper),
-            "device_events": events, "pads_traced": cs.TRACE_PADS}
+            "device_events": events, "pads_traced": profiler.TRACE_PADS}
 
 
 @pytest.mark.parametrize("captured, trace, wrapper, want", [

@@ -7,26 +7,43 @@ in-program accuracy (``argmax`` / ``equal`` / ``cast``), Adam(1e-3),
 three steps at batch 8 from the JAX ``Trainer``'s initial parameters
 (its ``save_params``, loaded by the port's ``Trainer(param_path=)``):
 losses and accuracies within rtol 1e-4, the final parameters too, and
-``metrics.Accuracy`` over the fetched accuracies equal in both."""
+``metrics.Accuracy`` over the fetched accuracies equal in both.
 
+The JAX startup program is seeded (``random_seed = 5``, the reader's own
+seed): unseeded, the JAX executor draws its key from numpy's global
+generator and every run trained from other weights.  Some draws (seeds 19
+and 20) hold a conv or fc weight whose first gradient cancels to ~1e-8,
+where both packages' float32 sums sit 60-140% from float64 and Adam's
+``g / sqrt(v)`` turns that into a 1e-5 parameter difference (ROADMAP C4
+has the diagnosis).  Adam itself rounds as the JAX step does on the CPU
+(``test_adam_rounds_like_the_jax_step``)."""
+
+import jax
+import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 import paddle_tpu as fluid
 import paddle_tpu.models.mnist  # noqa: F401
 from paddle_tpu import metrics as jax_metrics
 from paddle_tpu.contrib import Trainer as JaxTrainer
+from paddle_tpu.ops import optimizer_ops as jax_opt
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import metrics
 from paddle_tpu_torch.contrib import Trainer
+from paddle_tpu_torch.ops import optimizer_ops as pt_opt
 
 from test_torch_serving import fresh_torch_programs  # noqa: F401
 
 BATCH, STEPS = 8, 3
+STARTUP_SEED = 5
 
 
 def train_func(pkg):
     def build():
+        pkg.default_startup_program().random_seed = STARTUP_SEED
         L = pkg.layers
         img = L.data("img", shape=[1, 28, 28])
         label = L.data("label", shape=[1], dtype="int64")
@@ -106,3 +123,32 @@ def test_cnn_program_shapes():
     for t in ("arg_max", "equal", "cast", "scale", "elementwise_mul",
               "elementwise_add", "reduce_sum"):
         assert t in types, t
+
+
+@pytest.mark.parametrize("step", [1, 2, 30])
+def test_adam_rounds_like_the_jax_step(step):
+    """The port's dense Adam against the JAX op jitted as its executor
+    runs it (XLA fuses ``b1 * m + (1 - b1) * g`` into a multiply-add), bit
+    for bit, on gradients from 1e-9 to 1e-1."""
+    rng = np.random.RandomState(step)
+    n = 20000
+    ins = {
+        "Param": rng.randn(n).astype("float32") * 0.1,
+        "Grad": (rng.randn(n) * 10.0 ** rng.uniform(-9, -1, n)).astype(
+            "float32"),
+        "Moment1": (rng.randn(n) * 1e-4).astype("float32"),
+        "Moment2": (rng.rand(n) * 1e-8).astype("float32"),
+        "Beta1Pow": np.array([0.9 ** step], "float32"),
+        "Beta2Pow": np.array([0.999 ** step], "float32"),
+        "LearningRate": np.array([1e-3], "float32"),
+    }
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    want = jax.jit(lambda d: jax_opt._adam_compute(
+        {k: [v] for k, v in d.items()}, attrs, None, 0))(
+            {k: jnp.asarray(v) for k, v in ins.items()})
+    got = pt_opt._adam_compute(
+        {k: [torch.from_numpy(v.copy())] for k, v in ins.items()}, attrs,
+        None, 0)
+    for slot in ("Moment1Out", "Moment2Out", "ParamOut"):
+        np.testing.assert_array_equal(got[slot].numpy(),
+                                      np.asarray(want[slot]), err_msg=slot)
