@@ -26,10 +26,12 @@
     python3 chip_smoke.py a4_ops      # device, build, and phase 29 alone
                                       # (several words: those phases)
     python3 chip_smoke.py observe     # device, build, and phase 30 alone
+    python3 chip_smoke.py resume      # device, build, and phase 31 alone
     python3 chip_smoke.py train       # device, build, and the Transformer
                                       # training steps (phases 8 and
                                       # 8b) alone
-                                      # (with ``observe``: both)
+                                      # (with ``observe`` or ``resume``:
+                                      # those too)
 
 Run from the root of a checkout.  Phases, one line each:
 
@@ -409,6 +411,22 @@ empty window is profiled again first (``empty_windows``).
    10, ``provenance_replay_ms``), ``first_nonfinite_op`` card = CPU,
    ``FLAGS_check_nan_inf`` naming the variable, and a poisoned request
    quarantined (npz and JSON sidecar).
+31. ``resume_train``, ``resume_guard``, ``fault_drill`` and
+   ``kill_drill`` — exact-resume checkpoints and the guardian
+   (``resume_phase``): Transformer-base training (256 x 64, dropout
+   0.1, captured) 8 steps straight against 4, an async checkpoint, a
+   fresh executor and scope restored and 4 more (losses and state
+   bit-equal, one graph an entry, #1-#6 in the resumed step's trace as
+   the program implies; artifact bytes, snapshot ms, save s, load s, ms a
+   step during the write and after it), a corrupt latest artifact and a
+   write torn by ``kill_mid_save`` falling back into the live captured
+   entry; the step with the skip guard (a poisoned ``tgt_word@LEN``
+   leaves every state tensor bit-equal, the clean steps equal a run that
+   skipped it the same way, the guard's overhead arm against arm round
+   robin); bench.py's ``fault_drill`` rung (the MLP through ``Trainer``,
+   NaN in a weight, one rollback to the clean loss, recovery seconds);
+   and a kill -9 drill (a subprocess killed mid-save, a second resuming:
+   the losses bit-equal to an uninterrupted run).
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -4215,6 +4233,34 @@ def _untouched_faults(before, scope, ids, table):
     return faults, moved
 
 
+def rec_incremental_ckpt(exe, scope, main, loss, feed):
+    """bench.py's incremental-checkpoint side of rec_sparse: a full
+    ``TrainStateCheckpointManager(incremental='auto')`` artifact after the
+    run's steps, one more step, then a delta artifact (the table's and
+    its Adam moments' touched rows); their bytes, the rows, and the
+    chain's replay against the live state, bit for bit."""
+    import tempfile
+
+    from paddle_tpu_torch.parallel import checkpoint as ck
+
+    with tempfile.TemporaryDirectory() as d:
+        mgr = ck.TrainStateCheckpointManager(
+            d, async_save=False, incremental="auto",
+            incremental_full_every=8, max_to_keep=None)
+        mgr.save(1, scope=scope, program=main, executors=exe)
+        full = _dir_bytes(mgr._step_dir(1))
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        mgr.save(2, scope=scope, program=main, executors=exe)
+        delta = _dir_bytes(mgr._step_dir(2))
+        inc = ck.load_train_state(mgr._step_dir(2)).host["incremental"]
+        replayed = mgr.load(2).arrays
+        same = all(torch.equal(replayed[n], scope.find_var(n).cpu())
+                   for n in inc["delta_vars"])
+    return {"incr_ckpt_full_bytes": full, "incr_ckpt_bytes": delta,
+            "full_over_incr_bytes": full / delta,
+            "delta_rows": inc["delta_rows"], "replay_bit_equal": same}
+
+
 def rec_sparse_phase(profile_steps=4):
     """bench.py's rec_sparse A/B on ``CUDAPlace(0)``: at vocab 1e4, 1e5
     and 1e6, the model with ``is_sparse`` True (a SelectedRows gradient,
@@ -4232,7 +4278,9 @@ def rec_sparse_phase(profile_steps=4):
     arm's bits; a warm sparse step at 1e6 (eager or replayed) allocates
     less than a quarter of the table (no table-sized temporary: the dense
     gradient alone is the table's size); the lazy invariant; no hand
-    kernel launches.  The dense / sparse ratio and the sparse step's
+    kernel launches.  Then the sparse captured arm's incremental
+    checkpoints (``rec_incremental_ckpt``): the delta artifact smaller
+    than the full one, its replay the live state's bits.  The dense / sparse ratio and the sparse step's
     spread across vocab are reported, not gated (bench.py's >= 5x is the
     JAX package's TPU acceptance).  Returns {path: launch record}, one
     for each variant and arm, each from that run's own warm steps and
@@ -4313,6 +4361,15 @@ def rec_sparse_phase(profile_steps=4):
                      "state_not_bit_equal": diff,
                      "graphs": sum(s.graph is not None for s in
                                    arms["captured"]["exe"]._steps.values())}
+            if sparse:
+                entry["incremental_ckpt"] = inc = rec_incremental_ckpt(
+                    arms["captured"]["exe"], arms["captured"]["scope"], main,
+                    loss, feeds[1])
+                if not (inc["replay_bit_equal"]
+                        and inc["incr_ckpt_bytes"]
+                        < inc["incr_ckpt_full_bytes"]):
+                    faults.append("sparse_%d: incremental checkpoint %s"
+                                  % (vocab, inc))
             for arm, a in arms.items():
                 entry[arm] = {k: v for k, v in a.items()
                               if k not in ("exe", "scope", "losses",
@@ -8961,6 +9018,562 @@ def observe_phase():
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 31: resume — exact-resume checkpoints, the skip guard, the guardian
+# ---------------------------------------------------------------------------
+
+RESUME_STEPS = 8            # the uninterrupted run; the checkpoint at half
+RESUME_WRITE_STEPS = 12     # at most this many steps timed during a write
+RESUME_AFTER_STEPS = 8      # steps timed after it
+GUARD_STEPS = 8             # timed steps an arm
+FAULT_ITERS, FAULT_BATCH = 16, 64
+# the kill -9 drill: saves at steps 1, 5, 9, 13 (every 4 from the first);
+# the kill lands in step 13's write, so the resume starts at 9
+KILL_STEPS, KILL_AT, KILL_RESUME = 16, 13, 9
+
+
+def _state_copy(scope, program):
+    """{name: a device copy} of every persistable of ``program`` in
+    ``scope``."""
+    return {v.name: scope.find_var(v.name).detach().clone()
+            for v in program.list_vars()
+            if v.persistable and scope.find_var(v.name) is not None}
+
+
+def _unequal(a, b):
+    """The names of ``a`` whose tensors are not ``b``'s bits."""
+    return sorted(n for n in a if not torch.equal(a[n], b[n]))
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, fs in os.walk(d) for f in fs)
+
+
+def _graphs(exe):
+    return sorted(st.graphs for st in exe._steps.values())
+
+
+def _loss_bits(exe, program, feeds, fetch, scope):
+    return [exe.run(program, feed=f, fetch_list=[fetch],
+                    scope=scope)[0].tobytes() for f in feeds]
+
+
+def _timed_loss(exe, program, feed, fetch, scope):
+    """One step's wall seconds (CUDA synchronize before, the fetched loss
+    after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    exe.run(program, feed=feed, fetch_list=[fetch], scope=scope)
+    return time.perf_counter() - t0
+
+
+def _torn_write(ts, path):
+    """Write ``ts`` to ``path`` in a forked child that a
+    ``fault.kill_mid_save`` drill SIGKILLs at the ``before_commit`` point
+    (the child touches no CUDA: ``ts`` is a host copy).  True when the
+    child died of SIGKILL."""
+    import signal
+
+    from paddle_tpu_torch import fault
+    from paddle_tpu_torch.parallel import checkpoint as ck
+
+    pid = os.fork()
+    if pid == 0:
+        try:
+            fault.kill_mid_save(fault.FaultSchedule(steps=[ts.step]))
+            ck.save_train_state(path, ts)
+        finally:
+            os._exit(3)
+    _, status = os.waitpid(pid, 0)
+    return os.WIFSIGNALED(status) and os.WTERMSIG(status) == signal.SIGKILL
+
+
+def resume_train(tmp, batch=TRAIN_BATCH):
+    """bench.py's Transformer-base training step (``build_train``, dropout
+    0.1, noam + Adam, float32, captured, program seed 2) at 256 x 64:
+    ``RESUME_STEPS`` steps uninterrupted; then half of them in a fresh
+    executor and scope, an async ``TrainStateCheckpointManager`` save at
+    the half (snapshot ms on the step's thread), steps timed while the
+    write runs and as many after it (the loss fetched each step), and the
+    other half in a fresh executor and scope restored by a new manager
+    (load s), its last step profiled.  Then a synchronous save at the end,
+    that artifact garbled, and a later one torn by ``kill_mid_save`` in a
+    forked writer: the first manager's restore skips the torn ``.tmp.``
+    directory and the corrupt artifact, restores the half into the live
+    captured entry, and the second half replays.  Gates: the losses and
+    every state tensor bit-equal to the uninterrupted run's, one graph an
+    entry (also after the restore into the live entry), #1-#6 in the
+    resumed step's trace as the program implies, the fallback's step and
+    losses.  Returns the summary."""
+    import warnings
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import checkpoint as ck
+
+    card = pt.CUDAPlace(0)
+    marks = [("start", time.perf_counter())]
+    main, startup, cost = build_train(0.1)
+    start = pt.Scope()
+    pt.Executor(card).run(startup, scope=start)
+    rng = np.random.RandomState(0)
+    feeds = [train_feed(rng, batch) for _ in range(RESUME_STEPS)]
+    half = RESUME_STEPS // 2
+    marks.append(("build", time.perf_counter()))
+
+    exe, scope = pt.Executor(card), copy_scope(start)
+    ref = _loss_bits(exe, main, feeds, cost, scope)
+    want = _state_copy(scope, main)
+    ref_graphs = _graphs(exe)
+    del exe, scope
+    release_memory()
+    marks.append(("uninterrupted", time.perf_counter()))
+
+    cdir = os.path.join(tmp, "ckpt")
+    mgr = ck.TrainStateCheckpointManager(cdir, max_to_keep=None,
+                                         save_interval_steps=half)
+    exe, scope = pt.Executor(card), copy_scope(start)
+    got = _loss_bits(exe, main, feeds[:half], cost, scope)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert mgr.save(half, scope=scope, program=main,
+                    executors={"train": exe})
+    snapshot_ms = (time.perf_counter() - t0) * 1e3
+    writer = mgr._inflight[0]
+    during = []
+    while writer.is_alive() and len(during) < RESUME_WRITE_STEPS:
+        during.append(_timed_loss(exe, main, feeds[len(during) % half],
+                                  cost, scope))
+    mgr.wait_until_finished()
+    after = [_timed_loss(exe, main, feeds[i % half], cost, scope)
+             for i in range(RESUME_AFTER_STEPS)]
+    save_s = mgr.measured_costs()["save_s"]
+    artifact_bytes = _dir_bytes(mgr._step_dir(half))
+    del exe, scope
+    release_memory()
+    marks.append(("first_half_and_write", time.perf_counter()))
+
+    exe, scope = pt.Executor(card), copy_scope(start)
+    t0 = time.perf_counter()
+    restored = ck.TrainStateCheckpointManager(cdir, max_to_keep=None) \
+        .restore(scope=scope, program=main, executors={"train": exe})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    got += _loss_bits(exe, main, feeds[half:-1], cost, scope)
+    window = device_window(lambda: got.extend(
+        _loss_bits(exe, main, feeds[-1:], cost, scope)))
+    state = _state_copy(scope, main)
+    per_step = kernel_launches_per_step(main)
+    launch_faults_ = {k: (window["trace_launches"].get(k, 0), n)
+                      for k, n in per_step.items()
+                      if window["trace_launches"].get(k, 0) != n}
+    resumed_graphs = _graphs(exe)
+    marks.append(("restored_second_half", time.perf_counter()))
+
+    # a corrupt latest artifact and a torn later write: the restore falls
+    # back to the half, into the live captured entry
+    mgr.save_now(RESUME_STEPS, scope=scope, program=main,
+                 executors={"train": exe})
+    with open(os.path.join(mgr._step_dir(RESUME_STEPS), "arrays.npz"),
+              "r+b") as f:
+        f.seek(64)
+        f.write(b"\xff" * 64)
+    torn_step = RESUME_STEPS + half
+    killed = _torn_write(ck.capture_train_state(
+        torn_step, scope=scope, program=main, executors={"train": exe}),
+        mgr._step_dir(torn_step))
+    torn = [e for e in os.listdir(cdir) if e.startswith(".tmp.")]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fell_back_to = mgr.restore(scope=scope, program=main,
+                                   executors={"train": exe})
+    again = _loss_bits(exe, main, feeds[half:], cost, scope)
+    marks.append(("fallback", time.perf_counter()))
+    summary = {
+        "batch": batch, "seq": TRAIN_SEQ, "dropout": 0.1,
+        "steps": RESUME_STEPS, "restored_step": restored,
+        "same_loss_bits": got == ref,
+        "state_not_bit_equal": _unequal(want, state),
+        "graphs": {"uninterrupted": ref_graphs, "resumed": resumed_graphs,
+                   "after_fallback": _graphs(exe)},
+        "launches_per_step": per_step,
+        "trace_launches": window["trace_launches"],
+        "launch_faults": launch_faults_,
+        "artifact_bytes": artifact_bytes,
+        "state_bytes": sum(t.numel() * t.element_size()
+                           for t in want.values()),
+        "snapshot_ms": snapshot_ms, "save_s": save_s, "load_s": load_s,
+        "step_ms_during_write": [t * 1e3 for t in during],
+        "step_ms_after_write": [t * 1e3 for t in after],
+        "median_step_ms_during_write": statistics.median(during) * 1e3
+        if during else None,
+        "median_step_ms_after_write": statistics.median(after) * 1e3,
+        "torn_write_killed": killed, "torn_tmp_dirs": torn,
+        "fallback_restored_step": fell_back_to,
+        "fallback_warned": [str(w.message)[:120] for w in caught],
+        "fallback_replay_same_bits": again == ref[half:],
+        "seconds": {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}}
+    log("resume_train", summary)
+    if not (summary["same_loss_bits"] and not summary["state_not_bit_equal"]
+            and restored == half and ref_graphs == [1]
+            and resumed_graphs == [1] and _graphs(exe) == [1]
+            and not launch_faults_ and killed and torn
+            and fell_back_to == half
+            and summary["fallback_replay_same_bits"]):
+        raise SystemExit("resume_train failed a gate: %s" % {
+            k: summary[k] for k in (
+                "same_loss_bits", "state_not_bit_equal", "restored_step",
+                "graphs", "launch_faults", "torn_write_killed",
+                "torn_tmp_dirs", "fallback_restored_step",
+                "fallback_replay_same_bits")})
+    return summary
+
+
+def _guarded(on, g):
+    """The skip guard on (``FLAGS_guardian`` and ``g`` installed) or off."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import guardian
+
+    pt.flags.set_flags({"guardian": on})
+    if on:
+        guardian.install(g)
+    else:
+        guardian.uninstall()
+
+
+def resume_guard(batch=TRAIN_BATCH):
+    """The same step with the skip guard (``FLAGS_guardian``, a guardian
+    with the ladder ``skip,abort``).  The drill, captured: steps 0-2
+    clean, step 3's ``tgt_word@LEN`` filled with 0 by
+    ``fault.poison_batch`` (no target token: the loss is 0/0), steps 4-5
+    clean.  The reference skips step 3 the same way with the guard off:
+    it runs the poisoned step (the generator advances as on any step) and
+    puts back the state it had before.  Then the overhead: the guard's
+    entry and the plain one in one executor, each its own scope,
+    ``GUARD_STEPS`` timed steps an arm round robin after two untimed
+    (warm-up, capture).  Gates: the poisoned step leaves every state
+    tensor bit-equal, the guardian counts one skip, the guarded run's
+    losses on the clean steps and its final state are the reference's
+    bits, one graph an entry.  Returns the summary."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import fault, guardian
+
+    card = pt.CUDAPlace(0)
+    main, startup, cost = build_train(0.1)
+    start = pt.Scope()
+    pt.Executor(card).run(startup, scope=start)
+    rng = np.random.RandomState(1)
+    feeds = [train_feed(rng, batch) for _ in range(6)]
+    poisoned = 3
+    g = guardian.Guardian(policy="skip,abort")
+    runs, times = {}, {"off": [], "guard": []}
+    try:
+        for arm in ("guard", "reference"):
+            _guarded(arm == "guard", g)
+            exe, scope = pt.Executor(card), copy_scope(start)
+            losses = _loss_bits(exe, main, feeds[:poisoned], cost, scope)
+            before = _state_copy(scope, main)
+            fault.poison_batch("tgt_word@LEN", fault.FaultSchedule(
+                steps=[exe._run_counter]), fill=0)
+            (bad,) = exe.run(main, feed=feeds[poisoned], fetch_list=[cost],
+                             scope=scope)
+            fault.clear()
+            changed = _unequal(before, _state_copy(scope, main))
+            if arm == "reference":
+                for n, t in before.items():
+                    scope.find_var(n).copy_(t)
+            losses += [bad.tobytes()] + _loss_bits(
+                exe, main, feeds[poisoned + 1:], cost, scope)
+            runs[arm] = {"losses": losses, "changed": changed,
+                         "state": _state_copy(scope, main),
+                         "graphs": _graphs(exe),
+                         "poisoned_loss": float(bad[0])}
+            del exe, scope, before
+            release_memory()
+        skipped = g.stats()["skipped_steps"]
+        exe = pt.Executor(card)
+        scopes = {a: copy_scope(start) for a in times}
+        order = list(times)
+        for i in range(GUARD_STEPS + 2):
+            for a in order[i % 2:] + order[:i % 2]:
+                _guarded(a == "guard", g)
+                dt = _timed_loss(exe, main, feeds[i % len(feeds)], cost,
+                                 scopes[a])
+                if i >= 2:
+                    times[a].append(dt)
+        timing_graphs = _graphs(exe)
+        del exe, scopes
+    finally:
+        _guarded(False, g)
+        fault.clear()
+    release_memory()
+    guard, refr = runs["guard"], runs["reference"]
+    med = {a: statistics.median(t) * 1e3 for a, t in times.items()}
+    summary = {
+        "batch": batch, "seq": TRAIN_SEQ, "dropout": 0.1,
+        "poisoned_step": poisoned, "poisoned_loss": guard["poisoned_loss"],
+        "guarded_state_changed_by_poisoned_step": guard["changed"],
+        "reference_vars_changed_by_poisoned_step": len(refr["changed"]),
+        "skipped_steps": skipped,
+        "clean_losses_same_bits": all(
+            guard["losses"][i] == refr["losses"][i]
+            for i in range(len(feeds)) if i != poisoned),
+        "final_state_not_bit_equal": _unequal(refr["state"],
+                                              guard["state"]),
+        "graphs": {"guard": guard["graphs"], "reference": refr["graphs"],
+                   "timing": timing_graphs},
+        "median_step_ms": med,
+        "step_ms": {a: [x * 1e3 for x in t] for a, t in times.items()},
+        "overhead_pct": (med["guard"] - med["off"]) / med["off"] * 100.0}
+    log("resume_guard", summary)
+    if not (not guard["changed"] and refr["changed"] and skipped == 1
+            and not np.isfinite(guard["poisoned_loss"])
+            and summary["clean_losses_same_bits"]
+            and not summary["final_state_not_bit_equal"]
+            and guard["graphs"] == [1] and refr["graphs"] == [1]
+            and timing_graphs == [1, 1]):
+        raise SystemExit("resume_guard failed a gate: %s" % {
+            k: summary[k] for k in (
+                "poisoned_loss", "guarded_state_changed_by_poisoned_step",
+                "reference_vars_changed_by_poisoned_step", "skipped_steps",
+                "clean_losses_same_bits", "final_state_not_bit_equal",
+                "graphs")})
+    return summary
+
+
+def fault_mlp_train_func():
+    """bench.py's fault_drill model: an MLP 784-256-10, seed 7."""
+    import paddle_tpu_torch as pt
+
+    pt.default_main_program().random_seed = 7
+    pt.default_startup_program().random_seed = 7
+    img = pt.layers.data("img", shape=[784])
+    label = pt.layers.data("label", shape=[1], dtype="int64")
+    h = pt.layers.fc(img, size=256, act="relu")
+    pred = pt.layers.fc(h, size=10, act="softmax")
+    return pt.layers.mean(pt.layers.cross_entropy(pred, label))
+
+
+def fault_drill(tmp, iterations=FAULT_ITERS, batch=FAULT_BATCH):
+    """bench.py's ``fault_drill`` rung on the card: the MLP trained
+    through ``Trainer`` (``CUDAPlace(0)``, captured) with Adam(1e-3) over
+    ``iterations`` batches of ``batch``, a ``CheckpointConfig``
+    (synchronous saves) and the guardian with the ladder
+    ``rollback,abort``; NaN in ``fc_0.w_0`` after step ``iterations //
+    2``.  The checkpoint interval is the rung's clamp of its default,
+    ``max(2, min(iterations // 4, inject_step - 2))``
+    (``decide_checkpoint_interval`` waits for ROADMAP A6c).  An untimed
+    warm run, a timed clean run and the timed drill.  Gates: the drill's
+    final loss within 1e-4 of the clean run's (``recovered_to_clean_loss``)
+    and one rollback.  Returns the summary."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import fault, monitor
+    from paddle_tpu_torch.contrib import CheckpointConfig, Trainer
+    from paddle_tpu_torch.reader import checkpointable
+
+    inject_step = iterations // 2
+    interval = max(2, min(iterations // 4, inject_step - 2))
+
+    def samples():
+        rng = np.random.RandomState(0)
+        for _ in range(iterations * batch):
+            yield (rng.rand(784).astype("float32"),
+                   rng.randint(0, 10, (1,)).astype("int64"))
+
+    def one_run(name, inject):
+        fault.clear()
+        if inject:
+            fault.inject_nan("fc_0.w_0",
+                             fault.FaultSchedule(steps=[inject_step]),
+                             once=True)
+        losses = []
+
+        def handler(ev):
+            if hasattr(ev, "metrics"):
+                losses.append(float(np.ravel(ev.metrics[0])[0]))
+
+        trainer = Trainer(
+            train_func=fault_mlp_train_func, place=pt.CUDAPlace(0),
+            optimizer_func=lambda: pt.optimizer.Adam(1e-3),
+            checkpoint_config=CheckpointConfig(
+                checkpoint_dir=os.path.join(tmp, name),
+                step_interval=interval, async_save=False),
+            guardian_config={"policy": "rollback,abort"})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(num_epochs=1, event_handler=handler,
+                      reader=checkpointable(pt.batch(samples, batch)),
+                      feed_order=["img", "label"])
+        torch.cuda.synchronize()
+        fault.clear()
+        return losses, time.perf_counter() - t0
+
+    monitor.enable()
+    try:
+        one_run("warm", False)
+        clean, clean_s = one_run("clean", False)
+        before = monitor.registry().get("guardian/rollbacks")
+        before = before.value if before is not None else 0
+        drilled, drilled_s = one_run("drill", True)
+        rb = monitor.registry().get("guardian/rollbacks")
+        rollbacks = (rb.value if rb is not None else 0) - before
+    finally:
+        monitor.disable()
+    recovered = bool(np.isfinite(drilled[-1]) and abs(
+        drilled[-1] - clean[-1]) <= 1e-4 * abs(clean[-1]))
+    summary = {"steps": iterations, "batch": batch,
+               "inject_step": inject_step, "checkpoint_interval": interval,
+               "recovered_to_clean_loss": recovered,
+               "guardian_rollbacks": rollbacks,
+               "recovery_overhead_s": drilled_s - clean_s,
+               "clean_s": clean_s, "drilled_s": drilled_s,
+               "replayed_steps": len(drilled) - len(clean),
+               "final_loss": drilled[-1], "clean_final_loss": clean[-1]}
+    log("fault_drill", summary)
+    if not (recovered and rollbacks == 1):
+        raise SystemExit("fault_drill failed a gate: %s" % summary)
+    return summary
+
+
+# the kill -9 drill's trainer: ``python3 -c KILL_TRAINER repo ckpt log
+# total kill_step`` trains ``kill_drill_train`` with a kill_mid_save drill
+# at ``kill_step``'s write (0: none)
+KILL_TRAINER = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from paddle_tpu_torch import fault
+from chip_smoke import kill_drill_train
+ckpt, log, total, kill = sys.argv[2], sys.argv[3], int(sys.argv[4]), \
+    int(sys.argv[5])
+if kill:
+    fault.kill_mid_save(fault.FaultSchedule(steps=[kill]))
+with open(log, "a") as f:
+    kill_drill_train(ckpt, total, f)
+"""
+
+
+def kill_drill_feeds(n, batch=FAULT_BATCH):
+    rng = np.random.RandomState(0)
+    return [{"img": rng.rand(batch, 784).astype("float32"),
+             "label": rng.randint(0, 10, (batch, 1)).astype("int64")}
+            for _ in range(n)]
+
+
+def kill_drill_train(ckpt, total, log=None):
+    """Train the fault_drill MLP captured on ``CUDAPlace(0)`` to ``total``
+    steps, resuming from ``ckpt`` and checkpointing there every 4 steps
+    (async; ``ckpt`` None: neither); each step's loss bits to ``log``.
+    Returns {step: loss hex}."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import checkpoint as ck
+    from paddle_tpu_torch.reader import checkpointable
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        loss = fault_mlp_train_func()
+        pt.optimizer.Adam(1e-3).minimize(loss)
+    feeds = kill_drill_feeds(total)
+    reader = checkpointable(lambda: iter(feeds))
+    scope = pt.Scope()
+    pt.Executor(pt.CUDAPlace(0)).run(startup, scope=scope)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    mgr, step = None, 0
+    if ckpt:
+        mgr = ck.TrainStateCheckpointManager(ckpt, max_to_keep=3,
+                                             save_interval_steps=4)
+        step = mgr.restore(scope=scope, program=main,
+                           executors={"train": exe},
+                           readers={"train": reader}) or 0
+        print("RESUMED", step, flush=True)
+    out = {}
+    it = iter(reader())
+    while step < total:
+        (lv,) = exe.run(main, feed=next(it), fetch_list=[loss], scope=scope)
+        step += 1
+        out[step] = lv.tobytes().hex()
+        if log is not None:
+            log.write(json.dumps({"step": step, "loss": out[step]}) + "\n")
+            log.flush()
+        if mgr is not None:
+            mgr.save(step, scope=scope, program=main,
+                     executors={"train": exe}, readers={"train": reader})
+    if mgr is not None:
+        mgr.wait_until_finished()
+        print("DONE", step, flush=True)
+    return out
+
+
+def kill_drill(tmp):
+    """The kill -9 drill on the card: a subprocess (``KILL_TRAINER``)
+    trains the fault_drill MLP captured and is SIGKILLed by
+    ``kill_mid_save`` inside step ``KILL_AT``'s write (a torn ``.tmp.``
+    artifact); a second resumes from the newest intact artifact
+    (``KILL_RESUME``) and runs to ``KILL_STEPS``.  Gate:
+    every logged loss, of both processes, bit-equal to an uninterrupted
+    captured run in this process.  Returns the summary."""
+    import signal
+
+    ref = kill_drill_train(None, KILL_STEPS)
+    release_memory()
+    os.makedirs(tmp)
+    ckpt, log_path = os.path.join(tmp, "ckpt"), os.path.join(tmp, "log")
+    procs = []
+    for kill in (KILL_AT, 0):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-c", KILL_TRAINER, REPO, ckpt, log_path,
+             str(KILL_STEPS), str(kill)], capture_output=True, text=True,
+            timeout=300)
+        procs.append({"rc": p.returncode, "s": time.perf_counter() - t0,
+                      "stdout": p.stdout[-200:], "stderr": p.stderr[-1500:]})
+    logged = {}
+    with open(log_path) as f:
+        for line in f:
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue
+            logged.setdefault(rec["step"], set()).add(rec["loss"])
+    resumed = procs[1]["stdout"].split("RESUMED")[-1].split()
+    summary = {"steps": KILL_STEPS, "kill_at": KILL_AT,
+               "killed_rc": procs[0]["rc"], "resumed_rc": procs[1]["rc"],
+               "resumed_from": int(resumed[0]) if resumed else None,
+               "process_s": [p["s"] for p in procs],
+               "steps_logged": sorted(logged),
+               "same_loss_bits": all(v == {ref[s]} for s, v in
+                                     logged.items()) and sorted(logged)
+               == list(range(1, KILL_STEPS + 1))}
+    log("kill_drill", summary)
+    if not (procs[0]["rc"] == -signal.SIGKILL and procs[1]["rc"] == 0
+            and summary["resumed_from"] == KILL_RESUME
+            and summary["same_loss_bits"]):
+        raise SystemExit("kill_drill failed a gate: %s %s" % (
+            summary, [p["stderr"] for p in procs]))
+    return summary
+
+
+def resume_phase():
+    """Phase 31 (``resume_train``, ``resume_guard``, ``fault_drill`` and
+    ``kill_drill``); the artifacts go to a temporary directory removed
+    after."""
+    import tempfile
+
+    release_memory()
+    with tempfile.TemporaryDirectory() as tmp:
+        summary = {"train": resume_train(tmp)}
+        release_memory()
+        summary["guard"] = resume_guard()
+        release_memory()
+        summary["fault_drill"] = fault_drill(os.path.join(tmp, "drill"))
+        release_memory()
+        summary["kill_drill"] = kill_drill(os.path.join(tmp, "kill"))
+    release_memory()
+    return summary
+
+
 def release_memory():
     """Free what the last phase's executors, graphs and scopes held."""
     import gc
@@ -9088,7 +9701,7 @@ def main():
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
-    if {"train", "observe"} & set(sys.argv[1:]):
+    if {"train", "observe", "resume"} & set(sys.argv[1:]):
         if "train" in sys.argv[1:]:
             for amp in (False, True):
                 _, paths = train_phase(pt.CUDAPlace(0), amp=amp)
@@ -9100,6 +9713,8 @@ def main():
                 release_memory()
         if "observe" in sys.argv[1:]:
             observe_phase()
+        if "resume" in sys.argv[1:]:
+            resume_phase()
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
@@ -9243,6 +9858,10 @@ def main():
     # step and the engine (#1-#6 in the monitored step's trace as the
     # program implies; no new kernel)
     observe_phase()
+    # exact-resume checkpoints, the skip guard and the guardian's rollback
+    # on the Transformer-base step (#1-#6 in the resumed step's trace as
+    # the program implies) and bench.py's fault_drill MLP (no hand kernel)
+    resume_phase()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)

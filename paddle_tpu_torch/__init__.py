@@ -6,7 +6,8 @@ The layout mirrors the JAX package (``framework``, ``registry``,
 ``nets``, ``models``, ``reader``, ``data_feeder``, ``serving``,
 ``transpiler``, ``inference``, ``debugger``, ``net_drawer``, ``contrib``,
 ``metrics``, ``evaluator``, ``lod_tensor``, ``compat``, ``op``,
-``default_scope_funcs``, ``flags``, ``monitor``, ``profiler``)
+``default_scope_funcs``, ``flags``, ``monitor``, ``profiler``,
+``fault``, ``guardian``, ``parallel``)
 so each module's
 counterpart is easy to find; the programs it builds serialize to the
 same schema, and ``io`` writes the JAX package's file format.  Op
@@ -34,6 +35,7 @@ from . import average, learning_rate_decay
 from . import convert
 from . import io
 from . import flags, monitor, profiler
+from . import fault, guardian, parallel
 from . import nets
 from . import reader
 from .data_feeder import DataFeeder
@@ -61,6 +63,7 @@ __all__ = [
     "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
     "backward", "clip", "optimizer", "regularizer", "average",
     "learning_rate_decay", "convert", "io", "flags", "monitor", "profiler",
+    "fault", "guardian", "parallel",
     "nets", "reader", "DataFeeder", "batch", "models", "transpiler",
     "InferenceTranspiler", "memory_optimize", "release_memory", "serving",
     "contrib", "inference", "debugger", "net_drawer", "compat", "metrics",

@@ -133,6 +133,24 @@ trace; the memory preflight runs before the capture.  With every flag off
 a run reads the monitor's and the profiler's enabled bools and makes no
 monitor call.
 
+**Faults and the guardian.**  A run fires the fault points of
+``fault.py`` where the JAX executor does (``executor/feed`` on the
+feeds as tensors, ``executor/dispatch`` before the step,
+``executor/step_done`` after the write-back, each with the run counter as
+its step) and hands the installed guardian (``guardian.py``) its step
+last.  With ``FLAGS_guardian`` and ``skip`` on the ladder an entry
+carries the skip guard, which keys the entry: the step keeps a device copy
+of every state variable it writes as it stood before the step, and at its
+end, inside the graph, puts the copies back when a floating fetch (the
+user's, not the probe's extras) is not finite; so a poisoned step leaves
+the parameters, the moments and the LR and step counters bit-equal, and
+its generator advances as on any step.  The verdict rides as a device
+tensor to the guardian; nothing waits for it inside the run.
+``state_dict`` / ``load_state_dict`` carry the run counter and every
+generator's state, so an executor restored from a TrainState draws what
+the uninterrupted one would, eager or replayed (a generator a graph
+registered is set in place, and the graph draws from its new state).
+
 With ``FLAGS_health`` an entry carries the health probe
 (``monitor.health``): the step keeps the probed gradients to its end and
 computes the per-layer stats inside the captured graph; the probe is
@@ -143,6 +161,7 @@ op that made one, replayed op by op); ``FLAGS_benchmark`` prints each
 step's time after a ``torch.cuda.synchronize``.
 """
 
+import base64
 import threading
 import time
 import weakref
@@ -150,7 +169,7 @@ import weakref
 import numpy as np
 import torch
 
-from . import flags, monitor, profiler, registry
+from . import fault, flags, guardian, monitor, profiler, registry
 from .framework import Variable, default_main_program
 from .monitor import health, program_profile
 from .ops import control_flow
@@ -433,6 +452,9 @@ class Executor:
         self._host_entries = set()   # keys of entries that call the host
         # key -> (the fetch list the step keeps, the health probe or None)
         self._probes = {}
+        # key -> the skip guard's (state names it restores, watched
+        # fetches), for guarded entries
+        self._guards = {}
         self._generators = {}
         self._lock = threading.RLock()
         self._stream = None
@@ -447,6 +469,32 @@ class Executor:
                 "entries": len(self._analysis),
                 "graphs": sum(st.graphs for st in self._steps.values()),
                 "runs": self._run_counter}
+
+    def state_dict(self):
+        """What an exact resume carries (``parallel.checkpoint``): the run
+        counter (the fault and guardian step index) and each generator's
+        state, JSON-safe.  Exactness needs a nonzero ``random_seed``, as
+        in the JAX package: seed 0 draws its seed from numpy."""
+        return {"run_counter": int(self._run_counter),
+                "generators": {
+                    str(seed): base64.b64encode(
+                        g.get_state().numpy().tobytes()).decode("ascii")
+                    for seed, g in self._generators.items()}}
+
+    def load_state_dict(self, state):
+        """Restore ``state_dict()``; a JAX executor's state (its run
+        counter alone) sets the counter."""
+        with self._lock:
+            self._run_counter = int(state["run_counter"])
+            for seed, b64 in state.get("generators", {}).items():
+                raw = bytearray(base64.b64decode(b64))
+                self._generator(int(seed)).set_state(
+                    torch.frombuffer(raw, dtype=torch.uint8))
+
+    def sync(self):
+        """Wait for the steps launched on the card."""
+        if self.place.device.type == "cuda":
+            torch.cuda.synchronize(self.place.device)
 
     def _generator(self, seed):
         """The executor's generator for programs of ``seed`` (0: one seed
@@ -537,6 +585,13 @@ class Executor:
         block = program.global_block()
         feed = {n: _as_tensor(v) for n, v in (feed or {}).items()}
         feed_names = sorted(feed)
+        step_idx = self._run_counter
+        if fault._ACTIVE:
+            # drills replace feeds (poison_batch), keeping shape and dtype
+            vals = [feed[n] for n in feed_names]
+            fault.fire("executor/feed", step_idx, feed_names=feed_names,
+                       feed_vals=vals)
+            feed = {n: _as_tensor(v) for n, v in zip(feed_names, vals)}
         # each feed's shape and the dtype it enters the program with: one
         # entry (and one graph) per signature, as the JAX executor keys
         # its jit cache by feed_sig
@@ -547,14 +602,15 @@ class Executor:
                               else feed[n].dtype)
         # the AMP policy changes what every op computes without a version
         # bump (bf16_program_guard), so it keys the entry too (policies
-        # compare by their lists); so does the health probe, which the
-        # step computes
+        # compare by their lists); so do the health probe and the skip
+        # guard, which the step computes
         probe_on = health._ENABLED
+        guarded = guardian.skip_guard_enabled()
         key = (id(program), program._version,
                tuple((n, tuple(feed[n].shape), feed_dtypes[n])
                      for n in feed_names),
-               tuple(fetch_names), program._amp_policy, probe_on, id(scope))
-        step_idx = self._run_counter
+               tuple(fetch_names), program._amp_policy, probe_on, guarded,
+               id(scope))
         self._run_counter += 1
         fp = program_profile.program_fingerprint(program) if obs else None
         span = profiler.RecordEvent if obs else _NoSpan
@@ -569,7 +625,8 @@ class Executor:
                     profiler.mark_event("executor/new_entry")
                 with span("executor/analyze"):
                     analysis = self._new_entry(key, program, feed_names,
-                                               scope, fetch_names, probe_on)
+                                               scope, fetch_names, probe_on,
+                                               guarded)
             captures = (self.capture and self.place.device.type == "cuda"
                         and key not in self._host_entries)
             phase = self._phase(key, captures, cold_entry)
@@ -585,25 +642,33 @@ class Executor:
                          else "trace_compile"} if fp else None
             self.loop_trips = []
             kept, probe = self._probes[key]
+            guard = self._guards.get(key)
             # the step's generator state, for an op-by-op replay of it
             gen_state = self._generator(program.random_seed).get_state() \
                 if probe is not None else None
+            if fault._ACTIVE:
+                fault.fire("executor/dispatch", step_idx)
             with span("executor/run"):
                 with span("executor/" + phase, args=span_args):
                     if not captures:
                         fetches = self._run_eager(
                             program, analysis, feed, feed_dtypes, scope,
-                            kept, profile=profile, span=span, probe=probe)
+                            kept, profile=profile, span=span, probe=probe,
+                            guard=guard)
                     else:
                         with torch.cuda.device(self.place.device):
                             fetches = self._run_captured(
                                 key, program, analysis, feed, feed_dtypes,
                                 scope, kept, profile=profile, span=span,
-                                probe=probe)
+                                probe=probe, guard=guard)
                             if not return_numpy:
                                 # a later replay rewrites the graph's
                                 # outputs
                                 fetches = [_clone(f) for f in fetches]
+            ok_flag = None
+            if guard is not None:
+                # the guard's verdict rides last, after the probe's stats
+                ok_flag, fetches = fetches[-1], fetches[:-1]
             if probe is not None:
                 health.note_step(
                     "executor", step_idx, probe, fetches[-1],
@@ -613,6 +678,10 @@ class Executor:
                     feed_vals=[feed[n] for n in feed_names],
                     place=self.place)
             fetches = fetches[:len(fetch_names)]
+            if fault._ACTIVE:
+                fault.fire("executor/step_done", step_idx, scope=scope,
+                           state_names=analysis[1], fetch_names=fetch_names,
+                           fetches=fetches)
             if flags.flag("check_nan_inf"):
                 _check_finite(
                     list(zip(fetch_names, fetches))
@@ -633,13 +702,24 @@ class Executor:
                 device=self.place.device, warm=phase == "dispatch",
                 fingerprint=fp,
                 extras=_sparse_step_extras(program, feed_names, feed))
+        # the guardian last, after the telemetry: a ladder decision raises
+        # out of run() with this step's record published
+        g = guardian._ACTIVE
+        if g is not None:
+            g.note_step("executor", step_idx, ok=ok_flag,
+                        fetch_names=fetch_names, fetches=fetches,
+                        feed=(feed_names, [feed[n] for n in feed_names]),
+                        sync=return_numpy)
+        elif ok_flag is not None:
+            guardian.warn_unobserved_skip_guard(self)
         return fetches
 
     def _new_entry(self, key, program, feed_names, scope, fetch_names,
-                   probe_on):
+                   probe_on, guarded):
         """Analyze a new entry: (state, writeback, live, release,
         graph_ops, plan); its kept fetch list and health probe go to
-        ``_probes``."""
+        ``_probes``, its skip guard (the state it writes that it read, and
+        the fetches it watches) to ``_guards``."""
         block = program.global_block()
         analysis = self._analyze(program, feed_names, scope, fetch_names)
         probe = None
@@ -657,7 +737,14 @@ class Executor:
                     and key not in self._host_entries)
         analysis = self._analysis[key] = analysis + (
             segment_plan(block, analysis[2], capture=captures),)
+        guard = None
+        if guarded:
+            state = set(analysis[0])
+            guard = ([n for n in analysis[1] if n in state],
+                     list(fetch_names))
         self._probes[key] = (kept, probe)
+        if guard is not None:
+            self._guards[key] = guard
         # reported when either owner dies, which is before another
         # program or scope can take its id
         for owner in (program, scope):
@@ -684,6 +771,7 @@ class Executor:
                 continue
             del self._analysis[key]
             self._probes.pop(key, None)
+            self._guards.pop(key, None)
             self._host_entries.discard(key)
             step = self._steps.pop(key, None)
             if step is not None and step.pieces and not synced:
@@ -693,12 +781,13 @@ class Executor:
 
     def _run_eager(self, program, analysis, feed, feed_dtypes, scope,
                    fetch_names, out_meta=None, profile=None, span=None,
-                   probe=None):
+                   probe=None, guard=None):
         """Run the entry's segments eagerly (``segment_plan``);
         ``out_meta`` collects the persistable outputs' (shape, dtype);
         ``profile`` (fingerprint, feed signature, fetch names) records the
         run as the entry's warm-up in its program profile.  With the
-        health probe the stats tensor follows the fetches."""
+        health probe the stats tensor follows the fetches, and with the
+        skip guard its verdict follows them."""
         state_names, writeback, live, release, graph_ops, plan = analysis
         dev = self.place.device
         block = program.global_block()
@@ -714,11 +803,13 @@ class Executor:
                              program._amp_policy, program, graph_ops)
         old = health.begin_step(probe, env, writeback) \
             if probe is not None else None
+        before = _guard_begin(env, guard)
         for kind, seg in plan:
             if kind == "ops":
                 _interpret(block, seg, release, env, ctx)
             else:
                 self._loop_eager(block, seg, release, env, ctx)
+        ok = _guard_end(env, guard, before, dev)
         stats = health.probe_stats(probe, env, old) \
             if probe is not None else None
         for n in writeback:
@@ -731,7 +822,8 @@ class Executor:
                 torch.cuda.max_memory_allocated(dev) if cuda else None,
                 fetch_names=profile[2])
         return [env[n] for n in fetch_names] + \
-            ([stats] if stats is not None else [])
+            ([stats] if stats is not None else []) + \
+            ([ok] if ok is not None else [])
 
     def _loop_eager(self, block, i, release, env, ctx):
         """Run loop op ``i``: predicated trips, the condition read on the
@@ -749,7 +841,7 @@ class Executor:
 
     def _run_captured(self, key, program, analysis, feed, feed_dtypes,
                       scope, fetch_names, profile=None, span=None,
-                      probe=None):
+                      probe=None, guard=None):
         span = span or _NoSpan
         step = self._steps.get(key)
         if step is not None and step.pieces is not None \
@@ -760,7 +852,7 @@ class Executor:
             fetches = self._run_eager(program, analysis, feed, feed_dtypes,
                                       scope, fetch_names, out_meta,
                                       profile=profile, span=span,
-                                      probe=probe)
+                                      probe=probe, guard=guard)
             self._steps[key] = _CapturedStep(out_meta)
             return fetches
         first = step.pieces is None
@@ -774,7 +866,7 @@ class Executor:
                 torch.cuda.reset_peak_memory_stats(dev)
                 t0 = time.perf_counter()
             self._capture(step, program, analysis, feed, feed_dtypes, scope,
-                          fetch_names, probe)
+                          fetch_names, probe, guard)
             if profile is not None:
                 program_profile.note_capture(
                     profile[0], profile[1], time.perf_counter() - t0,
@@ -794,7 +886,7 @@ class Executor:
         return step.fetches
 
     def _capture(self, step, program, analysis, feed, feed_dtypes, scope,
-                 fetch_names, probe=None):
+                 fetch_names, probe=None, guard=None):
         """Capture the entry's segments into ``step.pieces`` on the feeds'
         and the scope's current tensors: a graph for each run of ops (the
         one before a loop ending with the loop's entry), a body graph for
@@ -835,7 +927,7 @@ class Executor:
         ctx = ComputeContext(dev, generator, len(block.ops),
                              program._amp_policy, program, graph_ops)
         where = ["the start of the step"]
-        old = {}
+        old, before, verdict = {}, {}, []
 
         def capture(work):
             graph = torch.cuda.CUDAGraph()
@@ -846,6 +938,9 @@ class Executor:
             return graph
 
         def write_back():
+            if guard is not None:
+                where[0] = "the skip guard"
+                verdict.append(_guard_end(env, guard, before, dev))
             if probe is not None:
                 where[0] = "the health probe's stats"
                 health.probe_stats(probe, env, old)
@@ -866,6 +961,9 @@ class Executor:
                 first = not pieces
 
                 def head():
+                    if first and guard is not None:
+                        where[0] = "the skip guard's state copies"
+                        before.update(_guard_begin(env, guard))
                     if first and probe is not None:
                         where[0] = "the health probe's parameter copies"
                         old.update(health.begin_step(probe, env, writeback))
@@ -876,7 +974,7 @@ class Executor:
                     else:
                         write_back()
 
-                if ops or loop is not None or any(
+                if ops or loop is not None or guard is not None or any(
                         env[n] is not step.bound[n] for n in writeback):
                     pieces.append((capture(head), None))
                 if loop is None:
@@ -886,7 +984,7 @@ class Executor:
                 pieces.append((loop.graph, loop))
                 k += 1
             step.fetches = [env[n] for n in fetch_names] + \
-                ([probe.buffer] if probe is not None else [])
+                ([probe.buffer] if probe is not None else []) + verdict
         except Exception as e:
             raise RuntimeError(
                 "CUDA graph capture of program %d (version %d) failed at "
@@ -906,6 +1004,32 @@ class _NoSpan:
 
     def __exit__(self, *exc):
         return False
+
+
+def _guard_begin(env, guard):
+    """The skip guard's device copies of the state the step writes, as it
+    stands before the step ({} without the guard)."""
+    if guard is None:
+        return {}
+    return {n: env[n].clone() for n in guard[0]}
+
+
+def _guard_end(env, guard, before, device):
+    """The skip guard's verdict (a 0-d bool tensor: every floating watched
+    fetch finite) with the state put back where it is false; None
+    without the guard.  Device arithmetic only, so a graph holds it."""
+    if guard is None:
+        return None
+    ok = torch.ones((), dtype=torch.bool, device=device)
+    for n in guard[1]:
+        v = env.get(n)
+        if isinstance(v, SelectedRows):
+            v = v.values
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            ok = ok & torch.isfinite(v).all()
+    for n, old in before.items():
+        env[n] = torch.where(ok, env[n], old)
+    return ok
 
 
 def _profiled_replay(step, exe, profile):

@@ -22,7 +22,17 @@ defaults:
 * ``health`` and ``health_every``: the per-layer health probe inside the
   step and its publication cadence (``monitor/health.py``);
 * ``preflight_oom`` and ``preflight_hbm_bytes``: the memory check before
-  a CUDA-graph capture (``monitor/program_profile.py``).
+  a CUDA-graph capture (``monitor/program_profile.py``);
+* the guardian family (``guardian``, ``guardian_policy``,
+  ``guardian_window``, ``guardian_zmax``, ``guardian_max_skips``,
+  ``guardian_max_rollbacks``, ``guardian_quarantine_dir``,
+  ``guardian_spike_action``, ``guardian_plateau_steps``,
+  ``guardian_stall_escalations``): the training-run guardian
+  (``guardian.py``) and the executor's in-graph skip guard;
+* the fault family (``fault_seed``, ``fault_spec``): deterministic
+  fault-injection drills installed from a spec string (``fault.py``);
+* ``max_inflight_steps``: how many unread steps the guardian may hold
+  before it reads the oldest.
 """
 
 import os
@@ -141,3 +151,66 @@ register_flag("health_every", 10, int, _on_health_change)
 register_flag("preflight_oom", "auto", str, _on_preflight_oom)
 # capacity in bytes for the preflight (0: the card's free memory)
 register_flag("preflight_hbm_bytes", 0, int)
+
+
+def _on_guardian_policy(val):
+    # a typo'd rung ("rolback") silently dropping rollback from the ladder
+    # would defeat the operator's intent
+    bad = {t.strip() for t in str(val).split(",") if t.strip()} \
+        - {"skip", "rollback", "abort"}
+    if bad:
+        raise ValueError(
+            "FLAGS_guardian_policy tokens must be among "
+            "skip/rollback/abort, got %s" % sorted(bad))
+
+
+def _on_guardian_spike_action(val):
+    if str(val).strip() not in ("warn", "rollback", "off"):
+        raise ValueError(
+            "FLAGS_guardian_spike_action must be warn/rollback/off, "
+            "got %r" % (val,))
+
+
+def _on_fault_spec(val):
+    # drills straight from the environment or set_flags: install_from_spec
+    # replaces the previous spec's hooks, so the installed drills mirror
+    # the flag; an empty value disarms them (nothing to disarm when
+    # fault.py was never imported)
+    import sys
+
+    if not str(val).strip():
+        fault = sys.modules.get(__name__.rsplit(".", 1)[0] + ".fault")
+        if fault is not None and hasattr(fault, "install_from_spec"):
+            fault.install_from_spec("")
+        return
+    from . import fault
+
+    if not hasattr(fault, "install_from_spec"):
+        # the environment set it while fault.py is mid-import (fault ->
+        # flags -> this hook): fault installs the spec at the end of its
+        # module body
+        return
+    fault.install_from_spec(val)
+
+
+# the guardian's master switch: with it on the Trainer installs a
+# Guardian and, when "skip" is on the ladder, each executor entry carries
+# the in-graph skip guard (the guard keys the entry)
+register_flag("guardian", False, bool)
+register_flag("guardian_policy", "skip,rollback,abort", str,
+              _on_guardian_policy)
+register_flag("guardian_window", 32, int)
+register_flag("guardian_zmax", 8.0, float)
+register_flag("guardian_max_skips", 8, int)
+register_flag("guardian_max_rollbacks", 2, int)
+register_flag("guardian_quarantine_dir", "", str)
+register_flag("guardian_spike_action", "warn", str, _on_guardian_spike_action)
+register_flag("guardian_plateau_steps", 0, int)
+register_flag("guardian_stall_escalations", 3, int)
+# the guardian reads a step's verdict once it is ready, or once more than
+# this many steps wait unread (the JAX package's dispatch window)
+register_flag("max_inflight_steps", 8, int)
+# registered before fault_spec: an environment spec installs schedules at
+# import, which read it
+register_flag("fault_seed", 0, int)
+register_flag("fault_spec", "", str, _on_fault_spec)

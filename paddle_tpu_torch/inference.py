@@ -86,15 +86,17 @@ class AnalysisConfig(NativeConfig):
     def enable_serving(self, slots=8, timeout_s=30.0, bucket_bounds=None,
                        tuned_config=None, quarantine_dir=None):
         """Run this config's predictors through one shared
-        ``serving.InferenceEngine`` (its keyword arguments).  The
-        TunedConfig artifact and quarantine dumps are not ported yet
-        (ROADMAP A6), so ``tuned_config`` and ``quarantine_dir`` raise."""
-        if tuned_config is not None or quarantine_dir is not None:
+        ``serving.InferenceEngine`` (its keyword arguments): a request
+        whose output is not finite is quarantined, its feed dumped under
+        ``quarantine_dir`` when one is given.  The TunedConfig artifact
+        is not ported yet (ROADMAP A6c), so ``tuned_config`` raises."""
+        if tuned_config is not None:
             raise NotImplementedError(
-                "tuned_config= and quarantine_dir= are not ported yet "
-                "(ROADMAP A6: the TunedConfig artifact, quarantine dumps)")
+                "tuned_config= is not ported yet (ROADMAP A6c: the "
+                "TunedConfig artifact)")
         self.serving = {"slots": slots, "timeout_s": timeout_s,
-                        "bucket_bounds": bucket_bounds}
+                        "bucket_bounds": bucket_bounds,
+                        "quarantine_dir": quarantine_dir}
         return self
 
     def enable_quantization(self, mode="weight_only"):

@@ -16,10 +16,10 @@ declared int64).  The JAX package saves a bfloat16 array as two raw bytes
 an element (numpy reads it back as ``|V2``); those bytes load as the
 bfloat16 bits they are.  A serial checkpoint is
 ``<dir>/checkpoint_<serial>/trainer_<id>/persistables.npz``, the JAX
-package's layout.
-
-Not ported yet: ``save_train_program`` / ``load_train_program`` (ROADMAP
-Queue A6).
+package's layout.  ``save_train_program`` writes a whole training program
+(forward, backward and optimizer ops) and its startup program as one JSON
+``__train_program__``, the JAX package's format, so a program saved by
+either package trains in the other.
 """
 
 import json
@@ -29,13 +29,15 @@ import shutil
 import numpy as np
 import torch
 
-from .framework import Parameter, Program, default_main_program
+from .framework import (Parameter, Program, default_main_program,
+                        default_startup_program)
 from .scope import global_scope
 
 __all__ = [
     "save_vars", "save_params", "save_persistables",
     "load_vars", "load_params", "load_persistables",
     "save_inference_model", "load_inference_model",
+    "save_train_program", "load_train_program",
     "save_checkpoint", "get_latest_checkpoint_serial", "load_checkpoint",
     "clean_checkpoint",
 ]
@@ -178,6 +180,43 @@ def load_inference_model(dirname, executor, model_filename=None,
     fetch_vars = [program.global_block().var(n)
                   for n in payload["fetch_names"]]
     return program, payload["feed_names"], fetch_vars
+
+
+def save_train_program(dirname, main_program=None, startup_program=None,
+                       loss_name=None, feed_names=None):
+    """Write a whole training program and its startup program to
+    ``<dirname>/__train_program__``, so training runs with no Python graph
+    build (``load_train_program``)."""
+    if main_program is None:
+        main_program = default_main_program()
+    if startup_program is None:
+        startup_program = default_startup_program()
+    os.makedirs(dirname, exist_ok=True)
+    with open(os.path.join(dirname, "__train_program__"), "w") as f:
+        json.dump({"main": main_program.to_dict(),
+                   "startup": startup_program.to_dict(),
+                   "loss_name": loss_name,
+                   "feed_names": list(feed_names or [])}, f)
+
+
+def load_train_program(dirname):
+    """(main_program, startup_program, loss_name, feed_names).  Without a
+    recorded ``loss_name`` the loss is the first ``mean`` op's output, and
+    without recorded feeds they are the main program's data vars."""
+    with open(os.path.join(dirname, "__train_program__")) as f:
+        payload = json.load(f)
+    main = Program.from_dict(payload["main"])
+    startup = Program.from_dict(payload["startup"])
+    loss_name = payload.get("loss_name")
+    if not loss_name:
+        for op in main.global_block().ops:
+            if op.type == "mean":
+                loss_name = op.outputs["Out"][0]
+                break
+    feed_names = payload.get("feed_names") or [
+        name for name, v in main.global_block().vars.items()
+        if getattr(v, "is_data", False)]
+    return main, startup, loss_name, feed_names
 
 
 # ---- serial checkpoints (the reference io.py save_checkpoint family) ----

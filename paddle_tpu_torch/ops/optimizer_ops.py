@@ -21,18 +21,25 @@ exactly what the dense update computes from the same merged gradient.  A
 table sharded over a mesh (the JAX package's ``_maybe_sharded_rows``)
 waits for ROADMAP A7; on one device both packages take this route.
 
-Adam's moments round as the JAX package's compiled step does: XLA
-contracts ``b1 * m + (1 - b1) * g`` into one fused multiply-add,
-``fma(b1, m, (1 - b1) * g)``, and ``v`` likewise (``_fma``).  Rounded
-twice, as eager arithmetic does, a third of the float32 moments sit one
-ulp off the reference's; Adam divides by ``sqrt(v)``, so near a zero
-gradient that ulp shows in the parameter.  Its square roots are
-correctly rounded (``_sqrt``): the CPU's vectorized float32 ``sqrt`` is
-not (0.7% of a random ``v`` one ulp off).  Both hold for CPU tensors
-only: on the card the moments update in place in float32, rounded twice,
-since the float64 temporaries would add kernels to every parameter's
-step there, and what the card rounds is a compiler's choice in both
-packages (ROADMAP C5).
+The moments round as the JAX package's compiled step does on the CPU:
+XLA contracts ``b1 * m + (1 - b1) * g`` into one fused multiply-add,
+``fma(b1, m, (1 - b1) * g)`` (``_fma``), and so Adam's ``m`` and ``v``,
+Momentum's ``mu * v + g`` and its ``p - lr * v`` (``_fms``), Adamax's
+moment, RMSProp's mean square, mean gradient and momentum, and Adagrad's
+``mom + g * g``.  Rounded twice, as eager arithmetic does, a third of
+the float32 moments sit one ulp off the reference's; a step that divides
+by ``sqrt(v)`` shows that ulp in the parameter near a zero gradient.
+The square roots are correctly rounded (``_sqrt``): the CPU's vectorized
+float32 ``sqrt`` is not (0.7% of a random ``v`` one ulp off).  RMSProp
+divides by a square root as XLA rewrites it, ``x * rsqrt(y)``
+(``_over_sqrt``), and still differs in an ulp here and there: the CPU's
+``rsqrt`` in the JAX package is an estimate refined by one Newton step
+(one ulp off the correctly rounded value for about 12% of inputs), which
+the port does not copy.  All of this holds for CPU
+tensors only: on the card the state updates in place in float32,
+rounded twice, since the float64 temporaries would add kernels to every
+parameter's step there, and what the card rounds is a compiler's choice
+in both packages.
 
 The JAX package gives the dense-only updates no SelectedRows leg: an
 ``is_sparse`` gradient reaching one fails there inside the op's
@@ -68,14 +75,25 @@ def _touched(g, *tables):
 
 
 def _fma(a, x, y):
-    """``a * x + y`` rounded once (a fused multiply-add), for a Python
-    number ``a`` taken as float32 and float32 CPU tensors: the product of
-    two float32 values is exact in float64, so the float64 sum rounds once
-    more only where it lands on a float32 tie.  Other dtypes, and tensors
-    on the card, round twice."""
+    """``a * x + y`` rounded once (a fused multiply-add) for float32 CPU
+    tensors ``x`` and ``y``; ``a`` is a Python number (taken as float32)
+    or a float32 tensor.  The product of two float32 values is exact in
+    float64, so the float64 sum rounds once more only where it lands on a
+    float32 tie.  Other dtypes, and tensors on the card, round twice."""
     if x.dtype != torch.float32 or x.is_cuda:
         return a * x + y
-    return (float(np.float32(a)) * x.double() + y.double()).float()
+    a = a.double() if isinstance(a, torch.Tensor) \
+        else float(np.float32(a))
+    return (a * x.double() + y.double()).float()
+
+
+def _fms(y, a, x):
+    """``y - a * x`` rounded once, as ``_fma``: XLA contracts a difference
+    of a product as it does a sum."""
+    if x.dtype != torch.float32 or x.is_cuda:
+        return y - a * x
+    return _fma(-a if isinstance(a, torch.Tensor) else -np.float32(a),
+                x, y)
 
 
 def _moment(m, b, u):
@@ -94,6 +112,15 @@ def _sqrt(x):
     if x.dtype == torch.float32 and not x.is_cuda:
         return torch.sqrt(x.double()).float()
     return torch.sqrt(x)
+
+
+def _over_sqrt(x, y):
+    """``x / sqrt(y)``; for float32 CPU tensors as XLA computes it there,
+    ``x * rsqrt(y)``, with the reciprocal square root rounded correctly
+    (XLA's CPU estimate is not, see the module's docstring)."""
+    if y.dtype == torch.float32 and not y.is_cuda:
+        return x * (1.0 / torch.sqrt(y.double())).float()
+    return x / torch.sqrt(y)
 
 
 def _sgd_compute(ins, attrs, ctx, op_index):
@@ -126,11 +153,13 @@ def _momentum_compute(ins, attrs, ctx, op_index):
         scatter_update_rows(p, uniq, valid, p_new)
         scatter_update_rows(v, uniq, valid, v_new)
         return {"ParamOut": p, "VelocityOut": v}
-    v.mul_(mu).add_(g)               # v = mu * v + g
-    if nesterov:
-        p.sub_((g + mu * v) * lr)
+    _moment(v, mu, g)                # v = mu * v + g
+    if p.is_cuda:
+        p.sub_((g + mu * v) * lr if nesterov else lr * v)
+    elif nesterov:
+        p.copy_(_fms(p, _fma(mu, v, g), lr))
     else:
-        p.sub_(lr * v)
+        p.copy_(_fms(p, lr, v))
     return {"ParamOut": p, "VelocityOut": v}
 
 
@@ -186,8 +215,11 @@ def _adagrad_compute(ins, attrs, ctx, op_index):
         scatter_update_rows(p, uniq, valid, p_new)
         scatter_update_rows(mom, uniq, valid, mom_new)
         return {"ParamOut": p, "MomentOut": mom}
-    mom.add_(g * g)                  # mom = mom + g * g
-    p.sub_(lr * g / (torch.sqrt(mom) + eps))
+    if mom.is_cuda:
+        mom.add_(g * g)              # mom = mom + g * g
+    else:
+        mom.copy_(_fma(g, g, mom))
+    p.sub_(lr * g / (_sqrt(mom) + eps))
     return {"ParamOut": p, "MomentOut": mom}
 
 
@@ -221,7 +253,7 @@ def _adamax_compute(ins, attrs, ctx, op_index):
     lr = ins["LearningRate"][0].to(p.dtype)
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
-    m_out = b1 * m + (1 - b1) * g
+    m_out = _fma(b1, m, (1 - b1) * g)
     inf_out = torch.maximum(b2 * inf_norm, torch.abs(g) + eps)
     lr_t = lr / (1 - b1p)
     p_out = p - lr_t * m_out / inf_out
@@ -267,15 +299,15 @@ def _rmsprop_compute(ins, attrs, ctx, op_index):
     rho = attrs.get("decay", 0.9)
     eps = attrs.get("epsilon", 1e-10)
     momentum = attrs.get("momentum", 0.0)
-    ms_out = rho * ms + (1 - rho) * g * g
+    ms_out = _fma(rho, ms, (1 - rho) * g * g)
     if attrs.get("centered", False):
         mg = ins["MeanGrad"][0]
-        mg_out = rho * mg + (1 - rho) * g
-        mom_out = momentum * mom + lr * g / torch.sqrt(
-            ms_out - mg_out * mg_out + eps)
+        mg_out = _fma(rho, mg, (1 - rho) * g)
+        mom_out = _fma(momentum, mom, _over_sqrt(
+            lr * g, _fms(ms_out, mg_out, mg_out) + eps))
         return _write(ParamOut=(p, p - mom_out), MeanSquareOut=(ms, ms_out),
                       MomentOut=(mom, mom_out), MeanGradOut=(mg, mg_out))
-    mom_out = momentum * mom + lr * g / torch.sqrt(ms_out + eps)
+    mom_out = _fma(momentum, mom, _over_sqrt(lr * g, ms_out + eps))
     return _write(ParamOut=(p, p - mom_out), MeanSquareOut=(ms, ms_out),
                   MomentOut=(mom, mom_out))
 

@@ -97,7 +97,7 @@ def _resolve_quantize(quantize, tuned_config):
     if tuned_config is not None:
         raise NotImplementedError(
             "the TunedConfig artifact (tuned_config=) is not ported yet "
-            "(ROADMAP A6); pass quantize= instead")
+            "(ROADMAP A6c); pass quantize= instead")
     if not quantize:
         return None
     return "weight_only" if quantize is True else str(quantize)

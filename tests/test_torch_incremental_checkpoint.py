@@ -1,0 +1,259 @@
+"""The port's incremental table checkpoints on the CPU, mirroring
+``tests/test_incremental_checkpoint.py`` (less its sharded test, which
+waits for ROADMAP A7): bitwise row deltas against a periodic full base,
+chain replay, chain-aware rotation, a restore that continues the chain,
+and exact resume from a delta artifact.  Against the JAX package: a delta
+chain either package wrote replays in the other to the same arrays."""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as fluid
+from paddle_tpu.parallel import checkpoint as jax_ck
+
+import paddle_tpu_torch as pt
+from paddle_tpu_torch import fault, guardian, monitor
+from paddle_tpu_torch.parallel.checkpoint import (
+    CheckpointCorruptError, TrainStateCheckpointManager, load_train_state,
+    row_delta, sparse_table_state_vars)
+
+from test_torch_serving import fresh_torch_programs  # noqa: F401
+
+V, D, B = 64, 8, 8
+
+
+@pytest.fixture(autouse=True)
+def _clean(fresh_torch_programs):  # noqa: F811
+    monitor.reset_for_tests()
+    fault.clear()
+    guardian.uninstall()
+    yield
+    fault.clear()
+    guardian.uninstall()
+    monitor.reset_for_tests()
+
+
+def _build(pkg=pt, vocab=V, seed=9):
+    pkg.default_main_program().random_seed = seed
+    pkg.default_startup_program().random_seed = seed
+    ids = pkg.layers.data("ids", shape=[4, 1], dtype="int64")
+    y = pkg.layers.data("y", shape=[1], dtype="float32")
+    emb = pkg.layers.embedding(ids, size=[vocab, D], is_sparse=True,
+                               param_attr=pkg.ParamAttr(name="table"))
+    pred = pkg.layers.fc(pkg.layers.reduce_mean(emb, dim=1), size=1,
+                         param_attr=pkg.ParamAttr(name="fc_w"),
+                         bias_attr=pkg.ParamAttr(name="fc_b"))
+    loss = pkg.layers.mean(pkg.layers.square(
+        pkg.layers.elementwise_sub(pred, y)))
+    pkg.optimizer.Adam(learning_rate=0.05).minimize(loss)
+    return loss
+
+
+def _batches(n, seed=0, vocab=V):
+    rng = np.random.RandomState(seed)
+    return [{"ids": rng.randint(0, vocab, (B, 4, 1)).astype("int64"),
+             "y": rng.rand(B, 1).astype("float32")} for _ in range(n)]
+
+
+def _mgr(root, pkg_ck=None, **kw):
+    kw.setdefault("async_save", False)
+    kw.setdefault("incremental", "auto")
+    kw.setdefault("incremental_full_every", 4)
+    kw.setdefault("max_to_keep", None)
+    cls = (pkg_ck or TrainStateCheckpointManager)
+    return cls(os.path.join(str(root), "ck"), **kw)
+
+
+def _delta_vars(scope, program):
+    return {v.name: scope.find_var(v.name).clone()
+            for v in program.list_vars()
+            if v.name == "table" or (v.name.startswith("table_")
+                                     and "moment" in v.name)}
+
+
+def test_row_delta_is_bitwise():
+    rng = np.random.RandomState(2)
+    base = torch.from_numpy(rng.rand(16, 4).astype("float32"))
+    new = base.clone()
+    new[3] += 1.0
+    new[11, 2] = float(np.nextafter(np.float32(new[11, 2]),
+                                    np.float32(np.inf)))
+    rows, values = row_delta(base, new)
+    assert rows.tolist() == [3, 11] and rows.dtype == torch.int64
+    out = base.clone()
+    out[rows] = values
+    assert torch.equal(out, new)
+    base[7, 0] = new[7, 0] = float("nan")
+    rows, _ = row_delta(base, new)
+    assert 7 not in rows.tolist()
+    # bfloat16 rows compare by their bits too
+    rows, _ = row_delta(base.to(torch.bfloat16), new.to(torch.bfloat16))
+    assert rows.tolist() == [3]
+    with pytest.raises(ValueError):
+        row_delta(base, new[:3])
+
+
+def test_sparse_table_state_vars_detects_tables_and_slots():
+    _build()
+    names = ["table", "table_moment1_0", "table_moment2_0", "fc_w",
+             "table_beta1_pow_acc_0", "table_out_w_0", "table_projection"]
+    out = sparse_table_state_vars(pt.default_main_program(), names)
+    assert out == {"table": V, "table_moment1_0": V, "table_moment2_0": V}
+
+
+def _train_and_save(root, steps, mgr=None, seed=0, start=1):
+    """Train ``steps`` steps, saving after each; (losses, manager, the
+    delta vars' final values)."""
+    scope, main, startup = pt.Scope(), pt.Program(), pt.Program()
+    with pt.scope_guard(scope), pt.unique_name.guard(), \
+            pt.program_guard(main, startup):
+        loss = _build()
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(startup)
+        mgr = mgr or _mgr(root)
+        losses = []
+        for i, f in enumerate(_batches(steps, seed=seed)):
+            losses.append(exe.run(main, feed=f, fetch_list=[loss])[0]
+                          .tobytes())
+            mgr.save_now(start + i, scope=scope, program=main,
+                         executors=exe)
+        live = _delta_vars(scope, main)
+    return losses, mgr, live
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """One 8-step sparse run saved after every step, shared read-only by
+    the chain tests (a mutating test copies the directory)."""
+    root = tmp_path_factory.mktemp("incr")
+    losses, mgr, live = _train_and_save(root, steps=8)
+    return {"losses": losses, "dir": str(root / "ck"), "live": live,
+            "mgr": mgr}
+
+
+def _copy_ck(trained, tmp_path):
+    dst = str(tmp_path / "ck")
+    shutil.copytree(trained["dir"], dst)
+    return dst
+
+
+def test_incremental_cadence_and_bitwise_replay(trained):
+    mgr, live = trained["mgr"], trained["live"]
+    kinds = {s: "delta" if load_train_state(mgr._step_dir(s)).host.get(
+        "incremental") else "full" for s in mgr.all_steps()}
+    assert kinds == {1: "full", 2: "delta", 3: "delta", 4: "delta",
+                     5: "full", 6: "delta", 7: "delta", 8: "delta"}
+    ts4 = load_train_state(mgr._step_dir(4))
+    (kind, rows, values), = ts4.delta["table"]
+    assert kind == "rows" and 0 < rows.shape[0] < V
+    assert tuple(values.shape) == (rows.shape[0], D)
+    out = mgr.load(8)
+    assert not out.delta
+    for n, a in live.items():
+        assert torch.equal(out.arrays[n], a), n
+
+    def size(s):
+        return sum(os.path.getsize(os.path.join(mgr._step_dir(s), f))
+                   for f in os.listdir(mgr._step_dir(s)))
+
+    assert size(4) < size(1)
+
+
+def test_rotation_keeps_load_bearing_chain(tmp_path):
+    _, mgr, live = _train_and_save(tmp_path, steps=6,
+                                   mgr=_mgr(tmp_path, max_to_keep=2))
+    assert mgr.all_steps() == [5, 6]
+    out = mgr.load(6)
+    for n, a in live.items():
+        assert torch.equal(out.arrays[n], a), n
+
+
+def test_rotation_never_drops_a_needed_base(tmp_path):
+    _, mgr, live = _train_and_save(
+        tmp_path, steps=5,
+        mgr=_mgr(tmp_path, max_to_keep=2, incremental_full_every=100))
+    assert mgr.all_steps() == [1, 2, 3, 4, 5]
+    out = mgr.load(5)
+    for n, a in live.items():
+        assert torch.equal(out.arrays[n], a), n
+
+
+def test_corrupt_chain_is_loud(trained, tmp_path):
+    ck = _copy_ck(trained, tmp_path)
+    mgr = TrainStateCheckpointManager(ck, async_save=False,
+                                      incremental="auto", max_to_keep=None)
+    shutil.rmtree(os.path.join(ck, os.path.basename(
+        trained["mgr"]._step_dir(5))))
+    with pytest.raises(CheckpointCorruptError):
+        mgr.load(8)
+
+
+def test_restore_seeds_chain_and_next_save_is_delta(trained, tmp_path):
+    _copy_ck(trained, tmp_path)
+    scope, main, startup = pt.Scope(), pt.Program(), pt.Program()
+    with pt.scope_guard(scope), pt.unique_name.guard(), \
+            pt.program_guard(main, startup):
+        loss = _build()
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(startup)
+        mgr2 = _mgr(tmp_path)
+        assert mgr2.restore(scope=scope, program=main, executors=exe) == 8
+        exe.run(main, feed=_batches(9, seed=0)[8], fetch_list=[loss])
+        mgr2.save_now(9, scope=scope, program=main, executors=exe)
+        table = scope.find_var("table").clone()
+    assert load_train_state(mgr2._step_dir(9)).host.get("incremental")
+    assert torch.equal(mgr2.load(9).arrays["table"], table)
+
+
+def test_exact_resume_from_delta_chain_is_bit_identical(trained, tmp_path):
+    """Restored from a delta artifact mid-run, the continued losses and
+    table are bit-equal to the uninterrupted run's."""
+    ck = _copy_ck(trained, tmp_path)
+    assert load_train_state(os.path.join(ck, os.path.basename(
+        trained["mgr"]._step_dir(6)))).host.get("incremental")
+    scope, main, startup = pt.Scope(), pt.Program(), pt.Program()
+    with pt.scope_guard(scope), pt.unique_name.guard(), \
+            pt.program_guard(main, startup):
+        loss = _build()
+        exe = pt.Executor(pt.CPUPlace())
+        exe.run(startup)
+        mgr2 = _mgr(tmp_path)
+        assert mgr2.restore(scope=scope, program=main, executors=exe,
+                            step=6) == 6
+        losses = [exe.run(main, feed=f, fetch_list=[loss])[0].tobytes()
+                  for f in _batches(8, seed=0)[6:]]
+        live = _delta_vars(scope, main)
+    assert losses == trained["losses"][6:]
+    for n, a in trained["live"].items():
+        assert torch.equal(live[n], a), n
+
+
+def test_delta_chains_replay_across_packages(trained, tmp_path):
+    """The JAX manager replays the port's delta chain, and the port's the
+    JAX package's, to the same arrays as their writer's own replay."""
+    jmgr = _mgr(tmp_path / "j", pkg_ck=jax_ck.TrainStateCheckpointManager)
+    scope, main, startup = fluid.Scope(), fluid.Program(), fluid.Program()
+    with fluid.scope_guard(scope), fluid.unique_name.guard(), \
+            fluid.program_guard(main, startup):
+        loss = _build(fluid)
+        exe = fluid.Executor(fluid.CPUPlace())
+        exe.run(startup)
+        for i, f in enumerate(_batches(6, seed=1)):
+            exe.run(main, feed=f, fetch_list=[loss])
+            jmgr.save_now(i + 1, scope=scope, program=main)
+    assert load_train_state(jmgr._step_dir(6)).host.get("incremental")
+    want = jmgr.load(6).arrays
+    got = _mgr(tmp_path / "j").load(6).arrays
+    assert set(got) == set(want)
+    for n in want:
+        np.testing.assert_array_equal(got[n].numpy(), want[n], err_msg=n)
+    port_dir = _copy_ck(trained, tmp_path)
+    jax_view = jax_ck.TrainStateCheckpointManager(
+        port_dir, incremental="auto", max_to_keep=None).load(8).arrays
+    for n, a in trained["mgr"].load(8).arrays.items():
+        np.testing.assert_array_equal(np.asarray(jax_view[n]), a.numpy(),
+                                      err_msg=n)

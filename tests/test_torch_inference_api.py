@@ -5,6 +5,7 @@ packages' predictors with the same outputs, and the place a config picks:
 ``CUDAPlace`` for ``use_gpu=True`` whether or not a card is present (no
 fallback to the host)."""
 
+import os
 import threading
 
 import numpy as np
@@ -205,11 +206,35 @@ def test_predictor_serving_delegation_matches_direct(saved_model):
 
 def test_enable_serving_refuses_what_is_not_ported():
     cfg = AnalysisConfig(model_dir="unused", use_gpu=False)
-    for kw in ({"tuned_config": "t.json"}, {"quarantine_dir": "q"}):
-        with pytest.raises(NotImplementedError, match="A6"):
-            cfg.enable_serving(**kw)
+    with pytest.raises(NotImplementedError, match="A6c"):
+        cfg.enable_serving(tuned_config="t.json")
+    assert cfg.enable_serving(quarantine_dir="q") is cfg
+    assert cfg.serving["quarantine_dir"] == "q"
     assert cfg.enable_quantization() is cfg
     assert cfg.quantize_mode == "weight_only"
+
+
+def test_serving_predictor_quarantines_into_its_dir(saved_model, tmp_path):
+    """``enable_serving(quarantine_dir=...)`` reaches the engine: a request
+    whose output is not finite fails as quarantined, and its feed lands
+    in that directory as an npz with its JSON sidecar; the predictor
+    keeps serving."""
+    from paddle_tpu_torch.serving import PoisonedRequestError
+
+    qdir = str(tmp_path / "q")
+    pred = create_paddle_predictor(_cpu(AnalysisConfig, saved_model)
+                                   .enable_serving(slots=2, timeout_s=60.0,
+                                                   quarantine_dir=qdir))
+    try:
+        with pytest.raises(PoisonedRequestError):
+            pred.run({"x": np.full((1, 6), np.nan, "float32")})
+        dumps = sorted(os.listdir(qdir))
+        assert [os.path.splitext(d)[1] for d in dumps] == [".json", ".npz"]
+        assert np.isnan(np.load(os.path.join(qdir, dumps[1]))["arr_0"]).all()
+        good = pred.run({"x": np.ones((2, 6), "float32")})[0].data
+        assert np.isfinite(good).all()
+    finally:
+        pred.serving_engine().close()
 
 
 def test_quantized_predictor_runs(saved_model):

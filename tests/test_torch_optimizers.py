@@ -8,13 +8,18 @@ across window restarts, and what a SelectedRows gradient does to the
 dense-only updates.  Trajectories are held at rtol 1e-4, the band of the
 reference's own optimizer tests."""
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as fluid
+from paddle_tpu.ops import optimizer_ops as jax_opt
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.convert import load_numpy_state
+from paddle_tpu_torch.ops import optimizer_ops as pt_opt
 
 from test_torch_serving import fresh_torch_programs  # noqa: F401
 
@@ -382,3 +387,69 @@ def test_sparse_gradient_raises_as_in_jax(name):
         if pkg is pt:
             assert name in str(err.value)
             assert "SelectedRows" in str(err.value)
+
+
+def _rounding_case(name, rng, n=20000):
+    """(op type, inputs, attrs, slots held bit for bit) of one update on
+    gradients from 1e-9 to 1e-1 and moments of a running optimizer."""
+    def vec(scale):
+        return (rng.randn(n) * scale).astype("float32")
+
+    grad = (rng.randn(n) * 10.0 ** rng.uniform(-9, -1, n)).astype("float32")
+    ins = {"Param": vec(0.1), "Grad": grad,
+           "LearningRate": np.array([1e-2], "float32")}
+    if name in ("momentum", "nesterov"):
+        ins["Velocity"] = vec(1e-3)
+        return ("momentum", ins, {"mu": 0.9, "use_nesterov": name ==
+                                  "nesterov"}, ("VelocityOut", "ParamOut"))
+    if name == "adagrad":
+        ins["Moment"] = (rng.rand(n) * 1e-6).astype("float32")
+        return "adagrad", ins, {"epsilon": 1e-6}, ("MomentOut", "ParamOut")
+    if name == "adamax":
+        ins.update(Moment=vec(1e-4),
+                   InfNorm=(rng.rand(n) * 1e-3).astype("float32"),
+                   Beta1Pow=np.array([0.9 ** 3], "float32"))
+        return "adamax", ins, {}, ("MomentOut", "InfNormOut", "ParamOut")
+    ins.update(MeanGrad=vec(1e-4), Moment=vec(1e-4))
+    ins["MeanSquare"] = (ins["MeanGrad"] ** 2
+                         + rng.rand(n) * 1e-6).astype("float32")
+    centered = name == "rmsprop_centered"
+    return ("rmsprop", ins, {"decay": 0.9, "epsilon": 1e-10,
+                             "momentum": 0.9, "centered": centered},
+            ("MeanSquareOut",) + (("MeanGradOut",) if centered else ()))
+
+
+@pytest.mark.parametrize("name", ["momentum", "nesterov", "adagrad",
+                                  "adamax", "rmsprop", "rmsprop_centered"])
+def test_update_rounds_like_the_jitted_jax_op(name):
+    """The port's dense update on CPU tensors against the JAX op jitted as
+    its executor runs it (XLA contracts each ``a * m + b * g`` into one
+    multiply-add), bit for bit.  RMSProp's momentum and parameter are the
+    exception the module's docstring names: XLA multiplies by the CPU's
+    ``rsqrt`` estimate, one ulp off for some inputs, so they are held to
+    what that ulp can move, ``2^-22`` of ``lr * g * rsqrt(.)`` plus an
+    ulp of the result."""
+    op, ins, attrs, exact = _rounding_case(name, np.random.RandomState(5))
+    jax_fn = getattr(jax_opt, "_%s_compute" % op)
+    want = jax.jit(lambda d: jax_fn({k: [v] for k, v in d.items()}, attrs,
+                                    None, 0))(
+        {k: jnp.asarray(v) for k, v in ins.items()})
+    got = getattr(pt_opt, "_%s_compute" % op)(
+        {k: [torch.from_numpy(v.copy())] for k, v in ins.items()}, attrs,
+        None, 0)
+    for slot in exact:
+        np.testing.assert_array_equal(got[slot].numpy(),
+                                      np.asarray(want[slot]), err_msg=slot)
+    if op != "rmsprop":
+        assert set(exact) == set(want)
+        return
+    ms = np.asarray(want["MeanSquareOut"], np.float64)
+    if attrs["centered"]:
+        ms = ms - np.asarray(want["MeanGradOut"], np.float64) ** 2
+    term = np.abs(1e-2 * ins["Grad"].astype(np.float64) / np.sqrt(ms + 1e-10))
+    for slot in ("MomentOut", "ParamOut"):
+        a = got[slot].numpy()
+        b = np.asarray(want[slot])
+        ulp = np.spacing(np.abs(b)).astype(np.float64)
+        assert (np.abs(a.astype(np.float64) - b) <= term * 2.0 ** -22
+                + ulp).all(), slot

@@ -298,20 +298,22 @@ def test_trainer_stop_and_fetch_metrics():
 
 
 def test_trainer_refusals_and_default_place():
-    with pytest.raises(NotImplementedError, match="A6"):
-        CheckpointConfig(checkpoint_dir="x")
+    cfg = CheckpointConfig(checkpoint_dir="x")
+    assert (cfg.checkpoint_dir, cfg.step_interval, cfg.load_serial) == (
+        "x", 10, None)
 
     def train_func():
         return L.mean(L.fc(L.data("x", shape=[2]), size=1))
 
     opt = lambda: pt.optimizer.SGD(0.1)  # noqa: E731
     for kw, item in ((dict(parallel=True), "A7"),
-                     (dict(guardian_config={}), "A6"),
-                     (dict(checkpoint_config=object()), "A6"),
-                     (dict(autotune="x"), "A6"), (dict(mesh=object()), "A7"),
+                     (dict(autotune="x"), "A6c"), (dict(mesh=object()), "A7"),
                      (dict(cluster_member=object()), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(train_func, opt, place=pt.CPUPlace(), **kw)
+    with pytest.raises(TypeError, match="CheckpointConfig"):
+        Trainer(train_func, opt, place=pt.CPUPlace(),
+                checkpoint_config=object())
     with pytest.raises(NotImplementedError, match="A7"):
         Inferencer(lambda: None, ".", parallel=True)
     # no place: the first card, never the CPU
