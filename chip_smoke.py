@@ -27,6 +27,7 @@
                                       # (several words: those phases)
     python3 chip_smoke.py observe     # device, build, and phase 30 alone
     python3 chip_smoke.py resume      # device, build, and phase 31 alone
+    python3 chip_smoke.py autotune    # device, build, and phase 32 alone
     python3 chip_smoke.py train       # device, build, and the Transformer
                                       # training steps (phases 8 and
                                       # 8b) alone
@@ -426,7 +427,39 @@ empty window is profiled again first (``empty_windows``).
    robin); bench.py's ``fault_drill`` rung (the MLP through ``Trainer``,
    NaN in a weight, one rollback to the clean loss, recovery seconds);
    and a kill -9 drill (a subprocess killed mid-save, a second resuming:
-   the losses bit-equal to an uninterrupted run).
+   the losses bit-equal to an uninterrupted run).  The drill's interval
+   is ``autotune.decide_checkpoint_interval`` of a measured clean run,
+   clamped before the injection.
+32. ``autotune_batch``, ``autotune_ckpt``, ``autotune_kernels``,
+   ``autotune_serve`` and ``autotune_warm`` — the tuner
+   (``autotune_phase``; the kernel libraries of the whole run build into
+   a ``FLAGS_compile_cache_dir`` directory): ``tune_batch_size`` on
+   Transformer-base training (bench.py's configuration, float32) from 32
+   up to 4096 under the card's memory (each rung's measured or projected
+   peak, step, s/example, one capture a measured rung, why the ladder
+   stopped), again under a fake ``FLAGS_autotune_hbm_bytes`` below the
+   256 rung's peak (stopped by projection at 256, no warm-up over the
+   limit), ``Trainer(autotune=)`` at the chosen batch for 3 steps with a
+   ``CheckpointConfig`` (#1-#6 in the replay's trace as the program
+   implies); ``tune_checkpoint_interval`` from that Trainer's manager
+   (the interval taken by a ``Trainer(autotune=)``, a set one kept);
+   ``tune_attention_kernel`` at the decoder LM's prefill (256) and decode
+   shapes (#1 against SDPA) and ``tune_quant_kernel`` at [8, 512] x
+   [512, 32000] in both modes (#7 against ``torch._int_mm``;
+   weight_only: ``no_library_arm``), each arm's seconds; forced
+   ``false`` / ``true`` rulings on the score program at the prefill shape
+   and on the dynamic quant program (one capture each, no #1 / #7 in the
+   replay's trace under ``false``, the program's count under ``true``,
+   logits within 2e-4, greedy tokens equal; ``false`` at weight_only
+   launches #7); ``tune_quantization`` on the score program and
+   ``GenerationEngine`` / ``InferenceEngine(tuned_config=path)``
+   answering 8 requests each under the ruling (#7 launched if and only
+   if a mode was chosen), ``tools/autotune_report.py`` on the artifact;
+   and a subprocess with the same ``FLAGS_autotune_dir`` and
+   ``FLAGS_compile_cache_dir`` (started with the phase, it loads every
+   kernel library while the tuning runs, then waits for the tables)
+   repeating the kernel tunings: 0 probes, 0 libraries built, one graph
+   an entry.
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -436,6 +469,7 @@ exits nonzero; without a CUDA device the script exits 2 and prints no
 result.
 """
 
+import atexit
 import contextlib
 import io
 import json
@@ -9360,19 +9394,23 @@ def fault_drill(tmp, iterations=FAULT_ITERS, batch=FAULT_BATCH):
     ``iterations`` batches of ``batch``, a ``CheckpointConfig``
     (synchronous saves) and the guardian with the ladder
     ``rollback,abort``; NaN in ``fc_0.w_0`` after step ``iterations //
-    2``.  The checkpoint interval is the rung's clamp of its default,
-    ``max(2, min(iterations // 4, inject_step - 2))``
-    (``decide_checkpoint_interval`` waits for ROADMAP A6c).  An untimed
-    warm run, a timed clean run and the timed drill.  Gates: the drill's
+    2``.  An untimed warm run and a measured clean run at the rung's
+    default interval (``iterations // 4``); the checkpoint interval is
+    ``autotune.decide_checkpoint_interval`` of that run's step time and
+    its manager's measured snapshot and write (synchronous), clamped so
+    that a clean checkpoint precedes the injection (``max(2, min(tuned,
+    inject_step - 2))``, as bench.py's rung); then a timed clean run and
+    the timed drill at it.  Gates: the drill's
     final loss within 1e-4 of the clean run's (``recovered_to_clean_loss``)
     and one rollback.  Returns the summary."""
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch import autotune as at
     from paddle_tpu_torch import fault, monitor
     from paddle_tpu_torch.contrib import CheckpointConfig, Trainer
     from paddle_tpu_torch.reader import checkpointable
 
     inject_step = iterations // 2
-    interval = max(2, min(iterations // 4, inject_step - 2))
+    default_interval = max(2, iterations // 4)
 
     def samples():
         rng = np.random.RandomState(0)
@@ -9380,7 +9418,7 @@ def fault_drill(tmp, iterations=FAULT_ITERS, batch=FAULT_BATCH):
             yield (rng.rand(784).astype("float32"),
                    rng.randint(0, 10, (1,)).astype("int64"))
 
-    def one_run(name, inject):
+    def one_run(name, inject, interval):
         fault.clear()
         if inject:
             fault.inject_nan("fc_0.w_0",
@@ -9406,15 +9444,25 @@ def fault_drill(tmp, iterations=FAULT_ITERS, batch=FAULT_BATCH):
                       feed_order=["img", "label"])
         torch.cuda.synchronize()
         fault.clear()
-        return losses, time.perf_counter() - t0
+        return losses, time.perf_counter() - t0, trainer._ckpt_mgr
 
     monitor.enable()
     try:
-        one_run("warm", False)
-        clean, clean_s = one_run("clean", False)
+        one_run("warm", False, default_interval)
+        # a measured clean run: its manager's checkpoint costs and its
+        # step time give decide_checkpoint_interval's cadence, which the
+        # drill clamps so that a clean checkpoint precedes the injection
+        # (bench.py's fault_drill)
+        _, meas_s, mgr = one_run("meas", False, default_interval)
+        costs = mgr.measured_costs()
+        tuned = at.decide_checkpoint_interval(
+            meas_s / iterations, costs["snapshot_s"], costs["save_s"],
+            async_save=False)
+        interval = max(2, min(tuned["chosen"], inject_step - 2))
+        clean, clean_s, _ = one_run("clean", False, interval)
         before = monitor.registry().get("guardian/rollbacks")
         before = before.value if before is not None else 0
-        drilled, drilled_s = one_run("drill", True)
+        drilled, drilled_s, _ = one_run("drill", True, interval)
         rb = monitor.registry().get("guardian/rollbacks")
         rollbacks = (rb.value if rb is not None else 0) - before
     finally:
@@ -9423,6 +9471,7 @@ def fault_drill(tmp, iterations=FAULT_ITERS, batch=FAULT_BATCH):
         drilled[-1] - clean[-1]) <= 1e-4 * abs(clean[-1]))
     summary = {"steps": iterations, "batch": batch,
                "inject_step": inject_step, "checkpoint_interval": interval,
+               "tuned_interval": tuned["chosen"], "measured_costs": costs,
                "recovered_to_clean_loss": recovered,
                "guardian_rollbacks": rollbacks,
                "recovery_overhead_s": drilled_s - clean_s,
@@ -9573,6 +9622,704 @@ def resume_phase():
     release_memory()
     return summary
 
+# phase 32 (autotune): the tuner on the card
+AUTOTUNE_PROBE_STEPS = 3     # replays a ladder rung's window times
+AUTOTUNE_AB_STEPS = 10       # replays an A/B arm's window times
+AUTOTUNE_TRAINER_STEPS = 3   # the Trainer's steps: eager, capture, replay
+AUTOTUNE_PREFILL_T = 256     # the prefill bucket the attention A/B takes
+AUTOTUNE_ATT_REPS = 12       # attention ops chained in an A/B program
+AUTOTUNE_REQUESTS, AUTOTUNE_MAX_NEW = 8, 16
+AUTOTUNE_PROMPTS = (64, 240)
+# the A/B shapes: the decoder LM's prefill (Tq = Tk, one bucket) and
+# decode (one query over the 1024-token cache), 8 slots, 8 heads of 64
+AUTOTUNE_ATT_SHAPES = {
+    "prefill": ((MODEL["slots"], MODEL["n_head"], AUTOTUNE_PREFILL_T, 64),
+                (MODEL["slots"], MODEL["n_head"], AUTOTUNE_PREFILL_T, 64)),
+    "decode": ((MODEL["slots"], MODEL["n_head"], 1, 64),
+               (MODEL["slots"], MODEL["n_head"], MODEL["max_len"], 64))}
+# the decode logits projection, [slots, d_model] x [d_model, vocab]
+AUTOTUNE_QUANT_SHAPE = (MODEL["slots"], MODEL["d_model"], MODEL["vocab_size"])
+
+
+def autotune_attention_program(q_shape, k_shape, seed=0):
+    """(main, startup, feed, fetch): ``fused_attention`` (causal, key
+    lengths, ``is_test``) at ``q_shape`` over ``k_shape`` keys, chained
+    ``AUTOTUNE_ATT_REPS`` times (each output the next query), so that a
+    window times the card rather than the host's launch of one replay."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    b, h, tq, d = q_shape
+    tk = k_shape[2]
+    with pt.program_guard(main, startup):
+        q = pt.layers.data("q", shape=list(q_shape), append_batch_size=False)
+        k = pt.layers.data("k", shape=list(k_shape), append_batch_size=False)
+        v = pt.layers.data("v", shape=list(k_shape), append_batch_size=False)
+        klen = pt.layers.data("klen", shape=[b], dtype="int32",
+                              append_batch_size=False)
+        x = q
+        for _ in range(AUTOTUNE_ATT_REPS):
+            x = pt.layers.fused_attention(x, k, v, k_len=klen, causal=True,
+                                          is_test=True, scale=d ** -0.5)
+    rng = np.random.RandomState(seed)
+    feed = {n: rng.randn(*shape).astype("float32")
+            for n, shape in (("q", q_shape), ("k", k_shape), ("v", k_shape))}
+    feed["klen"] = np.maximum(rng.randint(tq, tk + 1, b), tq).astype("int32")
+    return main, startup, feed, x
+
+
+def autotune_train_func():
+    """bench.py's Transformer-base train program (dropout 0.1, smoothing
+    0.1) for ``Trainer``; the optimizer is ``autotune_optimizer``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import transformer
+
+    pt.default_main_program().random_seed = 2
+    pt.default_startup_program().random_seed = 1
+    words = [pt.layers.data(n, shape=[1], dtype="int64", lod_level=1)
+             for n in ("src_word", "tgt_word", "lbl_word")]
+    cost, _ = transformer.transformer(
+        *words, TRAIN_SEQ, TRAIN_SEQ, TRAIN_VOCAB, TRAIN_VOCAB,
+        dropout_rate=0.1, label_smooth_eps=0.1, **TRAIN)
+    return cost
+
+
+def autotune_optimizer():
+    import paddle_tpu_torch as pt
+
+    return pt.optimizer.Adam(
+        learning_rate=pt.layers.noam_decay(TRAIN["d_model"], 4000),
+        beta1=0.9, beta2=0.997, epsilon=1e-9)
+
+
+def autotune_samples(n, seed=0):
+    """``n`` rows of (src, tgt, lbl) ids, lengths in [16, 64] as
+    ``train_feed`` draws them, the first row 64 long: every batch pads
+    to the training shape."""
+    rng = np.random.RandomState(seed)
+    rows = []
+    for i in range(n):
+        ls = TRAIN_SEQ if i == 0 else rng.randint(16, TRAIN_SEQ + 1)
+        lt = TRAIN_SEQ if i == 0 else rng.randint(16, TRAIN_SEQ + 1)
+        rows.append(tuple(rng.randint(2, TRAIN_VOCAB, (n_, 1)).astype("int64")
+                          for n_ in (ls, lt, lt)))
+    return rows
+
+
+class _TraceStep:
+    """A Trainer event handler that profiles one step (the replay) and
+    keeps every step's loss."""
+
+    def __init__(self, step):
+        self.step, self.prof, self.window, self.losses = step, None, None, []
+
+    def __call__(self, ev):
+        from torch.profiler import ProfilerActivity, profile
+
+        from paddle_tpu_torch import profiler
+        from paddle_tpu_torch.contrib import BeginStepEvent, EndStepEvent
+        from paddle_tpu_torch.ops import cuda
+
+        if isinstance(ev, BeginStepEvent) and len(self.losses) == self.step:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            profiler.open_trace_window()
+        elif isinstance(ev, EndStepEvent):
+            self.losses.append(float(np.ravel(ev.metrics[0])[0]))
+            if self.prof is not None and self.window is None:
+                torch.cuda.synchronize()
+                self.prof.__exit__(None, None, None)
+                events, pads = profiler.window_device_events(self.prof)
+                self.window = {"trace_launches": cuda.device_launch_counts(
+                    e.name for e in events), "pads_traced": pads,
+                    "device_events": len(events)}
+
+
+def _gpu_clocks():
+    """The card's SM clock, its maximum, power draw and temperature
+    (``nvidia-smi``)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, timeout=60).stdout.strip()
+
+
+def autotune_batch(tmp, cfg):
+    """``tune_batch_size`` on Transformer-base training (bench.py's
+    configuration, f32) from 32 up to 4096 under the card's ceiling, each
+    rung's peak, step and s/example and the reason the ladder stopped (one
+    capture a measured rung); the ladder again under a fake
+    ``FLAGS_autotune_hbm_bytes`` between the 128 and 256 rungs' peaks
+    (stopped by projection, no warm-up over the limit); then ``Trainer(
+    autotune=cfg)`` at the chosen batch with a ``CheckpointConfig`` for
+    ``AUTOTUNE_TRAINER_STEPS`` steps, the replay's trace holding #1-#6 as
+    the program implies.  Returns (summary, the Trainer)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import autotune as at
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.contrib import CheckpointConfig, Trainer
+    from paddle_tpu_torch.reader import checkpointable
+
+    card = pt.CUDAPlace(0)
+    t0 = time.perf_counter()
+    main, startup, cost = build_train(0.1)
+
+    def make_feed(b):
+        return train_feed(np.random.RandomState(b), b)
+
+    d = at.tune_batch_size(main, startup, make_feed, cost, card, start=32,
+                           max_batch=4096, probe_steps=AUTOTUNE_PROBE_STEPS,
+                           config=cfg)
+    ladder_s = time.perf_counter() - t0
+    cands = d["candidates"]
+    measured = [c for c in cands if c["status"] in ("ok", "regressed")]
+    rungs = [{k: c.get(k) for k in ("batch", "status", "peak_hbm_bytes",
+                                    "projected_peak_hbm_bytes", "step_s",
+                                    "s_per_example", "captures",
+                                    "evidence")} for c in cands]
+    stop = cands[-1]["status"] if cands[-1]["status"] != "ok" \
+        else "max_batch"
+    faults = []
+    if d["chosen"] is None or not measured:
+        faults.append("no rung survived")
+    if any(c.get("captures") != 1 for c in measured):
+        faults.append("a measured rung captured other than once: %s"
+                      % [(c["batch"], c.get("captures")) for c in measured])
+    peaks = {c["batch"]: c.get("peak_hbm_bytes") for c in cands}
+    if not (peaks.get(128) and peaks.get(256)):
+        faults.append("the 128 and 256 rungs were not both measured")
+    release_memory()
+
+    # the ladder again under a fake limit: ceiling (0.9 x limit) between
+    # the 128 rung's peak and the 256 rung's projection, limit under the
+    # 256 rung's measured peak
+    fake = None
+    if not faults:
+        limit = int((peaks[128] + peaks[256]) / 2 / 0.9)
+        flags.set_flags({"autotune_hbm_bytes": limit}, pin=False)
+        try:
+            d2 = at.tune_batch_size(main, startup, make_feed, cost, card,
+                                    ladder=[64, 128, 256, 512],
+                                    probe_steps=AUTOTUNE_PROBE_STEPS)
+        finally:
+            flags.set_flags({"autotune_hbm_bytes": 0}, pin=False)
+        last = d2["candidates"][-1]
+        over = [c["batch"] for c in d2["candidates"]
+                if (c.get("peak_hbm_bytes") or 0) > limit]
+        fake = {"limit_bytes": limit, "below_256_peak": limit < peaks[256],
+                "rungs": [{k: c.get(k) for k in (
+                    "batch", "status", "peak_hbm_bytes",
+                    "projected_peak_hbm_bytes", "captures")}
+                    for c in d2["candidates"]],
+                "chosen": d2["chosen"], "warmups_over_limit": over}
+        if not (limit < peaks[256] and last["batch"] == 256
+                and last["status"] == "rejected_projected_hbm"
+                and "peak_hbm_bytes" not in last and not over):
+            faults.append("the fake-limit ladder did not stop by "
+                          "projection at 256: %s" % fake)
+    del main, startup, cost
+    release_memory()
+
+    # the Trainer at the chosen batch, the artifact applied
+    batch = d["chosen"] or 256
+    rows = autotune_samples(batch * AUTOTUNE_TRAINER_STEPS)
+    handler = _TraceStep(AUTOTUNE_TRAINER_STEPS - 1)
+    t1 = time.perf_counter()
+    trainer = Trainer(
+        train_func=autotune_train_func, optimizer_func=autotune_optimizer,
+        place=card, autotune=cfg,
+        checkpoint_config=CheckpointConfig(
+            checkpoint_dir=os.path.join(tmp, "trainer"), async_save=False))
+    trainer.train(num_epochs=1, event_handler=handler,
+                  reader=checkpointable(pt.batch(lambda: iter(rows), batch)),
+                  feed_order=["src_word", "tgt_word", "lbl_word"])
+    torch.cuda.synchronize()
+    trainer_s = time.perf_counter() - t1
+    need = kernel_launches_per_step(trainer.train_program)
+    got = handler.window["trace_launches"] if handler.window else {}
+    short = {k: (got.get(k, 0), n) for k, n in need.items()
+             if got.get(k, 0) != n}
+    if handler.window is None or short:
+        faults.append("the Trainer's replay trace: %s" % short)
+    if len(handler.losses) != AUTOTUNE_TRAINER_STEPS \
+            or not np.isfinite(handler.losses).all():
+        faults.append("the Trainer's losses: %s" % handler.losses)
+    summary = {"rungs": rungs, "stop": stop, "chosen": d["chosen"],
+               "chosen_step_s": d.get("chosen_step_s"),
+               "chosen_s_per_example": d.get("chosen_s_per_example"),
+               "hbm_limit_bytes": d["hbm_limit_bytes"],
+               "ladder_s": ladder_s, "fake_limit": fake,
+               "trainer": {"batch": batch, "losses": handler.losses,
+                           "seconds": trainer_s, "implied": need,
+                           "trace_launches": {k: got.get(k, 0)
+                                              for k in need},
+                           "pads_traced": (handler.window or {}).get(
+                               "pads_traced")},
+               "faults": faults}
+    log("autotune_batch", summary)
+    if faults:
+        raise SystemExit("autotune_batch failed a gate: %s" % faults)
+    return summary, trainer
+
+
+def autotune_ckpt(tmp, cfg, trainer, step_s):
+    """``tune_checkpoint_interval`` from the Transformer-base Trainer's
+    checkpoint manager (``measured_costs``: its synchronous saves'
+    snapshot and write) at the ladder's chosen step time, into ``cfg``;
+    then ``Trainer(autotune=cfg)`` (the fault drill's MLP) takes the
+    interval into an unset ``CheckpointConfig`` and leaves a set one
+    alone."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import autotune as at
+    from paddle_tpu_torch.contrib import CheckpointConfig, Trainer
+
+    mgr = trainer._ckpt_mgr
+    costs = mgr.measured_costs()
+    d = at.tune_checkpoint_interval(step_s=step_s, manager=mgr, config=cfg)
+    applied = {}
+    for name, interval in (("unset", None), ("set", 10)):
+        t = Trainer(train_func=fault_mlp_train_func, place=pt.CUDAPlace(0),
+                    optimizer_func=lambda: pt.optimizer.Adam(1e-3),
+                    autotune=cfg, checkpoint_config=CheckpointConfig(
+                        checkpoint_dir=os.path.join(tmp, "ckpt_" + name),
+                        step_interval=interval))
+        applied[name] = (t.checkpoint_cfg.step_interval,
+                         t._ckpt_mgr.save_interval_steps)
+    summary = {"measured_costs": costs, "chosen": d["chosen"],
+               "decision": d, "trainer_intervals": applied}
+    log("autotune_ckpt", summary)
+    if not costs.get("n") or applied["unset"] != (d["chosen"],) * 2 \
+            or applied["set"] != (10, 10):
+        raise SystemExit("autotune_ckpt failed a gate: %s" % summary)
+    return summary
+
+
+def autotune_kernels(cfg, spec, scope):
+    """The kernel rulings at the serving width: ``tune_attention_kernel``
+    at the decoder LM's prefill and decode shapes (#1 against
+    ``F.scaled_dot_product_attention``) and ``tune_quant_kernel`` at the
+    logits projection in both modes (#7 against ``torch._int_mm``;
+    weight_only has no library arm), each arm's seconds a step; then a
+    forced ``false`` and ``true`` ruling at the prefill shape on the score
+    program and at the dynamic quant shape: each re-captures once, the
+    replay's trace shows no #1 (#7) under ``false`` and the program's
+    count under ``true``, the logits agree within 2e-4 and the greedy
+    tokens are equal; a ``false`` ruling at weight_only still launches
+    #7."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import autotune as at
+    from paddle_tpu_torch.ops import cuda
+
+    card = pt.CUDAPlace(0)
+    faults, rulings, windows = [], {}, {}
+    clocks = [_gpu_clocks()]
+    for name, (q_shape, k_shape) in AUTOTUNE_ATT_SHAPES.items():
+        main, startup, feed, fetch = autotune_attention_program(q_shape,
+                                                                k_shape)
+        key = at.attention_shape_key(q_shape, k_shape, "float32")
+        d = at.tune_attention_kernel(main, startup, feed, fetch, card,
+                                     shape=(q_shape, k_shape, "float32"),
+                                     probe_steps=AUTOTUNE_AB_STEPS,
+                                     config=cfg)
+        rulings["attention_" + name] = d
+        # what a window of each arm's replays costs the card and the host
+        # (the A/B reads the host's clock), the feeds staged as the A/B
+        # stages them
+        staged = {n: torch.from_numpy(v).to(card.device)
+                  for n, v in feed.items()}
+        for arm in (False, True):
+            with at._forced_arm("attention", key, arm):
+                exe = pt.Executor(card)
+
+                def run():
+                    return exe.run(main, feed=staged, fetch_list=[fetch],
+                                   return_numpy=False)
+                for _ in range(2):
+                    run()
+                w = device_window(
+                    lambda: [run() for _ in range(AUTOTUNE_AB_STEPS)],
+                    again=True)
+            windows["attention_%s_%s" % (name, "kernel" if arm
+                                         else "library")] = {
+                "wall_ms_a_step": w["wall_ms"] / AUTOTUNE_AB_STEPS,
+                "busy_ms_a_step": w["busy_ms"] / AUTOTUNE_AB_STEPS,
+                "flash_attention_fwd": w["trace_launches"][
+                    "flash_attention_fwd"],
+                "top_device_us": w["top_device_us"][:3]}
+            del exe
+        release_memory()
+    clocks.append(_gpu_clocks())
+    m, k, n = AUTOTUNE_QUANT_SHAPE
+    for mode in ("weight_only", "dynamic"):
+        rulings["quant_" + mode] = at.tune_quant_kernel(
+            m, k, n, "float32", card, mode=mode,
+            probe_steps=AUTOTUNE_AB_STEPS, config=cfg)
+        release_memory()
+    if rulings["quant_weight_only"].get("evidence") != "no_library_arm":
+        faults.append("weight_only measured a library arm")
+
+    # forced rulings on the score program at the prefill shape
+    b, t = MODEL["slots"], AUTOTUNE_PREFILL_T
+    rng = np.random.RandomState(3)
+    lens = rng.randint(t // 2, t + 1, b).astype("int32")
+    lens[0] = t
+    feed = {"tok": rng.randint(0, MODEL["vocab_size"], (b, t, 1)),
+            "tok@LEN": lens,
+            "pos": np.tile(np.arange(t).reshape(1, t, 1), (b, 1, 1))}
+    key = at.attention_shape_key(*AUTOTUNE_ATT_SHAPES["prefill"], "float32")
+    exe = pt.Executor(card)
+    forced = {}
+    for ruling in (False, True):
+        before = sum(st.graphs for st in exe._steps.values())
+        with at._forced_arm("attention", key, ruling):
+            def run():
+                return exe.run(spec.score_program, feed=feed,
+                               fetch_list=[spec.score_logits], scope=scope)
+            for _ in range(3):
+                (logits,) = run()
+            trace = device_window(run, again=True)["trace_launches"]
+        forced[ruling] = {
+            "logits": logits,
+            "captures": sum(st.graphs for st in exe._steps.values())
+            - before,
+            "trace": {kk: trace[kk] for kk in ("flash_attention_fwd",
+                                               "layer_norm_fwd")}}
+    valid = np.arange(t)[None, :] < lens[:, None]
+    err = float(np.abs(forced[False]["logits"] - forced[True]["logits"])
+                [valid].max())
+    same_tokens = bool(np.array_equal(
+        forced[False]["logits"].argmax(-1)[valid],
+        forced[True]["logits"].argmax(-1)[valid]))
+    att = {str(r).lower(): {"captures": v["captures"], "trace": v["trace"]}
+           for r, v in forced.items()}
+    if forced[False]["trace"]["flash_attention_fwd"] != 0 \
+            or forced[True]["trace"]["flash_attention_fwd"] \
+            != MODEL["n_layer"] \
+            or any(v["captures"] != 1 for v in forced.values()) \
+            or err > 2e-4 or not same_tokens:
+        faults.append("forced attention rulings: %s err %s tokens %s"
+                      % (att, err, same_tokens))
+    del exe, forced
+    release_memory()
+
+    # forced rulings on the dynamic quant program, and weight_only
+    qforced = {}
+    for mode, arms in (("dynamic", (False, True)), ("weight_only", (False,))):
+        prog, qfeed, values, fetch = at._quant_microbench(m, k, n, "float32",
+                                                          mode, reps=1)
+        qscope = pt.Scope()
+        for name, v in values.items():
+            qscope.set_var(name, torch.from_numpy(v).to(card.device))
+        qkey = at.quant_shape_key(m, k, n, "float32", mode)
+        exe = pt.Executor(card)
+        for ruling in arms:
+            with at._forced_arm("quant", qkey, ruling):
+                def run():
+                    return exe.run(prog, feed=qfeed, fetch_list=[fetch],
+                                   scope=qscope)
+                cuda.reset_launch_counts()
+                (out,) = run()
+                eager = cuda.launch_counts()["dequant_matmul"]
+                for _ in range(2):
+                    (out,) = run()
+                trace = device_window(run, again=True)["trace_launches"]
+            qforced[mode, ruling] = {
+                "out": out, "eager_launches": eager,
+                "captures": sum(st.graphs for st in exe._steps.values()),
+                "trace": trace["dequant_matmul"]}
+        del exe
+    dyn = {str(r).lower(): {kk: v[kk] for kk in ("eager_launches",
+                                                "captures", "trace")}
+           for (mode, r), v in qforced.items() if mode == "dynamic"}
+    qerr = float(np.abs(qforced["dynamic", False]["out"]
+                        - qforced["dynamic", True]["out"]).max())
+    qscale = float(np.abs(qforced["dynamic", True]["out"]).max())
+    wo = qforced["weight_only", False]
+    if dyn["false"]["trace"] != 0 or dyn["true"]["trace"] != 1 \
+            or dyn["false"]["captures"] != 1 or dyn["true"]["captures"] != 2 \
+            or qerr > 2e-4 * max(1.0, qscale):
+        faults.append("forced quant rulings: %s err %s" % (dyn, qerr))
+    if wo["eager_launches"] != 1 or wo["trace"] != 1:
+        faults.append("a false ruling at weight_only did not launch #7: %s"
+                      % {kk: wo[kk] for kk in ("eager_launches", "trace")})
+    summary = {
+        "rulings": {kk: {f: v.get(f) for f in (
+            "shape", "pallas", "evidence", "xla_step_s", "pallas_step_s",
+            "speedup")} for kk, v in rulings.items()},
+        "ab_windows": windows, "gpu_clocks": clocks,
+        "forced_attention": att, "forced_attention_max_abs_err": err,
+        "forced_attention_same_tokens": same_tokens,
+        "forced_quant_dynamic": dyn, "forced_quant_max_abs_err": qerr,
+        "weight_only_false_launches": {kk: wo[kk] for kk in (
+            "eager_launches", "trace")},
+        "faults": faults}
+    log("autotune_kernels", summary)
+    if faults:
+        raise SystemExit("autotune_kernels failed a gate: %s" % faults)
+    return summary
+
+
+def autotune_serve(tmp, cfg, spec, scope):
+    """``tune_quantization`` on the decoder LM's score program (fp against
+    weight_only and dynamic at ``FLAGS_quantize_accuracy_budget``) and the
+    bucket bounds of the served prompts into ``cfg``, saved; then
+    ``GenerationEngine(spec, tuned_config=path)`` and
+    ``InferenceEngine(model_dir=..., tuned_config=path)`` each answer
+    ``AUTOTUNE_REQUESTS`` requests under the ruling (#7 launched if and
+    only if a mode was chosen), and ``tools/autotune_report.py`` renders
+    the artifact."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import autotune as at
+    from paddle_tpu_torch.ops import cuda
+    from paddle_tpu_torch.serving import GenerationEngine, InferenceEngine
+
+    card = pt.CUDAPlace(0)
+    faults = []
+    b, t = MODEL["slots"], AUTOTUNE_PREFILL_T
+    rng = np.random.RandomState(4)
+    feed = {"tok": rng.randint(0, MODEL["vocab_size"], (b, t, 1)),
+            "tok@LEN": np.full((b,), t, "int32"),
+            "pos": np.tile(np.arange(t).reshape(1, t, 1), (b, 1, 1))}
+    q = at.tune_quantization(spec.score_program, scope, feed,
+                             [spec.score_logits], card,
+                             probe_steps=AUTOTUNE_PROBE_STEPS, config=cfg)
+    release_memory()
+    lens = np.linspace(AUTOTUNE_PROMPTS[0], AUTOTUNE_PROMPTS[1],
+                       AUTOTUNE_REQUESTS).astype(int)
+    bounds = at.choose_bucket_bounds(list(lens), k=3, multiple=64)
+    cfg.add(bounds)
+    path = cfg.save(os.path.join(tmp, "tuned.json"))
+    mode = q["chosen"]
+    prompts = [list(rng.randint(0, MODEL["vocab_size"], n)) for n in lens]
+    engines = {}
+    eng = GenerationEngine(spec, place=card, tuned_config=path,
+                           max_new_tokens=AUTOTUNE_MAX_NEW, timeout_s=900.0)
+    try:
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [f.result(900) for f in [eng.submit(p) for p in prompts]]
+        engines["generation"] = {
+            "quantize_mode": eng.quantize_mode,
+            "bucket_bounds": list(eng._sched.bucket_bounds)
+            if hasattr(eng._sched, "bucket_bounds") else None,
+            "seconds": time.perf_counter() - t0,
+            "tokens": sum(len(o["tokens"]) for o in outs),
+            "launches": cuda.launch_counts()}
+    finally:
+        eng.close()
+    release_memory()
+    fp_dir = os.path.join(tmp, "score")
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(fp_dir, ["tok", "tok@LEN", "pos"],
+                                   [spec.score_logits], pt.Executor(card),
+                                   main_program=spec.score_program)
+    reqs = _infer_requests(AUTOTUNE_REQUESTS, AUTOTUNE_PROMPTS,
+                           MODEL["vocab_size"])
+    eng = InferenceEngine(model_dir=fp_dir, place=card, tuned_config=path,
+                          timeout_s=900.0)
+    try:
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = [f.result(900) for f in [eng.submit(r) for r in reqs]]
+        engines["inference"] = {
+            "quantize_mode": eng.quantize_mode, "slots": eng.slots,
+            "seconds": time.perf_counter() - t0,
+            "finite": bool(all(np.isfinite(o[0]).all() for o in outs)),
+            "launches": cuda.launch_counts()}
+    finally:
+        eng.close()
+    for name, e in engines.items():
+        if e["quantize_mode"] != mode \
+                or (e["launches"]["dequant_matmul"] > 0) != bool(mode) \
+                or e["launches"]["layer_norm_fwd"] == 0:
+            faults.append("%s engine against the ruling %r: %s"
+                          % (name, mode, e))
+    if not engines["inference"]["finite"]:
+        faults.append("inference engine outputs not finite")
+    report = subprocess.run(
+        [sys.executable, os.path.join(REPO, "tools", "autotune_report.py"),
+         path, "--verbose"], capture_output=True, text=True, timeout=120)
+    knobs = {d["knob"] for d in cfg.decisions}
+    if report.returncode or not all(kn in report.stdout for kn in knobs):
+        faults.append("autotune_report: rc %d %s" % (
+            report.returncode, report.stderr[-500:]))
+    del eng
+    release_memory()
+    summary = {"quantization": {kk: q.get(kk) for kk in (
+        "chosen", "fp_step_s", "accuracy_budget", "candidates",
+        "accuracy_delta", "chosen_step_s")},
+        "bucket_bounds": bounds["chosen"], "engines": engines,
+        "report": report.stdout.splitlines(), "artifact": path,
+        "faults": faults}
+    log("autotune_serve", summary)
+    if faults:
+        raise SystemExit("autotune_serve failed a gate: %s" % faults)
+    return summary
+
+
+_WARM_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+print("WARM " + json.dumps(chip_smoke.autotune_warm_child(sys.argv[2])),
+      flush=True)
+"""
+# seconds the warm process waits for the parent's tables
+AUTOTUNE_WARM_WAIT = 900
+
+
+def autotune_warm_child(go):
+    """In a process started with the parent's ``FLAGS_autotune_dir`` and
+    ``FLAGS_compile_cache_dir``: the package imported, the card set up and
+    every kernel library loaded (0 built) while the parent tunes; once the
+    file ``go`` exists (the parent's tables are written), the kernel
+    tunings again (every ruling from the tables: 0 probes) and the
+    prefill A/B program run three times under its ruling (one graph for
+    its entry)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import autotune as at
+    from paddle_tpu_torch import monitor
+    from paddle_tpu_torch.ops.cuda import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    monitor.enable()
+    card = pt.CUDAPlace(0)
+    libraries = [build.library(name) for name in build.kernel_names()]
+    # the card set up while the parent tunes: the prefill A/B program run,
+    # captured and replayed (the monitor profiles a first replay), in an
+    # executor of its own (no ruling exists yet)
+    q_shape, k_shape = AUTOTUNE_ATT_SHAPES["prefill"]
+    main, _, feed, fetch = autotune_attention_program(q_shape, k_shape)
+    exe = pt.Executor(card)
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[fetch])
+    del exe
+    torch.cuda.synchronize()
+    waited = time.perf_counter()
+    while not os.path.exists(go):
+        if time.perf_counter() - waited > AUTOTUNE_WARM_WAIT:
+            raise SystemExit("autotune_warm_child: no go from the parent")
+        time.sleep(0.05)
+    t0 = time.perf_counter()
+    # the warm-up read the tables before they existed: read them again
+    at.reset_attention_table()
+    at.reset_quant_kernel_table()
+    decisions, programs = [], []
+    for q_shape, k_shape in AUTOTUNE_ATT_SHAPES.values():
+        programs.append(autotune_attention_program(q_shape, k_shape))
+        main, startup, feed, fetch = programs[-1]
+        decisions.append(at.tune_attention_kernel(
+            main, startup, feed, fetch, card,
+            shape=(q_shape, k_shape, "float32")))
+    m, k, n = AUTOTUNE_QUANT_SHAPE
+    for mode in ("weight_only", "dynamic"):
+        decisions.append(at.tune_quant_kernel(m, k, n, "float32", card,
+                                              mode=mode))
+    tuned_s = time.perf_counter() - t0
+    main, _, feed, fetch = programs[0]
+    exe = pt.Executor(card)
+    for _ in range(3):
+        exe.run(main, feed=feed, fetch_list=[fetch])
+    torch.cuda.synchronize()
+    probes = monitor.registry().get("autotune/probes")
+    return {"probes": probes.value if probes is not None else 0,
+            "cached": [bool(d.get("cached")) for d in decisions],
+            "libraries": len(libraries), "built": build.build_count[0],
+            "build_dir": build.build_dir(),
+            "graphs": [st.graphs for st in exe._steps.values()],
+            "trace_token_entries": sum(len(p) - 1
+                                       for p in at.trace_token()),
+            "tunings_s": tuned_s,
+            "seconds_after_go": time.perf_counter() - t0}
+
+
+def autotune_warm_start(tables, go):
+    """Start the warm process with the same ``FLAGS_autotune_dir`` and
+    ``FLAGS_compile_cache_dir``: it sets itself up while this process
+    tunes, and waits for ``go``."""
+    from paddle_tpu_torch import compile_cache
+
+    env = dict(os.environ, FLAGS_autotune_dir=tables,
+               FLAGS_compile_cache_dir=compile_cache.persistent_dir())
+    return subprocess.Popen([sys.executable, "-c", _WARM_CHILD, REPO, go],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def autotune_warm(proc, go):
+    """Let the warm process repeat the kernel tunings: 0 probes, every
+    decision from the tables, 0 kernel libraries built, one graph an
+    entry."""
+    t0 = time.perf_counter()
+    with open(go, "w"):
+        pass
+    out, err = proc.communicate(timeout=600)
+    line = next((ln for ln in out.splitlines() if ln.startswith("WARM ")),
+                None)
+    child = json.loads(line[5:]) if line else None
+    summary = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+               "child": child}
+    log("autotune_warm", summary)
+    if proc.returncode or child is None or child["probes"] \
+            or not all(child["cached"]) or child["built"] \
+            or not child["libraries"] or child["graphs"] != [1]:
+        raise SystemExit("autotune_warm failed a gate: %s\n%s" % (
+            summary, err[-3000:]))
+    return summary
+
+
+def autotune_phase():
+    """Phase 32: ``autotune_batch``, ``autotune_ckpt``,
+    ``autotune_kernels``, ``autotune_serve`` and ``autotune_warm``; the
+    tables and artifacts go to a temporary directory removed after."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import autotune as at
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.serving import build_decoder_lm
+
+    release_memory()
+    with tempfile.TemporaryDirectory() as tmp:
+        tables = os.path.join(tmp, "tables")
+        flags.set_flags({"autotune_dir": tables}, pin=False)
+        at.reset_attention_table()
+        at.reset_quant_kernel_table()
+        go = os.path.join(tmp, "go")
+        warm = autotune_warm_start(tables, go)
+        try:
+            # one artifact a model: Transformer-base training (batch,
+            # checkpoint interval), the decoder LM's serving (kernel
+            # rulings, quantization, bucket bounds)
+            train_cfg = at.TunedConfig(meta={"model": "transformer_base"})
+            batch, trainer = autotune_batch(tmp, train_cfg)
+            summary = {"batch": batch, "ckpt": autotune_ckpt(
+                tmp, train_cfg, trainer, batch["chosen_step_s"])}
+            train_cfg.save(os.path.join(tmp, "tuned_train.json"))
+            del trainer
+            release_memory()
+            serve_cfg = at.TunedConfig(meta={"model": "decoder_lm"})
+            spec = build_decoder_lm(**MODEL)
+            scope = pt.Scope()
+            spec.init_scope(pt.Executor(pt.CUDAPlace(0)), scope)
+            summary["kernels"] = autotune_kernels(serve_cfg, spec, scope)
+            summary["serve"] = autotune_serve(tmp, serve_cfg, spec, scope)
+            del spec, scope
+            release_memory()
+            summary["warm"] = autotune_warm(warm, go)
+        finally:
+            if warm.poll() is None:
+                warm.kill()
+                warm.wait()
+            flags.set_flags({"autotune_dir": ""}, pin=False)
+            at.reset_attention_table()
+            at.reset_quant_kernel_table()
+    release_memory()
+    return summary
+
 
 def release_memory():
     """Free what the last phase's executors, graphs and scopes held."""
@@ -9597,8 +10344,17 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    import tempfile
+
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch import flags
     from paddle_tpu_torch.ops.cuda import build
+
+    # the kernel libraries build into a compile-cache directory, which
+    # phase 32's second process shares
+    kernel_dir = tempfile.mkdtemp(prefix="ptt_kernels_")
+    atexit.register(shutil.rmtree, kernel_dir, True)
+    flags.set_flags({"compile_cache_dir": kernel_dir}, pin=False)
 
     smi = nvidia_smi_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -9698,6 +10454,11 @@ def main():
                     if faults:
                         raise SystemExit("%s: %s launched %s"
                                          % (name, path, faults))
+        log("total", {"seconds": time.perf_counter() - t_start,
+                      "phase_seconds": dict(PHASE_SECONDS)})
+        return 0
+    if "autotune" in sys.argv[1:]:
+        autotune_phase()
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
@@ -9862,6 +10623,11 @@ def main():
     # on the Transformer-base step (#1-#6 in the resumed step's trace as
     # the program implies) and bench.py's fault_drill MLP (no hand kernel)
     resume_phase()
+    # the tuner: the batch ladder and the Trainer on Transformer-base
+    # (#1-#6 in the replay's trace as the program implies), the kernel
+    # rulings at the serving width (#1 against SDPA, #7 against
+    # torch._int_mm), the tuned engines and a warm second process
+    autotune_phase()
     if short:
         raise SystemExit("a path did not launch its kernels as its program "
                          "implies (counted, implied): %s" % short)

@@ -35,6 +35,7 @@ from . import average, learning_rate_decay
 from . import convert
 from . import io
 from . import flags, monitor, profiler
+from . import autotune, compile_cache
 from . import fault, guardian, parallel
 from . import nets
 from . import reader

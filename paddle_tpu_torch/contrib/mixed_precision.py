@@ -75,6 +75,11 @@ class AMPPolicy:
     def __hash__(self):
         return hash(self._key())
 
+    def __repr__(self):
+        # stable across processes: the program fingerprint hashes it
+        return "AMPPolicy(white=%s, black=%s)" % (
+            sorted(self.lists.white_list), sorted(self.lists.black_list))
+
     def cast_inputs(self, op_type, ins):
         """``ins`` with float32 <-> bfloat16 casts applied as the lists
         say; a ``<type>_grad`` op follows ``<type>``."""

@@ -38,8 +38,15 @@ the end of ``train`` (also by an exception) stamps the run's goodput
 summary and the last health snapshot into the JSONL log, as the JAX
 Trainer does.
 
-Not ported, and refused by name: ``autotune`` (ROADMAP A6c), and
-``parallel=True``, ``mesh`` and ``cluster_member`` (A7).
+**Autotune.**  ``autotune`` (a ``TunedConfig`` or its JSON path) is
+applied at construction: its kernel rulings go into the process tables
+(``TunedConfig.apply``), and its ``checkpoint_interval`` decision becomes
+the ``CheckpointConfig``'s ``step_interval``, unless the caller set that
+interval (``step_interval_pinned``); each outcome is an
+``autotune_applied`` event, as in the JAX Trainer.
+
+Not ported, and refused by name: ``parallel=True``, ``mesh`` and
+``cluster_member`` (ROADMAP A7).
 """
 
 import contextlib
@@ -106,20 +113,24 @@ class CheckpointConfig:
     step."""
 
     def __init__(self, checkpoint_dir=None, max_num_checkpoints=3,
-                 epoch_interval=1, step_interval=10, async_save=True,
+                 epoch_interval=1, step_interval=None, async_save=True,
                  incremental=None, incremental_full_every=8):
         self.checkpoint_dir = checkpoint_dir or os.path.join(
             os.getcwd(), "checkpoints")
         self.max_num_checkpoints = max_num_checkpoints
         self.epoch_interval = max(int(epoch_interval), 1)
-        self.step_interval = max(int(step_interval), 1)
+        # a tuned interval (Trainer(autotune=)) never overrides one the
+        # caller chose; None is the default of 10, which it may
+        self.step_interval_pinned = step_interval is not None
+        self.step_interval = max(int(step_interval), 1) \
+            if step_interval is not None else 10
         self.async_save = bool(async_save)
         self.incremental = incremental
         self.incremental_full_every = int(incremental_full_every)
         self.load_serial = None
 
 
-_REFUSED = (("mesh", "A7"), ("autotune", "A6c"), ("cluster_member", "A7"))
+_REFUSED = (("mesh", "A7"), ("cluster_member", "A7"))
 
 
 class Trainer:
@@ -134,8 +145,7 @@ class Trainer:
                  place=None, parallel=False, checkpoint_config=None,
                  mesh=None, guardian_config=None, autotune=None,
                  cluster_member=None):
-        given = dict(mesh=mesh, guardian_config=guardian_config,
-                     autotune=autotune, cluster_member=cluster_member)
+        given = dict(mesh=mesh, cluster_member=cluster_member)
         for arg, item in _REFUSED:
             if given[arg] is not None:
                 raise NotImplementedError(
@@ -190,12 +200,39 @@ class Trainer:
             if param_path is not None:
                 fluid_io.load_persistables(exe, param_path,
                                            main_program=self.startup_program)
+        self._autotune = None
+        if autotune is not None:
+            self._apply_autotune(autotune)
         self._ckpt_mgr = None
         self._global_step = 0
         self._resume_epoch = 0
         self._pending_resume = None
         if self.checkpoint_cfg is not None:
             self._auto_resume(exe)
+
+    def _apply_autotune(self, autotune):
+        """Apply a ``TunedConfig`` (or its path): the kernel rulings, then
+        its checkpoint interval unless the caller pinned one."""
+        from .. import autotune as _at
+
+        self._autotune = autotune if isinstance(
+            autotune, _at.TunedConfig) else _at.TunedConfig.load(autotune)
+        self._autotune.apply()
+        interval = self._autotune.value("checkpoint_interval")
+        cfg = self.checkpoint_cfg
+        if not interval or cfg is None:
+            return
+        if cfg.step_interval_pinned:
+            monitor.log_event({"event": "autotune_applied",
+                               "knob": "checkpoint_interval",
+                               "outcome": "pinned",
+                               "pinned_interval": cfg.step_interval})
+        else:
+            cfg.step_interval = max(1, int(interval))
+            monitor.log_event({"event": "autotune_applied",
+                               "knob": "checkpoint_interval",
+                               "outcome": "applied",
+                               "interval": cfg.step_interval})
 
     def _auto_resume(self, exe):
         """Open the checkpoint directory and restore its newest artifact

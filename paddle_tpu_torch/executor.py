@@ -22,7 +22,9 @@ effect from buffer donation.
 **The compiled step.**  The JAX executor jit-compiles each (program, feed
 signature) once.  Here each entry — (program, its version, the feeds'
 names, shapes and dtypes, the fetch names, the program's AMP policy, the
-scope) — runs eagerly the first time (which builds the kernels, picks
+health probe, the skip guard, the tuner's kernel rulings in force
+(``compile_cache.trace_flag_values``), the scope) — runs eagerly the
+first time (which builds the kernels, picks
 cuDNN's algorithms and sizes the workspaces), and on a CUDA place the
 second run captures the step as one CUDA graph (``torch.cuda.CUDAGraph``,
 on the executor's side stream, ``capture_error_mode="thread_local"``
@@ -97,7 +99,10 @@ back to the eager path.  ``Executor(place, capture=False)`` keeps every
 run eager on the card (the comparison path, as ``jax.disable_jit``);
 ``CPUPlace()`` always runs eagerly.
 
-**Memory.**  An executor's graphs share one memory pool.  That is safe
+**Memory.**  Before a capture, when the blocks the allocator caches
+but no tensor holds outweigh the card's free memory (a warm-up near half
+the card), they are returned, so that the capture's pool fits beside the
+state.  An executor's graphs share one memory pool.  That is safe
 because no pool tensor has to keep its value past the end of the run that
 wrote it: state lives in the scope's tensors outside the pool, feed
 buffers are allocated outside it, and each run consumes its fetch outputs
@@ -114,8 +119,11 @@ tests do).  ``Executor()`` with no place runs on ``CUDAPlace(0)``.
 **Observability.**  With the monitor or a profiler session on, a run
 records the JAX executor's spans under the port's names:
 ``executor/analyze`` (a new entry's analysis and segment plan, where the
-JAX package traces), ``executor/run`` around the step span, which is
-``executor/warmup`` for an entry's first (eager) run, ``executor/capture``
+JAX package traces; none when another executor analyzed the same
+program, signature and identity, whose analysis ``compile_cache`` keeps,
+a ``compile_cache/hit`` or ``/miss`` mark either way), ``executor/run``
+around the step span, which is ``executor/warmup`` for an entry's first
+(eager) run, ``executor/capture``
 for the run that captures and ``executor/dispatch`` for the others (args:
 ``run_id``, the program's fingerprint, the step and the goodput bucket),
 ``executor/h2d_transfer`` around the feeds' copies and
@@ -169,7 +177,8 @@ import weakref
 import numpy as np
 import torch
 
-from . import fault, flags, guardian, monitor, profiler, registry
+from . import compile_cache, fault, flags, guardian, monitor, profiler
+from . import registry
 from .framework import Variable, default_main_program
 from .monitor import health, program_profile
 from .ops import control_flow
@@ -603,13 +612,14 @@ class Executor:
         # the AMP policy changes what every op computes without a version
         # bump (bf16_program_guard), so it keys the entry too (policies
         # compare by their lists); so do the health probe and the skip
-        # guard, which the step computes
-        probe_on = health._ENABLED
-        guarded = guardian.skip_guard_enabled()
-        key = (id(program), program._version,
-               tuple((n, tuple(feed[n].shape), feed_dtypes[n])
-                     for n in feed_names),
-               tuple(fetch_names), program._amp_policy, probe_on, guarded,
+        # guard, which the step computes, and the tuner's kernel rulings
+        # (compile_cache.trace_flag_values)
+        identity = compile_cache.trace_flag_values(program)
+        guarded, probe_on = identity[1], identity[2]
+        feed_sig = tuple((n, tuple(feed[n].shape), feed_dtypes[n])
+                         for n in feed_names)
+        key = (id(program), program._version, feed_sig, tuple(fetch_names),
+               program._amp_policy, probe_on, guarded, identity[3],
                id(scope))
         self._run_counter += 1
         fp = program_profile.program_fingerprint(program) if obs else None
@@ -620,18 +630,18 @@ class Executor:
             cold_entry = analysis is None
             if cold_entry:
                 if obs:
-                    # an entry miss: the JAX package marks its trace
-                    # cache's hits and misses the same way
                     profiler.mark_event("executor/new_entry")
-                with span("executor/analyze"):
-                    analysis = self._new_entry(key, program, feed_names,
-                                               scope, fetch_names, probe_on,
-                                               guarded)
+                analysis = self._new_entry(key, program, feed_names, scope,
+                                           fetch_names, probe_on, guarded,
+                                           feed_sig, identity, span)
             captures = (self.capture and self.place.device.type == "cuda"
                         and key not in self._host_entries)
             phase = self._phase(key, captures, cold_entry)
             profile = None
-            if phase != "dispatch" and (mon or program_profile._FORCED[0]):
+            # a tuner's probe (program_profile.probe_accounting) reads
+            # each entry's warm-up peak
+            if phase != "dispatch" and (mon or program_profile._FORCED[0]) \
+                    or phase == "warmup" and program_profile._probe_depth[0]:
                 profile = ((fp or program_profile.program_fingerprint(
                     program)), tuple((n, tuple(feed[n].shape),
                                       str(feed_dtypes[n]))
@@ -715,34 +725,39 @@ class Executor:
         return fetches
 
     def _new_entry(self, key, program, feed_names, scope, fetch_names,
-                   probe_on, guarded):
+                   probe_on, guarded, feed_sig, identity, span):
         """Analyze a new entry: (state, writeback, live, release,
         graph_ops, plan); its kept fetch list and health probe go to
         ``_probes``, its skip guard (the state it writes that it read, and
-        the fetches it watches) to ``_guards``."""
-        block = program.global_block()
-        analysis = self._analyze(program, feed_names, scope, fetch_names)
-        probe = None
-        kept = list(fetch_names)
-        if probe_on:
-            probe = health.build_probe(program, analysis[0])
-            if probe is not None:
-                # the probe reads the gradients at the end of the step
-                kept += [g for g in probe.grad_names if g not in kept]
-                analysis = self._analyze(program, feed_names, scope, kept)
-        if any(live and registry.calls_host(op) for op, live in
-               zip(block.ops, analysis[2])):
+        the fetches it watches) to ``_guards``.  The analysis comes from
+        ``compile_cache`` when another executor made it for the same
+        program, signature and identity (``executor/analyze`` skipped)."""
+        captures = self.capture and self.place.device.type == "cuda"
+        ckey = compile_cache.trace_key(
+            program, feed_sig, (), fetch_names, captures, identity,
+            tuple(scope.has_var(n) for n in fetch_names))
+        cached = compile_cache.lookup(ckey)
+        if cached is not None and not all(scope.has_var(n)
+                                           for n in cached[0][0]):
+            cached = None    # the scope lacks a state var: _analyze says
+        if cached is None:
+            with span("executor/analyze"):
+                cached = self._analyze_entry(program, feed_names, scope,
+                                             fetch_names, probe_on, captures)
+            compile_cache.store(ckey, cached)
+        analysis, kept, calls_host = cached
+        probe = health.build_probe(program, analysis[0]) if probe_on \
+            else None
+        if calls_host:
             self._host_entries.add(key)
-        captures = (self.capture and self.place.device.type == "cuda"
-                    and key not in self._host_entries)
-        analysis = self._analysis[key] = analysis + (
-            segment_plan(block, analysis[2], capture=captures),)
+        # an entry's own tuple: a dead entry's report names it by identity
+        analysis = self._analysis[key] = tuple(list(analysis))
         guard = None
         if guarded:
             state = set(analysis[0])
             guard = ([n for n in analysis[1] if n in state],
                      list(fetch_names))
-        self._probes[key] = (kept, probe)
+        self._probes[key] = (list(kept), probe)
         if guard is not None:
             self._guards[key] = guard
         # reported when either owner dies, which is before another
@@ -751,6 +766,25 @@ class Executor:
             weakref.finalize(owner, _entry_died, weakref.ref(self),
                              key, analysis).atexit = False
         return analysis
+
+    def _analyze_entry(self, program, feed_names, scope, fetch_names,
+                       probe_on, captures):
+        """(analysis with its segment plan, the kept fetch list, whether
+        a live op calls the host): what ``_new_entry`` caches."""
+        block = program.global_block()
+        analysis = self._analyze(program, feed_names, scope, fetch_names)
+        kept = list(fetch_names)
+        if probe_on:
+            probe = health.build_probe(program, analysis[0])
+            if probe is not None:
+                # the probe reads the gradients at the end of the step
+                kept += [g for g in probe.grad_names if g not in kept]
+                analysis = self._analyze(program, feed_names, scope, kept)
+        calls_host = any(live and registry.calls_host(op) for op, live in
+                         zip(block.ops, analysis[2]))
+        plan = segment_plan(block, analysis[2],
+                            capture=captures and not calls_host)
+        return analysis + (plan,), tuple(kept), calls_host
 
     def _phase(self, key, captures, cold_entry):
         """The step span of this run: ``warmup`` (an entry's first, eager
@@ -858,6 +892,13 @@ class Executor:
         first = step.pieces is None
         if first:
             dev = self.place.device
+            # the warm-up's freed blocks stay cached for the eager path; a
+            # capture allocates its own pool, so where the cached blocks
+            # outweigh the card's free memory they go back first
+            free = torch.cuda.mem_get_info(dev)[0]
+            if torch.cuda.memory_reserved(dev) \
+                    - torch.cuda.memory_allocated(dev) > free:
+                torch.cuda.empty_cache()
             if profile is not None:
                 program_profile.preflight(
                     profile[0], profile[1], dev,

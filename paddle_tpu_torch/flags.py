@@ -32,17 +32,34 @@ defaults:
 * the fault family (``fault_seed``, ``fault_spec``): deterministic
   fault-injection drills installed from a spec string (``fault.py``);
 * ``max_inflight_steps``: how many unread steps the guardian may hold
-  before it reads the oldest.
+  before it reads the oldest;
+* the autotune family (``autotune_dir``, ``autotune_hbm_bytes``,
+  ``autotune_overhead_budget``, ``quantize_mode``,
+  ``quantize_accuracy_budget``): where the tuner's decision tables live,
+  its memory ceiling, the checkpoint-overhead budget and the quantization
+  gate (``autotune.py``);
+* ``compile_cache_dir``: the persistent kernel-library directory
+  (``compile_cache.enable_persistent_cache``).
+
+**Pins.**  A flag set from the environment, or by ``set_flags`` with the
+default ``pin=True``, is pinned: the operator chose it, and a tuned
+decision never overrides it (``pinned``).  Machinery that sets a flag on
+the operator's behalf (the tuner's own arms, restore paths) passes
+``pin=False``; ``_restore_pins`` puts back a saved set.  The port has no
+flag that selects a kernel (the JAX package's ``pallas_kernels``), so
+only ``quantize_mode`` pins a tuned decision here.
 """
 
 import os
 import threading
 
-__all__ = ["flag", "set_flags", "get_flags", "register_flag"]
+__all__ = ["flag", "set_flags", "get_flags", "register_flag", "pinned"]
 
 _mu = threading.Lock()
 _FLAGS = {}
 _TYPES = {}
+# the flags the operator set explicitly (see the module docstring)
+_PINNED = set()
 
 
 def _parse(s, typ):
@@ -58,6 +75,8 @@ def register_flag(name, default, typ=None, on_set=None):
     _TYPES[name] = (typ, on_set)
     env = os.environ.get("FLAGS_" + name)
     _FLAGS[name] = _parse(env, typ) if env is not None else default
+    if env is not None:
+        _PINNED.add(name)
     if on_set is not None and env is not None:
         on_set(_FLAGS[name])
 
@@ -69,10 +88,11 @@ def _name(key):
     return name
 
 
-def set_flags(flags):
+def set_flags(flags, pin=True):
     """``set_flags({"FLAGS_bn_two_pass": True})``; the bare name works
     too.  A flag whose hook raises keeps its previous value, and the hook
-    runs again with it so that what the hook configures matches."""
+    runs again with it so that what the hook configures matches.
+    ``pin=True`` marks each flag the operator's choice (``pinned``)."""
     with _mu:
         for k, v in flags.items():
             name = _name(k)
@@ -80,17 +100,18 @@ def set_flags(flags):
             v = _parse(v, typ) if isinstance(v, str) else typ(v)
             prev = _FLAGS[name]
             _FLAGS[name] = v
-            if on_set is None:
-                continue
-            try:
-                on_set(v)
-            except Exception:
-                _FLAGS[name] = prev
+            if on_set is not None:
                 try:
-                    on_set(prev)
-                except Exception:  # noqa: BLE001 — the first error wins
-                    pass
-                raise
+                    on_set(v)
+                except Exception:
+                    _FLAGS[name] = prev
+                    try:
+                        on_set(prev)
+                    except Exception:  # noqa: BLE001 — the first error wins
+                        pass
+                    raise
+            if pin:
+                _PINNED.add(name)
 
 
 def get_flags(names):
@@ -102,6 +123,20 @@ def get_flags(names):
 
 def flag(name):
     return _FLAGS[name]
+
+
+def pinned(name):
+    """Whether the operator set this flag (the environment at import, or
+    ``set_flags`` with ``pin=True``): a tuned decision never overrides
+    it."""
+    return _name(name) in _PINNED
+
+
+def _restore_pins(mapping):
+    """Restore a saved ``{name: was_pinned}``."""
+    with _mu:
+        for name, was in mapping.items():
+            (_PINNED.add if was else _PINNED.discard)(_name(name))
 
 
 def _on_monitor_change(_val):
@@ -214,3 +249,32 @@ register_flag("max_inflight_steps", 8, int)
 # import, which read it
 register_flag("fault_seed", 0, int)
 register_flag("fault_spec", "", str, _on_fault_spec)
+
+
+def _on_quantize_mode(val):
+    if str(val).strip() not in ("", "off", "weight_only", "dynamic"):
+        raise ValueError(
+            "FLAGS_quantize_mode must be one of ''/off/weight_only/"
+            "dynamic, got %r" % (val,))
+
+
+def _on_compile_cache_dir(val):
+    from . import compile_cache
+
+    compile_cache.enable_persistent_cache(val)
+
+
+# the tuner (autotune.py): where TunedConfig artifacts and the decision
+# tables live ("": the tables stay in memory), the memory ceiling of the
+# batch ladder in bytes (0: FLAGS_preflight_hbm_bytes, then the card's
+# total), and the checkpoint-overhead budget (CheckFreq)
+register_flag("autotune_dir", "", str)
+register_flag("autotune_hbm_bytes", 0, int)
+register_flag("autotune_overhead_budget", 0.035, float)
+# an explicit mode is the operator's choice ("off" pins full precision;
+# "" leaves it to tune_quantization); the gate keeps a quantized program
+# only under this relative-L1 eval delta
+register_flag("quantize_mode", "", str, _on_quantize_mode)
+register_flag("quantize_accuracy_budget", 0.02, float)
+# the kernel libraries' directory, kept across processes (compile_cache)
+register_flag("compile_cache_dir", "", str, _on_compile_cache_dir)

@@ -88,14 +88,11 @@ class AnalysisConfig(NativeConfig):
         """Run this config's predictors through one shared
         ``serving.InferenceEngine`` (its keyword arguments): a request
         whose output is not finite is quarantined, its feed dumped under
-        ``quarantine_dir`` when one is given.  The TunedConfig artifact
-        is not ported yet (ROADMAP A6c), so ``tuned_config`` raises."""
-        if tuned_config is not None:
-            raise NotImplementedError(
-                "tuned_config= is not ported yet (ROADMAP A6c: the "
-                "TunedConfig artifact)")
+        ``quarantine_dir`` when one is given; ``tuned_config`` (a
+        ``TunedConfig`` or its path) is the engine's."""
         self.serving = {"slots": slots, "timeout_s": timeout_s,
                         "bucket_bounds": bucket_bounds,
+                        "tuned_config": tuned_config,
                         "quarantine_dir": quarantine_dir}
         return self
 

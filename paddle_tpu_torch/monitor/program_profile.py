@@ -41,8 +41,6 @@ stop the capture that would follow it.
 """
 
 import contextlib
-import hashlib
-import json
 import os
 import threading
 import time
@@ -140,16 +138,12 @@ class ProgramProfile:
 
 
 def program_fingerprint(program):
-    """Structural fingerprint of ``program`` (sha256 of its serialized
-    form), memoized per program version: tags step records, spans and
-    profiles so the three views of one program join."""
-    memo = getattr(program, "_monitor_fingerprint", None)
-    if memo is not None and memo[0] == program._version:
-        return memo[1]
-    fp = hashlib.sha256(json.dumps(program.to_dict(), sort_keys=True,
-                                   default=repr).encode()).hexdigest()
-    program._monitor_fingerprint = (program._version, fp)
-    return fp
+    """Structural fingerprint of ``program`` (``compile_cache``'s, the
+    JAX package's sha1): tags step records, spans, profiles and the
+    tuner's decision tables so the views of one program join."""
+    from .. import compile_cache
+
+    return compile_cache.program_fingerprint(program)
 
 
 def _flag(name, default):
@@ -355,7 +349,7 @@ def profiles():
 
 
 # probe window depth: steps recorded inside one are tuner probes, kept
-# out of the steady-state accounting (the auto-tuner is ROADMAP A6c)
+# out of the steady-state accounting (the tuner, autotune.py)
 _probe_depth = [0]
 
 

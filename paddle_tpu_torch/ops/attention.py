@@ -7,9 +7,16 @@ when Tq < Tk: the KV-cache decode shape).  The op calls
 ``ops.cuda.flash_attention``: kernels #1 (forward) and #2 (backward) on
 the card, their plain versions on the CPU.  The dropout hash key comes
 from the op's index, so the generic grad's recompute (which passes the
-forward op's index) regenerates the forward's mask.  Where the JAX package makes the Pallas kernel opt-in behind
-``FLAGS_pallas_kernels`` and falls back to XLA for shapes it cannot take,
-here the kernel is the path on the card: a shape it cannot take raises.
+forward op's index) regenerates the forward's mask.  Where the JAX
+package makes the Pallas kernel opt-in behind ``FLAGS_pallas_kernels``
+and falls back to XLA for shapes it cannot take, here the kernel is the
+path on the card: a shape it cannot take raises.  A tuner's ruling
+(``autotune.attention_choice``, per (Tq, Tk, d, dtype)) may send a shape
+to the library arm instead, ``F.scaled_dot_product_attention``
+(``flash_attention.library_attention``), except where the op drops
+weights (no library call draws the kernel's dropout mask): there, and
+with no ruling, the kernel runs.  The plain version runs only on the
+CPU.
 Eval-time dropout is ``downgrade_in_infer``: weights scale by (1 - p),
 applied as one output scale since it commutes with the PV product.
 
@@ -19,12 +26,22 @@ kernel takes, then calls the same wrapper with ``KLen`` and the causal
 suffix alignment: kernel #1 on the card (its one-row kernel at decode,
 its tile kernel for the speculative verify's k-row queries).  The gather
 is plain PyTorch, as the JAX package's is XLA outside its Pallas
-kernel."""
+kernel.  Its ruling is read at the gathered shape (Tk = the pages' tokens a
+slot), as the JAX package reads it."""
 
 import torch
 
+from .. import autotune
 from ..registry import in_var, register_op, set_output
 from .cuda import flash_attention as fa
+
+
+def _library_arm(q, k_shape, rate):
+    """Whether a tuner's ruling sends this call to the library arm: on
+    the card, without dropout, under a ``false`` ruling."""
+    return (q.device.type == "cuda" and not rate
+            and autotune.attention_choice(q.shape, k_shape, q.dtype)
+            is False)
 
 
 def _fused_attention_infer(op, block):
@@ -64,8 +81,13 @@ def _fused_attention_compute(ins, attrs, ctx, op_index):
         post, rate = 1.0 - rate, 0.0
     elif rate:
         seed = ctx.seed32(op_index)
-    out = fa.flash_attention(q, k, v, k_len, seed, attrs.get("causal", False),
-                             rate, attrs.get("scale", None))
+    if _library_arm(q, k.shape, rate):
+        out = fa.library_attention(q, k, v, k_len, attrs.get("causal", False),
+                                   attrs.get("scale", None))
+    else:
+        out = fa.flash_attention(q, k, v, k_len, seed,
+                                 attrs.get("causal", False), rate,
+                                 attrs.get("scale", None))
     if post is not None:
         out = out * torch.tensor(post, dtype=out.dtype)
     return {"Out": out}
@@ -146,10 +168,13 @@ def _paged_attention_compute(ins, attrs, ctx, op_index):
     k = gather_pages(pool, table, ins.get("KScale", [None])[0], index)
     v = gather_pages(ins["VCache"][0], table, ins.get("VScale", [None])[0],
                      index)
-    out = fa.flash_attention(q.contiguous(), k.to(q.dtype), v.to(q.dtype),
-                             ins.get("KLen", [None])[0], None,
-                             attrs.get("causal", True), 0.0,
-                             attrs.get("scale", None))
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    args = (ins.get("KLen", [None])[0], attrs.get("causal", True))
+    if _library_arm(q, k.shape, 0.0):
+        out = fa.library_attention(q, k, v, *args, attrs.get("scale", None))
+    else:
+        out = fa.flash_attention(q.contiguous(), k, v, args[0], None, args[1],
+                                 0.0, attrs.get("scale", None))
     return {"Out": out}
 
 

@@ -2,7 +2,9 @@
 
 Each ``paddle_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface,
-``paddle_tpu_torch/_build/<name>-<digest>.so``, loaded with ``ctypes``.
+``paddle_tpu_torch/_build/<name>-<digest>.so`` (or under
+``FLAGS_compile_cache_dir``, kept across processes:
+``compile_cache.enable_persistent_cache``), loaded with ``ctypes``.
 The digest covers the source, the shared headers and the flags, so an
 edited kernel never loads a stale library.  Building happens at first use
 (or when ``build()`` is called up front); every missing library's
@@ -55,7 +57,15 @@ def _target(name):
             glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             h.update(f.read())
-    return os.path.join(BUILD_DIR, "%s-%s.so" % (name, h.hexdigest()[:16]))
+    return os.path.join(build_dir(), "%s-%s.so" % (name, h.hexdigest()[:16]))
+
+
+def build_dir():
+    """Where the libraries are built: the persistent compile-cache
+    directory when one is set, else ``BUILD_DIR``."""
+    from ... import compile_cache
+
+    return compile_cache.persistent_dir() or BUILD_DIR
 
 
 def _build_locked(names):
@@ -70,7 +80,7 @@ def _build_locked(names):
 
 
 def _compile(todo):
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(), exist_ok=True)
     nvcc = _nvcc()
     procs = []
     for name, out in todo:

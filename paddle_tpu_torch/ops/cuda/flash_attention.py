@@ -32,7 +32,8 @@ from ...hash32 import M32, as_int32, mix32, mul32
 from . import build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
-           "reference_attention", "reference_attention_lse",
+           "library_attention", "reference_attention",
+           "reference_attention_lse",
            "attention_bwd_reference", "keep_mask", "seed_tensor",
            "SUPPORTED_HEAD_DIMS"]
 
@@ -129,6 +130,22 @@ def reference_attention(q, k, v, k_len=None, seed=None, causal=False,
     """``reference_attention_lse`` without the LSE: O in q's dtype."""
     return reference_attention_lse(q, k, v, k_len, seed, causal,
                                    dropout_rate, scale)[0]
+
+
+def library_attention(q, k, v, k_len=None, causal=False, scale=None):
+    """The library arm of kernel #1 (a tuner's ``false`` ruling,
+    ``autotune.attention_choice``): one ``F.scaled_dot_product_attention``
+    call with the key-length and causal masks as its boolean
+    ``attn_mask``, and the rows with no valid key set to zeros, as the
+    kernel returns them.  There is no dropout arm: the kernel's
+    ``keep_mask`` hash has no library counterpart."""
+    valid, _ = _masks(q, k, k_len, None, causal, 0.0)
+    d = q.shape[-1]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=valid,
+        scale=scale if scale is not None else 1.0 / (d ** 0.5))
+    return torch.where(valid.any(dim=-1, keepdim=True), out,
+                       torch.zeros((), dtype=out.dtype, device=out.device))
 
 
 def attention_bwd_reference(q, k, v, k_len, seed, causal, dropout_rate,

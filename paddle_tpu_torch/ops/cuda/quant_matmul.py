@@ -23,7 +23,8 @@ import torch
 from . import build
 
 __all__ = ["dequant_matmul", "dequant_matmul_kernel",
-           "dequant_matmul_reference", "quantize_rows_reference",
+           "dequant_matmul_reference", "has_library_arm",
+           "library_dequant_matmul", "quantize_rows_reference",
            "int8_matmul_reference", "quant_range", "MODES"]
 
 MODES = ("weight_only", "dynamic")
@@ -71,6 +72,29 @@ def dequant_matmul_reference(x2, qw, scale, mode="weight_only", xscale=None,
         raise ValueError("unknown dequant_matmul mode %r" % mode)
     qx, sx = quantize_rows_reference(x2, xscale, bit_length)
     return int8_matmul_reference(qx, qw).float() * sx * scale
+
+
+def has_library_arm(k, n, mode):
+    """Whether one library call computes #7's function at this shape, for
+    a tuner's ``false`` ruling: the dynamic mode's int8 x int8 -> int32
+    product is ``torch._int_mm``, which takes K and N in multiples of 8.
+    ``weight_only`` has none (dequantizing the weight and a ``matmul`` is
+    the plain version)."""
+    return mode == "dynamic" and k > 0 and n > 0 and k % 8 == 0 \
+        and n % 8 == 0
+
+
+def library_dequant_matmul(x2, qw, scale, xscale=None, bit_length=8):
+    """The library arm of kernel #7 (dynamic mode): the activation rows
+    quantized as the plain version does, ``torch._int_mm`` on the int8
+    operands (its rows padded with zeros to 32 where it needs more than
+    16), and the op's scale epilogue; the float32 [M, N]."""
+    qx, sx = quantize_rows_reference(x2, xscale, bit_length)
+    m = qx.shape[0]
+    if m <= 16:
+        qx = torch.nn.functional.pad(qx, (0, 0, 0, 32 - m))
+    acc = torch._int_mm(qx, qw)[:m]
+    return acc.float() * sx * scale.float()
 
 
 def _fn(name, argtypes):

@@ -11,12 +11,18 @@ they trained.  They are plain elementwise PyTorch, not kernels.
 int8 weights with per-output-channel dequant scales, in ``weight_only`` or
 ``dynamic`` mode (see ``ops/cuda/quant_matmul.py``).  For tensors on the
 card it launches kernel #7 for every shape, both modes and a static
-``XScale``; for tensors on the CPU it runs the plain version.  There is no
-flag and no autotune ruling between the two.
+``XScale``; for tensors on the CPU it runs the plain version.  A tuner's
+ruling (``autotune.quant_kernel_choice``, per (M, K, N, dtype, mode)) may
+send a dynamic-mode shape to the library arm instead,
+``torch._int_mm`` on the int8 operands with the op's scale epilogue
+(``quant_matmul.library_dequant_matmul``); ``weight_only`` has no library
+arm, so a ``false`` ruling there, and no ruling anywhere, runs the
+kernel.  The plain version runs only on the CPU.
 """
 
 import torch
 
+from .. import autotune
 from ..framework import grad_var_name
 from ..registry import in_var, register_op, set_output
 from .cuda import quant_matmul as qm
@@ -160,11 +166,15 @@ def _dequant_matmul_compute(ins, attrs, ctx, op_index):
     xscale = xscales[0] if xscales else None
     xnc = attrs.get("x_num_col_dims", 1)
     x2 = _flatten_to_2d(x, xnc).contiguous()
-    acc = qm.dequant_matmul(x2, qw, scale,
-                            mode=attrs.get("mode", "weight_only"),
-                            xscale=xscale,
-                            bit_length=attrs.get("bit_length", 8))
-    n = qw.shape[-1]
+    mode = attrs.get("mode", "weight_only")
+    bits = attrs.get("bit_length", 8)
+    (m, k), n = x2.shape, qw.shape[-1]
+    if x2.device.type == "cuda" and qm.has_library_arm(k, n, mode) \
+            and autotune.quant_kernel_choice(m, k, n, x.dtype, mode) is False:
+        acc = qm.library_dequant_matmul(x2, qw, scale, xscale, bits)
+    else:
+        acc = qm.dequant_matmul(x2, qw, scale, mode=mode, xscale=xscale,
+                                bit_length=bits)
     return {"Out": acc.to(x.dtype).reshape(tuple(x.shape[:xnc]) + (n,))}
 
 

@@ -585,6 +585,14 @@ class TrainStateCheckpointManager:
             last = self.latest_step()
         return last is None or step >= last + self._interval
 
+    @property
+    def save_interval_steps(self):
+        return self._interval
+
+    def set_interval(self, steps):
+        """Change the save cadence (a tuned ``checkpoint_interval``)."""
+        self._interval = max(1, int(steps))
+
     def measured_costs(self):
         """Mean seconds of this manager's snapshots and writes, and the
         sample count; {} before the first save."""

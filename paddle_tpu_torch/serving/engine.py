@@ -56,7 +56,12 @@ eager, for comparison.  The loop runs on its own thread, so
 ``torch.inference_mode()`` is entered there: grad mode is thread-local in
 PyTorch.
 
-Not ported yet: the TunedConfig artifact (``tuned_config=`` raises).
+``tuned_config=`` (a ``TunedConfig`` or its JSON path) is applied as the
+JAX engines apply it: its kernel rulings go into the process tables, its
+``quantization`` ruling is the mode when ``quantize`` is not given
+(``chosen`` None: full precision), and its ``bucket_bounds`` and (for
+the one-shot engine) ``batch_size`` decisions fill the arguments left
+unset.  A decode engine's slots are its spec's decode batch.
 """
 
 import sys
@@ -90,14 +95,25 @@ def _default_place(place, engine):
     return CUDAPlace(0)
 
 
-def _resolve_quantize(quantize, tuned_config):
-    """The engine's quantization mode from the ``quantize`` kwarg: falsy =
-    off, True = ``weight_only``, else the mode's name.  The JAX package
-    can also take it from a TunedConfig ruling, which is not ported."""
-    if tuned_config is not None:
-        raise NotImplementedError(
-            "the TunedConfig artifact (tuned_config=) is not ported yet "
-            "(ROADMAP A6c); pass quantize= instead")
+def _load_tuned(tuned_config):
+    """The ``TunedConfig`` (object or path), applied; None for None."""
+    if tuned_config is None:
+        return None
+    from .. import autotune
+
+    tuned = (autotune.TunedConfig.load(tuned_config)
+             if isinstance(tuned_config, str) else tuned_config)
+    tuned.apply()
+    return tuned
+
+
+def _resolve_quantize(quantize, tuned):
+    """The engine's quantization mode: the ``quantize`` kwarg (falsy =
+    off, True = ``weight_only``), else the TunedConfig's ``quantization``
+    ruling (``chosen`` None keeps full precision)."""
+    if quantize is None and tuned is not None:
+        d = tuned.get("quantization")
+        quantize = d.get("chosen") if d else None
     if not quantize:
         return None
     return "weight_only" if quantize is True else str(quantize)
@@ -227,7 +243,8 @@ class InferenceEngine(_EngineBase):
                 "(program, feed_names, fetch_vars, scope)")
         self._scope = scope
         self._feed_names = list(feed_names)
-        self.quantize_mode = _resolve_quantize(quantize, tuned_config)
+        tuned = _load_tuned(tuned_config)
+        self.quantize_mode = _resolve_quantize(quantize, tuned)
         if self.quantize_mode:
             from ..transpiler.quantize_pass import quantize_inference
 
@@ -237,6 +254,10 @@ class InferenceEngine(_EngineBase):
         block = program.global_block()
         self._fetch_vars = [block.var(v.name if hasattr(v, "name") else v)
                             for v in fetch_vars]
+        if slots is None and tuned is not None:
+            slots = tuned.value("batch_size")
+        if bucket_bounds is None and tuned is not None:
+            bucket_bounds = tuned.value("bucket_bounds")
         self.slots = int(slots or 8)
         # feed classification from the program's own var shapes: two
         # leading dynamic dims = a padded sequence (bucket the time dim)
@@ -425,7 +446,8 @@ class GenerationEngine(_EngineBase):
         self._scope = scope
         # int8 decode: the programs are rewritten over the SHARED scope
         # (one int8 copy per weight name)
-        self.quantize_mode = _resolve_quantize(quantize, tuned_config)
+        tuned = _load_tuned(tuned_config)
+        self.quantize_mode = _resolve_quantize(quantize, tuned)
         if self.quantize_mode:
             spec = spec.quantize(scope, mode=self.quantize_mode)
         self.spec = spec
@@ -457,6 +479,8 @@ class GenerationEngine(_EngineBase):
                     "and cover its max_len")
             if fresh_scope:
                 draft_spec.init_scope(self._exe, scope)
+        if bucket_bounds is None and tuned is not None:
+            bucket_bounds = tuned.value("bucket_bounds")
         bucket_bounds = bucket_bounds or _default_buckets(spec.max_len)
         if self.paged:
             ps = spec.cache.page_size

@@ -206,8 +206,9 @@ def test_predictor_serving_delegation_matches_direct(saved_model):
 
 def test_enable_serving_refuses_what_is_not_ported():
     cfg = AnalysisConfig(model_dir="unused", use_gpu=False)
-    with pytest.raises(NotImplementedError, match="A6c"):
-        cfg.enable_serving(tuned_config="t.json")
+    # tuned_config= is ported: it passes through to the engine
+    assert cfg.enable_serving(tuned_config="t.json") is cfg
+    assert cfg.serving["tuned_config"] == "t.json"
     assert cfg.enable_serving(quarantine_dir="q") is cfg
     assert cfg.serving["quarantine_dir"] == "q"
     assert cfg.enable_quantization() is cfg

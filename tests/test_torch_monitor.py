@@ -490,4 +490,5 @@ def test_step_span_names_and_args_in_the_records(tmp_path):
         assert reg.get("span/" + name) is not None, name
     assert reg.get("span/executor/capture") is None   # the CPU: no graph
     fp = program_profile.program_fingerprint(pt.default_main_program())
-    assert re.fullmatch(r"[0-9a-f]{64}", fp)
+    # compile_cache's (the JAX package's) sha1
+    assert re.fullmatch(r"[0-9a-f]{40}", fp)

@@ -31,6 +31,9 @@ def fresh_torch_programs():
     old_main = pt_framework.switch_main_program(pt.Program())
     old_startup = pt_framework.switch_startup_program(pt.Program())
     old_gen = pt_unique_name.switch()
+    # a program built again from a fresh name counter is the same program:
+    # each test analyzes its entries anew
+    pt.compile_cache.clear()
     with pt.scope_guard(pt.Scope()):
         yield
     pt_framework.switch_main_program(old_main)
@@ -165,10 +168,14 @@ def test_engine_without_place_needs_a_card(monkeypatch):
 @pytest.mark.parametrize("kwargs", [dict(kv_dtype="int8"), "quantize"])
 def test_unported_decoder_options_raise(kwargs):
     if kwargs == "quantize":
-        # int8 serving is ported; its TunedConfig ruling is not
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            GenerationEngine(build_decoder_lm(**SMALL), place=pt.CPUPlace(),
-                             tuned_config="tuned.json", start=False)
+        # int8 serving and its TunedConfig ruling are ported
+        # (test_torch_autotune.py): the ruling picks the mode
+        tuned = pt.autotune.TunedConfig(decisions=[
+            {"knob": "quantization", "chosen": "weight_only"}])
+        eng = GenerationEngine(build_decoder_lm(**SMALL), place=pt.CPUPlace(),
+                               tuned_config=tuned, start=False)
+        assert eng.quantize_mode == "weight_only"
+        eng.close()
     else:
         # the paged cache, int8 KV and spec_k are ported
         # (test_torch_paged_kv.py, test_torch_speculative.py); int8 KV

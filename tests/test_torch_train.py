@@ -36,6 +36,9 @@ def fresh_torch_programs():
     old_main = pt_framework.switch_main_program(pt.Program())
     old_startup = pt_framework.switch_startup_program(pt.Program())
     old_gen = pt_unique_name.switch()
+    # a program built again from a fresh name counter is the same program:
+    # each test analyzes its entries anew
+    pt.compile_cache.clear()
     with pt.scope_guard(pt.Scope()):
         yield
     pt_framework.switch_main_program(old_main)

@@ -306,8 +306,9 @@ def test_trainer_refusals_and_default_place():
         return L.mean(L.fc(L.data("x", shape=[2]), size=1))
 
     opt = lambda: pt.optimizer.SGD(0.1)  # noqa: E731
-    for kw, item in ((dict(parallel=True), "A7"),
-                     (dict(autotune="x"), "A6c"), (dict(mesh=object()), "A7"),
+    # autotune= is ported (tests/test_torch_autotune.py); the A7 options
+    # still raise
+    for kw, item in ((dict(parallel=True), "A7"), (dict(mesh=object()), "A7"),
                      (dict(cluster_member=object()), "A7")):
         with pytest.raises(NotImplementedError, match=item):
             Trainer(train_func, opt, place=pt.CPUPlace(), **kw)
