@@ -28,6 +28,7 @@
     python3 chip_smoke.py observe     # device, build, and phase 30 alone
     python3 chip_smoke.py resume      # device, build, and phase 31 alone
     python3 chip_smoke.py autotune    # device, build, and phase 32 alone
+    python3 chip_smoke.py parallel    # device, build, and phase 33 alone
     python3 chip_smoke.py train       # device, build, and the Transformer
                                       # training steps (phases 8 and
                                       # 8b) alone
@@ -459,7 +460,26 @@ empty window is profiled again first (``empty_windows``).
    ``FLAGS_compile_cache_dir`` (started with the phase, it loads every
    kernel library while the tuning runs, then waits for the tables)
    repeating the kernel tunings: 0 probes, 0 libraries built, one graph
-   an entry.
+   an entry;
+33. ``pe_transformer``, ``trainer_parallel`` and ``pe_ctr_ep1`` — the
+   mesh runtime (``parallel_phase``; its kernel cases, #1 and #2 at the
+   training shape with dropout 0.1 on a shard's hash rows (batch offset
+   256, heads 8 of 16) against their plain versions and each kernel's
+   keep-mask read back (Q = 0, V = I; dO = I) bit-equal to ``keep_mask``
+   at the global rows, run in phase 3, or first when the phase runs
+   alone; a whole run takes the phase after phase 8b); bench.py's
+   Transformer-base step through ``ParallelExecutor`` on ``make_mesh()``
+   with no world (``pe_dp1``) and, after ``init_distributed`` (a world of
+   one over NCCL), on a (dp, fsdp, tp) (1, 1, 1) mesh with
+   ``sharding_rules`` and kReduce (``pe_fsdp1``), each against
+   ``Executor`` from one state: losses and state bit-equal, one graph an
+   entry, #1-#6 in the replay's trace as the program implies, no NCCL
+   kernel and no collective in the plan (each is over axes of extent
+   1); ms a step and idle share beside the Executor's;
+   ``Trainer(parallel=True)`` for 3 steps (#1-#6 in the replay's trace);
+   the CTR DNN with two 1e6-row ``is_distributed`` tables under the
+   ``DistributeTranspiler``'s plan on a (dp, ep) (1, 1) mesh, bit-equal
+   to ``Executor``.  The world is left at the end.
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -496,6 +516,8 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL = dict(vocab_size=32000, max_len=1024, slots=8, n_layer=6, n_head=8,
              d_model=512, d_inner=2048, dtype="float32")
 N_REQUESTS, MAX_NEW = 16, 32
+# the paged slice's requests (16 until the run's time budget needed room)
+PAGED_REQUESTS = 8
 SERVE_PROMPTS = (64, 700)   # the served prompts' shortest and longest
 # the paged slice (serve_paged): pages of 8 tokens (the default buckets
 # 8..1024 are page-aligned), the default pool of 1024 pages (the fixed
@@ -594,9 +616,34 @@ def max_err(got, want, dtype, tol=TOL):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+class _with_rows:
+    """``flash_attention``'s module with ``rows`` given to its kernels and
+    plain versions (itself for None)."""
+
+    def __new__(cls, fa, rows):
+        if rows is None:
+            return fa
+        return super().__new__(cls)
+
+    def __init__(self, fa, rows):
+        import functools
+
+        self._fa = fa
+        for n in ("flash_attention_fwd", "flash_attention_bwd",
+                  "reference_attention", "attention_bwd_reference"):
+            setattr(self, n, functools.partial(getattr(fa, n), rows=rows))
+
+    def __getattr__(self, name):
+        return getattr(self._fa, name)
+
+
 def attention_case(fa, timer, name, tq, tk, causal, klen, dtype,
-                   rate=0.0, seed=None, split=False):
+                   rate=0.0, seed=None, split=False, rows=None):
     from torch.nn.functional import scaled_dot_product_attention
+
+    # ``rows``: a shard's dropout hash rows (the mesh runtime's), taken by
+    # the kernel and its plain version alike
+    fa = _with_rows(fa, rows)
 
     b, h, d = len(klen), 8, 64
     g = torch.Generator(device="cuda").manual_seed(len(name))
@@ -798,13 +845,14 @@ def device_ms(kernels):
 
 
 def attention_bwd_case(fa, timer, name, tq, tk, causal, klen, dtype,
-                       rate=0.0, seed=None):
+                       rate=0.0, seed=None, rows=None):
     """Kernel #2 against ``attention_bwd_reference`` on the kernel
     forward's O and LSE, and twice against itself; the library yardstick
     is the backward of ``scaled_dot_product_attention`` under the same
     boolean mask."""
     from torch.nn.functional import scaled_dot_product_attention
 
+    fa = _with_rows(fa, rows)
     b, h, d = len(klen), 8, 64
     g = torch.Generator(device="cuda").manual_seed(len(name) + 101)
     q, k, v, dout = (torch.randn((b, h, t, d), generator=g, device="cuda")
@@ -1679,6 +1727,11 @@ def kernels_phase():
     checks = train_kernel_cases(timer)
     checks["dequant_matmul"] = quant_matmul_cases(qm, timer)
     checks.update(conv_bn_cases(cb, timer))
+    # #1 and #2 on a shard's dropout hash rows (the mesh runtime's,
+    # phase 33), beside the kernels' other cases: device traces of a
+    # kernel call read reliably at the start of the run
+    for name, cases in offset_kernel_cases(timer).items():
+        checks[name].extend(cases)
     return log_checks(checks)
 
 
@@ -1773,7 +1826,9 @@ def _profiled(fn):
            "pads_traced": pads,
            "trace_launches": cuda.device_launch_counts(
                e.name for e in events),
-           "wrapper_launches": wrapper}
+           "wrapper_launches": wrapper,
+           # collectives in the window (the mesh runtime's, phase 33)
+           "nccl_kernels": sum("nccl" in e.name.lower() for e in events)}
     by = {}
     for e in events:
         us, n = by.get(e.name, (0.0, 0))
@@ -2407,7 +2462,7 @@ def _partings(got, want):
     return out
 
 
-def serve_paged_phase(model=MODEL, n_requests=N_REQUESTS, max_new=MAX_NEW,
+def serve_paged_phase(model=MODEL, n_requests=PAGED_REQUESTS, max_new=MAX_NEW,
                       prompt_range=SERVE_PROMPTS, device="cuda"):
     """The paged slice at Transformer-base width: the fixed-region engine
     on the phase's prompts (captured; the reference), then the paged
@@ -3754,7 +3809,7 @@ def mlp_train_func():
             pt.layers.accuracy(pred, label)]
 
 
-def mlp_trainer_phase(steps=20, windows=3, window_steps=50,
+def mlp_trainer_phase(steps=20, windows=2, window_steps=50,
                       trainer_epochs=6, trainer_batches=60):
     """The MNIST MLP (Adam 1e-3, batch 256) on ``CUDAPlace(0)``:
 
@@ -3921,7 +3976,7 @@ def realdist_pools(amp=True):
     return main, startup, cost, fixed, bucketed, per_bound
 
 
-def realdist_phase(windows=3, window_steps=12):
+def realdist_phase(windows=2, window_steps=6):
     """bench.py's ``transformer_realdist`` rung on ``CUDAPlace(0)`` under
     AMP (``realdist_pools``): both pools' feeds staged on the card, one
     captured executor, each pool in a scope of its own from one startup
@@ -4077,7 +4132,7 @@ def realdist_checks(per_bound):
 RESNET_FEED_POOL = 8
 
 
-def resnet_feed_phase(windows=3, window_steps=7, batch=RESNET_BATCH):
+def resnet_feed_phase(windows=2, window_steps=4, batch=RESNET_BATCH):
     """ResNet-50 plain under AMP at batch 128 (the fastest of the three
     AMP programs at that batch), fed three ways from one pool of
     ``RESNET_FEED_POOL`` host batches built before timing (so the arms
@@ -4460,12 +4515,14 @@ CTR_VOCAB, CTR_T, CTR_BATCH, CTR_STEPS = 1_000_000, 16, 512, 200
 CTR_CHECK_BATCH, CTR_CHECK_STEPS = 64, 3
 
 
-def build_ctr(opt="adam", sparse=True):
+def build_ctr(opt="adam", sparse=True, distributed=False):
     """``models/ctr_dnn.py`` at its full width (embedding 16, tower 128 /
     128 / 128, a 2-way softmax) over two 1e6-row tables, seed 7, with
     Adam(1e-3) (bench.py's ``rec_sparse`` rate) or Adagrad(1e-2); with
     ``sparse`` False the lookups are made dense before ``minimize`` (the
-    comparison program); (main, startup, cost, auc).
+    comparison program); ``distributed`` marks both tables
+    ``is_distributed`` (the mesh runtime's row sharding, phase 33);
+    (main, startup, cost, auc).
     ``tests/test_ctr_dnn.py``'s Adam(1e-2) drives this run's loss to 0
     by step 20 and to inf at step 177: confident on every row, it meets
     a cold row whose ids it saw in hot rows before and gives its label
@@ -4482,7 +4539,8 @@ def build_ctr(opt="adam", sparse=True):
         lr_ids = pt.layers.data("lr_ids", shape=[1], dtype="int64",
                                 lod_level=1)
         click = pt.layers.data("click", shape=[1], dtype="int64")
-        cost, _, auc = ctr_dnn(dnn, lr_ids, click, CTR_VOCAB, CTR_VOCAB)
+        cost, _, auc = ctr_dnn(dnn, lr_ids, click, CTR_VOCAB, CTR_VOCAB,
+                               is_distributed=distributed)
         for op in main.global_block().ops:
             if op.type == "lookup_table":
                 op.attrs["is_sparse"] = sparse
@@ -4713,11 +4771,11 @@ ZOO = {"smallnet": (32, 10, 256, 33.1),
        "se_resnext152": (224, 1000, 128, None),
        # bench.py's ``--infer`` rung of ResNet-50 (``bench.py:1451-1461``)
        "resnet50": (224, 1000, 16, None)}
-# timed steps a training rung takes: 20 where 20 steps take under 4 s,
-# 3 for VGG-16 and the SE-ResNeXts (0.2-0.5 s a step, and two arms)
-ZOO_STEPS = {"smallnet": 20, "alexnet": 20, "googlenet": 20, "vgg16": 3,
+# timed steps a training rung takes: 3 (20 for SmallNet, AlexNet and
+# GoogLeNet until the run's time budget needed room)
+ZOO_STEPS = {"smallnet": 3, "alexnet": 3, "googlenet": 3, "vgg16": 3,
              "se_resnext50": 3, "se_resnext152": 3}
-ZOO_INFER_BATCH, ZOO_INFER_STEPS = 16, 5
+ZOO_INFER_BATCH, ZOO_INFER_STEPS = 16, 3
 SE_FUSED = 33     # fused conv+BN layers of SE-ResNeXt-50
 SE152_FREE_GB = 8.0   # the least device memory a SE-ResNeXt-152 step leaves
 
@@ -6191,7 +6249,7 @@ def mnist_cnn_phase(steps=MNIST_STEPS, trainer_epochs=4,
 # the optimizers, schedules, ModelAverage and QAT on bench.py's MLP
 # ---------------------------------------------------------------------------
 
-OPT_STEPS, OPT_CHECK_STEPS = 20, 3
+OPT_STEPS, OPT_CHECK_STEPS = 6, 3
 
 
 def _opt_configs():
@@ -6626,7 +6684,7 @@ RNN_WIDTH = 512
 # ``rnn_check``'s configuration, the CPU tests' size: ragged lengths in
 # [2, seq]
 RNN_SMALL = dict(batch=4, seq=7, dict_dim=50, width=32)
-RNN_STEPS = 8
+RNN_STEPS = 2
 # the length feed that ``rnn_check``'s planted fault shortens
 RNN_LEN = {"stacked_lstm": "word@LEN", "machine_translation": "src@LEN"}
 
@@ -7486,7 +7544,7 @@ def beam_phase(decodes=BEAM_DECODES):
 SRL = dict(word_dict=44068, pred_dict=3162, mark_dict=2, word_dim=32,
            mark_dim=5, hidden=512, depth=8, labels=59)
 SRL_BATCH, SRL_CHECK_BATCH, SRL_LEN, SRL_MIN_LEN = 10, 4, 64, 5
-SRL_STEPS, SRL_FALL_STEPS, SRL_EVAL_BATCHES = 20, 50, 5
+SRL_STEPS, SRL_FALL_STEPS, SRL_EVAL_BATCHES = 5, 50, 5
 SRL_FEATURES = ("word", "ctx_n2", "ctx_n1", "ctx_0", "ctx_p1", "ctx_p2",
                 "predicate", "mark")
 
@@ -8031,7 +8089,7 @@ def ssd_phase(steps=SSD_STEPS):
     return paths
 
 
-def _captured_op_ms(op_type, inputs, attrs, outputs, runs=6):
+def _captured_op_ms(op_type, inputs, attrs, outputs, runs=3):
     """A one-op program whose inputs are ``inputs`` already on the card
     (persistable vars in its scope, so a run copies nothing in), captured:
     {"ms": the median wall of ``runs`` replays, "device_ms": the device
@@ -9059,7 +9117,7 @@ def observe_phase():
 RESUME_STEPS = 8            # the uninterrupted run; the checkpoint at half
 RESUME_WRITE_STEPS = 12     # at most this many steps timed during a write
 RESUME_AFTER_STEPS = 8      # steps timed after it
-GUARD_STEPS = 8             # timed steps an arm
+GUARD_STEPS = 4             # timed steps an arm
 FAULT_ITERS, FAULT_BATCH = 16, 64
 # the kill -9 drill: saves at steps 1, 5, 9, 13 (every 4 from the first);
 # the kill lands in step 13's write, so the resume starts at 9
@@ -9624,7 +9682,7 @@ def resume_phase():
 
 # phase 32 (autotune): the tuner on the card
 AUTOTUNE_PROBE_STEPS = 3     # replays a ladder rung's window times
-AUTOTUNE_AB_STEPS = 10       # replays an A/B arm's window times
+AUTOTUNE_AB_STEPS = 6       # replays an A/B arm's window times
 AUTOTUNE_TRAINER_STEPS = 3   # the Trainer's steps: eager, capture, replay
 AUTOTUNE_PREFILL_T = 256     # the prefill bucket the attention A/B takes
 AUTOTUNE_ATT_REPS = 12       # attention ops chained in an A/B program
@@ -10321,6 +10379,317 @@ def autotune_phase():
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the mesh runtime (parallel/) on the card
+# ---------------------------------------------------------------------------
+
+PE_STEPS = 3          # timed steps an arm of pe_dp1 / pe_fsdp1
+PE_TRAINER_STEPS = 3  # Trainer(parallel=True): eager, capture, replay
+PE_CTR_STEPS, PE_CTR_BATCH = 4, 64
+# a shard of the training batch's attention: its batch rows from
+# OFFSET_ROWS[0], its heads from OFFSET_ROWS[1] of OFFSET_ROWS[2]
+OFFSET_ROWS = (256, 8, 16)
+
+
+def _host_state(scope):
+    return {n: scope.var(n).detach().to("cpu", copy=True)
+            for n in scope.local_var_names()}
+
+
+def _state_faults(a, b):
+    """The names whose tensors differ in bits between two host states."""
+    return sorted(n for n in set(a) | set(b)
+                  if n not in a or n not in b or not torch.equal(a[n], b[n]))
+
+
+def pe_arm(name, main, cost, start, feeds, steps, make):
+    """One arm of the parallel phase: ``make(scope)`` gives (run(feed) ->
+    loss, the executor whose entries hold the graphs, extras); two untimed
+    steps (eager, capture), ``steps`` timed ones with the launch counters
+    zeroed before each and read after, one profiled step.  Returns its
+    summary (losses, ms a step, the window) and its state on the host; the
+    executor is freed."""
+    from paddle_tpu_torch.ops import cuda
+
+    scope = copy_scope(start)
+    run, exe, extra = make(scope)
+    losses, times, launches = [], [], {}
+
+    def step(f):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(np.asarray(run(f)).ravel()[0])
+        dt = time.perf_counter() - t0
+        losses.append(loss)
+        return dt
+
+    first = [step(f) for f in feeds[:2]]
+    for f in feeds[2:2 + steps]:
+        cuda.reset_launch_counts()
+        times.append(step(f))
+        for k, n in cuda.launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+    window = device_window(lambda: step(feeds[2 + steps]), again=True)
+    graphs = sorted(st.graphs for st in exe._steps.values())
+    out = {"arm": name, "losses": losses,
+           "first_steps_ms": [t * 1e3 for t in first],
+           "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": statistics.median(times) * 1e3,
+           "graphs": graphs, "window": window, "launches": launches}
+    out.update(extra())
+    state = _host_state(scope)
+    del run, exe, scope
+    release_memory()
+    return out, state
+
+
+def parallel_transformer(batch=TRAIN_BATCH, steps=PE_STEPS):
+    """``pe_dp1`` and ``pe_fsdp1``: bench.py's Transformer-base step
+    (``build_train(0.1)``: batch 256 x 64, dropout 0.1, smoothing 0.1,
+    noam + Adam, float32) through ``ParallelExecutor`` on ``make_mesh()``
+    without a world, then after ``init_distributed`` (world 1 over NCCL, a
+    localhost store) on a (dp, fsdp, tp) (1, 1, 1) mesh with
+    ``sharding_rules`` and kReduce, each against ``Executor`` over the
+    same steps from the same state: losses and every state tensor
+    bit-equal, one graph an entry, and the replay's trace launching #1-#6
+    as the program implies.  Reported beside: ms a step and the profiled
+    step's idle share against the Executor's, the NCCL kernels in the
+    replay's trace and the collectives the plan kept (a world of one
+    keeps none: each is over axes of extent 1).  Returns (summary, {path:
+    launch record})."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import distributed
+
+    card = pt.CUDAPlace(0)
+    main, startup, cost = build_train(0.1)
+    start = pt.Scope()
+    pt.Executor(card).run(startup, scope=start)
+    rng = np.random.RandomState(0)
+    feeds = [train_feed(rng, batch) for _ in range(steps + 3)]
+    per_step = kernel_launches_per_step(main)
+
+    def make_exe(scope):
+        exe = pt.Executor(card)
+        return (lambda f: exe.run(main, feed=f, fetch_list=[cost],
+                                  scope=scope)[0]), exe, dict
+
+    def make_pe(mesh=None, bs=None):
+        def make(scope):
+            pe = pt.ParallelExecutor(use_cuda=True, loss_name=cost.name,
+                                     main_program=main, scope=scope,
+                                     mesh=mesh, build_strategy=bs)
+
+            def extra():
+                plan = next(iter(pe._plans.values()))
+                return {"mesh": repr(pe.mesh),
+                        "plan_collectives": plan.counts,
+                        "collectives_elided": not plan.counts,
+                        "specs_split": len(plan.specs)}
+            return (lambda f: pe.run([cost], feed=f)[0]), pe.executor, extra
+        return make
+
+    ref, ref_state = pe_arm("executor", main, cost, start, feeds, steps,
+                            make_exe)
+    arms, paths, faults = {}, {}, {}
+    dp1, dp1_state = pe_arm("pe_dp1", main, cost, start, feeds, steps,
+                            make_pe())
+    t0 = time.perf_counter()
+    distributed.init_distributed(place=card)
+    init_s = time.perf_counter() - t0
+    bs = pt.BuildStrategy()
+    bs.sharding_rules = True
+    bs.reduce_strategy = pt.BuildStrategy.ReduceStrategy.Reduce
+    fsdp1, fsdp1_state = pe_arm(
+        "pe_fsdp1", main, cost, start, feeds, steps,
+        make_pe(pt.make_mesh((1, 1, 1), ("dp", "fsdp", "tp")), bs))
+    import torch.distributed as dist
+
+    fsdp1.update(backend=dist.get_backend(), world=dist.get_world_size(),
+                 init_distributed_s=init_s)
+    for arm, state in ((dp1, dp1_state), (fsdp1, fsdp1_state)):
+        name = arm["arm"]
+        arm["same_loss_bits"] = arm["losses"] == ref["losses"]
+        arm["state_not_bit_equal"] = _state_faults(state, ref_state)
+        arm["nccl_kernels_in_replay"] = arm["window"]["nccl_kernels"]
+        arm["idle_share"] = arm["window"]["idle_share"]
+        arm["ms_vs_executor"] = arm["median_step_ms"] / ref["median_step_ms"]
+        if not arm["same_loss_bits"] or arm["state_not_bit_equal"] \
+                or arm["graphs"] != [1] \
+                or arm["window"]["nccl_kernels"]:
+            faults[name] = {k: arm[k] for k in (
+                "same_loss_bits", "state_not_bit_equal", "graphs",
+                "nccl_kernels_in_replay")}
+        paths[name] = launch_record(
+            True, arm["launches"], {}, arm["window"], per_step)
+        arms[name] = arm
+    ref["idle_share"] = ref["window"]["idle_share"]
+    summary = {"batch": batch, "seq": TRAIN_SEQ, "steps": steps,
+               "launches_per_step": per_step, "executor": ref,
+               "faults": faults, **arms}
+    log("pe_transformer", summary)
+    if faults:
+        raise SystemExit("parallel: the ParallelExecutor differs from "
+                         "Executor: %s" % faults)
+    return summary, paths
+
+
+def parallel_trainer(steps=PE_TRAINER_STEPS, batch=TRAIN_BATCH):
+    """``trainer_parallel``: ``Trainer(parallel=True)`` on the card (the
+    world of one ``parallel_transformer`` joined) takes ``steps`` steps of
+    the same Transformer-base program: finite losses, the replay's trace
+    launching #1-#6 as the program implies."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib import Trainer
+
+    rows = autotune_samples(batch * steps)
+    handler = _TraceStep(steps - 1)
+    t0 = time.perf_counter()
+    trainer = Trainer(train_func=autotune_train_func,
+                      optimizer_func=autotune_optimizer,
+                      place=pt.CUDAPlace(0), parallel=True)
+    trainer.train(num_epochs=1, event_handler=handler,
+                  reader=pt.batch(lambda: iter(rows), batch),
+                  feed_order=["src_word", "tgt_word", "lbl_word"])
+    torch.cuda.synchronize()
+    need = kernel_launches_per_step(trainer.train_program)
+    got = handler.window["trace_launches"] if handler.window else {}
+    out = {"steps": steps, "batch": batch, "losses": handler.losses,
+           "seconds": time.perf_counter() - t0, "trace_launches": got,
+           "need": need,
+           "ok": handler.window is not None and len(handler.losses) == steps
+           and bool(np.isfinite(handler.losses).all())
+           and all(got.get(k, 0) == n for k, n in need.items())}
+    log("trainer_parallel", out)
+    del trainer
+    release_memory()
+    if not out["ok"]:
+        raise SystemExit("parallel: Trainer(parallel=True) on the card: %s"
+                         % out)
+    return out
+
+
+def parallel_ctr(steps=PE_CTR_STEPS, batch=PE_CTR_BATCH):
+    """``pe_ctr_ep1``: the CTR DNN (two 1e6-row ``is_distributed`` tables)
+    under the ``DistributeTranspiler``'s plan on a (dp, ep) (1, 1) mesh,
+    against ``Executor`` from one state: losses and state bit-equal."""
+    import paddle_tpu_torch as pt
+
+    card = pt.CUDAPlace(0)
+    main, startup, cost, _ = build_ctr(distributed=True)
+    start = pt.Scope()
+    pt.Executor(card).run(startup, scope=start)
+    feeds = ctr_feeds(steps, batch, seed=5)
+    t = pt.DistributeTranspiler()
+    with pt.program_guard(main, startup):
+        t.transpile(trainer_id=0, trainers=1)
+    mesh = pt.make_mesh((1, 1), ("dp", "ep"))
+    out, states = {}, {}
+    for arm in ("executor", "pe_ctr_ep1"):
+        scope = copy_scope(start)
+        if arm == "executor":
+            exe = pt.Executor(card)
+            run = lambda f: exe.run(main, feed=f, fetch_list=[cost],  # noqa
+                                    scope=scope)[0]
+        else:
+            pe = pt.ParallelExecutor(use_cuda=True, loss_name=cost.name,
+                                     main_program=main, scope=scope,
+                                     mesh=mesh,
+                                     build_strategy=t.build_strategy(mesh))
+            run = lambda f: pe.run([cost], feed=f)[0]  # noqa: E731
+        out[arm] = [float(np.asarray(run(f)).ravel()[0]) for f in feeds]
+        states[arm] = _host_state(scope)
+        del run, scope
+        release_memory()
+    res = {"steps": steps, "batch": batch, "plan": {
+        n: [k, str(s)] for n, (k, s) in t.sharding_plan().items()
+        if k != "replicated"}, "losses": out,
+        "same_loss_bits": out["executor"] == out["pe_ctr_ep1"],
+        "state_not_bit_equal": _state_faults(states["executor"],
+                                             states["pe_ctr_ep1"])}
+    res["ok"] = res["same_loss_bits"] and not res["state_not_bit_equal"]
+    log("pe_ctr_ep1", res)
+    if not res["ok"]:
+        raise SystemExit("parallel: pe_ctr_ep1 differs from Executor")
+    return res
+
+
+def offset_mask_check(fa, rows=OFFSET_ROWS, rate=0.1, seed=4321):
+    """#1 and #2 on a shard of a larger tensor (batch offset, head offset,
+    global heads): with Q = 0 every key of a row weighs 1/64 and V = I
+    (Tk = D = 64), so O reads back the kernel's keep-mask; with dO = I,
+    dV reads back its transpose.  Both must equal ``keep_mask`` at the
+    global rows bit for bit."""
+    b0, h0, hg = rows
+    b, h, t, d = 16, 8, TRAIN_SEQ, 64
+    z = torch.zeros((b, h, t, d), device="cuda")
+    eye = torch.eye(t, d, device="cuda").expand(b, h, t, d).contiguous()
+    kl = torch.full((b,), t, dtype=torch.int32, device="cuda")
+    sd = fa.seed_tensor(seed, "cuda")
+    out, lse = fa.flash_attention_fwd(z, z, eye, kl, sd, False, rate,
+                                      rows=rows)
+    _, _, dv = fa.flash_attention_bwd(z, z, eye, kl, sd, False, rate, None,
+                                      out, lse, eye, rows=rows)
+    gq = torch.arange(t, device="cuda")[:, None]
+    gk = torch.arange(t, device="cuda")[None, :]
+    bh = ((torch.arange(b, device="cuda") + b0)[:, None] * hg
+          + torch.arange(h, device="cuda") + h0).reshape(b, h, 1, 1)
+    want = fa.keep_mask(sd, bh, gq, gk, rate)
+    whole = fa.keep_mask(sd, torch.arange(b * h, device="cuda")
+                         .reshape(b, h, 1, 1), gq, gk, rate)
+    torch.cuda.synchronize()
+    return {"check": "offset_keep_mask", "rows": list(rows),
+            "fwd_mask_bit_exact": bool(torch.equal(out > 0, want)),
+            "bwd_mask_bit_exact": bool(torch.equal(
+                dv.transpose(-1, -2) > 0, want)),
+            # the offsets change the mask: not the whole tensor's
+            "differs_from_rows_0": not bool(torch.equal(want, whole)),
+            "kept_share": float(want.float().mean())}
+
+
+def offset_kernel_cases(timer):
+    """#1 and #2 at the training shape with dropout 0.1 and a shard's
+    hash rows (``OFFSET_ROWS``) against their plain versions (``TOL``),
+    and the keep-mask read back from each kernel (``offset_mask_check``);
+    {kernel name: [checks]}."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    train_klen, _ = _train_klen()
+    t = TRAIN_SEQ
+    fwd = [attention_case(fa, timer, "offset_causal_dropout_float32", t, t,
+                          True, train_klen, torch.float32, rate=0.1,
+                          seed=1234, rows=OFFSET_ROWS)]
+    bwd = [attention_bwd_case(fa, timer, "offset_causal_dropout_float32",
+                              t, t, True, train_klen, torch.float32,
+                              rate=0.1, seed=1234, rows=OFFSET_ROWS)]
+    mask = offset_mask_check(fa)
+    mask["ok"] = mask["fwd_mask_bit_exact"] and mask["bwd_mask_bit_exact"] \
+        and mask["differs_from_rows_0"]
+    fwd[0]["mask"] = mask
+    fwd[0]["ok"] = fwd[0]["ok"] and mask["ok"]
+    return {"flash_attention_fwd": fwd, "flash_attention_bwd": bwd}
+
+
+def parallel_phase(offsets=False):
+    """Phase 33: with ``offsets`` the kernel offset cases first (a whole
+    run takes them in its kernels phase), then ``parallel_transformer``
+    (pe_dp1, pe_fsdp1), ``parallel_trainer`` and ``parallel_ctr``; the
+    world of one is left after (``distributed.shutdown``).  Returns
+    {path: launch record}."""
+    from paddle_tpu_torch.parallel import distributed
+
+    if offsets:
+        log_checks(offset_kernel_cases(Timer()))
+        release_memory()
+    try:
+        _, paths = parallel_transformer()
+        parallel_trainer()
+        parallel_ctr()
+    finally:
+        distributed.shutdown()
+    release_memory()
+    return paths
+
+
 def release_memory():
     """Free what the last phase's executors, graphs and scopes held."""
     import gc
@@ -10457,6 +10826,15 @@ def main():
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
+    if "parallel" in sys.argv[1:]:
+        paths = parallel_phase(offsets=True)
+        faults = {p: launch_faults(r) for p, r in paths.items()}
+        if any(faults.values()):
+            raise SystemExit("parallel: a path did not launch its kernels "
+                             "as its program implies: %s" % faults)
+        log("total", {"seconds": time.perf_counter() - t_start,
+                      "phase_seconds": dict(PHASE_SECONDS)})
+        return 0
     if "autotune" in sys.argv[1:]:
         autotune_phase()
         log("total", {"seconds": time.perf_counter() - t_start,
@@ -10540,6 +10918,13 @@ def main():
         for path, record in paths.items():
             check_path(path, record)
         release_memory()
+    # the mesh runtime (phase 33), after the training step it runs:
+    # bench.py's Transformer-base step through ParallelExecutor (no world;
+    # then a world of one over NCCL, fsdp / kReduce rules) bit-equal to
+    # Executor with #1-#6 in the replay's trace, Trainer(parallel=True)
+    # and the CTR DNN's ep plan
+    for path, record in parallel_phase().items():
+        check_path(path, record)
     for amp, name in ((False, "resnet_train"), (True, "resnet_amp")):
         resnet_check_phase(amp=amp)
         release_memory()

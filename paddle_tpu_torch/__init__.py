@@ -37,13 +37,17 @@ from . import io
 from . import flags, monitor, profiler
 from . import autotune, compile_cache
 from . import fault, guardian, parallel
+from .parallel import (BuildStrategy, ExecutionStrategy, ParallelExecutor,
+                       make_mesh)
 from . import nets
 from . import reader
 from .data_feeder import DataFeeder
 from .reader import batch
 from . import models
 from . import transpiler
-from .transpiler import InferenceTranspiler, memory_optimize, release_memory
+from .transpiler import (DistributeTranspiler, DistributeTranspilerConfig,
+                         InferenceTranspiler, memory_optimize,
+                         release_memory)
 from . import serving
 from . import contrib
 from . import inference
@@ -64,7 +68,9 @@ __all__ = [
     "CUDAPlace", "Scope", "global_scope", "scope_guard", "ParamAttr",
     "backward", "clip", "optimizer", "regularizer", "average",
     "learning_rate_decay", "convert", "io", "flags", "monitor", "profiler",
-    "fault", "guardian", "parallel",
+    "fault", "guardian", "parallel", "ParallelExecutor", "BuildStrategy",
+    "ExecutionStrategy", "make_mesh", "DistributeTranspiler",
+    "DistributeTranspilerConfig",
     "nets", "reader", "DataFeeder", "batch", "models", "transpiler",
     "InferenceTranspiler", "memory_optimize", "release_memory", "serving",
     "contrib", "inference", "debugger", "net_drawer", "compat", "metrics",

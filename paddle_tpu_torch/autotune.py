@@ -32,7 +32,7 @@ measurements plus a tuner that measures it on the card.
   measured costs), **quantization** (:func:`tune_quantization`,
   :func:`tune_kv_quantization`, :func:`tune_speculation_k`: accuracy
   gates) and the **pipeline** policy (:func:`decide_pipeline`;
-  :func:`tune_pipeline` waits for the mesh runtime, ROADMAP A7).
+  :func:`tune_pipeline` waits for the pipeline axis, ROADMAP A7b).
 
 Decisions land in a :class:`TunedConfig` (JSON, the JAX package's keys:
 an artifact written by either package loads in the other), consumed by
@@ -1113,12 +1113,12 @@ def tune_pipeline(main_program, startup_program, feed, fetch, mesh,
                   build_strategy=None, schedules=None,
                   microbatch_candidates=None, probe_steps=3,
                   warmup_steps=1, tol=0.03, headroom=0.9, config=None):
-    """Measured pipeline schedules run on a ``pp`` mesh, which comes with
-    the mesh runtime (ROADMAP A7); :func:`decide_pipeline` is the policy
-    it will feed."""
+    """Measured pipeline schedules run on a ``pp`` mesh, whose pipeline
+    axis is not ported yet (ROADMAP A7b); :func:`decide_pipeline` is the
+    policy it will feed."""
     raise NotImplementedError(
-        "tune_pipeline needs the mesh runtime on torch.distributed "
-        "(ROADMAP A7); decide_pipeline is ported")
+        "tune_pipeline needs the mesh runtime's pipeline axis "
+        "(ROADMAP A7b); decide_pipeline is ported")
 
 
 # dequant-matmul ops in a quant A/B program: one op's replay is shorter

@@ -25,7 +25,8 @@ cache (counterpart of ``paddle_tpu/compile_cache.py``).
   port's compiled artifacts are the kernel libraries, so ``ops/cuda/
   build.py`` builds into and loads from ``dir``, each library still named
   by its source digest; a second process with the same directory builds
-  nothing.
+  nothing.  ``rescope_persistent_cache(world_size)`` scopes ``world_dir()``
+  to the world's shape and leaves the libraries shared.
 """
 
 import collections
@@ -36,7 +37,7 @@ import threading
 __all__ = [
     "program_fingerprint", "trace_key", "trace_flag_values", "lookup",
     "store", "stats", "reset_stats", "clear", "enable_persistent_cache",
-    "rescope_persistent_cache",
+    "rescope_persistent_cache", "world_dir",
 ]
 
 
@@ -69,6 +70,7 @@ _STATS = {"trace_hits": 0, "trace_misses": 0, "lowerings": 0}
 _LOWERINGS_BY_FP = {}
 _persistent_dir = [None]
 _persistent_base = [None]
+_world_dir = [None]
 
 
 # ---------------------------------------------------------------------------
@@ -187,17 +189,27 @@ def persistent_dir():
     return _persistent_dir[0]
 
 
+def world_dir():
+    """The world-scoped subdirectory of the persistent cache
+    (``<dir>/world_<N>`` in a world of N > 1 processes, the base directory
+    in a process of its own; None without a persistent cache): where what
+    depends on the world's shape would go, as the JAX package keeps its
+    N-process executables apart."""
+    return _world_dir[0]
+
+
 def rescope_persistent_cache(world_size=1):
-    """Keep the base directory in a process of its own.  A world of
-    several processes (the JAX package's ``world_<N>`` subdirectory)
-    comes with the mesh runtime, ROADMAP A7, and raises until then."""
-    if int(world_size) > 1:
-        raise NotImplementedError(
-            "a world-scoped compile cache (world_size %d) comes with the "
-            "mesh runtime (ROADMAP A7)" % int(world_size))
+    """Scope the persistent cache to a world of ``world_size`` processes
+    (``parallel.distributed.init_distributed`` calls it once the world is
+    joined): ``world_dir()`` becomes ``<dir>/world_<N>`` for N > 1, as in
+    the JAX package.  The kernel libraries stay in the base directory,
+    shared by every world shape: a library is a function of its source
+    digest alone, never of the world it runs in."""
     base = _persistent_base[0]
     if base:
         enable_persistent_cache(base)
+        if int(world_size) > 1:
+            _world_dir[0] = os.path.join(base, "world_%d" % int(world_size))
 
 
 def enable_persistent_cache(cache_dir):
@@ -208,3 +220,4 @@ def enable_persistent_cache(cache_dir):
     cache_dir = os.path.abspath(cache_dir) if cache_dir else None
     _persistent_base[0] = cache_dir
     _persistent_dir[0] = cache_dir
+    _world_dir[0] = cache_dir

@@ -30,8 +30,9 @@ class Inferencer:
         self.scope = Scope()
         if parallel:
             raise NotImplementedError(
-                "Inferencer(parallel=True): the parallel executor is not "
-                "ported to paddle_tpu_torch yet (ROADMAP Queue A7)")
+                "parallel inference is served by the mesh ParallelExecutor "
+                "(paddle_tpu_torch.parallel); pass the program to it "
+                "directly")
         self.place = _default_place(place)
 
         if not os.path.isdir(param_path):

@@ -45,8 +45,17 @@ the ``CheckpointConfig``'s ``step_interval``, unless the caller set that
 interval (``step_interval_pinned``); each outcome is an
 ``autotune_applied`` event, as in the JAX Trainer.
 
-Not ported, and refused by name: ``parallel=True``, ``mesh`` and
-``cluster_member`` (ROADMAP A7).
+**The mesh.**  ``parallel=True`` or ``mesh=`` trains through a
+``parallel.ParallelExecutor`` over the mesh (default ``make_mesh()``: the
+world's ranks on ``dp``, one rank without ``init_distributed``), on the
+Trainer's place: the card over NCCL, or ``CPUPlace()`` over gloo.  Every
+rank reads the same reader and keeps its rows of each batch.  In a world
+of several processes the preemption signal is a vote
+(``distributed.any_process_flagged``), taken after every step: all ranks
+stop after the same step and flush the same checkpoint, whose state is
+gathered whole and written by rank 0 alone.
+
+Not ported, and refused by name: ``cluster_member`` (ROADMAP A7c).
 """
 
 import contextlib
@@ -130,7 +139,22 @@ class CheckpointConfig:
         self.load_serial = None
 
 
-_REFUSED = (("mesh", "A7"), ("cluster_member", "A7"))
+_REFUSED = (("cluster_member", "A7c"),)
+
+
+class _MeshRun:
+    """A ``ParallelExecutor`` behind the ``Executor`` signature the train
+    loop calls (``run(program, feed=, fetch_list=)``, ``sync``,
+    ``state_dict``)."""
+
+    def __init__(self, pe):
+        self.pe = pe
+
+    def run(self, program=None, feed=None, fetch_list=None, **kwargs):
+        return self.pe.run(fetch_list or [], feed=feed, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.pe, name)
 
 
 class Trainer:
@@ -145,22 +169,21 @@ class Trainer:
                  place=None, parallel=False, checkpoint_config=None,
                  mesh=None, guardian_config=None, autotune=None,
                  cluster_member=None):
-        given = dict(mesh=mesh, cluster_member=cluster_member)
+        given = dict(cluster_member=cluster_member)
         for arg, item in _REFUSED:
             if given[arg] is not None:
                 raise NotImplementedError(
                     "Trainer(%s=...) is not ported to paddle_tpu_torch yet "
                     "(ROADMAP Queue %s)" % (arg, item))
-        if parallel:
-            raise NotImplementedError(
-                "Trainer(parallel=True): the parallel executor is not "
-                "ported to paddle_tpu_torch yet (ROADMAP Queue A7)")
+        self.parallel = bool(parallel) or mesh is not None
+        self._mesh = mesh
         if checkpoint_config is not None and not isinstance(
                 checkpoint_config, CheckpointConfig):
             raise TypeError(
                 "checkpoint_config must be a CheckpointConfig instance")
         self.__stop = False
         self.__preempted = None
+        self._peer_preempted = False
         self.place = _default_place(place)
         self.checkpoint_cfg = checkpoint_config
         self._guardian_config = guardian_config
@@ -310,8 +333,23 @@ class Trainer:
             # a trailing async write lands before train() returns
             self._ckpt_mgr.wait_until_finished()
 
+    def _executor(self):
+        """The train executor: a ``ParallelExecutor`` over the mesh with
+        ``parallel`` (its ``run`` given the ``Executor``'s signature), else
+        an ``Executor`` on the Trainer's place."""
+        if not self.parallel:
+            return Executor(self.place)
+        from ..parallel import ParallelExecutor
+
+        pe = ParallelExecutor(
+            use_cuda=self.place.device.type == "cuda",
+            loss_name=self.train_func_outputs[0].name,
+            main_program=self.train_program,
+            scope=self.scope, mesh=self._mesh)
+        return _MeshRun(pe)
+
     def _train(self, num_epochs, event_handler, reader, feed_order):
-        executor = Executor(self.place)
+        executor = self._executor()
         feeder = self._feeder(feed_order)
         epoch_id = self._apply_resume_state(executor, reader)
         # inside train()'s try: a Guardian that refuses its config must
@@ -330,7 +368,8 @@ class Trainer:
                     epoch_id = self._rollback_recover(rb, executor, reader)
                     if self.__stop or self.__preempted:
                         break
-            if self.__preempted and self._ckpt_mgr is not None \
+            if (self.__preempted or self._peer_preempted) \
+                    and self._ckpt_mgr is not None \
                     and self._global_step > 0:
                 # the step finished: flush a synchronous checkpoint, then
                 # the signal proceeds (a step-0 artifact would restore as
@@ -362,6 +401,8 @@ class Trainer:
                     with RecordEvent("trainer/checkpoint"):
                         self._maybe_save_checkpoint(executor, reader,
                                                     epoch_id)
+                if self.parallel and self._vote():
+                    break
                 if self.__preempted:
                     break
             if g is not None:
@@ -499,6 +540,19 @@ class Trainer:
                     _signal.raise_signal(self.__preempted)
 
         return _ctx()
+
+    def _vote(self):
+        """The preemption vote after a step: True when any rank of the
+        world was signalled (every rank stops after this step)."""
+        from ..parallel import distributed
+
+        if distributed.process_count() <= 1:
+            return False
+        if distributed.any_process_flagged(self.__preempted is not None):
+            self._peer_preempted = True
+            self.__stop = True
+            return True
+        return False
 
     @staticmethod
     def _ckpt_readers(reader):

@@ -32,6 +32,18 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h;
 }
 
+// the dropout hash's row of a launch's (b, h) = (bh / H, bh % H): a shard of
+// a global tensor (its batch rows from b0, its heads from h0 of hg) hashes
+// the global row (b0 + b) * hg + h0 + h, so its mask is the global one's
+// slice; b0 = h0 = 0 and hg = H give bh itself
+struct HashRows {
+  int b0, h0, hg;
+};
+
+__device__ __forceinline__ uint32_t hash_row(const HashRows& r, int bh, int H) {
+  return (uint32_t)((bh / H + r.b0) * r.hg + bh % H + r.h0);
+}
+
 // _keep_mask for one (bh, query, key) position: true = keep
 __device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, int gq, int gk,
                                      uint32_t thresh) {

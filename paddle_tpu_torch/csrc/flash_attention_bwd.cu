@@ -175,7 +175,7 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ dqp,
                  int H, int Tq, int Tk, float scale, int causal,
                  const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
-                 int dropout) {
+                 int dropout, HashRows rows) {
   extern __shared__ float4 smem4[];
   // the forward's dropout seed, read from device memory as #1 reads it
   const uint32_t seed = dropout ? *seed_ptr : 0u;
@@ -261,8 +261,8 @@ flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       stage(sg, sX, mr, nc);
     }
     __syncthreads();
-    p_ds<T>(sP, sS, sL, sDl, q0, k0, kl, Tq, Tk, causal, seed, (uint32_t)bh,
-            thresh, dropout);
+    p_ds<T>(sP, sS, sL, sDl, q0, k0, kl, Tq, Tk, causal, seed,
+            hash_row(rows, bh, H), thresh, dropout);
     __syncthreads();
 
     // dV (team 0) or dK (team 1) of the quadrant, keys mr.., d nc..; and
@@ -331,7 +331,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const int* klen, const void* dout, const float* lse, void* dq,
            void* dk, void* dv, float* dqp, int B, int H, int Tq, int Tk,
            float scale, int causal, const uint32_t* seed, uint32_t thresh,
-           int dropout, cudaStream_t stream) {
+           int dropout, HashRows rows, cudaStream_t stream) {
   auto kern = flash_bwd_kernel<T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
@@ -343,7 +343,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), klen, lse, static_cast<T*>(dq),
       static_cast<T*>(dk), static_cast<T*>(dv), dqp, H, Tq, Tk, scale, causal,
-      seed, thresh, dropout);
+      seed, thresh, dropout, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess || nkt == 1) return (int)err;
   const int64_t pairs = (int64_t)B * H * Tq * (kD / 2);
@@ -358,7 +358,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // one dtype; klen [B] int32 (null: Tk; clamped to Tk here); lse [B,H,Tq]
 // float32; dq like q, dk/dv like k; dq_part a float32 scratch of
 // [B*H, ceil(Tk / 64), Tq, 64] when Tk > 64, else null; seed the forward's
-// uint32 in device memory, read when dropout is on (null otherwise).  Launches the
+// uint32 in device memory, read when dropout is on (null otherwise); (b0, h0,
+// hg) the dropout hash's rows, as the forward took them.  Launches the
 // backward kernel, then (Tk > 64) the fixed-order dQ sum.  Returns the CUDA
 // error of the launches (0 = launched).
 extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void* v,
@@ -368,8 +369,8 @@ extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void*
                                        void* dq_part, int B, int H, int Tq,
                                        int Tk, int Dh, float scale, int causal,
                                        const void* seed, unsigned int thresh,
-                                       int dropout, int dtype, int device,
-                                       void* stream) {
+                                       int dropout, int b0, int h0, int hg,
+                                       int dtype, int device, void* stream) {
   if (Dh != kD) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -379,12 +380,13 @@ extern "C" int ptt_flash_attention_bwd(const void* q, const void* k, const void*
   float* dp = static_cast<float*>(dq_part);
   const uint32_t* sd = static_cast<const uint32_t*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const HashRows rows = {b0, h0, hg};
   if (dtype == ptt::kFloat32)
     return launch<float>(q, k, v, o, kl, dout, ls, dq, dk, dv, dp, B, H, Tq, Tk,
-                         scale, causal, sd, thresh, dropout, st);
+                         scale, causal, sd, thresh, dropout, rows, st);
   if (dtype == ptt::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, o, kl, dout, ls, dq, dk, dv, dp, B, H,
                                  Tq, Tk, scale, causal, sd, thresh, dropout,
-                                 st);
+                                 rows, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -180,7 +180,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ o, float* __restrict__ lse, int H, int Tq,
                  int Tk, float scale, int causal,
                  const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
-                 int dropout, int cluster) {
+                 int dropout, HashRows rows, int cluster) {
   extern __shared__ float4 smem4[];
   float* sQ = reinterpret_cast<float*>(smem4);  // Q (bf16: scale * Q)
   // the dropout seed is device data: a replayed CUDA graph reads this run's
@@ -188,6 +188,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const Slice w = slice_of(klen, H, Tq, Tk, causal, cluster);
   const int rank = w.rank, bh = w.bh, q0 = w.q0, kl = w.kl, ks = w.ks,
             ke = w.ke, nkt = w.nkt;
+  const uint32_t hrow = hash_row(rows, bh, H);
   const int tid = threadIdx.x, warp = tid >> 5;
   const int g = (tid & 31) >> 2, t = tid & 3;
   const size_t qoff = (size_t)bh * Tq * kD, koff = (size_t)bh * Tk * kD;
@@ -254,7 +255,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             float p = ok[j][e] ? expf(s[0][j][2 * h + e] - m_new) : 0.f;
             psum += p;  // the normaliser counts dropped keys too
             if (dropout && ok[j][e] &&
-                !keep(seed, (uint32_t)bh, gq, k0 + 8 * j + 2 * t + e, thresh))
+                !keep(seed, hrow, gq, k0 + 8 * j + 2 * t + e, thresh))
               p = 0.f;
             s[0][j][2 * h + e] = p;
           }
@@ -355,7 +356,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ o, float* __restrict__ lse, int H, int Tk,
                     float scale, int causal,
                     const uint32_t* __restrict__ seed_ptr, uint32_t thresh,
-                    int dropout, int cluster) {
+                    int dropout, HashRows rows, int cluster) {
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);  // [64] scale * q
   const uint32_t seed = dropout ? *seed_ptr : 0u;
@@ -366,6 +367,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const Slice w = slice_of(klen, H, 1, Tk, causal, cluster);
   const int rank = w.rank, bh = w.bh, kl = w.kl, ks = w.ks, ke = w.ke,
             nkt = w.nkt;
+  const uint32_t hrow = hash_row(rows, bh, H);
   const int tid = threadIdx.x, warp = tid >> 5;
   const size_t qoff = (size_t)bh * kD, koff = (size_t)bh * Tk * kD;
   const float qround = sizeof(T) == 4 ? 1.f : round_to<T>(scale);
@@ -417,7 +419,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int off = 2; off < 32; off <<= 1)
       ps += __shfl_xor_sync(0xffffffffu, ps, off);
-    if (dropout && ok && !keep(seed, (uint32_t)bh, 0, gk, thresh)) p = 0.f;
+    if (dropout && ok && !keep(seed, hrow, 0, gk, thresh)) p = 0.f;
     if (half == 0) sP[j] = round_to<T>(p);
     if ((tid & 31) == 0) sRed[4 + warp] = ps;
     __syncthreads();
@@ -460,7 +462,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const int* klen, void* o,
            float* lse, int B, int H, int Tq, int Tk, float scale, int causal,
-           const uint32_t* seed, uint32_t thresh, int dropout,
+           const uint32_t* seed, uint32_t thresh, int dropout, HashRows rows,
            cudaStream_t stream) {
   const int nqt = (Tq + kBT - 1) / kBT;
   const int cluster = cluster_size(B * H * nqt, Tk);
@@ -491,14 +493,15 @@ int launch(const void* q, const void* k, const void* v, const int* klen, void* o
                                (int)smem_bytes(2, true));
     if (err == cudaSuccess)
       err = cudaLaunchKernelEx(&cfg, kern, qt, kt, vt, klen, ot, lse, H, Tk,
-                               scale, causal, seed, thresh, dropout, cluster);
+                               scale, causal, seed, thresh, dropout, rows,
+                               cluster);
   } else {
     auto kern = flash_fwd_kernel<T>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_bytes(2, false));
     if (err == cudaSuccess)
       err = cudaLaunchKernelEx(&cfg, kern, qt, kt, vt, klen, ot, lse, H, Tq,
-                               Tk, scale, causal, seed, thresh, dropout,
+                               Tk, scale, causal, seed, thresh, dropout, rows,
                                cluster);
   }
   if (err != cudaSuccess) return (int)err;
@@ -516,13 +519,16 @@ extern "C" int ptt_flash_attention_fwd_cluster(int B, int H, int Tq, int Tk) {
 // q [B,H,Tq,D=64], k/v [B,H,Tk,D] contiguous and 16-byte aligned, all of one
 // dtype; klen [B] int32 (null: Tk; clamped to Tk here); o like q; lse
 // [B,H,Tq] float32; seed one uint32 in device memory, read when dropout is
-// on (null otherwise).  Returns the CUDA error of the launch (0 = launched).
+// on (null otherwise); (b0, h0, hg) the dropout hash's rows (HashRows: a
+// shard's batch offset, head offset and global head count; 0, 0, H for a
+// whole tensor).  Returns the CUDA error of the launch (0 = launched).
 extern "C" int ptt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        const void* klen, void* o, void* lse, int B,
                                        int H, int Tq, int Tk, int D, float scale,
                                        int causal, const void* seed,
-                                       unsigned int thresh, int dropout, int dtype,
-                                       int device, void* stream) {
+                                       unsigned int thresh, int dropout, int b0,
+                                       int h0, int hg, int dtype, int device,
+                                       void* stream) {
   // head dim 64 only: the Transformer-base decoder's d_model 512 / 8 heads
   if (D != kD) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -532,11 +538,12 @@ extern "C" int ptt_flash_attention_fwd(const void* q, const void* k, const void*
   float* ls = static_cast<float*>(lse);
   const uint32_t* sd = static_cast<const uint32_t*>(seed);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const HashRows rows = {b0, h0, hg};
   if (dtype == ptt::kFloat32)
     return launch<float>(q, k, v, kl, o, ls, B, H, Tq, Tk, scale, causal, sd,
-                         thresh, dropout, st);
+                         thresh, dropout, rows, st);
   if (dtype == ptt::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, kl, o, ls, B, H, Tq, Tk, scale,
-                                 causal, sd, thresh, dropout, st);
+                                 causal, sd, thresh, dropout, rows, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -137,19 +137,15 @@ class DataFeeder:
         the host-to-device copies of batch N+1 while step N runs.
         ``reader`` yields sample rows (a reader creator or an iterable).
         The place is ``place``, else the feeder's, else ``CUDAPlace(0)``.
-        ``shardings`` (mesh placement) waits for ROADMAP Queue A7 and
-        raises."""
+        ``shardings`` (``DevicePrefetcher``'s) lands each feed as the
+        rank's block of it."""
         from .executor import CUDAPlace
         from .reader import DevicePrefetcher
 
-        if shardings is not None:
-            raise NotImplementedError(
-                "DataFeeder.prefetch(shardings=...): mesh placement is not "
-                "ported to paddle_tpu_torch yet (ROADMAP Queue A7)")
         if place is None:
             place = self.place if self.place is not None else CUDAPlace(0)
         return DevicePrefetcher(reader, feeder=self, place=place,
-                                capacity=capacity)
+                                capacity=capacity, shardings=shardings)
 
     def feed_parallel(self, iterable, num_places=None):
         """Split one batch into ``num_places`` feeds, ragged fields padded

@@ -45,7 +45,7 @@ at once for a synchronous run, so the asynchronous path keeps its overlap.
 
 With no guardian installed the executor reads one module global a step.
 Cluster arbitration (the JAX package's ``ClusterGuardian``) waits for
-ROADMAP A7.
+ROADMAP A7c.
 """
 
 import collections

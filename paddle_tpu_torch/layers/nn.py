@@ -74,9 +74,10 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     """Embedding lookup (``lookup_table``).  ``is_sparse`` makes the
     table's gradient a SelectedRows of the looked-up rows
     (``ops/selected_rows.py``), which the optimizers update lazily.
-    ``is_distributed`` is recorded for program parity; on one device the
-    table trains unsharded, as the JAX package's does without a mesh (the
-    sharded tables wait for ROADMAP A7)."""
+    ``is_distributed`` marks the table for row sharding over a mesh
+    (``parallel.distributed_embedding_sharding_fn``, the
+    ``DistributeTranspiler``'s plan); on one device it trains
+    unsharded."""
     helper = LayerHelper("embedding", param_attr=param_attr)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype, is_bias=False)

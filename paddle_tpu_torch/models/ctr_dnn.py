@@ -9,8 +9,8 @@ Two sparse id paths over large vocabularies:
 concatenated into a 2-class click predictor.  Both tables are
 ``is_sparse`` (SelectedRows gradients, lazy updates).  ``is_distributed``
 builds the same program as the JAX package; on one device the tables
-train unsharded, as the JAX package's do without a mesh (the row-sharded
-tables wait for ROADMAP A7).
+train unsharded, and over a mesh ``DistributeTranspiler``'s plan
+row-shards them (``parallel/embedding.py``).
 """
 
 from .. import layers

@@ -110,7 +110,7 @@ def _no_pipeline(pipeline_microbatches):
     if pipeline_microbatches:
         raise NotImplementedError(
             "pipeline_microbatches: pipeline schedules are not ported to "
-            "paddle_tpu_torch yet (ROADMAP Queue A7)")
+            "paddle_tpu_torch yet (ROADMAP Queue A7b)")
 
 
 def wrap_encoder(src_word, src_max_len, vocab_size, n_layer=6, n_head=8,

@@ -35,7 +35,7 @@ its compile cache, a record here reports the executor's graph captures
 and replays and the kernel libraries ``ops/cuda/build.py`` compiled
 (``capture_stats``); device memory comes from ``torch.cuda``.  The fleet
 hooks (``monitor.aggregate``, ``monitor.alerts``, the stall dump's fleet
-view and cluster stamp) wait for the cluster runtime (ROADMAP A7) and
+view and cluster stamp) wait for the cluster runtime (ROADMAP A7c) and
 raise naming it.
 """
 
@@ -753,7 +753,7 @@ def __getattr__(name):
         raise NotImplementedError(
             "monitor.%s (fleet telemetry: digests, straggler verdicts and "
             "alert rules over a cluster) is not ported to paddle_tpu_torch "
-            "yet (ROADMAP Queue A7)" % name)
+            "yet (ROADMAP Queue A7c)" % name)
     raise AttributeError("module %r has no attribute %r" % (__name__, name))
 
 

@@ -30,7 +30,7 @@
 
 ``tools/health_report.py`` renders the JSONL records as a per-layer
 table.  The fleet alert rules over these gauges wait for the cluster
-runtime (ROADMAP A7).
+runtime (ROADMAP A7c).
 """
 
 import collections
@@ -164,13 +164,18 @@ class HealthProbe:
         self.params = [p for lb in labels for p, _ in layers[lb]]
         self.buffer = None
         self.runs = 0     # the entry's probed runs (the cadence's count)
+        # a mesh runtime's program: (its MeshRuntime, {var: 1 / the var's
+        # replicas}), so that the stats cover the global tensors
+        self.mesh = None
 
 
 def build_probe(program, state_names):
     """Plan the probe for an entry reading ``state_names``: which
     ``@GRAD`` vars to keep and which parameters each layer's norms read.
-    None when the program trains nothing."""
-    classes = classify_params(program)
+    None when the program trains nothing.  A program the mesh runtime
+    planned is classified as the program it was planned from, and its
+    stats sum every rank's shards (``probe_stats``)."""
+    classes = classify_params(getattr(program, "_mesh_source", program))
     produced = set()
     for blk in program.blocks:
         for op in blk.ops:
@@ -191,7 +196,11 @@ def build_probe(program, state_names):
     labels = sorted(by_label)
     grad_names = [g for lb in labels for _, g in by_label[lb]
                   if g is not None]
-    return HealthProbe(labels, by_label, grad_names)
+    probe = HealthProbe(labels, by_label, grad_names)
+    rt = getattr(program, "_mesh_runtime", None)
+    if rt is not None and rt.mesh.size > 1:
+        probe.mesh = (rt, getattr(program, "_mesh_weights", {}))
+    return probe
 
 
 def _flat(tensors):
@@ -233,6 +242,8 @@ def probe_stats(probe, env, old):
     host, so a CUDA graph holds it."""
     import torch
 
+    if probe.mesh is not None:
+        return _mesh_stats(probe, env, old)
     rows = []
     zero = None
     for label in probe.labels:
@@ -258,6 +269,51 @@ def probe_stats(probe, env, old):
         rows.append(torch.stack([torch.sqrt(gsq), pn,
                                  torch.sqrt(usq) / (pn + _EPS), nf]))
     stats = torch.stack(rows)
+    if probe.buffer is not None:
+        probe.buffer.copy_(stats)
+        return probe.buffer
+    return stats
+
+
+def _mesh_stats(probe, env, old):
+    """``probe_stats`` over a mesh: each rank's sums of squares and
+    non-finite counts, a var's weighted by 1 / its replicas (a shard
+    counts whole, a replicated var once over the world), summed over the
+    world, then the norms: every rank gets the global tensors' stats."""
+    import torch
+
+    rt, weights = probe.mesh
+    sums = []
+    for label in probe.labels:
+        members = probe.layers[label]
+        row = [torch.zeros((), dtype=torch.float32, device=rt.device)
+               for _ in range(4)]
+        for p, g in members:
+            if g is not None and g in env:
+                gv = _flat([env[g]])
+                w = float(weights.get(g, 1.0))
+                row[0] = row[0] + w * torch.sum(gv * gv)
+                row[3] = row[3] + w * torch.sum(
+                    (~torch.isfinite(gv)).to(torch.float32))
+            if p in env:
+                pv = _flat([env[p]])
+                row[1] = row[1] + float(weights.get(p, 1.0)) \
+                    * torch.sum(pv * pv)
+        if label in old:
+            names, before = old[label]
+            at = 0
+            for p in names:
+                now = _flat([env[p]])
+                dv = now - before[at:at + now.numel()]
+                at += now.numel()
+                row[2] = row[2] + float(weights.get(p, 1.0)) \
+                    * torch.sum(dv * dv)
+        sums.append(torch.stack(row))
+    sums = rt.all_reduce(torch.stack(sums), rt.mesh.axis_names)
+    pn = torch.sqrt(sums[:, 1])
+    stats = torch.stack([torch.sqrt(sums[:, 0]), pn,
+                         torch.sqrt(sums[:, 2]) / (pn + _EPS),
+                         torch.round(sums[:, 3])], dim=1)
     if probe.buffer is not None:
         probe.buffer.copy_(stats)
         return probe.buffer

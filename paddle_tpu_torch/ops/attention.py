@@ -27,7 +27,12 @@ suffix alignment: kernel #1 on the card (its one-row kernel at decode,
 its tile kernel for the speculative verify's k-row queries).  The gather
 is plain PyTorch, as the JAX package's is XLA outside its Pallas
 kernel.  Its ruling is read at the gathered shape (Tk = the pages' tokens a
-slot), as the JAX package reads it."""
+slot), as the JAX package reads it.
+
+Under the mesh runtime a shard's (b, h) hash as the global tensor's rows
+(``_hash_rows``: the shard's batch and head offsets and the global head
+count, which kernels #1 and #2 and their plain versions take), so a
+sharded run drops the single-device run's weights."""
 
 import torch
 
@@ -68,6 +73,22 @@ def _fused_attention_infer(op, block):
     set_output(op, block, "Out", q.shape, q.dtype)
 
 
+def _hash_rows(q, attrs, ctx):
+    """The dropout hash's (batch offset, head offset, global heads) of a
+    shard the mesh runtime runs (``__shard_dims__`` on dims 0 and 1, set by
+    ``ParallelExecutor``'s plan), so the shard draws its block of the
+    global mask; None for the whole tensor."""
+    rt = getattr(ctx, "mesh", None)
+    dims = dict((int(d), tuple(axes)) for d, axes in
+                attrs.get("__shard_dims__") or ())
+    if rt is None or not dims:
+        return None
+    b, h = q.shape[0], q.shape[1]
+    ax_b, ax_h = dims.get(0, ()), dims.get(1, ())
+    return (rt.index(ax_b) * b if ax_b else 0,
+            rt.index(ax_h) * h if ax_h else 0, h * rt.extent(ax_h))
+
+
 def _fused_attention_compute(ins, attrs, ctx, op_index):
     q, k, v = (t.contiguous() for t in (ins["Q"][0], ins["K"][0],
                                         ins["V"][0]))
@@ -87,7 +108,8 @@ def _fused_attention_compute(ins, attrs, ctx, op_index):
     else:
         out = fa.flash_attention(q, k, v, k_len, seed,
                                  attrs.get("causal", False), rate,
-                                 attrs.get("scale", None))
+                                 attrs.get("scale", None),
+                                 _hash_rows(q, attrs, ctx) if rate else None)
     if post is not None:
         out = out * torch.tensor(post, dtype=out.dtype)
     return {"Out": out}

@@ -22,6 +22,12 @@ int32 tensor holding the uint32 (``seed_tensor``; the executor derives one
 per op and run with ``hash32.op_seeds``), which the kernels read from
 device memory, so a replayed CUDA graph draws the run's own mask.  Fully
 masked rows come back as zeros.
+
+``rows`` = (b0, h0, hg) says which rows of a larger tensor the call's
+tensors are (a shard of the mesh runtime, ``parallel``): their batch rows
+start at b0 and their heads at h0 of hg, and (b, h) hashes as the global
+row (b0 + b) * hg + h0 + h, so each shard draws its slice of the global
+mask.  None (b0 = h0 = 0, hg = H) is the whole tensor.
 """
 
 import ctypes
@@ -73,9 +79,22 @@ def _causal_valid(gq, gk, klen, tq, tk):
 # plain version
 # ---------------------------------------------------------------------------
 
-def _masks(q, k, k_len, seed, causal, dropout_rate):
+def hash_rows(rows, h):
+    """``rows`` as (b0, h0, hg): the whole tensor's (0, 0, ``h``) for
+    None."""
+    if rows is None:
+        return 0, 0, int(h)
+    b0, h0, hg = (int(r) for r in rows)
+    if b0 < 0 or h0 < 0 or h0 + h > hg:
+        raise ValueError("dropout hash rows %r do not hold %d heads"
+                         % (tuple(rows), h))
+    return b0, h0, hg
+
+
+def _masks(q, k, k_len, seed, causal, dropout_rate, rows=None):
     """(valid [B,1|H,Tq,Tk], keep or None): the key-length and causal
-    masks, and the dropout keep-mask of every (b*h, query, key)."""
+    masks, and the dropout keep-mask of every (b*h, query, key), hashed
+    at the global rows ``rows`` say."""
     b, h, tq, _ = q.shape
     tk = k.shape[2]
     dev = q.device
@@ -89,7 +108,9 @@ def _masks(q, k, k_len, seed, causal, dropout_rate):
         valid = valid & _causal_valid(gq, gk, klen, tq, tk)
     keep = None
     if dropout_rate:
-        bh = torch.arange(b * h, device=dev).reshape(b, h, 1, 1)
+        b0, h0, hg = hash_rows(rows, h)
+        bh = ((torch.arange(b, device=dev) + b0)[:, None] * hg
+              + torch.arange(h, device=dev) + h0).reshape(b, h, 1, 1)
         keep = keep_mask(0 if seed is None else seed, bh, gq, gk,
                          dropout_rate)
     return valid, keep
@@ -104,14 +125,14 @@ def _scaled_q(q, scale):
 
 
 def reference_attention_lse(q, k, v, k_len=None, seed=None, causal=False,
-                            dropout_rate=0.0, scale=None):
+                            dropout_rate=0.0, scale=None, rows=None):
     """Attention over q [B,H,Tq,D], k/v [B,H,Tk,D] with the kernel's masks
     and dropout; materializes the [B,H,Tq,Tk] scores.  Products take
     operands in the input dtype and sum in float32.  Returns (O in q's
     dtype, LSE [B,H,Tq] float32 with +1e30 on fully masked rows)."""
     qs, _ = _scaled_q(q, scale)
     s = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
-    valid, keep = _masks(q, k, k_len, seed, causal, dropout_rate)
+    valid, keep = _masks(q, k, k_len, seed, causal, dropout_rate, rows)
     s = torch.where(valid, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
@@ -126,10 +147,10 @@ def reference_attention_lse(q, k, v, k_len=None, seed=None, causal=False,
 
 
 def reference_attention(q, k, v, k_len=None, seed=None, causal=False,
-                        dropout_rate=0.0, scale=None):
+                        dropout_rate=0.0, scale=None, rows=None):
     """``reference_attention_lse`` without the LSE: O in q's dtype."""
     return reference_attention_lse(q, k, v, k_len, seed, causal,
-                                   dropout_rate, scale)[0]
+                                   dropout_rate, scale, rows)[0]
 
 
 def library_attention(q, k, v, k_len=None, causal=False, scale=None):
@@ -149,7 +170,7 @@ def library_attention(q, k, v, k_len=None, causal=False, scale=None):
 
 
 def attention_bwd_reference(q, k, v, k_len, seed, causal, dropout_rate,
-                            scale, out, lse, dout):
+                            scale, out, lse, dout, rows=None):
     """dQ, dK, dV of ``reference_attention`` from its saved O and LSE, by
     the explicit formulas of the JAX kernels: P = exp(S - LSE) under the
     masks (zero on fully masked rows, whose LSE is +1e30), G = dO V^T with
@@ -159,7 +180,7 @@ def attention_bwd_reference(q, k, v, k_len, seed, causal, dropout_rate,
     returns each gradient in its input's dtype."""
     dt = q.dtype
     qs, scale = _scaled_q(q, scale)
-    valid, keep = _masks(q, k, k_len, seed, causal, dropout_rate)
+    valid, keep = _masks(q, k, k_len, seed, causal, dropout_rate, rows)
     s = torch.einsum("bhqd,bhkd->bhqk", qs, k.float())
     s = torch.where(valid, s, _NEG_INF)
     p = torch.where(valid, torch.exp(s - lse.float()[..., None]), 0.0)
@@ -186,7 +207,7 @@ def _lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i,
-                       p, ctypes.c_uint, i, i, i, p]
+                       p, ctypes.c_uint, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -235,7 +256,7 @@ def _seed_ptr(seed, q, dropout_rate, who):
 
 
 def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
-                        dropout_rate=0.0, scale=None):
+                        dropout_rate=0.0, scale=None, rows=None):
     """Launch kernel #1 on CUDA tensors; returns (O [B,H,Tq,D] in q's
     dtype, LSE [B,H,Tq] float32).  One device kernel a call (a decode
     shape's key split included).  Raises on what the kernel does not
@@ -248,6 +269,7 @@ def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
                                        tuple(v.shape)))
     b, h, tq, d = q.shape
     tk = k.shape[2]
+    b0, h0, hg = hash_rows(rows, h)
     if tuple(k.shape) != (b, h, tk, d) or tuple(v.shape) != (b, h, tk, d):
         raise ValueError("flash_attention_fwd: k/v must be [%d,%d,Tk,%d], "
                          "got %s/%s" % (b, h, d, tuple(k.shape),
@@ -293,7 +315,7 @@ def flash_attention_fwd(q, k, v, k_len=None, seed=None, causal=False,
              None if klen is None else klen.data_ptr(),
              out.data_ptr(), lse.data_ptr(), b, h, tq, tk, d, scale,
              int(bool(causal)), seed_ptr,
-             thresh, int(bool(dropout_rate)), _DTYPE_CODE[q.dtype],
+             thresh, int(bool(dropout_rate)), b0, h0, hg, _DTYPE_CODE[q.dtype],
              q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_fwd q%s k%s" % (tuple(q.shape),
                                                       tuple(k.shape)))
@@ -309,7 +331,7 @@ def _bwd_lib():
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 11 + [i, i, i, i, i, ctypes.c_float, i,
-                                  p, ctypes.c_uint, i, i, i, p]
+                                  p, ctypes.c_uint, i, i, i, i, i, i, p]
         fn.restype = i
     return fn
 
@@ -329,7 +351,7 @@ def _dq_partials(b, h, tq, tk):
 
 
 def flash_attention_bwd(q, k, v, k_len, seed, causal, dropout_rate, scale,
-                        out, lse, dout):
+                        out, lse, dout, rows=None):
     """Launch kernel #2 on CUDA tensors: (dQ, dK, dV) of
     ``flash_attention_fwd`` from its O and LSE and the cotangent dO
     [B,H,Tq,D].  The kernel computes delta = rowsum(dO * O) and clamps
@@ -341,6 +363,7 @@ def flash_attention_bwd(q, k, v, k_len, seed, causal, dropout_rate, scale,
                          % (tuple(q.shape),))
     b, h, tq, d = q.shape
     tk = k.shape[2] if k.dim() == 4 else -1
+    b0, h0, hg = hash_rows(rows, h)
     for name, t, shape in (("out", out, q.shape), ("dout", dout, q.shape),
                            ("lse", lse, (b, h, tq)),
                            ("k", k, (b, h, tk, d)), ("v", v, (b, h, tk, d))):
@@ -393,7 +416,7 @@ def flash_attention_bwd(q, k, v, k_len, seed, causal, dropout_rate, scale,
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         None if part is None else part.data_ptr(), b, h, tq, tk, d, scale,
         int(bool(causal)), seed_ptr,
-        thresh, int(bool(dropout_rate)), _DTYPE_CODE[q.dtype],
+        thresh, int(bool(dropout_rate)), b0, h0, hg, _DTYPE_CODE[q.dtype],
         q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd q%s k%s" % (tuple(q.shape),
                                                       tuple(k.shape)))
@@ -404,12 +427,12 @@ def flash_attention_bwd(q, k, v, k_len, seed, causal, dropout_rate, scale,
 flash_attention_bwd.launches = 0
 
 
-def _forward(q, k, v, k_len, seed, causal, dropout_rate, scale):
+def _forward(q, k, v, k_len, seed, causal, dropout_rate, scale, rows):
     if q.device.type == "cpu":
         return reference_attention_lse(q, k, v, k_len, seed, causal,
-                                       dropout_rate, scale)
+                                       dropout_rate, scale, rows)
     return flash_attention_fwd(q, k, v, k_len, seed, causal, dropout_rate,
-                               scale)
+                               scale, rows)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -417,28 +440,28 @@ class _FlashAttention(torch.autograd.Function):
     tensors); the JAX package's ``custom_vjp`` pair."""
 
     @staticmethod
-    def forward(ctx, q, k, v, k_len, seed, causal, dropout_rate, scale):
+    def forward(ctx, q, k, v, k_len, seed, causal, dropout_rate, scale, rows):
         out, lse = _forward(q, k, v, k_len, seed, causal, dropout_rate,
-                            scale)
+                            scale, rows)
         ctx.save_for_backward(q, k, v, k_len, out, lse)
-        ctx.attrs = (seed, causal, dropout_rate, scale)
+        ctx.attrs = (seed, causal, dropout_rate, scale, rows)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, k_len, out, lse = ctx.saved_tensors
-        seed, causal, rate, scale = ctx.attrs
+        seed, causal, rate, scale, rows = ctx.attrs
         args = (q, k, v, k_len, seed, causal, rate, scale, out, lse,
-                dout.contiguous())
+                dout.contiguous(), rows)
         if q.device.type == "cpu":
             dq, dk, dv = attention_bwd_reference(*args)
         else:
             dq, dk, dv = flash_attention_bwd(*args)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, k_len=None, seed=None, causal=False,
-                    dropout_rate=0.0, scale=None):
+                    dropout_rate=0.0, scale=None, rows=None):
     """The op's entry, differentiable: kernels #1/#2 for CUDA tensors, the
     plain versions for CPU tensors.  Returns O in q's dtype.  Without a
     gradient to record (serving) it skips the autograd Function, whose
@@ -446,5 +469,6 @@ def flash_attention(q, k, v, k_len=None, seed=None, causal=False,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v, k_len, seed, causal,
-                                     dropout_rate, scale)
-    return _forward(q, k, v, k_len, seed, causal, dropout_rate, scale)[0]
+                                     dropout_rate, scale, rows)
+    return _forward(q, k, v, k_len, seed, causal, dropout_rate, scale,
+                    rows)[0]

@@ -27,7 +27,11 @@ memory (the kernels) make it so.  ``lookup_table``'s dense table gradient
 sums the rows of repeated ids in a fixed order (``_Gather``), so that two
 runs of a step give the same bits, as XLA's scatter-add does on the TPU;
 with ``is_sparse`` its gradient is a SelectedRows
-(``selected_rows.lookup_table_grad_maker``)."""
+(``selected_rows.lookup_table_grad_maker``).  A table the mesh runtime
+row-shards (``parallel.embedding``; the op's ``__table_axes__`` attr,
+set by ``ParallelExecutor``'s plan) is looked up in the rank's rows and
+the activations summed over the table axes
+(``embedding.sharded_sparse_lookup``)."""
 
 import math
 
@@ -58,6 +62,11 @@ class _Gather(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         dw = grad.new_zeros((ctx.rows,) + tuple(grad.shape[1:]))
         return dw.index_put_((ids,), grad, accumulate=True), None
+
+
+def gather_rows(w, ids):
+    """``w[ids]`` with ``_Gather``'s fixed-order gradient."""
+    return _Gather.apply(w, ids)
 
 
 def _resolve_reshape(in_shape, spec):
@@ -123,7 +132,13 @@ def _lookup_table_compute(ins, attrs, ctx, op_index):
     w, ids = ins["W"][0], ins["Ids"][0]
     squeeze = ids.dim() > 0 and ids.shape[-1] == 1
     flat = ids.reshape(-1)
-    out = _Gather.apply(w, flat)
+    out = None
+    if ctx.mesh is not None:
+        from ..parallel import embedding
+
+        out = embedding.sharded_sparse_lookup(ctx, w, flat, attrs)
+    if out is None:
+        out = _Gather.apply(w, flat)
     pad = attrs.get("padding_idx", -1)
     if pad is not None and pad != -1:
         out = out * (flat != pad)[:, None].to(out.dtype)

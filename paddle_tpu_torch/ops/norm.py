@@ -18,7 +18,10 @@ with the fused conv+BN ops) or, under ``FLAGS_bn_two_pass``, in the exact
 two-pass form.  MeanOut/VarianceOut are new tensors, never the running
 stats updated in place: a fused conv's grad op reads back the running
 mean its forward saw.  The gradient is the hand-written three-term
-``batch_norm_grad`` from the saved batch statistics.
+``batch_norm_grad`` from the saved batch statistics.  Under the mesh
+runtime (``__sync_axes__``, set by ``ParallelExecutor``'s plan on a
+batch split over data axes) both sum over the global batch: sync batch
+norm, whose statistics are the single-device run's.
 
 ``lrn``: the cross-channel local response norm of NCHW ``x``,
 ``x * (k + alpha * S)^-beta`` where S sums ``x^2`` over a window of ``n``
@@ -113,6 +116,37 @@ def bn_axes(x, layout):
     return tuple(i for i in range(x.dim()) if i != c_axis), bshape
 
 
+def _sync(ctx, attrs):
+    """(mesh runtime, axes) when the mesh runtime's plan syncs this batch
+    norm's statistics over its data axes (``__sync_axes__``), else
+    (None, ())."""
+    axes = tuple(attrs.get("__sync_axes__") or ())
+    rt = getattr(ctx, "mesh", None)
+    if rt is None or rt.extent(axes) <= 1:
+        return None, ()
+    return rt, axes
+
+
+def _synced_stats(xf, shift, red, bshape, rt, axes, two_pass):
+    """``shifted_one_pass_stats`` (or the two-pass form) over the global
+    batch: the per-channel sums of every rank added up, divided by the
+    global count (sync batch norm, the statistics GSPMD gives the JAX
+    package's sharded step)."""
+    n = rt.extent(axes)
+    for i in red:
+        n *= xf.shape[i]
+    if two_pass:
+        mean = rt.all_reduce(xf.sum(dim=red), axes) / n
+        d = xf - mean.view(bshape)
+        return mean, rt.all_reduce((d * d).sum(dim=red), axes) / n
+    s32 = shift.float() if shift is not None else 0.0
+    xs = xf - s32.view(bshape) if shift is not None else xf
+    sums = rt.all_reduce(torch.stack([xs.sum(dim=red),
+                                      (xs * xs).sum(dim=red)]), axes) / n
+    m1 = sums[0]
+    return m1 + s32, torch.clamp(sums[1] - m1 * m1, min=0.0)
+
+
 def _is_test(attrs):
     return attrs.get("is_test", False) or attrs.get("use_global_stats", False)
 
@@ -129,7 +163,11 @@ def _bn_compute(ins, attrs, ctx, op_index):
         use_mean, use_var = mean, var
         mean_out, var_out = mean, var
     else:
-        if flag("bn_two_pass"):
+        rt, axes = _sync(ctx, attrs)
+        if rt is not None:
+            use_mean, use_var = _synced_stats(xf, mean, red, bshape, rt,
+                                              axes, flag("bn_two_pass"))
+        elif flag("bn_two_pass"):
             use_mean = xf.mean(dim=red)
             d = xf - use_mean.view(bshape)
             use_var = (d * d).mean(dim=red)
@@ -182,7 +220,8 @@ def _bn_grad_compute(ins, attrs, ctx, op_index):
     dy = ins["GRAD::Y"][0]
     eps = attrs.get("epsilon", 1e-5)
     red, bshape = bn_axes(x, attrs.get("data_layout", "NCHW"))
-    n = 1
+    rt, axes = (None, ()) if _is_test(attrs) else _sync(ctx, attrs)
+    n = rt.extent(axes) if rt is not None else 1
     for i in red:
         n *= x.shape[i]
     xf, dyf = x.float(), dy.float()
@@ -190,6 +229,11 @@ def _bn_grad_compute(ins, attrs, ctx, op_index):
     xhat = (xf - mean.float().view(bshape)) * rstd
     dbeta = dyf.sum(dim=red)
     dgamma = (dyf * xhat).sum(dim=red)
+    if rt is not None:
+        # the global batch's sums: dgamma and dbeta come out whole on
+        # every rank, and dx takes the global means
+        both = rt.all_reduce(torch.stack([dbeta, dgamma]), axes)
+        dbeta, dgamma = both[0], both[1]
     g = scale.float().view(bshape) * rstd
     if _is_test(attrs):
         dx = g * dyf

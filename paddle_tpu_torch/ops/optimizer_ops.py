@@ -18,8 +18,11 @@ and Adagrad merge duplicates first, update the touched rows gathered from
 the tables and write them back.  The JAX package writes them back as
 ``p + (p_new - p)``; the port writes ``p_new`` itself, so a touched row is
 exactly what the dense update computes from the same merged gradient.  A
-table sharded over a mesh (the JAX package's ``_maybe_sharded_rows``)
-waits for ROADMAP A7; on one device both packages take this route.
+table the mesh runtime row-shards (the JAX package's
+``_maybe_sharded_rows``; the op's ``__table_axes__`` attr, set by
+``ParallelExecutor``'s plan) takes its gradient through
+``parallel.embedding.sharded_sparse_update`` first: the rows of every
+rank's batch, made local, so each rank updates only its own rows.
 
 The moments round as the JAX package's compiled step does on the CPU:
 XLA contracts ``b1 * m + (1 - b1) * g`` into one fused multiply-add,
@@ -126,6 +129,7 @@ def _over_sqrt(x, y):
 def _sgd_compute(ins, attrs, ctx, op_index):
     p, g, lr = ins["Param"][0], ins["Grad"][0], ins["LearningRate"][0]
     lr = lr.to(p.dtype)
+    g = _sharded_rows(ctx, attrs, g)
     if isinstance(g, SelectedRows):
         scatter_add_rows(p, g.rows, -lr * g.values.to(p.dtype))
     else:
@@ -143,6 +147,7 @@ def _momentum_compute(ins, attrs, ctx, op_index):
     lr = ins["LearningRate"][0].to(p.dtype)
     mu = attrs["mu"]
     nesterov = attrs.get("use_nesterov", False)
+    g = _sharded_rows(ctx, attrs, g)
     if isinstance(g, SelectedRows):
         uniq, gm, valid, p_r, v_r = _touched(g, p, v)
         v_new = mu * v_r + gm
@@ -178,6 +183,7 @@ def _adam_compute(ins, attrs, ctx, op_index):
     b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
     eps = attrs.get("epsilon", 1e-8)
     lr_t = lr * _sqrt(1 - b2p) / (1 - b1p)
+    g = _sharded_rows(ctx, attrs, g)
     if isinstance(g, SelectedRows):
         uniq, gm, valid, p_r, m1_r, m2_r = _touched(g, p, m1, m2)
         m1_new = _fma(b1, m1_r, (1 - b1) * gm)
@@ -208,6 +214,7 @@ def _adagrad_compute(ins, attrs, ctx, op_index):
     p, g, mom = ins["Param"][0], ins["Grad"][0], ins["Moment"][0]
     lr = ins["LearningRate"][0].to(p.dtype)
     eps = attrs.get("epsilon", 1e-6)
+    g = _sharded_rows(ctx, attrs, g)
     if isinstance(g, SelectedRows):
         uniq, gm, valid, p_r, mom_r = _touched(g, p, mom)
         mom_new = mom_r + gm * gm
@@ -228,6 +235,17 @@ register_op(
     ["ParamOut", "MomentOut"],
     infer=_mirror_infer(("Param", "ParamOut"), ("Moment", "MomentOut")),
     compute=_adagrad_compute, grad=None)
+
+
+def _sharded_rows(ctx, attrs, g):
+    """A row-sharded table's SelectedRows gradient made local
+    (``parallel.embedding.sharded_sparse_update``); ``g`` otherwise."""
+    if isinstance(g, SelectedRows) and ctx.mesh is not None \
+            and attrs.get("__table_axes__"):
+        from ..parallel import embedding
+
+        return embedding.sharded_sparse_update(ctx, attrs, g)
+    return g
 
 
 def _dense_grad(op_type, g):

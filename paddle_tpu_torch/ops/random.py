@@ -12,6 +12,9 @@ probability 1 - p), not on which elements.  The grad reads the saved
 Semantics as the reference's ``dropout_implementation``:
 ``downgrade_in_infer`` masks without upscaling in training and scales by
 (1 - p) at test time; ``upscale_in_train`` divides kept values by 1 - p.
+Under the mesh runtime a rank draws the global mask and keeps its block
+(``_global_rand``), so a sharded run drops what the single-device run
+drops.
 
 ``sampling_id`` draws one id a row of the probabilities X [batch, n] by
 the Gumbel-max rule ``jax.random.categorical`` uses (argmax of log p plus
@@ -34,6 +37,27 @@ def _dropout_infer(op, block):
     set_output(op, block, "Mask", x.shape, x.dtype)
 
 
+def _global_rand(x, attrs, ctx):
+    """Uniform draws for ``x``.  Where the mesh runtime splits ``x``'s dims
+    (``__shard_dims__``: [dim, axes] pairs set by ``ParallelExecutor``'s
+    plan), every rank draws the global tensor from its generator, which
+    every rank holds in the same state, and keeps its own block: the mask
+    of the single-device run, sliced."""
+    rt = getattr(ctx, "mesh", None)
+    dims = [(int(d), tuple(axes)) for d, axes in
+            attrs.get("__shard_dims__") or ()
+            if rt is not None and rt.extent(tuple(axes)) > 1]
+    if not dims:
+        return torch.rand(x.shape, generator=ctx.generator, device=x.device)
+    shape = list(x.shape)
+    for d, axes in dims:
+        shape[d] *= rt.extent(axes)
+    u = torch.rand(shape, generator=ctx.generator, device=x.device)
+    for d, axes in dims:
+        u = u.narrow(d, rt.index(axes) * x.shape[d], x.shape[d])
+    return u
+
+
 def _dropout_compute(ins, attrs, ctx, op_index):
     x = ins["X"][0]
     p = attrs.get("dropout_prob", 0.5)
@@ -41,8 +65,7 @@ def _dropout_compute(ins, attrs, ctx, op_index):
     if attrs.get("is_test", False):
         scale = 1.0 if impl == "upscale_in_train" else 1.0 - p
         return {"Out": x * scale, "Mask": torch.ones_like(x)}
-    u = torch.rand(x.shape, generator=ctx.generator,
-                   device=x.device)
+    u = _global_rand(x, attrs, ctx)
     mask = (u >= p).to(x.dtype)
     if impl == "upscale_in_train":
         mask = mask / max(1.0 - p, 1e-8)

@@ -152,12 +152,16 @@ def scatter_update_rows(table, uniq, valid, new_rows):
     """``table[uniq] = new_rows`` for the valid slots, in place.  The valid
     slots are ``merge_rows``' first ones; each sentinel slot repeats the
     last valid slot (its row and its new value), so every index is in
-    range and no row gets two different values.  A SelectedRows of a
-    lookup always holds a valid row."""
+    range and no row gets two different values.  With no valid slot (a
+    row shard none of whose rows the step touched) every slot writes the
+    table's last row back unchanged."""
     last = valid.sum() - 1
     src = torch.minimum(torch.arange(uniq.shape[0], device=uniq.device),
-                        last)
-    table.index_put_((uniq[src],), new_rows[src])
+                        last.clamp(min=0))
+    rows = uniq[src].clamp(max=table.shape[0] - 1)
+    table.index_put_((rows,), torch.where(
+        mask_to(valid.any().expand(rows.shape), new_rows), new_rows[src],
+        table[rows]))
     return table
 
 

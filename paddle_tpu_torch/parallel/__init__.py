@@ -1,8 +1,30 @@
-"""The multi-device runtime (counterpart of ``paddle_tpu/parallel``).
+"""The mesh runtime (counterpart of ``paddle_tpu/parallel``): the
+reference's multi-device stack (ParallelExecutor, the NCCL op handles,
+DistributeTranspiler) on ``torch.distributed``, one process a device.
 
-Only the single-process half is ported: ``checkpoint``'s TrainState
-checkpoints.  The mesh, the parallel executor, the collectives and the
-sharded checkpoints wait for ROADMAP A7 (``torch.distributed``).
+* ``mesh``: the named mesh (``make_mesh``, ``PartitionSpec``), a plain
+  description a process reads without a world, whose process groups are
+  made once a world exists;
+* ``distributed``: ``init_distributed`` (NCCL on the card, gloo on the CPU
+  when asked), the world's rank and size, ``barrier`` and the preemption
+  vote ``any_process_flagged``;
+* ``strategy``, ``spec_layout``: where each var lives (the JAX package's
+  ``BuildStrategy`` and ``SpecLayout``, copied);
+* ``plan``, ``collective``: the rank's copy of a program with its
+  collectives, and the collective ops;
+* ``parallel_executor``: ``ParallelExecutor``, which runs the plan;
+* ``embedding``: row-sharded embedding tables;
+* ``checkpoint``: TrainState checkpoints (a ``ParallelExecutor``'s state
+  gathered to one writer).
+
+Sequence and pipeline parallelism (``ring_attention``, ``pipeline``) are
+ROADMAP A7b; the sharded checkpoints and the cluster runtime ROADMAP A7c.
 """
 
 from . import checkpoint  # noqa: F401
+from . import distributed  # noqa: F401
+from .embedding import distributed_embedding_sharding_fn  # noqa: F401
+from .mesh import Mesh, PartitionSpec, make_mesh  # noqa: F401
+from .parallel_executor import ParallelExecutor  # noqa: F401
+from .spec_layout import SpecLayout  # noqa: F401
+from .strategy import BuildStrategy, ExecutionStrategy  # noqa: F401

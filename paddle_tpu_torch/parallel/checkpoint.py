@@ -40,7 +40,14 @@ previous artifact, with a full base every ``incremental_full_every``
 artifacts; ``load`` replays the chain and rotation keeps every artifact a
 kept delta needs.
 
-Not ported yet, and refused naming ROADMAP A7 (they need a process group):
+**Across a mesh.**  ``capture_train_state`` with a ``ParallelExecutor``
+among its ``executors`` gathers every var it holds split whole (a
+collective: every rank captures), and the manager writes on rank 0
+alone; ``apply_train_state(shardings=pe.state_shardings())`` puts each
+rank's shard of a whole artifact in the scope (without ``shardings`` the
+executor cuts whole values at its next run).
+
+Not ported yet, and refused naming ROADMAP A7c (the sharded writers):
 the orbax half (``save_sharded``, ``load_sharded``,
 ``ShardedCheckpointManager``), the multi-writer sharded protocol
 (``partition_shards``, ``write_train_state_shards``,
@@ -88,7 +95,7 @@ _DELTA_VALUES_SUFFIX = "@DELTA_VALUES"
 def _needs_a7(what):
     raise NotImplementedError(
         "%s is not ported to paddle_tpu_torch yet: it needs a process "
-        "group (ROADMAP A7); use the TrainState checkpoints "
+        "group's writers (ROADMAP A7c); use the TrainState checkpoints "
         "(TrainStateCheckpointManager)" % what)
 
 
@@ -286,6 +293,10 @@ def capture_train_state(step, scope=None, program=None, executors=None,
         scope = scope or global_scope()
         state = _persistable_state(scope, program)
         _require_state(state, "snapshot")
+        for e in _named(executors, "executor").values():
+            gather = getattr(e, "gathered_state", None)
+            if gather is not None:
+                state = gather(state, program)
         host = {
             "format": TRAIN_STATE_FORMAT,
             "step": int(step),
@@ -307,9 +318,11 @@ def apply_train_state(ts, scope=None, program=None, executors=None,
     entry copies it into its graph's buffers at its next replay, and keeps
     its graph); executor states into the executors, positions into the
     readers.  ``strict`` requires every persistable var of the current
-    program in the artifact, at its shape.  Returns the step."""
-    if shardings is not None:
-        _needs_a7("apply_train_state(shardings=...)")
+    program in the artifact, at its shape (or, with ``shardings``, the
+    scope's value at its shard's).  ``shardings`` ({name: ``Sharding``},
+    ``ParallelExecutor.state_shardings()``) puts the rank's shard of each
+    array in the scope.  Returns the step."""
+    shardings = shardings or {}
     scope = scope or global_scope()
     current = _persistable_state(scope, program)
     _require_state(current, "restore into")
@@ -324,7 +337,10 @@ def apply_train_state(ts, scope=None, program=None, executors=None,
             if name not in ts.arrays:
                 continue
             want = ts.arrays[name]
-            if tuple(np.shape(got)) != tuple(want.shape):
+            shapes = {tuple(want.shape)}
+            if name in shardings:
+                shapes.add(shardings[name].local_shape(tuple(want.shape)))
+            if tuple(np.shape(got)) not in shapes:
                 raise CheckpointMismatchError(
                     "checkpoint (step %d) var %r has shape %s but the "
                     "current model declares %s — not the same model"
@@ -343,6 +359,8 @@ def apply_train_state(ts, scope=None, program=None, executors=None,
         if name not in ts.arrays:
             continue
         val = _as_tensor(ts.arrays[name])
+        if name in shardings:
+            val = shardings[name].shard(val)
         if isinstance(cur, torch.Tensor):
             val = val.to(device=cur.device, dtype=cur.dtype, copy=True)
         scope.set_var(name, val)
@@ -526,7 +544,7 @@ class TrainStateCheckpointManager:
     (``True``/``'auto'``: every ``is_sparse`` table and its row slots, or
     a list of var names) writes those vars as row deltas against the
     previous artifact, a full base every ``incremental_full_every``
-    artifacts.  ``sharded=True`` waits for ROADMAP A7."""
+    artifacts.  ``sharded=True`` waits for ROADMAP A7c."""
 
     def __init__(self, dirname, max_to_keep=3, save_interval_steps=1,
                  async_save=True, sharded=None, incremental=None,
@@ -758,6 +776,10 @@ class TrainStateCheckpointManager:
                 self._error = e
 
     def _write(self, ts):
+        from . import distributed
+
+        if distributed.process_id() != 0:
+            return           # one writer: rank 0 (the state is gathered)
         t0 = time.perf_counter()
         # the diff runs here, in the writer, with the rest of the
         # serialization

@@ -21,7 +21,10 @@ The prefetcher is tracked by the monitor (its queue's occupancy reaches
 every step record and the watchdog's stall dump), its producer
 heartbeats once a batch while the monitor is on, and its staging is the
 ``prefetch/h2d_transfer`` span (overlapped work in the goodput ledger).
-Not ported: ``shardings`` (ROADMAP A7).
+``shardings`` (a ``{feed name: parallel.parallel_executor.Sharding}``
+dict, or one ``Sharding`` for every feed; ``ParallelExecutor.
+feed_sharding()`` gives the batch split) lands each feed as the rank's
+block of it, which ``ParallelExecutor.run(..., local_feed=True)`` takes.
 """
 
 import queue
@@ -90,10 +93,7 @@ class DevicePrefetcher:
 
     def __init__(self, source, feeder=None, place=None, capacity=2,
                  shardings=None):
-        if shardings is not None:
-            raise NotImplementedError(
-                "DevicePrefetcher(shardings=...): mesh placement is not "
-                "ported to paddle_tpu_torch yet (ROADMAP Queue A7)")
+        self._shardings = shardings
         if place is None:
             from ..executor import CUDAPlace
 
@@ -124,9 +124,21 @@ class DevicePrefetcher:
                 "stopped": self._stop.is_set()}
 
     # -- staging -------------------------------------------------------
+    def _shard(self, feed):
+        """Each feed cut to the rank's block of its sharding."""
+        sh = self._shardings
+        if sh is None:
+            return feed
+        out = {}
+        for k, v in feed.items():
+            s = sh.get(k) if isinstance(sh, dict) else sh
+            out[k] = v if s is None else s.shard(v)
+        return out
+
     def _stage(self, feed):
-        """``feed`` copied to the card on the side stream (a ``_Staged``),
-        or as it is on a CPU place."""
+        """``feed`` (cut to its shardings) copied to the card on the side
+        stream (a ``_Staged``), or as it is on a CPU place."""
+        feed = self._shard(feed)
         dev = self._place.device
         if dev.type != "cuda":
             return feed

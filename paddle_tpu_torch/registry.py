@@ -53,7 +53,11 @@ class ComputeContext:
 
     ``program`` is the program being run (an op that owns a sub-block finds
     it there); ``graph_ops`` holds the indices of the forward ops whose
-    generic grad op runs in this run (see ``keep_graph``).  ``shared``
+    generic grad op runs in this run (see ``keep_graph``).  ``mesh`` is the
+    ``parallel.collective.MeshRuntime`` of a program a ``ParallelExecutor``
+    planned (None otherwise): its collective ops, and the ops whose
+    arithmetic spans the global batch (``batch_norm``, ``dropout``,
+    ``fused_attention``, a row-sharded ``lookup_table``), read it.  ``shared``
     keeps what several ops of the run compute alike from the same input
     tensors (``shared_value``).  A sub-block's ops run in a context of
     their own (``sub_context``)."""
@@ -66,6 +70,10 @@ class ComputeContext:
         # the program's AMPPolicy (contrib.mixed_precision) or None
         self.amp = amp
         self.program = program
+        self.mesh = getattr(program, "_mesh_runtime", None)
+        # a planned program's ops sit at other indices than in the program
+        # it was planned from; their seeds stay the original indices'
+        self._seed_map = getattr(program, "_seed_map", None)
         self.graph_ops = frozenset(graph_ops)
         self.saved = {}
         self.shared = {}
@@ -78,6 +86,8 @@ class ComputeContext:
         """The uint32 dropout-hash seed of op ``op_index`` in this run: a
         one-element int32 tensor on the run's device (a view into the
         run's table of every op's seed, made at the first call)."""
+        if self._seed_map:
+            op_index = self._seed_map.get(op_index, op_index)
         if self.run_key is None:
             self.run_key = self._draw_run_key()
         if self._seeds is None or op_index >= len(self._seeds):

@@ -226,8 +226,12 @@ def test_enable_persistent_cache_points_the_build(tmp_path):
     assert os.path.basename(target) == os.path.basename(default)
     compile_cache.rescope_persistent_cache()
     assert build.build_dir() == d
-    with pytest.raises(NotImplementedError, match="A7"):
-        compile_cache.rescope_persistent_cache(world_size=4)
+    assert compile_cache.world_dir() == d
+    # a world of 4 scopes its own subdirectory; the libraries stay shared
+    compile_cache.rescope_persistent_cache(world_size=4)
+    assert compile_cache.world_dir() == os.path.join(d, "world_4")
+    assert build.build_dir() == d
+    assert compile_cache.persistent_dir() == d
     flags.set_flags({"compile_cache_dir": ""}, pin=False)
     assert build.build_dir() == build.BUILD_DIR
 

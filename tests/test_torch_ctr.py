@@ -133,9 +133,32 @@ def test_ctr_trains_and_auc_rises():
 
 
 def test_ctr_parallel_trainer_is_refused():
-    """``Trainer(parallel=True)`` waits for the mesh runtime (ROADMAP A7)."""
-    from paddle_tpu_torch.contrib import Trainer
+    """``Trainer(parallel=True)``, once refused, trains through the mesh
+    runtime's ``ParallelExecutor`` (one rank without a world): the CTR
+    DNN's losses equal the plain Trainer's bit for bit."""
+    from paddle_tpu_torch.contrib import EndStepEvent, Trainer
 
-    with pytest.raises(NotImplementedError, match="A7"):
-        Trainer(lambda: build(pt)[2][0], lambda: pt.optimizer.Adam(1e-2),
-                place=pt.CPUPlace(), parallel=True)
+    def train_func():
+        pt.default_main_program().random_seed = 7
+        pt.default_startup_program().random_seed = 7
+        dnn = pt.layers.data("dnn_ids", shape=[1], dtype="int64",
+                             lod_level=1)
+        lr = pt.layers.data("lr_ids", shape=[1], dtype="int64", lod_level=1)
+        label = pt.layers.data("click", shape=[1], dtype="int64")
+        return pt_ctr_dnn(dnn, lr, label, DNN_V, LR_V)[0]
+
+    feeds = batches(4, ragged=False)
+    rows = [[(f["dnn_ids"][i], f["lr_ids"][i], f["click"][i])
+             for i in range(BATCH)] for f in feeds]
+    losses = {}
+    for parallel in (False, True):
+        got = []
+        t = Trainer(train_func, lambda: pt.optimizer.Adam(1e-2),
+                    place=pt.CPUPlace(), parallel=parallel)
+        t.train(1, lambda ev: got.append(float(np.asarray(
+            ev.metrics[0]).ravel()[0])) if isinstance(ev, EndStepEvent)
+            else None, reader=lambda: iter(rows),
+            feed_order=["dnn_ids", "lr_ids", "click"])
+        losses[parallel] = got
+    assert len(losses[True]) == 4
+    assert losses[True] == losses[False]

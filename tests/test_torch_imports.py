@@ -39,6 +39,14 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
         "import paddle_tpu_torch.models.mnist\n"
         "import paddle_tpu_torch.layers.math_op_patch\n"
         "import paddle_tpu_torch.layers.layer_function_generator\n"
+        "import paddle_tpu_torch.parallel.plan\n"
+        "import paddle_tpu_torch.parallel.parallel_executor\n"
+        "import paddle_tpu_torch.parallel.collective\n"
+        "import paddle_tpu_torch.parallel.distributed\n"
+        "import paddle_tpu_torch.parallel.embedding\n"
+        "import paddle_tpu_torch.parallel.spec_layout\n"
+        "import paddle_tpu_torch.transpiler.distribute_transpiler\n"
+        "import paddle_tpu_torch.transpiler.ps_dispatcher\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "

@@ -680,9 +680,9 @@ def test_shape_and_is_empty_read_nothing_on_the_host():
 
 # -- the sweep: every forward op type of the port has a parity case ---------
 
-# ROADMAP Queue A7: the op types still to port
+# ROADMAP Queue A7b: the op types still to port
 STILL_TO_PORT = {
-    # A7: pipeline schedules
+    # A7b: pipeline schedules
     "pipeline_region",
 }
 
@@ -718,7 +718,12 @@ def _names_in_port_tests():
 def test_every_forward_op_type_has_a_parity_case():
     import paddle_tpu.registry as jax_registry
 
-    types = sorted(t for t in registry.OPS if not t.endswith("_grad"))
+    from paddle_tpu_torch.parallel.collective import PLAN_OPS
+
+    # the mesh runtime's collectives are the plan's own ops, inserted into
+    # the program a rank runs; no program builds them
+    types = sorted(t for t in registry.OPS
+                   if not t.endswith("_grad") and t not in PLAN_OPS)
     jax_types = {t for t in jax_registry.OPS if not t.endswith("_grad")}
     assert len(types) == 253
     assert set(types) <= jax_types

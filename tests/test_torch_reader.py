@@ -287,18 +287,26 @@ def test_data_feeder_refusals_and_feed_parallel():
 
 def test_feeder_and_prefetcher_default_to_the_card():
     """Without a place the prefetcher stages on ``CUDAPlace(0)``, never
-    the CPU; ``shardings`` (A7) raises.  No card is touched until the
-    first batch is drawn."""
+    the CPU; ``shardings`` lands each feed as a rank's block of it (rank 1
+    of a 2-rank dp mesh: the batch's second half).  No card is touched
+    until the first batch is drawn."""
     x = pt.layers.data("x", shape=[2])
     feeder = pt.DataFeeder(feed_list=[x])
     assert feeder.prefetch(lambda: iter(()))._place == pt.CUDAPlace(0)
     assert DevicePrefetcher(lambda: iter(()))._place == pt.CUDAPlace(0)
     cpu = pt.DataFeeder(feed_list=[x], place=pt.CPUPlace())
     assert cpu.prefetch(lambda: iter(()))._place == pt.CPUPlace()
-    with pytest.raises(NotImplementedError, match="A7"):
-        feeder.prefetch(lambda: iter(()), shardings={"x": None})
-    with pytest.raises(NotImplementedError, match="A7"):
-        DevicePrefetcher(lambda: iter(()), shardings={})
+    from paddle_tpu_torch.parallel.mesh import PartitionSpec
+    from paddle_tpu_torch.parallel.parallel_executor import Sharding
+
+    half = Sharding(pt.make_mesh((2,)), PartitionSpec("dp"), 1)
+    rows = [(np.full(2, i, "float32"),) for i in range(4)]
+    with cpu.prefetch(lambda: iter([rows]), shardings={"x": half}) as pf:
+        (got,) = list(pf)
+    assert got["x"].tolist() == [[2.0, 2.0], [3.0, 3.0]]
+    with DevicePrefetcher(lambda: iter([{"x": np.arange(4.0)}]),
+                          place=pt.CPUPlace(), shardings=half) as pf:
+        assert [b["x"].tolist() for b in pf] == [[2.0, 3.0]]
 
 
 # ---------------------------------------------------------------------------

@@ -306,16 +306,18 @@ def test_trainer_refusals_and_default_place():
         return L.mean(L.fc(L.data("x", shape=[2]), size=1))
 
     opt = lambda: pt.optimizer.SGD(0.1)  # noqa: E731
-    # autotune= is ported (tests/test_torch_autotune.py); the A7 options
-    # still raise
-    for kw, item in ((dict(parallel=True), "A7"), (dict(mesh=object()), "A7"),
-                     (dict(cluster_member=object()), "A7")):
-        with pytest.raises(NotImplementedError, match=item):
-            Trainer(train_func, opt, place=pt.CPUPlace(), **kw)
+    # autotune= is ported (tests/test_torch_autotune.py), and parallel=
+    # and mesh= (tests/test_torch_dist_train.py); cluster_member= still
+    # raises (A7c)
+    for kw in (dict(parallel=True), dict(mesh=pt.make_mesh())):
+        assert Trainer(train_func, opt, place=pt.CPUPlace(), **kw).parallel
+    with pytest.raises(NotImplementedError, match="A7c"):
+        Trainer(train_func, opt, place=pt.CPUPlace(),
+                cluster_member=object())
     with pytest.raises(TypeError, match="CheckpointConfig"):
         Trainer(train_func, opt, place=pt.CPUPlace(),
                 checkpoint_config=object())
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="ParallelExecutor"):
         Inferencer(lambda: None, ".", parallel=True)
     # no place: the first card, never the CPU
     assert _default_place(None) == pt.CUDAPlace(0)
