@@ -29,6 +29,9 @@
     python3 chip_smoke.py resume      # device, build, and phase 31 alone
     python3 chip_smoke.py autotune    # device, build, and phase 32 alone
     python3 chip_smoke.py parallel    # device, build, and phase 33 alone
+    python3 chip_smoke.py pipeline    # device, build, and phase 34 alone
+    python3 chip_smoke.py realdist    # device, build, and phase 12 alone
+                                      # (with ``pipeline``: both)
     python3 chip_smoke.py train       # device, build, and the Transformer
                                       # training steps (phases 8 and
                                       # 8b) alone
@@ -228,9 +231,10 @@ empty window is profiled again first (``empty_windows``).
    exact launches of #1-#6 in each bucket's replayed step (paths
    ``realdist:b16`` .. ``realdist:b64``); and ``realdist_check_b16`` /
    ``realdist_check_b64``, a float32 step of a whole bucket batch, card
-   against CPU, at ``train_check``'s bands, and ``realdist_fault_tf32_b64``
-   / ``realdist_fault_klen_b16``, the same check on a planted fault (TF32
-   products, key lengths one short), which it must fail;
+   against CPU, at ``train_check``'s bands, and ``realdist_fault_klen_b16``
+   / ``realdist_fault_tf32_b64``, the same check against the same CPU
+   step on a planted fault (key lengths one short, TF32 products), which
+   it must fail;
 13. ``resnet_feed`` — ResNet-50 plain under AMP at batch 128 fed staged
    on the card, synchronously from the host, and through ``PyReader``
    (``DevicePrefetcher``), with float32 and with uint8 images: wall,
@@ -480,6 +484,23 @@ empty window is profiled again first (``empty_windows``).
    the CTR DNN with two 1e6-row ``is_distributed`` tables under the
    ``DistributeTranspiler``'s plan on a (dp, ep) (1, 1) mesh, bit-equal
    to ``Executor``.  The world is left at the end.
+34. ``stage_hash``, ``pp_transformer``, ``longctx_ring`` and
+   ``ring_harness`` — the ``sp`` and ``pp`` axes (``pipeline_phase``; a
+   whole run takes it after phase 33): a pipeline stage's dropout bits on
+   the card bit-equal to the CPU's; bench.py's Transformer-base step staged into two
+   pipeline regions of six one-layer stages and 4 microbatches, through
+   ``Executor`` (captured) and, in a world of one over NCCL, through
+   ``ParallelExecutor`` on a (dp, pp) (1, 1) mesh (``pp_mesh``; at pp = 1
+   every schedule gives each region its sequential path, checked on the
+   host): losses and state bit-equal to the staged
+   ``Executor`` run, one graph an entry, #1-#6 in the replay's trace as
+   the regions imply (their ops once a microbatch, again in the region
+   grad's recompute); the unstaged step's ms beside it, and one dropout-0
+   step staged against unstaged (1e-4 relative); bench.py's
+   ``longctx_ring`` rung (T 32768, forward) through ``ParallelExecutor``
+   on a (dp, sp) (1, 1) mesh: tokens a second, #1 at [1, 8, 32768, 64],
+   bit-equal to an eager run; the ring's block step over 8 blocks of
+   4096 against #1 within ``TOL``.  The world is left at the end.
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -490,6 +511,7 @@ result.
 """
 
 import atexit
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -2845,13 +2867,14 @@ def infer_bf16_phase(place, model=MODEL, n_requests=N_REQUESTS,
 # phases 7 and 8: the training slice
 # ---------------------------------------------------------------------------
 
-def build_train(dropout, amp=False):
+def build_train(dropout, amp=False, **staging):
     """(main, startup, cost) of bench.py's Transformer-base train program,
     built with the port's layers; with ``amp`` the optimizer is wrapped in
     ``contrib.mixed_precision.decorate``, as bench.py's ``_maybe_amp``
-    does for its default (bf16) rungs.  Fixed program seeds: every run
-    starts from the same random weights and draws the same dropout
-    masks."""
+    does for its default (bf16) rungs; ``staging``
+    (``pipeline_microbatches``, ``pipeline_layers_per_stage``) stages the
+    stacks into pipeline regions.  Fixed program seeds: every run starts
+    from the same random weights and draws the same dropout masks."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import optimizer
     from paddle_tpu_torch.contrib import mixed_precision
@@ -2864,7 +2887,7 @@ def build_train(dropout, amp=False):
                  for n in ("src_word", "tgt_word", "lbl_word")]
         cost, _ = transformer.transformer(
             *words, TRAIN_SEQ, TRAIN_SEQ, TRAIN_VOCAB, TRAIN_VOCAB,
-            dropout_rate=dropout, label_smooth_eps=0.1, **TRAIN)
+            dropout_rate=dropout, label_smooth_eps=0.1, **TRAIN, **staging)
         lr = pt.layers.noam_decay(TRAIN["d_model"], 4000)
         opt = optimizer.Adam(learning_rate=lr, beta1=0.9, beta2=0.997,
                              epsilon=1e-9)
@@ -2900,10 +2923,17 @@ def train_feed(rng, batch):
 def kernel_launches_per_step(program):
     """Each kernel's launches in one step, from the program's ops: a grad
     op reruns its forward (the generic grad's recompute), so each forward
-    kernel launches once per forward op and once per grad op."""
+    kernel launches once per forward op and once per grad op.  A
+    ``pipeline_region`` op runs its sub-block's ops once a microbatch (on
+    one device: every stage's template on every microbatch), and its grad
+    runs them again under autograd, whose backward launches each forward
+    kernel's backward once."""
+    ops = program.global_block().ops
     n = {}
-    for op in program.global_block().ops:
+    for op in ops:
         n[op.type] = n.get(op.type, 0) + 1
+    graded = {op.attrs.get("__fwd_op_index__") for op in ops
+              if op.type == "pipeline_region_grad"}
     per = {}
     for kernel, op in (("flash_attention", "fused_attention"),
                        ("layer_norm", "layer_norm"),
@@ -2911,6 +2941,15 @@ def kernel_launches_per_step(program):
         grads = n.get(op + "_grad", 0)
         per[kernel + "_fwd"] = n.get(op, 0) + grads
         per[kernel + "_bwd"] = grads
+        for i, region in enumerate(ops):
+            if region.type != "pipeline_region":
+                continue
+            m = int(region.attrs.get("microbatches")
+                    or region.attrs["stages"])
+            sub = program.block(region.attrs["sub_block"])
+            c = m * sum(o.type == op for o in sub.ops)
+            per[kernel + "_fwd"] += c * (2 if i in graded else 1)
+            per[kernel + "_bwd"] += c if i in graded else 0
     return per
 
 
@@ -2984,7 +3023,7 @@ TRAIN_CHECK_FAULTS = ("tf32", "klen")
 
 
 def train_check_phase(batch=4, amp=False, floor_scale=3.0, feed=None,
-                      name=None, fault=None):
+                      name=None, fault=None, reference=None):
     """One step of the dropout-0 program on the card and on the CPU from
     one startup state: losses within rtol 1e-4; the parameters' gradients
     within relative L2 1e-4 at the median and 1e-2 for every one; the
@@ -3009,6 +3048,12 @@ def train_check_phase(batch=4, amp=False, floor_scale=3.0, feed=None,
     ``"klen"`` feeds the card every ``src_word@LEN`` one shorter.  The
     phase then returns its summary (``within`` False when the check
     caught the fault) and does not raise.
+
+    ``reference`` (a dict) carries the CPU step from one call to the next
+    on the same feed: a call that finds it empty runs the CPU step and
+    leaves its fetches there; a call that finds them holds its card step
+    against them and runs no CPU step (a planted fault against the clean
+    step's reference, which took the clean card's ReLU decisions).
 
     With ``amp`` (``train_amp_check``) the program is built under
     ``decorate`` and the CPU takes its own ReLU decisions; the losses
@@ -3054,12 +3099,19 @@ def train_check_phase(batch=4, amp=False, floor_scale=3.0, feed=None,
         card_s = time.perf_counter() - t0
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
-    cpu = pt.Executor(pt.CPUPlace())
-    t0 = time.perf_counter()
-    with (contextlib.nullcontext() if amp
-          else relu_decisions(main, got[k:])):
-        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
-    cpu_s = time.perf_counter() - t0
+    cpu_s = None
+    if reference is not None and "want" in reference:
+        want = reference["want"]
+    else:
+        cpu = pt.Executor(pt.CPUPlace())
+        t0 = time.perf_counter()
+        with (contextlib.nullcontext() if amp
+              else relu_decisions(main, got[k:])):
+            want = cpu.run(main, feed=feed, fetch_list=fetch,
+                           scope=cpu_scope)
+        cpu_s = time.perf_counter() - t0
+        if reference is not None:
+            reference["want"] = want
     assert all(np.isfinite(a).all() for a in got), "non-finite on the card"
     flips, flip_top = relu_sign_flips(main, feed, got[k:], want[k:])
     got, want = got[:k], want[:k]
@@ -3081,6 +3133,8 @@ def train_check_phase(batch=4, amp=False, floor_scale=3.0, feed=None,
                "grad_rel_l2_median": med,
                "relu_sign_flips": flips, "relu_flip_max_abs": flip_top,
                "cpu_takes_card_relu": not amp,
+               "cpu_reference": "clean step's" if cpu_s is None
+               else "own",
                "not_float32": float32_state_faults(main, card_scope),
                "card_step_s": card_s, "cpu_step_s": cpu_s}
     if amp:
@@ -4109,20 +4163,22 @@ def realdist_checks(per_bound):
     """The float32 card-vs-CPU step (``train_check_phase``, the CPU taking
     the card's ReLU decisions, at ``train_check``'s fixed band) on a whole
     batch of the smallest and the largest bucket (512 x 16, 128 x 64),
-    then each planted fault of ``TRAIN_CHECK_FAULTS`` on the card, which
-    the same check must fail: TF32 products on the 64 bucket, key lengths
-    one short on the 16 bucket."""
+    each followed by a planted fault of ``TRAIN_CHECK_FAULTS`` on the card
+    held against the same CPU step, which must fail the check: key
+    lengths one short on the 16 bucket, TF32 products on the 64 bucket.
+    One CPU step a bucket, each ~18 s of the host."""
     first, last = REALDIST_BOUNDS[0], REALDIST_BOUNDS[-1]
-    for bound in (first, last):
-        train_check_phase(feed=per_bound[bound][0][0],
-                          name="realdist_check_b%d" % bound)
-        release_memory()
     passed = []
-    for fault, bound in (("tf32", last), ("klen", first)):
+    for bound, fault in ((first, "klen"), (last, "tf32")):
+        reference = {}
+        train_check_phase(feed=per_bound[bound][0][0], reference=reference,
+                          name="realdist_check_b%d" % bound)
         s = train_check_phase(feed=per_bound[bound][0][0], fault=fault,
+                              reference=reference,
                               name="realdist_fault_%s_b%d" % (fault, bound))
         if s["within"]:
             passed.append(fault)
+        del reference
         release_memory()
     if passed:
         raise SystemExit("realdist: the card-vs-CPU check passed a planted "
@@ -10690,6 +10746,397 @@ def parallel_phase(offsets=False):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the sp and pp mesh axes (parallel/ring_attention.py,
+# parallel/pipeline.py, the pipeline_region op)
+# ---------------------------------------------------------------------------
+
+PP_MICROBATCHES = 4   # pp_transformer: microbatches a region, one layer
+PP_STEPS = 3          # timed steps an arm
+# bench.py's longctx_ring rung at its width: T, d_model, heads, vocab
+LONGCTX = dict(t=32768, d_model=512, n_head=8, vocab=32000)
+LONGCTX_STEPS = 3
+RING_BLOCKS = 8       # the ring harness: 8 blocks of T / 8 = 4096
+
+
+def pipeline_transformer(batch=TRAIN_BATCH, steps=PP_STEPS):
+    """``pp_transformer``: bench.py's Transformer-base training step
+    (``build_train(0.1)``) staged into two ``pipeline_region`` ops of six
+    one-layer stages, ``PP_MICROBATCHES`` microbatches each, through
+    ``Executor`` (captured: the reference) and, in a world of one over
+    NCCL, through ``ParallelExecutor`` on a (dp, pp) (1, 1) mesh
+    (``pp_mesh``, ``pipeline_schedule`` 1f1b): losses and every state
+    tensor bit-equal to the staged Executor run, one graph an entry, no
+    collective, #1-#6 in the replay's trace as the program implies (the
+    regions' ops once a microbatch, again in their grad's recompute).  At
+    pp = 1 the schedule is inert: ``region_plan`` gives every region its
+    sequential path under each schedule (checked here, on the host), as
+    the JAX package's lowering does on such a mesh, so one arm runs for
+    all three; the schedules themselves run in the CPU's gloo worlds.
+    Beside it the unstaged program through ``Executor`` (``pp_unstaged``)
+    from the same feeds for the ms a step, and, with dropout 0, one step
+    of the staged and the unstaged program from one state: the losses
+    within 1e-4 relative.  Returns {path: launch record}."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import SCHEDULES, distributed
+    from paddle_tpu_torch.parallel.pipeline import region_plan
+
+    card = pt.CUDAPlace(0)
+    main, startup, cost = build_train(
+        0.1, pipeline_microbatches=PP_MICROBATCHES)
+    regions = [op.attrs for op in main.global_block().ops
+               if op.type == "pipeline_region"]
+    stages = [r["stages"] for r in regions]
+    inert = {sched: [region_plan(r, sched, 1) for r in regions]
+             for sched in SCHEDULES}
+    if any(v for plans in inert.values() for v, _ in plans):
+        raise SystemExit("pipeline: a region pipelines at pp = 1: %s"
+                         % inert)
+    start = pt.Scope()
+    pt.Executor(card).run(startup, scope=start)
+    rng = np.random.RandomState(0)
+    feeds = [train_feed(rng, batch) for _ in range(steps + 3)]
+    per_step = kernel_launches_per_step(main)
+
+    def make_exe(prog, loss):
+        def make(scope):
+            exe = pt.Executor(card)
+            return (lambda f: exe.run(prog, feed=f, fetch_list=[loss],
+                                      scope=scope)[0]), exe, dict
+        return make
+
+    def make_pe(mesh, bs):
+        def make(scope):
+            pe = pt.ParallelExecutor(use_cuda=True, loss_name=cost.name,
+                                     main_program=main, scope=scope,
+                                     mesh=mesh, build_strategy=bs)
+
+            def extra():
+                plan = next(iter(pe._plans.values()))
+                return {"mesh": repr(pe.mesh),
+                        "plan_collectives": plan.counts,
+                        "pipeline_stats": plan.pipeline_stats}
+            return (lambda f: pe.run([cost], feed=f)[0]), pe.executor, extra
+        return make
+
+    ref, ref_state = pe_arm("staged_executor", main, cost, start, feeds,
+                            steps, make_exe(main, cost))
+    paths = {"pp_staged": launch_record(True, ref["launches"], {},
+                                        ref["window"], per_step)}
+    arms, faults = {}, {}
+    distributed.init_distributed(place=card)
+    try:
+        bs = pt.BuildStrategy()
+        bs.pipeline_schedule = "1f1b"
+        arm, state = pe_arm(
+            "pp_mesh", main, cost, start, feeds, steps,
+            make_pe(pt.make_mesh((1, 1), ("dp", "pp")), bs))
+        arm["same_loss_bits"] = arm["losses"] == ref["losses"]
+        arm["state_not_bit_equal"] = _state_faults(state, ref_state)
+        arm["idle_share"] = arm["window"]["idle_share"]
+        arm["ms_vs_staged_executor"] = \
+            arm["median_step_ms"] / ref["median_step_ms"]
+        if not arm["same_loss_bits"] or arm["state_not_bit_equal"] \
+                or arm["graphs"] != [1] \
+                or arm["window"]["nccl_kernels"] \
+                or arm["plan_collectives"] or arm["pipeline_stats"]:
+            faults[arm["arm"]] = {k: arm[k] for k in (
+                "same_loss_bits", "state_not_bit_equal", "graphs",
+                "plan_collectives", "pipeline_stats")}
+        paths[arm["arm"]] = launch_record(
+            True, arm["launches"], {}, arm["window"], per_step)
+        arms[arm["arm"]] = arm
+    finally:
+        distributed.shutdown()
+    del start, ref_state
+    release_memory()
+    umain, ustartup, ucost = build_train(0.1)
+    ustart = pt.Scope()
+    pt.Executor(card).run(ustartup, scope=ustart)
+    uper_step = kernel_launches_per_step(umain)
+    unstaged, _ = pe_arm("unstaged_executor", umain, ucost, ustart, feeds,
+                         steps, make_exe(umain, ucost))
+    paths["pp_unstaged"] = launch_record(True, unstaged["launches"], {},
+                                         unstaged["window"], uper_step)
+    del ustart
+    release_memory()
+    check = staged_vs_unstaged(card)
+    ref["idle_share"] = ref["window"]["idle_share"]
+    unstaged["idle_share"] = unstaged["window"]["idle_share"]
+    summary = {"batch": batch, "seq": TRAIN_SEQ, "steps": steps,
+               "region_stages": stages, "microbatches": PP_MICROBATCHES,
+               "region_plans_at_pp1": inert,
+               "launches_per_step": per_step,
+               "unstaged_launches_per_step": uper_step,
+               "staged_executor": ref, "unstaged_executor": unstaged,
+               "staged_ms_vs_unstaged": ref["median_step_ms"]
+               / unstaged["median_step_ms"],
+               "dropout0_check": check, "faults": faults, **arms}
+    log("pp_transformer", summary)
+    if faults or not check["ok"]:
+        raise SystemExit("pipeline: pp_transformer: %s %s" % (faults, check))
+    return paths
+
+
+def staged_vs_unstaged(card):
+    """One dropout-0 step of the staged and the unstaged Transformer-base
+    program from the unstaged program's startup state (the same
+    parameter names): the losses within 1e-4 relative."""
+    import paddle_tpu_torch as pt
+
+    losses = {}
+    state = None
+    rng = np.random.RandomState(1)
+    feed = train_feed(rng, TRAIN_BATCH)
+    for kind, staging in (("unstaged", {}), ("staged", {
+            "pipeline_microbatches": PP_MICROBATCHES})):
+        with pt.unique_name.guard():
+            main, startup, cost = build_train(0.0, **staging)
+        scope = pt.Scope()
+        if state is None:
+            pt.Executor(card).run(startup, scope=scope)
+            state = {n: scope.var(n).clone()
+                     for n in scope.local_var_names()}
+        else:
+            names = {v.name for v in startup.list_vars() if v.persistable}
+            if names != set(state):
+                raise SystemExit("pipeline: the staged program's state "
+                                 "names differ: %s"
+                                 % sorted(names ^ set(state)))
+            for n, t in state.items():
+                scope.set_var(n, t.clone())
+        exe = pt.Executor(card, capture=False)
+        losses[kind] = float(np.asarray(exe.run(
+            main, feed=feed, fetch_list=[cost], scope=scope)[0]).ravel()[0])
+        del exe, scope
+        release_memory()
+    rel = abs(losses["staged"] - losses["unstaged"]) / abs(
+        losses["unstaged"])
+    return {"losses": losses, "rel_diff": rel, "tol": 1e-4,
+            "ok": bool(rel <= 1e-4 and np.isfinite(list(losses.values()))
+                       .all())}
+
+
+def build_longctx():
+    """(main, startup, score) of bench.py's ``build_longctx_ring_graph``
+    at ``LONGCTX`` with the port's layers: embedding, fused QKV, causal
+    ``fused_attention`` over T, residual projection, mean score; program
+    seeds 17."""
+    import paddle_tpu_torch as pt
+
+    t, d_model, n_head = LONGCTX["t"], LONGCTX["d_model"], LONGCTX["n_head"]
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 17
+    with pt.program_guard(main, startup):
+        dh = d_model // n_head
+        ids = pt.layers.data("ids", shape=[t, 1], dtype="int64")
+        emb = pt.layers.embedding(ids, size=[LONGCTX["vocab"], d_model])
+        x = pt.layers.reshape(emb, shape=[-1, t, d_model])
+        qkv = pt.layers.fc(x, size=3 * d_model, act=None,
+                           num_flatten_dims=2)
+        qkv = pt.layers.reshape(qkv, shape=[-1, t, 3, n_head, dh])
+        qkv = pt.layers.transpose(qkv, perm=[2, 0, 3, 1, 4])
+
+        def head(i):
+            return pt.layers.reshape(
+                pt.layers.slice(qkv, axes=[0], starts=[i], ends=[i + 1]),
+                shape=[-1, n_head, t, dh])
+
+        att = pt.layers.fused_attention(head(0), head(1), head(2),
+                                        causal=True)
+        att = pt.layers.reshape(pt.layers.transpose(att, perm=[0, 2, 1, 3]),
+                                shape=[-1, t, d_model])
+        x = pt.layers.elementwise_add(
+            x, pt.layers.fc(att, size=d_model, num_flatten_dims=2))
+        score = pt.layers.reduce_mean(x)
+    return main, startup, score
+
+
+def longctx_ring(steps=LONGCTX_STEPS):
+    """``longctx_ring``: bench.py's rung at its width (T 32768, d_model
+    512, 8 heads, vocab 32000, batch 1, causal; seeds 17 and 0), forward
+    only, through ``ParallelExecutor`` on a (dp, sp) (1, 1) mesh in a world
+    of one over NCCL (sp = 1: kernel #1 on the whole sequence, as the JAX
+    package's single-chip kernel runs where its ring does not apply).
+    Tokens a second over ``steps`` replays; kernel #1 called at [1, 8,
+    32768, 64] (its wrapper's shapes in the eager run and the capture) and
+    launched once in the replay's trace; the score finite and bit-equal to
+    an eager ``Executor`` run's.  Returns (summary, launch record)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.parallel import distributed
+
+    card = pt.CUDAPlace(0)
+    main, startup, score = build_longctx()
+    scope = pt.Scope()
+    pt.Executor(card).run(startup, scope=scope)
+    rng = np.random.RandomState(0)
+    feed = {"ids": rng.randint(2, LONGCTX["vocab"],
+                               (1, LONGCTX["t"], 1)).astype("int64")}
+    ref = np.asarray(pt.Executor(card, capture=False).run(
+        main, feed=feed, fetch_list=[score], scope=scope)[0])
+    per_step = kernel_launches_per_step(main)
+    shapes = []
+    fwd = fa.flash_attention_fwd
+
+    def spy(q, *a, **kw):
+        shapes.append(list(q.shape))
+        return fwd(q, *a, **kw)
+
+    from paddle_tpu_torch.ops import cuda
+
+    distributed.init_distributed(place=card)
+    try:
+        pe = pt.ParallelExecutor(
+            use_cuda=True, loss_name=score.name, main_program=main,
+            scope=scope, mesh=pt.make_mesh((1, 1), ("dp", "sp")))
+        # the wrapper counts its launches on the name it is called by
+        spy.launches = fwd.launches
+        fa.flash_attention_fwd = spy
+        try:
+            for _ in range(2):     # eager, then the capture
+                out = np.asarray(pe.run([score], feed=feed)[0])
+        finally:
+            fa.flash_attention_fwd = fwd
+            fwd.launches = spy.launches
+        staged = {k: torch.as_tensor(v).to("cuda") for k, v in feed.items()}
+        times, launches = [], {}
+        for _ in range(steps):
+            cuda.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = np.asarray(pe.run([score], feed=staged)[0])
+            times.append(time.perf_counter() - t0)
+            for k, n in cuda.launch_counts().items():
+                launches[k] = launches.get(k, 0) + n
+        window = device_window(lambda: pe.run([score], feed=staged),
+                               again=True)
+        graphs = sorted(st.graphs for st in pe.executor._steps.values())
+    finally:
+        distributed.shutdown()
+    mean_s = statistics.mean(times)
+    want_shape = [1, LONGCTX["n_head"], LONGCTX["t"],
+                  LONGCTX["d_model"] // LONGCTX["n_head"]]
+    res = {"t": LONGCTX["t"], "d_model": LONGCTX["d_model"],
+           "n_head": LONGCTX["n_head"], "vocab": LONGCTX["vocab"],
+           "tokens_per_s": LONGCTX["t"] / mean_s,
+           "step_ms": [x * 1e3 for x in times],
+           "kernel1_shapes": shapes, "graphs": graphs,
+           "trace_launches": window["trace_launches"],
+           "idle_share": window["idle_share"],
+           "busy_ms": window["busy_ms"],
+           "top_device_us": window["top_device_us"],
+           "score": float(out.ravel()[0]),
+           "same_bits_as_eager": out.tobytes() == ref.tobytes()}
+    res["ok"] = (bool(np.isfinite(out).all()) and res["same_bits_as_eager"]
+                 and shapes == [want_shape, want_shape] and graphs == [1]
+                 and window["trace_launches"].get(
+                     "flash_attention_fwd", 0) == 1)
+    log("longctx_ring", res)
+    del pe, scope
+    release_memory()
+    if not res["ok"]:
+        raise SystemExit("pipeline: longctx_ring: %s" % res)
+    return res, launch_record(True, launches, {}, window, per_step)
+
+
+def ring_harness(n=RING_BLOCKS):
+    """``ring_harness``: the ring's block step (``ring_block_step``, the
+    function its distributed body calls) over ``n`` blocks of T / n on
+    the card in one process, the harness's own block index playing the
+    rotation (query block i meets key block (i + j) mod n at step j),
+    against kernel #1 at the same causal [1, 8, 32768, 64] float32 inputs
+    within ``TOL``; the blocks' seconds, and #1's ms at this shape (CUDA
+    events, L2 flushed, median of 5) beside its bound and one
+    ``scaled_dot_product_attention`` call's."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.parallel.ring_attention import (
+        ring_block_mask, ring_block_step, ring_finish)
+
+    t, h = LONGCTX["t"], LONGCTX["n_head"]
+    d = LONGCTX["d_model"] // h
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, h, t, d), device="cuda", generator=g)
+               for _ in range(3))
+    want, lse = fa.flash_attention_fwd(q, k, v, None, None, True)
+    kernel_ms = Timer()(lambda: fa.flash_attention_fwd(q, k, v, None, None,
+                                                       True), iters=5)
+    # #1's bound at this shape: Q, K, V and O once, the LSE, and 4 d
+    # operations a causal (query, key) pair, three TF32 passes
+    library_ms = Timer()(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                         iters=5)
+    pairs = h * t * (t + 1) // 2
+    nbytes = 4 * q.numel() * q.element_size() + lse.numel() * 4
+    bound_ms, bound_by, _ = tf32_bound(nbytes, 4 * d * pairs, torch.float32)
+    blk = t // n
+    scale = 1.0 / d ** 0.5
+    outs = []
+    t0 = time.perf_counter()
+    for i in range(n):
+        qs = q[:, :, i * blk:(i + 1) * blk].float() * scale
+        q_pos = i * blk + torch.arange(blk, device="cuda")
+        m = torch.full((1, h, blk, 1), -1e30, device="cuda")
+        l = torch.zeros((1, h, blk, 1), device="cuda")
+        o = torch.zeros((1, h, blk, d), device="cuda")
+        for j in range(n):
+            owner = (i + j) % n
+            k_pos = owner * blk + torch.arange(blk, device="cuda")
+            sl = slice(owner * blk, (owner + 1) * blk)
+            m, l, o = ring_block_step(
+                qs, k[:, :, sl], v[:, :, sl], m, l, o,
+                ring_block_mask(q_pos, k_pos, None, True, 1))
+        outs.append(ring_finish(o, l))
+    got = torch.cat(outs, dim=2)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, want, torch.float32)
+    res = {"blocks": n, "block": blk, "shape": list(q.shape),
+           "max_abs_err": err, "tol": TOL[torch.float32], "ok": ok,
+           "ring_blocks_s": time.perf_counter() - t0,
+           "kernel1_ms": kernel_ms, "kernel1_bound_ms": bound_ms,
+           "kernel1_bound_by": bound_by, "kernel1_library_ms": library_ms}
+    log("ring_harness", res)
+    del q, k, v, want, lse, got, outs
+    release_memory()
+    if not ok:
+        raise SystemExit("pipeline: the ring's block step disagrees with "
+                         "kernel #1: %s" % res)
+    return res
+
+
+def stage_hash_check(n=1 << 22, rate=0.1):
+    """``stage_hash``: a pipeline stage's dropout bits
+    (``ops/random.hash_bits``: int32 products that wrap) on the card equal
+    the CPU's bit for bit, and keep 1 - ``rate`` of ``n`` draws."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.random import hash_bits
+
+    seed = fa.seed_tensor(0x9E3779B9, "cuda")
+    card = hash_bits(seed, (n,), "cuda")
+    host = hash_bits(seed.cpu(), (n,), "cpu")
+    kept = float((card >= int(rate * float(1 << 24))).float().mean())
+    res = {"draws": n, "bit_equal_to_cpu": torch.equal(card.cpu(), host),
+           "kept_share": kept}
+    res["ok"] = res["bit_equal_to_cpu"] and abs(kept - (1 - rate)) < 2e-3
+    log("stage_hash", res)
+    if not res["ok"]:
+        raise SystemExit("pipeline: the stage dropout hash differs on the "
+                         "card: %s" % res)
+    return res
+
+
+def pipeline_phase():
+    """Phase 34: ``stage_hash_check``, ``pipeline_transformer``
+    (pp_transformer), ``longctx_ring`` and ``ring_harness``.  Returns
+    {path: launch record}."""
+    stage_hash_check()
+    paths = pipeline_transformer()
+    _, paths["longctx_ring"] = longctx_ring()
+    ring_harness()
+    return paths
+
+
 def release_memory():
     """Free what the last phase's executors, graphs and scopes held."""
     import gc
@@ -10698,13 +11145,14 @@ def release_memory():
     torch.cuda.empty_cache()
 
 
-def count_sass(lib, opcode):
-    """How many instructions of ``opcode`` the library's SASS holds
+def count_sass(lib, opcodes):
+    """{opcode: how many instructions of it the library's SASS holds}
     (``cuobjdump --dump-sass``): HGMMA is wgmma on the tensor cores."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "--dump-sass", lib], capture_output=True,
                           text=True, check=True, timeout=120).stdout
-    return sum(opcode in ln for ln in sass.splitlines())
+    lines = sass.splitlines()
+    return {op: sum(op in ln for ln in lines) for op in opcodes}
 
 
 def main():
@@ -10748,13 +11196,22 @@ def main():
              for n in built}
     # tensor-core instructions in the SASS: wgmma (HGMMA) in #8-#11,
     # mma.sync (HMMA: TF32 / bf16 / f16; IMMA: int8) in #1, #2 and #7
-    hgmma = {n: count_sass(built[n], "HGMMA")
-             for n in ("conv_bn", "conv_bn_nhwc")}
-    hmma = {n: count_sass(built[n], "HMMA") for n in (
+    sass_ops = {"conv_bn": ("HGMMA",), "conv_bn_nhwc": ("HGMMA",),
+                "flash_attention_fwd": ("HMMA",),
+                "flash_attention_bwd": ("HMMA",),
+                "quant_matmul": ("HMMA", "IMMA")}
+    # one cuobjdump a library, all at once
+    with concurrent.futures.ThreadPoolExecutor(len(sass_ops)) as pool:
+        sass = dict(zip(sass_ops, pool.map(
+            lambda n: count_sass(built[n], sass_ops[n]), sass_ops)))
+    hgmma = {n: sass[n]["HGMMA"] for n in ("conv_bn", "conv_bn_nhwc")}
+    hmma = {n: sass[n]["HMMA"] for n in (
         "flash_attention_fwd", "flash_attention_bwd", "quant_matmul")}
-    imma = {"quant_matmul": count_sass(built["quant_matmul"], "IMMA")}
+    imma = {"quant_matmul": sass["quant_matmul"]["IMMA"]}
     log("build", {"seconds": time.perf_counter() - t0,
-                  "kernels": sorted(built), "ptxas": ptxas,
+                  "kernels": sorted(built),
+                  "nvcc_seconds": dict(build.build_seconds),
+                  "ptxas": ptxas,
                   "hgmma": hgmma,
                   "hmma": hmma, "imma": imma})
     if not all(hgmma.values()) or not all(hmma.values()) \
@@ -10832,6 +11289,17 @@ def main():
         if any(faults.values()):
             raise SystemExit("parallel: a path did not launch its kernels "
                              "as its program implies: %s" % faults)
+        log("total", {"seconds": time.perf_counter() - t_start,
+                      "phase_seconds": dict(PHASE_SECONDS)})
+        return 0
+    if {"pipeline", "realdist"} & set(sys.argv[1:]):
+        paths = pipeline_phase() if "pipeline" in sys.argv[1:] else {}
+        if "realdist" in sys.argv[1:]:
+            paths.update(realdist_phase()[1])
+        faults = {p: launch_faults(r) for p, r in paths.items()}
+        if any(faults.values()):
+            raise SystemExit("a path did not launch its kernels as its "
+                             "program implies: %s" % faults)
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
@@ -10924,6 +11392,12 @@ def main():
     # Executor with #1-#6 in the replay's trace, Trainer(parallel=True)
     # and the CTR DNN's ep plan
     for path, record in parallel_phase().items():
+        check_path(path, record)
+    # the sp and pp axes (phase 34): the staged Transformer-base step
+    # through Executor and ParallelExecutor under each schedule (#1-#6 as
+    # the regions imply), bench.py's longctx_ring rung (#1 at T = 32768)
+    # and the ring's block step against #1
+    for path, record in pipeline_phase().items():
         check_path(path, record)
     for amp, name in ((False, "resnet_train"), (True, "resnet_amp")):
         resnet_check_phase(amp=amp)

@@ -31,8 +31,9 @@ measurements plus a tuner that measures it on the card.
   :func:`tune_checkpoint_interval`, from the checkpoint manager's
   measured costs), **quantization** (:func:`tune_quantization`,
   :func:`tune_kv_quantization`, :func:`tune_speculation_k`: accuracy
-  gates) and the **pipeline** policy (:func:`decide_pipeline`;
-  :func:`tune_pipeline` waits for the pipeline axis, ROADMAP A7b).
+  gates) and the **pipeline** schedule and microbatches
+  (:func:`tune_pipeline`: each candidate measured through a
+  ``ParallelExecutor`` on the ``pp`` mesh, :func:`decide_pipeline`).
 
 Decisions land in a :class:`TunedConfig` (JSON, the JAX package's keys:
 an artifact written by either package loads in the other), consumed by
@@ -1113,12 +1114,198 @@ def tune_pipeline(main_program, startup_program, feed, fetch, mesh,
                   build_strategy=None, schedules=None,
                   microbatch_candidates=None, probe_steps=3,
                   warmup_steps=1, tol=0.03, headroom=0.9, config=None):
-    """Measured pipeline schedules run on a ``pp`` mesh, whose pipeline
-    axis is not ported yet (ROADMAP A7b); :func:`decide_pipeline` is the
-    policy it will feed."""
-    raise NotImplementedError(
-        "tune_pipeline needs the mesh runtime's pipeline axis "
-        "(ROADMAP A7b); decide_pipeline is ported")
+    """The pipeline schedule and microbatch count of a program with
+    ``pipeline_region`` ops on ``mesh``'s ``pp`` axis, as the JAX
+    package's tuner chooses them: every candidate through a
+    ``ParallelExecutor`` of its own (a fresh scope from
+    ``startup_program``), its warm-up peak (the entry's eager run,
+    ``program_profile``, as ``tune_batch_size`` reads it) held to
+    ``headroom`` times :func:`hbm_ceiling` before a measured window of
+    ``probe_steps`` steps, and the schedule table's bubble accounting as
+    evidence and tie-breaker (:func:`decide_pipeline`).  Every candidate
+    that cannot run pipelined is recorded with its reason, never
+    measured.  The candidates run on the world's device (the card without
+    a world).
+
+    Every rank of the world calls it alike, and every rank decides from
+    the world's evidence (``distributed.gather_objects``): a candidate's
+    peak is the largest any rank saw, its step time the slowest rank's,
+    and a candidate that failed on one rank is rejected on all of them.
+    So the ranks hold one candidate table and take one decision, and no
+    rank runs the probe steps of a candidate its peers skip (under ``pp``
+    each rank holds other stages, so their peaks differ).  An error
+    raised on one rank inside a candidate's transfers leaves its peers
+    waiting on it, as any collective does.
+
+    Pin semantics: an explicit ``build_strategy.pipeline_schedule`` is the
+    user's choice, recorded as a pinned decision and never measured."""
+    from . import compile_cache
+    from . import scope as _scope
+    from .executor import CPUPlace, CUDAPlace, Executor
+    from .framework import Variable
+    from .monitor import program_profile
+    from .parallel import distributed
+    from .parallel.mesh import AXIS_PP
+    from .parallel.parallel_executor import ParallelExecutor
+    from .parallel.pipeline import SCHEDULES, region_plan, schedule_stats
+    from .parallel.strategy import BuildStrategy
+
+    bs = build_strategy or BuildStrategy()
+    fp = compile_cache.program_fingerprint(main_program)
+    pp = mesh.axis_size(AXIS_PP)
+    regions = [op.attrs for op in main_program.global_block().ops
+               if op.type == "pipeline_region"]
+    region_stages = [int(r["stages"]) for r in regions]
+    if pp <= 1 or not regions:
+        raise ValueError(
+            "tune_pipeline: program has no pipeline_region ops that "
+            "would run pipelined on this mesh (pp=%d, regions=%d)"
+            % (pp, len(regions)))
+
+    if bs.pipeline_schedule is not None:
+        decision = {"knob": "pipeline",
+                    "chosen": {"schedule": bs.pipeline_schedule,
+                               "microbatches": bs.pipeline_microbatches},
+                    "evidence": "pinned", "candidates": []}
+        if config is not None:
+            config.add(decision, fingerprint=fp[:12], source="pinned")
+        return decision
+
+    batch = max((int(np.shape(v)[0]) for v in feed.values()
+                 if np.ndim(v) >= 1), default=0)
+
+    def _plans(sched, m=None):
+        # the op's own engagement test: a candidate that would run the
+        # sequential path is never measured as if it pipelined
+        return [region_plan(r, sched, pp, m) for r in regions]
+
+    def _engages(sched):
+        return all(v for v, _ in _plans(sched))
+
+    if schedules is None:
+        schedules = [sc for sc in ("gpipe", "1f1b") if _engages(sc)]
+        # interleaved by default only where it brings v > 1 chunks a rank
+        if all(sc % pp == 0 and sc // pp > 1 for sc in region_stages):
+            schedules.append("interleaved")
+        elif not schedules and _engages("interleaved"):
+            schedules.append("interleaved")
+        if not schedules:
+            raise ValueError(
+                "tune_pipeline: no schedule runs the program's "
+                "pipeline regions (stages=%s) pipelined on this mesh "
+                "(pp=%d)" % (region_stages, pp))
+    for sc in schedules:
+        if sc not in SCHEDULES:
+            raise ValueError("unknown schedule %r" % sc)
+    if microbatch_candidates is None:
+        microbatch_candidates = [m for m in (pp, 2 * pp, 4 * pp)
+                                 if batch and batch % m == 0]
+    if not microbatch_candidates:
+        raise ValueError(
+            "tune_pipeline: no microbatch candidate divides the batch "
+            "(%d) — pass microbatch_candidates" % batch)
+    wdev = distributed.device()
+    use_cuda = wdev is None or wdev.type == "cuda"
+    place = CUDAPlace(distributed.local_rank()) if use_cuda else CPUPlace()
+    limit = hbm_ceiling(place.device)
+    fetch_name = fetch.name if isinstance(fetch, Variable) else str(fetch)
+
+    def _world_error(err):
+        # the first failing rank's error, the same text on every rank
+        errs = [(r, e) for r, e in enumerate(distributed.gather_objects(
+            err)) if e is not None]
+        return None if not errs else "error on rank %d: %s" % errs[0]
+
+    candidates = []
+    with program_profile.probe_accounting():
+        for sched in schedules:
+            for m in microbatch_candidates:
+                cand = {"schedule": sched, "microbatches": int(m)}
+                try:
+                    plans = _plans(sched, m)
+                except ValueError as e:
+                    candidates.append(dict(cand, rejected=str(e)))
+                    continue
+                if not all(v for v, _ in plans):
+                    candidates.append(dict(
+                        cand, rejected="not pipelined on this mesh "
+                                       "(stages=%s, pp=%d)"
+                                       % (region_stages, pp)))
+                    continue
+                stats = [schedule_stats(sched, pp, m, v) for v, _ in plans]
+                cand.update(
+                    bubble_fraction=round(
+                        sum(st["idle_units"] for st in stats)
+                        / max(1, sum(st["total_units"] for st in stats)),
+                        4),
+                    in_flight=max(st["in_flight"] for st in stats))
+                cbs = BuildStrategy()
+                for attr, val in vars(bs).items():
+                    setattr(cbs, attr, val)
+                cbs.pipeline_schedule = sched
+                cbs.pipeline_microbatches = int(m)
+                scope = _scope.Scope()
+                pe, err, peak = None, None, None
+                try:
+                    Executor(place).run(startup_program, scope=scope)
+                    pe = ParallelExecutor(
+                        use_cuda=use_cuda, loss_name=fetch_name, mesh=mesh,
+                        build_strategy=cbs, main_program=main_program,
+                        scope=scope)
+                    for _ in range(max(1, warmup_steps)):
+                        pe.run([fetch_name], feed=feed)
+                    # the entry's eager warm-up peak (None on the CPU)
+                    plan = next(iter(pe._plans.values()))
+                    prof = program_profile.get(
+                        program_profile.program_fingerprint(plan.program))
+                    peak = prof.warmup_peak_bytes if prof is not None \
+                        else None
+                except Exception as e:  # noqa: BLE001 — a failed
+                    # candidate is evidence, not a tuner crash
+                    err = str(e)[:160]
+                rejected = _world_error(err)
+                peaks = [p for p in distributed.gather_objects(peak) if p]
+                cand["peak_hbm_bytes"] = max(peaks) if peaks else None
+                if rejected is None and limit and peaks \
+                        and max(peaks) > headroom * limit:
+                    rejected = "peak_hbm %d > %.0f" % (
+                        max(peaks), headroom * limit)
+                step_s = None
+                if rejected is None:
+                    try:
+                        pe.sync()
+                        t0 = time.perf_counter()
+                        for _ in range(probe_steps):
+                            pe.run([fetch_name], feed=feed,
+                                   return_numpy=False)
+                        pe.sync()
+                        step_s = (time.perf_counter() - t0) / probe_steps
+                    except Exception as e:  # noqa: BLE001
+                        err = str(e)[:160]
+                    rejected = _world_error(err)
+                    if rejected is None:
+                        # the world steps at its slowest rank's pace
+                        step_s = max(distributed.gather_objects(step_s))
+                if rejected is not None:
+                    cand["rejected"] = rejected
+                else:
+                    cand["step_s"] = round(step_s, 6)
+                del pe, scope
+                _release(place)
+                _event({"event": "autotune_probe", "knob": "pipeline",
+                        "schedule": sched, "microbatches": int(m),
+                        "step_s": cand.get("step_s"),
+                        "rejected": cand.get("rejected"),
+                        "fingerprint": fp[:12]})
+                candidates.append(cand)
+    decision = decide_pipeline(candidates, tol=tol)
+    decision["mesh_pp"] = int(pp)
+    if config is not None:
+        config.add(decision, fingerprint=fp[:12])
+    else:
+        _event({"event": "autotune_decision", "knob": "pipeline",
+                "chosen": decision["chosen"], "fingerprint": fp[:12]})
+    return decision
 
 
 # dequant-matmul ops in a quant A/B program: one op's replay is shorter

@@ -706,8 +706,15 @@ class Executor:
                 with span("executor/fetch_sync"):
                     fetches = [_to_numpy(f) for f in fetches]
         if t_mon is not None:
+            step_s = time.perf_counter() - t_mon
+            # a program's _step_hook(step_seconds, warm), before the
+            # step's record: a ParallelExecutor plan's pipeline bubble
+            # span lands in the step it was measured in
+            hook = getattr(program, "_step_hook", None)
+            if hook is not None:
+                hook(step_s, phase == "dispatch")
             monitor.record_step(
-                "executor", time.perf_counter() - t_mon,
+                "executor", step_s,
                 _batch_examples(block, feed_names, feed), 0,
                 device=self.place.device, warm=phase == "dispatch",
                 fingerprint=fp,

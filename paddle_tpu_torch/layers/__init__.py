@@ -4,7 +4,8 @@ JAX package does."""
 
 from . import (cnn, control_flow, detection, io,  # noqa: F401
                layer_function_generator, learning_rate_scheduler,
-               math_op_patch, metric_op, nn, ops, sequence, tensor)
+               math_op_patch, metric_op, nn, ops, pipeline, sequence,
+               tensor)
 from .cnn import *  # noqa: F401,F403
 from .control_flow import *  # noqa: F401,F403
 from .detection import *  # noqa: F401,F403
@@ -14,6 +15,7 @@ from .learning_rate_scheduler import *  # noqa: F401,F403
 from .metric_op import *  # noqa: F401,F403
 from .nn import *  # noqa: F401,F403
 from .ops import *  # noqa: F401,F403
+from .pipeline import *  # noqa: F401,F403
 from .sequence import *  # noqa: F401,F403
 from .tensor import *  # noqa: F401,F403
 

@@ -7,7 +7,8 @@ kernels), every sublayer ends in ``layer_norm`` (the layer-norm kernels),
 and the loss is ``softmax_with_cross_entropy`` with fused label smoothing
 (the softmax-xent kernels).  Masks come from the ``<name>@LEN`` length
 companions.  The programs are the JAX builder's, op for op and attr for
-attr; the ``pipeline_microbatches`` staging is not ported and raises.
+attr; ``pipeline_microbatches`` stages each stack into a
+``layers.Pipeline`` region (the ``pipeline_region`` op).
 
 Architecture: post-norm Transformer (Vaswani et al.): d_model 512,
 n_head 8, 6+6 layers, ffn 2048, separate source and target embeddings,
@@ -106,24 +107,49 @@ def _prepare_embedding(word, pos_table_name, vocab_size, d_model, max_len,
     return out
 
 
-def _no_pipeline(pipeline_microbatches):
-    if pipeline_microbatches:
-        raise NotImplementedError(
-            "pipeline_microbatches: pipeline schedules are not ported to "
-            "paddle_tpu_torch yet (ROADMAP Queue A7b)")
+def _staged(x, n_layer, layer_fn, pipeline_microbatches,
+            pipeline_layers_per_stage, sides):
+    """``n_layer`` layers over ``x``, staged into a ``layers.Pipeline``
+    region of ``pipeline_layers_per_stage`` consecutive layers a stage
+    when ``pipeline_microbatches`` is set; ``sides`` gives the region's
+    side inputs (the last one the layers read as their second input).
+    ``layer_fn(h, side, i)`` builds layer i."""
+    if not pipeline_microbatches:
+        for i in range(n_layer):
+            x = layer_fn(x, sides[-1] if sides else None, i)
+        return x
+    g = max(1, int(pipeline_layers_per_stage or 1))
+    if n_layer % g:
+        raise ValueError(
+            "pipeline_layers_per_stage (%d) must divide n_layer "
+            "(%d)" % (g, n_layer))
+    pipe = layers.Pipeline(microbatches=pipeline_microbatches)
+    for s0 in range(0, n_layer, g):
+        with pipe.stage():
+            h = pipe.carry(x if s0 == 0 else None)
+            side = None
+            for v in sides:
+                side = pipe.side(v)
+            for i in range(s0, s0 + g):
+                h = layer_fn(h, side, i)
+            pipe.emit(h)
+    return pipe()
 
 
 def wrap_encoder(src_word, src_max_len, vocab_size, n_layer=6, n_head=8,
                  d_model=512, d_inner=2048, dropout_rate=0.1, is_test=False,
                  pipeline_microbatches=None, pipeline_layers_per_stage=1):
-    """The encoder stack over ``src_word``; ``pipeline_microbatches``
-    (pipeline staging) raises."""
-    _no_pipeline(pipeline_microbatches)
+    """The encoder stack over ``src_word``.  ``pipeline_microbatches``
+    stages the layers into a ``layers.Pipeline`` region
+    (``pipeline_layers_per_stage`` consecutive layers a stage), which runs
+    as a pipeline schedule when the ``ParallelExecutor``'s mesh has a
+    ``pp`` axis of the stage count (or dividing it, for the interleaved
+    schedule); the losses are the same either way."""
     src_len = src_word.block._find_var_recursive(src_word._seq_len_name)
     enc_in = _prepare_embedding(src_word, "src_pos_enc", vocab_size, d_model,
                                 src_max_len, dropout_rate, is_test, "src")
 
-    def enc_layer(x, i):
+    def enc_layer(x, _, i):
         attn = _multi_head_attention(x, x, x, src_len, False, d_model,
                                      n_head, dropout_rate, is_test,
                                      "enc%d_attn" % i)
@@ -132,9 +158,8 @@ def wrap_encoder(src_word, src_max_len, vocab_size, n_layer=6, n_head=8,
                    "enc%d_ffn" % i)
         return _post_process(x, ffn, dropout_rate, is_test)
 
-    x = enc_in
-    for i in range(n_layer):
-        x = enc_layer(x, i)
+    x = _staged(enc_in, n_layer, enc_layer, pipeline_microbatches,
+                pipeline_layers_per_stage, [src_len])
     x._seq_len_name = src_word._seq_len_name
     return x
 
@@ -144,8 +169,9 @@ def wrap_decoder(tgt_word, enc_out, tgt_max_len, vocab_size, n_layer=6,
                  is_test=False, pipeline_microbatches=None,
                  pipeline_layers_per_stage=1):
     """The decoder stack and the vocabulary projection; returns the
-    logits.  ``pipeline_microbatches`` (pipeline staging) raises."""
-    _no_pipeline(pipeline_microbatches)
+    logits.  ``pipeline_microbatches`` stages the layers as in
+    ``wrap_encoder``, the encoder's output a per-microbatch side input of
+    the region."""
     tgt_len = tgt_word.block._find_var_recursive(tgt_word._seq_len_name)
     src_len = enc_out.block._find_var_recursive(enc_out._seq_len_name)
     dec_in = _prepare_embedding(tgt_word, "tgt_pos_enc", vocab_size, d_model,
@@ -164,9 +190,8 @@ def wrap_decoder(tgt_word, enc_out, tgt_max_len, vocab_size, n_layer=6,
                    "dec%d_ffn" % i)
         return _post_process(x, ffn, dropout_rate, is_test)
 
-    x = dec_in
-    for i in range(n_layer):
-        x = dec_layer(x, enc_out, i)
+    x = _staged(dec_in, n_layer, dec_layer, pipeline_microbatches,
+                pipeline_layers_per_stage, [tgt_len, src_len, enc_out])
     logits = layers.fc(x, size=vocab_size, num_flatten_dims=2,
                        name="dec_logits")
     return logits
@@ -179,7 +204,9 @@ def transformer(src_word, tgt_word, label, src_max_len, tgt_max_len,
                 pipeline_microbatches=None, pipeline_layers_per_stage=1):
     """Full train graph: returns (avg_cost, logits).  The cost is the
     label-smoothed cross-entropy averaged over the target tokens inside
-    each row's length.  ``pipeline_microbatches`` raises."""
+    each row's length.  ``pipeline_microbatches`` stages the encoder and
+    decoder stacks into two pipeline regions (``pipeline_layers_per_stage``
+    consecutive layers a stage) for ``pp`` meshes."""
     enc_out = wrap_encoder(src_word, src_max_len, src_vocab_size, n_layer,
                            n_head, d_model, d_inner, dropout_rate, is_test,
                            pipeline_microbatches,

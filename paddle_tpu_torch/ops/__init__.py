@@ -6,5 +6,6 @@ toolchain until a kernel is first launched."""
 from . import (activation, attention, control_flow,  # noqa: F401
                conv, creation, crf, ctc, detection, elementwise,
                fused_conv_bn, kv_cache, loss, manipulation, math, metric,
-               norm, optimizer_ops, pool, quantize, random, reduction, rnn,
+               norm, optimizer_ops, pipeline_region, pool, quantize, random,
+               reduction, rnn,
                sampled_loss, selected_rows, sequence)

@@ -29,6 +29,14 @@ is plain PyTorch, as the JAX package's is XLA outside its Pallas
 kernel.  Its ruling is read at the gathered shape (Tk = the pages' tokens a
 slot), as the JAX package reads it.
 
+Under the mesh runtime with a populated ``sp`` axis and
+``BuildStrategy.sequence_parallel`` (the plan marks the op with
+``__ring_axis__``), the op lowers to ring attention
+(``parallel/ring_attention.py``) exactly when the JAX package's test
+passes (``_ring_applicable``): the sequence's length, known only at run
+time, decides, so the op slices its inputs and gathers its output
+itself.  Elsewhere kernel #1 runs on the whole sequence.
+
 Under the mesh runtime a shard's (b, h) hash as the global tensor's rows
 (``_hash_rows``: the shard's batch and head offsets and the global head
 count, which kernels #1 and #2 and their plain versions take), so a
@@ -102,7 +110,15 @@ def _fused_attention_compute(ins, attrs, ctx, op_index):
         post, rate = 1.0 - rate, 0.0
     elif rate:
         seed = ctx.seed32(op_index)
-    if _library_arm(q, k.shape, rate):
+    rt = getattr(ctx, "mesh", None)
+    axis = attrs.get("__ring_axis__")
+    if axis and rt is not None and _ring_applicable(
+            rt, axis, q.shape, k.shape, attrs.get("causal", False)):
+        out = _ring_attention(rt, axis, q, k, v, k_len, seed,
+                              attrs.get("causal", False), rate,
+                              attrs.get("scale", None),
+                              _hash_rows(q, attrs, ctx) if rate else None)
+    elif _library_arm(q, k.shape, rate):
         out = fa.library_attention(q, k, v, k_len, attrs.get("causal", False),
                                    attrs.get("scale", None))
     else:
@@ -113,6 +129,37 @@ def _fused_attention_compute(ins, attrs, ctx, op_index):
     if post is not None:
         out = out * torch.tensor(post, dtype=out.dtype)
     return {"Out": out}
+
+
+def _ring_applicable(rt, axis, q_shape, k_shape, causal):
+    """The ring lowers the op when the ``sp`` axis has more than one rank,
+    its extent divides Tq and Tk, and a causal op has Tq == Tk (the JAX
+    package's test); otherwise kernel #1 runs on the whole sequence, as
+    the JAX package runs its single-chip kernel there."""
+    sp = rt.extent((axis,))
+    if sp <= 1:
+        return False
+    tq, tk = q_shape[2], k_shape[2]
+    if tq % sp or tk % sp:
+        return False
+    return not (causal and tq != tk)
+
+
+def _ring_attention(rt, axis, q, k, v, k_len, seed, causal, rate, scale,
+                    rows):
+    """Sequence-parallel attention over ``axis`` (``parallel/
+    ring_attention.py``) of Q/K/V every ``sp`` rank holds whole: the rank
+    keeps its time block of each, runs the ring, and the blocks of the
+    output are gathered back (the backward slices the output's cotangent
+    and gathers the inputs' gradients).  The batch rows and heads of a
+    dp / tp shard hash at their global rows (``rows``)."""
+    from ..parallel.collective import gather_replicated, slice_replicated
+    from ..parallel.ring_attention import _ring
+
+    axes = (axis,)
+    blocks = [slice_replicated(rt, x, axes, 2) for x in (q, k, v)]
+    out = _ring(*blocks, k_len, seed, rt, axis, causal, scale, rate, rows)
+    return gather_replicated(rt, out, axes, 2)
 
 
 register_op("fused_attention", ["Q", "K", "V", "KLen"], ["Out"],

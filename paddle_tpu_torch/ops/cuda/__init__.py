@@ -5,6 +5,7 @@ version: ``flash_attention`` (kernels #1 forward and #2 backward),
 table in PERF.md.  ``build`` compiles ``paddle_tpu_torch/csrc`` with nvcc
 at first use."""
 
+import collections
 import re
 
 from . import (build, conv_bn, flash_attention,  # noqa: F401
@@ -63,8 +64,9 @@ def device_launch_counts(names):
     """{kernel: launches} from the names of the device kernels a trace
     recorded, one name a launch."""
     counts = dict.fromkeys(KERNELS, 0)
-    for name in names:
+    # a trace repeats few names: each is matched once
+    for name, n in collections.Counter(names).items():
         for kernel, pattern in _DEVICE_NAME.items():
             if pattern.match(name):
-                counts[kernel] += 1
+                counts[kernel] += n
     return counts

@@ -13,6 +13,7 @@ runs at import time: machines without a CUDA toolchain import the package
 and run the plain versions on the CPU.
 """
 
+import concurrent.futures
 import ctypes
 import glob
 import hashlib
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -34,6 +36,8 @@ _libs = {}
 build_log = {}
 # libraries compiled by this process (the monitor's ``capture_stats``)
 build_count = [0]
+# kernel name -> seconds from the start of its build until its nvcc ended
+build_seconds = {}
 
 
 def kernel_names():
@@ -83,16 +87,24 @@ def _compile(todo):
     os.makedirs(build_dir(), exist_ok=True)
     nvcc = _nvcc()
     procs = []
+    t0 = time.perf_counter()
     for name, out in todo:
         tmp = "%s.%d.tmp" % (out, os.getpid())
         cmd = [nvcc] + NVCC_FLAGS + ["-o", tmp,
                                      os.path.join(CSRC, name + ".cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, out, tmp, proc in procs:
+
+    def wait(proc):
         text = proc.communicate()[0].decode(errors="replace")
+        return text, time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        ended = list(pool.map(wait, [p for _, _, _, p in procs]))
+    failed = []
+    for (name, out, tmp, proc), (text, seconds) in zip(procs, ended):
         build_log[name] = text
+        build_seconds[name] = seconds
         if proc.returncode:
             failed.append("nvcc failed on %s.cu:\n%s" % (name, text))
         else:

@@ -14,7 +14,10 @@ Semantics as the reference's ``dropout_implementation``:
 (1 - p) at test time; ``upscale_in_train`` divides kept values by 1 - p.
 Under the mesh runtime a rank draws the global mask and keeps its block
 (``_global_rand``), so a sharded run drops what the single-device run
-drops.
+drops.  Inside a pipeline stage (``ComputeContext.counter_random``) the
+draws are ``hash_bits`` of the op's seed in the stage's context, a
+function of (the region's seed, stage, microbatch, op, element), so the
+sequential path, every schedule and the grad's recompute drop alike.
 
 ``sampling_id`` draws one id a row of the probabilities X [batch, n] by
 the Gumbel-max rule ``jax.random.categorical`` uses (argmax of log p plus
@@ -35,6 +38,36 @@ def _dropout_infer(op, block):
     x = in_var(op, block, "X")
     set_output(op, block, "Out", x.shape, x.dtype)
     set_output(op, block, "Mask", x.shape, x.dtype)
+
+
+def _i32(c):
+    """The uint32 constant ``c`` as the int32 with its bits."""
+    return c - (1 << 32) if c >= 1 << 31 else c
+
+
+def _shr(h, k):
+    """Logical right shift of int32 bit patterns."""
+    return (h >> k) & ((1 << (32 - k)) - 1)
+
+
+def hash_bits(seed, shape, device):
+    """24 uniform bits an element (int32 in [0, 2**24)) that are a
+    function of the uint32 ``seed`` (a one-element int32 tensor) and each
+    element's flat index alone: the index times the golden ratio, xor the
+    seed, one round of a 32-bit xorshift-multiply finalizer.  The
+    arithmetic runs on int32 bit patterns (products wrap mod 2**32), a
+    dozen elementwise passes."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    h = torch.arange(n, dtype=torch.int32, device=device) * _i32(0x9E3779B1)
+    h = h ^ seed.reshape(()).to(torch.int32)
+    h = h ^ _shr(h, 16)
+    h = h * _i32(0x21F0AAAD)
+    h = h ^ _shr(h, 15)
+    h = h * _i32(0x735A2D97)
+    h = h ^ _shr(h, 15)
+    return _shr(h, 8).reshape(tuple(shape))
 
 
 def _global_rand(x, attrs, ctx):
@@ -65,8 +98,13 @@ def _dropout_compute(ins, attrs, ctx, op_index):
     if attrs.get("is_test", False):
         scale = 1.0 if impl == "upscale_in_train" else 1.0 - p
         return {"Out": x * scale, "Mask": torch.ones_like(x)}
-    u = _global_rand(x, attrs, ctx)
-    mask = (u >= p).to(x.dtype)
+    if getattr(ctx, "counter_random", False):
+        # a pipeline stage: the draws are a function of the stage's key
+        keep = hash_bits(ctx.seed32(op_index), x.shape, x.device) \
+            >= int(p * float(1 << 24))
+    else:
+        keep = _global_rand(x, attrs, ctx) >= p
+    mask = keep.to(x.dtype)
     if impl == "upscale_in_train":
         mask = mask / max(1.0 - p, 1e-8)
     return {"Out": x * mask, "Mask": mask}

@@ -15,10 +15,13 @@ DistributeTranspiler) on ``torch.distributed``, one process a device.
 * ``parallel_executor``: ``ParallelExecutor``, which runs the plan;
 * ``embedding``: row-sharded embedding tables;
 * ``checkpoint``: TrainState checkpoints (a ``ParallelExecutor``'s state
-  gathered to one writer).
+  gathered to one writer);
+* ``ring_attention``: sequence parallelism over ``sp`` (``ring_attention``,
+  ``ring_attention_shard``);
+* ``pipeline``: pipeline schedules over ``pp`` (``pipeline``,
+  ``schedule_stats``, ``SCHEDULES``).
 
-Sequence and pipeline parallelism (``ring_attention``, ``pipeline``) are
-ROADMAP A7b; the sharded checkpoints and the cluster runtime ROADMAP A7c.
+The sharded checkpoints and the cluster runtime are ROADMAP A7c.
 """
 
 from . import checkpoint  # noqa: F401
@@ -26,5 +29,7 @@ from . import distributed  # noqa: F401
 from .embedding import distributed_embedding_sharding_fn  # noqa: F401
 from .mesh import Mesh, PartitionSpec, make_mesh  # noqa: F401
 from .parallel_executor import ParallelExecutor  # noqa: F401
+from .pipeline import SCHEDULES, pipeline, schedule_stats  # noqa: F401
+from .ring_attention import ring_attention, ring_attention_shard  # noqa
 from .spec_layout import SpecLayout  # noqa: F401
 from .strategy import BuildStrategy, ExecutionStrategy  # noqa: F401

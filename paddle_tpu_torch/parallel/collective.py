@@ -25,6 +25,12 @@ device program's arithmetic needs it.
 * ``c_sparse_allgather`` (X -> Out): a SelectedRows gradient's rows and
   values concatenated over ``axes`` (a replicated ``is_sparse`` table's
   gradient under data parallelism).
+
+``MeshRuntime`` also holds what the sequence and pipeline axes move
+inside their ops: ``exchange`` (one ``batch_isend_irecv`` round of
+point-to-point transfers along an axis), ``shift`` (a ring rotation: the
+``sp`` ring's K/V blocks) and ``broadcast`` (the last pipeline stage's
+outputs to every ``pp`` rank).
 """
 
 import warnings
@@ -56,6 +62,7 @@ class MeshRuntime:
         self.mesh = mesh
         self.rank = int(rank)
         self.device = device
+        self._peers = {}
 
     def extent(self, axes):
         return self.mesh.extent(axes)
@@ -139,6 +146,62 @@ class MeshRuntime:
                 t = self.slice(t, b, dim)
         return t
 
+    def peer(self, axes, index):
+        """The world rank at position ``index`` along ``axes`` in this
+        rank's group (the other axes' coordinates kept)."""
+        axes = tuple(axes)
+        ranks = self._peers.get(axes)
+        if ranks is None:
+            ranks = self._peers[axes] = next(
+                g for g in self.mesh.group_ranks(axes) if self.rank in g)
+        return ranks[int(index) % len(ranks)]
+
+    def exchange(self, axes, sends=(), recvs=()):
+        """One round of point-to-point transfers along ``axes``: ``sends``
+        are (tensor, position along axes) pairs, ``recvs`` (buffer,
+        position) pairs, posted together in one ``batch_isend_irecv`` and
+        waited on.  Every rank posts its round in the same order, so a
+        ring's transfers (each rank sending and receiving at once) cannot
+        wait on each other.  Returns how many transfers this rank
+        posted."""
+        ops = []
+        if not sends and not recvs:
+            return 0
+        dist = _dist()
+        group = self.group(axes)
+        for t, pos in sends:
+            ops.append(dist.P2POp(dist.isend, t.contiguous(),
+                                  self.peer(axes, pos), group))
+        for t, pos in recvs:
+            ops.append(dist.P2POp(dist.irecv, t, self.peer(axes, pos),
+                                  group))
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return len(ops)
+
+    def shift(self, tensors, axes, offset=-1):
+        """Each of ``tensors`` sent to the rank ``offset`` places along
+        ``axes`` (cyclically) and replaced by what the rank ``-offset``
+        places along sends: one ring rotation.  Returns the received
+        tensors."""
+        k = self.extent(axes)
+        if k <= 1:
+            return list(tensors)
+        i = self.index(axes)
+        outs = [torch.empty_like(t) for t in tensors]
+        self.exchange(axes, [(t, (i + offset) % k) for t in tensors],
+                      [(o, (i - offset) % k) for o in outs])
+        return outs
+
+    def broadcast(self, t, axes, src_index):
+        """``t`` from the rank at position ``src_index`` along ``axes`` on
+        every rank of the group, in place."""
+        if self.extent(axes) <= 1:
+            return t
+        _dist().broadcast(t, src=self.peer(axes, src_index),
+                          group=self.group(axes))
+        return t
+
 
 def _quiet(fn, *args, **kwargs):
     # some releases call the tensor collectives deprecated in favour of
@@ -175,6 +238,53 @@ def replicated_sum(rt, x, axes):
     if rt is None or rt.extent(axes) <= 1:
         return x
     return _Replicated.apply(x, rt, tuple(axes))
+
+
+class _SliceReplicated(torch.autograd.Function):
+    """The rank's block of a tensor every rank holds alike; the whole
+    tensor's cotangent is the ranks' block cotangents gathered."""
+
+    @staticmethod
+    def forward(ctx, x, rt, axes, dim):
+        ctx.cfg = (rt, axes, dim)
+        return rt.slice(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        rt, axes, dim = ctx.cfg
+        return rt.all_gather(g.contiguous(), axes, dim), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    """The ranks' blocks gathered for consumers every rank runs alike:
+    each rank's cotangent is already the whole one, and its block's is
+    its slice."""
+
+    @staticmethod
+    def forward(ctx, x, rt, axes, dim):
+        ctx.cfg = (rt, axes, dim)
+        return rt.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        rt, axes, dim = ctx.cfg
+        return rt.slice(g, axes, dim), None, None, None
+
+
+def slice_replicated(rt, x, axes, dim):
+    """This rank's block along ``dim`` over ``axes`` of a replicated
+    ``x``, differentiable (the backward gathers)."""
+    if rt.extent(axes) <= 1:
+        return x
+    return _SliceReplicated.apply(x, rt, tuple(axes), int(dim))
+
+
+def gather_replicated(rt, x, axes, dim):
+    """The blocks of ``x`` along ``dim`` over ``axes`` gathered for
+    replicated consumers, differentiable (the backward slices)."""
+    if rt.extent(axes) <= 1:
+        return x
+    return _GatherReplicated.apply(x, rt, tuple(axes), int(dim))
 
 
 # ---------------------------------------------------------------------------

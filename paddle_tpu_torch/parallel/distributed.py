@@ -23,6 +23,7 @@ import torch
 
 __all__ = ["init_distributed", "shutdown", "is_initialized",
            "process_count", "process_id", "barrier", "any_process_flagged",
+           "gather_objects",
            "device", "local_rank"]
 
 _STATE = {"initialized": False, "device": None, "local_rank": 0}
@@ -147,6 +148,19 @@ def barrier(name="paddle_tpu_barrier"):
         import torch.distributed as dist
 
         dist.barrier()
+
+
+def gather_objects(obj):
+    """Every process's ``obj`` (picklable), in rank order: the evidence
+    each process saw, so that all of them decide alike from the same
+    list."""
+    if process_count() == 1:
+        return [obj]
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def any_process_flagged(flag):

@@ -14,8 +14,8 @@ order.  Axis convention, as in the JAX package:
 * ``fsdp`` — fully-sharded data parallel (batch sharding and ZeRO
   parameter / optimizer-state sharding)
 * ``tp``   — tensor parallel (weight sharding)
-* ``pp``   — pipeline stages (ROADMAP A7b)
-* ``sp``   — sequence / context parallel (ROADMAP A7b)
+* ``pp``   — pipeline stages (``pipeline.py``, the ``pipeline_region`` op)
+* ``sp``   — sequence / context parallel (``ring_attention.py``)
 * ``ep``   — expert parallel (sharded embedding tables)
 """
 

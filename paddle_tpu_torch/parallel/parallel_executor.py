@@ -38,8 +38,20 @@ world's NCCL and raises where the process sees no card; ``use_cuda=False``
 runs on the CPU over gloo (a gloo world, or no world).  Nothing switches
 from one to the other.  Without ``init_distributed`` the mesh is one
 rank's, and the plan's program is the single-device program: a collective
-over an axis of extent 1 is none.  A mesh with a populated ``sp`` or
-``pp`` axis, or a pipeline schedule set, raises (ROADMAP A7b).
+over an axis of extent 1 is none.
+
+* Sequence parallelism (``sp``): with ``BuildStrategy.sequence_parallel``
+  every ``fused_attention`` op lowers to ring attention over ``sp``
+  where its shapes allow (``ops/attention.py``); every other op runs
+  whole on each ``sp`` rank, as GSPMD keeps the JAX package's ops
+  outside its ring replicated over ``sp``.
+* Pipeline parallelism (``pp``): each ``pipeline_region`` op whose stage
+  count fits the ``pp`` extent runs ``BuildStrategy.pipeline_schedule``
+  (gpipe, 1f1b or interleaved) with ``pipeline_microbatches`` microbatches
+  over the ``pp`` group; the ops outside the regions run whole on each
+  ``pp`` rank.  With the monitor on, a warm step's ``pipeline/bubble``
+  span carves the schedule's idle fraction out of the step
+  (``pipeline_stats``; the goodput ledger's ``pipeline_bubble`` bucket).
 """
 
 import math
@@ -54,8 +66,9 @@ from ..framework import Variable, default_main_program
 from ..scope import global_scope
 from . import distributed
 from .collective import MeshRuntime
-from .mesh import AXIS_DP, AXIS_FSDP, AXIS_PP, AXIS_SP, make_mesh
+from .mesh import AXIS_DP, AXIS_FSDP, AXIS_PP, make_mesh
 from .mesh import PartitionSpec as P
+from .pipeline import normalize_schedule, region_plan, schedule_stats
 from .plan import plan_program
 from .spec_layout import SpecLayout
 from .strategy import BuildStrategy, ExecutionStrategy
@@ -99,12 +112,6 @@ class ParallelExecutor:
         if AXIS_DP not in names and AXIS_FSDP not in names:
             raise ValueError("mesh must have a data axis (%r or %r)"
                              % (AXIS_DP, AXIS_FSDP))
-        for axis in (AXIS_SP, AXIS_PP):
-            if self._mesh.axis_size(axis) > 1:
-                raise NotImplementedError(
-                    "a populated %r axis (sequence / pipeline parallelism) "
-                    "is not ported to paddle_tpu_torch yet (ROADMAP A7b)"
-                    % axis)
         world = distributed.process_count()
         if self._mesh.size != world:
             raise ValueError(
@@ -272,17 +279,13 @@ class ParallelExecutor:
     # ------------------------------------------------------------------
     def _plan(self, program, scope, feed_names, batch_feeds, fetch_names):
         bs = self._build_strategy
-        if bs.pipeline_schedule is not None or \
-                bs.pipeline_microbatches is not None:
-            if any(op.type == "pipeline_region"
-                   for op in program.global_block().ops):
-                raise NotImplementedError(
-                    "pipeline schedules are not ported to paddle_tpu_torch "
-                    "yet (ROADMAP A7b)")
+        knobs = (bool(bs.sequence_parallel),
+                 normalize_schedule(bs.pipeline_schedule),
+                 int(bs.pipeline_microbatches or 0))
         key = (id(program), program._version, tuple(feed_names),
                tuple(batch_feeds), tuple(fetch_names), id(scope),
                bs.reduce_strategy, bs.param_sharding_fn,
-               bs.feed_sharding_fn, self._sharding_layout())
+               bs.feed_sharding_fn, self._sharding_layout(), knobs)
         plan = self._plans.get(key)
         if plan is not None:
             return plan
@@ -296,18 +299,67 @@ class ParallelExecutor:
             (self._mesh.axis_names, self._mesh.shape, self._mesh.ranks),
             self._rank, tuple(batch_feeds), bs.reduce_strategy,
             bs.param_sharding_fn, bs.feed_sharding_fn,
-            self._sharding_layout())
+            self._sharding_layout(), knobs)
         plan = compile_cache.lookup(ckey)
         if plan is None or plan.program._mesh_runtime is not self._runtime:
             plan = plan_program(program, self._mesh, self._rank, specs,
                                 list(batch_feeds), list(fetch_names),
-                                self._data_axes(), self._runtime)
+                                self._data_axes(), self._runtime,
+                                sequence_parallel=knobs[0],
+                                pipeline_schedule=bs.pipeline_schedule,
+                                pipeline_microbatches=knobs[2] or None)
             compile_cache.store(ckey, plan)
         plan.shapes = shapes
+        plan.pipeline_stats = stats = self._pipeline_stats(program)
+        plan.program._step_hook = None if stats is None \
+            else self._note_bubble(stats)
         self._plans[key] = plan
         if self._mesh.size > 1:
             self._runtime.prepare([tuple(a) for a in plan.axes_used])
         return plan
+
+    def _pipeline_stats(self, program):
+        """The per-tick stage-idle accounting of the program's
+        ``pipeline_region`` ops under this executor's mesh and schedule
+        (``pipeline.schedule_stats``), as the JAX package's: the numbers
+        behind the goodput ledger's ``pipeline_bubble`` bucket, by the
+        op's own ``region_plan``; None when no region runs pipelined."""
+        pp = self._mesh.axis_size(AXIS_PP)
+        if pp <= 1:
+            return None
+        schedule = normalize_schedule(self._build_strategy.pipeline_schedule)
+        override = self._build_strategy.pipeline_microbatches
+        regions = []
+        for op in program.global_block().ops:
+            if op.type != "pipeline_region":
+                continue
+            v, m = region_plan(op.attrs, schedule, pp, override)
+            if v:
+                regions.append(schedule_stats(schedule, pp, m, v))
+        if not regions:
+            return None
+        total = sum(r["total_units"] for r in regions)
+        idle = sum(r["idle_units"] for r in regions)
+        return {"schedule": schedule,
+                "bubble_fraction": idle / total if total else 0.0,
+                "regions": regions}
+
+    @staticmethod
+    def _note_bubble(stats):
+        """A pipelined plan's step hook (the executor calls it with the
+        monitor on): a warm step's ``pipeline/bubble`` span, the step's
+        seconds times the executed schedule's idle fraction (the JAX
+        package's attribution)."""
+        def hook(step_s, warm):
+            if warm:
+                monitor.observe_span(
+                    "pipeline/bubble", step_s * stats["bubble_fraction"]
+                    * 1e6, args={"bucket": "pipeline_bubble",
+                                 "schedule": stats["schedule"],
+                                 "fraction": round(
+                                     stats["bubble_fraction"], 4),
+                                 "run_id": monitor.run_id()})
+        return hook
 
     def _sync_state(self, program, scope, plan):
         """At a program's first run in a world, every rank takes rank 0's

@@ -59,6 +59,19 @@ sharded state var gathered whole, a partial gradient summed: every rank
 fetches the global value, so a skip guard watching the fetches reaches
 the same verdict on every rank.
 
+**Sequence and pipeline axes.**  Every op runs whole on each ``sp`` and
+``pp`` rank (their ranks hold the same rows), as GSPMD keeps the JAX
+package's ops outside its ring and its pipeline replicated over those
+axes.  Under ``sequence_parallel`` each ``fused_attention`` op and its
+grad get ``__ring_axis__``: the op slices its time block, runs the ring
+and gathers its output itself when the run's shapes allow it
+(``ops/attention.py``), since the sequence length is known only at run
+time.  Each ``pipeline_region`` op and its grad get the schedule and the
+microbatch count (``__pipeline_schedule__``,
+``__pipeline_microbatches__``) and, where the region's batch is split,
+the data axes (``__batch_axes__``); the op runs its schedule over ``pp``
+and sums its gradients over ``pp`` itself (``ops/pipeline_region.py``).
+
 A collective over axes of extent 1 does nothing, so at world 1 the plan's
 program launches exactly what the single-device program launches.
 Not covered: batch coupling or a sharded parameter inside a control-flow
@@ -69,7 +82,7 @@ import copy
 
 from ..framework import Operator
 from . import collective  # noqa: F401  (registers the c_* ops)
-from .mesh import AXIS_TP
+from .mesh import AXIS_PP, AXIS_SP, AXIS_TP
 from .mesh import PartitionSpec as P
 
 __all__ = ["Plan", "plan_program", "batch_vars"]
@@ -337,10 +350,12 @@ def _spec_list(spec):
 
 
 def plan_program(program, mesh, rank, specs, feed_names, fetch_names,
-                 data_axes, runtime):
+                 data_axes, runtime, sequence_parallel=True,
+                 pipeline_schedule=None, pipeline_microbatches=None):
     """A rank's copy of ``program`` on ``mesh`` (``Plan``).  ``specs``:
     {persistable var: PartitionSpec} of the state the program reads;
-    ``data_axes``: the axes the batch splits over, in order."""
+    ``data_axes``: the axes the batch splits over, in order; the other
+    arguments are ``BuildStrategy``'s sequence and pipeline knobs."""
     p = copy.deepcopy(program)
     p._mesh_runtime = runtime
     block = p.global_block()
@@ -508,6 +523,27 @@ def plan_program(program, mesh, rank, specs, feed_names, fetch_names,
             op.attrs["__sync_axes__"] = list(D)
             for j in grads_of.get(i, []):
                 ops[j].attrs["__sync_axes__"] = list(D)
+
+    # -- the sequence and pipeline axes: marks their ops read -----------
+    sp_live = sequence_parallel and mesh.axis_size(AXIS_SP) > 1
+    if sp_live:
+        axes_used.add((AXIS_SP,))
+    for i, op in enumerate(ops):
+        if _is_grad(op):
+            continue
+        marks = {}
+        if op.type == "fused_attention" and sp_live:
+            marks["__ring_axis__"] = AXIS_SP
+        elif op.type == "pipeline_region":
+            marks["__pipeline_schedule__"] = pipeline_schedule or ""
+            marks["__pipeline_microbatches__"] = int(
+                pipeline_microbatches or 0)
+            if D and op.inputs["Carry"][0] in bdim:
+                marks["__batch_axes__"] = list(D)
+            if mesh.axis_size(AXIS_PP) > 1:
+                axes_used.add((AXIS_PP,))
+        for j in [i] + grads_of.get(i, []):
+            ops[j].attrs.update(marks)
 
     # -- gradients: partial where a split op gave a replicated input one -
     partial = {}       # grad var -> "dense" | "sparse"

@@ -19,10 +19,11 @@ table) places every persistable var by its parameter class over the
 ``ParallelExecutor`` turns the placement into the collectives of its plan
 (``parallel/plan.py``).
 
-The sequence-parallel and pipeline knobs are kept for the API; a mesh
-with a populated ``sp`` or ``pp`` axis, or a ``pipeline_schedule`` or
-``pipeline_microbatches`` set on a program that uses them, raises (ROADMAP
-A7b).
+``sequence_parallel`` lets ``fused_attention`` lower to ring attention
+over a populated ``sp`` axis; ``pipeline_schedule`` (``gpipe``, ``1f1b``
+or ``interleaved``; None is ``gpipe``) and ``pipeline_microbatches``
+(overriding each region's ``microbatches``) say how ``pipeline_region``
+ops run over a populated ``pp`` axis.
 """
 
 __all__ = ["BuildStrategy", "ExecutionStrategy"]
@@ -56,8 +57,8 @@ class BuildStrategy:
         # declarative model parallelism: a SpecLayout, or True for the
         # default table (spec_layout.py)
         self.sharding_rules = None
-        # ROADMAP A7b: ring attention over a populated sp axis, and the
-        # pipeline schedule and microbatches of pipeline_region ops
+        # ring attention over a populated sp axis, and the pipeline
+        # schedule and microbatches of pipeline_region ops
         self.sequence_parallel = True
         self.pipeline_schedule = None
         self.pipeline_microbatches = None

@@ -15,6 +15,7 @@ launches its kernels without their host code: the spans around it cover
 the replay's launch, and the kernels show in the device trace only.
 """
 
+import collections
 import contextlib
 import json
 import os
@@ -186,14 +187,49 @@ def open_trace_window():
     time.sleep(TRACE_SETTLE_S)
 
 
+Interval = collections.namedtuple("Interval", "start end")
+TraceEvent = collections.namedtuple("TraceEvent", "name time_range")
+
+
+def trace_events(prof, device_type):
+    """The events of a finished ``torch.profiler`` trace on one device
+    type, as ``prof.events()`` names and times them (``name``,
+    ``time_range`` in us from the trace's start), read from the trace's
+    own records.  ``prof.events()`` first builds every host and device
+    event into a tree, ~60 us an event in Python: seconds for the window
+    of one training step."""
+    import torch
+    from torch.autograd.profiler_util import _filter_name
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    names = {}
+    out = []
+    for e in res.events():
+        if e.device_type() != device_type \
+                or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        raw = e.name()
+        if _filter_name(raw):
+            continue
+        name = names.get(raw)
+        if name is None:
+            # prof.events()'s name: demangled where it is mangled
+            name = names[raw] = torch._C._demangle(raw) if len(raw) > 1 \
+                else raw
+        out.append(TraceEvent(name, Interval((e.start_ns() - t0) / 1e3,
+                                             (e.end_ns() - t0) / 1e3)))
+    return out
+
+
 def window_device_events(prof):
     """(the device events of a finished trace that a window opened by
     ``open_trace_window``, without its pads and the ``dispatch/`` span
     annotations, the number of pads the trace kept)."""
     from torch.autograd import DeviceType
 
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-              and not e.name.startswith("dispatch/")]
+    device = [e for e in trace_events(prof, DeviceType.CUDA)
+              if not e.name.startswith("dispatch/")]
     events = [e for e in device if "spin_kernel" not in e.name]
     return events, len(device) - len(events)
 

@@ -60,7 +60,10 @@ class ComputeContext:
     ``fused_attention``, a row-sharded ``lookup_table``), read it.  ``shared``
     keeps what several ops of the run compute alike from the same input
     tensors (``shared_value``).  A sub-block's ops run in a context of
-    their own (``sub_context``)."""
+    their own (``sub_context``); in a pipeline stage's
+    (``counter_random``) ``dropout`` draws from a counter hash of its seed
+    instead of ``generator``, so its mask does not depend on the order the
+    stages run in."""
 
     def __init__(self, device, generator, n_ops=0, amp=None, program=None,
                  graph_ops=()):
@@ -75,6 +78,9 @@ class ComputeContext:
         # it was planned from; their seeds stay the original indices'
         self._seed_map = getattr(program, "_seed_map", None)
         self.graph_ops = frozenset(graph_ops)
+        # set in a pipeline stage's context: the random ops draw from a
+        # counter hash of the context's seeds, not from ``generator``
+        self.counter_random = False
         self.saved = {}
         self.shared = {}
         self.run_key = None

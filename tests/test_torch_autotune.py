@@ -618,9 +618,62 @@ def test_decide_pipeline_fast_then_low_bubble():
                                    "rejected": "x"}])
 
 
+def _staged_fc(pkg, stages, microbatches=2, size=8):
+    x = pkg.layers.data("x", shape=[size])
+    pipe = pkg.layers.Pipeline(microbatches=microbatches)
+    for i in range(stages):
+        with pipe.stage():
+            c = pipe.carry(x if i == 0 else None)
+            c = pkg.layers.fc(c, size=size, act="tanh")
+            pipe.emit(c)
+    loss = pkg.layers.mean(pkg.layers.square(pipe()))
+    pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return loss
+
+
 def test_tune_pipeline_waits_for_a7():
-    with pytest.raises(NotImplementedError, match="A7"):
-        autotune.tune_pipeline(None, None, {}, None, None)
+    """``tune_pipeline`` (a refusal until the pipeline axis was ported):
+    an explicit schedule is the user's pin, recorded and never measured,
+    as the JAX tuner records it; a program with no region, or whose
+    regions no schedule runs pipelined on the mesh, is refused before any
+    candidate runs (the measured path: ``test_torch_program_sp_pp.py``,
+    in a world of two)."""
+    feed = {"x": np.zeros((8, 8), "float32")}
+    mesh = pt.make_mesh((1, 2), ("dp", "pp"))
+    decisions = []
+    for pkg, tuner, mk in ((pt, autotune, lambda: mesh),
+                           (fluid, jax_at, None)):
+        if mk is None:
+            from paddle_tpu.parallel import make_mesh
+
+            mk = lambda: make_mesh((1, 2), ("dp", "pp"))  # noqa: E731
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard():
+            loss = _staged_fc(pkg, 2)
+        bs = pkg.BuildStrategy()
+        bs.pipeline_schedule = "1f1b"
+        bs.pipeline_microbatches = 4
+        cfg = tuner.TunedConfig()
+        d = tuner.tune_pipeline(main, startup, feed, loss, mk(),
+                                build_strategy=bs, config=cfg)
+        assert cfg.get("pipeline")["source"] == "pinned"
+        decisions.append(d)
+    assert decisions[0] == decisions[1]
+    assert decisions[0]["evidence"] == "pinned"
+    assert decisions[0]["chosen"] == {"schedule": "1f1b", "microbatches": 4}
+    assert decisions[0]["candidates"] == []
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.layers.data("x", shape=[8])
+        plain = pt.layers.mean(pt.layers.fc(x, size=4))
+    with pytest.raises(ValueError, match="no pipeline_region"):
+        autotune.tune_pipeline(main, startup, feed, plain, mesh)
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        loss = _staged_fc(pt, 3)
+    # three stages fit neither pp = 2 (gpipe, 1f1b) nor a multiple of it
+    with pytest.raises(ValueError, match="no schedule runs"):
+        autotune.tune_pipeline(main, startup, feed, loss, mesh)
 
 
 # ---------------------------------------------------------------------------

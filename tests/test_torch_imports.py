@@ -45,6 +45,10 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
         "import paddle_tpu_torch.parallel.distributed\n"
         "import paddle_tpu_torch.parallel.embedding\n"
         "import paddle_tpu_torch.parallel.spec_layout\n"
+        "import paddle_tpu_torch.parallel.ring_attention\n"
+        "import paddle_tpu_torch.parallel.pipeline\n"
+        "import paddle_tpu_torch.ops.pipeline_region\n"
+        "import paddle_tpu_torch.layers.pipeline\n"
         "import paddle_tpu_torch.transpiler.distribute_transpiler\n"
         "import paddle_tpu_torch.transpiler.ps_dispatcher\n"
         "import chip_smoke\n"

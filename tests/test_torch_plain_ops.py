@@ -680,11 +680,8 @@ def test_shape_and_is_empty_read_nothing_on_the_host():
 
 # -- the sweep: every forward op type of the port has a parity case ---------
 
-# ROADMAP Queue A7b: the op types still to port
-STILL_TO_PORT = {
-    # A7b: pipeline schedules
-    "pipeline_region",
-}
+# the op types still to port (none: ``pipeline_region`` was the last)
+STILL_TO_PORT = set()
 
 # op types whose parity cases reach them only through a layer of another
 # name (the test files name the layer)
@@ -692,6 +689,67 @@ THROUGH_LAYERS = {
     "gru": "dynamic_gru", "lstmp": "dynamic_lstmp",
     "sparse_weight_decay": "L2Decay", "piecewise_lr": "piecewise_decay",
 }
+
+
+def _staged_fc(pkg, stages=2, microbatches=2, size=8, rate=0.0):
+    """A ``layers.Pipeline`` region of ``stages`` fc + tanh stages (and a
+    dropout each when ``rate``) over x, its loss mean(out^2) under SGD."""
+    x = pkg.layers.data("x", shape=[size])
+    pipe = pkg.layers.Pipeline(microbatches=microbatches)
+    for i in range(stages):
+        with pipe.stage():
+            c = pipe.carry(x if i == 0 else None)
+            c = pkg.layers.fc(c, size=size, act="tanh")
+            if rate:
+                c = pkg.layers.dropout(c, dropout_prob=rate)
+            pipe.emit(c)
+    out = pipe()
+    loss = pkg.layers.mean(pkg.layers.square(out))
+    pkg.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    return loss
+
+
+def test_pipeline_region_follows_jax():
+    """``pipeline_region`` against the JAX op: the staged program
+    serializes alike, and three SGD steps from the JAX startup state give
+    the JAX losses and weights (the sequential path on one device)."""
+    from paddle_tpu_torch.convert import load_numpy_state
+
+    progs, runs = {}, {}
+    rng = np.random.RandomState(0)
+    feeds = [{"x": rng.randn(8, 8).astype("float32")} for _ in range(3)]
+    for pkg in (fluid, pt):
+        main, startup = pkg.Program(), pkg.Program()
+        with pkg.program_guard(main, startup), pkg.unique_name.guard():
+            loss = _staged_fc(pkg, stages=3, microbatches=4)
+        progs[pkg.__name__] = main.to_dict()
+        names = sorted(v.name for v in startup.list_vars()
+                       if v.persistable)
+        if pkg is fluid:
+            scope = fluid.Scope()
+            exe = fluid.Executor(fluid.CPUPlace())
+            exe.run(startup, scope=scope)
+            state = {n: np.array(scope.find_var(n), copy=True)
+                     for n in names}
+        else:
+            scope = pt.Scope()
+            load_numpy_state(scope, startup, state, "cpu")
+            exe = pt.Executor(pt.CPUPlace())
+        losses = [float(np.asarray(exe.run(main, feed=f, fetch_list=[loss],
+                                           scope=scope)[0]).ravel()[0])
+                  for f in feeds]
+        runs[pkg.__name__] = (losses, {n: np.asarray(scope.find_var(n))
+                                       for n in names})
+    assert progs["paddle_tpu"] == progs["paddle_tpu_torch"]
+    ops = [op["type"] for op in progs["paddle_tpu_torch"]["blocks"][0]
+           ["ops"]]
+    assert ops.count("pipeline_region") == 1
+    assert ops.count("pipeline_region_grad") == 1
+    np.testing.assert_allclose(runs["paddle_tpu_torch"][0],
+                               runs["paddle_tpu"][0], rtol=1e-5)
+    for n, want in runs["paddle_tpu"][1].items():
+        np.testing.assert_allclose(runs["paddle_tpu_torch"][1][n], want,
+                                   rtol=1e-5, atol=1e-6, err_msg=n)
 
 
 def _names_in_port_tests():
@@ -725,10 +783,10 @@ def test_every_forward_op_type_has_a_parity_case():
     types = sorted(t for t in registry.OPS
                    if not t.endswith("_grad") and t not in PLAN_OPS)
     jax_types = {t for t in jax_registry.OPS if not t.endswith("_grad")}
-    assert len(types) == 253
+    assert len(types) == 254
     assert set(types) <= jax_types
     assert jax_types - set(types) == STILL_TO_PORT
-    assert len(STILL_TO_PORT) == 1
+    assert len(STILL_TO_PORT) == 0
     plain = {c.values[0] for c in CASES} | {c[0] for c in RANDOM_CASES[2:]} \
         | {"sampling_id", "random_crop", "print"}
     assert len(plain) == 58

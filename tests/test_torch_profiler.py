@@ -299,3 +299,36 @@ def test_device_trace_holds_the_host_spans(tmp_path):
     names = {e.get("name") for e in json.load(open(path))["traceEvents"]}
     assert {"executor/run", "executor/warmup"} <= names
     assert profiler._device_trace == [None, None]
+
+
+def test_trace_events_read_what_prof_events_reads():
+    """``trace_events``, the reader of the launch windows' traces, gives
+    ``prof.events()``'s names and times event for event (here the host
+    events of an MLP's steps and their ``record_function`` spans, the
+    only device type on the CPU).  ``prof.events()`` also folds a host op
+    into the op of its name that it runs inside (``aten::mean`` calling
+    ``aten::mean``): the raw reader keeps both, and device events never
+    nest."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loss = _build_mlp()
+    exe = _started()
+    x = np.random.rand(8, 4).astype("float32")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with profiler.RecordEvent("step"):
+                exe.run(feed={"x": x}, fetch_list=[loss])
+    got = sorted((e.name, e.time_range.start, e.time_range.end)
+                 for e in profiler.trace_events(prof, DeviceType.CPU))
+    want = sorted((e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CPU)
+    assert len(got) > 100
+    extra = collections.Counter(got) - collections.Counter(want)
+    assert not collections.Counter(want) - collections.Counter(got)
+    for name, a, b in extra:
+        assert any(n == name and x <= a and b <= y and (x, y) != (a, b)
+                   for n, x, y in got), (name, a, b)
+    assert profiler.trace_events(prof, DeviceType.CUDA) == []

@@ -218,11 +218,31 @@ def test_layer_norm_mean_has_no_gradient():
 
 
 def test_training_options_not_ported_raise():
+    """``pipeline_microbatches`` (which raised before the pipeline axis
+    was ported) now stages both stacks into regions that train; the other
+    options here are ported too."""
     words = [pt.layers.data(n, shape=[1], dtype="int64", lod_level=1)
              for n in ("src_word", "tgt_word", "lbl_word")]
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        pt_transformer.transformer(*words, MAX_LEN, MAX_LEN, VOCAB, VOCAB,
-                                   pipeline_microbatches=2, **TINY)
+    staged, _ = pt_transformer.transformer(
+        *words, MAX_LEN, MAX_LEN, VOCAB, VOCAB, pipeline_microbatches=2,
+        **TINY)
+    pt.optimizer.Adam(learning_rate=1e-2).minimize(staged)
+    ops = [op.type for op in pt.default_main_program().global_block().ops]
+    assert ops.count("pipeline_region") == 2
+    assert ops.count("pipeline_region_grad") == 2
+    exe = pt.Executor(pt.CPUPlace())
+    exe.run(pt.default_startup_program())
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, VOCAB, (4, MAX_LEN, 1)).astype("int64")
+    lens = np.full((4,), MAX_LEN, "int32")
+    feed = {n: ids for n in ("src_word", "tgt_word", "lbl_word")}
+    feed.update({n + "@LEN": lens for n in ("src_word", "tgt_word",
+                                            "lbl_word")})
+    steps = [float(exe.run(feed=feed, fetch_list=[staged])[0].ravel()[0])
+             for _ in range(5)]
+    assert np.isfinite(steps).all() and steps[-1] < steps[0]
+    pt.framework.switch_main_program(pt.Program())
+    pt.framework.switch_startup_program(pt.Program())
     logits = pt.layers.data("logits", shape=[VOCAB], stop_gradient=False)
     label = pt.layers.data("label", shape=[1], dtype="int64")
     # ignore_index is ported (it raised before the RNN slice): a row whose
