@@ -30,6 +30,9 @@
     python3 chip_smoke.py autotune    # device, build, and phase 32 alone
     python3 chip_smoke.py parallel    # device, build, and phase 33 alone
     python3 chip_smoke.py pipeline    # device, build, and phase 34 alone
+    python3 chip_smoke.py ckpt_sharded  # device, build, and phase 35
+                                        # alone (with ``resume``: phase
+                                        # 31 first)
     python3 chip_smoke.py realdist    # device, build, and phase 12 alone
                                       # (with ``pipeline``: both)
     python3 chip_smoke.py train       # device, build, and the Transformer
@@ -100,8 +103,10 @@ kernel as often as the eager one.  The kernel table reports the traced
 counts of each path's profiled window.  The profiler now and then loses
 a few kernel records of a long serving window (about 1 to 11 of 15,000
 events, the window's wrappers having launched every one): a serving
-pass, which changes no state, is then profiled again, up to
-``TRACE_TRIES`` windows, and the losses are logged (``trace_losses``).
+pass, or a replay of phase 32's forced rulings (one dequant-matmul lost
+once late in a whole run), changes no state and is then profiled again,
+up to ``TRACE_TRIES`` windows, and the losses are logged
+(``trace_losses``).
 Each window first runs ``paddle_tpu_torch.profiler``'s ``TRACE_PADS``
 tiny spin kernels, left out of its counts, since late in a whole run the
 trace dropped the first records of a window (``pads_traced`` shows how
@@ -501,6 +506,24 @@ empty window is profiled again first (``empty_windows``).
    on a (dp, sp) (1, 1) mesh: tokens a second, #1 at [1, 8, 32768, 64],
    bit-equal to an eager run; the ring's block step over 8 blocks of
    4096 against #1 within ``TOL``.  The world is left at the end.
+35. ``resume_sharded`` and ``ckpt_sharded`` — the sharded checkpoints
+   (``ckpt_sharded_phase``; a whole run takes it after phase 31):
+   bench.py's Transformer-base step (``resume_train``'s configuration,
+   ~1.12 GB of state) through ``ParallelExecutor`` on a (dp, fsdp) (1, 1)
+   world of one over NCCL, 8 steps straight against 4, a
+   ``TrainStateCheckpointManager(sharded=True)`` save (snapshot ms, write
+   s), the same state written as 4 virtual writers (``partition_shards``;
+   each writer's wall and bytes, the commit's seconds), a fresh executor
+   and scope restored from that artifact through ``state_shardings()``
+   (load s) and 4 more: losses and state bit-equal, one graph an entry,
+   #1-#6 in the resumed step's trace as the program implies, the largest
+   writer at most 0.35 of the bytes; phase 31's full-artifact figures of
+   the same call beside.  bench.py's ``ckpt_sharded`` rung (fc 1024 ->
+   2048 -> 1024 -> 16, Adam, ~50 MB) written as 1, 2 and 4 virtual
+   writers (``wall_s``, ``commit_s``, ``bytes_max``, ``mb_per_s``,
+   ``mb_per_s_spread``, ``bytes_one_over_n``), the 4-writer artifact
+   loaded bit-identical.  Disk rates are the card machine's local disk on
+   a warm page cache.  The world is left at the end.
 
 Then the script's total seconds (``total``, with the seconds since the
 previous log line summed by phase name), the kernel table as one JSON
@@ -9237,22 +9260,99 @@ def _torn_write(ts, path):
     return os.WIFSIGNALED(status) and os.WTERMSIG(status) == signal.SIGKILL
 
 
+def _resume_harness(batch, make, save, restore):
+    """The resume harness of phases 31 and 35: bench.py's Transformer-base
+    training step (``build_train``, dropout 0.1, noam + Adam, float32,
+    captured, program seed 2) at ``batch`` x 64, ``RESUME_STEPS`` steps
+    uninterrupted; then half of them in a fresh executor and scope and
+    ``save(h)``, the leg's checkpoint at the half; then the other half in
+    a fresh executor and scope after ``restore(h)`` (timed: load s), its
+    last step profiled, the launch counts read around it.
+    ``make(main, cost, scope)`` returns (executor, loss bits of a feed
+    list, the graph counts of its entries).  Returns the namespace ``h``
+    the callbacks share, the second half's executor and scope still in
+    it."""
+    import types
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import cuda
+
+    card = pt.CUDAPlace(0)
+    h = types.SimpleNamespace(marks=[("start", time.perf_counter())])
+    h.main, startup, h.cost = build_train(0.1)
+    start = pt.Scope()
+    pt.Executor(card).run(startup, scope=start)
+    rng = np.random.RandomState(0)
+    h.feeds = [train_feed(rng, batch) for _ in range(RESUME_STEPS)]
+    h.half = RESUME_STEPS // 2
+    h.per_step = kernel_launches_per_step(h.main)
+    h.marks.append(("build", time.perf_counter()))
+
+    def fresh():
+        h.scope = copy_scope(start)
+        h.exe, h.bits, h.graphs = make(h.main, h.cost, h.scope)
+
+    def drop(mark):
+        h.exe = h.scope = h.bits = h.graphs = None
+        release_memory()
+        h.marks.append((mark, time.perf_counter()))
+
+    fresh()
+    h.ref = h.bits(h.feeds)
+    h.want = _state_copy(h.scope, h.main)
+    h.ref_graphs = h.graphs()
+    drop("uninterrupted")
+
+    fresh()
+    h.got = h.bits(h.feeds[:h.half])
+    save(h)
+    drop("first_half_and_write")
+
+    fresh()
+    t0 = time.perf_counter()
+    h.restored = restore(h)
+    torch.cuda.synchronize()
+    h.load_s = time.perf_counter() - t0
+    h.got += h.bits(h.feeds[h.half:-1])
+    cuda.reset_launch_counts()
+    h.window = device_window(lambda: h.got.extend(h.bits(h.feeds[-1:])))
+    h.launches = cuda.launch_counts()
+    h.state = _state_copy(h.scope, h.main)
+    h.resumed_graphs = h.graphs()
+    h.launch_faults = {k: (h.window["trace_launches"].get(k, 0), n)
+                       for k, n in h.per_step.items()
+                       if h.window["trace_launches"].get(k, 0) != n}
+    h.marks.append(("restored_second_half", time.perf_counter()))
+    h.summary = {
+        "batch": batch, "seq": TRAIN_SEQ, "dropout": 0.1,
+        "steps": RESUME_STEPS, "restored_step": h.restored,
+        "same_loss_bits": h.got == h.ref,
+        "state_not_bit_equal": _unequal(h.want, h.state),
+        "graphs": {"uninterrupted": h.ref_graphs,
+                   "resumed": h.resumed_graphs},
+        "launches_per_step": h.per_step,
+        "trace_launches": h.window["trace_launches"],
+        "launch_faults": h.launch_faults}
+    # the gates both legs share: bit-equal losses and state, the half
+    # restored, one graph an entry, #1-#6 at their counts
+    h.passed = (h.summary["same_loss_bits"]
+                and not h.summary["state_not_bit_equal"]
+                and h.restored == h.half and h.ref_graphs == [1]
+                and h.resumed_graphs == [1] and not h.launch_faults)
+    return h
+
+
 def resume_train(tmp, batch=TRAIN_BATCH):
-    """bench.py's Transformer-base training step (``build_train``, dropout
-    0.1, noam + Adam, float32, captured, program seed 2) at 256 x 64:
-    ``RESUME_STEPS`` steps uninterrupted; then half of them in a fresh
-    executor and scope, an async ``TrainStateCheckpointManager`` save at
-    the half (snapshot ms on the step's thread), steps timed while the
-    write runs and as many after it (the loss fetched each step), and the
-    other half in a fresh executor and scope restored by a new manager
-    (load s), its last step profiled.  Then a synchronous save at the end,
-    that artifact garbled, and a later one torn by ``kill_mid_save`` in a
-    forked writer: the first manager's restore skips the torn ``.tmp.``
-    directory and the corrupt artifact, restores the half into the live
-    captured entry, and the second half replays.  Gates: the losses and
-    every state tensor bit-equal to the uninterrupted run's, one graph an
-    entry (also after the restore into the live entry), #1-#6 in the
-    resumed step's trace as the program implies, the fallback's step and
+    """Phase 31's exact resume on ``_resume_harness`` through the plain
+    ``Executor``: an async ``TrainStateCheckpointManager`` save at the
+    half (snapshot ms on the step's thread), steps timed while the write
+    runs and as many after it (the loss fetched each step), and a restore
+    by a new manager.  Then a synchronous save at the end, that artifact
+    garbled, and a later one torn by ``kill_mid_save`` in a forked writer:
+    the first manager's restore skips the torn ``.tmp.`` directory and the
+    corrupt artifact, restores the half into the live captured entry, and
+    the second half replays.  Gates: the harness's, one graph an entry
+    after the restore into the live entry, the fallback's step and
     losses.  Returns the summary."""
     import warnings
 
@@ -9260,113 +9360,81 @@ def resume_train(tmp, batch=TRAIN_BATCH):
     from paddle_tpu_torch.parallel import checkpoint as ck
 
     card = pt.CUDAPlace(0)
-    marks = [("start", time.perf_counter())]
-    main, startup, cost = build_train(0.1)
-    start = pt.Scope()
-    pt.Executor(card).run(startup, scope=start)
-    rng = np.random.RandomState(0)
-    feeds = [train_feed(rng, batch) for _ in range(RESUME_STEPS)]
-    half = RESUME_STEPS // 2
-    marks.append(("build", time.perf_counter()))
-
-    exe, scope = pt.Executor(card), copy_scope(start)
-    ref = _loss_bits(exe, main, feeds, cost, scope)
-    want = _state_copy(scope, main)
-    ref_graphs = _graphs(exe)
-    del exe, scope
-    release_memory()
-    marks.append(("uninterrupted", time.perf_counter()))
-
     cdir = os.path.join(tmp, "ckpt")
-    mgr = ck.TrainStateCheckpointManager(cdir, max_to_keep=None,
-                                         save_interval_steps=half)
-    exe, scope = pt.Executor(card), copy_scope(start)
-    got = _loss_bits(exe, main, feeds[:half], cost, scope)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    assert mgr.save(half, scope=scope, program=main,
-                    executors={"train": exe})
-    snapshot_ms = (time.perf_counter() - t0) * 1e3
-    writer = mgr._inflight[0]
-    during = []
-    while writer.is_alive() and len(during) < RESUME_WRITE_STEPS:
-        during.append(_timed_loss(exe, main, feeds[len(during) % half],
-                                  cost, scope))
-    mgr.wait_until_finished()
-    after = [_timed_loss(exe, main, feeds[i % half], cost, scope)
-             for i in range(RESUME_AFTER_STEPS)]
-    save_s = mgr.measured_costs()["save_s"]
-    artifact_bytes = _dir_bytes(mgr._step_dir(half))
-    del exe, scope
-    release_memory()
-    marks.append(("first_half_and_write", time.perf_counter()))
 
-    exe, scope = pt.Executor(card), copy_scope(start)
-    t0 = time.perf_counter()
-    restored = ck.TrainStateCheckpointManager(cdir, max_to_keep=None) \
-        .restore(scope=scope, program=main, executors={"train": exe})
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    got += _loss_bits(exe, main, feeds[half:-1], cost, scope)
-    window = device_window(lambda: got.extend(
-        _loss_bits(exe, main, feeds[-1:], cost, scope)))
-    state = _state_copy(scope, main)
-    per_step = kernel_launches_per_step(main)
-    launch_faults_ = {k: (window["trace_launches"].get(k, 0), n)
-                      for k, n in per_step.items()
-                      if window["trace_launches"].get(k, 0) != n}
-    resumed_graphs = _graphs(exe)
-    marks.append(("restored_second_half", time.perf_counter()))
+    def make(main, cost, scope):
+        exe = pt.Executor(card)
+        return (exe, lambda fs: _loss_bits(exe, main, fs, cost, scope),
+                lambda: _graphs(exe))
+
+    def save(h):
+        h.mgr = ck.TrainStateCheckpointManager(cdir, max_to_keep=None,
+                                               save_interval_steps=h.half)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assert h.mgr.save(h.half, scope=h.scope, program=h.main,
+                          executors={"train": h.exe})
+        h.snapshot_ms = (time.perf_counter() - t0) * 1e3
+        writer = h.mgr._inflight[0]
+        h.during = []
+        while writer.is_alive() and len(h.during) < RESUME_WRITE_STEPS:
+            h.during.append(_timed_loss(
+                h.exe, h.main, h.feeds[len(h.during) % h.half], h.cost,
+                h.scope))
+        h.mgr.wait_until_finished()
+        h.after = [_timed_loss(h.exe, h.main, h.feeds[i % h.half], h.cost,
+                               h.scope) for i in range(RESUME_AFTER_STEPS)]
+        h.save_s = h.mgr.measured_costs()["save_s"]
+        h.artifact_bytes = _dir_bytes(h.mgr._step_dir(h.half))
+
+    def restore(h):
+        return ck.TrainStateCheckpointManager(cdir, max_to_keep=None) \
+            .restore(scope=h.scope, program=h.main,
+                     executors={"train": h.exe})
+
+    h = _resume_harness(batch, make, save, restore)
 
     # a corrupt latest artifact and a torn later write: the restore falls
     # back to the half, into the live captured entry
-    mgr.save_now(RESUME_STEPS, scope=scope, program=main,
+    mgr, exe, scope = h.mgr, h.exe, h.scope
+    mgr.save_now(RESUME_STEPS, scope=scope, program=h.main,
                  executors={"train": exe})
     with open(os.path.join(mgr._step_dir(RESUME_STEPS), "arrays.npz"),
               "r+b") as f:
         f.seek(64)
         f.write(b"\xff" * 64)
-    torn_step = RESUME_STEPS + half
+    torn_step = RESUME_STEPS + h.half
     killed = _torn_write(ck.capture_train_state(
-        torn_step, scope=scope, program=main, executors={"train": exe}),
+        torn_step, scope=scope, program=h.main, executors={"train": exe}),
         mgr._step_dir(torn_step))
     torn = [e for e in os.listdir(cdir) if e.startswith(".tmp.")]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        fell_back_to = mgr.restore(scope=scope, program=main,
+        fell_back_to = mgr.restore(scope=scope, program=h.main,
                                    executors={"train": exe})
-    again = _loss_bits(exe, main, feeds[half:], cost, scope)
-    marks.append(("fallback", time.perf_counter()))
-    summary = {
-        "batch": batch, "seq": TRAIN_SEQ, "dropout": 0.1,
-        "steps": RESUME_STEPS, "restored_step": restored,
-        "same_loss_bits": got == ref,
-        "state_not_bit_equal": _unequal(want, state),
-        "graphs": {"uninterrupted": ref_graphs, "resumed": resumed_graphs,
-                   "after_fallback": _graphs(exe)},
-        "launches_per_step": per_step,
-        "trace_launches": window["trace_launches"],
-        "launch_faults": launch_faults_,
-        "artifact_bytes": artifact_bytes,
+    again = h.bits(h.feeds[h.half:])
+    h.marks.append(("fallback", time.perf_counter()))
+    summary = dict(h.summary, **{
+        "artifact_bytes": h.artifact_bytes,
         "state_bytes": sum(t.numel() * t.element_size()
-                           for t in want.values()),
-        "snapshot_ms": snapshot_ms, "save_s": save_s, "load_s": load_s,
-        "step_ms_during_write": [t * 1e3 for t in during],
-        "step_ms_after_write": [t * 1e3 for t in after],
-        "median_step_ms_during_write": statistics.median(during) * 1e3
-        if during else None,
-        "median_step_ms_after_write": statistics.median(after) * 1e3,
+                           for t in h.want.values()),
+        "snapshot_ms": h.snapshot_ms, "save_s": h.save_s,
+        "load_s": h.load_s,
+        "step_ms_during_write": [t * 1e3 for t in h.during],
+        "step_ms_after_write": [t * 1e3 for t in h.after],
+        "median_step_ms_during_write": statistics.median(h.during) * 1e3
+        if h.during else None,
+        "median_step_ms_after_write": statistics.median(h.after) * 1e3,
         "torn_write_killed": killed, "torn_tmp_dirs": torn,
         "fallback_restored_step": fell_back_to,
         "fallback_warned": [str(w.message)[:120] for w in caught],
-        "fallback_replay_same_bits": again == ref[half:],
-        "seconds": {b[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])}}
+        "fallback_replay_same_bits": again == h.ref[h.half:],
+        "seconds": {b[0]: b[1] - a[1]
+                    for a, b in zip(h.marks, h.marks[1:])}})
+    summary["graphs"]["after_fallback"] = h.graphs()
     log("resume_train", summary)
-    if not (summary["same_loss_bits"] and not summary["state_not_bit_equal"]
-            and restored == half and ref_graphs == [1]
-            and resumed_graphs == [1] and _graphs(exe) == [1]
-            and not launch_faults_ and killed and torn
-            and fell_back_to == half
+    if not (h.passed and h.graphs() == [1] and killed and torn
+            and fell_back_to == h.half
             and summary["fallback_replay_same_bits"]):
         raise SystemExit("resume_train failed a gate: %s" % {
             k: summary[k] for k in (
@@ -9736,6 +9804,196 @@ def resume_phase():
     release_memory()
     return summary
 
+# phase 35 (ckpt_sharded): sharded TrainState checkpoints on the card
+CKPT_WRITERS = 4             # virtual writers of resume_sharded's artifact
+CKPT_RUNG_WRITERS = (1, 2, 4)
+CKPT_MAX_WRITER_SHARE = 0.35  # the largest writer's share of the bytes
+
+
+def _virtual_write(ts, art, writers):
+    """``ts`` (a sharded capture) written as ``writers`` virtual writers
+    through ``partition_shards`` / ``write_train_state_shards`` /
+    ``commit_sharded_train_state``: each writer's wall seconds and bytes,
+    and the commit's seconds."""
+    from paddle_tpu_torch.parallel import checkpoint as ck
+
+    os.makedirs(os.path.dirname(art), exist_ok=True)
+    walls, sizes = [], []
+    for w, entries in enumerate(ck.partition_shards(ts, writers)):
+        t0 = time.perf_counter()
+        sizes.append(ck.write_train_state_shards(art, ts, w,
+                                                 entries=entries))
+        walls.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    ck.commit_sharded_train_state(art, ts, writers)
+    return walls, sizes, time.perf_counter() - t0
+
+
+def resume_sharded(tmp, full=None, batch=TRAIN_BATCH):
+    """Phase 35's sharded resume on ``_resume_harness`` through
+    ``ParallelExecutor`` on a (dp 1, fsdp 1) world of one over NCCL with
+    the sharding rules: a ``TrainStateCheckpointManager(sharded=True)``
+    save at the half (snapshot ms on the step's thread, write s), the same
+    state captured sharded again and written as ``CKPT_WRITERS`` virtual
+    writers (each writer's wall and bytes, the commit's seconds), and the
+    restore from that artifact with ``shardings=pe.state_shardings()``.
+    One card holds one rank, so every var is whole and rank 0's: the
+    virtual writers split the blocks, and the split ownership of a world
+    is the CPU worlds' (``tests/test_torch_sharded_checkpoint.py``).
+    Gates: the harness's, the largest writer at most
+    ``CKPT_MAX_WRITER_SHARE`` of the bytes.  ``full``: phase 31's
+    full-artifact figures of this call, printed beside.  Returns (summary,
+    launch record)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import checkpoint as ck
+    from paddle_tpu_torch.parallel import distributed
+
+    if not distributed.is_initialized():
+        distributed.init_distributed(place=pt.CUDAPlace(0))
+    bs = pt.BuildStrategy()
+    bs.sharding_rules = True
+    v4 = os.path.join(tmp, "v4")
+
+    def make(main, cost, scope):
+        pe = pt.ParallelExecutor(
+            use_cuda=True, loss_name=cost.name, main_program=main,
+            scope=scope, mesh=pt.make_mesh((1, 1), ("dp", "fsdp")),
+            build_strategy=bs)
+        return (pe, lambda fs: [pe.run([cost], feed=f)[0].tobytes()
+                                for f in fs],
+                lambda: _graphs(pe.executor))
+
+    def save(h):
+        mgr = ck.TrainStateCheckpointManager(os.path.join(tmp, "mgr"),
+                                             sharded=True, max_to_keep=None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assert mgr.save(h.half, scope=h.scope, program=h.main,
+                        executors={"train": h.exe})
+        h.snapshot_ms = (time.perf_counter() - t0) * 1e3
+        mgr.wait_until_finished()
+        h.save_s = mgr.measured_costs()["save_s"]
+        h.artifact_bytes = _dir_bytes(mgr._step_dir(h.half))
+        t0 = time.perf_counter()
+        ts = ck.capture_train_state(h.half, scope=h.scope, program=h.main,
+                                    executors={"train": h.exe},
+                                    sharded=True)
+        h.capture_ms = (time.perf_counter() - t0) * 1e3
+        h.state_bytes = sum(e["data"].numel() * e["data"].element_size()
+                            for e in ts.shards)
+        h.walls, h.sizes, h.commit_s = _virtual_write(
+            ts, os.path.join(v4, "step_%010d" % h.half), CKPT_WRITERS)
+
+    def restore(h):
+        return ck.TrainStateCheckpointManager(v4, max_to_keep=None).restore(
+            scope=h.scope, program=h.main, executors={"train": h.exe},
+            shardings=h.exe.state_shardings())
+
+    h = _resume_harness(batch, make, save, restore)
+    h.exe = h.scope = h.bits = h.graphs = None
+    release_memory()
+    share = max(h.sizes) / float(sum(h.sizes))
+    summary = dict(h.summary, **{
+        "mesh": "(dp 1, fsdp 1), world of one",
+        "backend": torch.distributed.get_backend(),
+        "state_bytes": h.state_bytes,
+        "sharded": {"snapshot_ms": h.snapshot_ms, "save_s": h.save_s,
+                    "capture_ms": h.capture_ms, "load_s": h.load_s,
+                    "artifact_bytes": h.artifact_bytes},
+        "virtual_writers": {
+            "writers": CKPT_WRITERS, "wall_s": h.walls, "bytes": h.sizes,
+            "commit_s": h.commit_s, "max_writer_share": share,
+            "mb_per_s": [b / w / 2 ** 20 for b, w in zip(h.sizes, h.walls)]},
+        # phase 31's full artifact of the same state size, this call
+        "full": {k: (full or {}).get(k) for k in (
+            "snapshot_ms", "save_s", "load_s", "artifact_bytes")},
+        "seconds": {b[0]: b[1] - a[1]
+                    for a, b in zip(h.marks, h.marks[1:])}})
+    log("resume_sharded", summary)
+    if not (h.passed and share <= CKPT_MAX_WRITER_SHARE):
+        raise SystemExit("resume_sharded failed a gate: %s" % {
+            k: summary[k] for k in (
+                "same_loss_bits", "state_not_bit_equal", "restored_step",
+                "graphs", "launch_faults", "virtual_writers")})
+    return summary, launch_record(True, h.launches, {}, h.window,
+                                  h.per_step)
+
+
+def ckpt_sharded_rung(tmp):
+    """bench.py's ``ckpt_sharded`` rung at its own width (fc 1024 -> 2048
+    -> 1024 -> 16, Adam, ~50 MB of state): one step on the card, a
+    sharded capture, and the state written as N = 1, 2 and 4 virtual
+    writers (each writer's wall, the commit's seconds, the largest
+    writer's bytes and MB/s, the spread of MB/s over N, each N's largest
+    writer over the whole).  Gate: the N = 4 artifact loads bit-identical
+    to the capture."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import checkpoint as ck
+
+    card = pt.CUDAPlace(0)
+    main, startup = pt.Program(), pt.Program()
+    main.random_seed = startup.random_seed = 7
+    with pt.unique_name.guard(), pt.program_guard(main, startup):
+        x = pt.layers.data("x", shape=[1024])
+        h = pt.layers.fc(x, size=2048, act="relu")
+        h = pt.layers.fc(h, size=1024, act="relu")
+        loss = pt.layers.mean(pt.layers.fc(h, size=16))
+        pt.optimizer.Adam(1e-3).minimize(loss)
+    scope = pt.Scope()
+    exe = pt.Executor(card)
+    exe.run(startup, scope=scope)
+    exe.run(main, feed={"x": np.random.RandomState(0).rand(
+        8, 1024).astype("float32")}, fetch_list=[loss], scope=scope)
+    ts = ck.capture_train_state(1, scope=scope, program=main,
+                                executors=exe, sharded=True)
+    total = sum(e["data"].numel() * e["data"].element_size()
+                for e in ts.shards)
+    per = {}
+    for n in CKPT_RUNG_WRITERS:
+        walls, sizes, commit_s = _virtual_write(
+            ts, os.path.join(tmp, "w%d" % n, "step_0000000001"), n)
+        wall = max(walls)
+        per[str(n)] = {"wall_s": wall, "commit_s": commit_s,
+                       "bytes_max": max(sizes),
+                       "mb_per_s": max(sizes) / wall / 2 ** 20}
+    loaded = ck.load_train_state(os.path.join(tmp, "w4", "step_0000000001"))
+    roundtrip = all(torch.equal(loaded.arrays[e["name"]][tuple(
+        slice(a, b) for a, b in e["index"])], e["data"]) for e in ts.shards)
+    rates = [p["mb_per_s"] for p in per.values()]
+    summary = {"state_bytes": total, "per_writer_count": per,
+               "save_wall_s": per["4"]["wall_s"],
+               "mb_per_s_spread": max(rates) / min(rates),
+               "bytes_one_over_n": {n: p["bytes_max"] / total
+                                    for n, p in per.items()},
+               "roundtrip_bit_identical": roundtrip,
+               "disk": "the card machine's local disk, warm page cache"}
+    log("ckpt_sharded", summary)
+    if not roundtrip:
+        raise SystemExit("ckpt_sharded: the 4-writer artifact did not "
+                         "round-trip bit-identical")
+    return summary
+
+
+def ckpt_sharded_phase(full=None):
+    """Phase 35 (``resume_sharded``, ``ckpt_sharded``); the artifacts go to
+    a temporary directory removed after, and the world of one is left
+    after (``distributed.shutdown``).  Returns {path: launch record}."""
+    import tempfile
+
+    from paddle_tpu_torch.parallel import distributed
+
+    release_memory()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            _, record = resume_sharded(os.path.join(tmp, "resume"), full)
+            release_memory()
+            ckpt_sharded_rung(os.path.join(tmp, "rung"))
+    finally:
+        distributed.shutdown()
+    release_memory()
+    return {"resume_sharded": record}
+
+
 # phase 32 (autotune): the tuner on the card
 AUTOTUNE_PROBE_STEPS = 3     # replays a ladder rung's window times
 AUTOTUNE_AB_STEPS = 6       # replays an A/B arm's window times
@@ -10093,20 +10351,28 @@ def autotune_kernels(cfg, spec, scope):
                                fetch_list=[spec.score_logits], scope=scope)
             for _ in range(3):
                 (logits,) = run()
-            trace = device_window(run, again=True)["trace_launches"]
+            # a replay changes no state: a window whose trace lost the
+            # replay's records is profiled again, as a serving pass is
+            need = {"flash_attention_fwd": MODEL["n_layer"] if ruling else 0,
+                    "layer_norm_fwd": 2 * MODEL["n_layer"]}
+            window = device_window(run, lost=lambda w, need=need: trace_lost(
+                w, need, True), again=True)
+            trace = window["trace_launches"]
         forced[ruling] = {
             "logits": logits,
             "captures": sum(st.graphs for st in exe._steps.values())
             - before,
             "trace": {kk: trace[kk] for kk in ("flash_attention_fwd",
-                                               "layer_norm_fwd")}}
+                                               "layer_norm_fwd")},
+            "trace_losses": window["trace_losses"]}
     valid = np.arange(t)[None, :] < lens[:, None]
     err = float(np.abs(forced[False]["logits"] - forced[True]["logits"])
                 [valid].max())
     same_tokens = bool(np.array_equal(
         forced[False]["logits"].argmax(-1)[valid],
         forced[True]["logits"].argmax(-1)[valid]))
-    att = {str(r).lower(): {"captures": v["captures"], "trace": v["trace"]}
+    att = {str(r).lower(): {"captures": v["captures"], "trace": v["trace"],
+                            "trace_losses": v["trace_losses"]}
            for r, v in forced.items()}
     if forced[False]["trace"]["flash_attention_fwd"] != 0 \
             or forced[True]["trace"]["flash_attention_fwd"] \
@@ -10138,14 +10404,20 @@ def autotune_kernels(cfg, spec, scope):
                 eager = cuda.launch_counts()["dequant_matmul"]
                 for _ in range(2):
                     (out,) = run()
-                trace = device_window(run, again=True)["trace_launches"]
+                # as above: a lost replay record is profiled again
+                need = {"dequant_matmul": 1 if ruling or mode != "dynamic"
+                        else 0}
+                window = device_window(run, lost=lambda w, need=need:
+                                       trace_lost(w, need, True), again=True)
             qforced[mode, ruling] = {
                 "out": out, "eager_launches": eager,
                 "captures": sum(st.graphs for st in exe._steps.values()),
-                "trace": trace["dequant_matmul"]}
+                "trace": window["trace_launches"]["dequant_matmul"],
+                "trace_losses": window["trace_losses"],
+                "pads_traced": window["pads_traced"]}
         del exe
-    dyn = {str(r).lower(): {kk: v[kk] for kk in ("eager_launches",
-                                                "captures", "trace")}
+    dyn = {str(r).lower(): {kk: v[kk] for kk in (
+        "eager_launches", "captures", "trace", "trace_losses", "pads_traced")}
            for (mode, r), v in qforced.items() if mode == "dynamic"}
     qerr = float(np.abs(qforced["dynamic", False]["out"]
                         - qforced["dynamic", True]["out"]).max())
@@ -11303,6 +11575,19 @@ def main():
         log("total", {"seconds": time.perf_counter() - t_start,
                       "phase_seconds": dict(PHASE_SECONDS)})
         return 0
+    if "ckpt_sharded" in sys.argv[1:]:
+        # with "resume" too, phase 31 first: its full-artifact figures
+        # print beside the sharded ones
+        full = resume_phase()["train"] if "resume" in sys.argv[1:] \
+            else None
+        faults = {p: launch_faults(r)
+                  for p, r in ckpt_sharded_phase(full).items()}
+        if any(faults.values()):
+            raise SystemExit("ckpt_sharded: a path did not launch its "
+                             "kernels as its program implies: %s" % faults)
+        log("total", {"seconds": time.perf_counter() - t_start,
+                      "phase_seconds": dict(PHASE_SECONDS)})
+        return 0
     if "autotune" in sys.argv[1:]:
         autotune_phase()
         log("total", {"seconds": time.perf_counter() - t_start,
@@ -11481,7 +11766,13 @@ def main():
     # exact-resume checkpoints, the skip guard and the guardian's rollback
     # on the Transformer-base step (#1-#6 in the resumed step's trace as
     # the program implies) and bench.py's fault_drill MLP (no hand kernel)
-    resume_phase()
+    resumed = resume_phase()
+    # sharded checkpoints (phase 35): the Transformer-base step through
+    # ParallelExecutor resumed from a 4-virtual-writer artifact (#1-#6 in
+    # the resumed step's trace), beside phase 31's full artifact, and
+    # bench.py's ckpt_sharded rung
+    for path, record in ckpt_sharded_phase(resumed["train"]).items():
+        check_path(path, record)
     # the tuner: the batch ladder and the Trainer on Transformer-base
     # (#1-#6 in the replay's trace as the program implies), the kernel
     # rulings at the serving width (#1 against SDPA, #7 against

@@ -52,8 +52,10 @@ Trainer's place: the card over NCCL, or ``CPUPlace()`` over gloo.  Every
 rank reads the same reader and keeps its rows of each batch.  In a world
 of several processes the preemption signal is a vote
 (``distributed.any_process_flagged``), taken after every step: all ranks
-stop after the same step and flush the same checkpoint, whose state is
-gathered whole and written by rank 0 alone.
+stop after the same step and flush the same checkpoint.  The manager
+follows the world (``TrainStateCheckpointManager(sharded=None)``): in a
+world of several processes each rank writes the blocks it owns and rank
+0 commits the sharded artifact.
 
 Not ported, and refused by name: ``cluster_member`` (ROADMAP A7c).
 """

@@ -14,14 +14,16 @@ DistributeTranspiler) on ``torch.distributed``, one process a device.
   collectives, and the collective ops;
 * ``parallel_executor``: ``ParallelExecutor``, which runs the plan;
 * ``embedding``: row-sharded embedding tables;
-* ``checkpoint``: TrainState checkpoints (a ``ParallelExecutor``'s state
-  gathered to one writer);
+* ``checkpoint``: TrainState checkpoints, full (a ``ParallelExecutor``'s
+  state gathered to one writer) or sharded (each rank writing the blocks
+  it owns), and ``save_sharded`` / ``load_sharded`` /
+  ``ShardedCheckpointManager`` over the sharded format;
 * ``ring_attention``: sequence parallelism over ``sp`` (``ring_attention``,
   ``ring_attention_shard``);
 * ``pipeline``: pipeline schedules over ``pp`` (``pipeline``,
   ``schedule_stats``, ``SCHEDULES``).
 
-The sharded checkpoints and the cluster runtime are ROADMAP A7c.
+The cluster runtime and the fleet are ROADMAP A7c (part 2).
 """
 
 from . import checkpoint  # noqa: F401

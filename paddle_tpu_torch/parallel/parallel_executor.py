@@ -524,19 +524,65 @@ class ParallelExecutor:
         program = program if program is not None else (
             self._program or default_main_program())
         out = dict(state)
+        specs, shapes = self._held_specs(state, program)
+        for n in sorted(out):
+            t = _as_tensor(out[n]).to(self.place.device)
+            if tuple(t.shape) == shapes[n]:
+                continue
+            out[n] = self._runtime.reshard(t, specs[n], P())
+        return out
+
+    def _held_specs(self, state, program):
+        """({name: spec}, {name: global shape}) of ``state``: each var's
+        spec in this executor's plans, else where it would place the var
+        (a state restored with ``state_shardings()`` before any run)."""
         specs = {}
         for plan in self._plans.values():
             specs.update(plan.specs)
-        for n in sorted(out):
-            spec = specs.get(n)
-            if spec is None:
-                continue
-            t = _as_tensor(out[n]).to(self.place.device)
-            full = self._global_shape(program, n, t)
-            if tuple(t.shape) == full:
-                continue
-            out[n] = self._runtime.reshard(t, spec, P())
-        return out
+        shapes = {n: self._global_shape(program, n, v)
+                  for n, v in state.items()}
+        if any(n not in specs for n in state):
+            specs = dict(self._specs(program, shapes), **specs)
+        return specs, shapes
+
+    def owned_shards(self, state, program=None):
+        """(entries, global shapes) of ``state`` ({name: scope value}) that
+        this rank writes in a sharded checkpoint
+        (``parallel.checkpoint.capture_train_state(sharded=True)``), with
+        no collective: a var held whole is owned by the rank at
+        coordinate 0 on every axis; a split var's block by the rank at
+        coordinate 0 on every axis its spec does not use (under
+        ``P("fsdp")`` on a (dp 2, fsdp 2) mesh, the two dp-0 ranks own the
+        halves).  Each entry is ``{"name", "index", "data"}``: the global
+        ``[[start, stop], ...]`` of the block and a host copy of it."""
+        program = program if program is not None else (
+            self._program or default_main_program())
+        specs, shapes = self._held_specs(state, program)
+        coords = self._mesh.coords(self._rank)
+        entries = []
+        for n in sorted(state):
+            full, local = shapes[n], tuple(np.shape(state[n]))
+            spec = specs[n] if local != full else P()
+            if Sharding(self._mesh, spec, self._rank).local_shape(full) \
+                    != local:
+                raise ValueError(
+                    "var %r is held at shape %s: neither its global shape "
+                    "%s nor its block under %r on %r"
+                    % (n, local, full, spec, self._mesh))
+            used = {a for d in range(len(full)) for a in spec.axes(d)}
+            if any(coords[a] for a in self._mesh.axis_names
+                   if a not in used):
+                continue          # a replica of a block another rank owns
+            index = []
+            for d, dim in enumerate(full):
+                axes = spec.axes(d)
+                size = dim // self._mesh.extent(axes)
+                i = self._mesh.index(self._rank, axes)
+                index.append([i * size, (i + 1) * size])
+            entries.append({"name": n, "index": index,
+                            "data": _as_tensor(state[n]).detach().to(
+                                "cpu", copy=True)})
+        return entries, shapes
 
     @property
     def executor(self):

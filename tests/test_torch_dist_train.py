@@ -1,15 +1,19 @@
-"""Distributed training in the port (``tests/test_dist_train.py``'s cases
-but ``test_dist_trainer_kill_and_resume``, ROADMAP A7c): a world of 2 gloo
-ranks (``torch_mesh_world``) runs ``tests/dist_model.py``'s workloads the
-way ``tests/dist_runner.py`` does — the ``DistributeTranspiler``'s plan
-over ``make_mesh()``, each rank feeding its local half of every global
-batch — and each rank's losses must equal the single-device run's (the
-JAX package's, from the same startup state, and the port's own); then
-the transpiler's plan against the shardings the executor really holds,
-the plan and accounting in this process, the preemption vote, and
-``Trainer(parallel=True)`` in the world.
+"""Distributed training in the port (``tests/test_dist_train.py``'s
+cases): a world of 2 gloo ranks (``torch_mesh_world``) runs
+``tests/dist_model.py``'s workloads the way ``tests/dist_runner.py`` does
+— the ``DistributeTranspiler``'s plan over ``make_mesh()``, each rank
+feeding its local half of every global batch — and each rank's losses
+must equal the single-device run's (the JAX package's, from the same
+startup state, and the port's own); then the transpiler's plan against
+the shardings the executor really holds, the plan and accounting in this
+process, the preemption vote, ``Trainer(parallel=True)`` in the world
+(with sharded checkpoints, a signal on one rank and a resume), and the
+kill-and-resume drill: SIGTERM on both ranks, a flush step agreed
+by the vote and saved by ``ShardedCheckpointManager.save_now``, and
+fresh ranks that resume from it.
 """
 
+import json
 import os
 import sys
 
@@ -19,7 +23,8 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import dist_model  # noqa: E402
-from torch_mesh_world import error_of, run_world  # noqa: E402
+from torch_mesh_world import (error_of, finish_world,  # noqa: E402
+                              run_world, start_world)
 
 WORLD = 2
 WORKLOADS = ("mlp", "sparse", "text_cls", "word2vec")
@@ -114,23 +119,143 @@ def _trainer_rows():
              rng.rand(1).astype("float32")) for _ in range(64)]
 
 
-def _trainer_losses(**kw):
+def _trainer_losses(on_step=None, **kw):
+    """Two epochs of the Trainer over ``_trainer_rows`` (a checkpointable
+    reader); ``on_step(n)`` after the n-th step of this run."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.contrib import EndStepEvent, Trainer
+    from paddle_tpu_torch.reader import checkpointable
 
     rows = _trainer_rows()
     got = []
+
+    def handler(ev):
+        if isinstance(ev, EndStepEvent):
+            got.append(float(np.asarray(ev.metrics[0]).ravel()[0]))
+            if on_step is not None:
+                on_step(len(got))
+
     t = Trainer(_trainer_func, lambda: pt.optimizer.SGD(0.3),
                 place=pt.CPUPlace(), **kw)
-    t.train(2, lambda ev: got.append(float(np.asarray(
-        ev.metrics[0]).ravel()[0])) if isinstance(ev, EndStepEvent)
-        else None, reader=pt.batch(lambda: iter(rows), 16),
-        feed_order=["x", "y"])
+    t.train(2, handler, reader=checkpointable(pt.batch(lambda: iter(rows),
+                                                       16)),
+            feed_order=["x", "y"])
     return np.array(got)
 
 
 def case_trainer(inputs, rank, world):
     return {"losses": _trainer_losses(parallel=True)}
+
+
+FLUSH_STEP = 3
+
+
+def case_trainer_flush(inputs, rank, world):
+    """``Trainer(parallel=True)`` with an async sharded checkpoint every
+    step: rank 1 is signalled after step ``FLUSH_STEP``, both ranks stop
+    there and flush the step the periodic save is writing.  The saver's
+    commit is held back 0.5 s, so the non-saver's flush comes while the
+    commit is still to land.  Returns each step's shard writes on this
+    rank."""
+    import signal
+    import time
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import fault
+    from paddle_tpu_torch.contrib import CheckpointConfig
+
+    writes = []
+    every = fault.FaultSchedule(every=1)
+    fault.register("checkpoint/before_write",
+                   lambda step, **_: writes.append(step), every)
+    if rank == 0:
+        fault.register("checkpoint/before_commit",
+                       lambda step, **_: time.sleep(0.5), every)
+    got = []
+    prev = signal.signal(signal.SIGTERM, lambda s, f: got.append(s))
+    try:
+        losses = _trainer_losses(
+            lambda n: rank == 1 and n == FLUSH_STEP and os.kill(
+                os.getpid(), signal.SIGTERM),
+            parallel=True, checkpoint_config=CheckpointConfig(
+                checkpoint_dir=str(inputs["ckpt"]), step_interval=1))
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        fault.clear()
+    out = {"losses": losses, "writes": np.array(writes),
+           "signals": np.array(len(got))}
+    if rank == 0:
+        # the saver returns once its commits landed, the peer's included
+        ckpt = str(inputs["ckpt"])
+        out["entries"] = np.array(sorted(os.listdir(ckpt)))
+        with open(os.path.join(ckpt, "step_%010d" % FLUSH_STEP,
+                               "MANIFEST.json")) as f:
+            out["manifest"] = np.array(f.read())
+    return out
+
+
+def case_trainer_resume(inputs, rank, world):
+    """A fresh Trainer in the world over ``trainer_flush``'s directory:
+    it resumes at the flushed step and trains to the end."""
+    from paddle_tpu_torch.contrib import CheckpointConfig
+
+    cfg = CheckpointConfig(checkpoint_dir=str(inputs["ckpt"]),
+                           step_interval=1)
+    losses = _trainer_losses(parallel=True, checkpoint_config=cfg)
+    return {"losses": losses, "load_serial": np.array(cfg.load_serial)}
+
+
+def case_preempt(inputs, rank, world):
+    """``tests/dist_runner.py``'s preemption-aware run of the ``mlp``
+    workload: resume from the newest sharded artifact, then train, taking
+    the preemption vote before each step; once any rank was signalled,
+    every rank saves the agreed step (``save_now``, a collective) and
+    stops.  With ``hold`` the ranks wait after their first step until
+    SIGTERM arrives, so the signal lands mid-run and not after it."""
+    import signal
+    import time
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.convert import load_numpy_state
+    from paddle_tpu_torch.parallel import checkpoint as ck
+    from paddle_tpu_torch.parallel import distributed
+
+    build_fn, batches_fn = dist_model.MODELS["mlp"]
+    loss = build_fn(pt)
+    load_numpy_state(pt.global_scope(), pt.default_startup_program(),
+                     _state_in(inputs), "cpu")
+    mgr = ck.ShardedCheckpointManager(str(inputs["ckpt"]), async_save=False)
+    start = mgr.restore()
+    if start is not None:
+        print("RESUMED", start, flush=True)
+    start = start or 0
+    t = pt.DistributeTranspiler()
+    t.transpile(trainer_id=rank, trainers=world)
+    mesh = pt.make_mesh()
+    pe = pt.ParallelExecutor(use_cuda=False, loss_name=loss.name,
+                             build_strategy=t.build_strategy(mesh),
+                             mesh=mesh)
+    flagged = []
+    signal.signal(signal.SIGTERM, lambda signum, frame: flagged.append(1))
+    data, losses, flush = batches_fn(), [], -1
+    for i in range(start, len(data)):
+        if distributed.any_process_flagged(flagged):
+            mgr.save_now(i, executors=pe)
+            flush = i
+            print("CKPT_SAVED", i, flush=True)
+            break
+        lo = rank * (dist_model.BATCH // world)
+        hi = lo + dist_model.BATCH // world
+        (lv,) = pe.run([loss], feed={k: v[lo:hi] for k, v in data[i].items()},
+                       local_feed=True)
+        losses.append(float(np.asarray(lv).ravel()[0]))
+        print("STEP", i, flush=True)
+        deadline = time.monotonic() + 120
+        while bool(inputs["hold"]) and not flagged and \
+                time.monotonic() < deadline:
+            time.sleep(0.02)
+    return {"losses": np.array(losses), "flush": np.array(flush),
+            "start": np.array(start)}
 
 
 CASES = {name[5:]: fn for name, fn in dict(globals()).items()
@@ -169,8 +294,11 @@ def world(tmp_path_factory):
         state, losses = _jax_local(w)
         inputs["dist_" + w] = state
         refs[w] = losses
-    res = run_world(os.path.abspath(__file__), WORLD, sorted(CASES),
-                    tmp_path_factory.mktemp("dist_world"), inputs)
+    tmp = tmp_path_factory.mktemp("dist_world")
+    ckpt = np.array(str(tmp / "trainer_ckpt"))
+    inputs["trainer_flush"] = inputs["trainer_resume"] = {"ckpt": ckpt}
+    res = run_world(os.path.abspath(__file__), WORLD,
+                    sorted(set(CASES) - {"preempt"}), tmp, inputs)
     return res, inputs, refs
 
 
@@ -342,6 +470,80 @@ def test_parallel_trainer_in_a_world_matches_one_device(world):
         assert not error_of(r), r.get("__trace__")
         np.testing.assert_allclose(r["losses"], want, rtol=1e-4,
                                    atol=1e-6)
+
+
+def test_parallel_trainer_flushes_sharded_checkpoint_and_resumes(world):
+    """``Trainer(parallel=True, checkpoint_config=)`` in a world writes
+    sharded artifacts (the manager follows the world).  A signal on one
+    rank stops both after the same step, whose periodic save is still
+    committing: the flush writes no rank's shards a second time and
+    leaves no tmp directory, and a fresh Trainer in the world resumes
+    there and ends where the uninterrupted single-device run ends."""
+    res, inputs, _ = world
+    flush, resume = res["trainer_flush"], res["trainer_resume"]
+    for r in flush + resume:
+        assert not error_of(r), r.get("__trace__")
+    want = _trainer_losses()
+    for rank, r in enumerate(flush):
+        assert len(r["losses"]) == FLUSH_STEP, r["losses"]
+        assert r["writes"].tolist() == list(range(1, FLUSH_STEP + 1)), rank
+        assert int(r["signals"]) == (rank == 1)
+    assert flush[0]["entries"].tolist() == [
+        "step_%010d" % s for s in range(1, FLUSH_STEP + 1)]
+    man = json.loads(str(flush[0]["manifest"]))
+    assert man["sharded"] and man["writers"] == WORLD
+    for r in resume:
+        assert int(r["load_serial"]) == FLUSH_STEP
+        np.testing.assert_allclose(
+            np.concatenate([flush[0]["losses"], r["losses"]]), want,
+            rtol=1e-4, atol=1e-6)
+
+
+def test_dist_trainer_kill_and_resume(world, tmp_path):
+    """SIGTERM on both ranks mid-run: they agree on a flush step through
+    the preemption vote, save it sharded, print it and exit 0; fresh
+    ranks resume from it, and the losses joined match the single-device
+    reference."""
+    import signal
+
+    _, inputs, refs = world
+    ckpt = str(tmp_path / "preempt_ckpt")
+
+    def inputs_for(hold):
+        return {"preempt": dict(inputs["dist_mlp"], ckpt=np.array(ckpt),
+                                hold=np.array(hold))}
+
+    procs, out = start_world(os.path.abspath(__file__), WORLD, ["preempt"],
+                             tmp_path / "run1", inputs_for(True))
+    first = ""
+    for line in procs[0].stdout:
+        if line.startswith("STEP"):
+            first = line
+            for p in procs:
+                p.send_signal(signal.SIGTERM)
+            break
+    assert first, procs[0].stderr.read()[-4000:]
+    res1, stdout1 = finish_world(procs, out, ["preempt"], timeout=240)
+    for r in res1["preempt"]:
+        assert not error_of(r), r.get("__trace__")
+    flush = {int(r["flush"]) for r in res1["preempt"]}
+    assert len(flush) == 1 and flush.pop() == 1, res1["preempt"]
+    assert "CKPT_SAVED 1" in stdout1[0] and "CKPT_SAVED 1" in stdout1[1]
+    losses1 = res1["preempt"][0]["losses"].tolist()
+    assert len(losses1) == 1
+    man = json.load(open(os.path.join(ckpt, "step_0000000001",
+                                      "MANIFEST.json")))
+    assert man["sharded"] and man["writers"] == WORLD
+
+    res2, stdout2 = finish_world(*start_world(
+        os.path.abspath(__file__), WORLD, ["preempt"], tmp_path / "run2",
+        inputs_for(False)), ["preempt"], timeout=240)
+    for r, so in zip(res2["preempt"], stdout2):
+        assert not error_of(r), r.get("__trace__")
+        assert "RESUMED 1" in so and int(r["start"]) == 1
+        assert int(r["flush"]) == -1
+    losses = losses1 + res2["preempt"][0]["losses"].tolist()
+    np.testing.assert_allclose(losses, refs["mlp"], rtol=1e-4, atol=1e-5)
 
 
 def test_init_distributed_without_a_card_raises():

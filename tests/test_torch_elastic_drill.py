@@ -1,6 +1,5 @@
 """Kill-and-resume drills of the port's TrainState checkpoints, mirroring
-``tests/test_elastic_drill.py`` (less its mesh-resize test, which waits
-for ROADMAP A7).
+``tests/test_elastic_drill.py``.
 
 A trainer subprocess runs a fixed-seed MLP (dropout from the executor's
 generator, an LR schedule, Adam, a checkpointable reader) with async
@@ -12,6 +11,18 @@ Every logged loss, of the killed run, the replayed steps and the resumed
 run, is bit-equal to an uninterrupted run in this process.  A corrupted
 latest artifact makes the resume fall back one more.  Three subprocesses
 in all.
+
+The mesh-size-change resume (``test_elastic_drill.py:216``): a gloo
+world of 4 (``torch_mesh_world``; each rank ``python
+tests/test_torch_elastic_drill.py --rank R ...``) trains an Adam MLP on a
+(dp 1, fsdp 4) mesh and saves a sharded artifact, each rank writing the
+blocks it owns; the world of 4, a world of 2 and this process (one
+rank) restore it through their own ``state_shardings()`` and train on.
+Each is held against the state fsdp 4 held when it saved and against an
+uninterrupted run of the same steps in one process.  The JAX test
+restores onto fsdp 2 and 8; this one onto 2 and 1, since a world of 8
+processes does not fit beside the parallel test workers on an 8-core
+host.
 
 The ``cuda``-marked tests skip without a card (on the card:
 ``python -m pytest -m cuda tests/test_torch_elastic_drill.py``): resume
@@ -34,6 +45,10 @@ from paddle_tpu_torch import fault, framework, guardian, monitor, unique_name
 from paddle_tpu_torch.parallel import checkpoint as ck
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(REPO, "tests"))
+
+from torch_mesh_world import error_of, run_world  # noqa: E402
+
 TOTAL_STEPS = 18
 KILL_STEP = 11
 
@@ -351,3 +366,156 @@ def test_captured_skip_guard_keeps_state_bit_equal(card):
     for n, t in runs[True][1].items():
         assert torch.equal(t, runs[False][1][n]), n
     assert sorted(st.graphs for st in runs[True][2]._steps.values()) == [1]
+
+
+# ---------------------------------------------------------------------------
+# the mesh-size-change resume through a sharded artifact
+# ---------------------------------------------------------------------------
+
+ELASTIC_STEPS = 4
+
+
+def _elastic_build():
+    pt.default_main_program().random_seed = 7
+    pt.default_startup_program().random_seed = 7
+    x = pt.layers.data("x", shape=[16])
+    label = pt.layers.data("label", shape=[1], dtype="int64")
+    h = pt.layers.fc(x, size=32, act="relu")
+    pred = pt.layers.fc(h, size=4, act=None)
+    loss = pt.layers.mean(pt.layers.softmax_with_cross_entropy(pred, label))
+    pt.optimizer.Adam(learning_rate=2e-3).minimize(loss)
+    return loss
+
+
+def _elastic_batch(step):
+    x = np.random.RandomState(100 + step).rand(8, 16).astype("float32")
+    return {"x": x, "label": x[:, :4].argmax(1).astype("int64")
+            .reshape(-1, 1)}
+
+
+def _elastic_run(ckpt, restore, steps, fsdp):
+    """A (dp 1, fsdp) mesh over the world: restore (optionally) through
+    ``state_shardings()``, run ``steps``, and without ``restore`` save a
+    sharded artifact at the last one.  Returns the losses and the state
+    gathered whole (``capture_train_state`` without ``sharded``, a
+    collective apart from the sharded path): after a restore the values
+    restored (``V:``), else the values saved (``S:``)."""
+    loss = _elastic_build()
+    bs = pt.BuildStrategy()
+    bs.sharding_rules = True
+    pt.Executor(pt.CPUPlace()).run(pt.default_startup_program())
+    pe = pt.ParallelExecutor(use_cuda=False, loss_name=loss.name,
+                             mesh=pt.make_mesh((1, fsdp), ("dp", "fsdp")),
+                             build_strategy=bs)
+    mgr = ck.TrainStateCheckpointManager(ckpt, sharded=True,
+                                         async_save=False,
+                                         save_interval_steps=1000)
+    out, start = {}, 0
+    if restore:
+        start = mgr.restore(executors={"train": pe},
+                            shardings=pe.state_shardings())
+        assert start is not None
+        out.update(_whole("V:", start, pe))
+    losses = [float(np.asarray(pe.run([loss], feed=_elastic_batch(s))[0])
+                    .ravel()[0]) for s in range(start + 1,
+                                                start + 1 + ELASTIC_STEPS)]
+    if not restore:
+        out.update(_whole("S:", start + ELASTIC_STEPS, pe))
+        mgr.save_now(start + ELASTIC_STEPS, executors={"train": pe})
+    out["losses"] = np.array(losses)
+    return out
+
+
+def _whole(prefix, step, pe=None):
+    return {prefix + n: t.numpy() for n, t in ck.capture_train_state(
+        step, executors=pe).arrays.items()}
+
+
+def _elastic_uninterrupted():
+    """The run the resume stands in for: 2 x ``ELASTIC_STEPS`` steps in
+    one process through the plain ``Executor`` (no mesh, no checkpoint).
+    Returns the losses and the state after the first half (``U:``)."""
+    loss = _elastic_build()
+    exe = pt.Executor(pt.CPUPlace())
+    exe.run(pt.default_startup_program())
+    out, losses = {}, []
+    for s in range(1, 2 * ELASTIC_STEPS + 1):
+        losses.append(float(np.asarray(exe.run(
+            feed=_elastic_batch(s), fetch_list=[loss])[0]).ravel()[0]))
+        if s == ELASTIC_STEPS:
+            out.update(_whole("U:", s))
+    out["losses"] = np.array(losses)
+    return out
+
+
+def case_elastic_save(inputs, rank, world):
+    return _elastic_run(str(inputs["ckpt"]), False, ELASTIC_STEPS, world)
+
+
+def case_elastic_resume(inputs, rank, world):
+    return _elastic_run(str(inputs["ckpt"]), True, ELASTIC_STEPS, world)
+
+
+CASES = {name[5:]: fn for name, fn in dict(globals()).items()
+         if name.startswith("case_")}
+
+
+def _prefixed(res, prefix):
+    return {k[len(prefix):]: v for k, v in res.items()
+            if k.startswith(prefix)}
+
+
+def test_mesh_size_change_resume_sharded_artifact(tmp_path):
+    """fsdp 4 saves a sharded artifact (one shard file a rank); fsdp 4,
+    fsdp 2 and one process restore it.  The values each restores are
+    bit-identical to the state fsdp 4 held when it saved, which is the
+    uninterrupted one-process run's state at that step (rtol 1e-5); the
+    losses before the save and each continuation's after it stay within
+    rtol 1e-4 of the uninterrupted run's."""
+    ckpt = str(tmp_path / "ck")
+    ref = _elastic_uninterrupted()
+    res4 = run_world(os.path.abspath(__file__), 4,
+                     ["elastic_save", "elastic_resume"], tmp_path / "w4",
+                     {"elastic_save": {"ckpt": np.array(ckpt)},
+                      "elastic_resume": {"ckpt": np.array(ckpt)}})
+    for case in res4.values():
+        for r in case:
+            assert not error_of(r), r.get("__trace__")
+    steps = [d for d in os.listdir(ckpt) if d.startswith("step_")]
+    assert steps == ["step_%010d" % ELASTIC_STEPS]
+    man = json.load(open(os.path.join(ckpt, steps[0], "MANIFEST.json")))
+    assert man["sharded"] and man["writers"] == 4
+    saved = _prefixed(res4["elastic_save"][0], "S:")
+    want = _prefixed(ref, "U:")
+    assert sorted(saved) == sorted(want)
+    for k, v in saved.items():
+        np.testing.assert_allclose(v, want[k], rtol=1e-5, atol=1e-7,
+                                   err_msg=k)
+    np.testing.assert_allclose(res4["elastic_save"][0]["losses"],
+                               ref["losses"][:ELASTIC_STEPS], rtol=1e-4,
+                               atol=1e-6)
+    res2 = run_world(os.path.abspath(__file__), 2, ["elastic_resume"],
+                     tmp_path / "w2",
+                     {"elastic_resume": {"ckpt": np.array(ckpt)}})
+    assert not error_of(res2["elastic_resume"][0]), \
+        res2["elastic_resume"][0].get("__trace__")
+    framework.switch_main_program(pt.Program())
+    framework.switch_startup_program(pt.Program())
+    unique_name.switch()
+    one = _elastic_run(ckpt, True, ELASTIC_STEPS, 1)
+    for name, cont in (("fsdp 4", res4["elastic_resume"][0]),
+                       ("fsdp 2", res2["elastic_resume"][0]),
+                       ("one process", one)):
+        vals = _prefixed(cont, "V:")
+        assert sorted(vals) == sorted(saved), name
+        for k, v in vals.items():
+            np.testing.assert_array_equal(v, saved[k], err_msg=k)
+        np.testing.assert_allclose(cont["losses"],
+                                   ref["losses"][ELASTIC_STEPS:],
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+
+
+if __name__ == "__main__":
+    from torch_mesh_world import worker
+
+    worker(CASES)

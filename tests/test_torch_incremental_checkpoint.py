@@ -1,9 +1,11 @@
 """The port's incremental table checkpoints on the CPU, mirroring
-``tests/test_incremental_checkpoint.py`` (less its sharded test, which
-waits for ROADMAP A7): bitwise row deltas against a periodic full base,
-chain replay, chain-aware rotation, a restore that continues the chain,
-and exact resume from a delta artifact.  Against the JAX package: a delta
-chain either package wrote replays in the other to the same arrays."""
+``tests/test_incremental_checkpoint.py``: bitwise row deltas against a
+periodic full base, chain replay, chain-aware rotation, a restore that
+continues the chain, exact resume from a delta artifact, and the sharded
+leg (4 virtual writers, each diffing only its own block).  Against the
+JAX package: a delta chain either package wrote replays in the other to
+the same arrays, and so does a sharded delta chain the JAX package
+wrote."""
 
 import os
 import shutil
@@ -17,6 +19,7 @@ from paddle_tpu.parallel import checkpoint as jax_ck
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import fault, guardian, monitor
+from paddle_tpu_torch.parallel import checkpoint as port_ck
 from paddle_tpu_torch.parallel.checkpoint import (
     CheckpointCorruptError, TrainStateCheckpointManager, load_train_state,
     row_delta, sparse_table_state_vars)
@@ -256,4 +259,100 @@ def test_delta_chains_replay_across_packages(trained, tmp_path):
         port_dir, incremental="auto", max_to_keep=None).load(8).arrays
     for n, a in trained["mgr"].load(8).arrays.items():
         np.testing.assert_array_equal(np.asarray(jax_view[n]), a.numpy(),
+                                      err_msg=n)
+
+
+# ---------------------------------------------------------------------------
+# the sharded leg
+# ---------------------------------------------------------------------------
+
+def _sharded_pair(pkg, ck):
+    """Two sharded captures (steps 1 and 2) of the sparse model in
+    ``pkg``, the state after step 2 in full, and the delta var names."""
+    scope, main, startup = pkg.Scope(), pkg.Program(), pkg.Program()
+    with pkg.scope_guard(scope), pkg.unique_name.guard(), \
+            pkg.program_guard(main, startup):
+        loss = _build(pkg)
+        exe = pkg.Executor(pkg.CPUPlace())
+        exe.run(startup)
+        feeds = _batches(2)
+        exe.run(main, feed=feeds[0], fetch_list=[loss])
+        ts1 = ck.capture_train_state(1, scope=scope, program=main,
+                                     executors=exe, sharded=True)
+        exe.run(main, feed=feeds[1], fetch_list=[loss])
+        ts2 = ck.capture_train_state(2, scope=scope, program=main,
+                                     executors=exe, sharded=True)
+        live = ck.capture_train_state(2, scope=scope, program=main).arrays
+        names = ck.sparse_table_state_vars(
+            main, [e["name"] for e in ts1.shards])
+    return ts1, ts2, live, names
+
+
+def _write_sharded_chain(mgr, ck, pair, writers=4):
+    """Encode both captures over ``writers`` virtual writers and write
+    them, each writer's entries grouped by the start of their block (as
+    the JAX test does)."""
+    ts1, ts2, _, names = pair
+    for ts in (ts1, ts2):
+        ts.shards = [e for p in ck.partition_shards(ts, writers) for e in p]
+        ts._incr_names = names
+        mgr._encode_incremental_shards(ts, names)
+    for ts in (ts1, ts2):
+        by_writer = {}
+        for e in ts.shards:
+            by_writer.setdefault(int(e["index"][0][0]), []).append(e)
+        d = mgr._step_dir(ts.step)
+        for w, (_, entries) in enumerate(sorted(by_writer.items())):
+            ck.write_train_state_shards(d, ts, w, entries=entries)
+        ck.commit_sharded_train_state(d, ts, len(by_writer))
+
+
+def test_sharded_incremental_writes_local_touched_rows(tmp_path):
+    """4 virtual writers each diff only their own block: the table's
+    entries become deltas whose rows are global ids inside the writer's
+    range, the artifact mixes full and delta entries, and the chain
+    replays bit for bit, here and in the JAX package."""
+    pair = _sharded_pair(pt, port_ck)
+    ts1, ts2, live, _ = pair
+    mgr = _mgr(tmp_path)
+    _write_sharded_chain(mgr, port_ck, pair)
+    table = [e for e in ts2.shards if e["name"] == "table"]
+    assert len(table) == 4 and all(e.get("rows") is not None
+                                   for e in table)
+    for e in table:
+        lo, hi = e["index"][0]
+        assert all(lo <= r < hi for r in e["rows"].tolist())
+    assert any(e.get("rows") is None for e in ts2.shards)
+    assert ts2.host["incremental"]["delta_vars"] == [
+        "table", "table_moment1_0", "table_moment2_0"]
+    delta = load_train_state(mgr._step_dir(2))
+    assert {op[0] for op in delta.delta["table"]} == {"rows"}
+    out = mgr.load(2)
+    assert sorted(out.arrays) == sorted(live)
+    for n, a in live.items():
+        assert torch.equal(out.arrays[n], a), n
+    jax_out = jax_ck.TrainStateCheckpointManager(
+        mgr._dir, incremental="auto", max_to_keep=None).load(2).arrays
+    for n, a in live.items():
+        np.testing.assert_array_equal(np.asarray(jax_out[n]), a.numpy(),
+                                      err_msg=n)
+
+
+def test_jax_sharded_delta_chain_replays_in_port(tmp_path):
+    """The JAX package's sharded delta chain (its own test's recipe)
+    replays in the port's manager to the JAX live state and the JAX
+    manager's own replay."""
+    pair = _sharded_pair(fluid, jax_ck)
+    live = pair[2]
+    jmgr = _mgr(tmp_path, pkg_ck=jax_ck.TrainStateCheckpointManager)
+    _write_sharded_chain(jmgr, jax_ck, pair)
+    assert jax_ck.load_train_state(jmgr._step_dir(2)).host.get(
+        "incremental")
+    want = jmgr.load(2).arrays
+    got = _mgr(tmp_path).load(2).arrays
+    assert sorted(got) == sorted(want) == sorted(live)
+    for n in want:
+        np.testing.assert_array_equal(got[n].numpy(), np.asarray(want[n]),
+                                      err_msg=n)
+        np.testing.assert_array_equal(got[n].numpy(), np.asarray(live[n]),
                                       err_msg=n)

@@ -26,6 +26,14 @@ def run_world(test_file, world, cases, tmp_path, inputs=None,
               timeout=300):
     """Run ``cases`` (names) of ``test_file`` in a world of ``world``
     ranks; returns {case: [rank 0's arrays, rank 1's, ...]}."""
+    procs, out = start_world(test_file, world, cases, tmp_path, inputs)
+    return finish_world(procs, out, cases, timeout)[0]
+
+
+def start_world(test_file, world, cases, tmp_path, inputs=None):
+    """Start ``run_world``'s ranks and return (their processes, the output
+    directory), for a test that reads a rank's stdout or signals the
+    ranks while they run; ``finish_world`` waits for them."""
     out = os.path.join(str(tmp_path), "world%d" % world)
     os.makedirs(out, exist_ok=True)
     for case, arrays in (inputs or {}).items():
@@ -41,11 +49,19 @@ def run_world(test_file, world, cases, tmp_path, inputs=None,
          "--store", store, "--out", out, "--cases", ",".join(cases)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for r in range(world)]
+    return procs, out
+
+
+def finish_world(procs, out, cases, timeout=300):
+    """Wait for ``start_world``'s ranks: ({case: [each rank's arrays]}, as
+    ``run_world`` returns; [each rank's stdout not read yet])."""
+    stdout = []
     try:
         for r, p in enumerate(procs):
             so, se = p.communicate(timeout=timeout)
             assert p.returncode == 0, "rank %d failed:\n%s\n%s" % (
                 r, so[-3000:], se[-6000:])
+            stdout.append(so)
     finally:
         for p in procs:
             if p.poll() is None:
@@ -53,11 +69,11 @@ def run_world(test_file, world, cases, tmp_path, inputs=None,
     results = {}
     for case in cases:
         results[case] = []
-        for r in range(world):
+        for r in range(len(procs)):
             with np.load(os.path.join(out, "%s.%d.npz" % (case, r)),
                          allow_pickle=False) as z:
                 results[case].append({k: z[k] for k in z.files})
-    return results
+    return results, stdout
 
 
 def error_of(result):
